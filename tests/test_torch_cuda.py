@@ -1,0 +1,104 @@
+"""On the card: every CUDA kernel of ``tpusparse_torch`` against its plain
+PyTorch twin at small ragged shapes, and a small solve on the card against
+the same solve on the CPU.
+
+These tests need a CUDA device and skip without one.  The file imports no
+JAX, so it also runs where JAX is not installed:
+
+    python -m pytest tests/test_torch_cuda.py -m requires_cuda --noconftest -q
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from tpusparse_torch import kernels
+from tpusparse_torch.bench.driver import solve_poisson
+from tpusparse_torch.grid.grid3d import Grid3D
+from tpusparse_torch.grid.poisson import poisson_stencil_device
+from tpusparse_torch.kernels.fused7 import (
+    fused7_ascent_rz,
+    fused7_ascent_rz_torch,
+    fused7_descent_rr,
+    fused7_descent_rr_torch,
+    fused7_mvdot,
+    fused7_mvdot_torch,
+)
+from tpusparse_torch.kernels.stencil7 import star7_mv_padded, star7_mv_padded_torch
+from tpusparse_torch.sparse.padded import PaddedStar, pad_field
+
+pytestmark = pytest.mark.requires_cuda
+
+# the fused-kernel scalars of tests/test_fused7.py:32-36
+G, AD, S0, GW, G2 = 0.731, 0.377, 1.618, 0.243, 0.519
+
+CASES = {
+    "star7_mv_padded": (star7_mv_padded, star7_mv_padded_torch),
+    "fused7_mvdot": (fused7_mvdot, fused7_mvdot_torch),
+    "fused7_descent_rr": (fused7_descent_rr, fused7_descent_rr_torch),
+    "fused7_ascent_rz": (fused7_ascent_rz, fused7_ascent_rz_torch),
+}
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the hand-written kernels have no CPU mode")
+    return torch.device("cuda", 0)
+
+
+def _args(name, shape, pinned, device):
+    nz, ny, nx = shape
+    op = PaddedStar.from_star(poisson_stencil_device(
+        Grid3D(nx, ny, nz), pin=pinned, dtype=torch.float32, device=device)[0])
+    rng = np.random.default_rng(7)
+    x, b, x1 = (
+        pad_field(torch.tensor(rng.standard_normal(shape, dtype=np.float32), device=device))
+        for _ in range(3)
+    )
+    legs = (op.diag, op.cx, op.cy, op.cz)
+    return {
+        "star7_mv_padded": (*legs, x, shape, pinned),
+        "fused7_mvdot": (*legs, x, shape, pinned),
+        "fused7_descent_rr": (*legs, b, S0, AD, G, GW, shape, pinned),
+        "fused7_ascent_rz": (*legs, x, b, x1, G, AD, G2, GW, shape, pinned),
+    }[name]
+
+
+@pytest.mark.parametrize("pinned", [True, False])
+@pytest.mark.parametrize("shape", [(40, 11, 13), (7, 5, 9), (12, 12, 12), (3, 2, 1)])
+@pytest.mark.parametrize("name", list(CASES))
+def test_kernel_matches_twin(cuda, name, shape, pinned):
+    kernel, twin = CASES[name]
+    args = _args(name, shape, pinned, cuda)
+    before = kernels.LAUNCHES[name]
+    got, want = kernel(*args), twin(*args)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES[name] == before + 1
+    got = got if isinstance(got, tuple) else (got,)
+    want = want if isinstance(want, tuple) else (want,)
+    for g_, w_ in zip(got, want):
+        assert g_.device == cuda and g_.shape == w_.shape
+        if w_.dim() == 0:
+            assert abs(g_.item() - w_.item()) <= 1e-5 * abs(w_.item())
+        else:
+            # tests/test_fused7.py:53-69, atol from each output's own range
+            atol = 1e-6 * w_.abs().max().item()
+            torch.testing.assert_close(g_, w_, rtol=1e-5, atol=atol)
+
+
+def test_twins_do_not_count(cuda):
+    before = dict(kernels.LAUNCHES)
+    star7_mv_padded_torch(*_args("star7_mv_padded", (6, 5, 7), True, cuda))
+    assert kernels.LAUNCHES == before
+
+
+def test_small_solve_on_card_matches_cpu(cuda):
+    kw = dict(rtol=1e-8, atol=1e-12, pc="gamg", warmup=False)
+    kernels.reset_launches()
+    gpu = solve_poisson(16, device=cuda, **kw)
+    assert all(n > 0 for n in kernels.LAUNCHES.values())
+    cpu = solve_poisson(16, device="cpu", **kw)
+    assert (gpu.reason, gpu.outer_iters) == (cpu.reason, cpu.outer_iters) == (2, 2)
+    assert abs(gpu.iters - cpu.iters) <= 1
+    assert abs(gpu.linf_error - cpu.linf_error) < 1e-6

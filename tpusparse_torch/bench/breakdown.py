@@ -1,0 +1,143 @@
+"""Where the time of the headline solve goes, on one GPU.
+
+    python3 -m tpusparse_torch.bench.breakdown [--n 300] [--cycles 10]
+
+Prints, after the card's name and power limit:
+
+- ``solve_poisson(n, rtol=1e-8, atol=1e-12, pc="gamg")`` twice (its JSON
+  sidecar), then the peak device memory of the second call;
+- the setup split: the rho power iterations and the Galerkin probing of
+  every level, each timed alone on the built hierarchy;
+- one ``vcycle_fused_dots`` on the normalized fine right-hand side: ms per
+  cycle by CUDA events and by the host clock, then, under
+  ``torch.profiler``, device-busy ms and kernel launches per cycle and the
+  kernels that take the most device time;
+- one solve under ``torch.profiler``: device-busy ms, its share of the
+  unprofiled solve time, launches, and the top kernels.
+
+Device-busy time is the sum of the profiler's kernel and copy durations on
+the card (one stream, so they do not overlap).
+"""
+
+from __future__ import annotations
+
+import argparse
+import collections
+import subprocess
+import sys
+import time
+
+import torch
+
+from tpusparse_torch.amg.fused_cycle import vcycle_fused_dots
+from tpusparse_torch.amg.galerkin import galerkin_coarse
+from tpusparse_torch.amg.hierarchy import (
+    AMGParams,
+    cast_coarse_coefs,
+    estimate_rho_dinv_a,
+    gamg_setup,
+)
+from tpusparse_torch.bench.driver import build_system, refined_solve, solve_poisson
+from tpusparse_torch.sparse.padded import pad_field
+
+KW = dict(rtol=1e-8, atol=1e-12)
+
+
+def _timed(fn) -> float:
+    """Host seconds of ``fn()``, synchronized on both sides."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0
+
+
+def _profile(fn, top: int) -> tuple[float, int, list]:
+    """(device-busy ms, device events, the ``top`` kernels by device ms) of
+    ``fn()``."""
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        fn()
+        torch.cuda.synchronize()
+    evs = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    by_name = collections.defaultdict(lambda: [0.0, 0])
+    for e in evs:
+        by_name[e.name][0] += e.device_time_total / 1e3
+        by_name[e.name][1] += 1
+    busy = sum(ms for ms, _ in by_name.values())
+    return busy, len(evs), sorted(by_name.items(), key=lambda kv: -kv[1][0])[:top]
+
+
+def _print_top(rows, per: int = 1) -> None:
+    for name, (ms, count) in rows:
+        print(f"  {ms / per:9.4f} ms  x {count / per:7.1f}  {name[:96]}")
+
+
+def main(argv=None) -> None:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--n", type=int, default=300)
+    ap.add_argument("--cycles", type=int, default=10)
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        sys.exit("breakdown: no CUDA device")
+    print(subprocess.run(
+        ["nvidia-smi", "-i", "0", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True,
+    ).stdout.strip())
+    device = torch.device("cuda", 0)
+    torch.cuda.set_device(device)
+
+    print(solve_poisson(args.n, pc="gamg", device=device, **KW).json_sidecar())
+    torch.cuda.reset_peak_memory_stats()
+    print(solve_poisson(args.n, pc="gamg", device=device, **KW).json_sidecar())
+    print(f"peak device memory of solve_poisson: {torch.cuda.max_memory_allocated() / 1e9:.3f} GB")
+
+    op, b, _, op_lo = build_system(args.n, device)
+    params = AMGParams()
+    hier = gamg_setup(op_lo, params)
+    t_setup = _timed(lambda: gamg_setup(op_lo, params))
+    t_rho = t_gal = 0.0
+    for lev in hier.levels:
+        t_rho += _timed(lambda: estimate_rho_dinv_a(
+            lev.op, lev.dinv, params.rho_iters, true_shape=getattr(lev.op, "true_shape", None)))
+        if lev.transfer is not None:
+            t_gal += _timed(lambda: galerkin_coarse(lev.op, lev.dinv, lev.transfer))
+        print(f"  level shape {tuple(lev.dinv.shape)} rho {lev.rho:.6f} {type(lev.op).__name__}")
+    print(f"setup {t_setup:.4f} s: rho {t_rho:.4f} s, galerkin {t_gal:.4f} s")
+
+    pc_state = cast_coarse_coefs(hier)
+    r = pad_field((b / torch.linalg.vector_norm(b)).to(torch.float32))
+
+    def cycles():
+        for _ in range(args.cycles):
+            vcycle_fused_dots(pc_state, r)
+
+    cycles()  # warm-up
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    start.record()
+    cycles()
+    end.record()
+    end.synchronize()
+    host_ms = (time.perf_counter() - t0) * 1e3 / args.cycles
+    print(f"vcycle_fused_dots: events {start.elapsed_time(end) / args.cycles:.3f} ms,"
+          f" host {host_ms:.3f} ms per cycle")
+    busy, n_ev, top = _profile(cycles, top=12)
+    print(f"per V-cycle: device busy {busy / args.cycles:.3f} ms,"
+          f" {n_ev / args.cycles:.1f} device events")
+    _print_top(top, per=args.cycles)
+
+    def solve():
+        return refined_solve(op, op_lo, pc_state, b, **KW)
+
+    solve()  # warm-up
+    t_solve = _timed(solve)
+    busy, n_ev, top = _profile(solve, top=12)
+    print(f"solve: unprofiled {t_solve:.4f} s; device busy {busy:.1f} ms"
+          f" ({100 * busy / 1e3 / t_solve:.1f}% of the unprofiled time), {n_ev} device events")
+    _print_top(top)
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,19 @@
+"""Hand-written Hopper kernels and their plain PyTorch twins.
+
+``LAUNCHES`` counts kernel launches per wrapper.  A wrapper adds one where
+it launches its CUDA kernel and nowhere else (a CPU tensor runs the twin
+and counts nothing), so a run can show that the main path went through
+every kernel: reset the counts, drive the path, read them.
+"""
+
+LAUNCHES = {
+    "star7_mv_padded": 0,
+    "fused7_mvdot": 0,
+    "fused7_descent_rr": 0,
+    "fused7_ascent_rz": 0,
+}
+
+
+def reset_launches() -> None:
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0

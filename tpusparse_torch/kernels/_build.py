@@ -1,0 +1,114 @@
+"""Build and load the CUDA kernels: nvcc into a shared library with a plain C
+interface, loaded with ctypes.
+
+At first use, every ``csrc/*.cu`` is compiled for ``sm_90a`` into one
+library under ``csrc/build/`` (listed in ``.gitignore``).  The library's
+file name carries a hash of the sources and flags, so a changed source is
+rebuilt and an unchanged one is loaded as it is.  Including no PyTorch
+header keeps a build at seconds, not minutes.
+
+Every C entry point launches on the stream it is given and returns
+``cudaGetLastError()``; ``launch`` raises when that is not 0.  Pointers and
+the stream travel as ``c_void_p``: a bare Python int would be cut to 32
+bits.  No ``-use_fast_math``: ``1.0f / d`` stays IEEE division, as in the
+JAX kernels.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+
+import torch
+
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+BUILD_DIR = CSRC / "build"
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC",
+)
+
+# ctypes argument codes for ``kernel`` signatures
+P = ctypes.c_void_p   # device pointer or stream
+I = ctypes.c_int
+F = ctypes.c_float
+
+_lib = None
+
+
+def sources() -> list[Path]:
+    return sorted(CSRC.glob("*.cu"))
+
+
+def _digest() -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in sorted(CSRC.glob("*.cu*")):
+        h.update(path.name.encode())
+        h.update(path.read_bytes())
+    return h.hexdigest()[:16]
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    candidate = Path(home) / "bin" / "nvcc"
+    if candidate.exists():
+        return str(candidate)
+    raise RuntimeError("nvcc not found on PATH or under CUDA_HOME")
+
+
+def build() -> Path:
+    """Path of the kernel library, compiling it when its sources changed."""
+    lib = BUILD_DIR / f"libtpusparse_torch_{_digest()}.so"
+    if lib.exists():
+        return lib
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sources())]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(
+            f"nvcc failed with code {proc.returncode}:\n{proc.stderr}"
+        )
+    os.replace(tmp, lib)  # atomic: a concurrent reader never sees half a file
+    return lib
+
+
+def library() -> ctypes.CDLL:
+    """The loaded kernel library (built at the first call)."""
+    global _lib
+    if _lib is None:
+        lib = ctypes.CDLL(str(build()))
+        lib.tps_error_string.argtypes = [I]
+        lib.tps_error_string.restype = ctypes.c_char_p
+        lib.tps_block_size.argtypes = []
+        lib.tps_block_size.restype = I
+        _lib = lib
+    return _lib
+
+
+def launch(name: str, argtypes: list, device: torch.device, *args) -> None:
+    """Call entry point ``name`` (declared with ``argtypes``) with ``args``
+    and the current stream of ``device``; raise if the launch reported an
+    error."""
+    fn = getattr(library(), name)
+    if fn.argtypes is None:
+        fn.argtypes = argtypes
+        fn.restype = I
+    with torch.cuda.device(device):
+        rc = fn(*args, torch.cuda.current_stream(device).cuda_stream)
+    if rc != 0:
+        msg = library().tps_error_string(rc).decode()
+        raise RuntimeError(f"{name}: CUDA error {rc} ({msg})")
+
+
+def block_size() -> int:
+    """Threads per block of every kernel (one dot partial per block)."""
+    return library().tps_block_size()

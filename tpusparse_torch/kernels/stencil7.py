@@ -1,0 +1,122 @@
+"""K1: the 7-point star apply on the padded-resident layout — port of
+``tpusparse/kernels/stencil7.py``.
+
+Layout (``padded_shape``): ``(nz + 2*FACE, ny, nxp)`` with ``nxp`` = ``nx``
+rounded up to a multiple of 4.  FACE = 3 zero planes per z face stay, as in
+the JAX package: the chained kernels of ``fused7`` read 3 halo planes.  The
+JAX package rounds (ny, nx) to the TPU's (8, 128) f32 tile, which at 300^3
+moves 28% extra bytes in x for nothing on this card.  Here y is not padded
+at all, and x only to a multiple of 4 floats, so every row starts on a
+16-byte boundary (the width of one vector load per thread) — 0 extra bytes
+at 300^3.  The CUDA kernels mask the domain edges explicitly and never read
+a pad cell, so neither padding carries meaning beyond alignment.
+
+Invariants of the layout (``sparse/padded.py``): every pad cell of a vector
+is zero; diag's pads hold 1.0.
+
+``star7_mv_padded`` dispatches by tensor device only: a CPU tensor runs the
+plain twin ``star7_mv_padded_torch``, a CUDA tensor launches
+``csrc/stencil7.cu`` (or raises).
+"""
+
+from __future__ import annotations
+
+import torch
+
+from tpusparse_torch.kernels import LAUNCHES, _build
+from tpusparse_torch.sparse.stencil import _shift
+
+FACE = 3
+
+
+def _pad_to(v: int, m: int) -> int:
+    return (v + m - 1) // m * m
+
+
+def padded_shape(shape: tuple[int, int, int]) -> tuple[int, int, int]:
+    """The resident layout for a (nz, ny, nx) field."""
+    nz, ny, nx = shape
+    return (nz + 2 * FACE, ny, _pad_to(nx, 4))
+
+
+def check_fields(shape: tuple[int, int, int], *fields: torch.Tensor) -> None:
+    """Raise unless every field is a contiguous f32 tensor of
+    ``padded_shape(shape)`` on one device."""
+    want = padded_shape(shape)
+    dev = fields[0].device
+    for f in fields:
+        if tuple(f.shape) != want:
+            raise ValueError(f"field {tuple(f.shape)} != padded_shape({shape})={want}")
+        if f.dtype != torch.float32:
+            raise TypeError(f"field dtype {f.dtype}, the kernels take float32")
+        if not f.is_contiguous():
+            raise ValueError("fields must be contiguous")
+        if f.device != dev:
+            raise ValueError(f"fields on {f.device} and {dev}")
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"no kernel or twin for device {dev}")
+
+
+def launch_args(shape, *legs):
+    """The (nz, ny, nx, nxp, cx, cy, cz) ctypes arguments every entry point takes."""
+    nz, ny, nx = shape
+    return (nz, ny, nx, padded_shape(shape)[2], *(float(c) for c in legs))
+
+
+def domain_index(shape, device):
+    """Broadcastable padded-layout index vectors (k, j, i) in domain
+    coordinates: k counts domain planes (FACE planes sit below k = 0)."""
+    nzp, nyp, nxp = padded_shape(shape)
+    k = torch.arange(nzp, dtype=torch.int64, device=device)[:, None, None] - FACE
+    j = torch.arange(nyp, dtype=torch.int64, device=device)[None, :, None]
+    i = torch.arange(nxp, dtype=torch.int64, device=device)[None, None, :]
+    return k, j, i
+
+
+def star7_mv_padded_torch(diag_p, cx, cy, cz, x_p, shape, pinned: bool):
+    """Plain twin of K1: the math of ``PaddedStar._mv_xla``
+    (``tpusparse/sparse/padded.py:141-175``) on the port's layout."""
+    nz, ny, nx = shape
+    k, j, i = domain_index(shape, x_p.device)
+    in_dom = (k >= 0) & (k < nz) & (j < ny) & (i < nx)
+    zero = torch.zeros((), dtype=x_p.dtype, device=x_p.device)
+    if pinned:
+        origin = (k == 0) & (j == 0) & (i == 0)
+        xn = torch.where(origin, zero, x_p)
+    else:
+        xn = x_p
+    # y is never padded and x may not be: mask the Neumann edges explicitly
+    xp_ = torch.where(i < nx - 1, _shift(xn, 2, 1), zero)
+    xm_ = torch.where(i > 0, _shift(xn, 2, -1), zero)
+    yp_ = torch.where(j < ny - 1, _shift(xn, 1, 1), zero)
+    ym_ = torch.where(j > 0, _shift(xn, 1, -1), zero)
+    y = diag_p * x_p
+    y += cx * (xp_ + xm_)
+    y += cy * (yp_ + ym_)
+    y += cz * (_shift(xn, 0, 1) + _shift(xn, 0, -1))
+    if pinned:
+        y = torch.where(origin, diag_p * x_p, y)
+    return torch.where(in_dom, y, zero)
+
+
+_STAR7_ARGS = [_build.P] * 3 + [_build.I] * 4 + [_build.F] * 3 + [_build.I, _build.P]
+
+
+def star7_mv_padded(diag_p, cx, cy, cz, x_p, shape, pinned: bool):
+    """y = A @ x in the padded layout: x's pads must be zero, diag's pads
+    are never read; y comes back with zero pads.
+
+    CUDA tensors run ``csrc/stencil7.cu``; CPU tensors the plain twin.
+    """
+    shape = tuple(shape)
+    check_fields(shape, diag_p, x_p)
+    if x_p.device.type == "cpu":
+        return star7_mv_padded_torch(diag_p, cx, cy, cz, x_p, shape, pinned)
+    y = torch.empty_like(x_p)
+    _build.launch(
+        "tps_star7_mv", _STAR7_ARGS, x_p.device,
+        x_p.data_ptr(), diag_p.data_ptr(), y.data_ptr(),
+        *launch_args(shape, cx, cy, cz), int(pinned),
+    )
+    LAUNCHES["star7_mv_padded"] += 1
+    return y
