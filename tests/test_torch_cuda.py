@@ -1,6 +1,6 @@
 """On the card: every CUDA kernel of ``tpusparse_torch`` against its plain
-PyTorch twin at small ragged shapes, and a small solve on the card against
-the same solve on the CPU.
+PyTorch twin at small ragged shapes, and small stencil and aij solves on
+the card against the same solves on the CPU.
 
 These tests need a CUDA device and skip without one.  The file imports no
 JAX, so it also runs where JAX is not installed:
@@ -16,6 +16,7 @@ from tpusparse_torch import kernels
 from tpusparse_torch.bench.driver import solve_poisson
 from tpusparse_torch.grid.grid3d import Grid3D
 from tpusparse_torch.grid.poisson import poisson_stencil_device
+from tpusparse_torch.kernels.diaband import dia_mv, dia_mv_torch
 from tpusparse_torch.kernels.fused7 import (
     fused7_ascent_rz,
     fused7_ascent_rz_torch,
@@ -87,6 +88,33 @@ def test_kernel_matches_twin(cuda, name, shape, pinned):
             torch.testing.assert_close(g_, w_, rtol=1e-5, atol=atol)
 
 
+def _box27(ny, nx):
+    return tuple(sorted({dz * ny * nx + dy * nx + dx for dz in (-1, 0, 1)
+                         for dy in (-1, 0, 1) for dx in (-1, 0, 1)}))
+
+
+@pytest.mark.parametrize(
+    "n, offsets",
+    [
+        (40 * 11 * 13, (-143, -13, -1, 0, 1, 13, 143)),       # ragged star, K = 7
+        (40 * 11 * 13, _box27(11, 13)),                        # K = 27
+        (1000, (-1500, -999, -7, 0, 3, 999, 1200)),           # beyond both ends
+        (7, (-3, 0, 2)),                                       # less than a warp
+        (5000, tuple(range(-24, 24))),                         # K = 48
+    ],
+)
+def test_dia_mv_matches_twin(cuda, n, offsets):
+    rng = np.random.default_rng(11)
+    bands = torch.tensor(rng.standard_normal((len(offsets), n), dtype=np.float32), device=cuda)
+    x = torch.tensor(rng.standard_normal(n, dtype=np.float32), device=cuda)
+    before = kernels.LAUNCHES["dia_mv"]
+    got, want = dia_mv(bands, x, offsets), dia_mv_torch(bands, x, offsets)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["dia_mv"] == before + 1
+    assert got.device == cuda and got.shape == want.shape
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-6 * want.abs().max().item())
+
+
 def test_twins_do_not_count(cuda):
     before = dict(kernels.LAUNCHES)
     star7_mv_padded_torch(*_args("star7_mv_padded", (6, 5, 7), True, cuda))
@@ -97,8 +125,22 @@ def test_small_solve_on_card_matches_cpu(cuda):
     kw = dict(rtol=1e-8, atol=1e-12, pc="gamg", warmup=False)
     kernels.reset_launches()
     gpu = solve_poisson(16, device=cuda, **kw)
-    assert all(n > 0 for n in kernels.LAUNCHES.values())
+    assert all(n > 0 for name, n in kernels.LAUNCHES.items() if name != "dia_mv")
+    assert kernels.LAUNCHES["dia_mv"] == 0
     cpu = solve_poisson(16, device="cpu", **kw)
     assert (gpu.reason, gpu.outer_iters) == (cpu.reason, cpu.outer_iters) == (2, 2)
+    assert abs(gpu.iters - cpu.iters) <= 1
+    assert abs(gpu.linf_error - cpu.linf_error) < 1e-6
+
+
+def test_small_aij_solve_on_card_matches_cpu(cuda):
+    kw = dict(rtol=1e-8, atol=1e-12, pc="gamg", warmup=False, mat_type="aij")
+    kernels.reset_launches()
+    gpu = solve_poisson(16, device=cuda, **kw)
+    assert kernels.LAUNCHES["dia_mv"] > 0
+    assert all(n == 0 for name, n in kernels.LAUNCHES.items() if name != "dia_mv")
+    cpu = solve_poisson(16, device="cpu", **kw)
+    assert (gpu.reason, gpu.outer_iters) == (cpu.reason, cpu.outer_iters)
+    assert gpu.reason == 2
     assert abs(gpu.iters - cpu.iters) <= 1
     assert abs(gpu.linf_error - cpu.linf_error) < 1e-6

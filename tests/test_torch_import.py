@@ -52,7 +52,7 @@ def test_chip_smoke_imports_no_jax():
 
 def test_kernel_sources_present():
     names = {p.name for p in _build.sources()}
-    assert {"stencil7.cu", "fused7.cu"} <= names
+    assert {"stencil7.cu", "fused7.cu", "diaband.cu"} <= names
     assert "-use_fast_math" not in _build.NVCC_FLAGS
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
 

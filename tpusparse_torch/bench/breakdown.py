@@ -1,16 +1,19 @@
-"""Where the time of the headline solve goes, on one GPU.
+"""Where the time of a solve goes, on one GPU.
 
-    python3 -m tpusparse_torch.bench.breakdown [--n 300] [--cycles 10]
+    python3 -m tpusparse_torch.bench.breakdown [--n 300] [--cycles 10] [--mat-type stencil|aij]
 
 Prints, after the card's name and power limit:
 
 - ``solve_poisson(n, rtol=1e-8, atol=1e-12, pc="gamg")`` twice (its JSON
-  sidecar), then the peak device memory of the second call;
+  sidecar), then the peak device memory of the second call; with
+  ``--mat-type aij`` the structure-blind general-matrix route;
 - the setup split: the rho power iterations and the Galerkin probing of
   every level, each timed alone on the built hierarchy;
-- one ``vcycle_fused_dots`` on the normalized fine right-hand side: ms per
-  cycle by CUDA events and by the host clock, then, under
-  ``torch.profiler``, device-busy ms and kernel launches per cycle and the
+- one V-cycle (``vcycle_fused_dots`` on the stencil route, ``vcycle`` over
+  the DIA levels on the aij route) on the normalized fine right-hand side:
+  ms per cycle by CUDA events and by the host clock, the hand-written
+  kernel launches per cycle (``kernels.LAUNCHES``), then, under
+  ``torch.profiler``, device-busy ms and device kernels per cycle and the
   kernels that take the most device time;
 - one solve under ``torch.profiler``: device-busy ms, its share of the
   unprofiled solve time, launches, and the top kernels.
@@ -29,15 +32,25 @@ import time
 
 import torch
 
+from tpusparse_torch import kernels
 from tpusparse_torch.amg.fused_cycle import vcycle_fused_dots
 from tpusparse_torch.amg.galerkin import galerkin_coarse
+from tpusparse_torch.amg.geo import galerkin_probe_geo
 from tpusparse_torch.amg.hierarchy import (
     AMGParams,
     cast_coarse_coefs,
     estimate_rho_dinv_a,
     gamg_setup,
+    vcycle,
 )
-from tpusparse_torch.bench.driver import build_system, refined_solve, solve_poisson
+from tpusparse_torch.amg.unstructured import gamg_setup_unstructured
+from tpusparse_torch.bench.driver import (
+    build_system,
+    build_system_aij,
+    refined_solve,
+    refined_solve_aij,
+    solve_poisson,
+)
 from tpusparse_torch.sparse.padded import pad_field
 
 KW = dict(rtol=1e-8, atol=1e-12)
@@ -73,10 +86,39 @@ def _print_top(rows, per: int = 1) -> None:
         print(f"  {ms / per:9.4f} ms  x {count / per:7.1f}  {name[:96]}")
 
 
+def _stencil_route(n, device, params):
+    """The pieces of the stencil route the breakdown times: the setup, the
+    Galerkin step, the preconditioner's final form, its cycle, the cycle's
+    right-hand side and the solve."""
+    op, b, _, op_lo = build_system(n, device)
+    return dict(
+        setup=lambda: gamg_setup(op_lo, params),
+        galerkin=galerkin_coarse,
+        pc=cast_coarse_coefs,
+        cycle=vcycle_fused_dots,
+        rhs=pad_field((b / torch.linalg.vector_norm(b)).to(torch.float32)),
+        solve=lambda pc_state: refined_solve(op, op_lo, pc_state, b, **KW),
+    )
+
+
+def _aij_route(n, device, params):
+    """The same pieces for the structure-blind general-matrix route."""
+    op, op_lo, b, _ = build_system_aij(n, device)
+    return dict(
+        setup=lambda: gamg_setup_unstructured(op_lo, params),
+        galerkin=galerkin_probe_geo,
+        pc=lambda hier: hier,
+        cycle=vcycle,
+        rhs=(b / torch.linalg.vector_norm(b)).to(torch.float32),
+        solve=lambda pc_state: refined_solve_aij(op, pc_state, b, **KW),
+    )
+
+
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--n", type=int, default=300)
     ap.add_argument("--cycles", type=int, default=10)
+    ap.add_argument("--mat-type", choices=("stencil", "aij"), default="stencil")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         sys.exit("breakdown: no CUDA device")
@@ -86,34 +128,37 @@ def main(argv=None) -> None:
     ).stdout.strip())
     device = torch.device("cuda", 0)
     torch.cuda.set_device(device)
+    aij = args.mat_type == "aij"
 
-    print(solve_poisson(args.n, pc="gamg", device=device, **KW).json_sidecar())
+    print(solve_poisson(args.n, pc="gamg", device=device, mat_type=args.mat_type, **KW).json_sidecar())
     torch.cuda.reset_peak_memory_stats()
-    print(solve_poisson(args.n, pc="gamg", device=device, **KW).json_sidecar())
+    print(solve_poisson(args.n, pc="gamg", device=device, mat_type=args.mat_type, **KW).json_sidecar())
     print(f"peak device memory of solve_poisson: {torch.cuda.max_memory_allocated() / 1e9:.3f} GB")
 
-    op, b, _, op_lo = build_system(args.n, device)
     params = AMGParams()
-    hier = gamg_setup(op_lo, params)
-    t_setup = _timed(lambda: gamg_setup(op_lo, params))
+    route = (_aij_route if aij else _stencil_route)(args.n, device, params)
+    hier = route["setup"]()
+    t_setup = _timed(route["setup"])
     t_rho = t_gal = 0.0
     for lev in hier.levels:
         t_rho += _timed(lambda: estimate_rho_dinv_a(
             lev.op, lev.dinv, params.rho_iters, true_shape=getattr(lev.op, "true_shape", None)))
         if lev.transfer is not None:
-            t_gal += _timed(lambda: galerkin_coarse(lev.op, lev.dinv, lev.transfer))
-        print(f"  level shape {tuple(lev.dinv.shape)} rho {lev.rho:.6f} {type(lev.op).__name__}")
+            t_gal += _timed(lambda: route["galerkin"](lev.op, lev.dinv, lev.transfer))
+        print(f"  level shape {tuple(lev.dinv.shape)} rho {lev.rho:.6f} {type(lev.op).__name__}"
+              f" offsets {len(getattr(lev.op, 'offsets', ()))}")
     print(f"setup {t_setup:.4f} s: rho {t_rho:.4f} s, galerkin {t_gal:.4f} s")
 
-    pc_state = cast_coarse_coefs(hier)
-    r = pad_field((b / torch.linalg.vector_norm(b)).to(torch.float32))
+    pc_state = route["pc"](hier)
+    r = route["rhs"]
 
     def cycles():
         for _ in range(args.cycles):
-            vcycle_fused_dots(pc_state, r)
+            route["cycle"](pc_state, r)
 
     cycles()  # warm-up
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    kernels.reset_launches()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     start.record()
@@ -121,15 +166,16 @@ def main(argv=None) -> None:
     end.record()
     end.synchronize()
     host_ms = (time.perf_counter() - t0) * 1e3 / args.cycles
-    print(f"vcycle_fused_dots: events {start.elapsed_time(end) / args.cycles:.3f} ms,"
-          f" host {host_ms:.3f} ms per cycle")
+    per_cycle = {k: v / args.cycles for k, v in kernels.LAUNCHES.items() if v}
+    print(f"{route['cycle'].__name__}: events {start.elapsed_time(end) / args.cycles:.3f} ms,"
+          f" host {host_ms:.3f} ms per cycle; hand-written kernel launches per cycle {per_cycle}")
     busy, n_ev, top = _profile(cycles, top=12)
     print(f"per V-cycle: device busy {busy / args.cycles:.3f} ms,"
           f" {n_ev / args.cycles:.1f} device events")
     _print_top(top, per=args.cycles)
 
     def solve():
-        return refined_solve(op, op_lo, pc_state, b, **KW)
+        return route["solve"](pc_state)
 
     solve()  # warm-up
     t_solve = _timed(solve)

@@ -1,5 +1,5 @@
-"""The headline solve driver — port of the structured mixed-precision GAMG
-branch of ``tpusparse/bench/driver.py``.
+"""The solve driver — port of the mixed-precision CG + GAMG branches of
+``tpusparse/bench/driver.py``.
 
 Reproduces the protocol of the reference's ``src/main_ksp.cpp``: build
 the manufactured Poisson system, set up CG + AMG, solve, fail on
@@ -7,11 +7,19 @@ divergence, compute the Linf error against the analytic solution, and
 report the phase triple ``[init, create solver, solve]`` in the reference's
 text format (``src/main_ksp.cpp:124-129``) plus a JSON sidecar.
 
-The route is fixed: the 7-point stencil operator, f32 CG preconditioned by
-the fused-fine-level GAMG V-cycle (point-Jacobi Chebyshev(2)) on the
-padded-resident layout, under f64 defect correction, on one device, with
-the fused ``<p, Ap>`` (``PaddedStar.mv_dot``) and a convergence check every
-iteration — the defaults the JAX driver runs with.
+Two routes, both f32 CG preconditioned by a GAMG V-cycle (point-Jacobi
+Chebyshev(2)) under f64 defect correction, on one device, with a
+convergence check every iteration — the defaults the JAX driver runs with:
+
+- ``mat_type="stencil"``: the 7-point stencil operator on the
+  padded-resident layout, the fused fine level and the fused ``<p, Ap>``
+  (``PaddedStar.mv_dot``); kernels K1-K4.
+- ``mat_type="aij"``: the structure-blind general-matrix route
+  (``_solve_poisson_aij`` with ``structure_detect=False`` in the JAX
+  driver).  The system is a 7-band DIA (f32 ``DIA`` for the inner solves, two-float
+  ``DFDIA`` for the outer residual), the hierarchy the device-resident
+  geometric GAMG (``amg/geo.py``), and the V-cycle the plain one over flat
+  DIA levels; every f32 level apply is kernel K5.
 """
 
 from __future__ import annotations
@@ -24,9 +32,10 @@ import time
 import torch
 
 from tpusparse_torch.amg.fused_cycle import vcycle_fused_dots
-from tpusparse_torch.amg.hierarchy import AMGParams, cast_coarse_coefs, gamg_setup
+from tpusparse_torch.amg.hierarchy import AMGParams, cast_coarse_coefs, gamg_setup, vcycle
+from tpusparse_torch.amg.unstructured import gamg_setup_unstructured
 from tpusparse_torch.grid.grid3d import Grid3D
-from tpusparse_torch.grid.poisson import poisson_stencil_device
+from tpusparse_torch.grid.poisson import poisson_dia_device, poisson_stencil_device
 from tpusparse_torch.solve.cg import ConvergedReason
 from tpusparse_torch.solve.refine import cg_refined
 from tpusparse_torch.sparse.padded import PaddedStar, crop_field, pad_field
@@ -110,6 +119,25 @@ def refined_solve(op, op_lo, pc_state, b, *, rtol: float, atol: float):
     )
 
 
+def build_system_aij(n: int, device):
+    """The manufactured system on the ``n``^3 grid as a general matrix,
+    assembled on ``device`` (``poisson_dia_device``): ``(op_hi, op_lo, b,
+    exact)``, flat.  ``op_lo`` is the f32 ``DIA`` of the inner solves and
+    the hierarchy's fine level; ``op_hi`` the two-float ``DFDIA`` outer
+    operator aliasing its bands; ``b``/``exact`` f64."""
+    return poisson_dia_device(Grid3D(n, n, n), device=device)
+
+
+def refined_solve_aij(op_hi, pc_state, b, *, rtol: float, atol: float):
+    """f64 defect correction around f32 CG preconditioned by the plain
+    V-cycle over the DIA levels, on flat vectors.  The inner operator is
+    the hierarchy's fine level, as in the JAX driver."""
+    return cg_refined(
+        op_hi.mv, pc_state.levels[0].op.mv, b, rtol=rtol, atol=atol,
+        m_lo_mv=lambda r: vcycle(pc_state, r),
+    )
+
+
 def solve_poisson(
     n: int,
     *,
@@ -118,10 +146,16 @@ def solve_poisson(
     atol: float = 1e-12,
     pc: str = "gamg",
     warmup: bool = True,
+    mat_type: str = "stencil",
 ) -> SolveReport:
     """End-to-end solve on the ``n``^3 grid with the reference's defaults
     (tolerances: configs/PETSc_SolverOptions_GAMG.info:1-4, AMG options:
     ``AMGParams()``) on ``device``.
+
+    ``mat_type``: "stencil" or "aij".  "aij" is the structure-blind route,
+    the JAX driver's ``structure_detect=False``: its default first proves
+    the matrix a star and moves it onto the stencil route
+    (``sparse/starlift.py``), which is not ported.
 
     Phase timing protocol (main_ksp.cpp:80-106): init = system build,
     setup = hierarchy construction, solve = the solve.  The device is
@@ -132,6 +166,8 @@ def solve_poisson(
     """
     if pc != "gamg":
         raise NotImplementedError(f"pc={pc!r}: only gamg is ported to tpusparse_torch")
+    if mat_type not in ("stencil", "aij"):
+        raise ValueError(f"unknown mat_type {mat_type!r}")
     device = torch.device(device)
     params = AMGParams()
     # the transfer einsums are f32 products: keep them out of TF32
@@ -140,21 +176,33 @@ def solve_poisson(
     _sync(device)
 
     t0 = time.perf_counter()
-    op, b, exact, op_lo = build_system(n, device)
+    if mat_type == "stencil":
+        op, b, exact, op_lo = build_system(n, device)
+
+        def setup():
+            # bf16 coarse coefficient stacks: vectors stay f32
+            return cast_coarse_coefs(gamg_setup(op_lo, params))
+
+        def solve():
+            return refined_solve(op, op_lo, pc_state, b, rtol=rtol, atol=atol)
+    else:
+        op, op_lo, b, exact = build_system_aij(n, device)
+
+        def setup():
+            return gamg_setup_unstructured(op_lo, params)
+
+        def solve():
+            return refined_solve_aij(op, pc_state, b, rtol=rtol, atol=atol)
     _sync(device)
     t_init = time.perf_counter() - t0
 
     if warmup:
-        gamg_setup(op_lo, params)
+        setup()
         _sync(device)
     t0 = time.perf_counter()
-    # bf16 coarse coefficient stacks: vectors stay f32
-    pc_state = cast_coarse_coefs(gamg_setup(op_lo, params))
+    pc_state = setup()
     _sync(device)
     t_setup = time.perf_counter() - t0
-
-    def solve():
-        return refined_solve(op, op_lo, pc_state, b, rtol=rtol, atol=atol)
 
     if warmup:
         solve()
@@ -184,4 +232,5 @@ def solve_poisson(
             else device.type
         ),
         outer_iters=res.outer_iters,
+        mat_type=mat_type,
     )

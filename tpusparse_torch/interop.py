@@ -12,8 +12,10 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from tpusparse_torch.amg.geo import GeoTransfer
 from tpusparse_torch.amg.hierarchy import Hierarchy, Level
 from tpusparse_torch.amg.transfer import StructuredTransfer
+from tpusparse_torch.sparse.dia import DFDIA, DIA
 from tpusparse_torch.sparse.padded import PaddedStar, PaddedTransfer, pad_field
 from tpusparse_torch.sparse.stencil import StarStencil3D
 from tpusparse_torch.sparse.varstencil import VarStencil27
@@ -36,15 +38,33 @@ def padded_star_from_numpy(diag, cx, cy, cz, pinned, *, device) -> PaddedStar:
     )
 
 
+def dia_from_numpy(bands, offsets, shape, *, device) -> DIA:
+    return DIA(
+        bands=_put(bands, device), offsets=tuple(int(o) for o in offsets),
+        shape=tuple(int(s) for s in shape),
+    )
+
+
+def dfdia_from_numpy(hi, lo, offsets, shape, *, device) -> DFDIA:
+    """``lo`` None where the JAX container holds none (A exactly f32)."""
+    return DFDIA(
+        hi=_put(hi, device), lo=None if lo is None else _put(lo, device),
+        offsets=tuple(int(o) for o in offsets), shape=tuple(int(s) for s in shape),
+    )
+
+
 def hierarchy_from_numpy(
     levels, *, damping, smoother, degree, cheby_lo, cheby_hi, device,
 ) -> Hierarchy:
     """A ``Hierarchy`` from per-level dicts.
 
     Each level: ``op`` — ``{"diag", "cx", "cy", "cz", "pinned"}`` for the
-    (padded) fine star or ``{"coef"}`` for a 27-point level; ``dinv`` (true
-    shape); ``rho``; ``transfer`` — ``None`` on the coarsest level, else
-    ``{"omega", "tnorm", "sz", "sy", "sx", "fine_shape", "factor"}``.
+    (padded) fine star, ``{"coef"}`` for a 27-point level or ``{"bands",
+    "offsets", "shape"}`` for a flat DIA level; ``dinv`` (true shape);
+    ``rho``; ``transfer`` — ``None`` on the coarsest level, else ``{"omega",
+    "tnorm", "sz", "sy", "sx", "fine_shape", "factor"}`` for a structured
+    transfer or ``{"w", "omega", "sz", "sy", "sx", "fine_shape", "bs"}`` for
+    a ``GeoTransfer``.
     """
     out = []
     for lv in levels:
@@ -56,12 +76,25 @@ def hierarchy_from_numpy(
                 op_d["pinned"], device=device,
             )
             dinv = pad_field(_put(lv["dinv"], device), 1.0)
+        elif "bands" in op_d:
+            op = dia_from_numpy(op_d["bands"], op_d["offsets"], op_d["shape"], device=device)
+            dinv = _put(lv["dinv"], device)
         else:
             op = VarStencil27(coef=_put(op_d["coef"], device))
             dinv = _put(lv["dinv"], device)
         tr = lv["transfer"]
         transfer = None
-        if tr is not None:
+        if tr is not None and "bs" in tr:
+            transfer = GeoTransfer(
+                w=_put(tr["w"], device),
+                omega=float(tr["omega"]),
+                sz=_put(tr["sz"], device),
+                sy=_put(tr["sy"], device),
+                sx=_put(tr["sx"], device),
+                fine_shape=tuple(int(n) for n in tr["fine_shape"]),
+                bs=tuple(int(b) for b in tr["bs"]),
+            )
+        elif tr is not None:
             transfer = StructuredTransfer(
                 omega=float(tr["omega"]),
                 tnorm=_put(tr["tnorm"], device),

@@ -11,6 +11,7 @@ LAUNCHES = {
     "fused7_mvdot": 0,
     "fused7_descent_rr": 0,
     "fused7_ascent_rz": 0,
+    "dia_mv": 0,
 }
 
 
