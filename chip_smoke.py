@@ -34,14 +34,37 @@ script exits non-zero without the final line:
    Linf < 1e-4, 35 +- 2 inner in 2-3 outer sweeps, K5 launched and K1-K4
    not (the structure-blind route ran).
 
+9. The kernels of the reference config's smoother and of the non-CG
+   solvers (K6 fused7_descent1_rr, K7 fused7_ascent1_rz and the dot-free
+   K3' fused7_descent, K4' fused7_ascent, K6' fused7_descent1, K7'
+   fused7_ascent1) against their twins as in phase 3, timed at 300^3.
+10. The reference's own entry point at 300^3, in process:
+   ``tpusparse_torch.__main__.main([... "-config",
+   "configs/SolverOptions_GAMG.info", "-ksp_converged_reason",
+   "-log_view"])`` (CG + GAMG with Richardson(1), rtol 1e-14), launch
+   counters reset just before.  Its JSON sidecar must show a positive
+   reason (CONVERGED_STALLED, 100, is one: the f64 true-residual floor),
+   Linf < 1e-4 and the port's own counts (767 +- 40 inner in 4-6 sweeps);
+   K6 and K7 launched, K3 and K4 not.
+11. ``-ksp_type gmres`` through the CLI at 300^3, rtol 1e-8 (Chebyshev(2)):
+   positive reason, Linf < 1e-4, K3'/K4' launched.
+12. ``-ksp_type bcgs`` with the reference config at 48^3: positive reason,
+   Linf < 3e-3 (the discretization error there is 2.84e-3), K6'/K7'
+   launched.  Not 100^3: there BiCGStab over the Richardson(1) V-cycle
+   fails in both packages (PERF.md).
+
 Then one JSON line with each kernel's route, source, launches (K1-K4 from
-phase 5, K5 from phase 8), error and times, and as the last line
+phase 5, K5 from phase 8, K6/K7 from phase 10, K3'/K4' from phase 11,
+K6'/K7' from phase 12), error and times, and as the last line
 ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
 
+import contextlib
+import io
 import json
+import pathlib
 import statistics
 import subprocess
 import sys
@@ -51,16 +74,29 @@ import numpy as np
 import torch
 
 from tpusparse_torch import kernels
+from tpusparse_torch.__main__ import main as cli_main
 from tpusparse_torch.bench.driver import solve_poisson
 from tpusparse_torch.grid.grid3d import Grid3D
 from tpusparse_torch.grid.poisson import poisson_stencil_device
 from tpusparse_torch.kernels import _build
 from tpusparse_torch.kernels.diaband import dia_mv, dia_mv_torch
 from tpusparse_torch.kernels.fused7 import (
+    fused7_ascent,
+    fused7_ascent1,
+    fused7_ascent1_rz,
+    fused7_ascent1_rz_torch,
+    fused7_ascent1_torch,
     fused7_ascent_rz,
     fused7_ascent_rz_torch,
+    fused7_ascent_torch,
+    fused7_descent,
+    fused7_descent1,
+    fused7_descent1_rr,
+    fused7_descent1_rr_torch,
+    fused7_descent1_torch,
     fused7_descent_rr,
     fused7_descent_rr_torch,
+    fused7_descent_torch,
     fused7_mvdot,
     fused7_mvdot_torch,
 )
@@ -95,6 +131,28 @@ KERNELS["dia_mv"] = (
     "tpusparse_torch/csrc/diaband.cu", "tpusparse/kernels/diaband.py:248",
     dia_mv, dia_mv_torch,
 )
+FUSED7_SRC = "tpusparse_torch/csrc/fused7.cu"
+NEW_KERNELS = {
+    "fused7_descent1_rr": (FUSED7_SRC, "tpusparse/kernels/fused7.py:632",
+                           fused7_descent1_rr, fused7_descent1_rr_torch),
+    "fused7_ascent1_rz": (FUSED7_SRC, "tpusparse/kernels/fused7.py:650",
+                          fused7_ascent1_rz, fused7_ascent1_rz_torch),
+    "fused7_descent": (FUSED7_SRC, "tpusparse/kernels/fused7.py:575",
+                       fused7_descent, fused7_descent_torch),
+    "fused7_ascent": (FUSED7_SRC, "tpusparse/kernels/fused7.py:674",
+                      fused7_ascent, fused7_ascent_torch),
+    "fused7_descent1": (FUSED7_SRC, "tpusparse/kernels/fused7.py:632",
+                        fused7_descent1, fused7_descent1_torch),
+    "fused7_ascent1": (FUSED7_SRC, "tpusparse/kernels/fused7.py:650",
+                       fused7_ascent1, fused7_ascent1_torch),
+}
+KERNELS.update(NEW_KERNELS)
+REF_CONFIG = str(pathlib.Path(__file__).resolve().parent / "configs" / "SolverOptions_GAMG.info")
+# the port's own outcome of the 300^3 reference-config solve on the H100
+# (PERF.md): 767 inner in 5 sweeps, CONVERGED_STALLED.  With Richardson(1)
+# the inner count follows the dots' summation order (PERF.md): 5% of it,
+# and a sweep either way
+REF_INNER, REF_INNER_WINDOW, REF_OUTER = 767, 40, (4, 5, 6)
 
 
 def _star_offsets(nz, ny, nx):
@@ -143,6 +201,12 @@ def _inputs(shape, device):
         "fused7_mvdot": (*legs, x, *pin),
         "fused7_descent_rr": (*legs, b, S0, AD, G, GW, *pin),
         "fused7_ascent_rz": (*legs, t, b, x1, G, AD, G2, GW, *pin),
+        "fused7_descent": (*legs, b, S0, AD, G, GW, *pin),
+        "fused7_ascent": (*legs, t, b, x1, G, AD, G2, GW, *pin),
+        "fused7_descent1_rr": (*legs, b, G, GW, *pin),
+        "fused7_ascent1_rz": (*legs, t, b, x1, G, GW, *pin),
+        "fused7_descent1": (*legs, b, G, GW, *pin),
+        "fused7_ascent1": (*legs, t, b, x1, G, GW, *pin),
     }
 
 
@@ -185,12 +249,13 @@ def _time_ms(fn, args, reps=12, per=5) -> float:
     return statistics.median(times)
 
 
-def check_kernels(device) -> dict:
-    """Phase 3: every kernel vs its twin at each shape; times at the last."""
+def check_kernels(device, names=STENCIL_KERNELS) -> dict:
+    """Phases 3 and 9: each kernel of ``names`` vs its twin at each shape;
+    times at the last."""
     rows = {}
     for shape in SHAPES:
         args = _inputs(shape, device)
-        for name in STENCIL_KERNELS:
+        for name in names:
             _src, _rep, kernel, twin = KERNELS[name]
             got = kernel(*args[name])
             want = twin(*args[name])
@@ -200,7 +265,7 @@ def check_kernels(device) -> dict:
             row["max_abs_err"] = max(row["max_abs_err"], err)
             print(f"kernel {name} {shape}: agrees with its twin, max abs err {err:.3e}")
         if shape == SHAPES[-1]:
-            for name in STENCIL_KERNELS:
+            for name in names:
                 _src, _rep, kernel, twin = KERNELS[name]
                 rows[name]["ms"] = _time_ms(kernel, args[name])
                 rows[name]["plain_ms"] = _time_ms(twin, args[name])
@@ -243,6 +308,27 @@ def check_dia(device) -> dict:
 def _require(cond: bool, what: str) -> None:
     if not cond:
         raise AssertionError(what)
+
+
+def run_cli(argv: list[str]) -> tuple[dict, dict]:
+    """The port's CLI in process with the launch counters reset just
+    before: (its JSON sidecar, the launches it made).  Prints its output."""
+    kernels.reset_launches()
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = cli_main(argv)
+    launches = dict(kernels.LAUNCHES)
+    text = out.getvalue()
+    print(text, end="")
+    print(f"launches: {json.dumps({k: v for k, v in launches.items() if v})}")
+    _require(rc == 0, f"{argv}: exit code {rc}")
+    side = [line for line in text.splitlines() if line.startswith("JSON: ")]
+    _require(len(side) == 1, f"{argv}: no JSON sidecar")
+    return json.loads(side[0][len("JSON: "):]), launches
+
+
+def _grid(n: int) -> list[str]:
+    return ["-da_grid_x", str(n), "-da_grid_y", str(n), "-da_grid_z", str(n)]
 
 
 def main() -> None:
@@ -317,6 +403,47 @@ def main() -> None:
     for name in STENCIL_KERNELS:
         _require(aij_launches[name] == 0, f"the aij path launched the stencil kernel {name}")
     launches["dia_mv"] = aij_launches["dia_mv"]
+
+    rows.update(check_kernels(device, tuple(NEW_KERNELS)))
+
+    t0 = time.perf_counter()
+    ref, ref_launches = run_cli(
+        [*_grid(300), "-config", REF_CONFIG, "-ksp_converged_reason", "-log_view"]
+    )
+    print(f"reference config 300^3: {time.perf_counter() - t0:.1f} s in all")
+    _require(ref["reason"] > 0, f"reference config: reason {ref['reason']} is not positive")
+    _require(np.isfinite(ref["linf_error"]) and ref["linf_error"] < 1e-4,
+             f"reference config: Linf {ref['linf_error']} >= 1e-4")
+    _require(abs(ref["iters"] - REF_INNER) <= REF_INNER_WINDOW and ref["outer_iters"] in REF_OUTER,
+             f"reference config: {ref['iters']} inner + {ref['outer_iters']} outer, not"
+             f" {REF_INNER} +- {REF_INNER_WINDOW} in {REF_OUTER}")
+    for name in ("fused7_descent1_rr", "fused7_ascent1_rz"):
+        _require(ref_launches[name] > 0, f"the reference config did not launch {name}")
+    for name in ("fused7_descent_rr", "fused7_ascent_rz"):
+        _require(ref_launches[name] == 0, f"the reference config launched {name}")
+
+    gm, gm_launches = run_cli([*_grid(300), "-ksp_type", "gmres", "-ksp_rtol", "1e-8",
+                               "-ksp_atol", "1e-12", "-ksp_converged_reason"])
+    _require(gm["reason"] > 0, f"gmres: reason {gm['reason']} is not positive")
+    _require(np.isfinite(gm["linf_error"]) and gm["linf_error"] < 1e-4,
+             f"gmres: Linf {gm['linf_error']} >= 1e-4")
+    for name in ("fused7_descent", "fused7_ascent"):
+        _require(gm_launches[name] > 0, f"gmres did not launch {name}")
+
+    bc, bc_launches = run_cli([*_grid(48), "-config", REF_CONFIG, "-ksp_type", "bcgs",
+                               "-ksp_converged_reason"])
+    _require(bc["reason"] > 0, f"bcgs: reason {bc['reason']} is not positive")
+    _require(np.isfinite(bc["linf_error"]) and bc["linf_error"] < 3e-3,
+             f"bcgs: Linf {bc['linf_error']} >= 3e-3")
+    for name in ("fused7_descent1", "fused7_ascent1"):
+        _require(bc_launches[name] > 0, f"bcgs did not launch {name}")
+    for names, runs in (
+        (("fused7_descent1_rr", "fused7_ascent1_rz"), ref_launches),
+        (("fused7_descent", "fused7_ascent"), gm_launches),
+        (("fused7_descent1", "fused7_ascent1"), bc_launches),
+    ):
+        for name in names:
+            launches[name] = runs[name]
 
     print(json.dumps({"kernels": [
         {

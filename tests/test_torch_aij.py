@@ -101,7 +101,7 @@ def test_host_assembly_gives_the_device_outcome():
 def test_aij_route_is_structure_blind():
     """The aij route never sees a stencil: a DIA system, a DIA hierarchy
     with geometric transfers, nothing padded."""
-    op_hi, op_lo, b, exact = build_system_aij(8, "cpu")
+    op_hi, op_lo, b, exact = build_system_aij(Grid3D(8, 8, 8), "cpu")
     assert isinstance(op_hi, DFDIA) and isinstance(op_lo, DIA)
     assert op_lo.offsets == (-64, -8, -1, 0, 1, 8, 64)
     assert b.shape == exact.shape == (8**3,) and b.dtype == torch.float64

@@ -11,6 +11,7 @@ import numpy as np
 import pytest
 import torch
 
+from tpusparse.amg.fused_cycle import vcycle_fused as j_vcycle_fused
 from tpusparse.amg.fused_cycle import vcycle_fused_dots as j_vcycle_fused_dots
 from tpusparse.amg.hierarchy import AMGParams as JAMGParams
 from tpusparse.amg.hierarchy import gamg_setup as j_gamg_setup
@@ -19,7 +20,7 @@ from tpusparse.grid.poisson import poisson_stencil_device as j_poisson_stencil_d
 from tpusparse.sparse.padded import PaddedStar as JPaddedStar
 from tpusparse.sparse.padded import crop_field as j_crop_field
 from tpusparse.sparse.padded import pad_field as j_pad_field
-from tpusparse_torch.amg.fused_cycle import fused_fine_supported, vcycle_fused_dots
+from tpusparse_torch.amg.fused_cycle import fused_fine_supported, vcycle_fused, vcycle_fused_dots
 from tpusparse_torch.amg.hierarchy import AMGParams, gamg_setup, vcycle
 from tpusparse_torch.grid.grid3d import Grid3D
 from tpusparse_torch.grid.poisson import poisson_stencil_device
@@ -170,11 +171,56 @@ def test_richardson_smoother_rides_the_fused_kernels():
     torch.testing.assert_close(z, want, rtol=1e-4, atol=1e-5 * want.abs().max().item())
 
 
+# (smoother, degree) of the level smoothers: the default Chebyshev(2)
+# (K3/K4, K3'/K4'), the reference config's Richardson(1) and Chebyshev(1)
+# (K6/K7, K6'/K7')
+SMOOTHERS = [("chebyshev", 2), ("richardson", 1), ("chebyshev", 1)]
+
+
+@pytest.mark.parametrize("dots", [True, False])
+@pytest.mark.parametrize("smoother, degree", SMOOTHERS)
+def test_fused_cycles_on_shared_hierarchy(smoother, degree, dots):
+    """vcycle_fused(_dots) on a copy of the JAX hierarchy against the JAX
+    package's (fused7_xla on the CPU), at the tolerances of
+    test_vcycle_fused_dots_on_shared_hierarchy."""
+    n, shape = 12, (12, 12, 12)
+    jop = j_poisson_stencil_device(JGrid3D(n, n, n), dtype=np.float32)[0]
+    jh = j_gamg_setup(JPaddedStar.from_star(jop), JAMGParams(smoother=smoother, degree=degree))
+    ph = port_copy(jh)
+    assert fused_fine_supported(ph) and ph.level_cfg(0) == (smoother, degree)
+    b = np.random.default_rng(6).standard_normal(shape, dtype=np.float32)
+    jb, pb = j_pad_field(jnp.asarray(b)), pad_field(torch.tensor(b))
+    if dots:
+        (wz, wrz, wrr), (z, rz, rr) = j_vcycle_fused_dots(jh, jb), vcycle_fused_dots(ph, pb)
+        assert rz.item() == pytest.approx(float(wrz), rel=1e-5)
+        assert rr.item() == pytest.approx(float(wrr), rel=1e-5)
+    else:
+        wz, z = j_vcycle_fused(jh, jb), vcycle_fused(ph, pb)
+    want = np.asarray(j_crop_field(wz, shape))
+    np.testing.assert_allclose(
+        crop_field(z, shape).numpy(), want, rtol=1e-5, atol=1e-6 * np.abs(want).max()
+    )
+
+
+@pytest.mark.parametrize("smoother, degree", SMOOTHERS[1:])
+def test_degree1_fused_cycle_matches_plain_vcycle(smoother, degree):
+    """The degree-1 fused fine level reproduces hierarchy.vcycle up to the
+    same benign reassociations as degree 2, with and without its dots."""
+    ph = gamg_setup(_port_fine_op(12), AMGParams(smoother=smoother, degree=degree))
+    b_p = pad_field(torch.tensor(np.random.default_rng(3).standard_normal((12, 12, 12), dtype=np.float32)))
+    want = vcycle(ph, b_p)
+    z, rz, _ = vcycle_fused_dots(ph, b_p)
+    for got in (z, vcycle_fused(ph, b_p)):
+        torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-5 * want.abs().max().item())
+    assert rz.item() == pytest.approx(torch.dot(b_p.flatten(), want.flatten()).item(), rel=1e-4)
+
+
 def test_unsupported_fine_level_raises(port_hier):
-    h1 = dataclasses.replace(port_hier, degree=1)
-    assert not fused_fine_supported(h1)
-    with pytest.raises(ValueError):
-        vcycle_fused_dots(h1, torch.zeros_like(port_hier.levels[0].dinv))
+    h3 = dataclasses.replace(port_hier, degree=3)
+    assert not fused_fine_supported(h3)
+    for cycle in (vcycle_fused_dots, vcycle_fused):
+        with pytest.raises(ValueError):
+            cycle(h3, torch.zeros_like(port_hier.levels[0].dinv))
 
 
 @pytest.mark.parametrize(

@@ -13,15 +13,28 @@ import pytest
 import torch
 
 from tpusparse_torch import kernels
+from tpusparse_torch.amg.hierarchy import AMGParams
 from tpusparse_torch.bench.driver import solve_poisson
 from tpusparse_torch.grid.grid3d import Grid3D
 from tpusparse_torch.grid.poisson import poisson_stencil_device
 from tpusparse_torch.kernels.diaband import dia_mv, dia_mv_torch
 from tpusparse_torch.kernels.fused7 import (
+    fused7_ascent,
+    fused7_ascent1,
+    fused7_ascent1_rz,
+    fused7_ascent1_rz_torch,
+    fused7_ascent1_torch,
     fused7_ascent_rz,
     fused7_ascent_rz_torch,
+    fused7_ascent_torch,
+    fused7_descent,
+    fused7_descent1,
+    fused7_descent1_rr,
+    fused7_descent1_rr_torch,
+    fused7_descent1_torch,
     fused7_descent_rr,
     fused7_descent_rr_torch,
+    fused7_descent_torch,
     fused7_mvdot,
     fused7_mvdot_torch,
 )
@@ -38,6 +51,12 @@ CASES = {
     "fused7_mvdot": (fused7_mvdot, fused7_mvdot_torch),
     "fused7_descent_rr": (fused7_descent_rr, fused7_descent_rr_torch),
     "fused7_ascent_rz": (fused7_ascent_rz, fused7_ascent_rz_torch),
+    "fused7_descent": (fused7_descent, fused7_descent_torch),
+    "fused7_ascent": (fused7_ascent, fused7_ascent_torch),
+    "fused7_descent1_rr": (fused7_descent1_rr, fused7_descent1_rr_torch),
+    "fused7_ascent1_rz": (fused7_ascent1_rz, fused7_ascent1_rz_torch),
+    "fused7_descent1": (fused7_descent1, fused7_descent1_torch),
+    "fused7_ascent1": (fused7_ascent1, fused7_ascent1_torch),
 }
 
 
@@ -63,6 +82,12 @@ def _args(name, shape, pinned, device):
         "fused7_mvdot": (*legs, x, shape, pinned),
         "fused7_descent_rr": (*legs, b, S0, AD, G, GW, shape, pinned),
         "fused7_ascent_rz": (*legs, x, b, x1, G, AD, G2, GW, shape, pinned),
+        "fused7_descent": (*legs, b, S0, AD, G, GW, shape, pinned),
+        "fused7_ascent": (*legs, x, b, x1, G, AD, G2, GW, shape, pinned),
+        "fused7_descent1_rr": (*legs, b, G, GW, shape, pinned),
+        "fused7_ascent1_rz": (*legs, x, b, x1, G, GW, shape, pinned),
+        "fused7_descent1": (*legs, b, G, GW, shape, pinned),
+        "fused7_ascent1": (*legs, x, b, x1, G, GW, shape, pinned),
     }[name]
 
 
@@ -125,8 +150,9 @@ def test_small_solve_on_card_matches_cpu(cuda):
     kw = dict(rtol=1e-8, atol=1e-12, pc="gamg", warmup=False)
     kernels.reset_launches()
     gpu = solve_poisson(16, device=cuda, **kw)
-    assert all(n > 0 for name, n in kernels.LAUNCHES.items() if name != "dia_mv")
-    assert kernels.LAUNCHES["dia_mv"] == 0
+    stencil = ("star7_mv_padded", "fused7_mvdot", "fused7_descent_rr", "fused7_ascent_rz")
+    assert all(kernels.LAUNCHES[name] > 0 for name in stencil)
+    assert all(n == 0 for name, n in kernels.LAUNCHES.items() if name not in stencil)
     cpu = solve_poisson(16, device="cpu", **kw)
     assert (gpu.reason, gpu.outer_iters) == (cpu.reason, cpu.outer_iters) == (2, 2)
     assert abs(gpu.iters - cpu.iters) <= 1
@@ -144,3 +170,41 @@ def test_small_aij_solve_on_card_matches_cpu(cuda):
     assert gpu.reason == 2
     assert abs(gpu.iters - cpu.iters) <= 1
     assert abs(gpu.linf_error - cpu.linf_error) < 1e-6
+
+
+REFERENCE = AMGParams(smoother="richardson", degree=1)   # the reference config's smoother
+
+
+@pytest.mark.parametrize(
+    "ksp, used, window",
+    [("cg", ("fused7_descent1_rr", "fused7_ascent1_rz"), 0.03),
+     ("bcgs", ("fused7_descent1", "fused7_ascent1"), 0.10)],
+)
+def test_small_reference_config_solve_on_card_matches_cpu(cuda, ksp, used, window):
+    """The reference config (Richardson(1), rtol 1e-14) at 16^3 on the card
+    against the same solve on the CPU: the degree-1 kernels (K6/K7 for CG,
+    K6'/K7' for the other methods) and no degree-2 one.  With Richardson(1)
+    the inner count follows the dots' summation order: CG within 3%,
+    BiCGStab within 10% (135 on the card vs 142 on the CPU here; at 24^3
+    the JAX package's own two cycles take 228 and 292)."""
+    kw = dict(rtol=1e-14, atol=1e-12, amg_params=REFERENCE, ksp=ksp, warmup=False)
+    kernels.reset_launches()
+    gpu = solve_poisson(16, device=cuda, **kw)
+    assert all(kernels.LAUNCHES[name] > 0 for name in used)
+    assert all(kernels.LAUNCHES[name] == 0 for name in ("fused7_descent_rr", "fused7_ascent_rz",
+                                                          "fused7_descent", "fused7_ascent"))
+    cpu = solve_poisson(16, device="cpu", **kw)
+    assert (gpu.reason, gpu.outer_iters) == (cpu.reason, cpu.outer_iters)
+    assert gpu.reason > 0
+    assert abs(gpu.iters - cpu.iters) <= window * cpu.iters + 1
+    assert abs(gpu.linf_error - cpu.linf_error) < 1e-9
+
+
+def test_gmres_solve_on_card_launches_the_dot_free_kernels(cuda):
+    kernels.reset_launches()
+    gpu = solve_poisson(16, device=cuda, rtol=1e-8, atol=1e-12, ksp="gmres", warmup=False)
+    assert kernels.LAUNCHES["fused7_descent"] > 0 and kernels.LAUNCHES["fused7_ascent"] > 0
+    assert kernels.LAUNCHES["fused7_descent_rr"] == kernels.LAUNCHES["fused7_mvdot"] == 0
+    cpu = solve_poisson(16, device="cpu", rtol=1e-8, atol=1e-12, ksp="gmres", warmup=False)
+    assert (gpu.reason, gpu.outer_iters) == (cpu.reason, cpu.outer_iters) == (2, 2)
+    assert abs(gpu.iters - cpu.iters) <= 1

@@ -45,6 +45,23 @@ def test_port_imports_no_jax():
     assert not bad, f"JAX imports in the port: {bad}"
 
 
+@pytest.mark.parametrize(
+    "module",
+    ["__main__", "config/options.py", "config/__init__.py", "solve/simple.py",
+     "solve/chebyshev.py", "solve/pipelined.py", "solve/gmres.py", "solve/fgmres.py",
+     "solve/bcgs.py", "solve/minres.py"],
+)
+def test_cli_and_ksp_modules_are_scanned_and_import(module):
+    """The CLI, the options database and the Krylov family are among the
+    files test_port_imports_no_jax scans, and each imports on its own."""
+    import importlib
+
+    path = PKG / (module if module.endswith(".py") else f"{module}.py")
+    assert path in set(PKG.rglob("*.py"))
+    name = "tpusparse_torch." + module.removesuffix(".py").replace("/", ".")
+    importlib.import_module(name.removesuffix(".__init__"))
+
+
 def test_chip_smoke_imports_no_jax():
     for m in _imported_modules(PKG.parent / "chip_smoke.py"):
         assert not (m == "jax" or m.startswith(("jax.", "tpusparse."))), m

@@ -1,4 +1,4 @@
-"""K1-K4 parity: the port's kernel wrappers (on CPU tensors: their plain
+"""K1-K4, K6, K7 and the dot-free K3'/K4'/K6'/K7' parity: the port's kernel wrappers (on CPU tensors: their plain
 twins) against the JAX package's XLA references and Pallas interpreter.
 
 Inputs are made with numpy from a fixed seed and fed to both packages;
@@ -23,7 +23,17 @@ from tpusparse.sparse.varstencil import OFFSETS
 from tpusparse.sparse.varstencil import VarStencil27 as JVarStencil27
 from tpusparse.sparse.varstencil import shift3 as j_shift3
 from tpusparse_torch.interop import padded_star_from_numpy
-from tpusparse_torch.kernels.fused7 import fused7_ascent_rz, fused7_descent_rr, fused7_mvdot
+from tpusparse_torch.kernels.fused7 import (
+    fused7_ascent,
+    fused7_ascent1,
+    fused7_ascent1_rz,
+    fused7_ascent_rz,
+    fused7_descent,
+    fused7_descent1,
+    fused7_descent1_rr,
+    fused7_descent_rr,
+    fused7_mvdot,
+)
 from tpusparse_torch.kernels.stencil7 import star7_mv_padded
 from tpusparse_torch.sparse.padded import crop_field, pad_field
 from tpusparse_torch.sparse.varstencil import VarStencil27, shift3
@@ -148,6 +158,54 @@ def test_k4_ascent_rz_twin_matches_fused7_xla(shape):
     )
     _check_field(crop_field(z, shape).numpy(), np.asarray(j_crop_field(wz, shape)))
     _check_dot(dot, wdot)
+
+
+# mode -> (port wrapper, its scalar arguments); fused7_xla's slots are
+# (g, ad, s0, gw, g2) = (G, AD, S0, GW, G2) in every call below
+DESCENTS = {
+    "descent": (fused7_descent, (S0, AD, G, GW)),
+    "descent1_rr": (fused7_descent1_rr, (G, GW)),
+    "descent1": (fused7_descent1, (G, GW)),
+}
+ASCENTS = {
+    "ascent": (fused7_ascent, (G, AD, G2, GW)),
+    "ascent1_rz": (fused7_ascent1_rz, (G, GW)),
+    "ascent1": (fused7_ascent1, (G, GW)),
+}
+
+
+@pytest.mark.parametrize("shape", SHAPES)
+@pytest.mark.parametrize("mode", list(DESCENTS))
+def test_descent_modes_twin_matches_fused7_xla(mode, shape):
+    """K3' (descent), K6 (descent1_rr) and K6' (descent1) at K3's
+    tolerances: fields as _check_field, dots 1e-5 relative."""
+    jpop, pop, f = _system(shape)
+    jf = _jax_padded(f)
+    want = fused7_xla(mode, jpop, jf["x"], jf["b"], jf["d"], G, AD, S0, gw=GW, g2=G2)
+    wrapper, scalars = DESCENTS[mode]
+    got = wrapper(pop.diag, pop.cx, pop.cy, pop.cz, _port_padded(f)["b"], *scalars, shape, True)
+    assert len(got) == len(want) == (3 if mode.endswith("_rr") else 2)
+    for g_, w_ in zip(got[:2], want[:2]):
+        _check_field(crop_field(g_, shape).numpy(), np.asarray(j_crop_field(w_, shape)))
+    if mode.endswith("_rr"):
+        _check_dot(got[2], want[2])
+
+
+@pytest.mark.parametrize("shape", SHAPES)
+@pytest.mark.parametrize("mode", list(ASCENTS))
+def test_ascent_modes_twin_matches_fused7_xla(mode, shape):
+    """K4' (ascent), K7 (ascent1_rz) and K7' (ascent1) at K4's tolerances;
+    fused7_xla's ascents take t = x_p, x1 = d_p."""
+    jpop, pop, f = _system(shape)
+    jf = _jax_padded(f)
+    want = fused7_xla(mode, jpop, jf["x"], jf["b"], jf["d"], G, AD, S0, gw=GW, g2=G2)
+    wrapper, scalars = ASCENTS[mode]
+    pf = _port_padded(f)
+    got = wrapper(pop.diag, pop.cx, pop.cy, pop.cz, pf["x"], pf["b"], pf["d"], *scalars, shape, True)
+    if mode.endswith("_rz"):
+        (got, dot), (want, wdot) = got, want
+        _check_dot(dot, wdot)
+    _check_field(crop_field(got, shape).numpy(), np.asarray(j_crop_field(want, shape)))
 
 
 @pytest.mark.parametrize("off", [OFFSETS[0], OFFSETS[4], OFFSETS[13], OFFSETS[22], OFFSETS[26]])

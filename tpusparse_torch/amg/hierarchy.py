@@ -175,6 +175,25 @@ def gamg_setup(fine_op, params: AMGParams = AMGParams()) -> Hierarchy:
     )
 
 
+def hierarchy_summary(hier: Hierarchy) -> str:
+    """PETSc ``-ksp_view``-style description of the PC hierarchy (PCView:
+    the MG level structure, smoother and coarse solve)."""
+    lines = [
+        f"PC Object: type gamg (smoothed aggregation), {hier.n_levels} levels",
+        f"  cycle: V, smoother: {hier.smoother}"
+        f" (degree {hier.degree}, damping {float(hier.damping):g})",
+    ]
+    for i, lev in enumerate(hier.levels):
+        shape = getattr(lev.op, "grid_shape", None)
+        n = int(np.prod(shape)) if shape is not None else lev.op.shape[0]
+        extra = "" if lev.transfer is not None else ", coarse solve: preonly + jacobi"
+        lines.append(
+            f"  level {i}: {n} unknowns, operator {type(lev.op).__name__},"
+            f" rho(M^-1 A) ~= {float(lev.rho):.4f}{extra}"
+        )
+    return "\n".join(lines)
+
+
 def cast_coarse_coefs(hier: Hierarchy, dtype=torch.bfloat16) -> Hierarchy:
     """Cast ONLY the coarse-level coefficient stacks (levels >= 1).
 

@@ -51,6 +51,7 @@ from tpusparse_torch.bench.driver import (
     refined_solve_aij,
     solve_poisson,
 )
+from tpusparse_torch.grid.grid3d import Grid3D
 from tpusparse_torch.sparse.padded import pad_field
 
 KW = dict(rtol=1e-8, atol=1e-12)
@@ -90,7 +91,7 @@ def _stencil_route(n, device, params):
     """The pieces of the stencil route the breakdown times: the setup, the
     Galerkin step, the preconditioner's final form, its cycle, the cycle's
     right-hand side and the solve."""
-    op, b, _, op_lo = build_system(n, device)
+    op, b, _, op_lo = build_system(Grid3D(n, n, n), device)
     return dict(
         setup=lambda: gamg_setup(op_lo, params),
         galerkin=galerkin_coarse,
@@ -103,7 +104,7 @@ def _stencil_route(n, device, params):
 
 def _aij_route(n, device, params):
     """The same pieces for the structure-blind general-matrix route."""
-    op, op_lo, b, _ = build_system_aij(n, device)
+    op, op_lo, b, _ = build_system_aij(Grid3D(n, n, n), device)
     return dict(
         setup=lambda: gamg_setup_unstructured(op_lo, params),
         galerkin=galerkin_probe_geo,

@@ -67,6 +67,17 @@ struct DinvField {
   }
 };
 
+// Stencil input s * (p * D^-1), the other rounding order: the degree-1
+// pre-smoother's x1 = g (D^-1 b), as fused7_xla's descent1 forms it.
+struct ScaledDinvField {
+  const float* __restrict__ p;
+  const float* __restrict__ d;
+  float s;
+  __device__ __forceinline__ float operator()(long long q) const {
+    return s * (p[q] * (1.0f / d[q]));
+  }
+};
+
 // (A u)[q] for in-domain cell (k, j, i) given the diagonal term `center`.
 // Pinned origin (MatZeroRowsColumns, reference src/helper.cpp:274): the
 // three cells that read u[0,0,0] as a neighbour drop that read, and the

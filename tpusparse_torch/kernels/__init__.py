@@ -11,6 +11,12 @@ LAUNCHES = {
     "fused7_mvdot": 0,
     "fused7_descent_rr": 0,
     "fused7_ascent_rz": 0,
+    "fused7_descent": 0,
+    "fused7_ascent": 0,
+    "fused7_descent1_rr": 0,
+    "fused7_ascent1_rz": 0,
+    "fused7_descent1": 0,
+    "fused7_ascent1": 0,
     "dia_mv": 0,
 }
 

@@ -67,6 +67,36 @@ def np_float(dtype: torch.dtype):
     return {torch.float32: np.float32, torch.float64: np.float64}[dtype]
 
 
+def convergence_test(f, ref, rtol: float, atol: float, divtol: float, maxiter: int):
+    """KSPConvergedDefault as ``classify(rnorm, it)`` on host scalars of
+    numpy type ``f``: converged at ``max(rtol*ref, atol)``, diverged at
+    ``divtol*ref`` (divtol <= 0 disables that test) or past ``maxiter``.
+    ``ref`` is the norm the method gates against (``||b||`` for most)."""
+    atol_f = f(atol)
+    tol = max(f(rtol) * ref, atol_f)
+    dgate = f(divtol) * ref if divtol and divtol > 0 else f(math.inf)
+
+    def classify(rnorm, it):
+        if not math.isfinite(rnorm):
+            return ConvergedReason.DIVERGED_NANORINF
+        if rnorm <= atol_f:
+            return ConvergedReason.CONVERGED_ATOL
+        if rnorm <= tol:
+            return ConvergedReason.CONVERGED_RTOL
+        if rnorm >= dgate:
+            return ConvergedReason.DIVERGED_DTOL
+        if it >= maxiter:
+            return ConvergedReason.DIVERGED_ITS
+        return ConvergedReason.ITERATING
+
+    return classify
+
+
+def norm_h(v: torch.Tensor, f):
+    """||v||_2 read to the host as a numpy scalar of type ``f``."""
+    return f(torch.sqrt(_dot(v, v)).item())
+
+
 def cg(
     a_mv: Callable,
     b: torch.Tensor,
@@ -95,23 +125,8 @@ def cg(
         x0 = torch.zeros_like(b)  # the reference zeroes the initial guess
 
     f = np_float(b.dtype)
-    bnorm = f(torch.sqrt(_dot(b, b)).item())
-    atol_f = f(atol)
-    tol = max(f(rtol) * bnorm, atol_f)
-    dgate = f(divtol) * bnorm if divtol and divtol > 0 else f(math.inf)
-
-    def classify(rnorm, it):
-        if not math.isfinite(rnorm):
-            return ConvergedReason.DIVERGED_NANORINF
-        if rnorm <= atol_f:
-            return ConvergedReason.CONVERGED_ATOL
-        if rnorm <= tol:
-            return ConvergedReason.CONVERGED_RTOL
-        if rnorm >= dgate:
-            return ConvergedReason.DIVERGED_DTOL
-        if it >= maxiter:
-            return ConvergedReason.DIVERGED_ITS
-        return ConvergedReason.ITERATING
+    bnorm = norm_h(b, f)
+    classify = convergence_test(f, bnorm, rtol, atol, divtol, maxiter)
 
     x = x0
     r = b - a_mv(x0)

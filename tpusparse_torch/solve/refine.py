@@ -64,19 +64,33 @@ def cg_refined(
     lo_dtype: torch.dtype = torch.float32,
     encode: Callable | None = None,
     decode: Callable | None = None,
+    solver: Callable = cg,
+    history: bool = False,
     divtol: float = 1e5,
-) -> RefinedResult:
+):
     """Solve A x = b to high-precision tolerances with low-precision inners.
 
     ``a_hi_mv`` applies A in b's (high) dtype; ``a_lo_mv``/``m_lo_mv`` (or
-    the fused ``a_lo_mv_dot``/``m_lo_mv_dots``) apply the operator and the
-    preconditioner in ``lo_dtype``.  ``encode``/``decode`` translate between
-    the outer layout and the inner solver's (the padded-resident layout).
+    the fused ``a_lo_mv_dot``/``m_lo_mv_dots``, CG only) apply the operator
+    and the preconditioner in ``lo_dtype``.  ``encode``/``decode`` translate
+    between the outer layout and the inner solver's (the padded-resident
+    layout).  ``solver`` is the inner Krylov method (``cg``'s interface).
+    An inner solve that stops at ``inner_maxiter`` is not an error: its
+    reason is ignored and only its iterations count.
+
+    ``history=True`` returns ``(result, norms)`` with the true residual
+    norm of each outer sweep as f32 values, index 0 = ||b|| (the monitor
+    data of mixed precision, one entry per defect-correction sweep).
     """
     dt = b.dtype
     bnorm = _norm(b)
     tol = max(rtol * bnorm, atol)
     dgate = divtol * bnorm if divtol and divtol > 0 else math.inf
+    fused = {}
+    if m_lo_mv_dots is not None:
+        fused["m_mv_dots"] = m_lo_mv_dots
+    if a_lo_mv_dot is not None:
+        fused["a_mv_dot"] = a_lo_mv_dot
 
     def inner(r_hi, rnorm):
         r_lo = (r_hi / rnorm).to(lo_dtype)
@@ -85,9 +99,9 @@ def cg_refined(
         # adaptive inner tolerance: reduce only as far as the OUTER gate
         # still needs (x0.25 safety), floored at what f32 reliably delivers
         need = float(np.float32(min(max(0.25 * tol / rnorm, inner_rtol), 0.5)))
-        res = cg(
+        res = solver(
             a_lo_mv, r_lo, rtol=need, maxiter=inner_maxiter, m_mv=m_lo_mv,
-            a_mv_dot=a_lo_mv_dot, m_mv_dots=m_lo_mv_dots,
+            **fused,
         )
         e = decode(res.x) if decode is not None else res.x
         return e.to(dt) * rnorm, res.iters
@@ -112,16 +126,19 @@ def cg_refined(
     x = torch.zeros_like(b)
     r = b  # x0 = 0
     rnorm, prev, outer, total = _norm(r), math.inf, 0, 0
+    norms = [float(np.float32(rnorm))]
     reason = classify(rnorm, prev, outer)
     while reason == ConvergedReason.ITERATING:
         e, its = inner(r, rnorm)
         x = x + e
         r = b - a_hi_mv(x)  # the one high-precision apply per outer sweep
         prev, rnorm = rnorm, _norm(r)
+        norms.append(float(np.float32(rnorm)))
         outer += 1
         total += its
         reason = classify(rnorm, prev, outer)
-    return RefinedResult(
+    result = RefinedResult(
         x=x, iters=total, outer_iters=outer, resnorm=rnorm,
         reason=int(reason), bnorm=bnorm,
     )
+    return (result, norms) if history else result
