@@ -11,7 +11,9 @@ script exits non-zero without the final line:
    fused7_mvdot, K3 fused7_descent_rr, K4 fused7_ascent_rz) against its
    plain PyTorch twin on the card, at the ragged shape (40, 11, 13) and at
    300^3, on inputs made with numpy from a fixed seed; time both at 300^3
-   with CUDA events.  Each output field must agree to rtol 1e-5, atol 1e-6
+   with CUDA events.  K1's y = A x is also cuSPARSE's CSR matvec of the
+   same pinned star (``csr @ x`` on the cropped field): held against the
+   twin to the same tolerance and timed beside it.  Each output field must agree to rtol 1e-5, atol 1e-6
    of its own max|want| (tests/test_fused7.py:53-69 without its 1e-3 floor,
    which would exceed the whole range of K3's x1); dots to 1e-5 relative.
 4. A 24^3 stencil solve must reproduce the JAX package's outcome at that
@@ -53,9 +55,29 @@ script exits non-zero without the final line:
    launched.  Not 100^3: there BiCGStab over the Richardson(1) V-cycle
    fails in both packages (PERF.md).
 
+13. The kernels of the full-fusion CG body (K8 fused7_cgmv, K9
+   fused7_descentu) and of the plain layout (K1p star7_mv, on unpadded
+   fields) against their twins as in phase 3, timed at 300^3; K1p beside
+   the CSR matvec of its star, as K1 in phase 3.
+14. The full-fusion CG body: ``solve_poisson(300, rtol=1e-8, atol=1e-12,
+   pc="gamg", cg_fusion=True)``, counters reset just before.  Reason 2,
+   Linf < 1e-4, 2-3 outer sweeps, inner within 2 of phase 5's; K8, K9 and
+   K4 launched, K2 and K3 not.
+15. ``-layout plain`` through the CLI at 300^3, rtol 1e-8: positive
+   reason, Linf < 1e-4, 34 +- 3 inner in 2-3 sweeps; K1p launched and no
+   fused7 kernel.
+16. ``-precision f64`` (rtol 1e-8) and ``-precision f32`` (rtol 1e-6)
+   through the CLI at 100^3: positive reason, Linf < 1e-3 (the
+   discretization error there is 6.57e-4); K1p launched by f32, not f64.
+
 Then one JSON line with each kernel's route, source, launches (K1-K4 from
 phase 5, K5 from phase 8, K6/K7 from phase 10, K3'/K4' from phase 11,
-K6'/K7' from phase 12), error and times, and as the last line
+K6'/K7' from phase 12, K8/K9 from phase 14, K1p from phase 15), error,
+times, its bound at the timed shape (the larger of its unique field bytes
+over 3.35 TB/s and its operations over 67 TFLOP/s of f32, the H100 SXM's
+published peaks) and the time of one PyTorch call computing the same
+function where there is one (K1, K1p and K5: the cuSPARSE CSR matvec of
+the same matrix; null for the fused modes), and as the last line
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -64,6 +86,7 @@ from __future__ import annotations
 import contextlib
 import io
 import json
+import math
 import pathlib
 import statistics
 import subprocess
@@ -89,6 +112,8 @@ from tpusparse_torch.kernels.fused7 import (
     fused7_ascent_rz,
     fused7_ascent_rz_torch,
     fused7_ascent_torch,
+    fused7_cgmv,
+    fused7_cgmv_torch,
     fused7_descent,
     fused7_descent1,
     fused7_descent1_rr,
@@ -97,11 +122,18 @@ from tpusparse_torch.kernels.fused7 import (
     fused7_descent_rr,
     fused7_descent_rr_torch,
     fused7_descent_torch,
+    fused7_descentu,
+    fused7_descentu_torch,
     fused7_mvdot,
     fused7_mvdot_torch,
 )
-from tpusparse_torch.kernels.stencil7 import star7_mv_padded, star7_mv_padded_torch
-from tpusparse_torch.sparse.padded import PaddedStar, pad_field
+from tpusparse_torch.kernels.stencil7 import (
+    star7_mv,
+    star7_mv_padded,
+    star7_mv_padded_torch,
+    star7_mv_torch,
+)
+from tpusparse_torch.sparse.padded import PaddedStar, crop_field, pad_field
 
 SEED = 7
 SHAPES = ((40, 11, 13), (300, 300, 300))
@@ -147,12 +179,44 @@ NEW_KERNELS = {
                        fused7_ascent1, fused7_ascent1_torch),
 }
 KERNELS.update(NEW_KERNELS)
+FUSION_KERNELS = {
+    "fused7_cgmv": (FUSED7_SRC, "tpusparse/kernels/fused7.py:522", fused7_cgmv, fused7_cgmv_torch),
+    "fused7_descentu": (FUSED7_SRC, "tpusparse/kernels/fused7.py:603",
+                        fused7_descentu, fused7_descentu_torch),
+    "star7_mv": ("tpusparse_torch/csrc/stencil7.cu", "tpusparse/kernels/stencil7.py:330",
+                 star7_mv, star7_mv_torch),
+}
+KERNELS.update(FUSION_KERNELS)
+# the kernels whose function, y = A x for the pinned star, one PyTorch call
+# computes: cuSPARSE's CSR matvec (``_star_csr``)
+CSR_TWINNED = ("star7_mv_padded", "star7_mv")
+# the CG scalars K8/K9 take, as 0-d device tensors (the solve's own form)
+BETA, ALPHA_PREV, ALPHA = 0.61, 0.37, 0.519
+
+# the H100 SXM's published peaks: HBM3 bytes/s and f32 FLOP/s outside the
+# tensor cores
+HBM_BYTES_S, F32_FLOP_S = 3.35e12, 67e12
+# f32 operations per domain cell of each kernel's function, counted from
+# its arithmetic (a star apply is 10: the centre product, three leg
+# products, six sums; a fused dot 2); dia_mv's are 2 per band and row
+STAR = 10
+FLOPS_PER_CELL = {
+    "star7_mv_padded": STAR, "star7_mv": STAR, "fused7_mvdot": STAR + 2,
+    "fused7_descent": 4 * STAR + 2, "fused7_descent_rr": 4 * STAR + 4,
+    "fused7_ascent": 3 * STAR + 14, "fused7_ascent_rz": 3 * STAR + 16,
+    "fused7_descent1": 2 * STAR + 6, "fused7_descent1_rr": 2 * STAR + 8,
+    "fused7_ascent1": 2 * STAR + 8, "fused7_ascent1_rz": 2 * STAR + 10,
+    "fused7_cgmv": STAR + 6, "fused7_descentu": 4 * STAR + 6,
+}
 REF_CONFIG = str(pathlib.Path(__file__).resolve().parent / "configs" / "SolverOptions_GAMG.info")
 # the port's own outcome of the 300^3 reference-config solve on the H100
 # (PERF.md): 767 inner in 5 sweeps, CONVERGED_STALLED.  With Richardson(1)
 # the inner count follows the dots' summation order (PERF.md): 5% of it,
 # and a sweep either way
 REF_INNER, REF_INNER_WINDOW, REF_OUTER = 767, 40, (4, 5, 6)
+# the plain layout's 300^3 inner count (the padded route's 34: both run
+# Chebyshev(2) over the same hierarchy)
+PLAIN_INNER = 34
 
 
 def _star_offsets(nz, ny, nx):
@@ -184,19 +248,27 @@ def _inputs(shape, device):
     """(args per kernel) at ``shape``: the pinned f32 Poisson operator and
     random padded fields from a fixed numpy seed."""
     grid = Grid3D(shape[2], shape[1], shape[0])
-    op = PaddedStar.from_star(
-        poisson_stencil_device(grid, dtype=torch.float32, device=device)[0]
-    )
+    star = poisson_stencil_device(grid, dtype=torch.float32, device=device)[0]
+    op = PaddedStar.from_star(star)
     rng = np.random.default_rng(SEED)
 
+    def plain():
+        return torch.from_numpy(rng.standard_normal(shape, dtype=np.float32)).to(device)
+
     def field():
-        return pad_field(torch.from_numpy(
-            rng.standard_normal(shape, dtype=np.float32)).to(device))
+        return pad_field(plain())
 
     x, b, t, x1 = field(), field(), field(), field()
+    p, ap = field(), field()
+    beta, alpha_prev, alpha = (
+        torch.tensor(v, dtype=torch.float32, device=device) for v in (BETA, ALPHA_PREV, ALPHA)
+    )
     legs = (op.diag, op.cx, op.cy, op.cz)
     pin = (shape, op.pinned)
     return {
+        "star7_mv": (star.diag, star.cx, star.cy, star.cz, plain(), star.pinned),
+        "fused7_cgmv": (*legs, t, p, x, beta, alpha_prev, *pin),
+        "fused7_descentu": (*legs, b, ap, S0, AD, G, GW, alpha, *pin),
         "star7_mv_padded": (*legs, x, *pin),
         "fused7_mvdot": (*legs, x, *pin),
         "fused7_descent_rr": (*legs, b, S0, AD, G, GW, *pin),
@@ -249,37 +321,122 @@ def _time_ms(fn, args, reps=12, per=5) -> float:
     return statistics.median(times)
 
 
+def _bound(args, out, flops: float) -> dict:
+    """The least time the card could take for a function: the larger of its
+    unique bytes (each tensor input read once, each output written once;
+    0-d scalars left out) over the HBM rate and ``flops`` over the f32
+    rate."""
+    seen = {}
+    for t in (*args, *_as_tuple(out)):
+        if isinstance(t, torch.Tensor) and t.dim() > 0:
+            seen[t.data_ptr()] = t.numel() * t.element_size()
+    t_bytes, t_ops = sum(seen.values()) / HBM_BYTES_S, flops / F32_FLOP_S
+    return {
+        "bound_ms": max(t_bytes, t_ops) * 1e3,
+        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+    }
+
+
+def _star_csr(diag, cx, cy, cz, pinned) -> torch.Tensor:
+    """The 7-point star with these (plain) fields as a CSR tensor of its
+    nonzeros: the matrix ``StarStencil3D.mv`` applies, with the legs that
+    leave the domain dropped and, if ``pinned``, row and column 0 cut to
+    the diagonal."""
+    nz, ny, nx = diag.shape
+    k, j, i = (torch.arange(m, device=diag.device).reshape(s)
+               for m, s in ((nz, (-1, 1, 1)), (ny, (1, -1, 1)), (nx, (1, 1, -1))))
+
+    def leg(c, keep):
+        return torch.where(keep, c, 0.0).to(diag.dtype).expand(diag.shape)
+
+    offsets = _star_offsets(nz, ny, nx)
+    bands = torch.stack([
+        leg(cz, k > 0), leg(cy, j > 0), leg(cx, i > 0), diag,
+        leg(cx, i < nx - 1), leg(cy, j < ny - 1), leg(cz, k < nz - 1),
+    ]).reshape(len(offsets), -1)
+    if pinned:
+        for band, off in enumerate(offsets):
+            if off:
+                bands[band, 0] = 0.0            # row 0
+                if off < 0:
+                    bands[band, -off] = 0.0     # the entry in column 0
+    return _csr_of(bands, offsets)
+
+
+def _csr_matvec(args: dict, name: str, want: torch.Tensor, shape) -> tuple:
+    """cuSPARSE's CSR matvec of ``name``'s star on the cropped field, held
+    against the twin's output ``want``: (the call, its arguments)."""
+    csr = _star_csr(*args["star7_mv"][:4], args["star7_mv"][5])
+    x = args[name][4]
+    if name == "star7_mv_padded":
+        x, want = crop_field(x, shape), crop_field(want, shape)
+    x = x.reshape(-1).contiguous()
+    _compare(f"csr matvec {name} {shape}", csr @ x, want.reshape(-1))
+    return (lambda a, v: a @ v), (csr, x)
+
+
 def check_kernels(device, names=STENCIL_KERNELS) -> dict:
-    """Phases 3 and 9: each kernel of ``names`` vs its twin at each shape;
-    times at the last."""
+    """Phases 3, 9 and 13: each kernel of ``names`` vs its twin at each
+    shape; times and bounds at the last.  K1's and K1p's function is also
+    cuSPARSE's CSR matvec of the same star: checked at each shape, timed
+    at the last as their ``library_ms``.  No fused mode has one PyTorch
+    call that computes it, so theirs is null."""
     rows = {}
     for shape in SHAPES:
         args = _inputs(shape, device)
+        library = {}
         for name in names:
             _src, _rep, kernel, twin = KERNELS[name]
             got = kernel(*args[name])
             want = twin(*args[name])
             torch.cuda.synchronize()
             err = _compare(f"{name} {shape}", got, want)
-            row = rows.setdefault(name, {"max_abs_err": 0.0})
+            row = rows.setdefault(name, {"max_abs_err": 0.0, "library_ms": None})
             row["max_abs_err"] = max(row["max_abs_err"], err)
             print(f"kernel {name} {shape}: agrees with its twin, max abs err {err:.3e}")
+            if name in CSR_TWINNED:
+                library[name] = _csr_matvec(args, name, want, shape)
+                print(f"cuSPARSE CSR matvec {name} {shape}: agrees with the twin")
+            if shape == SHAPES[-1]:
+                row.update(_bound(args[name], got, FLOPS_PER_CELL[name] * math.prod(shape)))
         if shape == SHAPES[-1]:
             for name in names:
                 _src, _rep, kernel, twin = KERNELS[name]
                 rows[name]["ms"] = _time_ms(kernel, args[name])
                 rows[name]["plain_ms"] = _time_ms(twin, args[name])
+                if name in library:
+                    rows[name]["library_ms"] = _time_ms(*library[name])
                 print(
                     f"time {name} {shape}: kernel {rows[name]['ms']:.4f} ms,"
-                    f" plain {rows[name]['plain_ms']:.4f} ms"
+                    f" plain {rows[name]['plain_ms']:.4f} ms,"
+                    f" bound {rows[name]['bound_ms']:.4f} ms ({rows[name]['bound_by']}),"
+                    f" one PyTorch call {rows[name]['library_ms']} ms"
                 )
-        del args
+        del args, library
         torch.cuda.empty_cache()
     return rows
 
 
+def _csr_of(bands: torch.Tensor, offsets) -> torch.Tensor:
+    """The nonzeros of the DIA matrix (``bands``, ``offsets``) as a CSR
+    tensor: the same function for the library call cuSPARSE runs (columns
+    ascend in each row with the ascending offsets)."""
+    k, n = bands.shape
+    rows = torch.arange(n, device=bands.device)[:, None]
+    cols = rows + torch.tensor(offsets, device=bands.device)[None, :]
+    keep = (cols >= 0) & (cols < n) & (bands.t() != 0)
+    crow = torch.zeros(n + 1, dtype=torch.int32, device=bands.device)
+    crow[1:] = torch.cumsum(keep.sum(dim=1), 0)
+    return torch.sparse_csr_tensor(
+        crow, cols[keep].to(torch.int32), bands.t()[keep], size=(n, n),
+    )
+
+
 def check_dia(device) -> dict:
-    """Phase 6: K5 against its twin at each case; times at the timed ones."""
+    """Phase 6: K5 against its twin at each case; times at the timed ones,
+    and at the first of them the bound and the cuSPARSE CSR matvec of the
+    same matrix (``torch.sparse_csr_tensor(...) @ x``), which must agree
+    with the twin too."""
     row = {"max_abs_err": 0.0}
     rng = np.random.default_rng(SEED)
     for label, n, offsets, timed in DIA_CASES:
@@ -297,9 +454,15 @@ def check_dia(device) -> dict:
             gbs = (len(offsets) + 2) * n * 4 / (ms * 1e-3) / 1e9
             print(f"time dia_mv {label} (K={len(offsets)}): kernel {ms:.4f} ms"
                   f" ({gbs:.1f} GB/s of (K+2)*n*4 bytes), plain {plain_ms:.4f} ms")
-            # the JSON line carries the fine level's times (the first timed case)
-            row.setdefault("ms", ms)
-            row.setdefault("plain_ms", plain_ms)
+            # the JSON line carries the fine level's numbers (the first timed case)
+            if "ms" not in row:
+                csr = _csr_of(bands, offsets)
+                _compare(f"csr matvec {label}", csr @ x, want)
+                row.update(ms=ms, plain_ms=plain_ms, library_ms=_time_ms(lambda a, v: a @ v, (csr, x)))
+                row.update(_bound((bands, x), got, 2 * len(offsets) * n))
+                print(f"time dia_mv {label}: cuSPARSE CSR matvec {row['library_ms']:.4f} ms,"
+                      f" bound {row['bound_ms']:.4f} ms ({row['bound_by']})")
+                del csr
         del bands, x, got, want
         torch.cuda.empty_cache()
     return row
@@ -373,6 +536,7 @@ def main() -> None:
     _require(abs(rep.iters - 34) <= 2, f"inner iterations {rep.iters} not within 34 +- 2")
     for name in STENCIL_KERNELS:
         _require(launches[name] > 0, f"kernel {name} was not launched by the stencil path")
+    production = rep
     rows["dia_mv"] = check_dia(device)
 
     aij = dict(rtol=1e-8, atol=1e-12, pc="gamg", mat_type="aij")
@@ -445,11 +609,58 @@ def main() -> None:
         for name in names:
             launches[name] = runs[name]
 
+    rows.update(check_kernels(device, tuple(FUSION_KERNELS)))
+
+    kernels.reset_launches()
+    fu = solve_poisson(300, rtol=1e-8, atol=1e-12, pc="gamg", device=device, cg_fusion=True)
+    fu_launches = dict(kernels.LAUNCHES)
+    print(fu.converged_reason_line())
+    print(fu.json_sidecar())
+    print(f"launches (cg_fusion): {json.dumps({k: v for k, v in fu_launches.items() if v})}")
+    print(f"300^3 t_solve: production body {production.t_solve:.4f} s"
+          f" ({production.iters} inner + {production.outer_iters} outer),"
+          f" full-fusion body {fu.t_solve:.4f} s ({fu.iters} inner + {fu.outer_iters} outer)")
+    _require(fu.reason == 2, f"cg_fusion: reason {fu.reason} != 2")
+    _require(np.isfinite(fu.linf_error) and fu.linf_error < 1e-4, f"cg_fusion: Linf {fu.linf_error} >= 1e-4")
+    _require(fu.outer_iters in (2, 3), f"cg_fusion: outer iterations {fu.outer_iters} not in 2-3")
+    _require(abs(fu.iters - production.iters) <= 2,
+             f"cg_fusion: {fu.iters} inner, not within 2 of the production body's {production.iters}")
+    for name in ("fused7_cgmv", "fused7_descentu", "fused7_ascent_rz"):
+        _require(fu_launches[name] > 0, f"cg_fusion did not launch {name}")
+    for name in ("fused7_mvdot", "fused7_descent_rr"):
+        _require(fu_launches[name] == 0, f"cg_fusion launched {name}")
+
+    pl, pl_launches = run_cli([*_grid(300), "-layout", "plain", "-ksp_rtol", "1e-8",
+                               "-ksp_atol", "1e-12", "-ksp_converged_reason"])
+    _require(pl["reason"] > 0, f"-layout plain: reason {pl['reason']} is not positive")
+    _require(np.isfinite(pl["linf_error"]) and pl["linf_error"] < 1e-4,
+             f"-layout plain: Linf {pl['linf_error']} >= 1e-4")
+    _require(abs(pl["iters"] - PLAIN_INNER) <= 3 and pl["outer_iters"] in (2, 3),
+             f"-layout plain: {pl['iters']} inner + {pl['outer_iters']} outer, not"
+             f" {PLAIN_INNER} +- 3 in 2-3")
+    _require(pl_launches["star7_mv"] > 0, "-layout plain did not launch star7_mv")
+    for name, n in pl_launches.items():
+        _require(not (name.startswith("fused7") and n), f"-layout plain launched {name}")
+
+    uniform = {}
+    for precision, rtol in (("f64", "1e-8"), ("f32", "1e-6")):
+        side, uniform[precision] = run_cli([*_grid(100), "-precision", precision, "-ksp_rtol", rtol,
+                                            "-ksp_atol", "1e-12", "-ksp_converged_reason"])
+        _require(side["reason"] > 0, f"-precision {precision}: reason {side['reason']} is not positive")
+        _require(np.isfinite(side["linf_error"]) and side["linf_error"] < 1e-3,
+                 f"-precision {precision}: Linf {side['linf_error']} >= 1e-3")
+    _require(uniform["f32"]["star7_mv"] > 0, "-precision f32 did not launch star7_mv")
+    _require(not any(uniform["f64"].values()), "-precision f64 launched a kernel")
+    launches.update(fused7_cgmv=fu_launches["fused7_cgmv"], fused7_descentu=fu_launches["fused7_descentu"],
+                    star7_mv=pl_launches["star7_mv"])
+
     print(json.dumps({"kernels": [
         {
             "name": name, "route": "cuda", "source": src, "replaces": replaces,
             "launches": launches[name], "max_abs_err": rows[name]["max_abs_err"],
             "ms": rows[name]["ms"], "plain_ms": rows[name]["plain_ms"],
+            "bound_ms": rows[name]["bound_ms"], "bound_by": rows[name]["bound_by"],
+            "library_ms": rows[name]["library_ms"],
         }
         for name, (src, replaces, _k, _t) in KERNELS.items()
     ]}))

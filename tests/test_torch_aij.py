@@ -13,7 +13,7 @@ from tpusparse.bench.driver import solve_poisson as j_solve_poisson
 from tpusparse_torch.amg.geo import GeoTransfer
 from tpusparse_torch.amg.hierarchy import AMGParams
 from tpusparse_torch.amg.unstructured import gamg_setup_unstructured
-from tpusparse_torch.bench.driver import build_system_aij, refined_solve_aij, solve_poisson
+from tpusparse_torch.bench.driver import build_system_aij, refined_solve_plain, solve_poisson
 from tpusparse_torch.grid.grid3d import Grid3D
 from tpusparse_torch.grid.poisson import assemble_poisson
 from tpusparse_torch.sparse.dia import DFDIA, DIA
@@ -91,7 +91,7 @@ def test_host_assembly_gives_the_device_outcome():
     device-assembled one does: the two assemblies give the same bands."""
     dev = solve_poisson(12, device="cpu", warmup=False, **KW)
     op_hi, op_lo, b, exact = _host_system(12)
-    res = refined_solve_aij(
+    res = refined_solve_plain(
         op_hi, gamg_setup_unstructured(op_lo, AMGParams()), b, rtol=KW["rtol"], atol=KW["atol"],
     )
     assert (res.iters, res.outer_iters, res.reason) == (dev.iters, dev.outer_iters, dev.reason)

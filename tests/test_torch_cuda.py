@@ -1,6 +1,7 @@
 """On the card: every CUDA kernel of ``tpusparse_torch`` against its plain
-PyTorch twin at small ragged shapes, and small stencil and aij solves on
-the card against the same solves on the CPU.
+PyTorch twin at small ragged shapes, small stencil (padded, full-fusion,
+plain layout), aij and reference-config solves on the card against the same
+solves on the CPU, and ``bench.itprof`` at 24^3.
 
 These tests need a CUDA device and skip without one.  The file imports no
 JAX, so it also runs where JAX is not installed:
@@ -14,6 +15,7 @@ import torch
 
 from tpusparse_torch import kernels
 from tpusparse_torch.amg.hierarchy import AMGParams
+from tpusparse_torch.bench import itprof
 from tpusparse_torch.bench.driver import solve_poisson
 from tpusparse_torch.grid.grid3d import Grid3D
 from tpusparse_torch.grid.poisson import poisson_stencil_device
@@ -27,6 +29,8 @@ from tpusparse_torch.kernels.fused7 import (
     fused7_ascent_rz,
     fused7_ascent_rz_torch,
     fused7_ascent_torch,
+    fused7_cgmv,
+    fused7_cgmv_torch,
     fused7_descent,
     fused7_descent1,
     fused7_descent1_rr,
@@ -35,10 +39,17 @@ from tpusparse_torch.kernels.fused7 import (
     fused7_descent_rr,
     fused7_descent_rr_torch,
     fused7_descent_torch,
+    fused7_descentu,
+    fused7_descentu_torch,
     fused7_mvdot,
     fused7_mvdot_torch,
 )
-from tpusparse_torch.kernels.stencil7 import star7_mv_padded, star7_mv_padded_torch
+from tpusparse_torch.kernels.stencil7 import (
+    star7_mv,
+    star7_mv_padded,
+    star7_mv_padded_torch,
+    star7_mv_torch,
+)
 from tpusparse_torch.sparse.padded import PaddedStar, pad_field
 
 pytestmark = pytest.mark.requires_cuda
@@ -57,6 +68,9 @@ CASES = {
     "fused7_ascent1_rz": (fused7_ascent1_rz, fused7_ascent1_rz_torch),
     "fused7_descent1": (fused7_descent1, fused7_descent1_torch),
     "fused7_ascent1": (fused7_ascent1, fused7_ascent1_torch),
+    "fused7_cgmv": (fused7_cgmv, fused7_cgmv_torch),
+    "fused7_descentu": (fused7_descentu, fused7_descentu_torch),
+    "star7_mv": (star7_mv, star7_mv_torch),
 }
 
 
@@ -69,15 +83,20 @@ def cuda():
 
 def _args(name, shape, pinned, device):
     nz, ny, nx = shape
-    op = PaddedStar.from_star(poisson_stencil_device(
-        Grid3D(nx, ny, nz), pin=pinned, dtype=torch.float32, device=device)[0])
+    star = poisson_stencil_device(Grid3D(nx, ny, nz), pin=pinned, dtype=torch.float32, device=device)[0]
+    op = PaddedStar.from_star(star)
     rng = np.random.default_rng(7)
     x, b, x1 = (
         pad_field(torch.tensor(rng.standard_normal(shape, dtype=np.float32), device=device))
         for _ in range(3)
     )
+    # the CG scalars of K8/K9 as 0-d device tensors, as cg hands them over
+    beta, alpha = (torch.tensor(v, dtype=torch.float32, device=device) for v in (0.61, 0.37))
     legs = (op.diag, op.cx, op.cy, op.cz)
     return {
+        "star7_mv": (star.diag, star.cx, star.cy, star.cz, b[3:3 + nz, :, :nx].contiguous(), pinned),
+        "fused7_cgmv": (*legs, x, b, x1, beta, alpha, shape, pinned),
+        "fused7_descentu": (*legs, b, x, S0, AD, G, GW, alpha, shape, pinned),
         "star7_mv_padded": (*legs, x, shape, pinned),
         "fused7_mvdot": (*legs, x, shape, pinned),
         "fused7_descent_rr": (*legs, b, S0, AD, G, GW, shape, pinned),
@@ -208,3 +227,39 @@ def test_gmres_solve_on_card_launches_the_dot_free_kernels(cuda):
     cpu = solve_poisson(16, device="cpu", rtol=1e-8, atol=1e-12, ksp="gmres", warmup=False)
     assert (gpu.reason, gpu.outer_iters) == (cpu.reason, cpu.outer_iters) == (2, 2)
     assert abs(gpu.iters - cpu.iters) <= 1
+
+
+@pytest.mark.parametrize(
+    "extra, used",
+    [
+        # the full-fusion CG body: K8, K9 and K4, never K2 or K3
+        (dict(cg_fusion=True), {"fused7_cgmv", "fused7_descentu", "fused7_ascent_rz"}),
+        # the plain layout: K1p and no padded kernel
+        (dict(layout="plain"), {"star7_mv"}),
+    ],
+)
+def test_fusion_and_plain_solves_on_card_match_cpu(cuda, extra, used):
+    """At 18^3, where every inner solve stops at ~0.3 of its tolerance.  At
+    16^3 the plain route's second inner solve follows the rounding of the
+    first sweep (15 inner on the CPU, 19 on the card and in JAX): its
+    right-hand side is that sweep's residual, 1e-5 of ||b||, and any two
+    roundings of it lie ~14% apart (tests/test_torch_plain.py::
+    test_plain_second_inner_solve_matches_jax_on_one_rhs)."""
+    kw = dict(rtol=1e-8, atol=1e-12, pc="gamg", warmup=False, **extra)
+    kernels.reset_launches()
+    gpu = solve_poisson(18, device=cuda, **kw)
+    assert all(kernels.LAUNCHES[name] > 0 for name in used)
+    unused = {"fused7_mvdot", "fused7_descent_rr"} if extra.get("cg_fusion") else {
+        name for name in kernels.LAUNCHES if name.startswith("fused7") or name == "star7_mv_padded"
+    }
+    assert all(kernels.LAUNCHES[name] == 0 for name in unused)
+    cpu = solve_poisson(18, device="cpu", **kw)
+    assert (gpu.reason, gpu.outer_iters) == (cpu.reason, cpu.outer_iters) == (2, 2)
+    assert abs(gpu.iters - cpu.iters) <= 1
+    assert abs(gpu.linf_error - cpu.linf_error) < 1e-6
+
+
+def test_itprof_runs_on_card(cuda, capsys):
+    itprof.main(["24", "3"])
+    out = capsys.readouterr().out
+    assert "FULL CG+AMG iteration" in out and "FULL fused-CG iteration" in out

@@ -113,9 +113,9 @@ def test_malformed_values_raise_in_both(argv, err):
         ["-mat_view", "binary:out.bin"],
         ["-problem", "diffusion"],
         ["-devices", "4"],
-        ["-precision", "f64"],
-        ["-precision", "tf"],
-        ["-layout", "plain"],
+        ["-pc_type", "sor"],
+        ["-precision", "tf"],                    # not to port
+        ["-mat_type", "aij", "-mat_structure_detect", "0", "-pc_gamg_aggregation", "banded"],
         ["-profile", "trace_dir"],
         ["-pc_type", "jacobi"],
         ["-pc_type", "none"],
@@ -140,6 +140,9 @@ def test_ported_values_parse():
     for argv in (
         ["-mat_type", "aij", "-mat_structure_detect", "0"],
         ["-layout", "padded"],
+        ["-layout", "plain"],
+        ["-precision", "f64"],
+        ["-precision", "f32"],
         ["-pc_dtype", "bf16"],
         ["-ksp_norm_type", "preconditioned"],
         ["-ksp_compute_eigenvalues"],

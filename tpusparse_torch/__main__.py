@@ -35,8 +35,13 @@ def main(argv: list[str] | None = None) -> int:
             " kernels' plain twins"
         )
     if opts.ksp_compute_eigenvalues:
-        # as the JAX driver: its Lanczos identity is wired for uniform
-        # precision only (driver.py:491-501)
+        # the JAX driver computes them for uniform-precision CG only and
+        # skips them with a warning elsewhere (driver.py:491-501)
+        if opts.precision != "mixed" and opts.ksp_type == "cg" and not opts.ksp_monitor:
+            raise NotImplementedError(
+                "-ksp_compute_eigenvalues needs solve/spectrum.py, which is not"
+                " ported to tpusparse_torch yet (ROADMAP queue 1, item 8)"
+            )
         warnings.warn(
             "-ksp_compute_eigenvalues needs uniform-precision -ksp_type cg"
             " without -ksp_monitor; skipping eigenvalue computation"
@@ -54,6 +59,9 @@ def main(argv: list[str] | None = None) -> int:
         ksp_gmres_restart=opts.ksp_gmres_restart,
         ksp_richardson_scale=opts.ksp_richardson_scale,
         mat_type=opts.mat_type,
+        precision=opts.precision,
+        # -layout auto is the padded route on every device (driver docstring)
+        layout="padded" if opts.layout == "auto" else opts.layout,
         monitor=opts.ksp_monitor,
         view=opts.ksp_view,
     )

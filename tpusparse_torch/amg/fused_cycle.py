@@ -11,7 +11,12 @@ recurse through ``hierarchy.vcycle``:
   smoother, K6/K7 (``descent1_rr``/``ascent1_rz``) for degree 1, the
   reference config's Richardson(1);
 - ``vcycle_fused`` (every other Krylov method) runs the same kernels
-  without the dots: K3'/K4' or K6'/K7'.
+  without the dots: K3'/K4' or K6'/K7';
+- ``vcycle_fused_rupdate`` (the full-fusion CG body) forms CG's residual
+  update r' = r - alpha ap inside the downstroke, K9 (``descentu``), then
+  runs the coarse cycle and K4.  A degree-1 smoother has no such kernel in
+  either package: there it is a torch r-update plus ``vcycle_fused_dots``,
+  and ``cg_fusion_supported`` is False.
 
 Supported configuration: the padded-resident f32 fine level with a
 point-Jacobi Chebyshev or Richardson smoother of degree 1 or 2.  Anything
@@ -33,6 +38,7 @@ from tpusparse_torch.kernels.fused7 import (
     fused7_descent1,
     fused7_descent1_rr,
     fused7_descent_rr,
+    fused7_descentu,
 )
 from tpusparse_torch.sparse.padded import PaddedStar, PaddedTransfer
 
@@ -49,6 +55,12 @@ def fused_fine_supported(hier: Hierarchy) -> bool:
         and dg0 in (1, 2)
         and lev.op.dtype == torch.float32
     )
+
+
+def cg_fusion_supported(hier: Hierarchy) -> bool:
+    """True when the full-fusion CG body can run: the fused fine level with
+    a degree-2 smoother (``descentu`` has no degree-1 twin)."""
+    return fused_fine_supported(hier) and hier.level_cfg(0)[1] == 2
 
 
 def _fine_scalars(hier: Hierarchy, lev):
@@ -128,3 +140,25 @@ def vcycle_fused_dots(hier: Hierarchy, b_p: torch.Tensor):
     reductions.
     """
     return _vcycle_fused(hier, b_p, with_dots=True)
+
+
+def vcycle_fused_rupdate(hier: Hierarchy, r_p: torch.Tensor, ap_p: torch.Tensor, alpha):
+    """``(z, r_new, rz, rr)``: the CG iteration's bottom half with the
+    residual update r_new = r - alpha ap fused into the downstroke (K9),
+    then the coarse cycle and the upstroke with <r_new, z> (K4); rr is
+    <r_new, r_new>.  A degree-1 smoother takes a torch r-update and
+    ``vcycle_fused_dots`` (K6/K7), as the JAX package does."""
+    if not cg_fusion_supported(hier):
+        r_new = r_p - alpha * ap_p
+        z, rz, rr = vcycle_fused_dots(hier, r_new)
+        return z, r_new, rz, rr
+    lev = hier.levels[0]
+    op: PaddedStar = lev.op
+    tr: PaddedTransfer = lev.transfer
+    s0, ad, g = _fine_scalars(hier, lev)
+    legs = (op.diag, op.cx, op.cy, op.cz)
+    pin = (op.true_shape, op.pinned)
+    x1, s, r_new, rr = fused7_descentu(*legs, r_p, ap_p, s0, ad, g, tr.omega, alpha, *pin)
+    e = vcycle(hier, tr.tT_apply_padded(s), level=1)
+    z, rz = fused7_ascent_rz(*legs, tr.t_apply_padded(e), r_new, x1, s0, ad, g, tr.omega, *pin)
+    return z, r_new, rz, rr

@@ -48,7 +48,7 @@ from tpusparse_torch.bench.driver import (
     build_system,
     build_system_aij,
     refined_solve,
-    refined_solve_aij,
+    refined_solve_plain,
     solve_poisson,
 )
 from tpusparse_torch.grid.grid3d import Grid3D
@@ -111,7 +111,7 @@ def _aij_route(n, device, params):
         pc=lambda hier: hier,
         cycle=vcycle,
         rhs=(b / torch.linalg.vector_norm(b)).to(torch.float32),
-        solve=lambda pc_state: refined_solve_aij(op, pc_state, b, **KW),
+        solve=lambda pc_state: refined_solve_plain(op, pc_state, b, **KW),
     )
 
 

@@ -7,17 +7,28 @@ on divergence, compute the Linf error against the analytic solution, and
 report the phase triple ``[init, create solver, solve]`` in the reference's
 text format (``src/main_ksp.cpp:124-129``) plus a JSON sidecar.
 
-Every solve is an f32 Krylov method (``-ksp_type``, ``_pick_ksp``)
-preconditioned by a GAMG V-cycle under f64 defect correction, on one
-device, with a convergence check every iteration.  Two routes:
+Every solve is a Krylov method (``-ksp_type``, ``_pick_ksp``)
+preconditioned by a GAMG V-cycle, on one device, with a convergence check
+every iteration.  Under mixed precision (the default) the Krylov method
+runs in f32 under f64 defect correction.  The routes:
 
-- ``mat_type="stencil"``: the 7-point stencil operator on the
-  padded-resident layout and the fused fine level.  CG takes the dot-fused
-  cycle (``vcycle_fused_dots``) and the fused ``<p, Ap>``
+- ``mat_type="stencil"``, ``layout="padded"``: the 7-point stencil operator
+  on the padded-resident layout and the fused fine level.  CG takes the
+  dot-fused cycle (``vcycle_fused_dots``) and the fused ``<p, Ap>``
   (``PaddedStar.mv_dot``); every other method the dot-free
   ``vcycle_fused`` (the JAX driver's ``:627-642``, ``:704-709``).  Kernels
   K1-K4 for a degree-2 smoother, K6/K7 (or K6'/K7') for the reference
-  config's Richardson(1).
+  config's Richardson(1).  ``cg_fusion=True`` swaps CG's body for the
+  full-fusion one (``PaddedStar.cgmv`` + ``vcycle_fused_rupdate``: K8, K9
+  and K4), the JAX driver's ``TPUSPARSE_CG_FUSION``.
+- ``mat_type="stencil"``, ``layout="plain"``: the f32 ``StarStencil3D`` on
+  plain ``(nz, ny, nx)`` fields and the plain ``hierarchy.vcycle``, whose
+  level-0 applies are kernel K1p (``star7_mv``); the coarse coefficients
+  stay f32 (the JAX plain route casts them only for ``pc_dtype="bf16"``).
+- ``precision="f64"`` or ``"f32"``: no defect correction.  The Krylov
+  method runs on the plain operator in that dtype, preconditioned by the
+  plain V-cycle of a hierarchy built in the same dtype (the JAX driver's
+  ``:756-764``); in f32 its level-0 applies are K1p, in f64 plain torch.
 - ``mat_type="aij"``: the structure-blind general-matrix route
   (``_solve_poisson_aij`` with ``structure_detect=False`` in the JAX
   driver).  The system is a 7-band DIA (f32 ``DIA`` for the inner solves,
@@ -36,9 +47,11 @@ import time
 import torch
 
 from tpusparse_torch.amg.fused_cycle import (
+    cg_fusion_supported,
     fused_fine_supported,
     vcycle_fused,
     vcycle_fused_dots,
+    vcycle_fused_rupdate,
 )
 from tpusparse_torch.amg.hierarchy import (
     AMGParams,
@@ -154,14 +167,21 @@ class DivergedError(RuntimeError):
     """SETERRQ1-on-negative-reason parity (src/main_ksp.cpp:109-111)."""
 
 
-def _pick_ksp(ksp: str, ksp_gmres_restart: int = 30, ksp_richardson_scale: float = 1.0):
-    """The inner solver a ``-ksp_type`` name selects under mixed precision."""
+def _pick_ksp(
+    ksp: str, ksp_gmres_restart: int = 30, ksp_richardson_scale: float = 1.0,
+    precision: str = "mixed",
+):
+    """The solver a ``-ksp_type`` name selects: the inner solver under mixed
+    precision, the whole solve under uniform precision."""
     solvers = {
         "cg": cg,
-        # f64 recurrence scalars and residual replacement every 5: the f32
-        # recurrences NaN'd at >= 144^3 on the TPU (the JAX driver's
-        # :189-217); vectors and dots stay f32
-        "pipecg": functools.partial(cg_pipelined, scalar_dtype=torch.float64, replace_every=5),
+        # under mixed precision, f64 recurrence scalars and residual
+        # replacement every 5: the f32 recurrences NaN'd at >= 144^3 on the
+        # TPU (the JAX driver's :189-217); vectors and dots stay f32
+        "pipecg": (
+            functools.partial(cg_pipelined, scalar_dtype=torch.float64, replace_every=5)
+            if precision == "mixed" else cg_pipelined
+        ),
         "gmres": functools.partial(gmres, restart=ksp_gmres_restart),
         "fgmres": functools.partial(fgmres, restart=ksp_gmres_restart),
         "bcgs": bicgstab,
@@ -194,15 +214,28 @@ def build_system(grid: Grid3D, device):
 
 def refined_solve(
     op, op_lo, pc_state, b, *, rtol: float, atol: float, divtol: float = 1e5,
-    ksp_solve=cg, history: bool = False,
+    ksp_solve=cg, history: bool = False, cg_fusion: bool = False,
 ):
     """f64 defect correction around the f32 ``ksp_solve`` preconditioned
     by the fused V-cycle: CG takes the dot-fused cycle and the fused
-    ``<p, Ap>``, every other method the dot-free cycle."""
+    ``<p, Ap>``, every other method the dot-free cycle.  ``cg_fusion``
+    adds the full-fusion pair, which ``cg_refined`` puts before both (CG
+    only; a degree-2 fine smoother, ``cg_fusion_supported``)."""
     fused = (
         dict(m_lo_mv_dots=lambda r: vcycle_fused_dots(pc_state, r), a_lo_mv_dot=op_lo.mv_dot)
         if ksp_solve is cg else {}
     )
+    if cg_fusion:
+        if not cg_fusion_supported(pc_state):
+            raise ValueError(
+                f"cg_fusion=True needs a degree-2 level-0 smoother on the fused"
+                f" fine level, not {pc_state.level_cfg(0)}: descentu has no"
+                f" degree-1 form"
+            )
+        fused.update(
+            ab_fused=op_lo.cgmv,
+            m_fused=lambda r, ap, alpha: vcycle_fused_rupdate(pc_state, r, ap, alpha),
+        )
     return cg_refined(
         op.mv, op_lo.mv, b, rtol=rtol, atol=atol, divtol=divtol,
         m_lo_mv=lambda r: vcycle_fused(pc_state, r), solver=ksp_solve,
@@ -220,13 +253,15 @@ def build_system_aij(grid: Grid3D, device):
     return poisson_dia_device(grid, device=device)
 
 
-def refined_solve_aij(
+def refined_solve_plain(
     op_hi, pc_state, b, *, rtol: float, atol: float, divtol: float = 1e5,
     ksp_solve=cg, history: bool = False,
 ):
     """f64 defect correction around the f32 ``ksp_solve`` preconditioned
-    by the plain V-cycle over the DIA levels, on flat vectors.  The inner
-    operator is the hierarchy's fine level, as in the JAX driver."""
+    by the plain V-cycle, on unpadded fields: the aij route's flat DIA
+    levels and the plain layout's f32 ``StarStencil3D`` fine level.  The
+    inner operator is the hierarchy's fine level, as in the JAX driver;
+    neither has a ``mv_dot``, so no method takes a fused form."""
     return cg_refined(
         op_hi.mv, pc_state.levels[0].op.mv, b, rtol=rtol, atol=atol,
         divtol=divtol, m_lo_mv=lambda r: vcycle(pc_state, r),
@@ -250,6 +285,9 @@ def solve_poisson(
     ksp_gmres_restart: int = 30,
     ksp_richardson_scale: float = 1.0,
     mat_type: str = "stencil",
+    precision: str = "mixed",
+    layout: str = "padded",
+    cg_fusion: bool = False,
     monitor: bool = False,
     view: bool = False,
     warmup: bool = True,
@@ -259,16 +297,40 @@ def solve_poisson(
     configs/PETSc_SolverOptions_GAMG.info:1-4, AMG options: ``amg_params``
     or ``AMGParams()``) on ``device``.
 
-    ``ksp``: the inner Krylov method (``_pick_ksp``).  ``maxiter`` only
-    enters the ``-ksp_view`` text: as in the JAX driver, mixed precision
-    caps each inner solve at ``cg_refined``'s ``inner_maxiter`` and the
-    sweeps at its ``max_outer``.  ``monitor`` records the true residual of
-    each outer sweep, ``view`` the solver's configuration text.
+    ``ksp``: the Krylov method (``_pick_ksp``).  Under mixed precision,
+    as in the JAX driver, each inner solve is capped at ``cg_refined``'s
+    ``inner_maxiter`` and the sweeps at its ``max_outer``, so ``maxiter``
+    only enters the ``-ksp_view`` text; under uniform precision it caps the
+    solve.  ``monitor`` records the true residual of each outer sweep
+    (mixed precision only), ``view`` the solver's configuration text.
 
     ``mat_type``: "stencil" or "aij".  "aij" is the structure-blind route,
     the JAX driver's ``structure_detect=False``: its default first proves
     the matrix a star and moves it onto the stencil route
-    (``sparse/starlift.py``), which is not ported.
+    (``sparse/starlift.py``), which is not ported.  It runs mixed
+    precision only and ignores ``layout``, as the JAX aij driver does.
+
+    ``precision``: "mixed" (f32 inner solves under f64 defect correction),
+    "f64" or "f32" (uniform: one solve in that dtype, always on plain
+    fields, whatever ``layout`` says).  "tf", the two-float outer, is not
+    to port: it exists because the TPU lacks f64.
+
+    ``layout`` (stencil, mixed precision): "padded", the padded-resident
+    fused fine level, or "plain".  The JAX driver's default "auto" resolves
+    to padded on a TPU and to plain elsewhere; the port's default is padded
+    on every device, and its CLI maps ``-layout auto`` to padded.
+
+    The coarse coefficients are bf16 on the padded route
+    (``cast_coarse_coefs``) and keep the hierarchy's dtype on the plain
+    and uniform routes, as in the JAX driver with its default ``pc_dtype``
+    ("f32"; its "bf16", ``cast_hierarchy``, is not ported).
+
+    ``cg_fusion``: the full-fusion CG body, the JAX driver's
+    ``TPUSPARSE_CG_FUSION`` environment switch as an argument.  It takes
+    the padded mixed-precision stencil route, ``ksp="cg"`` and a degree-2
+    level-0 smoother, and raises elsewhere: where the JAX driver silently
+    runs the unfused body, the port never reports a fused solve that did
+    not run.
 
     Phase timing protocol (main_ksp.cpp:80-106): init = system build,
     setup = hierarchy construction, solve = the solve.  The device is
@@ -281,8 +343,39 @@ def solve_poisson(
         raise NotImplementedError(f"pc={pc!r}: only gamg is ported to tpusparse_torch")
     if mat_type not in ("stencil", "aij"):
         raise ValueError(f"unknown mat_type {mat_type!r}")
+    if precision == "tf":
+        raise NotImplementedError(
+            "precision='tf' (the two-float outer) is not to port: it exists"
+            " because the TPU lacks f64 (ROADMAP, Not to port)"
+        )
+    if precision not in ("mixed", "f64", "f32"):
+        raise ValueError(f"unknown precision {precision!r} (mixed | f64 | f32)")
+    if layout not in ("padded", "plain"):
+        raise ValueError(f"unknown layout {layout!r} (padded | plain)")
+    mixed = precision == "mixed"
+    if mat_type == "aij":
+        route = "aij"
+        if not mixed:
+            raise NotImplementedError(
+                f"precision={precision!r} with mat_type='aij' is not ported to"
+                f" tpusparse_torch yet (ROADMAP queue 1, item 9)"
+            )
+    else:
+        route = "padded" if mixed and layout == "padded" else "plain"
+    if cg_fusion and (route != "padded" or ksp != "cg"):
+        raise ValueError(
+            "cg_fusion=True is the full-fusion CG body of the padded"
+            " mixed-precision stencil route: it needs ksp='cg',"
+            " mat_type='stencil', precision='mixed' and layout='padded'"
+        )
+    if monitor and not mixed:
+        raise NotImplementedError(
+            "monitor=True under uniform precision needs the Krylov methods'"
+            " own history, which is not ported to tpusparse_torch yet"
+            " (ROADMAP queue 1, item 3)"
+        )
     grid = Grid3D(nx, ny or nx, nz or nx)
-    ksp_solve = _pick_ksp(ksp, ksp_gmres_restart, ksp_richardson_scale)
+    ksp_solve = _pick_ksp(ksp, ksp_gmres_restart, ksp_richardson_scale, precision)
     device = torch.device(device)
     params = amg_params or AMGParams()
     kw = dict(rtol=rtol, atol=atol, divtol=divtol, ksp_solve=ksp_solve, history=monitor)
@@ -292,9 +385,9 @@ def solve_poisson(
     _sync(device)
 
     t0 = time.perf_counter()
-    if mat_type == "stencil":
+    if route == "padded":
         op, b, exact, op_lo = build_system(grid, device)
-        layout = "layout: padded-resident (fused fine level)"
+        layout_text = "layout: padded-resident (fused fine level)"
 
         def setup():
             # bf16 coarse coefficient stacks: vectors stay f32
@@ -309,16 +402,37 @@ def solve_poisson(
             return hier
 
         def solve():
-            return refined_solve(op, op_lo, pc_state, b, **kw)
+            return refined_solve(op, op_lo, pc_state, b, cg_fusion=cg_fusion, **kw)
+    elif route == "plain":
+        dtype = torch.float32 if precision == "f32" else torch.float64
+        op, b, exact = poisson_stencil_device(grid, dtype=dtype, device=device)
+        op_lo = (
+            poisson_stencil_device(grid, dtype=torch.float32, device=device)[0]
+            if mixed else op
+        )
+        layout_text = "layout: plain"
+
+        def setup():
+            return gamg_setup(op_lo, params)
+
+        if mixed:
+            def solve():
+                return refined_solve_plain(op, pc_state, b, **kw)
+        else:
+            def solve():
+                return ksp_solve(
+                    op.mv, b, rtol=rtol, atol=atol, divtol=divtol,
+                    maxiter=maxiter, m_mv=lambda r: vcycle(pc_state, r),
+                )
     else:
         op, op_lo, b, exact = build_system_aij(grid, device)
-        layout = "mat_type: aij (DIA containers)"
+        layout_text = "mat_type: aij (DIA containers)"
 
         def setup():
             return gamg_setup_unstructured(op_lo, params)
 
         def solve():
-            return refined_solve_aij(op, pc_state, b, **kw)
+            return refined_solve_plain(op, pc_state, b, **kw)
     _sync(device)
     t_init = time.perf_counter() - t0
 
@@ -345,7 +459,7 @@ def solve_poisson(
     if view:
         view_text = "\n".join([
             f"KSP Object: type {ksp}, rtol {rtol:g}, atol {atol:g}, maxit {maxiter}",
-            f"  precision: mixed, {layout}",
+            f"  precision: {precision}, {layout_text}",
             hierarchy_summary(pc_state),
         ])
     linf = (res.x - exact).abs().max().item()
@@ -365,7 +479,8 @@ def solve_poisson(
             torch.cuda.get_device_name(device) if device.type == "cuda"
             else device.type
         ),
-        outer_iters=res.outer_iters,
+        precision=precision,
+        outer_iters=getattr(res, "outer_iters", 0),
         mat_type=mat_type,
         residual_history=history,
         solver_view=view_text,

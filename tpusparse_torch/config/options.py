@@ -186,14 +186,18 @@ class Options:
 
     def unported(self) -> None:
         """Raise ``NotImplementedError`` for the first value this port has
-        no route for, naming the ROADMAP item that brings it."""
+        no route for, naming the ROADMAP item that brings it, and for
+        ``-precision tf``, which is not to port."""
+        if self.precision == "tf":
+            raise NotImplementedError(
+                "-precision tf (the two-float outer) is not to port: it exists"
+                " because the TPU lacks f64 (ROADMAP, Not to port)"
+            )
         refused = (
             (self.f, "-f (solve_from_file)", "queue 9, item 4"),
             (self.mat_view, "-mat_view (sparse/io.py)", "queue 9, item 4"),
             (self.problem != "poisson", f"-problem {self.problem}", "queue 11"),
             (self.devices > 1, f"-devices {self.devices}", "queue 12"),
-            (self.precision != "mixed", f"-precision {self.precision}", "queue 6"),
-            (self.layout == "plain", "-layout plain (the unfused cycle)", "queue 6"),
             (self.profile, "-profile (the trace)", "queue 13"),
             (self.pc_type != "gamg", f"-pc_type {self.pc_type}", "queue 8"),
             (self.pc_bjacobi_bs, "-pc_bjacobi_bs", "queue 8"),
@@ -201,6 +205,11 @@ class Options:
             (self.mg_coarse_pc_type == "lu", "-mg_coarse_pc_type lu", "queue 8"),
             (self.pc_gamg_threshold > 0, "-pc_gamg_threshold > 0", "queue 8"),
             (self.pc_mg_cycle_type == "w", "-pc_mg_cycle_type w", "queue 8"),
+            # the padded route ignores -pc_dtype, as the JAX driver does
+            (self.pc_dtype == "bf16" and self.mat_type == "stencil"
+             and (self.layout == "plain" or self.precision != "mixed"),
+             "-pc_dtype bf16 on the plain layout or under uniform precision"
+             " (cast_hierarchy)", "queue 1, item 4"),
             (self.mat_type == "aij" and self.mat_structure_detect,
              "-mat_type aij with -mat_structure_detect 1 (sparse/starlift.py);"
              " -mat_structure_detect 0 runs the structure-blind route",

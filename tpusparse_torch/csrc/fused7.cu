@@ -1,8 +1,9 @@
-// K2-K4, K6, K7 and the dot-free K3'/K4'/K6'/K7': the fused fine-level
-// kernels of the GAMG V-cycle, on the padded-resident layout.  They replace
-// the modes mvdot, descent(_rr), ascent(_rz), descent1(_rr) and
-// ascent1(_rz) of tpusparse/kernels/fused7.py::fused7_call (Pallas body
-// _kernel), with the math of fused7_xla for those modes.
+// K2-K4, K6-K9 and the dot-free K3'/K4'/K6'/K7': the fused fine-level
+// kernels of the GAMG V-cycle and of the full-fusion CG body, on the
+// padded-resident layout.  They replace the modes mvdot, descent(_rr),
+// ascent(_rz), descent1(_rr), ascent1(_rz), cgmv and descentu of
+// tpusparse/kernels/fused7.py::fused7_call (Pallas body _kernel), with the
+// math of fused7_xla for those modes.
 //
 // Bound on the H100: bytes.  Each mode is a chain of two or three stencil
 // applies with elementwise epilogues.  The TPU kernel chains them inside
@@ -14,10 +15,20 @@
 // each fusing ONE stencil apply with its elementwise epilogue, with the
 // intermediates in device memory (the wrapper allocates them).  That costs
 // descent 10 field passes (3 launches), ascent 14 (3 launches), descent1 9
-// (2 launches) and ascent1 9 (2 launches); temporal blocking into one pass
-// is later work.  Every chained step writes zero outside the domain (the
-// fused7 mask_dom), so the next step's stencil sees the Neumann
-// dropped-entry boundary.
+// (2 launches), ascent1 9 (2 launches), cgmv 7 (1 launch, its bound) and
+// descentu 12 (3 launches, against a bound of 6); temporal blocking into
+// one pass is later work.  Every chained step writes zero outside the
+// domain (the fused7 mask_dom), so the next step's stencil sees the
+// Neumann dropped-entry boundary.
+//
+// K8 (cgmv) and K9 (descentu) carry the CG vector updates.  K8 is one
+// launch: p' = z + beta p is formed at each of the star's seven reads, and
+// x' = x + alpha_prev p rides along (4 field reads, 3 writes).  K9 is K3
+// with the residual update r' = r - alpha ap formed at each read of its
+// first launch, which writes r' next to x1.  Their CG scalars (beta,
+// alpha_prev, alpha) are device scalars read by pointer: they come out of
+// the previous launches' dots, and passing them by value would cost CG a
+// host read of each per iteration.
 //
 // The CG dot of a mode is a template flag of the kernel that forms it: with
 // DOT the kernel writes one partial per block (block_partial) and the
@@ -198,6 +209,96 @@ rich_kernel(const float* __restrict__ b, const float* __restrict__ x2,
   if constexpr (DOT) block_partial(dot, partials);
 }
 
+// K8 input p' = z + beta p_old, formed at each read of the star.
+struct PUpdateField {
+  const float* __restrict__ z;
+  const float* __restrict__ p;
+  float beta;
+  __device__ __forceinline__ float operator()(long long q) const {
+    return z[q] + beta * p[q];
+  }
+};
+
+// K8 cgmv, the CG iteration's top half: p' = z + beta p_old;  w = A p';
+// x' = x + alpha_prev p_old (the deferred x update);  partials of <p', w>.
+__global__ void __launch_bounds__(BLOCK)
+cgmv_kernel(const float* __restrict__ z, const float* __restrict__ p,
+            const float* __restrict__ x, const float* __restrict__ diag,
+            const float* __restrict__ beta_p,
+            const float* __restrict__ alpha_prev_p, float* __restrict__ w,
+            float* __restrict__ pn, float* __restrict__ xn,
+            float* __restrict__ partials, Geom g, Legs a, int pinned) {
+  const float beta = *beta_p;
+  const float alpha_prev = *alpha_prev_p;
+  const long long q = thread_cell();
+  int k, j, i;
+  float wo = 0.0f, po = 0.0f, xo = 0.0f, dot = 0.0f;
+  if (cell(g, q, k, j, i)) {
+    const PUpdateField u{z, p, beta};
+    po = u(q);
+    wo = star(u, diag[q] * po, q, k, j, i, g, a, pinned);
+    xo = x[q] + alpha_prev * p[q];
+    dot = po * wo;
+  }
+  if (q < g.total) {
+    w[q] = wo;
+    pn[q] = po;
+    xn[q] = xo;
+  }
+  block_partial(dot, partials);
+}
+
+// K9 input r' = r_old - alpha ap, formed at each read.
+struct RUpdateField {
+  const float* __restrict__ r;
+  const float* __restrict__ ap;
+  float alpha;
+  __device__ __forceinline__ float operator()(long long q) const {
+    return r[q] - alpha * ap[q];
+  }
+};
+
+// K9 stencil input (s0 r') D^-1: K3's pre-smoother u on the updated residual.
+struct RUpdateDinvField {
+  RUpdateField r;
+  const float* __restrict__ d;
+  float s;
+  __device__ __forceinline__ float operator()(long long q) const {
+    return (s * r(q)) * (1.0f / d[q]);
+  }
+};
+
+// K9 step 1, the residual update and both pre-smoothing steps:
+// r' = r_old - alpha ap;  u = (s0 r') D^-1;  x1 = u + ad u + g D^-1 (r' - A u);
+// partials of <r', r'>.  Steps 2 and 3 are K3's on r'.
+__global__ void __launch_bounds__(BLOCK)
+rupdate_pre_smooth_kernel(const float* __restrict__ r_old,
+                          const float* __restrict__ ap,
+                          const float* __restrict__ alpha_p,
+                          const float* __restrict__ diag,
+                          float* __restrict__ x1, float* __restrict__ r_new,
+                          float* __restrict__ partials, Geom g, Legs a,
+                          float s0, float ad, float gg, int pinned) {
+  const float alpha = *alpha_p;
+  const long long q = thread_cell();
+  int k, j, i;
+  float xo = 0.0f, ro = 0.0f, dot = 0.0f;
+  if (cell(g, q, k, j, i)) {
+    const RUpdateField rn{r_old, ap, alpha};
+    const RUpdateDinvField u{rn, diag, s0};
+    ro = rn(q);
+    const float uq = u(q);
+    const float w = star(u, diag[q] * uq, q, k, j, i, g, a, pinned);
+    xo = uq + ad * uq + gg * ((1.0f / diag[q]) * (ro - w));
+    dot = ro * ro;
+  }
+  if (q < g.total) {
+    x1[q] = xo;
+    r_new[q] = ro;
+  }
+  block_partial(dot, partials);
+}
+
 extern "C" int tps_mvdot(const float* x, const float* diag, float* y,
                          float* partials, int nz, int ny, int nx, int nxp,
                          float cx, float cy, float cz, int pinned,
@@ -332,4 +433,40 @@ extern "C" int tps_ascent1(const float* t, const float* b, const float* x1,
                                   gw, pinned, st)
                   : ascent1<false>(t, b, x1, diag, x2, x3, partials, g, a, gg,
                                    gw, pinned, st);
+}
+
+// K8 cgmv: one launch.
+extern "C" int tps_cgmv(const float* z, const float* p, const float* x,
+                        const float* diag, const float* beta,
+                        const float* alpha_prev, float* w, float* pn,
+                        float* xn, float* partials, int nz, int ny, int nx,
+                        int nxp, float cx, float cy, float cz, int pinned,
+                        void* stream) {
+  const Geom g = make_geom(nz, ny, nx, nxp);
+  cgmv_kernel<<<grid_blocks(g), BLOCK, 0, (cudaStream_t)stream>>>(
+      z, p, x, diag, beta, alpha_prev, w, pn, xn, partials, g,
+      Legs{cx, cy, cz}, pinned);
+  return (int)cudaGetLastError();
+}
+
+// K9 descentu: the r-update with the pre-smoother, then K3's residual and
+// P^T-smoothing launches on r'.
+extern "C" int tps_descentu(const float* r_old, const float* ap,
+                            const float* alpha, const float* diag, float* x1,
+                            float* r_new, float* r, float* s, float* partials,
+                            int nz, int ny, int nx, int nxp, float cx,
+                            float cy, float cz, float s0, float ad, float gg,
+                            float gw, int pinned, void* stream) {
+  const Geom g = make_geom(nz, ny, nx, nxp);
+  const Legs a{cx, cy, cz};
+  const cudaStream_t st = (cudaStream_t)stream;
+  rupdate_pre_smooth_kernel<<<grid_blocks(g), BLOCK, 0, st>>>(
+      r_old, ap, alpha, diag, x1, r_new, partials, g, a, s0, ad, gg, pinned);
+  TPS_CHECK();
+  residual_kernel<<<grid_blocks(g), BLOCK, 0, st>>>(r_new, x1, diag, r, g, a,
+                                                    pinned);
+  TPS_CHECK();
+  restrict_smooth_kernel<<<grid_blocks(g), BLOCK, 0, st>>>(r, diag, s, g, a,
+                                                           gw, pinned);
+  return (int)cudaGetLastError();
 }

@@ -4,7 +4,9 @@
 // stencil7.py::padded_shape), float32, C order, shape (nz + 2*FACE, ny, nxp):
 // FACE zero planes on each z face, no y padding, x rounded up to a multiple
 // of 4.  One thread owns one padded cell; cells outside the domain are
-// written as zero, which keeps the layout's pad-zero invariant.
+// written as zero, which keeps the layout's pad-zero invariant.  The plain
+// (nz, ny, nx) layout is the same geometry with no face planes and
+// nxp = nx (make_geom's face = 0).
 //
 // Neighbour reads are masked by the domain bounds explicitly (the dropped
 // entries of the Neumann boundary, reference src/helper.cpp:229-233), so no
@@ -20,13 +22,14 @@ constexpr int BLOCK = 256;
 
 struct Geom {
   int nz, ny, nx, nxp;  // domain extents and padded row length
+  int face;             // zero planes on each z face: FACE, or 0 (plain)
   long long plane;      // ny * nxp
-  long long total;      // (nz + 2*FACE) * plane
+  long long total;      // (nz + 2*face) * plane
 };
 
-inline Geom make_geom(int nz, int ny, int nx, int nxp) {
-  Geom g{nz, ny, nx, nxp, (long long)ny * nxp, 0};
-  g.total = (long long)(nz + 2 * FACE) * g.plane;
+inline Geom make_geom(int nz, int ny, int nx, int nxp, int face = FACE) {
+  Geom g{nz, ny, nx, nxp, face, (long long)ny * nxp, 0};
+  g.total = (long long)(nz + 2 * face) * g.plane;
   return g;
 }
 
@@ -46,7 +49,7 @@ __device__ __forceinline__ bool cell(const Geom& g, long long q, int& k,
   const int rem = (int)(q - kp * g.plane);
   j = rem / g.nxp;
   i = rem - j * g.nxp;
-  k = (int)kp - FACE;
+  k = (int)kp - g.face;
   return q < g.total && k >= 0 && k < g.nz && i < g.nx;
 }
 

@@ -12,6 +12,14 @@
 // (a z-plane of a 300^3 field is 360 KB, so the k-1 / k+1 planes of a
 // block's rows are still cached when it runs).  Register-resident z
 // marching and shared-memory tiles are later work.
+//
+// K1p, the same kernel on the plain (nz, ny, nx) layout, replaces
+// tpusparse/kernels/stencil7.py::star7_mv_pallas, which pads x and diag into
+// the resident layout, runs star7_mv_padded and crops y: 4 extra field
+// passes.  Here star() masks every neighbour read by the domain bounds, so
+// the plain field is a geometry with no face planes and nxp = nx, launched
+// directly: one read of x and diag, one write of y (3 passes, ~324 MB at
+// 300^3, ~0.097 ms at 3.35 TB/s).
 #include "star7.cuh"
 
 using namespace tps;
@@ -32,6 +40,16 @@ extern "C" int tps_star7_mv(const float* x, const float* diag, float* y,
                             int nz, int ny, int nx, int nxp, float cx,
                             float cy, float cz, int pinned, void* stream) {
   const Geom g = make_geom(nz, ny, nx, nxp);
+  star7_mv_kernel<<<grid_blocks(g), BLOCK, 0, (cudaStream_t)stream>>>(
+      x, diag, y, g, Legs{cx, cy, cz}, pinned);
+  return (int)cudaGetLastError();
+}
+
+// K1p: y = A x on plain (nz, ny, nx) fields.
+extern "C" int tps_star7_mv_plain(const float* x, const float* diag, float* y,
+                                  int nz, int ny, int nx, float cx, float cy,
+                                  float cz, int pinned, void* stream) {
+  const Geom g = make_geom(nz, ny, nx, nx, 0);
   star7_mv_kernel<<<grid_blocks(g), BLOCK, 0, (cudaStream_t)stream>>>(
       x, diag, y, g, Legs{cx, cy, cz}, pinned);
   return (int)cudaGetLastError();

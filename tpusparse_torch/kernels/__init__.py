@@ -8,6 +8,7 @@ every kernel: reset the counts, drive the path, read them.
 
 LAUNCHES = {
     "star7_mv_padded": 0,
+    "star7_mv": 0,
     "fused7_mvdot": 0,
     "fused7_descent_rr": 0,
     "fused7_ascent_rz": 0,
@@ -17,6 +18,8 @@ LAUNCHES = {
     "fused7_ascent1_rz": 0,
     "fused7_descent1": 0,
     "fused7_ascent1": 0,
+    "fused7_cgmv": 0,
+    "fused7_descentu": 0,
     "dia_mv": 0,
 }
 

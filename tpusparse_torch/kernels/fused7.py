@@ -1,6 +1,7 @@
-"""K2-K4, K6, K7: the fused fine-level kernels of the GAMG V-cycle — port of
-the modes ``mvdot``, ``descent(_rr)``, ``ascent(_rz)``, ``descent1(_rr)``
-and ``ascent1(_rz)`` of ``tpusparse/kernels/fused7.py::fused7_call``.
+"""K2-K4, K6-K9: the fused fine-level kernels of the GAMG V-cycle and of
+the full-fusion CG body — port of the modes ``mvdot``, ``descent(_rr)``,
+``ascent(_rz)``, ``descent1(_rr)``, ``ascent1(_rz)``, ``cgmv`` and
+``descentu`` of ``tpusparse/kernels/fused7.py::fused7_call``.
 
 =========== ======================================================== =====
 wrapper     computes                                                 dot
@@ -17,6 +18,10 @@ descent1_rr x1 = g D^-1 b;  r = b - A x1;  s = r - gw A (D^-1 r)     <b,b>
             out: (x1, s) — the degree-1 downstroke
 ascent1_rz  x2 = x1 + t - gw D^-1 (A t);  x3 = x2 + g D^-1 (b - A x2) <b,x3>
             out: x3 — the degree-1 upstroke
+cgmv        p' = z + beta p;  w = A p';  x' = x + alpha_prev p       <p',w>
+            out: (w, p', x') — the full-fusion CG body's top half
+descentu    r' = r - alpha ap, then descent_rr's math on r'          <r',r'>
+            out: (x1, s, r') — its bottom half's downstroke
 =========== ======================================================== =====
 
 ``descent``, ``ascent``, ``descent1`` and ``ascent1`` (K3'/K4'/K6'/K7')
@@ -24,6 +29,12 @@ are the same four without the dot: the same CUDA kernels with the dot
 epilogue compiled out, for the V-cycle of the non-CG solvers.  The dots are
 what CG needs next: ``<p, Ap>`` for alpha, ``||r||^2`` and ``<r, z>`` (the
 cycle's input b IS the residual and its output IS z).
+
+K8 (``cgmv``) and K9 (``descentu``) take their CG scalars (beta,
+alpha_prev, alpha) as 0-d tensors, as CG computes them from the kernels'
+dots: the CUDA kernels read them from device memory, so a CG iteration
+reads nothing to the host but its residual norm.  A Python float is
+accepted too.
 
 D is ``diag`` (pads 1.0), inverted by true division.  All fields are in the
 padded-resident layout (``kernels/stencil7.py::padded_shape``).
@@ -53,6 +64,8 @@ _DESCENT_ARGS = [P] * 6 + [I] * 4 + [F] * 7 + [I, P]
 _ASCENT_ARGS = [P] * 9 + [I] * 4 + [F] * 7 + [I, P]
 _DESCENT1_ARGS = [P] * 6 + [I] * 4 + [F] * 5 + [I, P]
 _ASCENT1_ARGS = [P] * 7 + [I] * 4 + [F] * 5 + [I, P]
+_CGMV_ARGS = [P] * 10 + [I] * 4 + [F] * 3 + [I, P]
+_DESCENTU_ARGS = [P] * 9 + [I] * 4 + [F] * 7 + [I, P]
 
 
 def _dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -132,6 +145,19 @@ def fused7_ascent1_torch(diag_p, cx, cy, cz, t_p, b_p, x1_p, g, gw, shape, pinne
 def fused7_ascent1_rz_torch(diag_p, cx, cy, cz, t_p, b_p, x1_p, g, gw, shape, pinned: bool):
     x3 = fused7_ascent1_torch(diag_p, cx, cy, cz, t_p, b_p, x1_p, g, gw, shape, pinned)
     return x3, _dot(b_p, x3)
+
+
+def fused7_cgmv_torch(diag_p, cx, cy, cz, z_p, p_p, x_p, beta, alpha_prev, shape, pinned: bool):
+    pn = z_p + beta * p_p
+    w = star7_mv_padded_torch(diag_p, cx, cy, cz, pn, shape, pinned)
+    xn = x_p + alpha_prev * p_p
+    return w, pn, xn, _dot(pn, w)
+
+
+def fused7_descentu_torch(diag_p, cx, cy, cz, r_p, ap_p, s0, ad, g, gw, alpha, shape, pinned: bool):
+    r = r_p - alpha * ap_p
+    x1, s = fused7_descent_torch(diag_p, cx, cy, cz, r, s0, ad, g, gw, shape, pinned)
+    return x1, s, r, _dot(r, r)
 
 
 # --- kernel launches -----------------------------------------------------------
@@ -286,3 +312,53 @@ def fused7_ascent1(diag_p, cx, cy, cz, t_p, b_p, x1_p, g, gw, shape, pinned: boo
     if t_p.device.type == "cpu":
         return fused7_ascent1_torch(diag_p, cx, cy, cz, t_p, b_p, x1_p, g, gw, shape, pinned)
     return _launch_ascent1("fused7_ascent1", False, diag_p, cx, cy, cz, t_p, b_p, x1_p, g, gw, shape, pinned)
+
+
+def _device_scalar(v, device) -> torch.Tensor:
+    """``v`` (a 0-d tensor or a Python float) as a one-element f32 tensor on
+    ``device``: no copy for a 0-d f32 tensor already there."""
+    return torch.as_tensor(v, dtype=torch.float32, device=device).reshape(1)
+
+
+def fused7_cgmv(diag_p, cx, cy, cz, z_p, p_p, x_p, beta, alpha_prev, shape, pinned: bool):
+    """``(A p', p', x', <p', A p'>)`` with p' = z + beta p and the deferred
+    x' = x + alpha_prev p: the full-fusion CG body's top half in one launch
+    (K8)."""
+    shape = tuple(shape)
+    check_fields(shape, diag_p, z_p, p_p, x_p)
+    if z_p.device.type == "cpu":
+        return fused7_cgmv_torch(diag_p, cx, cy, cz, z_p, p_p, x_p, beta, alpha_prev, shape, pinned)
+    beta_d = _device_scalar(beta, z_p.device)
+    alpha_d = _device_scalar(alpha_prev, z_p.device)
+    w, pn, xn = (torch.empty_like(z_p) for _ in range(3))
+    partials = _partials(shape, z_p.device)
+    _build.launch(
+        "tps_cgmv", _CGMV_ARGS, z_p.device,
+        z_p.data_ptr(), p_p.data_ptr(), x_p.data_ptr(), diag_p.data_ptr(),
+        beta_d.data_ptr(), alpha_d.data_ptr(), w.data_ptr(), pn.data_ptr(),
+        xn.data_ptr(), partials.data_ptr(), *launch_args(shape, cx, cy, cz), int(pinned),
+    )
+    LAUNCHES["fused7_cgmv"] += 1
+    return w, pn, xn, partials.sum()
+
+
+def fused7_descentu(diag_p, cx, cy, cz, r_p, ap_p, s0, ad, g, gw, alpha, shape, pinned: bool):
+    """``(x1, s, r', <r', r'>)``: the residual update r' = r - alpha ap and
+    the degree-2 downstroke on r' (K9).  The kernel sequence keeps r' - A x1
+    in scratch device memory."""
+    shape = tuple(shape)
+    check_fields(shape, diag_p, r_p, ap_p)
+    if r_p.device.type == "cpu":
+        return fused7_descentu_torch(diag_p, cx, cy, cz, r_p, ap_p, s0, ad, g, gw, alpha, shape, pinned)
+    alpha_d = _device_scalar(alpha, r_p.device)
+    x1, r_new, r, s = (torch.empty_like(r_p) for _ in range(4))
+    partials = _partials(shape, r_p.device)
+    _build.launch(
+        "tps_descentu", _DESCENTU_ARGS, r_p.device,
+        r_p.data_ptr(), ap_p.data_ptr(), alpha_d.data_ptr(), diag_p.data_ptr(),
+        x1.data_ptr(), r_new.data_ptr(), r.data_ptr(), s.data_ptr(),
+        partials.data_ptr(), *launch_args(shape, cx, cy, cz),
+        float(s0), float(ad), float(g), float(gw), int(pinned),
+    )
+    LAUNCHES["fused7_descentu"] += 1
+    return x1, s, r_new, partials.sum()

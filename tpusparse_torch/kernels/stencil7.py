@@ -1,5 +1,5 @@
-"""K1: the 7-point star apply on the padded-resident layout — port of
-``tpusparse/kernels/stencil7.py``.
+"""K1 and K1p: the 7-point star apply on the padded-resident and on the
+plain layout — port of ``tpusparse/kernels/stencil7.py``.
 
 Layout (``padded_shape``): ``(nz + 2*FACE, ny, nxp)`` with ``nxp`` = ``nx``
 rounded up to a multiple of 4.  FACE = 3 zero planes per z face stay, as in
@@ -14,9 +14,16 @@ a pad cell, so neither padding carries meaning beyond alignment.
 Invariants of the layout (``sparse/padded.py``): every pad cell of a vector
 is zero; diag's pads hold 1.0.
 
-``star7_mv_padded`` dispatches by tensor device only: a CPU tensor runs the
-plain twin ``star7_mv_padded_torch``, a CUDA tensor launches
-``csrc/stencil7.cu`` (or raises).
+``star7_mv`` (K1p) is the apply on plain ``(nz, ny, nx)`` f32 fields, the
+counterpart of ``star7_mv_pallas``.  The JAX kernel pads x and diag into the
+resident layout, runs K1 and crops y; on the H100 K1's neighbour reads are
+already masked by the domain bounds, so ``csrc/stencil7.cu`` launches the
+same kernel on the unpadded field (a geometry with no face planes and
+``nxp = nx``) and skips the 4 field passes of pad and crop.
+
+``star7_mv_padded`` and ``star7_mv`` dispatch by tensor device only: a CPU
+tensor runs the plain twin (``star7_mv_padded_torch``, ``star7_mv_torch``),
+a CUDA tensor launches ``csrc/stencil7.cu`` (or raises).
 """
 
 from __future__ import annotations
@@ -24,9 +31,46 @@ from __future__ import annotations
 import torch
 
 from tpusparse_torch.kernels import LAUNCHES, _build
-from tpusparse_torch.sparse.stencil import _shift
 
 FACE = 3
+
+
+def _shift(x: torch.Tensor, axis: int, direction: int) -> torch.Tensor:
+    """out[..., i, ...] = x[..., i + direction, ...], zero-filled at the edge."""
+    n = x.shape[axis]
+    zero = torch.zeros_like(x.narrow(axis, 0, 1))
+    if direction == 1:
+        return torch.cat([x.narrow(axis, 1, n - 1), zero], dim=axis)
+    if direction == -1:
+        return torch.cat([zero, x.narrow(axis, 0, n - 1)], dim=axis)
+    raise ValueError(f"direction must be +-1, got {direction}")
+
+
+def _origin_mask(x: torch.Tensor) -> torch.Tensor:
+    """Boolean mask of the pinned cell (0, 0, 0), shaped like ``x``."""
+    m = torch.zeros(x.shape, dtype=torch.bool, device=x.device)
+    m[0, 0, 0] = True
+    return m
+
+
+def star7_mv_torch(diag, cx, cy, cz, x, pinned: bool):
+    """Plain twin of K1p, and the apply of every dtype: y = A @ x on plain
+    (nz, ny, nx) fields of any float dtype (``StarStencil3D.mv``'s math,
+    ``tpusparse/sparse/stencil.py:140-152``).  The pinned cell x[0,0,0] is
+    zeroed before the shifts and y[0,0,0] rewritten after."""
+    if pinned:
+        origin = _origin_mask(x)
+        xn = torch.where(origin, torch.zeros((), dtype=x.dtype, device=x.device), x)
+    else:
+        xn = x
+    y = diag * x
+    y += cx * (_shift(xn, 2, 1) + _shift(xn, 2, -1))
+    y += cy * (_shift(xn, 1, 1) + _shift(xn, 1, -1))
+    y += cz * (_shift(xn, 0, 1) + _shift(xn, 0, -1))
+    if pinned:
+        # pinned row: y[0] = diag[0] * x[0] only
+        y = torch.where(origin, diag * x, y)
+    return y
 
 
 def _pad_to(v: int, m: int) -> int:
@@ -119,4 +163,36 @@ def star7_mv_padded(diag_p, cx, cy, cz, x_p, shape, pinned: bool):
         *launch_args(shape, cx, cy, cz), int(pinned),
     )
     LAUNCHES["star7_mv_padded"] += 1
+    return y
+
+
+_STAR7_PLAIN_ARGS = [_build.P] * 3 + [_build.I] * 3 + [_build.F] * 3 + [_build.I, _build.P]
+
+
+def star7_mv(diag, cx, cy, cz, x, pinned: bool):
+    """y = A @ x on plain (nz, ny, nx) f32 fields (K1p).
+
+    CUDA tensors run ``csrc/stencil7.cu``; CPU tensors the plain twin.
+    """
+    shape = tuple(x.shape)
+    if len(shape) != 3 or tuple(diag.shape) != shape:
+        raise ValueError(f"x {shape} and diag {tuple(diag.shape)}: want one (nz, ny, nx)")
+    for f in (diag, x):
+        if f.dtype != torch.float32:
+            raise TypeError(f"field dtype {f.dtype}, the kernel takes float32")
+        if not f.is_contiguous():
+            raise ValueError("fields must be contiguous")
+    if diag.device != x.device:
+        raise ValueError(f"fields on {diag.device} and {x.device}")
+    if x.device.type == "cpu":
+        return star7_mv_torch(diag, cx, cy, cz, x, pinned)
+    if x.device.type != "cuda":
+        raise ValueError(f"no kernel or twin for device {x.device}")
+    y = torch.empty_like(x)
+    _build.launch(
+        "tps_star7_mv_plain", _STAR7_PLAIN_ARGS, x.device,
+        x.data_ptr(), diag.data_ptr(), y.data_ptr(), *shape,
+        float(cx), float(cy), float(cz), int(pinned),
+    )
+    LAUNCHES["star7_mv"] += 1
     return y

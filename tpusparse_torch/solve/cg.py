@@ -11,7 +11,9 @@ to the host per iteration for the convergence test.  The scalar algebra of
 the test is done in numpy scalars of ``b``'s dtype, as JAX does it on 0-d
 arrays.  The operator and preconditioner come in as callables, including
 the fused forms ``a_mv_dot`` (``PaddedStar.mv_dot``) and ``m_mv_dots``
-(``amg.fused_cycle.vcycle_fused_dots``).
+(``amg.fused_cycle.vcycle_fused_dots``), and the full-fusion pair
+``ab_fused`` (``PaddedStar.cgmv``) and ``m_fused``
+(``amg.fused_cycle.vcycle_fused_rupdate``).
 
 Sign note: the reference assembles a negative-definite Laplacian; CG's
 recurrences are sign-symmetric, so the system is solved as assembled.
@@ -108,6 +110,8 @@ def cg(
     m_mv: Callable | None = None,
     a_mv_dot: Callable | None = None,
     m_mv_dots: Callable | None = None,
+    ab_fused: Callable | None = None,
+    m_fused: Callable | None = None,
     divtol: float = 1e5,
 ) -> CGResult:
     """Solve A x = b with (preconditioned) CG.
@@ -118,7 +122,24 @@ def cg(
     the alpha-denominator dot; ``m_mv_dots(r) -> (z, <r, z>, <r, r>)``
     replaces the preconditioner and both residual reductions (and overrides
     ``m_mv``).
+
+    ``ab_fused(z, p, x, alpha_prev, beta) -> (A p', p', x', <p', A p'>)``
+    and ``m_fused(r, ap, alpha) -> (z, r', <r', z>, <r', r'>)``, given
+    together, switch the loop to the full-fusion body: the p update, the x
+    and r updates, the operator, the preconditioner and the three dots ride
+    inside the two callables.  The x update is deferred one iteration (x
+    lacks alpha_k p_k until the next trip; the exit adds the last term),
+    which changes no residual the convergence test sees.  It needs a zero
+    initial guess and takes neither ``a_mv_dot`` nor ``m_mv_dots``.
     """
+    if (ab_fused is None) != (m_fused is None):
+        raise ValueError("ab_fused and m_fused must be given together")
+    fused = ab_fused is not None
+    if fused and (x0 is not None or a_mv_dot is not None or m_mv_dots is not None):
+        raise ValueError(
+            "the full-fusion CG body needs a zero initial guess and takes"
+            " neither a_mv_dot nor m_mv_dots"
+        )
     if m_mv is None:
         m_mv = lambda r: r  # noqa: E731
     if x0 is None:
@@ -127,6 +148,8 @@ def cg(
     f = np_float(b.dtype)
     bnorm = norm_h(b, f)
     classify = convergence_test(f, bnorm, rtol, atol, divtol, maxiter)
+    if fused:
+        return _cg_fused(ab_fused, m_fused, b, x0, f, bnorm, classify)
 
     x = x0
     r = b - a_mv(x0)
@@ -163,6 +186,33 @@ def cg(
         it += 1
         rnorm_h = f(rnorm.item())  # the one host read per iteration
         reason = classify(rnorm_h, it)
+    return CGResult(
+        x=x, iters=it, resnorm=float(rnorm_h), reason=int(reason),
+        bnorm=float(bnorm),
+    )
+
+
+def _cg_fused(ab_fused, m_fused, b, x, f, bnorm, classify) -> CGResult:
+    """The full-fusion body of ``cg`` from the zero guess ``x``: the state
+    carries (alpha_prev, beta), so the next trip's ``ab_fused`` retires the
+    deferred x update and forms p = z + beta p."""
+    zero = torch.zeros((), dtype=b.dtype, device=b.device)
+    z, r, rz, rr = m_fused(b, b, zero)  # r0 = b - 0 * b = b
+    p, alpha_prev, beta = z, zero, zero
+    it = 0
+    rnorm_h = f(torch.sqrt(rr).item())
+    reason = classify(rnorm_h, it)
+    while reason == ConvergedReason.ITERATING:
+        ap, p, x, pap = ab_fused(z, p, x, alpha_prev, beta)
+        alpha = rz / pap.to(rz.dtype)
+        z, r, rz_new, rr = m_fused(r, ap, alpha)
+        beta = rz_new / rz
+        rz, alpha_prev = rz_new, alpha
+        it += 1
+        rnorm_h = f(torch.sqrt(rr).item())  # the one host read per iteration
+        reason = classify(rnorm_h, it)
+    # retire the last deferred x update; a zero-trip exit adds 0 * z0
+    x = x + alpha_prev * p
     return CGResult(
         x=x, iters=it, resnorm=float(rnorm_h), reason=int(reason),
         bnorm=float(bnorm),

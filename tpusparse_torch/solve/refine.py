@@ -61,6 +61,8 @@ def cg_refined(
     m_lo_mv: Callable | None = None,
     m_lo_mv_dots: Callable | None = None,
     a_lo_mv_dot: Callable | None = None,
+    ab_fused: Callable | None = None,
+    m_fused: Callable | None = None,
     lo_dtype: torch.dtype = torch.float32,
     encode: Callable | None = None,
     decode: Callable | None = None,
@@ -72,7 +74,10 @@ def cg_refined(
 
     ``a_hi_mv`` applies A in b's (high) dtype; ``a_lo_mv``/``m_lo_mv`` (or
     the fused ``a_lo_mv_dot``/``m_lo_mv_dots``, CG only) apply the operator
-    and the preconditioner in ``lo_dtype``.  ``encode``/``decode`` translate
+    and the preconditioner in ``lo_dtype``.  The full-fusion pair
+    ``ab_fused``/``m_fused`` (CG only, ``cg``'s arguments of those names)
+    overrides ``m_lo_mv_dots`` and suppresses ``a_lo_mv_dot``, as in the
+    JAX package.  ``encode``/``decode`` translate
     between the outer layout and the inner solver's (the padded-resident
     layout).  ``solver`` is the inner Krylov method (``cg``'s interface).
     An inner solve that stops at ``inner_maxiter`` is not an error: its
@@ -87,9 +92,11 @@ def cg_refined(
     tol = max(rtol * bnorm, atol)
     dgate = divtol * bnorm if divtol and divtol > 0 else math.inf
     fused = {}
-    if m_lo_mv_dots is not None:
+    if ab_fused is not None and m_fused is not None:
+        fused.update(ab_fused=ab_fused, m_fused=m_fused)
+    elif m_lo_mv_dots is not None:
         fused["m_mv_dots"] = m_lo_mv_dots
-    if a_lo_mv_dot is not None:
+    if a_lo_mv_dot is not None and ab_fused is None:
         fused["a_mv_dot"] = a_lo_mv_dot
 
     def inner(r_hi, rnorm):

@@ -21,7 +21,7 @@ import dataclasses
 import torch
 import torch.nn.functional as F
 
-from tpusparse_torch.kernels.fused7 import fused7_mvdot
+from tpusparse_torch.kernels.fused7 import fused7_cgmv, fused7_mvdot
 from tpusparse_torch.kernels.stencil7 import FACE, padded_shape, star7_mv_padded
 from tpusparse_torch.sparse.stencil import StarStencil3D
 
@@ -87,6 +87,15 @@ class PaddedStar:
         return fused7_mvdot(
             self.diag, self.cx, self.cy, self.cz, x_p, self.true_shape,
             self.pinned,
+        )
+
+    def cgmv(self, z_p, p_p, x_p, alpha_prev, beta):
+        """The full-fusion CG body's top half in one launch (K8):
+        ``(ap, p_new, x_new, pap)`` with p_new = z + beta p, ap = A p_new,
+        the deferred x_new = x + alpha_prev p and pap = <p_new, ap>."""
+        return fused7_cgmv(
+            self.diag, self.cx, self.cy, self.cz, z_p, p_p, x_p, beta,
+            alpha_prev, self.true_shape, self.pinned,
         )
 
 

@@ -13,9 +13,12 @@ with zero fill outside the domain (the reference's Neumann-via-dropped
 (``MatZeroRowsColumns``, ``src/helper.cpp:274``) is carried structurally:
 x[0,0,0] is zeroed before the shifts and y[0,0,0] is rewritten after.
 
-This is the f64 outer operator of the mixed-precision solve.  It stays in
-plain torch on the card: the H100 has f64 in hardware and the outer loop
-applies it once per defect-correction sweep.
+``mv`` runs kernel K1p (``kernels/stencil7.py::star7_mv``) on f32 fields,
+the inner operator of the plain layout and of uniform f32 precision, as
+the JAX package takes ``star7_mv_pallas`` for f32 only.  Other dtypes run
+the same math in plain torch: the f64 outer operator of the mixed-precision
+solve and the operator of uniform f64 precision, since the H100 has f64 in
+hardware.
 """
 
 from __future__ import annotations
@@ -24,23 +27,7 @@ import dataclasses
 
 import torch
 
-
-def _shift(x: torch.Tensor, axis: int, direction: int) -> torch.Tensor:
-    """out[..., i, ...] = x[..., i + direction, ...], zero-filled at the edge."""
-    n = x.shape[axis]
-    zero = torch.zeros_like(x.narrow(axis, 0, 1))
-    if direction == 1:
-        return torch.cat([x.narrow(axis, 1, n - 1), zero], dim=axis)
-    if direction == -1:
-        return torch.cat([zero, x.narrow(axis, 0, n - 1)], dim=axis)
-    raise ValueError(f"direction must be +-1, got {direction}")
-
-
-def _origin_mask(x: torch.Tensor) -> torch.Tensor:
-    """Boolean mask of the pinned cell (0, 0, 0), shaped like ``x``."""
-    m = torch.zeros(x.shape, dtype=torch.bool, device=x.device)
-    m[0, 0, 0] = True
-    return m
+from tpusparse_torch.kernels.stencil7 import star7_mv, star7_mv_torch
 
 
 @dataclasses.dataclass
@@ -70,19 +57,9 @@ class StarStencil3D:
         """y = A @ x on the 3D field view (nz, ny, nx)."""
         if x.shape != self.diag.shape:
             raise ValueError(f"x shape {tuple(x.shape)} != grid {self.grid_shape}")
-        if self.pinned:
-            origin = _origin_mask(x)
-            xn = torch.where(origin, torch.zeros((), dtype=x.dtype, device=x.device), x)
-        else:
-            xn = x
-        y = self.diag * x
-        y += self.cx * (_shift(xn, 2, 1) + _shift(xn, 2, -1))
-        y += self.cy * (_shift(xn, 1, 1) + _shift(xn, 1, -1))
-        y += self.cz * (_shift(xn, 0, 1) + _shift(xn, 0, -1))
-        if self.pinned:
-            # pinned row: y[0] = diag[0] * x[0] only
-            y = torch.where(origin, self.diag * x, y)
-        return y
+        if x.dtype == self.dtype == torch.float32:
+            return star7_mv(self.diag, self.cx, self.cy, self.cz, x.contiguous(), self.pinned)
+        return star7_mv_torch(self.diag, self.cx, self.cy, self.cz, x, self.pinned)
 
     def diagonal_field(self) -> torch.Tensor:
         return self.diag
