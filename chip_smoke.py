@@ -70,14 +70,49 @@ script exits non-zero without the final line:
    through the CLI at 100^3: positive reason, Linf < 1e-3 (the
    discretization error there is 6.57e-4); K1p launched by f32, not f64.
 
+17. The single-step kernels of the unfused padded cycle (K10
+   fused7_residual, K11 fused7_rich, K12 fused7_cheb0, K13 fused7_cheb,
+   K14 fused7_pre2, K15 fused7_restrict, K16 fused7_prolong) against their
+   twins as in phase 3, pinned and not at (40, 11, 13); and the filtered-leg
+   forms (``flegs``, the threshold schedule's) of K3, K4, K15 and K16.
+   Timed at 300^3; K10, K15 and K16 beside their one PyTorch call (K10:
+   ``torch.addmm(b, A, x, alpha=-1)`` on the star's CSR; K15/K16: the CSR
+   matvec of I - g A D^-1 and I - g D^-1 A), as K1 in phase 3.  Also the cuSPARSE CSR matvec of phase 6's 27-band
+   100^3 matrix, timed beside K5 there.
+18. Chebyshev(3) on the padded route at 300^3 through the CLI
+   (``-mg_levels_ksp_max_it 3``, rtol 1e-8): reason 2, Linf < 1e-4, 2-3
+   sweeps, inner at most phase 5's + 2; K14, K13, K12, K10, K15 and K16
+   launched (the unfused padded cycle), K3 and K4 not.
+19. Richardson(3) at 100^3 through the CLI (rtol 1e-8): a positive reason,
+   Linf < 1e-3, K11 launched.
+20. The W-cycle at 300^3 through the CLI (``-pc_mg_cycle_type w``, rtol
+   1e-8): reason 2, Linf < 1e-4, inner at most phase 5's + 2; K3/K4
+   launched.
+21. ``-pc_gamg_threshold``: ``solve_poisson(300, extent=(1, 1, 3),
+   amg_params=AMGParams(threshold=0.05), rtol=1e-8)`` beside the same
+   solve at threshold 0.  The schedule's level 0 is (1, 3, 3); both reason
+   2 with Linf within 1% of each other; K3/K4 launched on the filtered
+   hierarchy (its ``-ksp_view`` names the (1, 3, 3) level and its filtered
+   P smoother).  Both counts printed, their order not gated.
+22. The plain-only options and the standalone PCs at 100^3 through the
+   CLI (rtol 1e-8, atol 1e-12): ``-mg_levels_pc_type sor``,
+   ``-mg_coarse_pc_type lu``, ``-pc_bjacobi_bs 100`` (x-line), ``-pc_type
+   sor`` (each launching K1p and no fused7 kernel), ``-pc_type jacobi`` and
+   ``none`` (the padded route: K2 and no V-cycle kernel), and ``-mat_type
+   aij -mat_structure_detect 0 -mg_coarse_pc_type lu`` (K5).  Each: a
+   positive reason and Linf < 1e-3; counts and ``t_solve`` printed.
+
 Then one JSON line with each kernel's route, source, launches (K1-K4 from
 phase 5, K5 from phase 8, K6/K7 from phase 10, K3'/K4' from phase 11,
-K6'/K7' from phase 12, K8/K9 from phase 14, K1p from phase 15), error,
+K6'/K7' from phase 12, K8/K9 from phase 14, K1p from phase 15, K10 and
+K12-K16 from phase 18, K11 from phase 19), error,
 times, its bound at the timed shape (the larger of its unique field bytes
 over 3.35 TB/s and its operations over 67 TFLOP/s of f32, the H100 SXM's
 published peaks) and the time of one PyTorch call computing the same
 function where there is one (K1, K1p and K5: the cuSPARSE CSR matvec of
-the same matrix; null for the fused modes), and as the last line
+the same matrix; K10: ``torch.addmm`` of that CSR; K15/K16: the CSR matvec
+of the matrix their pass applies; null for the other fused modes), and as
+the last line
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -98,6 +133,7 @@ import torch
 
 from tpusparse_torch import kernels
 from tpusparse_torch.__main__ import main as cli_main
+from tpusparse_torch.amg.hierarchy import AMGParams, threshold_schedule
 from tpusparse_torch.bench.driver import solve_poisson
 from tpusparse_torch.grid.grid3d import Grid3D
 from tpusparse_torch.grid.poisson import poisson_stencil_device
@@ -114,6 +150,10 @@ from tpusparse_torch.kernels.fused7 import (
     fused7_ascent_torch,
     fused7_cgmv,
     fused7_cgmv_torch,
+    fused7_cheb,
+    fused7_cheb0,
+    fused7_cheb0_torch,
+    fused7_cheb_torch,
     fused7_descent,
     fused7_descent1,
     fused7_descent1_rr,
@@ -126,6 +166,16 @@ from tpusparse_torch.kernels.fused7 import (
     fused7_descentu_torch,
     fused7_mvdot,
     fused7_mvdot_torch,
+    fused7_pre2,
+    fused7_pre2_torch,
+    fused7_prolong,
+    fused7_prolong_torch,
+    fused7_residual,
+    fused7_residual_torch,
+    fused7_restrict,
+    fused7_restrict_torch,
+    fused7_rich,
+    fused7_rich_torch,
 )
 from tpusparse_torch.kernels.stencil7 import (
     star7_mv,
@@ -187,9 +237,32 @@ FUSION_KERNELS = {
                  star7_mv, star7_mv_torch),
 }
 KERNELS.update(FUSION_KERNELS)
-# the kernels whose function, y = A x for the pinned star, one PyTorch call
-# computes: cuSPARSE's CSR matvec (``_star_csr``)
-CSR_TWINNED = ("star7_mv_padded", "star7_mv")
+# K10-K16, the single-step modes of the unfused padded cycle
+STEP_KERNELS = {
+    "fused7_residual": (FUSED7_SRC, "tpusparse/kernels/fused7.py:538",
+                        fused7_residual, fused7_residual_torch),
+    "fused7_rich": (FUSED7_SRC, "tpusparse/kernels/fused7.py:553", fused7_rich, fused7_rich_torch),
+    "fused7_cheb0": (FUSED7_SRC, "tpusparse/kernels/fused7.py:559", fused7_cheb0, fused7_cheb0_torch),
+    "fused7_cheb": (FUSED7_SRC, "tpusparse/kernels/fused7.py:561", fused7_cheb, fused7_cheb_torch),
+    "fused7_pre2": (FUSED7_SRC, "tpusparse/kernels/fused7.py:566", fused7_pre2, fused7_pre2_torch),
+    "fused7_restrict": (FUSED7_SRC, "tpusparse/kernels/fused7.py:541",
+                        fused7_restrict, fused7_restrict_torch),
+    "fused7_prolong": (FUSED7_SRC, "tpusparse/kernels/fused7.py:546",
+                       fused7_prolong, fused7_prolong_torch),
+}
+KERNELS.update(STEP_KERNELS)
+# the kernels held in their filtered-leg forms (the z legs dropped, as the
+# threshold schedule's (1, 3, 3) level does)
+FLEGS_KERNELS = ("fused7_descent_rr", "fused7_ascent_rz", "fused7_restrict", "fused7_prolong")
+# the kernels whose function one PyTorch call computes over the star's CSR
+# matrix A (``_star_csr``): y = A x (K1, K1p) as cuSPARSE's CSR matvec,
+# b - A x (K10) as ``torch.addmm``, and the P smoothing passes
+# (I - g A D^-1) r (K15) and (I - g D^-1 A) t (K16) as the CSR matvec of
+# the matrix each applies (``_smoothing_csr``).  K11-K14 have none: each
+# adds a D^-1 b term to a matvec (and K12-K14 write two fields)
+LIBRARY_TWINNED = (
+    "star7_mv_padded", "star7_mv", "fused7_residual", "fused7_restrict", "fused7_prolong",
+)
 # the CG scalars K8/K9 take, as 0-d device tensors (the solve's own form)
 BETA, ALPHA_PREV, ALPHA = 0.61, 0.37, 0.519
 
@@ -207,6 +280,9 @@ FLOPS_PER_CELL = {
     "fused7_descent1": 2 * STAR + 6, "fused7_descent1_rr": 2 * STAR + 8,
     "fused7_ascent1": 2 * STAR + 8, "fused7_ascent1_rz": 2 * STAR + 10,
     "fused7_cgmv": STAR + 6, "fused7_descentu": 4 * STAR + 6,
+    "fused7_residual": STAR + 1, "fused7_rich": STAR + 4, "fused7_cheb0": STAR + 4,
+    "fused7_cheb": STAR + 6, "fused7_pre2": STAR + 9, "fused7_restrict": STAR + 4,
+    "fused7_prolong": STAR + 4,
 }
 REF_CONFIG = str(pathlib.Path(__file__).resolve().parent / "configs" / "SolverOptions_GAMG.info")
 # the port's own outcome of the 300^3 reference-config solve on the H100
@@ -244,11 +320,11 @@ DIA_CASES = (
 )
 
 
-def _inputs(shape, device):
-    """(args per kernel) at ``shape``: the pinned f32 Poisson operator and
-    random padded fields from a fixed numpy seed."""
+def _inputs(shape, device, pinned=True):
+    """(args per kernel) at ``shape``: the f32 Poisson operator (pinned or
+    not) and random padded fields from a fixed numpy seed."""
     grid = Grid3D(shape[2], shape[1], shape[0])
-    star = poisson_stencil_device(grid, dtype=torch.float32, device=device)[0]
+    star = poisson_stencil_device(grid, pin=pinned, dtype=torch.float32, device=device)[0]
     op = PaddedStar.from_star(star)
     rng = np.random.default_rng(SEED)
 
@@ -279,6 +355,13 @@ def _inputs(shape, device):
         "fused7_ascent1_rz": (*legs, t, b, x1, G, GW, *pin),
         "fused7_descent1": (*legs, b, G, GW, *pin),
         "fused7_ascent1": (*legs, t, b, x1, G, GW, *pin),
+        "fused7_residual": (*legs, x, b, *pin),
+        "fused7_rich": (*legs, x, b, G, *pin),
+        "fused7_cheb0": (*legs, x, b, G, *pin),
+        "fused7_cheb": (*legs, x, b, t, AD, G, *pin),
+        "fused7_pre2": (*legs, b, S0, AD, G, *pin),
+        "fused7_restrict": (*legs, x, GW, *pin),
+        "fused7_prolong": (*legs, t, GW, *pin),
     }
 
 
@@ -363,28 +446,88 @@ def _star_csr(diag, cx, cy, cz, pinned) -> torch.Tensor:
     return _csr_of(bands, offsets)
 
 
-def _csr_matvec(args: dict, name: str, want: torch.Tensor, shape) -> tuple:
-    """cuSPARSE's CSR matvec of ``name``'s star on the cropped field, held
-    against the twin's output ``want``: (the call, its arguments)."""
-    csr = _star_csr(*args["star7_mv"][:4], args["star7_mv"][5])
-    x = args[name][4]
-    if name == "star7_mv_padded":
-        x, want = crop_field(x, shape), crop_field(want, shape)
-    x = x.reshape(-1).contiguous()
-    _compare(f"csr matvec {name} {shape}", csr @ x, want.reshape(-1))
-    return (lambda a, v: a @ v), (csr, x)
+def _smoothing_csr(csr: torch.Tensor, diag: torch.Tensor, g: float, restrict: bool) -> torch.Tensor:
+    """The matrix a P smoothing pass applies, from the star's CSR ``csr``:
+    I - g A D^-1 for ``restrict`` (K15), else I - g D^-1 A (K16)."""
+    crow, col, val = csr.crow_indices(), csr.col_indices(), csr.values()
+    row = torch.repeat_interleave(
+        torch.arange(csr.shape[0], dtype=col.dtype, device=col.device), crow.diff(),
+    )
+    dinv = (1.0 / diag).reshape(-1)
+    scaled = val * dinv[col if restrict else row]
+    return torch.sparse_csr_tensor(crow, col, (row == col).to(val.dtype) - g * scaled, size=csr.shape)
 
 
-def check_kernels(device, names=STENCIL_KERNELS) -> dict:
-    """Phases 3, 9 and 13: each kernel of ``names`` vs its twin at each
-    shape; times and bounds at the last.  K1's and K1p's function is also
-    cuSPARSE's CSR matvec of the same star: checked at each shape, timed
-    at the last as their ``library_ms``.  No fused mode has one PyTorch
-    call that computes it, so theirs is null."""
-    rows = {}
+def _library_call(csr: torch.Tensor, args: dict, name: str, want: torch.Tensor, shape) -> tuple:
+    """The one PyTorch call that computes ``name``'s function (see
+    ``LIBRARY_TWINNED``) over the star's CSR ``csr``, on the cropped
+    fields, held against the twin's output ``want``: (the call, its
+    arguments)."""
+    a = args[name]
+    matvec = (lambda m, v: m @ v)
+    if name == "star7_mv":
+        call, inputs = matvec, (csr, a[4].reshape(-1).contiguous())
+    else:
+        def flat(f):
+            return crop_field(f, shape).reshape(-1).contiguous()
+
+        want = crop_field(want, shape)
+        if name == "star7_mv_padded":
+            call, inputs = matvec, (csr, flat(a[4]))
+        elif name == "fused7_residual":
+            call = lambda m, v, c: torch.addmm(c, m, v, beta=1.0, alpha=-1.0)  # noqa: E731
+            inputs = (csr, flat(a[4])[:, None], flat(a[5])[:, None])
+        else:
+            diag = args["star7_mv"][0]
+            call, inputs = matvec, (_smoothing_csr(csr, diag, a[5], name == "fused7_restrict"), flat(a[4]))
+    _compare(f"one PyTorch call {name} {shape}", call(*inputs).reshape(-1), want.reshape(-1))
+    return call, inputs
+
+
+def check_flegs(device) -> float:
+    """Phase 17's filtered-leg forms: each kernel of ``FLEGS_KERNELS`` with
+    the z legs dropped against its twin, at each shape; the max abs error."""
+    err = 0.0
     for shape in SHAPES:
         args = _inputs(shape, device)
-        library = {}
+        for name in FLEGS_KERNELS:
+            _src, _rep, kernel, twin = KERNELS[name]
+            a = args[name]
+            flegs = (a[1], a[2], 0.0)
+            got = kernel(*a, flegs=flegs)
+            want = twin(*a, flegs=flegs)
+            torch.cuda.synchronize()
+            e = _compare(f"{name} flegs {shape}", got, want)
+            err = max(err, e)
+            print(f"kernel {name} {shape} with filtered legs {flegs}: agrees with its twin,"
+                  f" max abs err {e:.3e}")
+        del args
+        torch.cuda.empty_cache()
+    return err
+
+
+def check_kernels(device, names=STENCIL_KERNELS, unpinned=False) -> dict:
+    """Phases 3, 9, 13 and 17: each kernel of ``names`` vs its twin at each
+    shape (with ``unpinned``, also on the unpinned operator at the first);
+    times and bounds at the last.  The kernels of ``LIBRARY_TWINNED`` also
+    have one PyTorch call over the star's CSR that computes their function:
+    checked at each shape, timed at the last as their ``library_ms``; the
+    other kernels' is null."""
+    rows = {}
+    if unpinned:
+        args = _inputs(SHAPES[0], device, pinned=False)
+        for name in names:
+            _src, _rep, kernel, twin = KERNELS[name]
+            got = kernel(*args[name])
+            want = twin(*args[name])
+            torch.cuda.synchronize()
+            err = _compare(f"{name} {SHAPES[0]} unpinned", got, want)
+            rows.setdefault(name, {"max_abs_err": 0.0, "library_ms": None})["max_abs_err"] = err
+            print(f"kernel {name} {SHAPES[0]} unpinned: agrees with its twin, max abs err {err:.3e}")
+        del args
+    for shape in SHAPES:
+        args = _inputs(shape, device)
+        library, csr = {}, None
         for name in names:
             _src, _rep, kernel, twin = KERNELS[name]
             got = kernel(*args[name])
@@ -394,9 +537,12 @@ def check_kernels(device, names=STENCIL_KERNELS) -> dict:
             row = rows.setdefault(name, {"max_abs_err": 0.0, "library_ms": None})
             row["max_abs_err"] = max(row["max_abs_err"], err)
             print(f"kernel {name} {shape}: agrees with its twin, max abs err {err:.3e}")
-            if name in CSR_TWINNED:
-                library[name] = _csr_matvec(args, name, want, shape)
-                print(f"cuSPARSE CSR matvec {name} {shape}: agrees with the twin")
+            if name in LIBRARY_TWINNED:
+                if csr is None:
+                    star = args["star7_mv"]
+                    csr = _star_csr(*star[:4], star[5])
+                library[name] = _library_call(csr, args, name, want, shape)
+                print(f"one PyTorch call (cuSPARSE) {name} {shape}: agrees with the twin")
             if shape == SHAPES[-1]:
                 row.update(_bound(args[name], got, FLOPS_PER_CELL[name] * math.prod(shape)))
         if shape == SHAPES[-1]:
@@ -412,7 +558,7 @@ def check_kernels(device, names=STENCIL_KERNELS) -> dict:
                     f" bound {rows[name]['bound_ms']:.4f} ms ({rows[name]['bound_by']}),"
                     f" one PyTorch call {rows[name]['library_ms']} ms"
                 )
-        del args, library
+        del args, library, csr
         torch.cuda.empty_cache()
     return rows
 
@@ -433,10 +579,10 @@ def _csr_of(bands: torch.Tensor, offsets) -> torch.Tensor:
 
 
 def check_dia(device) -> dict:
-    """Phase 6: K5 against its twin at each case; times at the timed ones,
-    and at the first of them the bound and the cuSPARSE CSR matvec of the
-    same matrix (``torch.sparse_csr_tensor(...) @ x``), which must agree
-    with the twin too."""
+    """Phase 6: K5 against its twin at each case; at the timed ones its
+    time, its bound and the time of the cuSPARSE CSR matvec of the same
+    matrix (``torch.sparse_csr_tensor(...) @ x``), which must agree with
+    the twin too.  The row keeps the first timed case's numbers."""
     row = {"max_abs_err": 0.0}
     rng = np.random.default_rng(SEED)
     for label, n, offsets, timed in DIA_CASES:
@@ -454,15 +600,17 @@ def check_dia(device) -> dict:
             gbs = (len(offsets) + 2) * n * 4 / (ms * 1e-3) / 1e9
             print(f"time dia_mv {label} (K={len(offsets)}): kernel {ms:.4f} ms"
                   f" ({gbs:.1f} GB/s of (K+2)*n*4 bytes), plain {plain_ms:.4f} ms")
-            # the JSON line carries the fine level's numbers (the first timed case)
+            # the cuSPARSE CSR matvec of the same matrix at each timed case;
+            # the JSON line carries the fine level's numbers (the first)
+            csr = _csr_of(bands, offsets)
+            _compare(f"csr matvec {label}", csr @ x, want)
+            library_ms = _time_ms(lambda a, v: a @ v, (csr, x))
+            bound = _bound((bands, x), got, 2 * len(offsets) * n)
+            print(f"time dia_mv {label}: cuSPARSE CSR matvec {library_ms:.4f} ms,"
+                  f" bound {bound['bound_ms']:.4f} ms ({bound['bound_by']})")
             if "ms" not in row:
-                csr = _csr_of(bands, offsets)
-                _compare(f"csr matvec {label}", csr @ x, want)
-                row.update(ms=ms, plain_ms=plain_ms, library_ms=_time_ms(lambda a, v: a @ v, (csr, x)))
-                row.update(_bound((bands, x), got, 2 * len(offsets) * n))
-                print(f"time dia_mv {label}: cuSPARSE CSR matvec {row['library_ms']:.4f} ms,"
-                      f" bound {row['bound_ms']:.4f} ms ({row['bound_by']})")
-                del csr
+                row.update(ms=ms, plain_ms=plain_ms, library_ms=library_ms, **bound)
+            del csr
         del bands, x, got, want
         torch.cuda.empty_cache()
     return row
@@ -653,6 +801,97 @@ def main() -> None:
     _require(not any(uniform["f64"].values()), "-precision f64 launched a kernel")
     launches.update(fused7_cgmv=fu_launches["fused7_cgmv"], fused7_descentu=fu_launches["fused7_descentu"],
                     star7_mv=pl_launches["star7_mv"])
+
+    rows.update(check_kernels(device, tuple(STEP_KERNELS), unpinned=True))
+    flegs_err = check_flegs(device)
+    print(f"filtered-leg forms of {', '.join(FLEGS_KERNELS)}: max abs err {flegs_err:.3e}")
+
+    cheb3, cheb3_launches = run_cli([*_grid(300), "-mg_levels_ksp_max_it", "3", "-ksp_rtol", "1e-8",
+                                     "-ksp_atol", "1e-12", "-ksp_converged_reason"])
+    _require(cheb3["reason"] == 2, f"chebyshev(3): reason {cheb3['reason']} != 2")
+    _require(np.isfinite(cheb3["linf_error"]) and cheb3["linf_error"] < 1e-4,
+             f"chebyshev(3): Linf {cheb3['linf_error']} >= 1e-4")
+    _require(cheb3["outer_iters"] in (2, 3) and cheb3["iters"] <= production.iters + 2,
+             f"chebyshev(3): {cheb3['iters']} inner + {cheb3['outer_iters']} outer, not at most"
+             f" {production.iters} + 2 in 2-3 sweeps")
+    for name in ("fused7_pre2", "fused7_cheb", "fused7_cheb0", "fused7_residual", "fused7_restrict",
+                 "fused7_prolong"):
+        _require(cheb3_launches[name] > 0, f"chebyshev(3) did not launch {name}")
+    for name in ("fused7_descent_rr", "fused7_ascent_rz"):
+        _require(cheb3_launches[name] == 0, f"chebyshev(3) launched {name}")
+
+    rich3, rich3_launches = run_cli([*_grid(100), "-mg_levels_ksp_type", "richardson",
+                                     "-mg_levels_ksp_max_it", "3", "-ksp_rtol", "1e-8",
+                                     "-ksp_converged_reason"])
+    _require(rich3["reason"] > 0, f"richardson(3): reason {rich3['reason']} is not positive")
+    _require(np.isfinite(rich3["linf_error"]) and rich3["linf_error"] < 1e-3,
+             f"richardson(3): Linf {rich3['linf_error']} >= 1e-3")
+    _require(rich3_launches["fused7_rich"] > 0, "richardson(3) did not launch fused7_rich")
+    for name in STEP_KERNELS:
+        launches[name] = (rich3_launches if name == "fused7_rich" else cheb3_launches)[name]
+
+    wc, wc_launches = run_cli([*_grid(300), "-pc_mg_cycle_type", "w", "-ksp_rtol", "1e-8",
+                               "-ksp_atol", "1e-12", "-ksp_converged_reason", "-ksp_view"])
+    _require(wc["reason"] == 2, f"W-cycle: reason {wc['reason']} != 2")
+    _require(np.isfinite(wc["linf_error"]) and wc["linf_error"] < 1e-4,
+             f"W-cycle: Linf {wc['linf_error']} >= 1e-4")
+    _require(wc["iters"] <= production.iters + 2,
+             f"W-cycle: {wc['iters']} inner, more than phase 5's {production.iters} + 2")
+    for name in ("fused7_descent_rr", "fused7_ascent_rz"):
+        _require(wc_launches[name] > 0, f"the W-cycle did not launch {name}")
+
+    box = Grid3D(300, 300, 300, lx=1.0, ly=1.0, lz=3.0)
+    sched = threshold_schedule(poisson_stencil_device(box, dtype=torch.float32, device=device)[0], 0.05)
+    print(f"threshold 0.05 schedule on the (1, 1, 3) box at 300^3: {sched}")
+    _require(sched is not None and sched[0] == (1, 3, 3), f"schedule {sched}: level 0 is not (1, 3, 3)")
+    thr = {}
+    for threshold in (0.0, 0.05):
+        kernels.reset_launches()
+        rep = solve_poisson(300, extent=(1.0, 1.0, 3.0), amg_params=AMGParams(threshold=threshold),
+                            rtol=1e-8, atol=1e-12, device=device, view=True)
+        thr[threshold] = (rep, dict(kernels.LAUNCHES))
+        print(rep.solver_view)
+        print(f"threshold {threshold}: {rep.iters} inner + {rep.outer_iters} outer, reason {rep.reason},"
+              f" Linf {rep.linf_error:.6e}, t_solve {rep.t_solve:.4f} s")
+        _require(rep.reason == 2, f"threshold {threshold}: reason {rep.reason} != 2")
+    (t0_rep, _), (t5_rep, t5_launches) = thr[0.0], thr[0.05]
+    _require(abs(t5_rep.linf_error - t0_rep.linf_error) <= 0.01 * t0_rep.linf_error,
+             f"threshold Linf {t5_rep.linf_error} vs {t0_rep.linf_error} at threshold 0: not within 1%")
+    _require("coarsening (1, 3, 3) (filtered P smoother)" in t5_rep.solver_view
+             and "fused fine level" in t5_rep.solver_view,
+             "the threshold solve did not run the fused fine level on the filtered (1, 3, 3) level")
+    for name in ("fused7_descent_rr", "fused7_ascent_rz"):
+        _require(t5_launches[name] > 0, f"the threshold solve did not launch {name}")
+
+    plain_only = {
+        "-mg_levels_pc_type sor": ["-mg_levels_pc_type", "sor"],
+        "-mg_coarse_pc_type lu": ["-mg_coarse_pc_type", "lu"],
+        "-pc_bjacobi_bs 100": ["-pc_bjacobi_bs", "100"],
+        "-pc_type sor": ["-pc_type", "sor"],
+        "-pc_type jacobi": ["-pc_type", "jacobi"],
+        "-pc_type none": ["-pc_type", "none"],
+        "aij lu": ["-mat_type", "aij", "-mat_structure_detect", "0", "-mg_coarse_pc_type", "lu"],
+    }
+    vcycle_kernels = [name for name in kernels.LAUNCHES
+                      if name.startswith("fused7") and name != "fused7_mvdot"]
+    for label, argv in plain_only.items():
+        side, used = run_cli([*_grid(100), *argv, "-ksp_rtol", "1e-8", "-ksp_atol", "1e-12",
+                              "-ksp_converged_reason"])
+        print(f"{label} at 100^3: {side['iters']} inner + {side['outer_iters']} outer, reason"
+              f" {side['reason']}, Linf {side['linf_error']:.6e}, t_solve {side['t_solve']:.4f} s")
+        _require(side["reason"] > 0, f"{label}: reason {side['reason']} is not positive")
+        _require(np.isfinite(side["linf_error"]) and side["linf_error"] < 1e-3,
+                 f"{label}: Linf {side['linf_error']} >= 1e-3")
+        if label == "aij lu":
+            _require(used["dia_mv"] > 0, f"{label} did not launch dia_mv")
+        elif label in ("-pc_type jacobi", "-pc_type none"):
+            _require(used["fused7_mvdot"] > 0, f"{label} did not launch fused7_mvdot")
+            for name in vcycle_kernels:
+                _require(used[name] == 0, f"{label} launched the V-cycle kernel {name}")
+        else:
+            _require(used["star7_mv"] > 0, f"{label} did not launch star7_mv")
+            for name, n in used.items():
+                _require(not (name.startswith("fused7") and n), f"{label} launched {name}")
 
     print(json.dumps({"kernels": [
         {

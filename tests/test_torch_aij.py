@@ -112,7 +112,7 @@ def test_aij_route_is_structure_blind():
 
 @pytest.mark.parametrize(
     "kw, err",
-    [(dict(mat_type="csr"), ValueError), (dict(pc="jacobi"), NotImplementedError)],
+    [(dict(mat_type="csr"), ValueError), (dict(precision="f64"), NotImplementedError)],
 )
 def test_unknown_options_raise(kw, err):
     opts = dict(KW, **kw)

@@ -226,14 +226,24 @@ def test_unsupported_fine_level_raises(port_hier):
 @pytest.mark.parametrize(
     "params, err",
     [
-        (AMGParams(threshold=0.05), NotImplementedError),
-        (AMGParams(bjacobi_bs=4), NotImplementedError),
-        (AMGParams(smoother="sor"), NotImplementedError),
-        (AMGParams(coarse_solve="lu"), NotImplementedError),
+        (AMGParams(bjacobi_bs=4), ValueError),        # the padded kernels are point Jacobi
+        (AMGParams(smoother="sor"), ValueError),      # no colouring on the padded layout
+        (AMGParams(coarse_solve="cholesky"), ValueError),
+        (AMGParams(smoother="sor", bjacobi_bs=4), ValueError),
         (AMGParams(nsmooths=2), ValueError),
         (AMGParams(smoother="jacobi"), ValueError),
     ],
 )
 def test_setup_refuses_unported_options(params, err):
+    """What the padded fine level cannot take raises, as in the JAX package
+    (the driver's layout="auto" runs it on the plain layout instead)."""
     with pytest.raises(err):
         gamg_setup(_port_fine_op(6), params)
+
+
+def test_padded_setup_degrades_lu_to_jacobi():
+    """Where the JAX package's padded setup warns and degrades lu to the
+    jacobi coarse solve, the port refuses it as it refuses sor and
+    bjacobi_bs there: no entry point sends lu to the padded layout."""
+    with pytest.raises(ValueError, match="lu' is not supported on the padded layout"):
+        gamg_setup(_port_fine_op(6), AMGParams(coarse_solve="lu"))

@@ -193,9 +193,9 @@ def test_help_and_refusals(capsys):
     assert main(["-help"]) == 0
     assert "-device" in capsys.readouterr().out
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        main([*_grid(8), "-pc_type", "jacobi", "-device", "cpu"])
+        main([*_grid(8), "-problem", "diffusion", "-device", "cpu"])
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        main([*_grid(8), "-mg_levels_ksp_max_it", "3", "-device", "cpu"])
+        main([*_grid(8), "-f", "system.bin", "-device", "cpu"])
 
 
 def test_cuda_device_needs_cuda(monkeypatch):
@@ -222,3 +222,21 @@ def test_reference_config_witness_at_48_and_100(n, window):
     20%."""
     (_, want), (_, got) = _both([*_grid(n), "-config", REF])
     _same_outcome(want, got, inner_window=window * want["iters"], linf_abs=1e-10)
+
+
+# GAMG options of the structured route, each through both CLIs on the padded
+# layout: Chebyshev(3) (the unfused padded cycle), the W-cycle (at the
+# default rtol 1e-5, one sweep: at rtol 1e-8 the second sweep's count at
+# 24^3 follows the rounding, ROADMAP section 3) and a threshold that keeps
+# every axis of the unit cube (the threshold-0 hierarchy)
+NEW_GAMG = {
+    "chebyshev3": ["-mg_levels_ksp_max_it", "3", "-ksp_rtol", "1e-8", "-ksp_atol", "1e-12"],
+    "w_cycle": ["-pc_mg_cycle_type", "w"],
+    "threshold": ["-pc_gamg_threshold", "0.05", "-ksp_rtol", "1e-8", "-ksp_atol", "1e-12"],
+}
+
+
+@pytest.mark.parametrize("name", list(NEW_GAMG))
+def test_gamg_options_match_jax(name):
+    (_, want), (_, got) = _both([*_grid(24), *NEW_GAMG[name], "-ksp_converged_reason"])
+    _same_outcome(want, got, inner_window=1, linf_abs=1e-5)

@@ -10,6 +10,7 @@ import pytest
 
 from tpusparse.config.options import load_options as j_load_options
 from tpusparse.config.options import options_left_report as j_options_left_report
+from tpusparse_torch.amg.hierarchy import AMGParams
 from tpusparse_torch.config import Options, load_options, parse_options_file
 from tpusparse_torch.config.options import help_text, options_left_report
 
@@ -113,17 +114,9 @@ def test_malformed_values_raise_in_both(argv, err):
         ["-mat_view", "binary:out.bin"],
         ["-problem", "diffusion"],
         ["-devices", "4"],
-        ["-pc_type", "sor"],
         ["-precision", "tf"],                    # not to port
         ["-mat_type", "aij", "-mat_structure_detect", "0", "-pc_gamg_aggregation", "banded"],
         ["-profile", "trace_dir"],
-        ["-pc_type", "jacobi"],
-        ["-pc_type", "none"],
-        ["-pc_bjacobi_bs", "4"],
-        ["-mg_levels_pc_type", "sor"],
-        ["-mg_coarse_pc_type", "lu"],
-        ["-pc_gamg_threshold", "0.05"],
-        ["-pc_mg_cycle_type", "w"],
         ["-mat_type", "aij"],                    # -mat_structure_detect 1 by default
         ["-mat_type", "aij", "-mat_structure_detect", "0", "-pc_gamg_aggregation", "greedy"],
     ],
@@ -136,6 +129,30 @@ def test_unported_values_raise(argv):
         assert j_load_options(["-config", REF, *argv])  # the JAX package takes them
 
 
+# the preconditioner values this port took last: each parses to the JAX
+# package's fields
+ACCEPTED = [
+    ["-pc_type", "sor"],
+    ["-pc_type", "jacobi"],
+    ["-pc_type", "none"],
+    ["-pc_bjacobi_bs", "4"],
+    ["-mg_levels_pc_type", "sor"],
+    ["-mg_coarse_pc_type", "lu"],
+    ["-pc_gamg_threshold", "0.05"],
+    ["-pc_mg_cycle_type", "w"],
+    ["-mg_levels_ksp_max_it", "3"],
+]
+
+
+@pytest.mark.parametrize("argv", ACCEPTED)
+def test_accepted_values_parse_as_in_jax(argv):
+    got = load_options(["-config", REF, *argv])
+    want = j_load_options(["-config", REF, *argv])
+    assert (got.pc_type, got.pc_mg_cycle_type, got.layout) == (want.pc_type, want.pc_mg_cycle_type, want.layout)
+    for f in dataclasses.fields(AMGParams):
+        assert getattr(got.amg_params(), f.name) == getattr(want.amg_params(), f.name), f.name
+
+
 def test_ported_values_parse():
     for argv in (
         ["-mat_type", "aij", "-mat_structure_detect", "0"],
@@ -146,6 +163,7 @@ def test_ported_values_parse():
         ["-pc_dtype", "bf16"],
         ["-ksp_norm_type", "preconditioned"],
         ["-ksp_compute_eigenvalues"],
+        *ACCEPTED,
         *(["-ksp_type", k] for k in ("pipecg", "gmres", "fgmres", "bcgs", "minres",
                                      "chebyshev", "richardson", "preonly")),
     ):

@@ -69,5 +69,6 @@ def test_reason_line_for_a_failed_solve():
 def test_solve_needs_a_device_and_gamg():
     with pytest.raises(TypeError):
         solve_poisson(8, **KW)
-    with pytest.raises(NotImplementedError):
-        solve_poisson(8, device="cpu", rtol=1e-8, pc="jacobi")
+    # the standalone block Jacobi needs the JAX package's host CSR
+    with pytest.raises(ValueError, match="bjacobi"):
+        solve_poisson(8, device="cpu", rtol=1e-8, pc="bjacobi")

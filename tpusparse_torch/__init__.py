@@ -2,14 +2,16 @@
 
 The package mirrors ``tpusparse``'s module paths and names (so
 ``tpusparse_torch/amg/hierarchy.py::vcycle`` is the counterpart of
-``tpusparse/amg/hierarchy.py::vcycle``) and covers the headline solve:
-``bench.driver.solve_poisson(n, pc="gamg", device=...)`` — the manufactured
-3D Poisson problem, CG + structured GAMG with a fused fine-level V-cycle,
-under f64 defect correction.
+``tpusparse/amg/hierarchy.py::vcycle``) and covers the JAX package's
+one-device solves of the manufactured 3D Poisson problem:
+``bench.driver.solve_poisson(n, device=...)`` and the CLI — a Krylov method
+preconditioned by structured or geometric GAMG (or a standalone PC) under
+f64 defect correction, or in uniform precision.
 
-Plain tensor code is eager PyTorch.  The four kernels on that path are
-hand-written CUDA C++ for ``sm_90a`` (``csrc/``), built with nvcc at first
-use and bound with ctypes (``kernels/_build.py``).  Every kernel wrapper
+Plain tensor code is eager PyTorch.  Every TPU kernel of the JAX package
+has a hand-written CUDA C++ counterpart for ``sm_90a`` (``csrc/``: K1-K16
+and K1p), built with nvcc at first use and bound with ctypes
+(``kernels/_build.py``).  Every kernel wrapper
 dispatches by tensor device only: a CPU tensor runs the kernel's plain
 PyTorch twin, a CUDA tensor launches the kernel or raises.
 

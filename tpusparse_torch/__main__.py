@@ -60,8 +60,10 @@ def main(argv: list[str] | None = None) -> int:
         ksp_richardson_scale=opts.ksp_richardson_scale,
         mat_type=opts.mat_type,
         precision=opts.precision,
-        # -layout auto is the padded route on every device (driver docstring)
-        layout="padded" if opts.layout == "auto" else opts.layout,
+        # -layout auto: padded, or plain for the options the padded
+        # kernels cannot honour (driver docstring)
+        layout=opts.layout,
+        mg_cycle=opts.pc_mg_cycle_type,
         monitor=opts.ksp_monitor,
         view=opts.ksp_view,
     )

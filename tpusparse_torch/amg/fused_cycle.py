@@ -4,7 +4,8 @@ The fine level dominates a V-cycle's cost (27x the cells of level 1).  Its
 whole downstroke (pre-smoothing, the residual and the P^T smoothing pass)
 runs as one fused7 descent mode and its whole upstroke (P smoothing, the
 correction and post-smoothing) as one ascent mode; the coarse levels
-recurse through ``hierarchy.vcycle``:
+recurse through ``hierarchy.vcycle`` (``coarse_cycle``: twice for a
+W-cycle, ``gamma`` 2):
 
 - ``vcycle_fused_dots`` (CG) also returns ``||b||^2`` and ``<b, z>`` from
   the kernels: K3/K4 (``descent_rr``/``ascent_rz``) for a degree-2
@@ -19,8 +20,11 @@ recurse through ``hierarchy.vcycle``:
   and ``cg_fusion_supported`` is False.
 
 Supported configuration: the padded-resident f32 fine level with a
-point-Jacobi Chebyshev or Richardson smoother of degree 1 or 2.  Anything
-else raises — there is no silent fallback to the unfused cycle.
+point-Jacobi Chebyshev or Richardson smoother of degree 1 or 2, and a
+P-smoothing operator that is the level's own or its threshold-filtered
+star (``transfer.fop``, passed to the kernels as ``flegs``).  Anything else
+raises here; the driver runs it on the unfused padded cycle
+(``hierarchy.vcycle``, kernels K10-K16), as the JAX driver does.
 """
 
 from __future__ import annotations
@@ -28,7 +32,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from tpusparse_torch.amg.hierarchy import Hierarchy, vcycle
+from tpusparse_torch.amg.hierarchy import Hierarchy, _cheb_scalars, coarse_cycle
 from tpusparse_torch.kernels.fused7 import (
     fused7_ascent,
     fused7_ascent1,
@@ -54,7 +58,15 @@ def fused_fine_supported(hier: Hierarchy) -> bool:
         and sm0 in ("chebyshev", "richardson")
         and dg0 in (1, 2)
         and lev.op.dtype == torch.float32
+        and _flegs_ok(lev.transfer.inner.fop)
     )
+
+
+def _flegs_ok(fop) -> bool:
+    """A filtered P-smoothing operator rides the kernels as per-axis leg
+    overrides when it is a star with scalar legs (``_filtered_op`` of the
+    fine level), not a 27-point operator."""
+    return fop is None or (hasattr(fop, "cx") and getattr(fop, "coef", None) is None)
 
 
 def cg_fusion_supported(hier: Hierarchy) -> bool:
@@ -65,30 +77,15 @@ def cg_fusion_supported(hier: Hierarchy) -> bool:
 
 def _fine_scalars(hier: Hierarchy, lev):
     """(s0, ad, g): the degree-2 recurrence of ``hierarchy._smooth`` as one
-    fused step each for pre and post, in f32 as the JAX package computes it.
-    Degree 1 uses only the g slot (one sweep: Richardson's damping, or
-    Chebyshev's 1/theta)."""
-    f32 = np.float32
+    fused step each for pre and post, in f32 as the JAX package computes it
+    (``_cheb_scalars`` on the f32 fine level).  Degree 1 uses only the g
+    slot (one sweep: Richardson's damping, or Chebyshev's 1/theta)."""
     smoother, degree = hier.level_cfg(0)
     if smoother == "richardson":
-        w = f32(hier.damping)
-        return float(w), 0.0, float(w)
-    rho = f32(lev.rho)
-    if degree == 1:
-        theta = 0.5 * (hier.cheby_hi * rho + hier.cheby_lo * rho)
-        s0 = f32(1.0 / theta)
-        return float(s0), 0.0, float(s0)
-    lo = hier.cheby_lo * rho
-    hi = hier.cheby_hi * rho
-    theta = 0.5 * (hi + lo)
-    delta = 0.5 * (hi - lo)
-    sigma = theta / delta
-    rho_c = 1.0 / sigma
-    rho_new = 1.0 / (2.0 * sigma - rho_c)
-    s0 = 1.0 / theta               # first-step scale (1/theta)
-    ad = rho_new * rho_c           # d-recurrence coefficient
-    g = 2.0 * rho_new / delta      # residual-term coefficient
-    return float(s0), float(ad), float(g)
+        w = float(np.float32(hier.damping))
+        return w, 0.0, w
+    s0, _theta, steps = _cheb_scalars(hier, lev, degree)
+    return (s0, 0.0, s0) if degree == 1 else (s0, *steps[0])
 
 
 def _modes(hier: Hierarchy, with_dots: bool):
@@ -98,7 +95,7 @@ def _modes(hier: Hierarchy, with_dots: bool):
     return (fused7_descent1_rr, fused7_ascent1_rz) if with_dots else (fused7_descent1, fused7_ascent1)
 
 
-def _vcycle_fused(hier: Hierarchy, b_p: torch.Tensor, with_dots: bool):
+def _vcycle_fused(hier: Hierarchy, b_p: torch.Tensor, with_dots: bool, gamma: int):
     if not fused_fine_supported(hier):
         raise ValueError(
             "the fused V-cycle needs a padded f32 fine level with a degree-1"
@@ -117,32 +114,33 @@ def _vcycle_fused(hier: Hierarchy, b_p: torch.Tensor, with_dots: bool):
     # takes only g (and gw) in both strokes (fused_cycle.py:315-317)
     slots = (s0, ad, g, tr.omega) if hier.level_cfg(0)[1] == 2 else (g, tr.omega)
 
-    out = down(*legs, b_p, *slots, *pin)          # (x1, s[, <b, b>])
-    e = vcycle(hier, tr.tT_apply_padded(out[1]), level=1)
-    z = up(*legs, tr.t_apply_padded(e), b_p, out[0], *slots, *pin)
+    out = down(*legs, b_p, *slots, *pin, flegs=tr.flegs)          # (x1, s[, <b, b>])
+    e = coarse_cycle(hier, tr.tT_apply_padded(out[1]), 1, gamma)
+    z = up(*legs, tr.t_apply_padded(e), b_p, out[0], *slots, *pin, flegs=tr.flegs)
     if with_dots:
         z, rz = z
         return z, rz, out[2]
     return z
 
 
-def vcycle_fused(hier: Hierarchy, b_p: torch.Tensor) -> torch.Tensor:
-    """One V-cycle from a zero guess with the fused fine level: the same
-    contract as ``hierarchy.vcycle`` on a padded-resident fine level."""
-    return _vcycle_fused(hier, b_p, with_dots=False)
+def vcycle_fused(hier: Hierarchy, b_p: torch.Tensor, gamma: int = 1) -> torch.Tensor:
+    """One cycle (V, or W for ``gamma`` 2) from a zero guess with the fused
+    fine level: the same contract as ``hierarchy.vcycle`` on a
+    padded-resident fine level."""
+    return _vcycle_fused(hier, b_p, with_dots=False, gamma=gamma)
 
 
-def vcycle_fused_dots(hier: Hierarchy, b_p: torch.Tensor):
+def vcycle_fused_dots(hier: Hierarchy, b_p: torch.Tensor, gamma: int = 1):
     """``(z, rz, rr)`` where z = M^-1 b, rz = <b, z>, rr = <b, b>.
 
     The two dots come out of the fine-level kernels, so a CG iteration
     using this form pays no separate pass for its ||r|| and <r, z>
     reductions.
     """
-    return _vcycle_fused(hier, b_p, with_dots=True)
+    return _vcycle_fused(hier, b_p, with_dots=True, gamma=gamma)
 
 
-def vcycle_fused_rupdate(hier: Hierarchy, r_p: torch.Tensor, ap_p: torch.Tensor, alpha):
+def vcycle_fused_rupdate(hier: Hierarchy, r_p: torch.Tensor, ap_p: torch.Tensor, alpha, gamma: int = 1):
     """``(z, r_new, rz, rr)``: the CG iteration's bottom half with the
     residual update r_new = r - alpha ap fused into the downstroke (K9),
     then the coarse cycle and the upstroke with <r_new, z> (K4); rr is
@@ -150,7 +148,7 @@ def vcycle_fused_rupdate(hier: Hierarchy, r_p: torch.Tensor, ap_p: torch.Tensor,
     ``vcycle_fused_dots`` (K6/K7), as the JAX package does."""
     if not cg_fusion_supported(hier):
         r_new = r_p - alpha * ap_p
-        z, rz, rr = vcycle_fused_dots(hier, r_new)
+        z, rz, rr = vcycle_fused_dots(hier, r_new, gamma)
         return z, r_new, rz, rr
     lev = hier.levels[0]
     op: PaddedStar = lev.op
@@ -158,7 +156,8 @@ def vcycle_fused_rupdate(hier: Hierarchy, r_p: torch.Tensor, ap_p: torch.Tensor,
     s0, ad, g = _fine_scalars(hier, lev)
     legs = (op.diag, op.cx, op.cy, op.cz)
     pin = (op.true_shape, op.pinned)
-    x1, s, r_new, rr = fused7_descentu(*legs, r_p, ap_p, s0, ad, g, tr.omega, alpha, *pin)
-    e = vcycle(hier, tr.tT_apply_padded(s), level=1)
-    z, rz = fused7_ascent_rz(*legs, tr.t_apply_padded(e), r_new, x1, s0, ad, g, tr.omega, *pin)
+    x1, s, r_new, rr = fused7_descentu(*legs, r_p, ap_p, s0, ad, g, tr.omega, alpha, *pin, flegs=tr.flegs)
+    e = coarse_cycle(hier, tr.tT_apply_padded(s), 1, gamma)
+    z, rz = fused7_ascent_rz(*legs, tr.t_apply_padded(e), r_new, x1, s0, ad, g, tr.omega, *pin,
+                             flegs=tr.flegs)
     return z, r_new, rz, rr

@@ -21,7 +21,13 @@ import dataclasses
 import numpy as np
 import torch
 
-from tpusparse_torch.amg.hierarchy import AMGParams, Hierarchy, Level, estimate_rho_dinv_a
+from tpusparse_torch.amg.hierarchy import (
+    AMGParams,
+    Hierarchy,
+    Level,
+    dense_coarse_inverse,
+    estimate_rho_dinv_a,
+)
 from tpusparse_torch.amg.transfer import _agg_matrix
 from tpusparse_torch.solve.cg import np_float
 from tpusparse_torch.sparse.dia import DIA
@@ -301,12 +307,11 @@ def gamg_setup_geo(fine_op: DIA, shape, params: AMGParams) -> Hierarchy:
     the on-device power iteration.  No host coarse matrix anywhere.
 
     Stops coarsening when the level has ``coarse_eq_limit`` rows or fewer,
-    at ``max_levels``, or when every block edge is 1.
+    at ``max_levels``, or when every block edge is 1.  ``coarse_solve="lu"``
+    inverts the coarsest DIA densely (``hierarchy.dense_coarse_inverse``).
     """
     if params.coarse_solve not in ("jacobi", "lu"):
         raise ValueError(f"unknown coarse_solve {params.coarse_solve!r} (jacobi | lu)")
-    if params.coarse_solve == "lu":
-        raise NotImplementedError("the LU coarse solve is not ported to tpusparse_torch yet")
     shape = tuple(shape)
     levels: list[Level] = []
     op = fine_op
@@ -321,7 +326,10 @@ def gamg_setup_geo(fine_op: DIA, shape, params: AMGParams) -> Hierarchy:
             or all(b == 1 for b in bs)
         )
         if last:
-            levels.append(Level(op=op, dinv=dinv, rho=rho, transfer=None))
+            levels.append(Level(
+                op=op, dinv=dinv, rho=rho, transfer=None,
+                coarse_inv=dense_coarse_inverse(op) if params.coarse_solve == "lu" else None,
+            ))
             break
         f = np_float(op.dtype)
         omega = float(params.omega_scale / f(rho)) if params.nsmooths == 1 else 0.0

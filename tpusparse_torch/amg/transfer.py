@@ -11,6 +11,11 @@ piecewise-constant injection with l2-normalized columns, applied as three
 contractions with 0/1 per-axis membership matrices.  Those are plain
 products (XLA computes them in the JAX package), so they stay
 ``torch.einsum`` here; ``bench/driver.py`` keeps TF32 off so they run in full f32.
+
+Under ``-pc_gamg_threshold`` (``hierarchy.threshold_schedule``) an axis may
+stay uncoarsened (factor 1), and P is smoothed with ``fop``, the level
+operator with that axis's legs dropped (``hierarchy._filtered_op``), so that
+the Galerkin product stays inside the 27-point container.
 """
 
 from __future__ import annotations
@@ -66,7 +71,8 @@ class StructuredTransfer:
 
     ``omega`` is a Python float holding a value of the level's dtype;
     ``tnorm`` the coarse-shaped field 1/sqrt(|agg|); ``sz/sy/sx`` the
-    per-axis aggregation matrices.
+    per-axis aggregation matrices; ``fop`` the filtered P-smoothing
+    operator, or None (smooth with the level operator itself).
     """
 
     omega: float
@@ -76,9 +82,10 @@ class StructuredTransfer:
     sx: torch.Tensor      # (nx, ncx) 0/1
     fine_shape: tuple[int, int, int]
     factor: tuple[int, int, int]
+    fop: object | None = None
 
     @classmethod
-    def build(cls, fine_shape, omega: float, dtype: torch.dtype, factor=3, *, device):
+    def build(cls, fine_shape, omega: float, dtype: torch.dtype, factor=3, *, device, fop=None):
         fz, fy, fx = norm_factors(factor)
 
         def put(a):
@@ -92,6 +99,7 @@ class StructuredTransfer:
             sx=put(_agg_matrix(fine_shape[2], fx, np.float64)),
             fine_shape=tuple(fine_shape),
             factor=norm_factors(factor),
+            fop=fop,
         )
 
     @property
@@ -114,10 +122,14 @@ class StructuredTransfer:
 
     def prolong(self, fine_op, dinv: torch.Tensor, e_c: torch.Tensor) -> torch.Tensor:
         """x_f = P e_c = (I - omega D^{-1} A) T e_c."""
+        if self.fop is not None:
+            fine_op = self.fop
         t = self.t_apply(e_c)
         return t - self.omega * dinv * fine_op.mv(t)
 
     def restrict(self, fine_op, dinv: torch.Tensor, r: torch.Tensor) -> torch.Tensor:
         """r_c = P^T r = T^T (I - omega A D^{-1}) r   (A symmetric)."""
+        if self.fop is not None:
+            fine_op = self.fop
         s = r - self.omega * fine_op.mv(dinv * r)
         return self.tT_apply(s)

@@ -8,23 +8,32 @@ report the phase triple ``[init, create solver, solve]`` in the reference's
 text format (``src/main_ksp.cpp:124-129``) plus a JSON sidecar.
 
 Every solve is a Krylov method (``-ksp_type``, ``_pick_ksp``)
-preconditioned by a GAMG V-cycle, on one device, with a convergence check
-every iteration.  Under mixed precision (the default) the Krylov method
-runs in f32 under f64 defect correction.  The routes:
+preconditioned by a GAMG V- or W-cycle (``mg_cycle``), point Jacobi, SSOR
+or nothing (``pc``), on one device, with a convergence check every
+iteration.  Under mixed precision (the default) the Krylov method runs in
+f32 under f64 defect correction.  The routes:
 
 - ``mat_type="stencil"``, ``layout="padded"``: the 7-point stencil operator
-  on the padded-resident layout and the fused fine level.  CG takes the
-  dot-fused cycle (``vcycle_fused_dots``) and the fused ``<p, Ap>``
+  on the padded-resident layout.  With GAMG and a fine smoother the fused
+  kernels take (``fused_fine_supported``), the fused fine level: CG takes
+  the dot-fused cycle (``vcycle_fused_dots``) and the fused ``<p, Ap>``
   (``PaddedStar.mv_dot``); every other method the dot-free
   ``vcycle_fused`` (the JAX driver's ``:627-642``, ``:704-709``).  Kernels
   K1-K4 for a degree-2 smoother, K6/K7 (or K6'/K7') for the reference
-  config's Richardson(1).  ``cg_fusion=True`` swaps CG's body for the
+  config's Richardson(1), with the threshold schedule's filtered legs
+  where it has some.  Any other smoother degree runs the unfused padded
+  cycle, ``hierarchy.vcycle`` on kernels K10-K16, as the JAX driver does
+  where its preflight declines.  ``cg_fusion=True`` swaps CG's body for the
   full-fusion one (``PaddedStar.cgmv`` + ``vcycle_fused_rupdate``: K8, K9
-  and K4), the JAX driver's ``TPUSPARSE_CG_FUSION``.
+  and K4), the JAX driver's ``TPUSPARSE_CG_FUSION``.  ``pc="jacobi"`` and
+  ``"none"`` run here too (CG's ``<p, Ap>`` still on K2).
 - ``mat_type="stencil"``, ``layout="plain"``: the f32 ``StarStencil3D`` on
   plain ``(nz, ny, nx)`` fields and the plain ``hierarchy.vcycle``, whose
   level-0 applies are kernel K1p (``star7_mv``); the coarse coefficients
   stay f32 (the JAX plain route casts them only for ``pc_dtype="bf16"``).
+  The options the padded kernels cannot honour (``plain_cycle_only``: the
+  SOR smoother, block Jacobi, the LU coarse solve, and ``pc="sor"``) take
+  this route under ``layout="auto"``.
 - ``precision="f64"`` or ``"f32"``: no defect correction.  The Krylov
   method runs on the plain operator in that dtype, preconditioned by the
   plain V-cycle of a hierarchy built in the same dtype (the JAX driver's
@@ -35,6 +44,7 @@ runs in f32 under f64 defect correction.  The routes:
   two-float ``DFDIA`` for the outer residual), the hierarchy the
   device-resident geometric GAMG (``amg/geo.py``), and the V-cycle the
   plain one over flat DIA levels; every f32 level apply is kernel K5.
+  ``pc`` is gamg, jacobi or none there.
 """
 
 from __future__ import annotations
@@ -58,6 +68,8 @@ from tpusparse_torch.amg.hierarchy import (
     cast_coarse_coefs,
     gamg_setup,
     hierarchy_summary,
+    plain_cycle_only,
+    threshold_schedule,
     vcycle,
 )
 from tpusparse_torch.amg.unstructured import gamg_setup_unstructured
@@ -212,19 +224,34 @@ def build_system(grid: Grid3D, device):
     return op, b, exact, op_lo
 
 
+def _refined_padded(op, op_lo, b, m_lo_mv, *, rtol, atol, divtol=1e5, ksp_solve=cg,
+                    history=False, m_lo_mv_dots=None, **fused):
+    """f64 defect correction around the f32 ``ksp_solve`` on padded fields,
+    preconditioned by ``m_lo_mv`` (None: none).  CG also takes the fused
+    ``<p, Ap>`` (K2) and, where given, the dot-fused preconditioner."""
+    if ksp_solve is cg:
+        fused.setdefault("a_lo_mv_dot", op_lo.mv_dot)
+        if m_lo_mv_dots is not None:
+            fused["m_lo_mv_dots"] = m_lo_mv_dots
+    return cg_refined(
+        op.mv, op_lo.mv, b, rtol=rtol, atol=atol, divtol=divtol, m_lo_mv=m_lo_mv,
+        solver=ksp_solve, history=history, encode=pad_field,
+        decode=functools.partial(crop_field, shape=tuple(b.shape)), **fused,
+    )
+
+
 def refined_solve(
     op, op_lo, pc_state, b, *, rtol: float, atol: float, divtol: float = 1e5,
-    ksp_solve=cg, history: bool = False, cg_fusion: bool = False,
+    ksp_solve=cg, history: bool = False, cg_fusion: bool = False, gamma: int = 1,
 ):
-    """f64 defect correction around the f32 ``ksp_solve`` preconditioned
-    by the fused V-cycle: CG takes the dot-fused cycle and the fused
-    ``<p, Ap>``, every other method the dot-free cycle.  ``cg_fusion``
-    adds the full-fusion pair, which ``cg_refined`` puts before both (CG
-    only; a degree-2 fine smoother, ``cg_fusion_supported``)."""
-    fused = (
-        dict(m_lo_mv_dots=lambda r: vcycle_fused_dots(pc_state, r), a_lo_mv_dot=op_lo.mv_dot)
-        if ksp_solve is cg else {}
-    )
+    """f64 defect correction around the f32 ``ksp_solve`` preconditioned by
+    the padded cycle (a W-cycle for ``gamma`` 2).  Where the fine level
+    takes the fused kernels, CG takes the dot-fused cycle and the fused
+    ``<p, Ap>``, every other method the dot-free cycle; elsewhere every
+    method takes the unfused padded cycle (K10-K16).  ``cg_fusion`` adds
+    the full-fusion pair, which ``cg_refined`` puts before both (CG only;
+    a degree-2 fine smoother, ``cg_fusion_supported``)."""
+    fused = {}
     if cg_fusion:
         if not cg_fusion_supported(pc_state):
             raise ValueError(
@@ -234,13 +261,15 @@ def refined_solve(
             )
         fused.update(
             ab_fused=op_lo.cgmv,
-            m_fused=lambda r, ap, alpha: vcycle_fused_rupdate(pc_state, r, ap, alpha),
+            m_fused=lambda r, ap, alpha: vcycle_fused_rupdate(pc_state, r, ap, alpha, gamma),
         )
-    return cg_refined(
-        op.mv, op_lo.mv, b, rtol=rtol, atol=atol, divtol=divtol,
-        m_lo_mv=lambda r: vcycle_fused(pc_state, r), solver=ksp_solve,
-        history=history, encode=pad_field,
-        decode=functools.partial(crop_field, shape=tuple(b.shape)), **fused,
+    if fused_fine_supported(pc_state):
+        m, dots = (lambda r: vcycle_fused(pc_state, r, gamma)), (lambda r: vcycle_fused_dots(pc_state, r, gamma))
+    else:
+        m, dots = (lambda r: vcycle(pc_state, r, gamma=gamma)), None
+    return _refined_padded(
+        op, op_lo, b, m, rtol=rtol, atol=atol, divtol=divtol, ksp_solve=ksp_solve,
+        history=history, m_lo_mv_dots=dots, **fused,
     )
 
 
@@ -255,18 +284,47 @@ def build_system_aij(grid: Grid3D, device):
 
 def refined_solve_plain(
     op_hi, pc_state, b, *, rtol: float, atol: float, divtol: float = 1e5,
-    ksp_solve=cg, history: bool = False,
+    ksp_solve=cg, history: bool = False, gamma: int = 1,
 ):
     """f64 defect correction around the f32 ``ksp_solve`` preconditioned
-    by the plain V-cycle, on unpadded fields: the aij route's flat DIA
+    by the plain cycle, on unpadded fields: the aij route's flat DIA
     levels and the plain layout's f32 ``StarStencil3D`` fine level.  The
     inner operator is the hierarchy's fine level, as in the JAX driver;
     neither has a ``mv_dot``, so no method takes a fused form."""
     return cg_refined(
-        op_hi.mv, pc_state.levels[0].op.mv, b, rtol=rtol, atol=atol,
-        divtol=divtol, m_lo_mv=lambda r: vcycle(pc_state, r),
-        solver=ksp_solve, history=history,
+        op_hi.mv, pc_state.levels[0].op.mv, b, rtol=rtol, atol=atol, divtol=divtol,
+        m_lo_mv=lambda r: vcycle(pc_state, r, gamma=gamma), solver=ksp_solve, history=history,
     )
+
+
+def _ssor(op):
+    """The standalone ``-pc_type sor`` in CG's symmetric form (PETSc's
+    ``-pc_sor_symmetric``): one forward and one reversed multicolor
+    Gauss-Seidel sweep from zero (the JAX driver's ``:646-677``)."""
+    dinv = 1.0 / op.diagonal_field()
+    masks = op.gs_color_masks()
+
+    def apply(r):
+        x = None
+        for m in masks + masks[::-1]:
+            if x is None:
+                x = torch.where(m, dinv * r, torch.zeros_like(r))
+            else:
+                x = torch.where(m, x + dinv * (r - op.mv(x)), x)
+        return x
+
+    return apply
+
+
+def _standalone_pc(pc: str, op_lo):
+    """The preconditioner of a standalone ``pc``, built once at setup:
+    point Jacobi, SSOR, or None for none."""
+    if pc == "jacobi":
+        dinv = 1.0 / (op_lo.diagonal_field() if hasattr(op_lo, "diagonal_field") else op_lo.diagonal())
+        return lambda r: dinv * r
+    if pc == "sor":
+        return _ssor(op_lo)
+    return None
 
 
 def solve_poisson(
@@ -286,14 +344,17 @@ def solve_poisson(
     ksp_richardson_scale: float = 1.0,
     mat_type: str = "stencil",
     precision: str = "mixed",
-    layout: str = "padded",
+    layout: str = "auto",
+    mg_cycle: str = "v",
+    extent: tuple[float, float, float] | None = None,
     cg_fusion: bool = False,
     monitor: bool = False,
     view: bool = False,
     warmup: bool = True,
 ) -> SolveReport:
     """End-to-end solve on the ``nx`` x ``ny`` x ``nz`` grid (``ny``/``nz``
-    default to ``nx``) with the reference's defaults (tolerances:
+    default to ``nx``) over the box ``extent`` = (lx, ly, lz) (the unit
+    cube by default) with the reference's defaults (tolerances:
     configs/PETSc_SolverOptions_GAMG.info:1-4, AMG options: ``amg_params``
     or ``AMGParams()``) on ``device``.
 
@@ -304,6 +365,12 @@ def solve_poisson(
     solve.  ``monitor`` records the true residual of each outer sweep
     (mixed precision only), ``view`` the solver's configuration text.
 
+    ``pc``: "gamg" (the hierarchy of ``amg_params``; ``mg_cycle`` "v" or
+    "w"; ``amg_params.threshold`` > 0 builds the semicoarsening schedule of
+    ``threshold_schedule`` on the stencil route), "jacobi", "sor" (SSOR, the
+    stencil route's plain layout) or "none".  "bjacobi" raises on every
+    route, as in the JAX driver without a host matrix.
+
     ``mat_type``: "stencil" or "aij".  "aij" is the structure-blind route,
     the JAX driver's ``structure_detect=False``: its default first proves
     the matrix a star and moves it onto the stencil route
@@ -312,37 +379,46 @@ def solve_poisson(
 
     ``precision``: "mixed" (f32 inner solves under f64 defect correction),
     "f64" or "f32" (uniform: one solve in that dtype, always on plain
-    fields, whatever ``layout`` says).  "tf", the two-float outer, is not
-    to port: it exists because the TPU lacks f64.
+    fields).  "tf", the two-float outer, is not to port: it exists because
+    the TPU lacks f64.
 
     ``layout`` (stencil, mixed precision): "padded", the padded-resident
-    fused fine level, or "plain".  The JAX driver's default "auto" resolves
-    to padded on a TPU and to plain elsewhere; the port's default is padded
-    on every device, and its CLI maps ``-layout auto`` to padded.
+    layout; "plain"; or "auto", the JAX driver's rule on its TPU: padded,
+    unless ``plain_cycle_only`` (or ``pc="sor"``) asks for the plain
+    cycle.  "padded" raises there.
 
-    The coarse coefficients are bf16 on the padded route
+    The coarse coefficients are bf16 on the padded route with GAMG
     (``cast_coarse_coefs``) and keep the hierarchy's dtype on the plain
     and uniform routes, as in the JAX driver with its default ``pc_dtype``
     ("f32"; its "bf16", ``cast_hierarchy``, is not ported).
 
     ``cg_fusion``: the full-fusion CG body, the JAX driver's
     ``TPUSPARSE_CG_FUSION`` environment switch as an argument.  It takes
-    the padded mixed-precision stencil route, ``ksp="cg"`` and a degree-2
-    level-0 smoother, and raises elsewhere: where the JAX driver silently
-    runs the unfused body, the port never reports a fused solve that did
-    not run.
+    the padded mixed-precision stencil route, ``ksp="cg"``, ``pc="gamg"``
+    and a degree-2 level-0 smoother, and raises elsewhere: where the JAX
+    driver silently runs the unfused body, the port never reports a fused
+    solve that did not run.
 
     Phase timing protocol (main_ksp.cpp:80-106): init = system build,
-    setup = hierarchy construction, solve = the solve.  The device is
+    setup = preconditioner construction, solve = the solve.  The device is
     brought up before the init timer starts; the setup runs once untimed
     before its timed run, and the solve once before its timed run, so
     kernel builds and first-call costs stay out of ``t_setup`` and
     ``t_solve``.  Every timer read follows a device synchronize.
     """
-    if pc != "gamg":
-        raise NotImplementedError(f"pc={pc!r}: only gamg is ported to tpusparse_torch")
     if mat_type not in ("stencil", "aij"):
         raise ValueError(f"unknown mat_type {mat_type!r}")
+    if pc == "bjacobi":
+        raise ValueError(
+            "pc='bjacobi' needs the JAX package's host CSR (assembly='host'),"
+            " which neither route of the port keeps; -pc_bjacobi_bs with"
+            " pc='gamg' is the block-Jacobi smoother"
+        )
+    if pc not in ("gamg", "jacobi", "sor", "none") or (mat_type == "aij" and pc == "sor"):
+        raise ValueError(f"unknown pc {pc!r}")
+    if mg_cycle not in ("v", "w"):
+        raise ValueError(f"unknown mg_cycle {mg_cycle!r}")
+    gamma = 1 if mg_cycle == "v" else 2
     if precision == "tf":
         raise NotImplementedError(
             "precision='tf' (the two-float outer) is not to port: it exists"
@@ -350,8 +426,16 @@ def solve_poisson(
         )
     if precision not in ("mixed", "f64", "f32"):
         raise ValueError(f"unknown precision {precision!r} (mixed | f64 | f32)")
-    if layout not in ("padded", "plain"):
-        raise ValueError(f"unknown layout {layout!r} (padded | plain)")
+    if layout not in ("auto", "padded", "plain"):
+        raise ValueError(f"unknown layout {layout!r} (auto | padded | plain)")
+    params = amg_params or AMGParams()
+    plain_only = pc == "sor" or (pc == "gamg" and plain_cycle_only(params))
+    if mat_type == "stencil" and layout == "padded" and plain_only:
+        raise ValueError(
+            "layout='padded' is point-Jacobi + jacobi-coarse only; drop"
+            " -pc_bjacobi_bs / -mg_levels_pc_type sor / -mg_coarse_pc_type lu"
+            " / -pc_type sor or use layout='plain'/'auto'"
+        )
     mixed = precision == "mixed"
     if mat_type == "aij":
         route = "aij"
@@ -361,11 +445,11 @@ def solve_poisson(
                 f" tpusparse_torch yet (ROADMAP queue 1, item 9)"
             )
     else:
-        route = "padded" if mixed and layout == "padded" else "plain"
-    if cg_fusion and (route != "padded" or ksp != "cg"):
+        route = "padded" if mixed and layout != "plain" and not plain_only else "plain"
+    if cg_fusion and (route != "padded" or ksp != "cg" or pc != "gamg"):
         raise ValueError(
             "cg_fusion=True is the full-fusion CG body of the padded"
-            " mixed-precision stencil route: it needs ksp='cg',"
+            " mixed-precision stencil route: it needs ksp='cg', pc='gamg',"
             " mat_type='stencil', precision='mixed' and layout='padded'"
         )
     if monitor and not mixed:
@@ -374,10 +458,10 @@ def solve_poisson(
             " own history, which is not ported to tpusparse_torch yet"
             " (ROADMAP queue 1, item 3)"
         )
-    grid = Grid3D(nx, ny or nx, nz or nx)
+    lx, ly, lz = extent or (1.0, 1.0, 1.0)
+    grid = Grid3D(nx, ny or nx, nz or nx, lx=lx, ly=ly, lz=lz)
     ksp_solve = _pick_ksp(ksp, ksp_gmres_restart, ksp_richardson_scale, precision)
     device = torch.device(device)
-    params = amg_params or AMGParams()
     kw = dict(rtol=rtol, atol=atol, divtol=divtol, ksp_solve=ksp_solve, history=monitor)
     # the transfer einsums are f32 products: keep them out of TF32
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -387,22 +471,7 @@ def solve_poisson(
     t0 = time.perf_counter()
     if route == "padded":
         op, b, exact, op_lo = build_system(grid, device)
-        layout_text = "layout: padded-resident (fused fine level)"
-
-        def setup():
-            # bf16 coarse coefficient stacks: vectors stay f32
-            hier = cast_coarse_coefs(gamg_setup(op_lo, params))
-            if not fused_fine_supported(hier):
-                raise NotImplementedError(
-                    f"a level-0 smoother of {hier.level_cfg(0)} on the stencil"
-                    " route: the fused fine level takes chebyshev or richardson"
-                    " of degree 1 or 2, and the unfused padded cycle is not"
-                    " ported to tpusparse_torch yet (ROADMAP queue 6)"
-                )
-            return hier
-
-        def solve():
-            return refined_solve(op, op_lo, pc_state, b, cg_fusion=cg_fusion, **kw)
+        layout_text = "layout: padded-resident"
     elif route == "plain":
         dtype = torch.float32 if precision == "f32" else torch.float64
         op, b, exact = poisson_stencil_device(grid, dtype=dtype, device=device)
@@ -411,30 +480,53 @@ def solve_poisson(
             if mixed else op
         )
         layout_text = "layout: plain"
-
-        def setup():
-            return gamg_setup(op_lo, params)
-
-        if mixed:
-            def solve():
-                return refined_solve_plain(op, pc_state, b, **kw)
-        else:
-            def solve():
-                return ksp_solve(
-                    op.mv, b, rtol=rtol, atol=atol, divtol=divtol,
-                    maxiter=maxiter, m_mv=lambda r: vcycle(pc_state, r),
-                )
     else:
         op, op_lo, b, exact = build_system_aij(grid, device)
         layout_text = "mat_type: aij (DIA containers)"
-
-        def setup():
-            return gamg_setup_unstructured(op_lo, params)
-
-        def solve():
-            return refined_solve_plain(op, pc_state, b, **kw)
     _sync(device)
     t_init = time.perf_counter() - t0
+
+    # -pc_gamg_threshold on the stencil route: a host strength measure picks
+    # a per-axis coarsening schedule (None when isotropic: the threshold-0
+    # hierarchy), outside the timed setup as in the JAX driver
+    sched = (
+        threshold_schedule(op_lo, params.threshold, params.factor)
+        if pc == "gamg" and route != "aij" else None
+    )
+    if pc == "gamg":
+        if route == "padded":
+            def setup():
+                # bf16 coarse coefficient stacks: vectors stay f32
+                return cast_coarse_coefs(gamg_setup(op_lo, params, factors_schedule=sched))
+        elif route == "plain":
+            def setup():
+                return gamg_setup(op_lo, params, factors_schedule=sched)
+        else:
+            def setup():
+                return gamg_setup_unstructured(op_lo, params)
+    else:
+        def setup():
+            return _standalone_pc(pc, op_lo)
+
+    if route == "padded":
+        def solve():
+            if pc == "gamg":
+                return refined_solve(op, op_lo, pc_state, b, cg_fusion=cg_fusion, gamma=gamma, **kw)
+            return _refined_padded(op, op_lo, b, pc_state, **kw)
+    elif mixed:
+        def solve():
+            if pc == "gamg":
+                return refined_solve_plain(op, pc_state, b, gamma=gamma, **kw)
+            return cg_refined(
+                op.mv, op_lo.mv, b, rtol=rtol, atol=atol, divtol=divtol, m_lo_mv=pc_state,
+                solver=ksp_solve, history=monitor,
+            )
+    else:
+        def solve():
+            m = (lambda r: vcycle(pc_state, r, gamma=gamma)) if pc == "gamg" else pc_state
+            return ksp_solve(
+                op.mv, b, rtol=rtol, atol=atol, divtol=divtol, maxiter=maxiter, m_mv=m,
+            )
 
     if warmup:
         setup()
@@ -443,6 +535,11 @@ def solve_poisson(
     pc_state = setup()
     _sync(device)
     t_setup = time.perf_counter() - t0
+    if route == "padded" and pc == "gamg":
+        layout_text += (
+            " (fused fine level)" if fused_fine_supported(pc_state)
+            else " (unfused cycle, kernels K10-K16)"
+        )
 
     if warmup:
         solve()
@@ -460,7 +557,7 @@ def solve_poisson(
         view_text = "\n".join([
             f"KSP Object: type {ksp}, rtol {rtol:g}, atol {atol:g}, maxit {maxiter}",
             f"  precision: {precision}, {layout_text}",
-            hierarchy_summary(pc_state),
+            hierarchy_summary(pc_state, gamma) if pc == "gamg" else f"PC Object: type {pc}",
         ])
     linf = (res.x - exact).abs().max().item()
     return SolveReport(

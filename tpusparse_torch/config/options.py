@@ -22,7 +22,7 @@ import shlex
 import warnings
 from pathlib import Path
 
-from tpusparse_torch.amg.hierarchy import AMGParams
+from tpusparse_torch.amg.hierarchy import AMGParams, plain_cycle_only
 
 
 @dataclasses.dataclass
@@ -199,15 +199,13 @@ class Options:
             (self.problem != "poisson", f"-problem {self.problem}", "queue 11"),
             (self.devices > 1, f"-devices {self.devices}", "queue 12"),
             (self.profile, "-profile (the trace)", "queue 13"),
-            (self.pc_type != "gamg", f"-pc_type {self.pc_type}", "queue 8"),
-            (self.pc_bjacobi_bs, "-pc_bjacobi_bs", "queue 8"),
-            (self.mg_levels_pc_type == "sor", "-mg_levels_pc_type sor", "queue 8"),
-            (self.mg_coarse_pc_type == "lu", "-mg_coarse_pc_type lu", "queue 8"),
-            (self.pc_gamg_threshold > 0, "-pc_gamg_threshold > 0", "queue 8"),
-            (self.pc_mg_cycle_type == "w", "-pc_mg_cycle_type w", "queue 8"),
-            # the padded route ignores -pc_dtype, as the JAX driver does
+            # the padded route ignores -pc_dtype, as the JAX driver does;
+            # -layout auto is plain for the options the padded kernels
+            # cannot honour
             (self.pc_dtype == "bf16" and self.mat_type == "stencil"
-             and (self.layout == "plain" or self.precision != "mixed"),
+             and (self.layout == "plain" or self.precision != "mixed"
+                  or (self.layout == "auto"
+                      and (self.pc_type == "sor" or plain_cycle_only(self.amg_params())))),
              "-pc_dtype bf16 on the plain layout or under uniform precision"
              " (cast_hierarchy)", "queue 1, item 4"),
             (self.mat_type == "aij" and self.mat_structure_detect,

@@ -12,9 +12,12 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+import dataclasses
+
 from tpusparse_torch.amg.geo import GeoTransfer
 from tpusparse_torch.amg.hierarchy import Hierarchy, Level
 from tpusparse_torch.amg.transfer import StructuredTransfer
+from tpusparse_torch.solve.bjacobi import BlockJacobi, PCRLineJacobi
 from tpusparse_torch.sparse.dia import DFDIA, DIA
 from tpusparse_torch.sparse.padded import PaddedStar, PaddedTransfer, pad_field
 from tpusparse_torch.sparse.stencil import StarStencil3D
@@ -53,24 +56,46 @@ def dfdia_from_numpy(hi, lo, offsets, shape, *, device) -> DFDIA:
     )
 
 
+def _bjac_from_numpy(d, device):
+    """A block-Jacobi sub-PC: ``{"dinv_blocks", "bs", "n"}`` (dense) or
+    ``{"alphas", "gammas", "binv", "bs", "n", "shifts"}`` (PCR)."""
+    if "dinv_blocks" in d:
+        return BlockJacobi(dinv_blocks=_put(d["dinv_blocks"], device), bs=int(d["bs"]), n=int(d["n"]))
+    return PCRLineJacobi(
+        alphas=tuple(_put(a, device) for a in d["alphas"]),
+        gammas=tuple(_put(g, device) for g in d["gammas"]),
+        binv=_put(d["binv"], device), bs=int(d["bs"]), n=int(d["n"]),
+        shifts=tuple(int(k) for k in d["shifts"]),
+    )
+
+
 def hierarchy_from_numpy(
-    levels, *, damping, smoother, degree, cheby_lo, cheby_hi, device,
+    levels, *, damping, smoother, degree, cheby_lo, cheby_hi, device, level_spec=(),
 ) -> Hierarchy:
     """A ``Hierarchy`` from per-level dicts.
 
     Each level: ``op`` — ``{"diag", "cx", "cy", "cz", "pinned"}`` for the
-    (padded) fine star, ``{"coef"}`` for a 27-point level or ``{"bands",
-    "offsets", "shape"}`` for a flat DIA level; ``dinv`` (true shape);
-    ``rho``; ``transfer`` — ``None`` on the coarsest level, else ``{"omega",
-    "tnorm", "sz", "sy", "sx", "fine_shape", "factor"}`` for a structured
-    transfer or ``{"w", "omega", "sz", "sy", "sx", "fine_shape", "bs"}`` for
-    a ``GeoTransfer``.
+    fine star (padded unless ``"plain": True``), ``{"coef"}`` for a
+    27-point level or ``{"bands", "offsets", "shape"}`` for a flat DIA
+    level; ``dinv`` (true shape); ``rho``; ``transfer`` — ``None`` on the
+    coarsest level, else ``{"omega", "tnorm", "sz", "sy", "sx",
+    "fine_shape", "factor"}`` (per-axis factors) for a structured transfer,
+    with ``"fop"`` — ``{"cx", "cy", "cz"}`` (the filtered star's legs) or
+    ``{"coef"}`` (masked 27-point coefficients) — under a threshold
+    schedule, or ``{"w", "omega", "sz", "sy", "sx", "fine_shape", "bs"}``
+    for a ``GeoTransfer``.  Optional: ``coarse_inv`` (the dense LU coarse
+    inverse) and ``bjac`` (``_bjac_from_numpy``).
     """
     out = []
     for lv in levels:
         op_d = lv["op"]
-        padded = "diag" in op_d
-        if padded:
+        padded = "diag" in op_d and not op_d.get("plain", False)
+        if "diag" in op_d and not padded:
+            op = star_from_numpy(
+                op_d["diag"], op_d["cx"], op_d["cy"], op_d["cz"], op_d["pinned"], device=device,
+            )
+            dinv = _put(lv["dinv"], device)
+        elif padded:
             op = padded_star_from_numpy(
                 op_d["diag"], op_d["cx"], op_d["cy"], op_d["cz"],
                 op_d["pinned"], device=device,
@@ -95,6 +120,13 @@ def hierarchy_from_numpy(
                 bs=tuple(int(b) for b in tr["bs"]),
             )
         elif tr is not None:
+            fop_d, fop = tr.get("fop"), None
+            if fop_d is not None and "coef" in fop_d:
+                fop = VarStencil27(coef=_put(fop_d["coef"], device))
+            elif fop_d is not None:
+                fop = dataclasses.replace(
+                    op, cx=float(fop_d["cx"]), cy=float(fop_d["cy"]), cz=float(fop_d["cz"]),
+                )
             transfer = StructuredTransfer(
                 omega=float(tr["omega"]),
                 tnorm=_put(tr["tnorm"], device),
@@ -103,11 +135,17 @@ def hierarchy_from_numpy(
                 sx=_put(tr["sx"], device),
                 fine_shape=tuple(int(n) for n in tr["fine_shape"]),
                 factor=tuple(int(f) for f in tr["factor"]),
+                fop=fop,
             )
             if padded:
                 transfer = PaddedTransfer(transfer)
-        out.append(Level(op=op, dinv=dinv, rho=float(lv["rho"]), transfer=transfer))
+        out.append(Level(
+            op=op, dinv=dinv, rho=float(lv["rho"]), transfer=transfer,
+            bjac=None if lv.get("bjac") is None else _bjac_from_numpy(lv["bjac"], device),
+            coarse_inv=None if lv.get("coarse_inv") is None else _put(lv["coarse_inv"], device),
+        ))
     return Hierarchy(
         levels=out, damping=float(damping), smoother=smoother,
         degree=int(degree), cheby_lo=float(cheby_lo), cheby_hi=float(cheby_hi),
+        level_spec=tuple(level_spec),
     )

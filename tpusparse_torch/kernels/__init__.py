@@ -20,6 +20,13 @@ LAUNCHES = {
     "fused7_ascent1": 0,
     "fused7_cgmv": 0,
     "fused7_descentu": 0,
+    "fused7_residual": 0,
+    "fused7_rich": 0,
+    "fused7_cheb0": 0,
+    "fused7_cheb": 0,
+    "fused7_pre2": 0,
+    "fused7_restrict": 0,
+    "fused7_prolong": 0,
     "dia_mv": 0,
 }
 

@@ -1,7 +1,6 @@
-"""K2-K4, K6-K9: the fused fine-level kernels of the GAMG V-cycle and of
-the full-fusion CG body — port of the modes ``mvdot``, ``descent(_rr)``,
-``ascent(_rz)``, ``descent1(_rr)``, ``ascent1(_rz)``, ``cgmv`` and
-``descentu`` of ``tpusparse/kernels/fused7.py::fused7_call``.
+"""K2-K4, K6-K16: the fused7 kernels of the GAMG V-cycle and of the
+full-fusion CG body — port of every mode of
+``tpusparse/kernels/fused7.py::fused7_call``.
 
 =========== ======================================================== =====
 wrapper     computes                                                 dot
@@ -22,7 +21,26 @@ cgmv        p' = z + beta p;  w = A p';  x' = x + alpha_prev p       <p',w>
             out: (w, p', x') — the full-fusion CG body's top half
 descentu    r' = r - alpha ap, then descent_rr's math on r'          <r',r'>
             out: (x1, s, r') — its bottom half's downstroke
+mv          y = A x: K1 (``stencil7.py::star7_mv_padded``)
+residual    b - A x                                            (K10)
+rich        x + g D^-1 (b - A x)                               (K11)
+cheb0       d' = g D^-1 (b - A x);  x' = x + d'    out: (x', d') (K12)
+cheb        d' = ad d + g D^-1 (b - A x);  x' = x + d'         (K13)
+pre2        u = (s0 b) D^-1;  d' = ad u + g D^-1 (b - A u);    (K14)
+            x' = u + d'            out: (x', d')
+restrict    r - g A_f (D^-1 r)     (P^T smoothing)             (K15)
+prolong     t - g D^-1 (A_f t)     (P smoothing)               (K16)
 =========== ======================================================== =====
+
+K10-K16 are the single steps of the unfused padded V-cycle
+(``amg/hierarchy.py::vcycle`` on a ``PaddedStar`` level): a smoother of
+another degree than 1 or 2, and the W-cycle's coarse re-entries run on them.
+
+``flegs``: every P-smoothing stage (restrict, prolong, and the P^T / P
+passes inside descent, ascent, descent1, ascent1 and descentu) takes the
+legs (fcx, fcy, fcz) of the -pc_gamg_threshold filtered operator A_f
+(``transfer.fop``), as ``fused7_call``'s ``flegs`` does; ``None`` means the
+operator's own legs.
 
 ``descent``, ``ascent``, ``descent1`` and ``ascent1`` (K3'/K4'/K6'/K7')
 are the same four without the dot: the same CUDA kernels with the dot
@@ -55,17 +73,24 @@ from tpusparse_torch.kernels.stencil7 import (
     check_fields,
     launch_args,
     padded_shape,
+    star7_mv_padded,
     star7_mv_padded_torch,
 )
 
 P, I, F = _build.P, _build.I, _build.F
 _MVDOT_ARGS = [P] * 4 + [I] * 4 + [F] * 3 + [I, P]
-_DESCENT_ARGS = [P] * 6 + [I] * 4 + [F] * 7 + [I, P]
-_ASCENT_ARGS = [P] * 9 + [I] * 4 + [F] * 7 + [I, P]
-_DESCENT1_ARGS = [P] * 6 + [I] * 4 + [F] * 5 + [I, P]
-_ASCENT1_ARGS = [P] * 7 + [I] * 4 + [F] * 5 + [I, P]
+_DESCENT_ARGS = [P] * 6 + [I] * 4 + [F] * 10 + [I, P]
+_ASCENT_ARGS = [P] * 9 + [I] * 4 + [F] * 10 + [I, P]
+_DESCENT1_ARGS = [P] * 6 + [I] * 4 + [F] * 8 + [I, P]
+_ASCENT1_ARGS = [P] * 7 + [I] * 4 + [F] * 8 + [I, P]
 _CGMV_ARGS = [P] * 10 + [I] * 4 + [F] * 3 + [I, P]
-_DESCENTU_ARGS = [P] * 9 + [I] * 4 + [F] * 7 + [I, P]
+_DESCENTU_ARGS = [P] * 9 + [I] * 4 + [F] * 10 + [I, P]
+_RESIDUAL_ARGS = [P] * 4 + [I] * 4 + [F] * 3 + [I, P]
+_RICH_ARGS = [P] * 4 + [I] * 4 + [F] * 4 + [I, P]
+_CHEB0_ARGS = [P] * 5 + [I] * 4 + [F] * 4 + [I, P]
+_CHEB_ARGS = [P] * 6 + [I] * 4 + [F] * 5 + [I, P]
+_PRE2_ARGS = [P] * 4 + [I] * 4 + [F] * 6 + [I, P]
+_SMOOTH_ARGS = [P] * 3 + [I] * 4 + [F] * 4 + [I, P]   # restrict, prolong
 
 
 def _dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -87,63 +112,72 @@ def _mv(diag_p, cx, cy, cz, shape, pinned):
     return lambda v: star7_mv_padded_torch(diag_p, cx, cy, cz, v, shape, pinned)
 
 
+def _legs(cx, cy, cz, flegs):
+    """The P-smoothing legs: ``flegs``, or the operator's own."""
+    return (cx, cy, cz) if flegs is None else tuple(flegs)
+
+
 def fused7_mvdot_torch(diag_p, cx, cy, cz, x_p, shape, pinned: bool):
     y = star7_mv_padded_torch(diag_p, cx, cy, cz, x_p, shape, pinned)
     return y, _dot(x_p, y)
 
 
-def fused7_descent_torch(diag_p, cx, cy, cz, b_p, s0, ad, g, gw, shape, pinned: bool):
+def fused7_descent_torch(diag_p, cx, cy, cz, b_p, s0, ad, g, gw, shape, pinned: bool, flegs=None):
     mv = _mv(diag_p, cx, cy, cz, shape, pinned)
+    fmv = _mv(diag_p, *_legs(cx, cy, cz, flegs), shape, pinned)
     dinv = 1.0 / diag_p
     u = (s0 * b_p) * dinv
     x1 = u + ad * u + g * (dinv * (b_p - mv(u)))
     r = b_p - mv(x1)
-    s = r - gw * mv(dinv * r)
+    s = r - gw * fmv(dinv * r)
     return x1, s
 
 
-def fused7_descent_rr_torch(diag_p, cx, cy, cz, b_p, s0, ad, g, gw, shape, pinned: bool):
-    x1, s = fused7_descent_torch(diag_p, cx, cy, cz, b_p, s0, ad, g, gw, shape, pinned)
+def fused7_descent_rr_torch(diag_p, cx, cy, cz, b_p, s0, ad, g, gw, shape, pinned: bool, flegs=None):
+    x1, s = fused7_descent_torch(diag_p, cx, cy, cz, b_p, s0, ad, g, gw, shape, pinned, flegs)
     return x1, s, _dot(b_p, b_p)
 
 
-def fused7_ascent_torch(diag_p, cx, cy, cz, t_p, b_p, x1_p, g, ad, g2, gw, shape, pinned: bool):
+def fused7_ascent_torch(diag_p, cx, cy, cz, t_p, b_p, x1_p, g, ad, g2, gw, shape, pinned: bool, flegs=None):
     mv = _mv(diag_p, cx, cy, cz, shape, pinned)
+    fmv = _mv(diag_p, *_legs(cx, cy, cz, flegs), shape, pinned)
     dinv = 1.0 / diag_p
-    x2 = x1_p + t_p - gw * (dinv * mv(t_p))
+    x2 = x1_p + t_p - gw * (dinv * fmv(t_p))
     d = g * (dinv * (b_p - mv(x2)))
     x3 = x2 + d
     return x3 + ad * d + g2 * (dinv * (b_p - mv(x3)))
 
 
-def fused7_ascent_rz_torch(diag_p, cx, cy, cz, t_p, b_p, x1_p, g, ad, g2, gw, shape, pinned: bool):
-    x4 = fused7_ascent_torch(diag_p, cx, cy, cz, t_p, b_p, x1_p, g, ad, g2, gw, shape, pinned)
+def fused7_ascent_rz_torch(diag_p, cx, cy, cz, t_p, b_p, x1_p, g, ad, g2, gw, shape, pinned: bool, flegs=None):
+    x4 = fused7_ascent_torch(diag_p, cx, cy, cz, t_p, b_p, x1_p, g, ad, g2, gw, shape, pinned, flegs)
     return x4, _dot(b_p, x4)
 
 
-def fused7_descent1_torch(diag_p, cx, cy, cz, b_p, g, gw, shape, pinned: bool):
+def fused7_descent1_torch(diag_p, cx, cy, cz, b_p, g, gw, shape, pinned: bool, flegs=None):
     mv = _mv(diag_p, cx, cy, cz, shape, pinned)
+    fmv = _mv(diag_p, *_legs(cx, cy, cz, flegs), shape, pinned)
     dinv = 1.0 / diag_p
     x1 = g * (dinv * b_p)
     r = b_p - mv(x1)
-    s = r - gw * mv(dinv * r)
+    s = r - gw * fmv(dinv * r)
     return x1, s
 
 
-def fused7_descent1_rr_torch(diag_p, cx, cy, cz, b_p, g, gw, shape, pinned: bool):
-    x1, s = fused7_descent1_torch(diag_p, cx, cy, cz, b_p, g, gw, shape, pinned)
+def fused7_descent1_rr_torch(diag_p, cx, cy, cz, b_p, g, gw, shape, pinned: bool, flegs=None):
+    x1, s = fused7_descent1_torch(diag_p, cx, cy, cz, b_p, g, gw, shape, pinned, flegs)
     return x1, s, _dot(b_p, b_p)
 
 
-def fused7_ascent1_torch(diag_p, cx, cy, cz, t_p, b_p, x1_p, g, gw, shape, pinned: bool):
+def fused7_ascent1_torch(diag_p, cx, cy, cz, t_p, b_p, x1_p, g, gw, shape, pinned: bool, flegs=None):
     mv = _mv(diag_p, cx, cy, cz, shape, pinned)
+    fmv = _mv(diag_p, *_legs(cx, cy, cz, flegs), shape, pinned)
     dinv = 1.0 / diag_p
-    x2 = x1_p + t_p - gw * (dinv * mv(t_p))
+    x2 = x1_p + t_p - gw * (dinv * fmv(t_p))
     return x2 + g * (dinv * (b_p - mv(x2)))
 
 
-def fused7_ascent1_rz_torch(diag_p, cx, cy, cz, t_p, b_p, x1_p, g, gw, shape, pinned: bool):
-    x3 = fused7_ascent1_torch(diag_p, cx, cy, cz, t_p, b_p, x1_p, g, gw, shape, pinned)
+def fused7_ascent1_rz_torch(diag_p, cx, cy, cz, t_p, b_p, x1_p, g, gw, shape, pinned: bool, flegs=None):
+    x3 = fused7_ascent1_torch(diag_p, cx, cy, cz, t_p, b_p, x1_p, g, gw, shape, pinned, flegs)
     return x3, _dot(b_p, x3)
 
 
@@ -154,66 +188,110 @@ def fused7_cgmv_torch(diag_p, cx, cy, cz, z_p, p_p, x_p, beta, alpha_prev, shape
     return w, pn, xn, _dot(pn, w)
 
 
-def fused7_descentu_torch(diag_p, cx, cy, cz, r_p, ap_p, s0, ad, g, gw, alpha, shape, pinned: bool):
+def fused7_descentu_torch(diag_p, cx, cy, cz, r_p, ap_p, s0, ad, g, gw, alpha, shape, pinned: bool,
+                          flegs=None):
     r = r_p - alpha * ap_p
-    x1, s = fused7_descent_torch(diag_p, cx, cy, cz, r, s0, ad, g, gw, shape, pinned)
+    x1, s = fused7_descent_torch(diag_p, cx, cy, cz, r, s0, ad, g, gw, shape, pinned, flegs)
     return x1, s, r, _dot(r, r)
+
+
+def fused7_residual_torch(diag_p, cx, cy, cz, x_p, b_p, shape, pinned: bool):
+    return b_p - star7_mv_padded_torch(diag_p, cx, cy, cz, x_p, shape, pinned)
+
+
+def fused7_rich_torch(diag_p, cx, cy, cz, x_p, b_p, g, shape, pinned: bool):
+    dinv = 1.0 / diag_p
+    return x_p + g * (dinv * (b_p - star7_mv_padded_torch(diag_p, cx, cy, cz, x_p, shape, pinned)))
+
+
+def fused7_cheb0_torch(diag_p, cx, cy, cz, x_p, b_p, g, shape, pinned: bool):
+    dinv = 1.0 / diag_p
+    d = g * (dinv * (b_p - star7_mv_padded_torch(diag_p, cx, cy, cz, x_p, shape, pinned)))
+    return x_p + d, d
+
+
+def fused7_cheb_torch(diag_p, cx, cy, cz, x_p, b_p, d_p, ad, g, shape, pinned: bool):
+    dinv = 1.0 / diag_p
+    d = ad * d_p + g * (dinv * (b_p - star7_mv_padded_torch(diag_p, cx, cy, cz, x_p, shape, pinned)))
+    return x_p + d, d
+
+
+def fused7_pre2_torch(diag_p, cx, cy, cz, b_p, s0, ad, g, shape, pinned: bool):
+    dinv = 1.0 / diag_p
+    u = (s0 * b_p) * dinv
+    d = ad * u + g * (dinv * (b_p - star7_mv_padded_torch(diag_p, cx, cy, cz, u, shape, pinned)))
+    return u + d, d
+
+
+def fused7_restrict_torch(diag_p, cx, cy, cz, r_p, g, shape, pinned: bool, flegs=None):
+    fmv = _mv(diag_p, *_legs(cx, cy, cz, flegs), shape, pinned)
+    return r_p - g * fmv((1.0 / diag_p) * r_p)
+
+
+def fused7_prolong_torch(diag_p, cx, cy, cz, t_p, g, shape, pinned: bool, flegs=None):
+    fmv = _mv(diag_p, *_legs(cx, cy, cz, flegs), shape, pinned)
+    return t_p - g * ((1.0 / diag_p) * fmv(t_p))
 
 
 # --- kernel launches -----------------------------------------------------------
 # Each launcher takes its counter's name and ``dot``: with it the kernels
 # write block partials and the launcher returns their sum last; without it
-# the entry point gets a null partials pointer (the dot-free form).
+# the entry point gets a null partials pointer (the dot-free form).  The
+# composite entry points take the operator's legs, then the P-smoothing
+# legs (``_legs``).
 
-def _launch_descent(name, dot, diag_p, cx, cy, cz, b_p, s0, ad, g, gw, shape, pinned):
+def _launch_descent(name, dot, diag_p, cx, cy, cz, b_p, s0, ad, g, gw, shape, pinned, flegs):
     x1, r, s = (torch.empty_like(b_p) for _ in range(3))
     partials = _partials(shape, b_p.device) if dot else None
     _build.launch(
         "tps_descent", _DESCENT_ARGS, b_p.device,
         b_p.data_ptr(), diag_p.data_ptr(), x1.data_ptr(), r.data_ptr(),
         s.data_ptr(), partials.data_ptr() if dot else None,
-        *launch_args(shape, cx, cy, cz),
+        *launch_args(shape, cx, cy, cz, *_legs(cx, cy, cz, flegs)),
         float(s0), float(ad), float(g), float(gw), int(pinned),
     )
     LAUNCHES[name] += 1
     return (x1, s, partials.sum()) if dot else (x1, s)
 
 
-def _launch_ascent(name, dot, diag_p, cx, cy, cz, t_p, b_p, x1_p, g, ad, g2, gw, shape, pinned):
+def _launch_ascent(name, dot, diag_p, cx, cy, cz, t_p, b_p, x1_p, g, ad, g2, gw, shape, pinned, flegs):
     x2, d, x3, x4 = (torch.empty_like(t_p) for _ in range(4))
     partials = _partials(shape, t_p.device) if dot else None
     _build.launch(
         "tps_ascent", _ASCENT_ARGS, t_p.device,
         t_p.data_ptr(), b_p.data_ptr(), x1_p.data_ptr(), diag_p.data_ptr(),
         x2.data_ptr(), d.data_ptr(), x3.data_ptr(), x4.data_ptr(),
-        partials.data_ptr() if dot else None, *launch_args(shape, cx, cy, cz),
+        partials.data_ptr() if dot else None,
+        *launch_args(shape, cx, cy, cz, *_legs(cx, cy, cz, flegs)),
         float(g), float(ad), float(g2), float(gw), int(pinned),
     )
     LAUNCHES[name] += 1
     return (x4, partials.sum()) if dot else x4
 
 
-def _launch_descent1(name, dot, diag_p, cx, cy, cz, b_p, g, gw, shape, pinned):
+def _launch_descent1(name, dot, diag_p, cx, cy, cz, b_p, g, gw, shape, pinned, flegs):
     x1, r, s = (torch.empty_like(b_p) for _ in range(3))
     partials = _partials(shape, b_p.device) if dot else None
     _build.launch(
         "tps_descent1", _DESCENT1_ARGS, b_p.device,
         b_p.data_ptr(), diag_p.data_ptr(), x1.data_ptr(), r.data_ptr(),
         s.data_ptr(), partials.data_ptr() if dot else None,
-        *launch_args(shape, cx, cy, cz), float(g), float(gw), int(pinned),
+        *launch_args(shape, cx, cy, cz, *_legs(cx, cy, cz, flegs)),
+        float(g), float(gw), int(pinned),
     )
     LAUNCHES[name] += 1
     return (x1, s, partials.sum()) if dot else (x1, s)
 
 
-def _launch_ascent1(name, dot, diag_p, cx, cy, cz, t_p, b_p, x1_p, g, gw, shape, pinned):
+def _launch_ascent1(name, dot, diag_p, cx, cy, cz, t_p, b_p, x1_p, g, gw, shape, pinned, flegs):
     x2, x3 = torch.empty_like(t_p), torch.empty_like(t_p)
     partials = _partials(shape, t_p.device) if dot else None
     _build.launch(
         "tps_ascent1", _ASCENT1_ARGS, t_p.device,
         t_p.data_ptr(), b_p.data_ptr(), x1_p.data_ptr(), diag_p.data_ptr(),
         x2.data_ptr(), x3.data_ptr(), partials.data_ptr() if dot else None,
-        *launch_args(shape, cx, cy, cz), float(g), float(gw), int(pinned),
+        *launch_args(shape, cx, cy, cz, *_legs(cx, cy, cz, flegs)),
+        float(g), float(gw), int(pinned),
     )
     LAUNCHES[name] += 1
     return (x3, partials.sum()) if dot else x3
@@ -238,80 +316,86 @@ def fused7_mvdot(diag_p, cx, cy, cz, x_p, shape, pinned: bool):
     return y, partials.sum()
 
 
-def fused7_descent_rr(diag_p, cx, cy, cz, b_p, s0, ad, g, gw, shape, pinned: bool):
+def fused7_descent_rr(diag_p, cx, cy, cz, b_p, s0, ad, g, gw, shape, pinned: bool, flegs=None):
     """``(x1, s, <b, b>)``: the degree-2 downstroke (K3).  The kernel
     sequence keeps the residual r in scratch device memory."""
     shape = tuple(shape)
     check_fields(shape, diag_p, b_p)
     if b_p.device.type == "cpu":
-        return fused7_descent_rr_torch(diag_p, cx, cy, cz, b_p, s0, ad, g, gw, shape, pinned)
-    return _launch_descent("fused7_descent_rr", True, diag_p, cx, cy, cz, b_p, s0, ad, g, gw, shape, pinned)
+        return fused7_descent_rr_torch(diag_p, cx, cy, cz, b_p, s0, ad, g, gw, shape, pinned, flegs)
+    return _launch_descent("fused7_descent_rr", True, diag_p, cx, cy, cz, b_p, s0, ad, g, gw, shape, pinned,
+                           flegs)
 
 
-def fused7_descent(diag_p, cx, cy, cz, b_p, s0, ad, g, gw, shape, pinned: bool):
+def fused7_descent(diag_p, cx, cy, cz, b_p, s0, ad, g, gw, shape, pinned: bool, flegs=None):
     """``(x1, s)``: K3 without its dot (K3')."""
     shape = tuple(shape)
     check_fields(shape, diag_p, b_p)
     if b_p.device.type == "cpu":
-        return fused7_descent_torch(diag_p, cx, cy, cz, b_p, s0, ad, g, gw, shape, pinned)
-    return _launch_descent("fused7_descent", False, diag_p, cx, cy, cz, b_p, s0, ad, g, gw, shape, pinned)
+        return fused7_descent_torch(diag_p, cx, cy, cz, b_p, s0, ad, g, gw, shape, pinned, flegs)
+    return _launch_descent("fused7_descent", False, diag_p, cx, cy, cz, b_p, s0, ad, g, gw, shape, pinned,
+                           flegs)
 
 
-def fused7_ascent_rz(diag_p, cx, cy, cz, t_p, b_p, x1_p, g, ad, g2, gw, shape, pinned: bool):
+def fused7_ascent_rz(diag_p, cx, cy, cz, t_p, b_p, x1_p, g, ad, g2, gw, shape, pinned: bool, flegs=None):
     """``(x4, <b, x4>)``: the degree-2 upstroke (K4).  The kernel sequence
     keeps x2, d and x3 in scratch device memory."""
     shape = tuple(shape)
     check_fields(shape, diag_p, t_p, b_p, x1_p)
     if t_p.device.type == "cpu":
-        return fused7_ascent_rz_torch(diag_p, cx, cy, cz, t_p, b_p, x1_p, g, ad, g2, gw, shape, pinned)
-    return _launch_ascent("fused7_ascent_rz", True, diag_p, cx, cy, cz, t_p, b_p, x1_p, g, ad, g2, gw, shape, pinned)
+        return fused7_ascent_rz_torch(diag_p, cx, cy, cz, t_p, b_p, x1_p, g, ad, g2, gw, shape, pinned, flegs)
+    return _launch_ascent("fused7_ascent_rz", True, diag_p, cx, cy, cz, t_p, b_p, x1_p, g, ad, g2, gw, shape,
+                          pinned, flegs)
 
 
-def fused7_ascent(diag_p, cx, cy, cz, t_p, b_p, x1_p, g, ad, g2, gw, shape, pinned: bool):
+def fused7_ascent(diag_p, cx, cy, cz, t_p, b_p, x1_p, g, ad, g2, gw, shape, pinned: bool, flegs=None):
     """``x4``: K4 without its dot (K4')."""
     shape = tuple(shape)
     check_fields(shape, diag_p, t_p, b_p, x1_p)
     if t_p.device.type == "cpu":
-        return fused7_ascent_torch(diag_p, cx, cy, cz, t_p, b_p, x1_p, g, ad, g2, gw, shape, pinned)
-    return _launch_ascent("fused7_ascent", False, diag_p, cx, cy, cz, t_p, b_p, x1_p, g, ad, g2, gw, shape, pinned)
+        return fused7_ascent_torch(diag_p, cx, cy, cz, t_p, b_p, x1_p, g, ad, g2, gw, shape, pinned, flegs)
+    return _launch_ascent("fused7_ascent", False, diag_p, cx, cy, cz, t_p, b_p, x1_p, g, ad, g2, gw, shape,
+                          pinned, flegs)
 
 
-def fused7_descent1_rr(diag_p, cx, cy, cz, b_p, g, gw, shape, pinned: bool):
+def fused7_descent1_rr(diag_p, cx, cy, cz, b_p, g, gw, shape, pinned: bool, flegs=None):
     """``(x1, s, <b, b>)``: the degree-1 downstroke (K6).  The kernel
     sequence keeps the residual r in scratch device memory."""
     shape = tuple(shape)
     check_fields(shape, diag_p, b_p)
     if b_p.device.type == "cpu":
-        return fused7_descent1_rr_torch(diag_p, cx, cy, cz, b_p, g, gw, shape, pinned)
-    return _launch_descent1("fused7_descent1_rr", True, diag_p, cx, cy, cz, b_p, g, gw, shape, pinned)
+        return fused7_descent1_rr_torch(diag_p, cx, cy, cz, b_p, g, gw, shape, pinned, flegs)
+    return _launch_descent1("fused7_descent1_rr", True, diag_p, cx, cy, cz, b_p, g, gw, shape, pinned, flegs)
 
 
-def fused7_descent1(diag_p, cx, cy, cz, b_p, g, gw, shape, pinned: bool):
+def fused7_descent1(diag_p, cx, cy, cz, b_p, g, gw, shape, pinned: bool, flegs=None):
     """``(x1, s)``: K6 without its dot (K6')."""
     shape = tuple(shape)
     check_fields(shape, diag_p, b_p)
     if b_p.device.type == "cpu":
-        return fused7_descent1_torch(diag_p, cx, cy, cz, b_p, g, gw, shape, pinned)
-    return _launch_descent1("fused7_descent1", False, diag_p, cx, cy, cz, b_p, g, gw, shape, pinned)
+        return fused7_descent1_torch(diag_p, cx, cy, cz, b_p, g, gw, shape, pinned, flegs)
+    return _launch_descent1("fused7_descent1", False, diag_p, cx, cy, cz, b_p, g, gw, shape, pinned, flegs)
 
 
-def fused7_ascent1_rz(diag_p, cx, cy, cz, t_p, b_p, x1_p, g, gw, shape, pinned: bool):
+def fused7_ascent1_rz(diag_p, cx, cy, cz, t_p, b_p, x1_p, g, gw, shape, pinned: bool, flegs=None):
     """``(x3, <b, x3>)``: the degree-1 upstroke (K7).  The kernel sequence
     keeps x2 in scratch device memory."""
     shape = tuple(shape)
     check_fields(shape, diag_p, t_p, b_p, x1_p)
     if t_p.device.type == "cpu":
-        return fused7_ascent1_rz_torch(diag_p, cx, cy, cz, t_p, b_p, x1_p, g, gw, shape, pinned)
-    return _launch_ascent1("fused7_ascent1_rz", True, diag_p, cx, cy, cz, t_p, b_p, x1_p, g, gw, shape, pinned)
+        return fused7_ascent1_rz_torch(diag_p, cx, cy, cz, t_p, b_p, x1_p, g, gw, shape, pinned, flegs)
+    return _launch_ascent1("fused7_ascent1_rz", True, diag_p, cx, cy, cz, t_p, b_p, x1_p, g, gw, shape, pinned,
+                           flegs)
 
 
-def fused7_ascent1(diag_p, cx, cy, cz, t_p, b_p, x1_p, g, gw, shape, pinned: bool):
+def fused7_ascent1(diag_p, cx, cy, cz, t_p, b_p, x1_p, g, gw, shape, pinned: bool, flegs=None):
     """``x3``: K7 without its dot (K7')."""
     shape = tuple(shape)
     check_fields(shape, diag_p, t_p, b_p, x1_p)
     if t_p.device.type == "cpu":
-        return fused7_ascent1_torch(diag_p, cx, cy, cz, t_p, b_p, x1_p, g, gw, shape, pinned)
-    return _launch_ascent1("fused7_ascent1", False, diag_p, cx, cy, cz, t_p, b_p, x1_p, g, gw, shape, pinned)
+        return fused7_ascent1_torch(diag_p, cx, cy, cz, t_p, b_p, x1_p, g, gw, shape, pinned, flegs)
+    return _launch_ascent1("fused7_ascent1", False, diag_p, cx, cy, cz, t_p, b_p, x1_p, g, gw, shape, pinned,
+                           flegs)
 
 
 def _device_scalar(v, device) -> torch.Tensor:
@@ -342,14 +426,14 @@ def fused7_cgmv(diag_p, cx, cy, cz, z_p, p_p, x_p, beta, alpha_prev, shape, pinn
     return w, pn, xn, partials.sum()
 
 
-def fused7_descentu(diag_p, cx, cy, cz, r_p, ap_p, s0, ad, g, gw, alpha, shape, pinned: bool):
+def fused7_descentu(diag_p, cx, cy, cz, r_p, ap_p, s0, ad, g, gw, alpha, shape, pinned: bool, flegs=None):
     """``(x1, s, r', <r', r'>)``: the residual update r' = r - alpha ap and
     the degree-2 downstroke on r' (K9).  The kernel sequence keeps r' - A x1
     in scratch device memory."""
     shape = tuple(shape)
     check_fields(shape, diag_p, r_p, ap_p)
     if r_p.device.type == "cpu":
-        return fused7_descentu_torch(diag_p, cx, cy, cz, r_p, ap_p, s0, ad, g, gw, alpha, shape, pinned)
+        return fused7_descentu_torch(diag_p, cx, cy, cz, r_p, ap_p, s0, ad, g, gw, alpha, shape, pinned, flegs)
     alpha_d = _device_scalar(alpha, r_p.device)
     x1, r_new, r, s = (torch.empty_like(r_p) for _ in range(4))
     partials = _partials(shape, r_p.device)
@@ -357,8 +441,132 @@ def fused7_descentu(diag_p, cx, cy, cz, r_p, ap_p, s0, ad, g, gw, alpha, shape, 
         "tps_descentu", _DESCENTU_ARGS, r_p.device,
         r_p.data_ptr(), ap_p.data_ptr(), alpha_d.data_ptr(), diag_p.data_ptr(),
         x1.data_ptr(), r_new.data_ptr(), r.data_ptr(), s.data_ptr(),
-        partials.data_ptr(), *launch_args(shape, cx, cy, cz),
+        partials.data_ptr(), *launch_args(shape, cx, cy, cz, *_legs(cx, cy, cz, flegs)),
         float(s0), float(ad), float(g), float(gw), int(pinned),
     )
     LAUNCHES["fused7_descentu"] += 1
     return x1, s, r_new, partials.sum()
+
+
+# --- the single-step modes (K10-K16) -------------------------------------------
+
+def fused7_mv(diag_p, cx, cy, cz, x_p, shape, pinned: bool):
+    """``A x``: mode ``mv`` is K1's function on K1's layout, so it launches
+    K1 (``star7_mv_padded``, counted there)."""
+    return star7_mv_padded(diag_p, cx, cy, cz, x_p, shape, pinned)
+
+
+def fused7_residual(diag_p, cx, cy, cz, x_p, b_p, shape, pinned: bool):
+    """``b - A x`` in one launch (K10)."""
+    shape = tuple(shape)
+    check_fields(shape, diag_p, x_p, b_p)
+    if x_p.device.type == "cpu":
+        return fused7_residual_torch(diag_p, cx, cy, cz, x_p, b_p, shape, pinned)
+    r = torch.empty_like(x_p)
+    _build.launch(
+        "tps_residual", _RESIDUAL_ARGS, x_p.device,
+        x_p.data_ptr(), b_p.data_ptr(), diag_p.data_ptr(), r.data_ptr(),
+        *launch_args(shape, cx, cy, cz), int(pinned),
+    )
+    LAUNCHES["fused7_residual"] += 1
+    return r
+
+
+def fused7_rich(diag_p, cx, cy, cz, x_p, b_p, g, shape, pinned: bool):
+    """``x + g D^-1 (b - A x)``: one Richardson sweep in one launch (K11)."""
+    shape = tuple(shape)
+    check_fields(shape, diag_p, x_p, b_p)
+    if x_p.device.type == "cpu":
+        return fused7_rich_torch(diag_p, cx, cy, cz, x_p, b_p, g, shape, pinned)
+    out = torch.empty_like(x_p)
+    _build.launch(
+        "tps_rich", _RICH_ARGS, x_p.device,
+        x_p.data_ptr(), b_p.data_ptr(), diag_p.data_ptr(), out.data_ptr(),
+        *launch_args(shape, cx, cy, cz), float(g), int(pinned),
+    )
+    LAUNCHES["fused7_rich"] += 1
+    return out
+
+
+def fused7_cheb0(diag_p, cx, cy, cz, x_p, b_p, g, shape, pinned: bool):
+    """``(x', d')`` with d' = g D^-1 (b - A x), x' = x + d': the first
+    Chebyshev step from a nonzero x in one launch (K12)."""
+    shape = tuple(shape)
+    check_fields(shape, diag_p, x_p, b_p)
+    if x_p.device.type == "cpu":
+        return fused7_cheb0_torch(diag_p, cx, cy, cz, x_p, b_p, g, shape, pinned)
+    xo, d = torch.empty_like(x_p), torch.empty_like(x_p)
+    _build.launch(
+        "tps_cheb0", _CHEB0_ARGS, x_p.device,
+        x_p.data_ptr(), b_p.data_ptr(), diag_p.data_ptr(), xo.data_ptr(), d.data_ptr(),
+        *launch_args(shape, cx, cy, cz), float(g), int(pinned),
+    )
+    LAUNCHES["fused7_cheb0"] += 1
+    return xo, d
+
+
+def fused7_cheb(diag_p, cx, cy, cz, x_p, b_p, d_p, ad, g, shape, pinned: bool):
+    """``(x', d')`` with d' = ad d + g D^-1 (b - A x), x' = x + d': one
+    later Chebyshev step in one launch (K13)."""
+    shape = tuple(shape)
+    check_fields(shape, diag_p, x_p, b_p, d_p)
+    if x_p.device.type == "cpu":
+        return fused7_cheb_torch(diag_p, cx, cy, cz, x_p, b_p, d_p, ad, g, shape, pinned)
+    xo, d = torch.empty_like(x_p), torch.empty_like(x_p)
+    _build.launch(
+        "tps_cheb", _CHEB_ARGS, x_p.device,
+        x_p.data_ptr(), b_p.data_ptr(), d_p.data_ptr(), diag_p.data_ptr(), xo.data_ptr(),
+        d.data_ptr(), *launch_args(shape, cx, cy, cz), float(ad), float(g), int(pinned),
+    )
+    LAUNCHES["fused7_cheb"] += 1
+    return xo, d
+
+
+def fused7_pre2(diag_p, cx, cy, cz, b_p, s0, ad, g, shape, pinned: bool):
+    """``(x', d')``: both Chebyshev pre-smoothing steps from a zero guess,
+    u = (s0 b) D^-1, d' = ad u + g D^-1 (b - A u), x' = u + d', in one
+    launch (K14)."""
+    shape = tuple(shape)
+    check_fields(shape, diag_p, b_p)
+    if b_p.device.type == "cpu":
+        return fused7_pre2_torch(diag_p, cx, cy, cz, b_p, s0, ad, g, shape, pinned)
+    xo, d = torch.empty_like(b_p), torch.empty_like(b_p)
+    _build.launch(
+        "tps_pre2", _PRE2_ARGS, b_p.device,
+        b_p.data_ptr(), diag_p.data_ptr(), xo.data_ptr(), d.data_ptr(),
+        *launch_args(shape, cx, cy, cz), float(s0), float(ad), float(g), int(pinned),
+    )
+    LAUNCHES["fused7_pre2"] += 1
+    return xo, d
+
+
+def fused7_restrict(diag_p, cx, cy, cz, r_p, g, shape, pinned: bool, flegs=None):
+    """``r - g A_f (D^-1 r)``: the P^T smoothing pass in one launch (K15)."""
+    shape = tuple(shape)
+    check_fields(shape, diag_p, r_p)
+    if r_p.device.type == "cpu":
+        return fused7_restrict_torch(diag_p, cx, cy, cz, r_p, g, shape, pinned, flegs)
+    s = torch.empty_like(r_p)
+    _build.launch(
+        "tps_restrict", _SMOOTH_ARGS, r_p.device,
+        r_p.data_ptr(), diag_p.data_ptr(), s.data_ptr(),
+        *launch_args(shape, *_legs(cx, cy, cz, flegs)), float(g), int(pinned),
+    )
+    LAUNCHES["fused7_restrict"] += 1
+    return s
+
+
+def fused7_prolong(diag_p, cx, cy, cz, t_p, g, shape, pinned: bool, flegs=None):
+    """``t - g D^-1 (A_f t)``: the P smoothing pass in one launch (K16)."""
+    shape = tuple(shape)
+    check_fields(shape, diag_p, t_p)
+    if t_p.device.type == "cpu":
+        return fused7_prolong_torch(diag_p, cx, cy, cz, t_p, g, shape, pinned, flegs)
+    out = torch.empty_like(t_p)
+    _build.launch(
+        "tps_prolong", _SMOOTH_ARGS, t_p.device,
+        t_p.data_ptr(), diag_p.data_ptr(), out.data_ptr(),
+        *launch_args(shape, *_legs(cx, cy, cz, flegs)), float(g), int(pinned),
+    )
+    LAUNCHES["fused7_prolong"] += 1
+    return out

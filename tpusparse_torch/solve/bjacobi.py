@@ -1,0 +1,167 @@
+"""Block-Jacobi preconditioner — port of the structured part of
+``tpusparse/solve/bjacobi.py``.
+
+Real PCBJACOBI, not the point degeneracy: the bs x bs diagonal blocks of A
+are assembled from a structured operator's band fields
+(``flat_band_fields``), inverted once at setup, and applied as
+
+    z_block = inv(A_block) @ r_block,
+
+one batched (nb, bs, bs) x (nb, bs) product.  Tridiagonal blocks past the
+dense entry cap (the x-line case, bs = nx: at 300^3 dense line blocks would
+hold ~32 GB) are solved exactly by parallel cyclic reduction
+(``PCRLineJacobi``) instead.  ``-pc_bjacobi_bs`` selects it as the GAMG
+level smoother's sub-PC (``amg/hierarchy.py::gamg_setup``).
+
+The JAX package's host-CSR builder ``BlockJacobi.build`` (the aij route's
+standalone ``-pc_type bjacobi``) is not ported: the port's aij route keeps
+no host matrix.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+
+def _eye(bs: int, k: int, dtype, device) -> torch.Tensor:
+    """(bs, bs) with ones on diagonal ``k`` (row j, column j + k)."""
+    return torch.diag(torch.ones(bs - abs(k), dtype=dtype, device=device), k)
+
+
+@dataclasses.dataclass
+class BlockJacobi:
+    """Inverted diagonal blocks of A: ``dinv_blocks[k] = inv(A[kb:kb+bs,
+    kb:kb+bs])`` (the tail block padded with identity when bs does not
+    divide n)."""
+
+    dinv_blocks: torch.Tensor  # (nb, bs, bs)
+    bs: int
+    n: int
+
+    # Dense inverted blocks cost O(n*bs) memory and work per apply.  Past
+    # this many block entries (f32: 256 MiB) tridiagonal blocks go to the
+    # O(n log bs) PCR solve; anything denser must shrink bs.
+    DENSE_ENTRY_CAP = 64 * 2**20
+
+    @classmethod
+    def from_bands(cls, diag: torch.Tensor, bands: dict, bs: int):
+        """Build from a structured operator's flat-offset band fields
+        ({o: f} with ``f[p] = A[p, p+o]``; offsets at or beyond bs never
+        land inside a block).  Couplings that straddle a block boundary are
+        dropped, which is what block Jacobi means.  Returns a
+        :class:`BlockJacobi` while the dense blocks fit the entry cap, a
+        :class:`PCRLineJacobi` for tridiagonal blocks past it."""
+        d = diag.reshape(-1)
+        n = d.shape[0]
+        nb = -(-n // bs)
+        pad = nb * bs - n
+
+        def prep(v, fill):
+            v = v.reshape(-1).to(d.dtype)
+            if pad:
+                v = torch.cat([v, torch.full((pad,), fill, dtype=d.dtype, device=d.device)])
+            return v.reshape(nb, bs)
+
+        rel = {o: f for o, f in bands.items() if 0 < abs(o) < bs}
+        # structurally empty diagonal entries would make a block singular;
+        # the tail block pads with identity
+        d2 = prep(torch.where(d == 0, torch.ones((), dtype=d.dtype, device=d.device), d), 1.0)
+        if nb * bs * bs > cls.DENSE_ENTRY_CAP:
+            if set(rel) <= {-1, 1}:
+                zero = torch.zeros((nb, bs), dtype=d.dtype, device=d.device)
+                lo = prep(rel[-1], 0.0).clone() if -1 in rel else zero.clone()
+                up = prep(rel[1], 0.0).clone() if 1 in rel else zero.clone()
+                lo[:, 0] = 0.0          # couplings straddling a block boundary
+                up[:, bs - 1] = 0.0
+                return PCRLineJacobi.build(lo, d2, up, n)
+            raise ValueError(
+                f"bjacobi bs={bs}: dense inverted blocks would hold {nb * bs * bs:.3g}"
+                f" entries (> {cls.DENSE_ENTRY_CAP:.3g} cap) and the blocks are not"
+                f" tridiagonal (offsets {sorted(rel)}) — shrink bs"
+            )
+        blocks = d2[:, :, None] * _eye(bs, 0, d.dtype, d.device)
+        for o, f in sorted(rel.items()):
+            # entry (j, j+o) of block k = f[k*bs + j]
+            blocks = blocks + prep(f, 0.0)[:, :, None] * _eye(bs, o, d.dtype, d.device)
+        return cls(dinv_blocks=torch.linalg.inv(blocks), bs=bs, n=n)
+
+    def apply(self, r: torch.Tensor) -> torch.Tensor:
+        """z = inv(blockdiag(A)) @ r on the flat vector or any field view of
+        it; z keeps r's shape."""
+        nb, bs = self.dinv_blocks.shape[0], self.bs
+        pad = nb * bs - self.n
+        rf = r.reshape(-1)
+        rb = (torch.nn.functional.pad(rf, (0, pad)) if pad else rf).reshape(nb, bs)
+        z = torch.einsum("kij,kj->ki", self.dinv_blocks, rb).reshape(-1)
+        return (z[: self.n] if pad else z).reshape(r.shape)
+
+
+def _sh_dn(v: torch.Tensor, k: int, fill: float = 0.0) -> torch.Tensor:
+    """result[:, j] = v[:, j-k] (entries below the block start read fill)."""
+    return torch.cat([torch.full_like(v[:, :k], fill), v[:, :-k]], dim=1)
+
+
+def _sh_up(v: torch.Tensor, k: int, fill: float = 0.0) -> torch.Tensor:
+    """result[:, j] = v[:, j+k] (entries past the block end read fill)."""
+    return torch.cat([v[:, k:], torch.full_like(v[:, -k:], fill)], dim=1)
+
+
+@dataclasses.dataclass
+class PCRLineJacobi:
+    """Exact block-diagonal tridiagonal solve by parallel cyclic reduction:
+    the x-line relaxation of PCBJACOBI (bs = nx; on a star only the +-1
+    offsets land inside a line block).  ceil(log2 bs) recursive-doubling
+    steps, each a few elementwise multiply-adds over the (nb, bs) batch;
+    the reduction coefficients depend on the matrix only, so they are
+    computed once at setup and an apply replays
+
+        d <- d + alpha_k d_{j-2^k} + gamma_k d_{j+2^k}   (k = 0..L-1)
+        x = d / b_final.
+    """
+
+    alphas: tuple        # L tensors (nb, bs): lower elimination coefficients
+    gammas: tuple        # L tensors (nb, bs): upper elimination coefficients
+    binv: torch.Tensor   # (nb, bs): reciprocal of the fully reduced diagonal
+    bs: int
+    n: int
+    shifts: tuple        # L ints, the 2^k ladder
+
+    @classmethod
+    def build(cls, lo, d, up, n: int) -> "PCRLineJacobi":
+        """Factor the tridiagonal blocks ``lo/d/up`` (nb, bs), with
+        ``lo[:, 0] == 0`` and ``up[:, -1] == 0`` at the block boundaries."""
+        nb, bs = d.shape
+        a, b, c = lo, d, up
+        alphas, gammas, shifts = [], [], []
+        k = 1
+        while k < bs:
+            # eliminate the +-k couplings: row j combines rows j-k and j+k.
+            # Out-of-block reads: a/c read 0 (no coupling), b reads 1
+            # (identity rows) so the divisions stay finite.
+            bm, bp = _sh_dn(b, k, 1.0), _sh_up(b, k, 1.0)
+            alpha = -a / bm
+            gamma = -c / bp
+            b = b + alpha * _sh_dn(c, k) + gamma * _sh_up(a, k)
+            a, c = alpha * _sh_dn(a, k), gamma * _sh_up(c, k)
+            alphas.append(alpha)
+            gammas.append(gamma)
+            shifts.append(k)
+            k *= 2
+        return cls(
+            alphas=tuple(alphas), gammas=tuple(gammas), binv=1.0 / b, bs=bs, n=n,
+            shifts=tuple(shifts),
+        )
+
+    def apply(self, r: torch.Tensor) -> torch.Tensor:
+        """z = inv(blockdiag(tridiag)) @ r: replay the PCR ladder on r.
+        Same shape contract as :meth:`BlockJacobi.apply`."""
+        nb, bs = self.binv.shape
+        pad = nb * bs - self.n
+        rf = r.reshape(-1)
+        d = (torch.nn.functional.pad(rf, (0, pad)) if pad else rf).reshape(nb, bs)
+        for alpha, gamma, k in zip(self.alphas, self.gammas, self.shifts):
+            d = d + alpha * _sh_dn(d, k) + gamma * _sh_up(d, k)
+        z = (self.binv * d).reshape(-1)
+        return (z[: self.n] if pad else z).reshape(r.shape)

@@ -12,6 +12,12 @@ The AMG transfers cross between the padded fine level and the true-shape
 coarse levels: ``PaddedTransfer`` contracts with aggregation matrices whose
 pad rows are zero, so prolongation writes and restriction reads the padded
 layout directly.
+
+The unfused padded V-cycle (``amg/hierarchy.py::vcycle`` on a padded level)
+runs on the single-step kernels K10-K16: ``PaddedStar.{residual, rich,
+cheb0, cheb, pre2, restrict, prolong}`` and ``PaddedTransfer.{restrict_steps,
+prolong_steps}``.  ``PaddedTransfer.{restrict, prolong}`` stay K1 plus torch:
+the Galerkin probes and the rho estimate keep that arithmetic.
 """
 
 from __future__ import annotations
@@ -21,7 +27,17 @@ import dataclasses
 import torch
 import torch.nn.functional as F
 
-from tpusparse_torch.kernels.fused7 import fused7_cgmv, fused7_mvdot
+from tpusparse_torch.kernels.fused7 import (
+    fused7_cgmv,
+    fused7_cheb,
+    fused7_cheb0,
+    fused7_mvdot,
+    fused7_pre2,
+    fused7_prolong,
+    fused7_residual,
+    fused7_restrict,
+    fused7_rich,
+)
 from tpusparse_torch.kernels.stencil7 import FACE, padded_shape, star7_mv_padded
 from tpusparse_torch.sparse.stencil import StarStencil3D
 
@@ -98,6 +114,43 @@ class PaddedStar:
             alpha_prev, self.true_shape, self.pinned,
         )
 
+    # --- the single steps of the unfused padded V-cycle (K10-K16) ----------
+    @property
+    def _legs(self):
+        return self.diag, self.cx, self.cy, self.cz
+
+    @property
+    def _pin(self):
+        return self.true_shape, self.pinned
+
+    def residual(self, x_p, b_p):
+        """b - A x (K10)."""
+        return fused7_residual(*self._legs, x_p, b_p, *self._pin)
+
+    def rich(self, x_p, b_p, g):
+        """x + g D^-1 (b - A x): one Richardson sweep (K11)."""
+        return fused7_rich(*self._legs, x_p, b_p, g, *self._pin)
+
+    def cheb0(self, x_p, b_p, g):
+        """(x', d') for the first Chebyshev step from x (K12)."""
+        return fused7_cheb0(*self._legs, x_p, b_p, g, *self._pin)
+
+    def cheb(self, x_p, b_p, d_p, ad, g):
+        """(x', d') for a later Chebyshev step (K13)."""
+        return fused7_cheb(*self._legs, x_p, b_p, d_p, ad, g, *self._pin)
+
+    def pre2(self, b_p, s0, ad, g):
+        """(x', d') for the first two Chebyshev steps from zero (K14)."""
+        return fused7_pre2(*self._legs, b_p, s0, ad, g, *self._pin)
+
+    def restrict(self, r_p, g, flegs=None):
+        """r - g A_f (D^-1 r), the P^T smoothing pass (K15)."""
+        return fused7_restrict(*self._legs, r_p, g, *self._pin, flegs=flegs)
+
+    def prolong(self, t_p, g, flegs=None):
+        """t - g D^-1 (A_f t), the P smoothing pass (K16)."""
+        return fused7_prolong(*self._legs, t_p, g, *self._pin, flegs=flegs)
+
 
 class PaddedTransfer:
     """StructuredTransfer adapter for a padded fine level.  Coarse fields
@@ -122,6 +175,12 @@ class PaddedTransfer:
     def omega(self) -> float:
         return self.inner.omega
 
+    @property
+    def flegs(self):
+        """(cx, cy, cz) of the filtered P-smoothing operator, or None."""
+        fop = self.inner.fop
+        return None if fop is None else (fop.cx, fop.cy, fop.cz)
+
     def t_apply_padded(self, e_c: torch.Tensor) -> torch.Tensor:
         """T e_c straight into the padded layout (zero faces/pads)."""
         x = e_c * self.inner.tnorm
@@ -137,9 +196,21 @@ class PaddedTransfer:
         return x * self.inner.tnorm
 
     def prolong(self, fine_op, dinv, e_c):
+        if self.inner.fop is not None:
+            fine_op = self.inner.fop  # threshold-filtered smoothing operator
         t_p = self.t_apply_padded(e_c)
         return t_p - self.inner.omega * dinv * fine_op.mv(t_p)
 
     def restrict(self, fine_op, dinv, r_p):
+        if self.inner.fop is not None:
+            fine_op = self.inner.fop
         s_p = r_p - self.inner.omega * fine_op.mv(dinv * r_p)
         return self.tT_apply_padded(s_p)
+
+    def prolong_steps(self, fine_op: PaddedStar, e_c):
+        """P e_c with the smoothing pass on K16: the unfused cycle's."""
+        return fine_op.prolong(self.t_apply_padded(e_c), self.omega, self.flegs)
+
+    def restrict_steps(self, fine_op: PaddedStar, r_p):
+        """P^T r with the smoothing pass on K15: the unfused cycle's."""
+        return self.tT_apply_padded(fine_op.restrict(r_p, self.omega, self.flegs))

@@ -63,3 +63,47 @@ class StarStencil3D:
 
     def diagonal_field(self) -> torch.Tensor:
         return self.diag
+
+    def _index(self):
+        nz, ny, nx = self.grid_shape
+        dev = self.diag.device
+        return (
+            torch.arange(nz, device=dev)[:, None, None],
+            torch.arange(ny, device=dev)[None, :, None],
+            torch.arange(nx, device=dev)[None, None, :],
+        )
+
+    def gs_color_masks(self) -> list:
+        """Red-black coloring: the star couples only opposite (i+j+k)
+        parities, so a masked simultaneous update over one color is a
+        Gauss-Seidel ordering (multicolor SOR, the parallel form of PETSc's
+        PCSOR)."""
+        k, j, i = self._index()
+        p = (k + j + i) % 2
+        return [p == 0, p == 1]
+
+    def flat_band_fields(self, max_abs_offset: int) -> dict:
+        """{flat offset o: field f with f[p] = A[p, p+o]} for every leg with
+        0 < |o| < ``max_abs_offset`` (natural ordering).  Domain-edge drops
+        and the pinned row/column are masked in, so the fields are the
+        matrix bands (consumed by ``solve/bjacobi.py::BlockJacobi.from_bands``)."""
+        nz, ny, nx = self.grid_shape
+        k, j, i = self._index()
+        zero = torch.zeros((), dtype=self.dtype, device=self.diag.device)
+        legs = [
+            (1, self.cx, i < nx - 1), (-1, self.cx, i > 0),
+            (nx, self.cy, j < ny - 1), (-nx, self.cy, j > 0),
+            (nx * ny, self.cz, k < nz - 1), (-nx * ny, self.cz, k > 0),
+        ]
+        flat = (k * ny + j) * nx + i
+        out = {}
+        for o, c, valid in legs:
+            if abs(o) >= max_abs_offset:
+                continue
+            f = torch.where(valid, torch.tensor(c, dtype=self.dtype, device=self.diag.device), zero)
+            f = f.expand(self.grid_shape)
+            if self.pinned:
+                # MatZeroRowsColumns on row/col 0: A[0, o] = A[o, 0] = 0
+                f = torch.where((flat == 0) | (flat + o == 0), zero, f)
+            out[o] = f
+        return out

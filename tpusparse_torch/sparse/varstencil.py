@@ -74,3 +74,43 @@ class VarStencil27:
 
     def diagonal_field(self) -> torch.Tensor:
         return self.coef[CENTER]
+
+    def _index(self):
+        nz, ny, nx = self.grid_shape
+        dev = self.coef.device
+        return (
+            torch.arange(nz, device=dev)[:, None, None],
+            torch.arange(ny, device=dev)[None, :, None],
+            torch.arange(nx, device=dev)[None, None, :],
+        )
+
+    def gs_color_masks(self) -> list:
+        """2x2x2 octant (8-color) coloring: the 27-point stencil reaches one
+        cell per axis, so points sharing (k%2, j%2, i%2) are independent —
+        each masked simultaneous update is a Gauss-Seidel ordering."""
+        k, j, i = self._index()
+        c = (k % 2) * 4 + (j % 2) * 2 + (i % 2)
+        return [c == q for q in range(8)]
+
+    def flat_band_fields(self, max_abs_offset: int) -> dict:
+        """{flat offset o: field f with f[p] = A[p, p+o]} for every offset
+        with 0 < |flat o| < ``max_abs_offset``.  Coefficients whose target
+        leaves the grid are masked out; 3-D offsets that alias to one flat
+        offset on tiny grids accumulate, as a CSR assembly sums duplicates."""
+        nz, ny, nx = self.grid_shape
+        k, j, i = self._index()
+        zero = torch.zeros((), dtype=self.dtype, device=self.coef.device)
+        out: dict = {}
+        for o3, (dk, dj, di) in enumerate(OFFSETS):
+            if (dk, dj, di) == (0, 0, 0):
+                continue
+            o = (dk * ny + dj) * nx + di
+            if o == 0 or abs(o) >= max_abs_offset:
+                continue
+            valid = (
+                (k + dk >= 0) & (k + dk < nz) & (j + dj >= 0) & (j + dj < ny)
+                & (i + di >= 0) & (i + di < nx)
+            )
+            f = torch.where(valid, self.coef[o3], zero)
+            out[o] = out[o] + f if o in out else f
+        return out
