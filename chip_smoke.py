@@ -40,6 +40,12 @@ script exits non-zero without the final line:
    solvers (K6 fused7_descent1_rr, K7 fused7_ascent1_rz and the dot-free
    K3' fused7_descent, K4' fused7_ascent, K6' fused7_descent1, K7'
    fused7_ascent1) against their twins as in phase 3, timed at 300^3.
+   K6, K6', K7 and K7', one z-marching launch each, first at ragged shapes
+   of 1-3 cells a side and of several tiles and z-chunks (``ZMARCH_SHAPES``),
+   pinned and not, with the operator's and with filtered legs, and at 300^3:
+   x1 bit-equal to the twin's, the other fields and the dots as in phase
+   3, every face and pad cell exactly 0.  Each time is printed with the
+   field passes of its bound (K6 4, K7 5).
 10. The reference's own entry point at 300^3, in process:
    ``tpusparse_torch.__main__.main([... "-config",
    "configs/SolverOptions_GAMG.info", "-ksp_converged_reason",
@@ -178,6 +184,8 @@ from tpusparse_torch.kernels.fused7 import (
     fused7_rich_torch,
 )
 from tpusparse_torch.kernels.stencil7 import (
+    FACE,
+    padded_shape,
     star7_mv,
     star7_mv_padded,
     star7_mv_padded_torch,
@@ -251,6 +259,11 @@ STEP_KERNELS = {
                        fused7_prolong, fused7_prolong_torch),
 }
 KERNELS.update(STEP_KERNELS)
+# the z-marching kernels (one launch each) and the ragged shapes phase 9
+# holds them at: 1-3 cells a side (never one cell alone: its Neumann row is
+# zero), x not a multiple of 4, several tiles and z-chunks
+ZMARCH = ("fused7_descent1_rr", "fused7_descent1", "fused7_ascent1_rz", "fused7_ascent1")
+ZMARCH_SHAPES = ((1, 2, 1), (3, 2, 5), (2, 3, 1), (2, 1, 3), (40, 13, 61), (70, 25, 3), (33, 25, 121))
 # the kernels held in their filtered-leg forms (the z legs dropped, as the
 # threshold schedule's (1, 3, 3) level does)
 FLEGS_KERNELS = ("fused7_descent_rr", "fused7_ascent_rz", "fused7_restrict", "fused7_prolong")
@@ -408,7 +421,7 @@ def _bound(args, out, flops: float) -> dict:
     """The least time the card could take for a function: the larger of its
     unique bytes (each tensor input read once, each output written once;
     0-d scalars left out) over the HBM rate and ``flops`` over the f32
-    rate."""
+    rate.  ``passes``: those bytes in fields of the largest tensor's size."""
     seen = {}
     for t in (*args, *_as_tuple(out)):
         if isinstance(t, torch.Tensor) and t.dim() > 0:
@@ -417,6 +430,7 @@ def _bound(args, out, flops: float) -> dict:
     return {
         "bound_ms": max(t_bytes, t_ops) * 1e3,
         "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+        "passes": sum(seen.values()) / max(seen.values()),
     }
 
 
@@ -506,6 +520,64 @@ def check_flegs(device) -> float:
     return err
 
 
+def _check_zmarch_fields(label, name, got, want, shape) -> None:
+    """Phase 9's z-marching checks beyond ``_compare``: x1 bit-equal to the
+    twin's, and every face and pad cell of each output exactly 0."""
+    got, want = _as_tuple(got), _as_tuple(want)
+    if name.startswith("fused7_descent1"):
+        _require(torch.equal(got[0], want[0]), f"{label}: x1 is not bit-equal to the twin's")
+    nz, _, nx = shape
+    outside = torch.ones(padded_shape(shape), dtype=torch.bool, device=got[0].device)
+    outside[FACE:FACE + nz, :, :nx] = False
+    for field in got:
+        if field.dim():
+            _require(bool((field[outside] == 0).all()), f"{label}: a face or pad cell is not 0")
+
+
+def _dot_agrees(name, got, want, args) -> bool:
+    """A z-marching dot within 1e-5 of the twin's, relative to the sum of
+    its terms' magnitudes: <b, b> has no cancellation, but <b, x3> at a
+    handful of cells can sum to 1% of its terms (-0.0134 from 6 terms of
+    ~0.3 at (2, 3, 1)), where two summation orders differ by 1e-7 and a
+    bound on |want| alone would hold rounding to 1e-9."""
+    if name == "fused7_ascent1_rz":
+        scale = (args[5] * want[0]).abs().sum().item()   # |b x3|, b = args[5]
+    else:
+        scale = abs(want[-1].item())
+    return abs(got[-1].item() - want[-1].item()) <= 1e-5 * scale
+
+
+def check_zmarch(device) -> float:
+    """Phase 9's z-marching kernels at ``ZMARCH_SHAPES``, pinned and not,
+    with the operator's and with filtered legs (z dropped), then at 300^3;
+    the max abs field error.  Fields as in ``_compare``; dots by
+    ``_dot_agrees``."""
+    err = 0.0
+    cases = [(shape, pinned, flegs) for shape in ZMARCH_SHAPES for pinned in (True, False)
+             for flegs in (False, True)] + [(SHAPES[-1], True, False)]
+    for shape, pinned, flegs in cases:
+        args = _inputs(shape, device, pinned)
+        for name in ZMARCH:
+            _src, _rep, kernel, twin = KERNELS[name]
+            a = args[name]
+            legs = (a[1], a[2], 0.0) if flegs else None
+            got, want = kernel(*a, flegs=legs), twin(*a, flegs=legs)
+            torch.cuda.synchronize()
+            label = f"{name} {shape} pinned={pinned} flegs={legs}"
+            fields = slice(None, -1) if name.endswith(("_rr", "_rz")) else slice(None)
+            err = max(err, _compare(label, _as_tuple(got)[fields], _as_tuple(want)[fields]))
+            if fields.stop is not None:
+                _require(_dot_agrees(name, got, want, a),
+                         f"{label}: dot {got[-1].item()} vs {want[-1].item()}")
+            _check_zmarch_fields(label, name, got, want, shape)
+        del args
+    torch.cuda.empty_cache()
+    print(f"z-marching {', '.join(ZMARCH)}: agree with their twins at {len(cases)} cases"
+          f" ({len(ZMARCH_SHAPES)} ragged shapes pinned and not, with and without filtered legs, and"
+          f" {SHAPES[-1]}), x1 bit-equal, faces and pads 0; max abs err {err:.3e}")
+    return err
+
+
 def check_kernels(device, names=STENCIL_KERNELS, unpinned=False) -> dict:
     """Phases 3, 9, 13 and 17: each kernel of ``names`` vs its twin at each
     shape (with ``unpinned``, also on the unpinned operator at the first);
@@ -555,7 +627,8 @@ def check_kernels(device, names=STENCIL_KERNELS, unpinned=False) -> dict:
                 print(
                     f"time {name} {shape}: kernel {rows[name]['ms']:.4f} ms,"
                     f" plain {rows[name]['plain_ms']:.4f} ms,"
-                    f" bound {rows[name]['bound_ms']:.4f} ms ({rows[name]['bound_by']}),"
+                    f" bound {rows[name]['bound_ms']:.4f} ms ({rows[name]['bound_by']},"
+                    f" {rows[name]['passes']:.2f} field passes),"
                     f" one PyTorch call {rows[name]['library_ms']} ms"
                 )
         del args, library, csr
@@ -716,6 +789,7 @@ def main() -> None:
         _require(aij_launches[name] == 0, f"the aij path launched the stencil kernel {name}")
     launches["dia_mv"] = aij_launches["dia_mv"]
 
+    check_zmarch(device)
     rows.update(check_kernels(device, tuple(NEW_KERNELS)))
 
     t0 = time.perf_counter()

@@ -1,6 +1,8 @@
 """On the card: every CUDA kernel of ``tpusparse_torch`` against its plain
 PyTorch twin at small ragged shapes (the P-smoothing stages also with
-filtered legs), small stencil (padded, full-fusion, plain layout, the
+filtered legs; the z-marching K6/K7 and K6'/K7' also at shapes of 1-3
+cells and several tiles and z-chunks, with their face and pad cells),
+small stencil (padded, full-fusion, plain layout, the
 unfused padded cycle, W-cycle, threshold schedule, the plain-only GAMG
 options and the standalone PCs), aij and reference-config solves on the
 card against the same solves on the CPU, and ``bench.itprof`` at 24^3.
@@ -16,6 +18,7 @@ import pytest
 import torch
 
 from tpusparse_torch import kernels
+from tpusparse_torch.kernels import _build
 from tpusparse_torch.amg.hierarchy import AMGParams
 from tpusparse_torch.bench import itprof
 from tpusparse_torch.bench.driver import solve_poisson
@@ -23,6 +26,7 @@ from tpusparse_torch.grid.grid3d import Grid3D
 from tpusparse_torch.grid.poisson import poisson_stencil_device
 from tpusparse_torch.kernels.diaband import dia_mv, dia_mv_torch
 from tpusparse_torch.kernels.fused7 import (
+    _DESCENT1_ARGS,
     fused7_ascent,
     fused7_ascent1,
     fused7_ascent1_rz,
@@ -59,8 +63,12 @@ from tpusparse_torch.kernels.fused7 import (
     fused7_restrict_torch,
     fused7_rich,
     fused7_rich_torch,
+    zmarch_plan,
 )
 from tpusparse_torch.kernels.stencil7 import (
+    FACE,
+    launch_args,
+    padded_shape,
     star7_mv,
     star7_mv_padded,
     star7_mv_padded_torch,
@@ -185,6 +193,56 @@ def test_kernel_with_filtered_legs_matches_twin(cuda, name, shape, drop):
     got, want = kernel(*args, flegs=flegs), twin(*args, flegs=flegs)
     torch.cuda.synchronize()
     _close(got, want, cuda)
+
+
+# the z-marching kernels, at shapes of 1-3 cells a side (never one cell
+# alone: its Neumann row is zero), x not a multiple of 4, and several tiles
+# and z-chunks
+ZMARCH = ("fused7_descent1_rr", "fused7_descent1", "fused7_ascent1_rz", "fused7_ascent1")
+ZMARCH_SHAPES = [(1, 2, 1), (3, 2, 5), (2, 3, 1), (2, 1, 3), (40, 13, 61), (70, 25, 3), (33, 25, 121)]
+
+
+@pytest.mark.parametrize("flegs", [False, True])
+@pytest.mark.parametrize("pinned", [True, False])
+@pytest.mark.parametrize("shape", ZMARCH_SHAPES)
+@pytest.mark.parametrize("name", ZMARCH)
+def test_zmarch_kernel_matches_twin(cuda, name, shape, pinned, flegs):
+    """One launch a call; x1 bit-equal to the twin's (the same IEEE 1/d and
+    two products), s and x3 at the kernels' tolerances, the dot to 1e-5,
+    and every face and pad cell of each output exactly 0."""
+    kernel, twin = CASES[name]
+    args = _args(name, shape, pinned, cuda)
+    legs = (args[1], args[2], 0.0) if flegs else None
+    before = kernels.LAUNCHES[name]
+    got, want = kernel(*args, flegs=legs), twin(*args, flegs=legs)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES[name] == before + 1
+    _close(got, want, cuda)
+    got = got if isinstance(got, tuple) else (got,)
+    want = want if isinstance(want, tuple) else (want,)
+    if name.startswith("fused7_descent1"):
+        assert torch.equal(got[0], want[0])
+    nz, _, nx = shape
+    outside = torch.ones(padded_shape(shape), dtype=torch.bool, device=cuda)
+    outside[FACE:FACE + nz, :, :nx] = False
+    for field in got:
+        if field.dim():
+            assert (field[outside] == 0).all()
+
+
+def test_zmarch_entry_point_refuses_a_plan_that_misses_cells(cuda):
+    shape = (40, 13, 61)
+    args = _args("fused7_descent1", shape, True, cuda)
+    diag, cx, cy, cz, b = args[:5]
+    x1, s = torch.empty_like(b), torch.empty_like(b)
+    plan = zmarch_plan(shape, "descent1")
+    short = (plan.tiles_x - 1, *plan.launch_args()[1:])
+    with pytest.raises(RuntimeError, match="tps_descent1"):
+        _build.launch(
+            "tps_descent1", _DESCENT1_ARGS, cuda,
+            b.data_ptr(), diag.data_ptr(), x1.data_ptr(), s.data_ptr(), None,
+            *launch_args(shape, cx, cy, cz, cx, cy, cz), G, GW, 1, *short,
+        )
 
 
 def _box27(ny, nx):

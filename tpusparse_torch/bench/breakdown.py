@@ -1,12 +1,16 @@
 """Where the time of a solve goes, on one GPU.
 
     python3 -m tpusparse_torch.bench.breakdown [--n 300] [--cycles 10] [--mat-type stencil|aij]
+        [--config configs/SolverOptions_GAMG.info]
 
 Prints, after the card's name and power limit:
 
 - ``solve_poisson(n, rtol=1e-8, atol=1e-12, pc="gamg")`` twice (its JSON
   sidecar), then the peak device memory of the second call; with
-  ``--mat-type aij`` the structure-blind general-matrix route;
+  ``--mat-type aij`` the structure-blind general-matrix route; with
+  ``--config`` the KSP method, tolerances and GAMG parameters of that
+  options file, read as the CLI's ``-config`` reads it (the reference
+  config: CG, rtol 1e-14, Richardson(1), so the cycle below runs K6/K7);
 - the setup split: the rho power iterations and the Galerkin probing of
   every level, each timed alone on the built hierarchy;
 - one V-cycle (``vcycle_fused_dots`` on the stencil route, ``vcycle`` over
@@ -14,7 +18,8 @@ Prints, after the card's name and power limit:
   ms per cycle by CUDA events and by the host clock, the hand-written
   kernel launches per cycle (``kernels.LAUNCHES``), then, under
   ``torch.profiler``, device-busy ms and device kernels per cycle and the
-  kernels that take the most device time;
+  kernels that take the most device time, each with its share of the
+  device-busy time;
 - one solve under ``torch.profiler``: device-busy ms, its share of the
   unprofiled solve time, launches, and the top kernels.
 
@@ -45,12 +50,14 @@ from tpusparse_torch.amg.hierarchy import (
 )
 from tpusparse_torch.amg.unstructured import gamg_setup_unstructured
 from tpusparse_torch.bench.driver import (
+    _pick_ksp,
     build_system,
     build_system_aij,
     refined_solve,
     refined_solve_plain,
     solve_poisson,
 )
+from tpusparse_torch.config.options import load_options
 from tpusparse_torch.grid.grid3d import Grid3D
 from tpusparse_torch.sparse.padded import pad_field
 
@@ -66,10 +73,13 @@ def _timed(fn) -> float:
     return time.perf_counter() - t0
 
 
-def _profile(fn, top: int) -> tuple[float, int, list]:
+def _profile(fn, top: int, cpu: bool = True) -> tuple[float, int, list]:
     """(device-busy ms, device events, the ``top`` kernels by device ms) of
-    ``fn()``."""
-    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    ``fn()``; with ``cpu`` False the profiler records the device alone (a
+    reference-config solve launches ~1M kernels and ~5M host operators)."""
+    acts = [torch.profiler.ProfilerActivity.CUDA]
+    if cpu:
+        acts.append(torch.profiler.ProfilerActivity.CPU)
     with torch.profiler.profile(activities=acts) as prof:
         fn()
         torch.cuda.synchronize()
@@ -82,15 +92,16 @@ def _profile(fn, top: int) -> tuple[float, int, list]:
     return busy, len(evs), sorted(by_name.items(), key=lambda kv: -kv[1][0])[:top]
 
 
-def _print_top(rows, per: int = 1) -> None:
+def _print_top(rows, busy: float, per: int = 1) -> None:
+    """The top kernels: device ms and count per ``per``, share of ``busy``."""
     for name, (ms, count) in rows:
-        print(f"  {ms / per:9.4f} ms  x {count / per:7.1f}  {name[:96]}")
+        print(f"  {ms / per:9.4f} ms  x {count / per:7.1f}  {100 * ms / busy:5.1f}%  {name[:96]}")
 
 
-def _stencil_route(n, device, params):
+def _stencil_route(n, device, params, kw):
     """The pieces of the stencil route the breakdown times: the setup, the
     Galerkin step, the preconditioner's final form, its cycle, the cycle's
-    right-hand side and the solve."""
+    right-hand side and the solve (with the solve keywords ``kw``)."""
     op, b, _, op_lo = build_system(Grid3D(n, n, n), device)
     return dict(
         setup=lambda: gamg_setup(op_lo, params),
@@ -98,11 +109,11 @@ def _stencil_route(n, device, params):
         pc=cast_coarse_coefs,
         cycle=vcycle_fused_dots,
         rhs=pad_field((b / torch.linalg.vector_norm(b)).to(torch.float32)),
-        solve=lambda pc_state: refined_solve(op, op_lo, pc_state, b, **KW),
+        solve=lambda pc_state: refined_solve(op, op_lo, pc_state, b, **kw),
     )
 
 
-def _aij_route(n, device, params):
+def _aij_route(n, device, params, kw):
     """The same pieces for the structure-blind general-matrix route."""
     op, op_lo, b, _ = build_system_aij(Grid3D(n, n, n), device)
     return dict(
@@ -111,7 +122,7 @@ def _aij_route(n, device, params):
         pc=lambda hier: hier,
         cycle=vcycle,
         rhs=(b / torch.linalg.vector_norm(b)).to(torch.float32),
-        solve=lambda pc_state: refined_solve_plain(op, pc_state, b, **KW),
+        solve=lambda pc_state: refined_solve_plain(op, pc_state, b, **kw),
     )
 
 
@@ -120,6 +131,7 @@ def main(argv=None) -> None:
     ap.add_argument("--n", type=int, default=300)
     ap.add_argument("--cycles", type=int, default=10)
     ap.add_argument("--mat-type", choices=("stencil", "aij"), default="stencil")
+    ap.add_argument("--config", help="a PETSc options file, read as the CLI's -config")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         sys.exit("breakdown: no CUDA device")
@@ -130,14 +142,24 @@ def main(argv=None) -> None:
     device = torch.device("cuda", 0)
     torch.cuda.set_device(device)
     aij = args.mat_type == "aij"
+    params, ksp, kw = AMGParams(), "cg", dict(KW)
+    if args.config:
+        opts = load_options(["-config", args.config])
+        params, ksp, kw = opts.amg_params(), opts.ksp_type, dict(rtol=opts.ksp_rtol, atol=opts.ksp_atol)
+        print(f"--config {args.config}: ksp {ksp}, {kw}, {params}")
 
-    print(solve_poisson(args.n, pc="gamg", device=device, mat_type=args.mat_type, **KW).json_sidecar())
+    def solve_once():
+        rep = solve_poisson(args.n, pc="gamg", device=device, mat_type=args.mat_type, amg_params=params,
+                            ksp=ksp, **kw)
+        print(rep.json_sidecar())
+
+    solve_once()
     torch.cuda.reset_peak_memory_stats()
-    print(solve_poisson(args.n, pc="gamg", device=device, mat_type=args.mat_type, **KW).json_sidecar())
+    solve_once()
     print(f"peak device memory of solve_poisson: {torch.cuda.max_memory_allocated() / 1e9:.3f} GB")
 
-    params = AMGParams()
-    route = (_aij_route if aij else _stencil_route)(args.n, device, params)
+    kw["ksp_solve"] = _pick_ksp(ksp)
+    route = (_aij_route if aij else _stencil_route)(args.n, device, params, kw)
     hier = route["setup"]()
     t_setup = _timed(route["setup"])
     t_rho = t_gal = 0.0
@@ -171,19 +193,20 @@ def main(argv=None) -> None:
     print(f"{route['cycle'].__name__}: events {start.elapsed_time(end) / args.cycles:.3f} ms,"
           f" host {host_ms:.3f} ms per cycle; hand-written kernel launches per cycle {per_cycle}")
     busy, n_ev, top = _profile(cycles, top=12)
-    print(f"per V-cycle: device busy {busy / args.cycles:.3f} ms,"
+    print(f"per V-cycle: device busy {busy / args.cycles:.3f} ms"
+          f" ({100 * busy / args.cycles / host_ms:.1f}% of the host clock's ms),"
           f" {n_ev / args.cycles:.1f} device events")
-    _print_top(top, per=args.cycles)
+    _print_top(top, busy, per=args.cycles)
 
     def solve():
         return route["solve"](pc_state)
 
     solve()  # warm-up
     t_solve = _timed(solve)
-    busy, n_ev, top = _profile(solve, top=12)
+    busy, n_ev, top = _profile(solve, top=12, cpu=not args.config)
     print(f"solve: unprofiled {t_solve:.4f} s; device busy {busy:.1f} ms"
           f" ({100 * busy / 1e3 / t_solve:.1f}% of the unprofiled time), {n_ev} device events")
-    _print_top(top)
+    _print_top(top, busy)
 
 
 if __name__ == "__main__":

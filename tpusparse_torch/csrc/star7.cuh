@@ -3,8 +3,9 @@
 // Layout: the port's padded-resident field (tpusparse_torch/kernels/
 // stencil7.py::padded_shape), float32, C order, shape (nz + 2*FACE, ny, nxp):
 // FACE zero planes on each z face, no y padding, x rounded up to a multiple
-// of 4.  One thread owns one padded cell; cells outside the domain are
-// written as zero, which keeps the layout's pad-zero invariant.  The plain
+// of 4.  One thread owns one padded cell (but in K6/K7, which march tiles
+// through shared memory: fused7.cu); cells outside the domain are written
+// as zero, which keeps the layout's pad-zero invariant.  The plain
 // (nz, ny, nx) layout is the same geometry with no face planes and
 // nxp = nx (make_geom's face = 0).
 //
@@ -70,17 +71,6 @@ struct DinvField {
   }
 };
 
-// Stencil input s * (p * D^-1), the other rounding order: the degree-1
-// pre-smoother's x1 = g (D^-1 b), as fused7_xla's descent1 forms it.
-struct ScaledDinvField {
-  const float* __restrict__ p;
-  const float* __restrict__ d;
-  float s;
-  __device__ __forceinline__ float operator()(long long q) const {
-    return s * (p[q] * (1.0f / d[q]));
-  }
-};
-
 // (A u)[q] for in-domain cell (k, j, i) given the diagonal term `center`.
 // Pinned origin (MatZeroRowsColumns, reference src/helper.cpp:274): the
 // three cells that read u[0,0,0] as a neighbour drop that read, and the
@@ -104,10 +94,11 @@ __device__ __forceinline__ float star(const U& u, float center, long long q,
   return center + a.cx * (xp + xm) + a.cy * (yp + ym) + a.cz * (zp + zm);
 }
 
-// One partial sum per block into partials[blockIdx.x], in a fixed order and
-// without atomics, so a dot repeats bit for bit from run to run.  Every
-// thread of the block must call it.
-__device__ __forceinline__ void block_partial(float v, float* partials) {
+// One partial sum per block into partials[slot] (block_partial: the
+// block's index), in a fixed order and without atomics, so a dot repeats
+// bit for bit from run to run.  Every thread of the block must call it.
+__device__ __forceinline__ void block_partial_at(float v, float* partials,
+                                                 unsigned slot) {
   __shared__ float warp_sums[BLOCK / 32];
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1)
@@ -121,8 +112,12 @@ __device__ __forceinline__ void block_partial(float v, float* partials) {
 #pragma unroll
     for (int off = 16; off > 0; off >>= 1)
       v += __shfl_down_sync(0xffffffffu, v, off);
-    if (lane == 0) partials[blockIdx.x] = v;
+    if (lane == 0) partials[slot] = v;
   }
+}
+
+__device__ __forceinline__ void block_partial(float v, float* partials) {
+  block_partial_at(v, partials, blockIdx.x);
 }
 
 __device__ __forceinline__ long long thread_cell() {

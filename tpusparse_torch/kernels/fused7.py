@@ -57,6 +57,12 @@ accepted too.
 D is ``diag`` (pads 1.0), inverted by true division.  All fields are in the
 padded-resident layout (``kernels/stencil7.py::padded_shape``).
 
+K6/K7 and K6'/K7' are one launch each that marches a column tile of the
+(ny, nxp) plane up a z-chunk of planes (``csrc/fused7.cu``); their launch
+plan — tiles, z-chunk, grid, shared bytes, one dot partial a block — is
+``zmarch_plan``, which the CPU tests check and the CUDA entry points
+verify.
+
 Each wrapper dispatches by tensor device only: a CPU tensor runs its plain
 twin (the math of ``fused7_xla``, ``tpusparse/kernels/fused7.py:945-1023``),
 a CUDA tensor launches ``csrc/fused7.cu`` (or raises).  The kernels' dots
@@ -65,6 +71,8 @@ per block — no atomics, so a solve repeats its iteration counts.
 """
 
 from __future__ import annotations
+
+from dataclasses import dataclass
 
 import torch
 
@@ -81,8 +89,9 @@ P, I, F = _build.P, _build.I, _build.F
 _MVDOT_ARGS = [P] * 4 + [I] * 4 + [F] * 3 + [I, P]
 _DESCENT_ARGS = [P] * 6 + [I] * 4 + [F] * 10 + [I, P]
 _ASCENT_ARGS = [P] * 9 + [I] * 4 + [F] * 10 + [I, P]
-_DESCENT1_ARGS = [P] * 6 + [I] * 4 + [F] * 8 + [I, P]
-_ASCENT1_ARGS = [P] * 7 + [I] * 4 + [F] * 8 + [I, P]
+_ZMARCH_PLAN_ARGS = [I] * 5   # tiles_x, tiles_y, chunks, zchunk, smem_bytes
+_DESCENT1_ARGS = [P] * 5 + [I] * 4 + [F] * 8 + [I] + _ZMARCH_PLAN_ARGS + [P]
+_ASCENT1_ARGS = [P] * 6 + [I] * 4 + [F] * 8 + [I] + _ZMARCH_PLAN_ARGS + [P]
 _CGMV_ARGS = [P] * 10 + [I] * 4 + [F] * 3 + [I, P]
 _DESCENTU_ARGS = [P] * 9 + [I] * 4 + [F] * 10 + [I, P]
 _RESIDUAL_ARGS = [P] * 4 + [I] * 4 + [F] * 3 + [I, P]
@@ -104,6 +113,86 @@ def _partials(shape, device) -> torch.Tensor:
         cells *= n
     block = _build.block_size()
     return torch.empty((cells + block - 1) // block, dtype=torch.float32, device=device)
+
+
+# --- the z-marching launch plan (K6/K7) --------------------------------------
+# csrc/fused7.cu's ZM_TY, ZM_TX, ZM_HY, ZM_HX and ZM_RING_PLANES: a block's
+# output tile in (y, x), the halo of its region (2 rows; one 4-cell quad of
+# columns, so that rows start on 16 bytes), and its two shared rings of 3
+# planes of the region
+ZM_TILE = (12, 56)
+ZM_HALO = (2, 4)
+ZM_RING_PLANES = 6
+# per kernel (ZM6_*, ZM7_*): the input fields it stages, the planes of each
+# its staging ring holds, and the blocks an SM must hold
+# (``__launch_bounds__``), what a wave of blocks is
+ZM_STAGING = {"descent1": (2, 6, 3), "ascent1": (4, 5, 2)}
+# the most output planes a block marches through: a chunk loads 4 planes
+# more than it writes (2 halo planes a side), so longer chunks read less
+# twice; 48 still gives 300^3 2.7 (K6) and 4.0 (K7) waves of blocks, and
+# ran K6/K7 a few per cent faster than 32 on the H100 (PERF.md, PR 6)
+ZM_ZCHUNK = 48
+H100_SMS = 132
+
+
+@dataclass(frozen=True)
+class ZMarchPlan:
+    """The grid of one K6 or K7 launch: ``tiles_x`` x ``tiles_y`` column
+    tiles of ``ZM_TILE`` output cells in the (ny, nxp) plane times
+    ``chunks`` z-chunks of ``zchunk`` padded planes, one block each;
+    ``smem_bytes`` of dynamic shared memory a block, of which an SM holds
+    ``blocks_per_sm`` blocks."""
+
+    tiles_x: int
+    tiles_y: int
+    chunks: int
+    zchunk: int
+    smem_bytes: int
+    blocks_per_sm: int
+
+    @property
+    def blocks(self) -> int:
+        """Thread blocks, and dot partials (one a block)."""
+        return self.tiles_x * self.tiles_y * self.chunks
+
+    def waves(self, sms: int = H100_SMS) -> float:
+        """Blocks over the blocks ``sms`` SMs hold at once."""
+        return self.blocks / (sms * self.blocks_per_sm)
+
+    def ranges(self, shape) -> tuple[list, list, list]:
+        """The padded-field output ranges of the blocks along z, y and x,
+        as the kernel computes them from ``blockIdx``: chunk c writes planes
+        [c zchunk, min((c + 1) zchunk, nzp)), tile t of y rows [t TY,
+        min((t + 1) TY, ny)), and likewise in x up to nxp."""
+        nzp, ny, nxp = padded_shape(shape)
+        ty, tx = ZM_TILE
+
+        def cut(n, step, parts):
+            return [(c * step, min((c + 1) * step, n)) for c in range(parts)]
+
+        return cut(nzp, self.zchunk, self.chunks), cut(ny, ty, self.tiles_y), cut(nxp, tx, self.tiles_x)
+
+    def launch_args(self) -> tuple[int, int, int, int, int]:
+        return self.tiles_x, self.tiles_y, self.chunks, self.zchunk, self.smem_bytes
+
+
+def zmarch_plan(shape, kernel: str) -> ZMarchPlan:
+    """The launch plan of ``kernel`` ("descent1": K6/K6', "ascent1":
+    K7/K7') for a (nz, ny, nx) field: tiles to cover the padded plane,
+    chunks of at most ``ZM_ZCHUNK`` planes, of equal length but the last,
+    to cover the padded depth, and the shared bytes of the two rings and
+    the kernel's staging ring."""
+    nzp, ny, nxp = padded_shape(shape)
+    ty, tx = ZM_TILE
+    hy, hx = ZM_HALO
+    fields, stages, blocks_per_sm = ZM_STAGING[kernel]
+    chunks = -(-nzp // ZM_ZCHUNK)
+    zchunk = -(-nzp // chunks)
+    return ZMarchPlan(
+        tiles_x=-(-nxp // tx), tiles_y=-(-ny // ty), chunks=-(-nzp // zchunk), zchunk=zchunk,
+        smem_bytes=(ZM_RING_PLANES + fields * stages) * (ty + 2 * hy) * (tx + 2 * hx) * 4,
+        blocks_per_sm=blocks_per_sm,
+    )
 
 
 # --- plain twins -------------------------------------------------------------
@@ -269,29 +358,45 @@ def _launch_ascent(name, dot, diag_p, cx, cy, cz, t_p, b_p, x1_p, g, ad, g2, gw,
     return (x4, partials.sum()) if dot else x4
 
 
+def _check_aligned(*fields: torch.Tensor) -> None:
+    """K6/K7 move a field's rows as float4: each must start on 16 bytes."""
+    for f in fields:
+        if f.data_ptr() % 16:
+            raise ValueError("the z-marching kernels need fields that start on 16 bytes")
+
+
+def _zmarch_partials(plan: ZMarchPlan, dot: bool, device):
+    """One dot partial a block of ``plan``, or None for the dot-free form."""
+    return torch.empty(plan.blocks, dtype=torch.float32, device=device) if dot else None
+
+
 def _launch_descent1(name, dot, diag_p, cx, cy, cz, b_p, g, gw, shape, pinned, flegs):
-    x1, r, s = (torch.empty_like(b_p) for _ in range(3))
-    partials = _partials(shape, b_p.device) if dot else None
+    _check_aligned(diag_p, b_p)
+    x1, s = torch.empty_like(b_p), torch.empty_like(b_p)
+    plan = zmarch_plan(shape, "descent1")
+    partials = _zmarch_partials(plan, dot, b_p.device)
     _build.launch(
         "tps_descent1", _DESCENT1_ARGS, b_p.device,
-        b_p.data_ptr(), diag_p.data_ptr(), x1.data_ptr(), r.data_ptr(),
-        s.data_ptr(), partials.data_ptr() if dot else None,
+        b_p.data_ptr(), diag_p.data_ptr(), x1.data_ptr(), s.data_ptr(),
+        partials.data_ptr() if dot else None,
         *launch_args(shape, cx, cy, cz, *_legs(cx, cy, cz, flegs)),
-        float(g), float(gw), int(pinned),
+        float(g), float(gw), int(pinned), *plan.launch_args(),
     )
     LAUNCHES[name] += 1
     return (x1, s, partials.sum()) if dot else (x1, s)
 
 
 def _launch_ascent1(name, dot, diag_p, cx, cy, cz, t_p, b_p, x1_p, g, gw, shape, pinned, flegs):
-    x2, x3 = torch.empty_like(t_p), torch.empty_like(t_p)
-    partials = _partials(shape, t_p.device) if dot else None
+    _check_aligned(diag_p, t_p, b_p, x1_p)
+    x3 = torch.empty_like(t_p)
+    plan = zmarch_plan(shape, "ascent1")
+    partials = _zmarch_partials(plan, dot, t_p.device)
     _build.launch(
         "tps_ascent1", _ASCENT1_ARGS, t_p.device,
         t_p.data_ptr(), b_p.data_ptr(), x1_p.data_ptr(), diag_p.data_ptr(),
-        x2.data_ptr(), x3.data_ptr(), partials.data_ptr() if dot else None,
+        x3.data_ptr(), partials.data_ptr() if dot else None,
         *launch_args(shape, cx, cy, cz, *_legs(cx, cy, cz, flegs)),
-        float(g), float(gw), int(pinned),
+        float(g), float(gw), int(pinned), *plan.launch_args(),
     )
     LAUNCHES[name] += 1
     return (x3, partials.sum()) if dot else x3
@@ -359,8 +464,8 @@ def fused7_ascent(diag_p, cx, cy, cz, t_p, b_p, x1_p, g, ad, g2, gw, shape, pinn
 
 
 def fused7_descent1_rr(diag_p, cx, cy, cz, b_p, g, gw, shape, pinned: bool, flegs=None):
-    """``(x1, s, <b, b>)``: the degree-1 downstroke (K6).  The kernel
-    sequence keeps the residual r in scratch device memory."""
+    """``(x1, s, <b, b>)``: the degree-1 downstroke (K6), in one launch
+    that keeps the residual r in shared memory."""
     shape = tuple(shape)
     check_fields(shape, diag_p, b_p)
     if b_p.device.type == "cpu":
@@ -378,8 +483,8 @@ def fused7_descent1(diag_p, cx, cy, cz, b_p, g, gw, shape, pinned: bool, flegs=N
 
 
 def fused7_ascent1_rz(diag_p, cx, cy, cz, t_p, b_p, x1_p, g, gw, shape, pinned: bool, flegs=None):
-    """``(x3, <b, x3>)``: the degree-1 upstroke (K7).  The kernel sequence
-    keeps x2 in scratch device memory."""
+    """``(x3, <b, x3>)``: the degree-1 upstroke (K7), in one launch that
+    keeps x2 in shared memory."""
     shape = tuple(shape)
     check_fields(shape, diag_p, t_p, b_p, x1_p)
     if t_p.device.type == "cpu":
