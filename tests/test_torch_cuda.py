@@ -1,7 +1,8 @@
 """On the card: every CUDA kernel of ``tpusparse_torch`` against its plain
 PyTorch twin at small ragged shapes (the P-smoothing stages also with
-filtered legs; the z-marching K6/K7 and K6'/K7' also at shapes of 1-3
-cells and several tiles and z-chunks, with their face and pad cells),
+filtered legs; the z-marching K3/K4, K6/K7 and their dot-free forms also
+at shapes of 1-3 cells and several tiles and z-chunks, with their face and
+pad cells),
 small stencil (padded, full-fusion, plain layout, the
 unfused padded cycle, W-cycle, threshold schedule, the plain-only GAMG
 options and the standalone PCs), aij and reference-config solves on the
@@ -12,6 +13,8 @@ JAX, so it also runs where JAX is not installed:
 
     python -m pytest tests/test_torch_cuda.py -m requires_cuda --noconftest -q
 """
+
+import math
 
 import numpy as np
 import pytest
@@ -26,7 +29,10 @@ from tpusparse_torch.grid.grid3d import Grid3D
 from tpusparse_torch.grid.poisson import poisson_stencil_device
 from tpusparse_torch.kernels.diaband import dia_mv, dia_mv_torch
 from tpusparse_torch.kernels.fused7 import (
+    _ASCENT_ARGS,
     _DESCENT1_ARGS,
+    _DESCENT_ARGS,
+    ZMARCH_WRAPPERS,
     fused7_ascent,
     fused7_ascent1,
     fused7_ascent1_rz,
@@ -197,9 +203,11 @@ def test_kernel_with_filtered_legs_matches_twin(cuda, name, shape, drop):
 
 # the z-marching kernels, at shapes of 1-3 cells a side (never one cell
 # alone: its Neumann row is zero), x not a multiple of 4, and several tiles
-# and z-chunks
-ZMARCH = ("fused7_descent1_rr", "fused7_descent1", "fused7_ascent1_rz", "fused7_ascent1")
-ZMARCH_SHAPES = [(1, 2, 1), (3, 2, 5), (2, 3, 1), (2, 1, 3), (40, 13, 61), (70, 25, 3), (33, 25, 121)]
+# and z-chunks (ny = 21 and 57 cut both tiles raggedly, nz = 60, 75 and
+# 100 the chunks)
+ZMARCH = ZMARCH_WRAPPERS
+ZMARCH_SHAPES = [(1, 2, 1), (3, 2, 5), (2, 3, 1), (2, 1, 3), (40, 13, 61), (70, 25, 3), (33, 25, 121),
+                 (75, 21, 13), (100, 21, 61), (60, 57, 13)]
 
 
 @pytest.mark.parametrize("flegs", [False, True])
@@ -207,9 +215,12 @@ ZMARCH_SHAPES = [(1, 2, 1), (3, 2, 5), (2, 3, 1), (2, 1, 3), (40, 13, 61), (70, 
 @pytest.mark.parametrize("shape", ZMARCH_SHAPES)
 @pytest.mark.parametrize("name", ZMARCH)
 def test_zmarch_kernel_matches_twin(cuda, name, shape, pinned, flegs):
-    """One launch a call; x1 bit-equal to the twin's (the same IEEE 1/d and
-    two products), s and x3 at the kernels' tolerances, the dot to 1e-5,
-    and every face and pad cell of each output exactly 0."""
+    """One launch a call; K6's x1 bit-equal to the twin's (the same IEEE
+    1/d and two products), the other fields at the kernels' tolerances, the
+    dot to 1e-5 of itself, K4's <b, x4> to 1e-5 of the sum of its terms'
+    magnitudes (chip_smoke.py::_dot_agrees: at a handful of cells it
+    cancels to 1% of them, and K4 sums it in another block order than its
+    twin), and every face and pad cell of each output exactly 0."""
     kernel, twin = CASES[name]
     args = _args(name, shape, pinned, cuda)
     legs = (args[1], args[2], 0.0) if flegs else None
@@ -217,7 +228,13 @@ def test_zmarch_kernel_matches_twin(cuda, name, shape, pinned, flegs):
     got, want = kernel(*args, flegs=legs), twin(*args, flegs=legs)
     torch.cuda.synchronize()
     assert kernels.LAUNCHES[name] == before + 1
-    _close(got, want, cuda)
+    if name == "fused7_ascent_rz":
+        _close(got[:-1], want[:-1], cuda)
+        assert got[-1].device == cuda and got[-1].shape == want[-1].shape
+        terms = (args[5] * want[0]).abs().sum().item()   # |b x4|, b = args[5]
+        assert abs(got[-1].item() - want[-1].item()) <= 1e-5 * terms
+    else:
+        _close(got, want, cuda)
     got = got if isinstance(got, tuple) else (got,)
     want = want if isinstance(want, tuple) else (want,)
     if name.startswith("fused7_descent1"):
@@ -243,6 +260,33 @@ def test_zmarch_entry_point_refuses_a_plan_that_misses_cells(cuda):
             b.data_ptr(), diag.data_ptr(), x1.data_ptr(), s.data_ptr(), None,
             *launch_args(shape, cx, cy, cz, cx, cy, cz), G, GW, 1, *short,
         )
+
+
+@pytest.mark.parametrize("kind", ["descent", "ascent"])
+def test_zmarch_entry_points_of_k3_k4_refuse_a_wrong_plan(cuda, kind):
+    """A plan that misses a tile in x, or has K6/K7's tile, or one plane of
+    shared memory too few, is refused before a launch (ny = 21: K3/K4's
+    and K6/K7's tiles cut it into different counts of rows)."""
+    shape = (40, 21, 61)
+    args = _args(f"fused7_{kind}", shape, True, cuda)
+    diag, cx, cy, cz = args[:4]
+    fields = args[4:5] if kind == "descent" else args[4:7]
+    out = [torch.empty_like(fields[0]) for _ in range(2 if kind == "descent" else 1)]
+    plan = zmarch_plan(shape, kind)
+    wrong = [
+        (plan.tiles_x - 1, *plan.launch_args()[1:]),
+        (*zmarch_plan(shape, f"{kind}1").launch_args()[:4], plan.smem_bytes),
+        (*plan.launch_args()[:4], plan.smem_bytes - 4 * math.prod(plan.region)),
+    ]
+    name, argtypes = ("tps_descent", _DESCENT_ARGS) if kind == "descent" else ("tps_ascent", _ASCENT_ARGS)
+    if kind == "descent":
+        ptrs = (fields[0].data_ptr(), diag.data_ptr(), *(o.data_ptr() for o in out), None)
+    else:
+        ptrs = (*(f.data_ptr() for f in fields), diag.data_ptr(), out[0].data_ptr(), None)
+    for bad in wrong:
+        with pytest.raises(RuntimeError, match=name):
+            _build.launch(name, argtypes, cuda, *ptrs, *launch_args(shape, cx, cy, cz, cx, cy, cz),
+                          G, AD, S0, GW, 1, *bad)
 
 
 def _box27(ny, nx):

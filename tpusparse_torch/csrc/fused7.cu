@@ -7,33 +7,36 @@
 // restrict and prolong (K10-K16, the single steps of the unfused padded
 // V-cycle), with the math of fused7_xla for each mode.
 //
-// Bound on the H100: bytes.  Each mode is a chain of two or three stencil
+// Bound on the H100: bytes.  Each mode is a chain of one to three stencil
 // applies with elementwise epilogues.  The TPU kernel chains them inside
 // one HBM pass per launch by temporal blocking over FACE = 3 halo planes:
 // descent_rr reads b and diag once and writes x1 and s (4 field passes),
 // ascent_rz reads t, b, x1, diag and writes x4 (5 passes).
 //
-// Two designs.  K6 and K7 (descent1(_rr), ascent1(_rz): the reference
-// config's Richardson(1) V-cycle, the kernels its solve launches most) are
-// one launch each that marches a column tile up a z-chunk of planes through
-// shared-memory rings, so each field crosses HBM about once: 4 passes for
-// K6, 5 for K7, their bounds (see the K6/K7 section below).  The others are
-// first-port designs: a short fixed sequence of launches per mode, each
-// fusing ONE stencil apply with its elementwise epilogue, one thread per
-// padded cell, with the intermediates in device memory (the wrapper
-// allocates them).  That costs descent 10 field passes (3 launches), ascent
-// 14 (3 launches), cgmv 7 (1 launch, its bound) and descentu 12 (3
-// launches, against a bound of 6).  K10-K16 are one launch each at their
-// bounds' pass counts: residual and rich 4, cheb0 5, cheb 6, pre2 4,
-// restrict and prolong 3.  Every chained step writes zero outside the
-// domain (the fused7 mask_dom), so the next step's stencil sees the
-// Neumann dropped-entry boundary.
+// Two designs.  The V-cycle's fine-level kernels that chain two or three
+// stencil applies march: K3/K4 (descent(_rr), ascent(_rz): the degree-2
+// cycle of the headline solve, of the non-CG solvers, the W-cycle and the
+// threshold schedules) and K6/K7 (descent1(_rr), ascent1(_rz): the
+// reference config's Richardson(1) cycle) are one launch each that marches
+// a column tile up a z-chunk of planes through shared-memory rings, so each
+// field crosses HBM about once: 4 passes for K3 and K6, 5 for K4 and K7,
+// their bounds (see the z-marching section below).  The others do not
+// march: one thread per padded cell, each launch fusing ONE stencil apply
+// with its elementwise epilogue.  K2, K8 and K10-K16 are one launch each
+// at their bounds' pass counts: mvdot 3, cgmv 7, residual and rich 4,
+// cheb0 5, cheb 6, pre2 4, restrict and prolong 3.  K9 (descentu) is a
+// first-port sequence of three launches with its intermediates in device
+// memory (the wrapper allocates them): 12 field passes against a bound of
+// 6.  Every chained step writes zero outside the domain (the fused7
+// mask_dom), so the next step's stencil sees the Neumann dropped-entry
+// boundary.
 //
 // K8 (cgmv) and K9 (descentu) carry the CG vector updates.  K8 is one
 // launch: p' = z + beta p is formed at each of the star's seven reads, and
-// x' = x + alpha_prev p rides along (4 field reads, 3 writes).  K9 is K3
-// with the residual update r' = r - alpha ap formed at each read of its
-// first launch, which writes r' next to x1.  Their CG scalars (beta,
+// x' = x + alpha_prev p rides along (4 field reads, 3 writes).  K9 is K3's
+// math with the residual update r' = r - alpha ap formed at each read of
+// its first launch, which writes r' next to x1; its second and third
+// launches are K10's and K15's kernels.  Their CG scalars (beta,
 // alpha_prev, alpha) are device scalars read by pointer: they come out of
 // the previous launches' dots, and passing them by value would cost CG a
 // host read of each per iteration.
@@ -64,28 +67,7 @@ mvdot_kernel(const float* __restrict__ x, const float* __restrict__ diag,
   block_partial(dot, partials);
 }
 
-// K3 step 1, both pre-smoothing steps from a zero guess:
-// u = (s0 b) D^-1;  x1 = u + ad u + g D^-1 (b - A u);  partials of <b, b>.
-template <bool DOT>
-__global__ void __launch_bounds__(BLOCK)
-pre_smooth_kernel(const float* __restrict__ b, const float* __restrict__ diag,
-                  float* __restrict__ x1, float* __restrict__ partials,
-                  Geom g, Legs a, float s0, float ad, float gg, int pinned) {
-  const long long q = thread_cell();
-  int k, j, i;
-  float out = 0.0f, dot = 0.0f;
-  if (cell(g, q, k, j, i)) {
-    const DinvField u{b, diag, s0};
-    const float uq = u(q);
-    const float w = star(u, diag[q] * uq, q, k, j, i, g, a, pinned);
-    out = uq + ad * uq + gg * ((1.0f / diag[q]) * (b[q] - w));
-    dot = b[q] * b[q];
-  }
-  if (q < g.total) x1[q] = out;
-  if constexpr (DOT) block_partial(dot, partials);
-}
-
-// K15 (restrict) and K3 step 3, the P^T smoothing pass:
+// K15 (restrict) and K9's third launch, the P^T smoothing pass:
 // s = r - gw A_f (D^-1 r), A_f the operator with the filtered legs ``f``.
 __global__ void __launch_bounds__(BLOCK)
 restrict_smooth_kernel(const float* __restrict__ r,
@@ -102,128 +84,127 @@ restrict_smooth_kernel(const float* __restrict__ r,
   s[q] = out;
 }
 
-// The P smoothing pass with the filtered legs ``f``: K16 (prolong),
-// t - gw D^-1 (A_f t); with ADD, K4 step 1, which adds the coarse
-// correction to the pre-smoothed x1: x2 = x1 + t - gw D^-1 (A_f t).
-template <bool ADD>
+// K16 prolong, the P smoothing pass with the filtered legs ``f``:
+// t - gw D^-1 (A_f t).
 __global__ void __launch_bounds__(BLOCK)
-prolong_kernel(const float* __restrict__ t, const float* __restrict__ x1,
-               const float* __restrict__ diag, float* __restrict__ x2,
-               Geom g, Legs f, float gw, int pinned) {
+prolong_kernel(const float* __restrict__ t, const float* __restrict__ diag,
+               float* __restrict__ out, Geom g, Legs f, float gw,
+               int pinned) {
   const long long q = thread_cell();
   int k, j, i;
   if (q >= g.total) return;
-  float out = 0.0f;
+  float o = 0.0f;
   if (cell(g, q, k, j, i)) {
     const float w = star(Field{t}, diag[q] * t[q], q, k, j, i, g, f, pinned);
-    const float base = ADD ? x1[q] + t[q] : t[q];
-    out = base - gw * ((1.0f / diag[q]) * w);
+    o = t[q] - gw * ((1.0f / diag[q]) * w);
   }
-  x2[q] = out;
-}
-
-// K4 step 2, post-smoothing step 1: d = g D^-1 (b - A x2);  x3 = x2 + d.
-__global__ void __launch_bounds__(BLOCK)
-post_smooth1_kernel(const float* __restrict__ b, const float* __restrict__ x2,
-                    const float* __restrict__ diag, float* __restrict__ d,
-                    float* __restrict__ x3, Geom g, Legs a, float gg,
-                    int pinned) {
-  const long long q = thread_cell();
-  int k, j, i;
-  if (q >= g.total) return;
-  float dq = 0.0f, out = 0.0f;
-  if (cell(g, q, k, j, i)) {
-    const float w = star(Field{x2}, diag[q] * x2[q], q, k, j, i, g, a, pinned);
-    dq = gg * ((1.0f / diag[q]) * (b[q] - w));
-    out = x2[q] + dq;
-  }
-  d[q] = dq;
-  x3[q] = out;
-}
-
-// K4 step 3, post-smoothing step 2:
-// x4 = x3 + ad d + g2 D^-1 (b - A x3);  partials of <b, x4>.
-template <bool DOT>
-__global__ void __launch_bounds__(BLOCK)
-post_smooth2_kernel(const float* __restrict__ b, const float* __restrict__ x3,
-                    const float* __restrict__ d,
-                    const float* __restrict__ diag, float* __restrict__ x4,
-                    float* __restrict__ partials, Geom g, Legs a, float ad,
-                    float g2, int pinned) {
-  const long long q = thread_cell();
-  int k, j, i;
-  float out = 0.0f, dot = 0.0f;
-  if (cell(g, q, k, j, i)) {
-    const float w = star(Field{x3}, diag[q] * x3[q], q, k, j, i, g, a, pinned);
-    out = x3[q] + ad * d[q] + g2 * ((1.0f / diag[q]) * (b[q] - w));
-    dot = b[q] * out;
-  }
-  if (q < g.total) x4[q] = out;
-  if constexpr (DOT) block_partial(dot, partials);
+  out[q] = o;
 }
 
 // ---------------------------------------------------------------------------
-// K6 (descent1_rr) and K7 (ascent1_rz), with K6'/K7' their dot-free forms:
-// the degree-1 V-cycle of the reference config, one launch each, by
-// z-marching.  They replace fused7_call's modes descent1(_rr) and
-// ascent1(_rz) (tpusparse/kernels/fused7.py:632-673).
+// The z-marching kernels, one launch each, with their dot-free forms:
+// K3 (descent_rr) / K3' and K4 (ascent_rz) / K4', the degree-2 V-cycle's
+// fine level, and K6 (descent1_rr) / K6' and K7 (ascent1_rz) / K7', the
+// reference config's degree-1 one.  They replace fused7_call's modes
+// descent(_rr), ascent(_rz) (tpusparse/kernels/fused7.py:575-602,
+// 674-701), descent1(_rr) and ascent1(_rz) (:632-673).
 //
-// Bound on the H100: bytes.  K6 reads b and diag and writes x1 and s (4
-// field passes, 0.1315 ms at 300^3); K7 reads t, b, x1 and diag and writes
-// x3 (5 passes, 0.1644 ms).  Each chains two stencil applies, so a cell's
-// output depends on inputs two cells away in every direction.
+// Bound on the H100: bytes.  K3 and K6 read b and diag and write x1 and s
+// (4 field passes, 0.1315 ms at 300^3); K4 and K7 read t, b, x1 and diag
+// and write x4 (x3) (5 passes, 0.1644 ms).  K3/K4 chain three stencil
+// applies and K6/K7 two, so a cell's output depends on inputs H = 3 (2)
+// cells away in every direction: H is each kernel's halo.
 //
 // Design, after the TPU kernel's slab streaming with halo planes
-// (fused7.py:381-421): a block owns a ZM_TY x ZM_TX = 12 x 56 column tile
-// of the (ny, nxp) plane and marches up one z-chunk of padded planes.  Its
-// region is the tile plus 2 rows a side in y and one quad (4 cells, 2 of
-// them needed) a side in x: 16 x 64 cells, one quad of 4 consecutive x
-// cells a thread, copied and stored 16 bytes at a time (the region's
-// columns start on 16 bytes).  The inputs come through a staging ring in
-// shared memory by cp.async, 2-3 planes ahead of their use, so that a block
-// keeps that many planes of loads in flight: a first version that loaded
-// one plane ahead into registers waited on HBM latency and ran at 0.36 /
-// 0.53 ms (PERF.md, PR 6).  Per plane p:
-//   1. the thread's quads of plane p go through the first step and into a
-//      shared ring of 3 planes (K6: x1 = g (b D^-1); K7: t as it is);
-//   2. the chained step runs on plane p - 1 for the tile plus one cell a
-//      side, reading its stencil from that ring, and writes a second ring
-//      (K6: r = b - A x1, stored as D^-1 r; K7: x2 = x1 + t - gw D^-1 A_f t);
-//   3. the last step runs on plane p - 2 for the tile, reading the second
-//      ring, writes the tile's outputs (K6: x1 and s = r - gw A_f(D^-1 r);
-//      K7: x3 = x2 + g D^-1 (b - A x2)) and adds to the dot.
-// So each input and output crosses HBM about once: a chunk re-reads its 4
-// halo planes and a tile its halo columns (mostly from L2, where the
-// neighbouring blocks that run at the same time put them).  One IEEE
-// reciprocal 1/d a cell and plane, reused by both steps.  The rings hold 0
-// at every cell off the domain (face planes, x pads, beyond the field), so
-// a stencil read there is the Neumann boundary's dropped entry without a
+// (fused7.py:381-421): a block owns a column tile of the (ny, nxp) plane,
+// SY - 2 H rows by ZM_TX = 56 columns, and marches up one z-chunk of padded
+// planes.  Its region is the tile plus H rows a side in y and one quad (4
+// cells, H of them needed) a side in x: SY x 64 cells, one quad of 4
+// consecutive x cells a thread, copied and stored 16 bytes at a time (the
+// region's columns start on 16 bytes).  K6/K7: SY = 16, tile 12 x 56, 256
+// threads; K3/K4: SY = 40, tile 34 x 56, 640 threads, one block an SM,
+// each thread within 96 registers (the register file's 64 K).  K3/K4 are
+// bound by the latency their warps cannot hide, not by bytes: the 40-row
+// region holds 20 warps an SM against a 32-row one's 16 and loads 6% fewer
+// rows at 300^3 (9 tiles of 40 against 12 of 32), and ran 9-10% faster; a
+// 16-row region, 2 blocks an SM, ran 15-20% slower than the 32-row one
+// (PERF.md section 6).  The inputs come
+// through a staging ring in shared memory by cp.async, AHEAD planes ahead
+// of their first use, so that a block keeps that many planes of loads in
+// flight: a first K6/K7 that loaded one plane ahead into registers waited
+// on HBM latency and ran at 0.36 / 0.53 ms (PERF.md section 6).  Per plane
+// p, H + 1 steps, each one plane behind the last and on one cell less a
+// side (n = 0 .. H):
+//   n = 0, plane p, the whole region: the first step, into a shared ring
+//      (K3: u = (s0 b) D^-1; K4, K7: t as it is; K6: x1 = g b D^-1);
+//   0 < n < H, plane p - n, the tile plus H - n cells a side (rows n to
+//      SY - n; whole quads): a chained step reads its stencil from the
+//      ring of step n - 1 and writes a ring of its own (K3: x1 = u + ad u +
+//      g D^-1 (b - A u), then r = b - A x1 stored as D^-1 r; K4: x2 = x1 +
+//      t - gw D^-1 A_f t, then d = g D^-1 (b - A x2) and x3 = x2 + d; K6:
+//      D^-1 r; K7: x2);
+//   n = H, plane p - H, the tile: the last step writes the tile's outputs
+//      (K3, K6: x1 and s = r - gw A_f (D^-1 r); K4: x4 = x3 + ad d + g2 D^-1
+//      (b - A x3); K7: x3 = x2 + g D^-1 (b - A x2)) and adds to the dot.
+// So each input and output crosses HBM about once: a chunk re-reads its 2 H
+// halo planes and a tile its halo rows and columns (mostly from L2, where
+// the neighbouring blocks that run at the same time put them).  One IEEE
+// reciprocal 1/d a cell and plane, reused by every later step: a thread
+// carries its own quads' D^-1 (and K3's r, K4's d) across the lag in
+// registers, and reads b and diag again from the staging ring, which keeps
+// each field's plane until that field's last read.  The rings hold 0 at
+// every cell off the domain (face planes, x pads, beyond the field), so a
+// stencil read there is the Neumann boundary's dropped entry without a
 // mask; only the pinned origin is tested, in the one block that holds it.
-// A thread reads the stencil's six neighbours as four float4 quads and two
-// scalars from shared memory.  Every value is the same expression as in the
-// plain twin and in the single-step kernels (restrict_smooth_kernel,
-// prolong_kernel<true>), so x1 is bit-equal to the twin's.  Every output
-// cell of the tile's chunk is written, zero off the domain.
+// Every value is the plain twin's expression; K6's x1 is bit-equal to the
+// twin's, and the outputs of the chained steps may round apart by nvcc's
+// contraction of a product and a sum into an FMA.  Every output cell of the
+// tile's chunk is written, zero off the domain.
+//
+// The two pairs read a stencil's neighbours two ways.  K6/K7 keep 3 planes
+// of each ring in shared memory and read six neighbour quads and two cells
+// from there, with a barrier after each step (quad_star).  K3/K4 read only
+// the rows above and below from shared memory: a thread keeps its own quads
+// of the three planes a stencil needs in registers (the centre and its z
+// neighbours) and takes its x neighbours from the next lanes (Ring2,
+// row_neighbours).  A step then reads in shared memory only planes that
+// the steps wrote one plane earlier, so each ring needs 2 planes and a
+// plane needs one barrier, at its end.  The first K3/K4, in K6/K7's way
+// (16-row regions, three barriers a plane), ran at 0.455 / 0.434 ms at
+// 300^3 (PERF.md section 6).
 //
 // The launch plan (tiles, z-chunk, grid, shared bytes, partials) is
 // computed by the wrapper (kernels/fused7.py::zmarch_plan); the entry
 // points refuse a plan that does not cover the field exactly once.
 // ---------------------------------------------------------------------------
-constexpr int ZM_TX = 56, ZM_TY = 12;        // a block's output tile (x, y)
-constexpr int ZM_HX = 4, ZM_HY = 2;          // region halo: a quad in x
+constexpr int ZM_TX = 56;                    // a block's output tile in x
+constexpr int ZM_HX = 4;                     // region halo in x: a quad
 constexpr int ZM_SX = ZM_TX + 2 * ZM_HX;     // 64 region columns
-constexpr int ZM_SY = ZM_TY + 2 * ZM_HY;     // 16 region rows
 constexpr int ZM_QX = ZM_SX / 4;             // 16 quads a region row
-constexpr int ZM_PLANE = ZM_SX * ZM_SY;      // shared floats a ring plane
-constexpr int ZM_RING_PLANES = 6;            // two rings of 3 planes
-// Each kernel stages its input fields STAGES planes deep, copied STAGES - 3
-// planes ahead of their use: as many as its blocks' shared memory allows
-// at the SM's occupancy it asks for (MIN_BLOCKS), so that enough bytes are
-// in flight to keep HBM busy.  K6: 2 fields, 6 stages, 3 blocks an SM (72
-// KB each); K7: 4 fields, 5 stages, 2 blocks an SM (104 KB each).
-constexpr int ZM6_FIELDS = 2, ZM6_STAGES = 6, ZM6_MIN_BLOCKS = 3;
-constexpr int ZM7_FIELDS = 4, ZM7_STAGES = 5, ZM7_MIN_BLOCKS = 2;
+static_assert(32 % ZM_QX == 0, "a warp holds whole region rows");
+// region rows (the tile's and H a side), one quad of the region a thread:
+// K6/K7 16 rows of 256 threads, K3/K4 40 rows of 640
+constexpr int ZM_SY = 16, ZM3_SY = 40;
+constexpr int ZM_PLANE = ZM_SX * ZM_SY;      // shared floats a K6/K7 plane
+constexpr int ZM3_PLANE = ZM_SX * ZM3_SY;    // and a K3/K4 one
+constexpr int ZM3_THREADS = ZM_QX * ZM3_SY;
 static_assert(ZM_QX * ZM_SY == BLOCK, "one quad of the region a thread");
+
+// Per kernel: the input fields it stages and how many planes ahead of
+// their first read (AHEAD), and the blocks an SM must hold (MIN_BLOCKS): as
+// many as the shared memory of its rings and staging allows with enough
+// bytes in flight to keep HBM busy (Little's law: ~25 KB an SM; PERF.md
+// section 6).  A field's staging ring holds at least AHEAD + 1 + L planes,
+// L the lag of its last read behind its first (see Staging).  K6: b and
+// diag, 3 ahead, 6 deep; 3 blocks an SM (72 KB each).  K7: t, x1, diag and
+// b, 2 ahead, 5 deep; 2 blocks (104 KB).  K3: b (read at n = 0-2) and diag
+// (n = 0-3), 4 ahead, 8 deep; one block (220 KB).  K4: t (n = 0), x1 (n =
+// 1), diag (n = 1-3) and b (n = 2-3), 1 ahead (its 20 planes of 2 ahead
+// would not fit), 2, 2, 4 and 4 deep; one block (180 KB).
+constexpr int ZM6_AHEAD = 3, ZM6_MIN_BLOCKS = 3;
+constexpr int ZM7_AHEAD = 2, ZM7_MIN_BLOCKS = 2;
+constexpr int ZM3_AHEAD = 4, ZM3_MIN_BLOCKS = 1;
+constexpr int ZM4_AHEAD = 1, ZM4_MIN_BLOCKS = 1;
 
 // Four consecutive cells of a row, one thread's share of every step.
 struct Quad {
@@ -240,8 +221,8 @@ __device__ __forceinline__ float4 float4_of(const Quad& q) {
 
 // The thread's quad: its place in the region, its domain coordinates, and
 // which of its cells each step covers.  The region starts ZM_HX columns and
-// ZM_HY rows before the tile, so a quad lies wholly inside or wholly
-// outside [0, nxp) and its global rows start on 16 bytes.
+// H rows before the tile, so a quad lies wholly inside or wholly outside
+// [0, nxp) and its global rows start on 16 bytes.
 struct ZQuad {
   int q;          // float4 index in a ring plane: ly * ZM_QX + qx
   int ly, qx;     // region row and quad column
@@ -249,26 +230,32 @@ struct ZQuad {
   int off;        // j * nxp + i0: the quad's offset in a padded plane
   bool field;     // the quad lies in the padded plane (0 <= j < ny, i0 < nxp)
   bool dom[4];    // each cell lies in the domain's plane (also i < nx)
-  bool mid;       // the quad's row is one of step 2's, whose cells are the
-                  // tile plus one cell a side (every such row's quads hold
-                  // one at least; the others' values are never read)
-  bool out;       // the quad is in the tile and the field: step 3 writes it
+  bool out;       // the quad is in the tile and the field: the last step
+                  // writes it
+  int sy;         // the region's rows
+  // the quad's row is one of step n's, whose cells are the tile plus H - n
+  // cells a side (every such row's quads hold one at least; the others'
+  // values are never read)
+  __device__ __forceinline__ bool rows(int n) const {
+    return ly >= n && ly < sy - n;
+  }
 };
 
+// The thread's quad in a region of SY rows around a tile of SY - 2 H.
+template <int H, int SY>
 __device__ __forceinline__ ZQuad zquad(const Geom& g) {
   ZQuad z;
+  z.sy = SY;
   z.ly = (int)threadIdx.x / ZM_QX;
   z.qx = (int)threadIdx.x % ZM_QX;
   z.q = z.ly * ZM_QX + z.qx;
-  z.j = (int)blockIdx.y * ZM_TY - ZM_HY + z.ly;
+  z.j = (int)blockIdx.y * (SY - 2 * H) - H + z.ly;
   z.i0 = (int)blockIdx.x * ZM_TX - ZM_HX + 4 * z.qx;
   z.off = z.j * g.nxp + z.i0;
   z.field = z.j >= 0 && z.j < g.ny && z.i0 >= 0 && z.i0 < g.nxp;
 #pragma unroll
   for (int l = 0; l < 4; ++l) z.dom[l] = z.field && z.i0 + l < g.nx;
-  z.mid = z.ly >= 1 && z.ly < ZM_SY - 1;
-  z.out = z.field && z.ly >= ZM_HY && z.ly < ZM_SY - ZM_HY && z.qx >= 1 &&
-          z.qx < ZM_QX - 1;
+  z.out = z.field && z.rows(H) && z.qx >= 1 && z.qx < ZM_QX - 1;
   return z;
 }
 
@@ -299,21 +286,20 @@ __device__ __forceinline__ Ring make_ring(float* base) {
   return Ring{base, 0, ZM_PLANE, 2 * ZM_PLANE};
 }
 
-// (A u) at the four cells of quad z on the middle plane of ring r, given
-// each cell's diagonal term: six neighbour quads, two of them shifted by
-// one cell.  The ring holds 0 outside the domain, so a neighbour the
-// Neumann boundary drops reads that 0 and needs no mask; only the pinned
-// origin needs a test (MatZeroRowsColumns, as in star), and only in the
-// blocks whose region holds it (``pin``, uniform in a block).  A cell outside
-// the step's cells gets a value that is never read.
-__device__ __forceinline__ Quad quad_star(const Ring& r, const ZQuad& z,
-                                          const Quad& center, int k, Legs a,
+// (A u) at the four cells of quad z on domain plane k, given each cell's
+// diagonal term: u's quad there (c), the cells left and right of it in its
+// row, its quads in the rows below and above (ym, yp) and on the planes
+// below and above (zm, zp).  Every u holds 0 outside the domain, so a
+// neighbour the Neumann boundary drops reads that 0 and needs no mask; only
+// the pinned origin needs a test (MatZeroRowsColumns, as in star), and only
+// in the blocks whose region holds it (``pin``, uniform in a block).  A
+// cell outside the step's cells gets a value that is never read.
+__device__ __forceinline__ Quad star_quad(const Quad& c, float left,
+                                          float right, const Quad& ym,
+                                          const Quad& yp, const Quad& zm,
+                                          const Quad& zp, const Quad& center,
+                                          const ZQuad& z, int k, Legs a,
                                           bool pin) {
-  const float* mid = r.plane(1);
-  const Quad c = r.get(1, z.q);
-  const Quad ym = r.get(1, z.q - ZM_QX), yp = r.get(1, z.q + ZM_QX);
-  const Quad zm = r.get(0, z.q), zp = r.get(2, z.q);
-  const float left = mid[4 * z.q - 1], right = mid[4 * z.q + 4];
   Quad w;
 #pragma unroll
   for (int l = 0; l < 4; ++l) {
@@ -336,13 +322,53 @@ __device__ __forceinline__ Quad quad_star(const Ring& r, const ZQuad& z,
   return w;
 }
 
+// star_quad of u on the middle plane of ring r (K6/K7): six neighbour
+// quads and two cells read from shared memory.
+__device__ __forceinline__ Quad quad_star(const Ring& r, const ZQuad& z,
+                                          const Quad& center, int k, Legs a,
+                                          bool pin) {
+  const float* mid = r.plane(1);
+  return star_quad(r.get(1, z.q), mid[4 * z.q - 1], mid[4 * z.q + 4],
+                   r.get(1, z.q - ZM_QX), r.get(1, z.q + ZM_QX),
+                   r.get(0, z.q), r.get(2, z.q), center, z, k, a, pin);
+}
+
+// Two shared planes of the region (K3/K4): a step writes its newest plane
+// into one while the next step reads the plane before from the other.  The
+// next step's stencil reads only the rows above and below there: the
+// thread keeps its own quads of the three planes it needs (its centre and
+// z neighbours) in registers, and takes its x neighbours from the next
+// lanes (row_neighbours).
+struct Ring2 {
+  float* base;
+  int wr;   // offset of the plane written next: 0 or ZM3_PLANE
+  __device__ __forceinline__ void flip() { wr = ZM3_PLANE - wr; }
+  __device__ __forceinline__ void put(const Quad& v, int q) const {
+    reinterpret_cast<float4*>(base + wr)[q] = float4_of(v);
+  }
+  __device__ __forceinline__ Quad get(int q) const {
+    return quad_of(reinterpret_cast<const float4*>(base + ZM3_PLANE - wr)[q]);
+  }
+};
+
+// The cells left and right of the thread's quad c in its region row: the
+// last cell of the lane before and the first of the lane after (a warp
+// holds two whole region rows).  Every lane of the warp must call it; at a
+// row's ends the value is another row's, which no step's cells read.
+__device__ __forceinline__ void row_neighbours(const Quad& c, float& left,
+                                               float& right) {
+  left = __shfl_up_sync(0xffffffffu, c.v[3], 1);
+  right = __shfl_down_sync(0xffffffffu, c.v[0], 1);
+}
+
 // The pinned origin's cells, (k, j, i) with k + j + i <= 1, lie in this
 // block's region and march: the first tile in y and x, and a z-chunk whose
-// march (from 2 planes below z0) reaches domain plane 1.
+// march (from H planes below z0) reaches domain plane 1.
+template <int H>
 __device__ __forceinline__ bool pins_origin(const Geom& g, int pinned,
                                             int z0) {
   return pinned && blockIdx.x == 0 && blockIdx.y == 0 &&
-         z0 - 2 <= g.face + 1;
+         z0 - H <= g.face + 1;
 }
 
 // Plane p of the padded field is a domain plane (k = p - face in [0, nz)).
@@ -371,34 +397,56 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
-// The staging ring after the two rings: STAGES planes of each of FIELDS
-// input fields.  Plane p of the march (which starts at z0 - 2) is in slot
-// (p - z0 + 2) % STAGES.  Each thread copies and reads only its own quad,
-// so cp_async_wait alone, with no barrier, makes a copy visible to its
-// reader; a slot is copied into again STAGES planes later, 3 planes after
-// its last read (step 3, two planes behind step 1).
-template <int FIELDS, int STAGES>
+// The staging ring after the rings: input field F (0-3) keeps its last DF
+// planes.  Plane p of the march (which starts at z0 - H) is in slot
+// (p - z0 + H) % DF of F's.  Each thread copies and reads only its own
+// quad, so cp_async_wait alone, with no barrier, makes a copy visible to
+// its reader.  A slot is copied into again DF planes later, which must come
+// after the plane's last read: DF >= A + 1 + L for a field copied A planes
+// ahead of step 0 and last read L planes behind it.  A power of two makes
+// the slot a mask.
+template <int H, int PLANE, int D0, int D1, int D2 = 0, int D3 = 0>
 struct Staging {
+  static constexpr int PLANES = D0 + D1 + D2 + D3;
+  static constexpr int PLANE_FLOATS = PLANE;
   float* base;
   int z0;
-  __device__ __forceinline__ float4* at(int field, int p) const {
+  template <int F>
+  __device__ __forceinline__ float4* at(int p) const {
+    constexpr int depth = F == 0 ? D0 : F == 1 ? D1 : F == 2 ? D2 : D3;
+    constexpr int first = F == 0 ? 0 : F == 1 ? D0 : F == 2 ? D0 + D1
+                                                            : D0 + D1 + D2;
     return reinterpret_cast<float4*>(
-        base + (field * STAGES + (p - z0 + 2) % STAGES) * ZM_PLANE);
+        base + (first + (unsigned)(p - z0 + H) % depth) * PLANE);
   }
-  // copy the thread's quad of field f, plane p (zeros where it has none)
-  __device__ __forceinline__ void copy(int field, const float* f,
-                                       const Geom& g, const ZQuad& z, int p,
+  // copy the thread's quad of field F, plane p, from src, its address
+  // there; with valid false, zeros (src is not read)
+  template <int F>
+  __device__ __forceinline__ void copy_from(const float* src, const ZQuad& z,
+                                            int p, bool valid) const {
+    cp_async16(at<F>(p) + z.q, src, valid);
+  }
+  // copy the thread's quad of field F, plane p (zeros where it has none)
+  template <int F>
+  __device__ __forceinline__ void copy(const float* f, const Geom& g,
+                                       const ZQuad& z, int p,
                                        bool want) const {
     const bool valid = want && z.field && domain_plane(g, p);
-    cp_async16(at(field, p) + z.q,
-               valid ? f + (long long)p * g.plane + z.off : f, valid);
+    copy_from<F>(valid ? f + (long long)p * g.plane + z.off : f, z, p, valid);
   }
-  // the thread's quad of field `field` on plane p: its domain cells' values
-  // and `fill` at the others
-  __device__ __forceinline__ Quad get(int field, const Geom& g,
-                                      const ZQuad& z, int p,
+  // the thread's quad of field F on plane p as copied: zeros where it has
+  // none, the field's own values at its pads (for a step whose results
+  // are 0 off the domain by a select of their own)
+  template <int F>
+  __device__ __forceinline__ Quad raw(const ZQuad& z, int p) const {
+    return quad_of(at<F>(p)[z.q]);
+  }
+  // the thread's quad of field F on plane p: its domain cells' values and
+  // `fill` at the others
+  template <int F>
+  __device__ __forceinline__ Quad get(const Geom& g, const ZQuad& z, int p,
                                       float fill) const {
-    const Quad got = quad_of(at(field, p)[z.q]);
+    const Quad got = quad_of(at<F>(p)[z.q]);
     const bool dp = domain_plane(g, p);
     Quad v;
 #pragma unroll
@@ -406,12 +454,40 @@ struct Staging {
     return v;
   }
 };
+// K6 (b, diag), K7 (t, x1, diag, b), K3 (b, diag), K4 (t, x1, diag, b)
+using Staging6 = Staging<2, ZM_PLANE, ZM6_AHEAD + 3, ZM6_AHEAD + 3>;
+using Staging7 = Staging<2, ZM_PLANE, ZM7_AHEAD + 3, ZM7_AHEAD + 3,
+                         ZM7_AHEAD + 3, ZM7_AHEAD + 3>;
+constexpr int pow2_ceil(int n) {
+  return n <= 1 ? 1 : 2 * pow2_ceil((n + 1) / 2);
+}
+using Staging3 = Staging<3, ZM3_PLANE, pow2_ceil(ZM3_AHEAD + 3),
+                         pow2_ceil(ZM3_AHEAD + 4)>;
+using Staging4 = Staging<3, ZM3_PLANE, pow2_ceil(ZM4_AHEAD + 1),
+                         pow2_ceil(ZM4_AHEAD + 1), pow2_ceil(ZM4_AHEAD + 3),
+                         pow2_ceil(ZM4_AHEAD + 2)>;
+// the shared bytes of a kernel's rings, ZM_RING_PLANES planes (K6/K7: two
+// of 3; K3/K4: three of 2), and its staging
+constexpr int ZM_RING_PLANES = 6;
+template <class St>
+constexpr int zmarch_smem() {
+  return (ZM_RING_PLANES + St::PLANES) * St::PLANE_FLOATS *
+         (int)sizeof(float);
+}
 
 __device__ __forceinline__ void store_quad(float* __restrict__ f,
                                            const Geom& g, const ZQuad& z,
                                            int p, const Quad& v) {
   reinterpret_cast<float4*>(f + (long long)p * g.plane + z.off)[0] =
       float4_of(v);
+}
+
+// K3/K4 address a field's quad by its offset from the field's start, p *
+// plane + z.off for plane p, which they keep for the march's plane and
+// advance a plane a step: no 64-bit product in the loop (PERF.md section 6).
+__device__ __forceinline__ void store_quad_at(float* __restrict__ f,
+                                              long long off, const Quad& v) {
+  reinterpret_cast<float4*>(f + off)[0] = float4_of(v);
 }
 
 // K6 / K6': x1 = g (b D^-1);  r = b - A x1;  s = r - gw A_f (D^-1 r);
@@ -422,22 +498,21 @@ descent1_kernel(const float* __restrict__ b, const float* __restrict__ diag,
                 float* __restrict__ x1, float* __restrict__ s,
                 float* __restrict__ partials, Geom g, Legs a, Legs f,
                 float gg, float gw, int pinned, int zchunk) {
-  constexpr int AHEAD = ZM6_STAGES - 3;
+  constexpr int AHEAD = ZM6_AHEAD;
   extern __shared__ float4 smem4[];
   float* rings = reinterpret_cast<float*>(smem4);
   Ring xr = make_ring(rings), vr = make_ring(rings + 3 * ZM_PLANE);
   const int nzp = g.nz + 2 * g.face;
   const int z0 = (int)blockIdx.z * zchunk, z1 = min(z0 + zchunk, nzp);
-  const ZQuad z = zquad(g);
-  const bool pin = pins_origin(g, pinned, z0);
+  const ZQuad z = zquad<2, ZM_SY>(g);
+  const bool pin = pins_origin<2>(g, pinned, z0);
   // b (field 0) and diag (field 1), staged AHEAD planes ahead: one copy
   // group a plane, empty past the march, so every wait counts alike
-  const Staging<ZM6_FIELDS, ZM6_STAGES> st{rings + ZM_RING_PLANES * ZM_PLANE,
-                                           z0};
+  const Staging6 st{rings + ZM_RING_PLANES * ZM_PLANE, z0};
   auto stage = [&](int p) {
     if (p <= z1 + 1) {
-      st.copy(0, b, g, z, p, true);
-      st.copy(1, diag, g, z, p, true);
+      st.copy<0>(b, g, z, p, true);
+      st.copy<1>(diag, g, z, p, true);
     }
     cp_async_commit();
   };
@@ -450,11 +525,11 @@ descent1_kernel(const float* __restrict__ b, const float* __restrict__ diag,
     stage(p + AHEAD);
     cp_async_wait<AHEAD>();
 
-    // step 1, plane p, the whole region: one reciprocal a cell, x1 =
+    // step 0, plane p, the whole region: one reciprocal a cell, x1 =
     // g (b D^-1) (b is 0 off the domain, and so is x1); <b, b> over the
     // tile's cells of the chunk's planes
     xr.rotate();
-    const Quad b0 = st.get(0, g, z, p, 0.0f), d0 = st.get(1, g, z, p, 1.0f);
+    const Quad b0 = st.get<0>(g, z, p, 0.0f), d0 = st.get<1>(g, z, p, 1.0f);
     Quad dinv0, x10;
 #pragma unroll
     for (int l = 0; l < 4; ++l) {
@@ -470,14 +545,14 @@ descent1_kernel(const float* __restrict__ b, const float* __restrict__ diag,
     xr.put(x10, z.q);
     __syncthreads();
 
-    // step 2, plane p - 1, the tile plus a cell a side: r = b - A x1,
+    // step 1, plane p - 1, the tile plus a cell a side: r = b - A x1,
     // stored as D^-1 r (the P^T smoothing's stencil input), 0 off the domain
     vr.rotate();
     Quad r1{};
-    if (p - 1 >= z0 - 1 && z.mid) {
+    if (p - 1 >= z0 - 1 && z.rows(1)) {
       const bool dp = domain_plane(g, p - 1);
-      const Quad b1 = st.get(0, g, z, p - 1, 0.0f);
-      const Quad d1 = st.get(1, g, z, p - 1, 1.0f);
+      const Quad b1 = st.get<0>(g, z, p - 1, 0.0f);
+      const Quad d1 = st.get<1>(g, z, p - 1, 1.0f);
       const Quad x11 = xr.get(1, z.q);
       Quad center, v;
 #pragma unroll
@@ -492,11 +567,11 @@ descent1_kernel(const float* __restrict__ b, const float* __restrict__ diag,
     }
     __syncthreads();
 
-    // step 3, plane p - 2, the tile: s = r - gw A_f (D^-1 r); write x1
+    // step 2, plane p - 2, the tile: s = r - gw A_f (D^-1 r); write x1
     // (the thread's own quad of the x1 ring) and s
     if (p - 2 >= z0 && z.out) {
       const bool dp = domain_plane(g, p - 2);
-      const Quad d2 = st.get(1, g, z, p - 2, 1.0f);
+      const Quad d2 = st.get<1>(g, z, p - 2, 1.0f);
       const Quad v = vr.get(1, z.q);
       Quad center, so;
 #pragma unroll
@@ -525,24 +600,23 @@ ascent1_kernel(const float* __restrict__ t, const float* __restrict__ b,
                const float* __restrict__ x1, const float* __restrict__ diag,
                float* __restrict__ x3, float* __restrict__ partials, Geom g,
                Legs a, Legs f, float gg, float gw, int pinned, int zchunk) {
-  constexpr int AHEAD = ZM7_STAGES - 3;
+  constexpr int AHEAD = ZM7_AHEAD;
   extern __shared__ float4 smem4[];
   float* rings = reinterpret_cast<float*>(smem4);
   Ring tr = make_ring(rings), x2r = make_ring(rings + 3 * ZM_PLANE);
   const int nzp = g.nz + 2 * g.face;
   const int z0 = (int)blockIdx.z * zchunk, z1 = min(z0 + zchunk, nzp);
-  const ZQuad z = zquad(g);
-  const bool pin = pins_origin(g, pinned, z0);
-  // t (field 0, every quad), x1 and diag (fields 1, 2: step 2's rows) and
+  const ZQuad z = zquad<2, ZM_SY>(g);
+  const bool pin = pins_origin<2>(g, pinned, z0);
+  // t (field 0, every quad), x1 and diag (fields 1, 2: step 1's rows) and
   // b (field 3: the tile), staged AHEAD planes ahead
-  const Staging<ZM7_FIELDS, ZM7_STAGES> st{rings + ZM_RING_PLANES * ZM_PLANE,
-                                           z0};
+  const Staging7 st{rings + ZM_RING_PLANES * ZM_PLANE, z0};
   auto stage = [&](int p) {
     if (p <= z1 + 1) {
-      st.copy(0, t, g, z, p, true);
-      st.copy(1, x1, g, z, p, z.mid);
-      st.copy(2, diag, g, z, p, z.mid);
-      st.copy(3, b, g, z, p, z.out);
+      st.copy<0>(t, g, z, p, true);
+      st.copy<1>(x1, g, z, p, z.rows(1));
+      st.copy<2>(diag, g, z, p, z.rows(1));
+      st.copy<3>(b, g, z, p, z.out);
     }
     cp_async_commit();
   };
@@ -555,26 +629,26 @@ ascent1_kernel(const float* __restrict__ t, const float* __restrict__ b,
     stage(p + AHEAD);
     cp_async_wait<AHEAD>();
 
-    // step 1, plane p: t into its ring (0 off the domain); one reciprocal
-    // a cell of step 2's rows
+    // step 0, plane p: t into its ring (0 off the domain); one reciprocal
+    // a cell of step 1's rows
     tr.rotate();
-    tr.put(st.get(0, g, z, p, 0.0f), z.q);
+    tr.put(st.get<0>(g, z, p, 0.0f), z.q);
     Quad dinv0{};
-    if (z.mid) {
-      const Quad d0 = st.get(2, g, z, p, 1.0f);
+    if (z.rows(1)) {
+      const Quad d0 = st.get<2>(g, z, p, 1.0f);
 #pragma unroll
       for (int l = 0; l < 4; ++l) dinv0.v[l] = 1.0f / d0.v[l];
     }
     __syncthreads();
 
-    // step 2, plane p - 1, the tile plus a cell a side:
+    // step 1, plane p - 1, the tile plus a cell a side:
     // x2 = x1 + t - gw D^-1 (A_f t), 0 off the domain
     x2r.rotate();
-    if (p - 1 >= z0 - 1 && z.mid) {
+    if (p - 1 >= z0 - 1 && z.rows(1)) {
       const bool dp = domain_plane(g, p - 1);
       const Quad tc = tr.get(1, z.q);
-      const Quad x11 = st.get(1, g, z, p - 1, 0.0f);
-      const Quad d1 = st.get(2, g, z, p - 1, 1.0f);
+      const Quad x11 = st.get<1>(g, z, p - 1, 0.0f);
+      const Quad d1 = st.get<2>(g, z, p - 1, 1.0f);
       Quad center, x2;
 #pragma unroll
       for (int l = 0; l < 4; ++l) center.v[l] = d1.v[l] * tc.v[l];
@@ -588,12 +662,12 @@ ascent1_kernel(const float* __restrict__ t, const float* __restrict__ b,
     }
     __syncthreads();
 
-    // step 3, plane p - 2, the tile: x3 = x2 + g D^-1 (b - A x2)
+    // step 2, plane p - 2, the tile: x3 = x2 + g D^-1 (b - A x2)
     if (p - 2 >= z0 && z.out) {
       const bool dp = domain_plane(g, p - 2);
       const Quad x2 = x2r.get(1, z.q);
-      const Quad d2 = st.get(2, g, z, p - 2, 1.0f);
-      const Quad b2 = st.get(3, g, z, p - 2, 0.0f);
+      const Quad d2 = st.get<2>(g, z, p - 2, 1.0f);
+      const Quad b2 = st.get<3>(g, z, p - 2, 0.0f);
       Quad center, out;
 #pragma unroll
       for (int l = 0; l < 4; ++l) center.v[l] = d2.v[l] * x2.v[l];
@@ -614,6 +688,299 @@ ascent1_kernel(const float* __restrict__ t, const float* __restrict__ b,
     block_partial_at(dot, partials,
                      (blockIdx.z * gridDim.y + blockIdx.y) * gridDim.x +
                          blockIdx.x);
+}
+
+// K3 / K3': u = (s0 b) D^-1;  x1 = u + ad u + g D^-1 (b - A u);
+// r = b - A x1;  s = r - gw A_f (D^-1 r);  partials of <b, b> with DOT.
+template <bool DOT>
+__global__ void __launch_bounds__(ZM3_THREADS, ZM3_MIN_BLOCKS)
+descent_kernel(const float* __restrict__ b, const float* __restrict__ diag,
+               float* __restrict__ x1, float* __restrict__ s,
+               float* __restrict__ partials, Geom g, Legs a, Legs f,
+               float s0, float ad, float gg, float gw, int pinned,
+               int zchunk) {
+  constexpr int H = 3, AHEAD = ZM3_AHEAD;
+  extern __shared__ float4 smem4[];
+  float* sm = reinterpret_cast<float*>(smem4);
+  Ring2 ur{sm, 0}, xr{sm + 2 * ZM3_PLANE, 0}, vr{sm + 4 * ZM3_PLANE, 0};
+  const int nzp = g.nz + 2 * g.face;
+  const int z0 = (int)blockIdx.z * zchunk, z1 = min(z0 + zchunk, nzp);
+  const ZQuad z = zquad<H, ZM3_SY>(g);
+  const bool pin = pins_origin<H>(g, pinned, z0);
+  // b (field 0) and diag (field 1), every quad, staged AHEAD planes ahead:
+  // one copy group a plane, empty past the march, so every wait counts
+  // alike
+  const Staging3 st{sm + ZM_RING_PLANES * ZM3_PLANE, z0};
+  const long long plane = g.plane;
+  auto stage = [&](int p, long long off) {
+    if (p <= z1 + H - 1) {
+      const bool valid = z.field && domain_plane(g, p);
+      st.copy_from<0>(valid ? b + off : b, z, p, valid);
+      st.copy_from<1>(valid ? diag + off : diag, z, p, valid);
+    }
+    cp_async_commit();
+  };
+  long long off = (long long)(z0 - H) * plane + z.off;   // the quad's, plane p
+#pragma unroll
+  for (int n = 0; n < AHEAD; ++n) stage(z0 - H + n, off + n * plane);
+
+  // the thread's own quads, kept from earlier planes: u of planes p - 2,
+  // p - 1; x1 of p - 3, p - 2; D^-1 r of p - 4, p - 3; D^-1 of p - 1,
+  // p - 2; r of p - 3
+  Quad um{}, uc{}, xm{}, xc{}, vm{}, vc{}, dinv1{}, dinv2{}, r3{};
+  float dot = 0.0f, left, right;
+  // unrolled twice: 5-10% faster at 300^3 (PERF.md section 6)
+#pragma unroll 2
+  for (int p = z0 - H; p <= z1 + H - 1; ++p, off += plane) {
+    stage(p + AHEAD, off + AHEAD * plane);
+    cp_async_wait<AHEAD>();
+    ur.flip();
+    xr.flip();
+    vr.flip();
+
+    // step 0, plane p, the whole region: one reciprocal a cell, u =
+    // (s0 b) D^-1 (b is 0 off the domain, and so is u); <b, b> over the
+    // tile's cells of the chunk's planes
+    const Quad b0 = st.get<0>(g, z, p, 0.0f), d0 = st.get<1>(g, z, p, 1.0f);
+    Quad dinv0, u0;
+#pragma unroll
+    for (int l = 0; l < 4; ++l) {
+      dinv0.v[l] = 1.0f / d0.v[l];
+      u0.v[l] = (s0 * b0.v[l]) * dinv0.v[l];
+    }
+    if constexpr (DOT) {
+      if (z.out && p >= z0 && p < z1) {
+#pragma unroll
+        for (int l = 0; l < 4; ++l) dot += b0.v[l] * b0.v[l];
+      }
+    }
+    ur.put(u0, z.q);
+
+    // step 1, plane p - 1, the tile plus 2 cells a side:
+    // x1 = u + ad u + g D^-1 (b - A u), 0 off the domain
+    row_neighbours(uc, left, right);
+    Quad x1n{};
+    if (p - 1 >= z0 - 2 && z.rows(1)) {
+      const bool dp = domain_plane(g, p - 1);
+      const Quad b1 = st.raw<0>(z, p - 1), d1 = st.raw<1>(z, p - 1);
+      Quad center;
+#pragma unroll
+      for (int l = 0; l < 4; ++l) center.v[l] = d1.v[l] * uc.v[l];
+      const Quad w = star_quad(uc, left, right, ur.get(z.q - ZM_QX),
+                               ur.get(z.q + ZM_QX), um, u0, center, z,
+                               p - 1 - g.face, a, pin);
+#pragma unroll
+      for (int l = 0; l < 4; ++l)
+        x1n.v[l] = dp && z.dom[l]
+                       ? uc.v[l] + ad * uc.v[l] +
+                             gg * (dinv1.v[l] * (b1.v[l] - w.v[l]))
+                       : 0.0f;
+      xr.put(x1n, z.q);
+    }
+
+    // step 2, plane p - 2, the tile plus a cell a side: r = b - A x1,
+    // kept, and D^-1 r (the P^T smoothing's stencil input), 0 off the domain
+    row_neighbours(xc, left, right);
+    Quad r2{}, vn{};
+    if (p - 2 >= z0 - 1 && z.rows(2)) {
+      const bool dp = domain_plane(g, p - 2);
+      const Quad b2 = st.raw<0>(z, p - 2), d2 = st.raw<1>(z, p - 2);
+      Quad center;
+#pragma unroll
+      for (int l = 0; l < 4; ++l) center.v[l] = d2.v[l] * xc.v[l];
+      const Quad w = star_quad(xc, left, right, xr.get(z.q - ZM_QX),
+                               xr.get(z.q + ZM_QX), xm, x1n, center, z,
+                               p - 2 - g.face, a, pin);
+#pragma unroll
+      for (int l = 0; l < 4; ++l) {
+        r2.v[l] = dp && z.dom[l] ? b2.v[l] - w.v[l] : 0.0f;
+        vn.v[l] = r2.v[l] * dinv2.v[l];
+      }
+      vr.put(vn, z.q);
+    }
+
+    // step 3, plane p - 3, the tile: s = r - gw A_f (D^-1 r); write x1
+    // and s
+    row_neighbours(vc, left, right);
+    if (p - 3 >= z0 && z.out) {
+      const bool dp = domain_plane(g, p - 3);
+      const Quad d3 = st.raw<1>(z, p - 3);
+      Quad center, so;
+#pragma unroll
+      for (int l = 0; l < 4; ++l) center.v[l] = d3.v[l] * vc.v[l];
+      const Quad w = star_quad(vc, left, right, vr.get(z.q - ZM_QX),
+                               vr.get(z.q + ZM_QX), vm, vn, center, z,
+                               p - 3 - g.face, f, pin);
+#pragma unroll
+      for (int l = 0; l < 4; ++l)
+        so.v[l] = dp && z.dom[l] ? r3.v[l] - gw * w.v[l] : 0.0f;
+      store_quad_at(x1, off - 3 * plane, xm);
+      store_quad_at(s, off - 3 * plane, so);
+    }
+    um = uc;
+    uc = u0;
+    xm = xc;
+    xc = x1n;
+    vm = vc;
+    vc = vn;
+    r3 = r2;
+    dinv2 = dinv1;
+    dinv1 = dinv0;
+    // the one barrier a plane: the planes this iteration's steps wrote are
+    // the next one's stencil inputs, and the planes they read its outputs
+    __syncthreads();
+  }
+  if constexpr (DOT)
+    block_partial_at<ZM3_THREADS>(
+        dot, partials,
+        (blockIdx.z * gridDim.y + blockIdx.y) * gridDim.x + blockIdx.x);
+}
+
+// K4 / K4': x2 = x1 + t - gw D^-1 (A_f t);  d = g D^-1 (b - A x2);
+// x3 = x2 + d;  x4 = x3 + ad d + g2 D^-1 (b - A x3);  partials of <b, x4>
+// with DOT.
+template <bool DOT>
+__global__ void __launch_bounds__(ZM3_THREADS, ZM4_MIN_BLOCKS)
+ascent_kernel(const float* __restrict__ t, const float* __restrict__ b,
+              const float* __restrict__ x1, const float* __restrict__ diag,
+              float* __restrict__ x4, float* __restrict__ partials, Geom g,
+              Legs a, Legs f, float gg, float ad, float g2, float gw,
+              int pinned, int zchunk) {
+  constexpr int H = 3, AHEAD = ZM4_AHEAD;
+  extern __shared__ float4 smem4[];
+  float* sm = reinterpret_cast<float*>(smem4);
+  Ring2 tr{sm, 0}, x2r{sm + 2 * ZM3_PLANE, 0}, x3r{sm + 4 * ZM3_PLANE, 0};
+  const int nzp = g.nz + 2 * g.face;
+  const int z0 = (int)blockIdx.z * zchunk, z1 = min(z0 + zchunk, nzp);
+  const ZQuad z = zquad<H, ZM3_SY>(g);
+  const bool pin = pins_origin<H>(g, pinned, z0);
+  // each field copied AHEAD planes before its first read: t (field 0,
+  // every quad) of plane p, x1 and diag (fields 1, 2: step 1's rows) of
+  // p - 1, b (field 3: step 2's rows) of p - 2; none below the march
+  const Staging4 st{sm + ZM_RING_PLANES * ZM3_PLANE, z0};
+  const long long plane = g.plane;
+  auto stage = [&](int p, long long off) {
+    if (p <= z1 + H - 1) {
+      const bool valid = z.field && domain_plane(g, p);
+      st.copy_from<0>(valid ? t + off : t, z, p, valid);
+    }
+    if (p - 1 >= z0 - H) {
+      const bool valid = z.rows(1) && z.field && domain_plane(g, p - 1);
+      st.copy_from<1>(valid ? x1 + (off - plane) : x1, z, p - 1, valid);
+      st.copy_from<2>(valid ? diag + (off - plane) : diag, z, p - 1, valid);
+    }
+    if (p - 2 >= z0 - H) {
+      const bool valid = z.rows(2) && z.field && domain_plane(g, p - 2);
+      st.copy_from<3>(valid ? b + (off - 2 * plane) : b, z, p - 2, valid);
+    }
+    cp_async_commit();
+  };
+  long long off = (long long)(z0 - H) * plane + z.off;   // the quad's, plane p
+#pragma unroll
+  for (int n = 0; n < AHEAD; ++n) stage(z0 - H + n, off + n * plane);
+
+  // the thread's own quads, kept from earlier planes: t of planes p - 2,
+  // p - 1; x2 of p - 3, p - 2; x3 of p - 4, p - 3; D^-1 of p - 2, p - 3;
+  // d of p - 3
+  Quad tm{}, tc{}, x2m{}, x2c{}, x3m{}, x3c{}, dinv2{}, dinv3{}, d3{};
+  float dot = 0.0f, left, right;
+  // unrolled twice, as in descent_kernel
+#pragma unroll 2
+  for (int p = z0 - H; p <= z1 + H - 1; ++p, off += plane) {
+    stage(p + AHEAD, off + AHEAD * plane);
+    cp_async_wait<AHEAD>();
+    tr.flip();
+    x2r.flip();
+    x3r.flip();
+
+    // step 0, plane p: t into its ring (0 off the domain)
+    const Quad t0 = st.get<0>(g, z, p, 0.0f);
+    tr.put(t0, z.q);
+
+    // step 1, plane p - 1, the tile plus 2 cells a side: one reciprocal a
+    // cell; x2 = x1 + t - gw D^-1 (A_f t), 0 off the domain
+    row_neighbours(tc, left, right);
+    Quad dinv1{}, x2n{};
+    if (p - 1 >= z0 - 2 && z.rows(1)) {
+      const bool dp = domain_plane(g, p - 1);
+      const Quad x11 = st.raw<1>(z, p - 1), d1 = st.raw<2>(z, p - 1);
+      Quad center;
+#pragma unroll
+      for (int l = 0; l < 4; ++l) {
+        dinv1.v[l] = 1.0f / d1.v[l];
+        center.v[l] = d1.v[l] * tc.v[l];
+      }
+      const Quad w = star_quad(tc, left, right, tr.get(z.q - ZM_QX),
+                               tr.get(z.q + ZM_QX), tm, t0, center, z,
+                               p - 1 - g.face, f, pin);
+#pragma unroll
+      for (int l = 0; l < 4; ++l)
+        x2n.v[l] = dp && z.dom[l]
+                       ? x11.v[l] + tc.v[l] - gw * (dinv1.v[l] * w.v[l])
+                       : 0.0f;
+      x2r.put(x2n, z.q);
+    }
+
+    // step 2, plane p - 2, the tile plus a cell a side:
+    // d = g D^-1 (b - A x2), kept;  x3 = x2 + d; both 0 off the domain
+    row_neighbours(x2c, left, right);
+    Quad d2{}, x3n{};
+    if (p - 2 >= z0 - 1 && z.rows(2)) {
+      const bool dp = domain_plane(g, p - 2);
+      const Quad dg2 = st.raw<2>(z, p - 2), b2 = st.raw<3>(z, p - 2);
+      Quad center;
+#pragma unroll
+      for (int l = 0; l < 4; ++l) center.v[l] = dg2.v[l] * x2c.v[l];
+      const Quad w = star_quad(x2c, left, right, x2r.get(z.q - ZM_QX),
+                               x2r.get(z.q + ZM_QX), x2m, x2n, center, z,
+                               p - 2 - g.face, a, pin);
+#pragma unroll
+      for (int l = 0; l < 4; ++l) {
+        const bool in = dp && z.dom[l];
+        d2.v[l] = in ? gg * (dinv2.v[l] * (b2.v[l] - w.v[l])) : 0.0f;
+        x3n.v[l] = in ? x2c.v[l] + d2.v[l] : 0.0f;
+      }
+      x3r.put(x3n, z.q);
+    }
+
+    // step 3, plane p - 3, the tile: x4 = x3 + ad d + g2 D^-1 (b - A x3)
+    row_neighbours(x3c, left, right);
+    if (p - 3 >= z0 && z.out) {
+      const bool dp = domain_plane(g, p - 3);
+      const Quad dg3 = st.raw<2>(z, p - 3);
+      const Quad b3 = st.get<3>(g, z, p - 3, 0.0f);
+      Quad center, out;
+#pragma unroll
+      for (int l = 0; l < 4; ++l) center.v[l] = dg3.v[l] * x3c.v[l];
+      const Quad w = star_quad(x3c, left, right, x3r.get(z.q - ZM_QX),
+                               x3r.get(z.q + ZM_QX), x3m, x3n, center, z,
+                               p - 3 - g.face, a, pin);
+#pragma unroll
+      for (int l = 0; l < 4; ++l) {
+        out.v[l] = dp && z.dom[l]
+                       ? x3c.v[l] + ad * d3.v[l] +
+                             g2 * (dinv3.v[l] * (b3.v[l] - w.v[l]))
+                       : 0.0f;
+        if constexpr (DOT) dot += b3.v[l] * out.v[l];
+      }
+      store_quad_at(x4, off - 3 * plane, out);
+    }
+    tm = tc;
+    tc = t0;
+    x2m = x2c;
+    x2c = x2n;
+    x3m = x3c;
+    x3c = x3n;
+    d3 = d2;
+    dinv3 = dinv2;
+    dinv2 = dinv1;
+    // the one barrier a plane (as in descent_kernel)
+    __syncthreads();
+  }
+  if constexpr (DOT)
+    block_partial_at<ZM3_THREADS>(
+        dot, partials,
+        (blockIdx.z * gridDim.y + blockIdx.y) * gridDim.x + blockIdx.x);
 }
 
 // K8 input p' = z + beta p_old, formed at each read of the star.
@@ -785,95 +1152,69 @@ extern "C" int tps_mvdot(const float* x, const float* diag, float* y,
 // the -pc_gamg_threshold prolongator smoother (fused7.py:359-365), equal
 // to the operator's legs a when nothing is filtered.
 
-template <bool DOT>
-static int descent(const float* b, const float* diag, float* x1, float* r,
-                   float* s, float* partials, const Geom& g, Legs a, Legs f,
-                   float s0, float ad, float gg, float gw, int pinned,
-                   cudaStream_t st) {
-  pre_smooth_kernel<DOT><<<grid_blocks(g), BLOCK, 0, st>>>(
-      b, diag, x1, partials, g, a, s0, ad, gg, pinned);
-  TPS_CHECK();
-  step_kernel<RESIDUAL><<<grid_blocks(g), BLOCK, 0, st>>>(
-      x1, b, nullptr, diag, r, nullptr, g, a, 0.0f, 0.0f, pinned);
-  TPS_CHECK();
-  restrict_smooth_kernel<<<grid_blocks(g), BLOCK, 0, st>>>(r, diag, s, g, f,
-                                                           gw, pinned);
-  return (int)cudaGetLastError();
-}
-
-// K3 (descent_rr) with partials, K3' (descent) with partials == nullptr.
-extern "C" int tps_descent(const float* b, const float* diag, float* x1,
-                           float* r, float* s, float* partials, int nz,
-                           int ny, int nx, int nxp, float cx, float cy,
-                           float cz, float fcx, float fcy, float fcz,
-                           float s0, float ad, float gg, float gw,
-                           int pinned, void* stream) {
-  const Geom g = make_geom(nz, ny, nx, nxp);
-  const Legs a{cx, cy, cz}, f{fcx, fcy, fcz};
-  const cudaStream_t st = (cudaStream_t)stream;
-  return partials ? descent<true>(b, diag, x1, r, s, partials, g, a, f, s0,
-                                  ad, gg, gw, pinned, st)
-                  : descent<false>(b, diag, x1, r, s, partials, g, a, f, s0,
-                                   ad, gg, gw, pinned, st);
-}
-
-template <bool DOT>
-static int ascent(const float* t, const float* b, const float* x1,
-                  const float* diag, float* x2, float* d, float* x3,
-                  float* x4, float* partials, const Geom& g, Legs a, Legs f,
-                  float gg, float ad, float g2, float gw, int pinned,
-                  cudaStream_t st) {
-  prolong_kernel<true><<<grid_blocks(g), BLOCK, 0, st>>>(t, x1, diag, x2, g,
-                                                         f, gw, pinned);
-  TPS_CHECK();
-  post_smooth1_kernel<<<grid_blocks(g), BLOCK, 0, st>>>(b, x2, diag, d, x3, g,
-                                                        a, gg, pinned);
-  TPS_CHECK();
-  post_smooth2_kernel<DOT><<<grid_blocks(g), BLOCK, 0, st>>>(
-      b, x3, d, diag, x4, partials, g, a, ad, g2, pinned);
-  return (int)cudaGetLastError();
-}
-
-// K4 (ascent_rz) with partials, K4' (ascent) with partials == nullptr.
-extern "C" int tps_ascent(const float* t, const float* b, const float* x1,
-                          const float* diag, float* x2, float* d, float* x3,
-                          float* x4, float* partials, int nz, int ny, int nx,
-                          int nxp, float cx, float cy, float cz, float fcx,
-                          float fcy, float fcz, float gg, float ad, float g2,
-                          float gw, int pinned, void* stream) {
-  const Geom g = make_geom(nz, ny, nx, nxp);
-  const Legs a{cx, cy, cz}, f{fcx, fcy, fcz};
-  const cudaStream_t st = (cudaStream_t)stream;
-  return partials ? ascent<true>(t, b, x1, diag, x2, d, x3, x4, partials, g,
-                                 a, f, gg, ad, g2, gw, pinned, st)
-                  : ascent<false>(t, b, x1, diag, x2, d, x3, x4, partials, g,
-                                  a, f, gg, ad, g2, gw, pinned, st);
-}
-
 // The z-marching plan the wrapper computed (kernels/fused7.py::zmarch_plan)
-// must cover the padded field exactly once, with the kernels' tile, and
-// give the shared bytes of the rings and of the kernel's staged planes.
-static bool zmarch_plan_ok(const Geom& g, int tiles_x, int tiles_y,
-                           int chunks, int zchunk, int smem_bytes,
-                           int staged_planes) {
-  const int nzp = g.nz + 2 * g.face;
+// must cover the padded field exactly once, with the tile of a kernel of
+// halo H in a region of ROWS rows, and give that kernel's shared bytes
+// (zmarch_smem).
+static bool zmarch_plan_ok(const Geom& g, int halo, int rows,
+                           int kernel_smem, int tiles_x, int tiles_y,
+                           int chunks, int zchunk, int smem_bytes) {
+  const int nzp = g.nz + 2 * g.face, ty = rows - 2 * halo;
   return zchunk > 0 && tiles_x == (g.nxp + ZM_TX - 1) / ZM_TX &&
-         tiles_y == (g.ny + ZM_TY - 1) / ZM_TY &&
-         chunks == (nzp + zchunk - 1) / zchunk &&
-         smem_bytes == (ZM_RING_PLANES + staged_planes) * ZM_PLANE *
-                           (int)sizeof(float);
+         tiles_y == (g.ny + ty - 1) / ty &&
+         chunks == (nzp + zchunk - 1) / zchunk && smem_bytes == kernel_smem;
 }
 
-// Launch a z-marching kernel on the plan's grid, its dynamic shared memory
-// allowed past the default 48 KB first.
-template <class Kernel, class... Args>
+// Launch a z-marching kernel of THREADS threads a block on the plan's grid,
+// its dynamic shared memory allowed past the default 48 KB first.
+template <int THREADS, class Kernel, class... Args>
 static int zmarch_launch(Kernel kernel, int tiles_x, int tiles_y, int chunks,
                          int smem_bytes, cudaStream_t st, Args... args) {
   const cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
   if (err != cudaSuccess) return (int)err;
-  kernel<<<dim3(tiles_x, tiles_y, chunks), BLOCK, smem_bytes, st>>>(args...);
+  kernel<<<dim3(tiles_x, tiles_y, chunks), THREADS, smem_bytes, st>>>(
+      args...);
   return (int)cudaGetLastError();
+}
+
+// K3 (descent_rr) with partials, K3' (descent) with partials == nullptr:
+// one launch of the plan's grid, one partial a block.
+extern "C" int tps_descent(const float* b, const float* diag, float* x1,
+                           float* s, float* partials, int nz, int ny, int nx,
+                           int nxp, float cx, float cy, float cz, float fcx,
+                           float fcy, float fcz, float s0, float ad, float gg,
+                           float gw, int pinned, int tiles_x, int tiles_y,
+                           int chunks, int zchunk, int smem_bytes,
+                           void* stream) {
+  const Geom g = make_geom(nz, ny, nx, nxp);
+  if (!zmarch_plan_ok(g, 3, ZM3_SY, zmarch_smem<Staging3>(), tiles_x,
+                      tiles_y, chunks, zchunk, smem_bytes))
+    return (int)cudaErrorInvalidValue;
+  const Legs a{cx, cy, cz}, f{fcx, fcy, fcz};
+  return zmarch_launch<ZM3_THREADS>(
+      partials ? descent_kernel<true> : descent_kernel<false>, tiles_x,
+      tiles_y, chunks, smem_bytes, (cudaStream_t)stream, b, diag, x1, s,
+      partials, g, a, f, s0, ad, gg, gw, pinned, zchunk);
+}
+
+// K4 (ascent_rz) with partials, K4' (ascent) with partials == nullptr.
+extern "C" int tps_ascent(const float* t, const float* b, const float* x1,
+                          const float* diag, float* x4, float* partials,
+                          int nz, int ny, int nx, int nxp, float cx, float cy,
+                          float cz, float fcx, float fcy, float fcz, float gg,
+                          float ad, float g2, float gw, int pinned,
+                          int tiles_x, int tiles_y, int chunks, int zchunk,
+                          int smem_bytes, void* stream) {
+  const Geom g = make_geom(nz, ny, nx, nxp);
+  if (!zmarch_plan_ok(g, 3, ZM3_SY, zmarch_smem<Staging4>(), tiles_x,
+                      tiles_y, chunks, zchunk, smem_bytes))
+    return (int)cudaErrorInvalidValue;
+  const Legs a{cx, cy, cz}, f{fcx, fcy, fcz};
+  return zmarch_launch<ZM3_THREADS>(
+      partials ? ascent_kernel<true> : ascent_kernel<false>, tiles_x, tiles_y,
+      chunks, smem_bytes, (cudaStream_t)stream, t, b, x1, diag, x4, partials,
+      g, a, f, gg, ad, g2, gw, pinned, zchunk);
 }
 
 // K6 (descent1_rr) with partials, K6' (descent1) with partials == nullptr:
@@ -886,14 +1227,14 @@ extern "C" int tps_descent1(const float* b, const float* diag, float* x1,
                             int chunks, int zchunk, int smem_bytes,
                             void* stream) {
   const Geom g = make_geom(nz, ny, nx, nxp);
-  if (!zmarch_plan_ok(g, tiles_x, tiles_y, chunks, zchunk, smem_bytes,
-                      ZM6_FIELDS * ZM6_STAGES))
+  if (!zmarch_plan_ok(g, 2, ZM_SY, zmarch_smem<Staging6>(), tiles_x,
+                      tiles_y, chunks, zchunk, smem_bytes))
     return (int)cudaErrorInvalidValue;
   const Legs a{cx, cy, cz}, f{fcx, fcy, fcz};
-  return zmarch_launch(partials ? descent1_kernel<true> : descent1_kernel<false>,
-                       tiles_x, tiles_y, chunks, smem_bytes,
-                       (cudaStream_t)stream, b, diag, x1, s, partials, g, a, f,
-                       gg, gw, pinned, zchunk);
+  return zmarch_launch<BLOCK>(
+      partials ? descent1_kernel<true> : descent1_kernel<false>, tiles_x,
+      tiles_y, chunks, smem_bytes, (cudaStream_t)stream, b, diag, x1, s,
+      partials, g, a, f, gg, gw, pinned, zchunk);
 }
 
 // K7 (ascent1_rz) with partials, K7' (ascent1) with partials == nullptr.
@@ -905,14 +1246,14 @@ extern "C" int tps_ascent1(const float* t, const float* b, const float* x1,
                            int tiles_x, int tiles_y, int chunks, int zchunk,
                            int smem_bytes, void* stream) {
   const Geom g = make_geom(nz, ny, nx, nxp);
-  if (!zmarch_plan_ok(g, tiles_x, tiles_y, chunks, zchunk, smem_bytes,
-                      ZM7_FIELDS * ZM7_STAGES))
+  if (!zmarch_plan_ok(g, 2, ZM_SY, zmarch_smem<Staging7>(), tiles_x,
+                      tiles_y, chunks, zchunk, smem_bytes))
     return (int)cudaErrorInvalidValue;
   const Legs a{cx, cy, cz}, f{fcx, fcy, fcz};
-  return zmarch_launch(partials ? ascent1_kernel<true> : ascent1_kernel<false>,
-                       tiles_x, tiles_y, chunks, smem_bytes,
-                       (cudaStream_t)stream, t, b, x1, diag, x3, partials, g,
-                       a, f, gg, gw, pinned, zchunk);
+  return zmarch_launch<BLOCK>(
+      partials ? ascent1_kernel<true> : ascent1_kernel<false>, tiles_x,
+      tiles_y, chunks, smem_bytes, (cudaStream_t)stream, t, b, x1, diag, x3,
+      partials, g, a, f, gg, gw, pinned, zchunk);
 }
 
 // K8 cgmv: one launch.
@@ -929,8 +1270,8 @@ extern "C" int tps_cgmv(const float* z, const float* p, const float* x,
   return (int)cudaGetLastError();
 }
 
-// K9 descentu: the r-update with the pre-smoother, then K3's residual and
-// P^T-smoothing launches on r'.
+// K9 descentu: the r-update with the pre-smoother, then the residual (K10's
+// kernel) and the P^T smoothing (K15's) on r'.
 extern "C" int tps_descentu(const float* r_old, const float* ap,
                             const float* alpha, const float* diag, float* x1,
                             float* r_new, float* r, float* s, float* partials,
@@ -1045,7 +1386,29 @@ extern "C" int tps_prolong(const float* t, const float* diag, float* out,
                            float fcy, float fcz, float gg, int pinned,
                            void* stream) {
   const Geom g = make_geom(nz, ny, nx, nxp);
-  prolong_kernel<false><<<grid_blocks(g), BLOCK, 0, (cudaStream_t)stream>>>(
-      t, nullptr, diag, out, g, Legs{fcx, fcy, fcz}, gg, pinned);
+  prolong_kernel<<<grid_blocks(g), BLOCK, 0, (cudaStream_t)stream>>>(
+      t, diag, out, g, Legs{fcx, fcy, fcz}, gg, pinned);
   return (int)cudaGetLastError();
+}
+
+// Registers a thread, spilled (local) bytes a thread and static shared
+// bytes a block of z-marching kernel `which`: 0-7 are K3, K3', K4, K4', K6,
+// K6', K7, K7' (kernels/fused7.py::zmarch_attributes).
+extern "C" int tps_zmarch_attributes(int which, int* regs, int* local_bytes,
+                                     int* static_smem) {
+  const void* kernels[] = {
+      (const void*)descent_kernel<true>,  (const void*)descent_kernel<false>,
+      (const void*)ascent_kernel<true>,   (const void*)ascent_kernel<false>,
+      (const void*)descent1_kernel<true>, (const void*)descent1_kernel<false>,
+      (const void*)ascent1_kernel<true>,  (const void*)ascent1_kernel<false>,
+  };
+  if (which < 0 || which >= (int)(sizeof(kernels) / sizeof(kernels[0])))
+    return (int)cudaErrorInvalidValue;
+  cudaFuncAttributes attr;
+  const cudaError_t err = cudaFuncGetAttributes(&attr, kernels[which]);
+  if (err != cudaSuccess) return (int)err;
+  *regs = attr.numRegs;
+  *local_bytes = (int)attr.localSizeBytes;
+  *static_smem = (int)attr.sharedSizeBytes;
+  return 0;
 }

@@ -94,12 +94,15 @@ __device__ __forceinline__ float star(const U& u, float center, long long q,
   return center + a.cx * (xp + xm) + a.cy * (yp + ym) + a.cz * (zp + zm);
 }
 
-// One partial sum per block into partials[slot] (block_partial: the
-// block's index), in a fixed order and without atomics, so a dot repeats
-// bit for bit from run to run.  Every thread of the block must call it.
+// One partial sum per block of THREADS threads into partials[slot]
+// (block_partial: the block's index), in a fixed order and without
+// atomics, so a dot repeats bit for bit from run to run.  Every thread of
+// the block must call it.
+template <int THREADS = BLOCK>
 __device__ __forceinline__ void block_partial_at(float v, float* partials,
                                                  unsigned slot) {
-  __shared__ float warp_sums[BLOCK / 32];
+  static_assert(THREADS % 32 == 0 && THREADS <= 32 * 32, "whole warps");
+  __shared__ float warp_sums[THREADS / 32];
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1)
     v += __shfl_down_sync(0xffffffffu, v, off);
@@ -108,7 +111,7 @@ __device__ __forceinline__ void block_partial_at(float v, float* partials,
   if (lane == 0) warp_sums[warp] = v;
   __syncthreads();
   if (warp == 0) {
-    v = lane < BLOCK / 32 ? warp_sums[lane] : 0.0f;
+    v = lane < THREADS / 32 ? warp_sums[lane] : 0.0f;
 #pragma unroll
     for (int off = 16; off > 0; off >>= 1)
       v += __shfl_down_sync(0xffffffffu, v, off);

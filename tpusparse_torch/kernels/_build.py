@@ -1,7 +1,8 @@
 """Build and load the CUDA kernels: nvcc into a shared library with a plain C
 interface, loaded with ctypes.
 
-At first use, every ``csrc/*.cu`` is compiled for ``sm_90a`` into one
+At first use, every ``csrc/*.cu`` is compiled for ``sm_90a`` by an nvcc
+of its own, all started together, and the objects are linked into one
 library under ``csrc/build/`` (listed in ``.gitignore``).  The library's
 file name carries a hash of the sources and flags, so a changed source is
 rebuilt and an unchanged one is loaded as it is.  Including no PyTorch
@@ -29,7 +30,7 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = CSRC / "build"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC",
+    "-Xcompiler", "-fPIC",
 )
 
 # ctypes argument codes for ``kernel`` signatures
@@ -70,15 +71,39 @@ def build() -> Path:
         return lib
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sources())]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
+    try:
+        _compile(sources(), tmp)
+    except RuntimeError:
         tmp.unlink(missing_ok=True)
-        raise RuntimeError(
-            f"nvcc failed with code {proc.returncode}:\n{proc.stderr}"
-        )
+        raise
     os.replace(tmp, lib)  # atomic: a concurrent reader never sees half a file
     return lib
+
+
+def _compile(srcs: list[Path], out: Path) -> None:
+    """Compile each of ``srcs`` to an object with an nvcc of its own, all
+    started together, and link the objects into the shared library
+    ``out``; raise with nvcc's messages when a step fails."""
+    nvcc = _nvcc()
+    objs = [out.with_name(f"{out.name}.{src.stem}.o") for src in srcs]
+    try:
+        procs = [
+            subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)],
+                             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            for src, obj in zip(srcs, objs)
+        ]
+        outputs = [proc.communicate()[0] for proc in procs]   # waits for each
+        errors = [f"{src.name}:\n{output}" for src, proc, output in zip(srcs, procs, outputs)
+                  if proc.returncode != 0]
+        if errors:
+            raise RuntimeError("nvcc failed:\n" + "\n".join(errors))
+        link = subprocess.run([nvcc, *NVCC_FLAGS, "-shared", "-o", str(out), *map(str, objs)],
+                              capture_output=True, text=True)
+        if link.returncode != 0:
+            raise RuntimeError(f"nvcc failed to link with code {link.returncode}:\n{link.stderr}")
+    finally:
+        for obj in objs:
+            obj.unlink(missing_ok=True)
 
 
 def library() -> ctypes.CDLL:

@@ -57,11 +57,11 @@ accepted too.
 D is ``diag`` (pads 1.0), inverted by true division.  All fields are in the
 padded-resident layout (``kernels/stencil7.py::padded_shape``).
 
-K6/K7 and K6'/K7' are one launch each that marches a column tile of the
-(ny, nxp) plane up a z-chunk of planes (``csrc/fused7.cu``); their launch
-plan — tiles, z-chunk, grid, shared bytes, one dot partial a block — is
-``zmarch_plan``, which the CPU tests check and the CUDA entry points
-verify.
+K3/K4, K6/K7 and their dot-free forms are one launch each that marches a
+column tile of the (ny, nxp) plane up a z-chunk of planes
+(``csrc/fused7.cu``); their launch plan — tiles, z-chunk, grid, shared
+bytes, one dot partial a block — is ``zmarch_plan``, which the CPU tests
+check and the CUDA entry points verify.
 
 Each wrapper dispatches by tensor device only: a CPU tensor runs its plain
 twin (the math of ``fused7_xla``, ``tpusparse/kernels/fused7.py:945-1023``),
@@ -72,6 +72,7 @@ per block — no atomics, so a solve repeats its iteration counts.
 
 from __future__ import annotations
 
+import ctypes
 from dataclasses import dataclass
 
 import torch
@@ -87,9 +88,9 @@ from tpusparse_torch.kernels.stencil7 import (
 
 P, I, F = _build.P, _build.I, _build.F
 _MVDOT_ARGS = [P] * 4 + [I] * 4 + [F] * 3 + [I, P]
-_DESCENT_ARGS = [P] * 6 + [I] * 4 + [F] * 10 + [I, P]
-_ASCENT_ARGS = [P] * 9 + [I] * 4 + [F] * 10 + [I, P]
 _ZMARCH_PLAN_ARGS = [I] * 5   # tiles_x, tiles_y, chunks, zchunk, smem_bytes
+_DESCENT_ARGS = [P] * 5 + [I] * 4 + [F] * 10 + [I] + _ZMARCH_PLAN_ARGS + [P]
+_ASCENT_ARGS = [P] * 6 + [I] * 4 + [F] * 10 + [I] + _ZMARCH_PLAN_ARGS + [P]
 _DESCENT1_ARGS = [P] * 5 + [I] * 4 + [F] * 8 + [I] + _ZMARCH_PLAN_ARGS + [P]
 _ASCENT1_ARGS = [P] * 6 + [I] * 4 + [F] * 8 + [I] + _ZMARCH_PLAN_ARGS + [P]
 _CGMV_ARGS = [P] * 10 + [I] * 4 + [F] * 3 + [I, P]
@@ -115,34 +116,71 @@ def _partials(shape, device) -> torch.Tensor:
     return torch.empty((cells + block - 1) // block, dtype=torch.float32, device=device)
 
 
-# --- the z-marching launch plan (K6/K7) --------------------------------------
-# csrc/fused7.cu's ZM_TY, ZM_TX, ZM_HY, ZM_HX and ZM_RING_PLANES: a block's
-# output tile in (y, x), the halo of its region (2 rows; one 4-cell quad of
-# columns, so that rows start on 16 bytes), and its two shared rings of 3
-# planes of the region
-ZM_TILE = (12, 56)
-ZM_HALO = (2, 4)
+# --- the z-marching launch plan (K3/K4, K6/K7) ---------------------------------
+# csrc/fused7.cu's ZM_SX and ZM_TX: a block's region of 64 columns, one
+# 4-cell quad a thread, and its output tile's 56 (the region adds a quad of
+# columns a side, so that rows start on 16 bytes); its rows are the tile's
+# and the kernel's halo H a side
+ZM_REGION_X = 64
+ZM_TILE_X = 56
+
+
+@dataclass(frozen=True)
+class ZMarchKernel:
+    """What the plan needs of one z-marching kernel (csrc/fused7.cu's
+    ``ZM*_SY``, ``ZM*_AHEAD``, ``ZM*_MIN_BLOCKS`` and ``Staging*``): its
+    halo H (the stencil applies it chains: H rows, H planes and one quad of
+    columns a side), its region's rows (a thread a quad), the planes each
+    staged input field keeps, and the blocks an SM must hold
+    (``__launch_bounds__``), what a wave of blocks is."""
+
+    halo: int
+    rows: int
+    stages: tuple
+    blocks_per_sm: int
+
+    @property
+    def region(self) -> tuple[int, int]:
+        return self.rows, ZM_REGION_X
+
+    @property
+    def tile(self) -> tuple[int, int]:
+        return self.rows - 2 * self.halo, ZM_TILE_X
+
+    @property
+    def smem_bytes(self) -> int:
+        """Dynamic shared bytes a block: the rings and the staging ring."""
+        return (ZM_RING_PLANES + sum(self.stages)) * self.rows * ZM_REGION_X * 4
+
+
+ZM_KERNELS = {
+    "descent": ZMarchKernel(halo=3, rows=40, stages=(8, 8), blocks_per_sm=1),
+    "ascent": ZMarchKernel(halo=3, rows=40, stages=(2, 2, 4, 4), blocks_per_sm=1),
+    "descent1": ZMarchKernel(halo=2, rows=16, stages=(6, 6), blocks_per_sm=3),
+    "ascent1": ZMarchKernel(halo=2, rows=16, stages=(5, 5, 5, 5), blocks_per_sm=2),
+}
+# csrc/fused7.cu's ZM_RING_PLANES: the region planes of every kernel's
+# shared rings, K6/K7's two rings of 3 and K3/K4's three of 2
 ZM_RING_PLANES = 6
-# per kernel (ZM6_*, ZM7_*): the input fields it stages, the planes of each
-# its staging ring holds, and the blocks an SM must hold
-# (``__launch_bounds__``), what a wave of blocks is
-ZM_STAGING = {"descent1": (2, 6, 3), "ascent1": (4, 5, 2)}
-# the most output planes a block marches through: a chunk loads 4 planes
-# more than it writes (2 halo planes a side), so longer chunks read less
-# twice; 48 still gives 300^3 2.7 (K6) and 4.0 (K7) waves of blocks, and
-# ran K6/K7 a few per cent faster than 32 on the H100 (PERF.md, PR 6)
+# the most output planes a block marches through: a chunk loads 2 H planes
+# more than it writes, so longer chunks read less twice; 48 gives 300^3 2.7
+# (K6) and 4.0 (K7) waves of blocks and ran K6/K7 a few per cent faster
+# than 32; for K3/K4 34-62 ran within 5% of each other (3.8 waves at 48;
+# PERF.md §6)
 ZM_ZCHUNK = 48
 H100_SMS = 132
 
 
 @dataclass(frozen=True)
 class ZMarchPlan:
-    """The grid of one K6 or K7 launch: ``tiles_x`` x ``tiles_y`` column
-    tiles of ``ZM_TILE`` output cells in the (ny, nxp) plane times
-    ``chunks`` z-chunks of ``zchunk`` padded planes, one block each;
-    ``smem_bytes`` of dynamic shared memory a block, of which an SM holds
-    ``blocks_per_sm`` blocks."""
+    """The grid of one z-marching launch: ``tiles_x`` x ``tiles_y`` column
+    tiles of ``tile`` output cells in the (ny, nxp) plane times ``chunks``
+    z-chunks of ``zchunk`` padded planes, one block of a thread a quad of
+    its ``region`` each; ``smem_bytes`` of dynamic shared memory a block,
+    of which an SM holds ``blocks_per_sm`` blocks."""
 
+    region: tuple[int, int]
+    tile: tuple[int, int]
     tiles_x: int
     tiles_y: int
     chunks: int
@@ -165,7 +203,7 @@ class ZMarchPlan:
         [c zchunk, min((c + 1) zchunk, nzp)), tile t of y rows [t TY,
         min((t + 1) TY, ny)), and likewise in x up to nxp."""
         nzp, ny, nxp = padded_shape(shape)
-        ty, tx = ZM_TILE
+        ty, tx = self.tile
 
         def cut(n, step, parts):
             return [(c * step, min((c + 1) * step, n)) for c in range(parts)]
@@ -177,21 +215,19 @@ class ZMarchPlan:
 
 
 def zmarch_plan(shape, kernel: str) -> ZMarchPlan:
-    """The launch plan of ``kernel`` ("descent1": K6/K6', "ascent1":
-    K7/K7') for a (nz, ny, nx) field: tiles to cover the padded plane,
-    chunks of at most ``ZM_ZCHUNK`` planes, of equal length but the last,
-    to cover the padded depth, and the shared bytes of the two rings and
-    the kernel's staging ring."""
+    """The launch plan of ``kernel`` ("descent": K3/K3', "ascent": K4/K4',
+    "descent1": K6/K6', "ascent1": K7/K7') for a (nz, ny, nx) field: tiles
+    to cover the padded plane, chunks of at most ``ZM_ZCHUNK`` planes, of
+    equal length but the last, to cover the padded depth, and the shared
+    bytes of its rings and staging ring."""
     nzp, ny, nxp = padded_shape(shape)
-    ty, tx = ZM_TILE
-    hy, hx = ZM_HALO
-    fields, stages, blocks_per_sm = ZM_STAGING[kernel]
+    spec = ZM_KERNELS[kernel]
+    ty, tx = spec.tile
     chunks = -(-nzp // ZM_ZCHUNK)
     zchunk = -(-nzp // chunks)
     return ZMarchPlan(
-        tiles_x=-(-nxp // tx), tiles_y=-(-ny // ty), chunks=-(-nzp // zchunk), zchunk=zchunk,
-        smem_bytes=(ZM_RING_PLANES + fields * stages) * (ty + 2 * hy) * (tx + 2 * hx) * 4,
-        blocks_per_sm=blocks_per_sm,
+        region=spec.region, tile=spec.tile, tiles_x=-(-nxp // tx), tiles_y=-(-ny // ty), chunks=-(-nzp // zchunk),
+        zchunk=zchunk, smem_bytes=spec.smem_bytes, blocks_per_sm=spec.blocks_per_sm,
     )
 
 
@@ -329,45 +365,70 @@ def fused7_prolong_torch(diag_p, cx, cy, cz, t_p, g, shape, pinned: bool, flegs=
 # composite entry points take the operator's legs, then the P-smoothing
 # legs (``_legs``).
 
+def _check_aligned(*fields: torch.Tensor) -> None:
+    """The z-marching kernels move a field's rows as float4: each must start
+    on 16 bytes."""
+    for f in fields:
+        if f.data_ptr() % 16:
+            raise ValueError("the z-marching kernels need fields that start on 16 bytes")
+
+
+# the z-marching wrappers in csrc/fused7.cu's ``tps_zmarch_attributes`` order
+ZMARCH_WRAPPERS = (
+    "fused7_descent_rr", "fused7_descent", "fused7_ascent_rz", "fused7_ascent",
+    "fused7_descent1_rr", "fused7_descent1", "fused7_ascent1_rz", "fused7_ascent1",
+)
+
+
+def zmarch_attributes(name: str) -> dict:
+    """The compiled kernel of z-marching wrapper ``name`` (on the card):
+    its registers a thread, spilled bytes a thread and static shared bytes
+    a block."""
+    fn = _build.library().tps_zmarch_attributes
+    fn.argtypes = [I, P, P, P]
+    fn.restype = I
+    regs, local, static = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
+    rc = fn(ZMARCH_WRAPPERS.index(name), ctypes.byref(regs), ctypes.byref(local), ctypes.byref(static))
+    if rc != 0:
+        raise RuntimeError(f"tps_zmarch_attributes: CUDA error {rc}")
+    return {"registers": regs.value, "spilled_bytes": local.value, "static_smem_bytes": static.value}
+
+
+def _zmarch_partials(plan: ZMarchPlan, dot: bool, device):
+    """One dot partial a block of ``plan``, or None for the dot-free form."""
+    return torch.empty(plan.blocks, dtype=torch.float32, device=device) if dot else None
+
+
 def _launch_descent(name, dot, diag_p, cx, cy, cz, b_p, s0, ad, g, gw, shape, pinned, flegs):
-    x1, r, s = (torch.empty_like(b_p) for _ in range(3))
-    partials = _partials(shape, b_p.device) if dot else None
+    _check_aligned(diag_p, b_p)
+    x1, s = torch.empty_like(b_p), torch.empty_like(b_p)
+    plan = zmarch_plan(shape, "descent")
+    partials = _zmarch_partials(plan, dot, b_p.device)
     _build.launch(
         "tps_descent", _DESCENT_ARGS, b_p.device,
-        b_p.data_ptr(), diag_p.data_ptr(), x1.data_ptr(), r.data_ptr(),
-        s.data_ptr(), partials.data_ptr() if dot else None,
+        b_p.data_ptr(), diag_p.data_ptr(), x1.data_ptr(), s.data_ptr(),
+        partials.data_ptr() if dot else None,
         *launch_args(shape, cx, cy, cz, *_legs(cx, cy, cz, flegs)),
-        float(s0), float(ad), float(g), float(gw), int(pinned),
+        float(s0), float(ad), float(g), float(gw), int(pinned), *plan.launch_args(),
     )
     LAUNCHES[name] += 1
     return (x1, s, partials.sum()) if dot else (x1, s)
 
 
 def _launch_ascent(name, dot, diag_p, cx, cy, cz, t_p, b_p, x1_p, g, ad, g2, gw, shape, pinned, flegs):
-    x2, d, x3, x4 = (torch.empty_like(t_p) for _ in range(4))
-    partials = _partials(shape, t_p.device) if dot else None
+    _check_aligned(diag_p, t_p, b_p, x1_p)
+    x4 = torch.empty_like(t_p)
+    plan = zmarch_plan(shape, "ascent")
+    partials = _zmarch_partials(plan, dot, t_p.device)
     _build.launch(
         "tps_ascent", _ASCENT_ARGS, t_p.device,
         t_p.data_ptr(), b_p.data_ptr(), x1_p.data_ptr(), diag_p.data_ptr(),
-        x2.data_ptr(), d.data_ptr(), x3.data_ptr(), x4.data_ptr(),
-        partials.data_ptr() if dot else None,
+        x4.data_ptr(), partials.data_ptr() if dot else None,
         *launch_args(shape, cx, cy, cz, *_legs(cx, cy, cz, flegs)),
-        float(g), float(ad), float(g2), float(gw), int(pinned),
+        float(g), float(ad), float(g2), float(gw), int(pinned), *plan.launch_args(),
     )
     LAUNCHES[name] += 1
     return (x4, partials.sum()) if dot else x4
-
-
-def _check_aligned(*fields: torch.Tensor) -> None:
-    """K6/K7 move a field's rows as float4: each must start on 16 bytes."""
-    for f in fields:
-        if f.data_ptr() % 16:
-            raise ValueError("the z-marching kernels need fields that start on 16 bytes")
-
-
-def _zmarch_partials(plan: ZMarchPlan, dot: bool, device):
-    """One dot partial a block of ``plan``, or None for the dot-free form."""
-    return torch.empty(plan.blocks, dtype=torch.float32, device=device) if dot else None
 
 
 def _launch_descent1(name, dot, diag_p, cx, cy, cz, b_p, g, gw, shape, pinned, flegs):
@@ -422,8 +483,8 @@ def fused7_mvdot(diag_p, cx, cy, cz, x_p, shape, pinned: bool):
 
 
 def fused7_descent_rr(diag_p, cx, cy, cz, b_p, s0, ad, g, gw, shape, pinned: bool, flegs=None):
-    """``(x1, s, <b, b>)``: the degree-2 downstroke (K3).  The kernel
-    sequence keeps the residual r in scratch device memory."""
+    """``(x1, s, <b, b>)``: the degree-2 downstroke (K3), in one launch
+    that keeps u and D^-1 r in shared memory and r in registers."""
     shape = tuple(shape)
     check_fields(shape, diag_p, b_p)
     if b_p.device.type == "cpu":
@@ -443,8 +504,8 @@ def fused7_descent(diag_p, cx, cy, cz, b_p, s0, ad, g, gw, shape, pinned: bool, 
 
 
 def fused7_ascent_rz(diag_p, cx, cy, cz, t_p, b_p, x1_p, g, ad, g2, gw, shape, pinned: bool, flegs=None):
-    """``(x4, <b, x4>)``: the degree-2 upstroke (K4).  The kernel sequence
-    keeps x2, d and x3 in scratch device memory."""
+    """``(x4, <b, x4>)``: the degree-2 upstroke (K4), in one launch that
+    keeps x2 and x3 in shared memory and d in registers."""
     shape = tuple(shape)
     check_fields(shape, diag_p, t_p, b_p, x1_p)
     if t_p.device.type == "cpu":
