@@ -41,11 +41,13 @@ script exits non-zero without the final line:
    K3' fused7_descent, K4' fused7_ascent, K6' fused7_descent1, K7'
    fused7_ascent1) against their twins as in phase 3, timed at 300^3.
    The z-marching kernels, one launch each (K3, K3', K4, K4', K6, K6', K7,
-   K7'), first at ragged shapes of 1-3 cells a side and of several tiles
+   K7', and K9 fused7_descentu and K15 fused7_restrict, which phases 13 and
+   17 time), first at ragged shapes of 1-3 cells a side and of several tiles
    and z-chunks (``ZMARCH_SHAPES``), pinned and not, with the operator's
    and with filtered legs, and at 300^3: K6's x1 bit-equal to the twin's,
-   the other fields as in phase 3, the dots by ``_dot_agrees``, every face
-   and pad cell exactly 0.  Each time is printed with the field passes of
+   the other fields as in phase 3, the dots by ``_dot_agrees`` (K9's <r',
+   r'>, a sum of squares, to 1e-5 of itself), every face and pad cell
+   exactly 0.  Each time is printed with the field passes of
    its bound (K3, K6 4; K4, K7 5) and its share of that bound, and each
    kernel with its registers, spills and shared bytes.
 10. The reference's own entry point at 300^3, in process:
@@ -70,7 +72,9 @@ script exits non-zero without the final line:
 14. The full-fusion CG body: ``solve_poisson(300, rtol=1e-8, atol=1e-12,
    pc="gamg", cg_fusion=True)``, counters reset just before.  Reason 2,
    Linf < 1e-4, 2-3 outer sweeps, inner within 2 of phase 5's; K8, K9 and
-   K4 launched, K2 and K3 not.
+   K4 launched, K2, K3, K10 and K15 not.  One K9 call runs one kernel of
+   ``csrc/fused7.cu`` on the card, its z-marching ``descent_kernel``
+   (``torch.profiler``'s device events).
 15. ``-layout plain`` through the CLI at 300^3, rtol 1e-8: positive
    reason, Linf < 1e-4, 34 +- 3 inner in 2-3 sweeps; K1p launched and no
    fused7 kernel.
@@ -131,6 +135,7 @@ import io
 import json
 import math
 import pathlib
+import re
 import statistics
 import subprocess
 import sys
@@ -284,6 +289,8 @@ FLEGS_KERNELS = ("fused7_descent_rr", "fused7_ascent_rz", "fused7_restrict", "fu
 LIBRARY_TWINNED = (
     "star7_mv_padded", "star7_mv", "fused7_residual", "fused7_restrict", "fused7_prolong",
 )
+# the kernels of csrc/fused7.cu by name, as the profiler reports them
+FUSED7_KERNEL = re.compile(r"(?<![\w:])((?:descent1?|ascent1?|restrict|prolong|step|pre2|mvdot|cgmv)_kernel)\b")
 # the CG scalars K8/K9 take, as 0-d device tensors (the solve's own form)
 BETA, ALPHA_PREV, ALPHA = 0.61, 0.37, 0.519
 
@@ -706,6 +713,17 @@ def check_dia(device) -> dict:
     return row
 
 
+def _fused7_kernels(fn, args) -> list[str]:
+    """The kernels of ``csrc/fused7.cu`` that one call of ``fn(*args)`` ran
+    on the card, in order, from ``torch.profiler``'s device events."""
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        fn(*args)
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    return [m.group(1) for m in map(FUSED7_KERNEL.search, names) if m]
+
+
 def _require(cond: bool, what: str) -> None:
     if not cond:
         raise AssertionError(what)
@@ -868,8 +886,11 @@ def main() -> None:
              f"cg_fusion: {fu.iters} inner, not within 2 of the production body's {production.iters}")
     for name in ("fused7_cgmv", "fused7_descentu", "fused7_ascent_rz"):
         _require(fu_launches[name] > 0, f"cg_fusion did not launch {name}")
-    for name in ("fused7_mvdot", "fused7_descent_rr"):
+    for name in ("fused7_mvdot", "fused7_descent_rr", "fused7_residual", "fused7_restrict"):
         _require(fu_launches[name] == 0, f"cg_fusion launched {name}")
+    k9 = _fused7_kernels(fused7_descentu, _inputs(SHAPES[0], device)["fused7_descentu"])
+    print(f"one fused7_descentu call runs {k9} of csrc/fused7.cu on the card")
+    _require(k9 == ["descent_kernel"], f"one fused7_descentu call ran {k9}, not one descent_kernel")
 
     pl, pl_launches = run_cli([*_grid(300), "-layout", "plain", "-ksp_rtol", "1e-8",
                                "-ksp_atol", "1e-12", "-ksp_converged_reason"])

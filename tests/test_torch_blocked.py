@@ -1,6 +1,7 @@
 """The launch plan and the schedule of the z-marching kernels
 (``csrc/fused7.cu``: K3 ``descent_kernel``, K4 ``ascent_kernel``, K6
-``descent1_kernel``, K7 ``ascent1_kernel``), on the CPU.
+``descent1_kernel``, K7 ``ascent1_kernel``, K9 ``descent_kernel`` with the
+residual update, K15 ``restrict_kernel``), on the CPU.
 
 ``zmarch_plan`` is what the CUDA entry points launch: its tiles and z-chunks
 must cover every padded cell exactly once (faces and pads included, since
@@ -11,8 +12,9 @@ and 300^3 must fill the H100.
 The kernels themselves run only on the card (``test_torch_cuda.py``).  Here
 ``_emulate`` replays their schedule block by block with torch on the CPU:
 the same loaded region, the three-plane shared rings rotated once a plane,
-the lag of each step (two steps behind the first in K6/K7, three in
-K3/K4), the halo each step covers, and the masks by global coordinates;
+the lag of each step (one step behind the first in K15, two in K6/K7,
+three in K3/K4/K9), the halo each step covers, and the masks by global
+coordinates;
 ring cells a step leaves unwritten are NaN, fresh at every rotation, so a
 step that read one would show.  It must compute the plain twins' function
 (which ``test_torch_kernels.py`` holds against the JAX package): K6's x1
@@ -31,11 +33,12 @@ from tpusparse_torch.grid.poisson import poisson_stencil_device
 from tpusparse_torch.kernels.fused7 import (
     H100_SMS,
     ZM_KERNELS,
-    ZM_RING_PLANES,
     fused7_ascent1_rz_torch,
     fused7_ascent_rz_torch,
     fused7_descent1_rr_torch,
     fused7_descent_rr_torch,
+    fused7_descentu_torch,
+    fused7_restrict_torch,
     zmarch_plan,
 )
 from tpusparse_torch.kernels.stencil7 import FACE, padded_shape
@@ -43,7 +46,9 @@ from tpusparse_torch.sparse.padded import PaddedStar, pad_field
 
 # the fused-kernel scalars of tests/test_fused7.py:32-36
 G, AD, S0, GW, G2 = 0.731, 0.377, 1.618, 0.243, 0.519
-KINDS = ["descent1", "ascent1", "descent", "ascent"]
+# K9's alpha, as tests/test_torch_cuda.py hands it over
+ALPHA = 0.37
+KINDS = ["descent1", "ascent1", "descent", "ascent", "descentu", "restrict"]
 PLAN_SHAPES = [(1, 1, 1), (3, 2, 5), (2, 3, 1), (7, 5, 9), (40, 11, 13), (33, 25, 121),
                (64, 64, 64), (300, 300, 300)]
 # H100: 227 KB of shared memory a block can have
@@ -81,7 +86,7 @@ def test_zmarch_plan_partials_and_shared_memory(shape, kernel):
     assert 0 < plan.smem_bytes <= SMEM_LIMIT
     # the rings and the staging ring, each plane a region of f32 (64
     # columns, one quad a thread)
-    assert plan.smem_bytes == (ZM_RING_PLANES + sum(spec.stages)) * math.prod(plan.region) * 4
+    assert plan.smem_bytes == (spec.ring_planes + sum(spec.stages)) * math.prod(plan.region) * 4
     assert plan.region == (spec.rows, 64) and plan.tile == (spec.rows - 2 * spec.halo, 56)
     assert plan.launch_args() == (plan.tiles_x, plan.tiles_y, plan.chunks, plan.zchunk, plan.smem_bytes)
 
@@ -154,9 +159,12 @@ def _star(ring, center, k, j, i, legs, pin, sl):
 
 def _emulate(kind, op, fields, shape, pinned, flegs):
     """K3 (``kind`` "descent", fields (b,)), K4 ("ascent", fields (t, b,
-    x1)), K6 ("descent1", (b,)) or K7 ("ascent1", (t, b, x1)) as the kernel
-    schedules it: (outputs..., dot).  Per plane p of a block's march, H + 1
-    steps: step 0 on plane p over the whole region, step n on plane p - n
+    x1)), K6 ("descent1", (b,)), K7 ("ascent1", (t, b, x1)), K9
+    ("descentu", (r, ap): K3 on r' = r - ALPHA ap, formed at step 0 and
+    written there on the tile as a third output) or K15 ("restrict", (r,))
+    as the kernel schedules it: (outputs..., dot; K15's 0).  Per plane p
+    of a block's march, H + 1 steps: step 0 on plane p over the whole
+    region, step n on plane p - n
     over the tile plus H - n cells a side (``cells(n)``), reading its
     stencil from step n - 1's ring.  The kernel's threads compute whole
     quads of step n's rows, whose cells outside ``cells(n)`` no step reads
@@ -179,7 +187,9 @@ def _emulate(kind, op, fields, shape, pinned, flegs):
     zero = torch.zeros(())
     a = (float(op.cx), float(op.cy), float(op.cz))
     f = a if flegs is None else flegs
-    outs = [torch.full((nzp, ny, nxp), float("nan")) for _ in range(2 if kind.startswith("descent") else 1)]
+    k3 = kind in ("descent", "descentu")
+    n_outs = {"descent": 2, "descent1": 2, "descentu": 3}.get(kind, 1)
+    outs = [torch.full((nzp, ny, nxp), float("nan")) for _ in range(n_outs)]
     partials = []
     zr, yr, xr = plan.ranges(shape)
     for z0, z1 in zr:
@@ -222,8 +232,15 @@ def _emulate(kind, op, fields, shape, pinned, flegs):
                     d = torch.where(dom & dp(p), load(op.diag, p), torch.ones(()))
                     v = planes[p] = dict(d=d, dinv=1.0 / d)
                     planes.pop(p - h - 1, None)
-                    if kind.startswith("descent"):
+                    if kind == "restrict":
                         v["b"] = load(fields[0], p)
+                        rings[0].slots[2] = v["b"] * v["dinv"]
+                    elif kind.startswith("descent"):
+                        v["b"] = load(fields[0], p)
+                        if kind == "descentu":
+                            v["b"] = v["b"] - ALPHA * load(fields[1], p)
+                            if z0 <= p < z1:
+                                write(outs[2], p, v["b"][tile])
                         if z0 <= p < z1:
                             dot += (v["b"][tile][field] ** 2).sum()
                         if kind == "descent1":
@@ -240,7 +257,11 @@ def _emulate(kind, op, fields, shape, pinned, flegs):
                         sl = cells(n)
                         c, prev = planes[q], rings[n - 1]
                         mid = prev.plane(1)[sl]
-                        if kind == "descent1" and n == 1:
+                        if kind == "restrict":
+                            # the centre term is r itself (diag D^-1 r == r)
+                            w = _star(prev, c["b"][sl], q - FACE, j, i, f, pin, sl)
+                            write(outs[0], q, sel(q, sl, c["b"][sl] - GW * w))
+                        elif kind == "descent1" and n == 1:
                             c["r"] = sel(q, sl, c["b"][sl] - star(prev, q, a, sl))
                             rings[1].slots[2][sl] = c["r"] * c["dinv"][sl]
                         elif kind == "descent1":
@@ -254,13 +275,13 @@ def _emulate(kind, op, fields, shape, pinned, flegs):
                             x3 = sel(q, sl, mid + G * (c["dinv"][sl] * (c["b"][sl] - star(prev, q, a, sl))))
                             dot += (c["b"][sl] * x3).sum()
                             write(outs[0], q, x3)
-                        elif kind == "descent" and n == 1:
+                        elif k3 and n == 1:
                             x1 = mid + AD * mid + G * (c["dinv"][sl] * (c["b"][sl] - star(prev, q, a, sl)))
                             rings[1].slots[2][sl] = sel(q, sl, x1)
-                        elif kind == "descent" and n == 2:
+                        elif k3 and n == 2:
                             c["r"] = sel(q, sl, c["b"][sl] - star(prev, q, a, sl))
                             rings[2].slots[2][sl] = c["r"] * c["dinv"][sl]
-                        elif kind == "descent":
+                        elif k3:
                             r = c["r"][1:-1, 1:-1]              # step 2's cells, cut to the tile
                             write(outs[0], q, rings[1].plane(0)[sl])
                             write(outs[1], q, sel(q, sl, r - GW * star(prev, q, f, sl)))
@@ -312,17 +333,27 @@ def test_zmarch_schedule_computes_the_twin(kind, shape, pinned, flegs):
     elif kind == "descent":
         got = _emulate(kind, op, (b,), shape, pinned, legs)
         want = fused7_descent_rr_torch(*args, b, S0, AD, G, GW, shape, pinned, legs)
+    elif kind == "descentu":
+        # r = b, ap = t
+        got = _emulate(kind, op, (b, t), shape, pinned, legs)
+        want = fused7_descentu_torch(*args, b, t, S0, AD, G, GW, ALPHA, shape, pinned, legs)
+    elif kind == "restrict":
+        got = _emulate(kind, op, (b,), shape, pinned, legs)[:1]
+        want = (fused7_restrict_torch(*args, b, GW, shape, pinned, legs),)
     elif kind == "ascent1":
         got = _emulate(kind, op, (t, b, x1), shape, pinned, legs)
         want = fused7_ascent1_rz_torch(*args, t, b, x1, G, GW, shape, pinned, legs)
     else:
         got = _emulate(kind, op, (t, b, x1), shape, pinned, legs)
         want = fused7_ascent_rz_torch(*args, t, b, x1, G, AD, G2, GW, shape, pinned, legs)
+    fields = got if kind == "restrict" else got[:-1]
     outside = ~_in_domain(shape)
-    for g_, w_ in zip(got[:-1], want[:-1]):
+    for g_, w_ in zip(fields, want):
         assert not torch.isnan(g_).any()           # every cell written
         assert (g_[outside] == 0).all()            # faces and pads exactly 0
         torch.testing.assert_close(g_, w_, rtol=1e-5, atol=1e-6 * w_.abs().max().item())
+    if kind == "restrict":
+        return
     # K4's <b, x4> at a handful of cells can cancel to 1% of its terms:
     # held, as chip_smoke.py::_dot_agrees holds it, to 1e-5 of the sum of
     # their magnitudes

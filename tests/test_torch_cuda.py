@@ -1,8 +1,8 @@
 """On the card: every CUDA kernel of ``tpusparse_torch`` against its plain
 PyTorch twin at small ragged shapes (the P-smoothing stages also with
-filtered legs; the z-marching K3/K4, K6/K7 and their dot-free forms also
-at shapes of 1-3 cells and several tiles and z-chunks, with their face and
-pad cells),
+filtered legs; the z-marching K3/K4, K6/K7, their dot-free forms, K9 and
+K15 also at shapes of 1-3 cells and several tiles and z-chunks, with their
+face and pad cells),
 small stencil (padded, full-fusion, plain layout, the
 unfused padded cycle, W-cycle, threshold schedule, the plain-only GAMG
 options and the standalone PCs), aij and reference-config solves on the
@@ -32,6 +32,8 @@ from tpusparse_torch.kernels.fused7 import (
     _ASCENT_ARGS,
     _DESCENT1_ARGS,
     _DESCENT_ARGS,
+    _DESCENTU_ARGS,
+    _RESTRICT_ARGS,
     ZMARCH_WRAPPERS,
     fused7_ascent,
     fused7_ascent1,
@@ -217,8 +219,8 @@ ZMARCH_SHAPES = [(1, 2, 1), (3, 2, 5), (2, 3, 1), (2, 1, 3), (40, 13, 61), (70, 
 def test_zmarch_kernel_matches_twin(cuda, name, shape, pinned, flegs):
     """One launch a call; K6's x1 bit-equal to the twin's (the same IEEE
     1/d and two products), the other fields at the kernels' tolerances, the
-    dot to 1e-5 of itself, K4's <b, x4> to 1e-5 of the sum of its terms'
-    magnitudes (chip_smoke.py::_dot_agrees: at a handful of cells it
+    dot to 1e-5 of itself (K9's <r', r'> is a sum of squares), K4's <b, x4>
+    to 1e-5 of the sum of its terms' magnitudes (chip_smoke.py::_dot_agrees: at a handful of cells it
     cancels to 1% of them, and K4 sums it in another block order than its
     twin), and every face and pad cell of each output exactly 0."""
     kernel, twin = CASES[name]
@@ -287,6 +289,37 @@ def test_zmarch_entry_points_of_k3_k4_refuse_a_wrong_plan(cuda, kind):
         with pytest.raises(RuntimeError, match=name):
             _build.launch(name, argtypes, cuda, *ptrs, *launch_args(shape, cx, cy, cz, cx, cy, cz),
                           G, AD, S0, GW, 1, *bad)
+
+
+@pytest.mark.parametrize("kind", ["descentu", "restrict"])
+def test_zmarch_entry_points_of_k9_k15_refuse_a_wrong_plan(cuda, kind):
+    """As K3/K4's: a plan that misses a tile in x, or has another kernel's
+    tile (K6's for K9, K3's for K15), or one plane of shared memory too
+    few, is refused before a launch."""
+    shape = (40, 21, 61)
+    args = _args(f"fused7_{kind}", shape, True, cuda)
+    diag, cx, cy, cz, r = args[:5]
+    plan = zmarch_plan(shape, kind)
+    other = zmarch_plan(shape, "descent1" if kind == "descentu" else "descent")
+    wrong = [
+        (plan.tiles_x - 1, *plan.launch_args()[1:]),
+        (*other.launch_args()[:4], plan.smem_bytes),
+        (*plan.launch_args()[:4], plan.smem_bytes - 4 * math.prod(plan.region)),
+    ]
+    if kind == "descentu":
+        ap, alpha = args[5], args[10].reshape(1)
+        out = [torch.empty_like(r) for _ in range(3)]
+        partials = torch.empty(plan.blocks, dtype=torch.float32, device=cuda)
+        head = (r.data_ptr(), ap.data_ptr(), alpha.data_ptr(), diag.data_ptr(), *(o.data_ptr() for o in out),
+                partials.data_ptr(), *launch_args(shape, cx, cy, cz, cx, cy, cz), S0, AD, G, GW, 1)
+        name, argtypes = "tps_descentu", _DESCENTU_ARGS
+    else:
+        s = torch.empty_like(r)
+        head = (r.data_ptr(), diag.data_ptr(), s.data_ptr(), *launch_args(shape, cx, cy, cz), GW, 1)
+        name, argtypes = "tps_restrict", _RESTRICT_ARGS
+    for bad in wrong:
+        with pytest.raises(RuntimeError, match=name):
+            _build.launch(name, argtypes, cuda, *head, *bad)
 
 
 def _box27(ny, nx):

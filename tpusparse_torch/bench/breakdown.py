@@ -1,7 +1,7 @@
 """Where the time of a solve goes, on one GPU.
 
     python3 -m tpusparse_torch.bench.breakdown [--n 300] [--cycles 10] [--mat-type stencil|aij]
-        [--config configs/SolverOptions_GAMG.info]
+        [--config configs/SolverOptions_GAMG.info] [--cg-fusion]
 
 Prints, after the card's name and power limit:
 
@@ -11,10 +11,14 @@ Prints, after the card's name and power limit:
   ``--config`` the KSP method, tolerances and GAMG parameters of that
   options file, read as the CLI's ``-config`` reads it (the reference
   config: CG, rtol 1e-14, Richardson(1), so the cycle below runs K6/K7);
+  with ``--cg-fusion`` the full-fusion CG body (``cg_fusion=True``), whose
+  cycle below is ``vcycle_fused_rupdate`` (K9, the coarse cycle, K4);
 - the setup split: the rho power iterations and the Galerkin probing of
   every level, each timed alone on the built hierarchy;
-- one V-cycle (``vcycle_fused_dots`` on the stencil route, ``vcycle`` over
-  the DIA levels on the aij route) on the normalized fine right-hand side:
+- one V-cycle (``vcycle_fused_dots`` on the stencil route,
+  ``vcycle_fused_rupdate`` with ap = rhs / 2 and alpha = 0.37 on the
+  full-fusion body's, ``vcycle`` over the DIA levels on the aij route) on
+  the normalized fine right-hand side:
   ms per cycle by CUDA events and by the host clock, the hand-written
   kernel launches per cycle (``kernels.LAUNCHES``), then, under
   ``torch.profiler``, device-busy ms and device kernels per cycle and the
@@ -38,7 +42,7 @@ import time
 import torch
 
 from tpusparse_torch import kernels
-from tpusparse_torch.amg.fused_cycle import vcycle_fused_dots
+from tpusparse_torch.amg.fused_cycle import vcycle_fused_dots, vcycle_fused_rupdate
 from tpusparse_torch.amg.galerkin import galerkin_coarse
 from tpusparse_torch.amg.geo import galerkin_probe_geo
 from tpusparse_torch.amg.hierarchy import (
@@ -100,15 +104,23 @@ def _print_top(rows, busy: float, per: int = 1) -> None:
 
 def _stencil_route(n, device, params, kw):
     """The pieces of the stencil route the breakdown times: the setup, the
-    Galerkin step, the preconditioner's final form, its cycle, the cycle's
-    right-hand side and the solve (with the solve keywords ``kw``)."""
+    Galerkin step, the preconditioner's final form, its cycle (and its
+    name), the cycle's right-hand side and the solve (with the solve
+    keywords ``kw``; ``cg_fusion`` among them takes the full-fusion body
+    and its cycle)."""
     op, b, _, op_lo = build_system(Grid3D(n, n, n), device)
+    rhs = pad_field((b / torch.linalg.vector_norm(b)).to(torch.float32))
+    cycle, name = vcycle_fused_dots, "vcycle_fused_dots"
+    if kw.get("cg_fusion"):
+        ap, alpha = 0.5 * rhs, torch.tensor(0.37, device=device)
+        cycle, name = (lambda pc_state, r: vcycle_fused_rupdate(pc_state, r, ap, alpha)), "vcycle_fused_rupdate"
     return dict(
         setup=lambda: gamg_setup(op_lo, params),
         galerkin=galerkin_coarse,
         pc=cast_coarse_coefs,
-        cycle=vcycle_fused_dots,
-        rhs=pad_field((b / torch.linalg.vector_norm(b)).to(torch.float32)),
+        cycle=cycle,
+        name=name,
+        rhs=rhs,
         solve=lambda pc_state: refined_solve(op, op_lo, pc_state, b, **kw),
     )
 
@@ -121,6 +133,7 @@ def _aij_route(n, device, params, kw):
         galerkin=galerkin_probe_geo,
         pc=lambda hier: hier,
         cycle=vcycle,
+        name="vcycle",
         rhs=(b / torch.linalg.vector_norm(b)).to(torch.float32),
         solve=lambda pc_state: refined_solve_plain(op, pc_state, b, **kw),
     )
@@ -132,6 +145,7 @@ def main(argv=None) -> None:
     ap.add_argument("--cycles", type=int, default=10)
     ap.add_argument("--mat-type", choices=("stencil", "aij"), default="stencil")
     ap.add_argument("--config", help="a PETSc options file, read as the CLI's -config")
+    ap.add_argument("--cg-fusion", action="store_true", help="the full-fusion CG body (stencil route)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         sys.exit("breakdown: no CUDA device")
@@ -150,7 +164,7 @@ def main(argv=None) -> None:
 
     def solve_once():
         rep = solve_poisson(args.n, pc="gamg", device=device, mat_type=args.mat_type, amg_params=params,
-                            ksp=ksp, **kw)
+                            ksp=ksp, cg_fusion=args.cg_fusion, **kw)
         print(rep.json_sidecar())
 
     solve_once()
@@ -159,6 +173,8 @@ def main(argv=None) -> None:
     print(f"peak device memory of solve_poisson: {torch.cuda.max_memory_allocated() / 1e9:.3f} GB")
 
     kw["ksp_solve"] = _pick_ksp(ksp)
+    if args.cg_fusion:
+        kw["cg_fusion"] = True
     route = (_aij_route if aij else _stencil_route)(args.n, device, params, kw)
     hier = route["setup"]()
     t_setup = _timed(route["setup"])
@@ -190,7 +206,7 @@ def main(argv=None) -> None:
     end.synchronize()
     host_ms = (time.perf_counter() - t0) * 1e3 / args.cycles
     per_cycle = {k: v / args.cycles for k, v in kernels.LAUNCHES.items() if v}
-    print(f"{route['cycle'].__name__}: events {start.elapsed_time(end) / args.cycles:.3f} ms,"
+    print(f"{route['name']}: events {start.elapsed_time(end) / args.cycles:.3f} ms,"
           f" host {host_ms:.3f} ms per cycle; hand-written kernel launches per cycle {per_cycle}")
     busy, n_ev, top = _profile(cycles, top=12)
     print(f"per V-cycle: device busy {busy / args.cycles:.3f} ms"

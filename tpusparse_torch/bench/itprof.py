@@ -54,9 +54,9 @@ from tpusparse_torch.solve.cg import cg
 from tpusparse_torch.sparse.padded import pad_field
 
 # field passes of each kernel as the port launches it (csrc/fused7.cu's
-# header): the launches of a mode hand their intermediates over in device
-# memory
-PASSES = {"mv": 3, "mvdot": 3, "descent": 10, "ascent": 14, "cgmv": 7, "descentu": 12, "ascent_rz": 14}
+# header): each is one launch at its bound's count (K3', K4 and K4', K9
+# march through shared memory)
+PASSES = {"mv": 3, "mvdot": 3, "descent": 4, "ascent": 5, "cgmv": 7, "descentu": 6, "ascent_rz": 5}
 
 
 def time_ms(fn, reps: int) -> float:

@@ -13,33 +13,31 @@
 // descent_rr reads b and diag once and writes x1 and s (4 field passes),
 // ascent_rz reads t, b, x1, diag and writes x4 (5 passes).
 //
-// Two designs.  The V-cycle's fine-level kernels that chain two or three
-// stencil applies march: K3/K4 (descent(_rr), ascent(_rz): the degree-2
-// cycle of the headline solve, of the non-CG solvers, the W-cycle and the
-// threshold schedules) and K6/K7 (descent1(_rr), ascent1(_rz): the
-// reference config's Richardson(1) cycle) are one launch each that marches
-// a column tile up a z-chunk of planes through shared-memory rings, so each
-// field crosses HBM about once: 4 passes for K3 and K6, 5 for K4 and K7,
-// their bounds (see the z-marching section below).  The others do not
+// Two designs.  The kernels that chain two or three stencil applies, and
+// K15, march: K3/K4 (descent(_rr), ascent(_rz): the degree-2 cycle of the
+// headline solve, of the non-CG solvers, the W-cycle and the threshold
+// schedules), K9 (descentu: K3 with the CG residual update in front, the
+// full-fusion body's downstroke), K6/K7 (descent1(_rr), ascent1(_rz): the
+// reference config's Richardson(1) cycle) and K15 (restrict, one stencil
+// apply of D^-1 r) are one launch each that marches a column tile up a
+// z-chunk of planes through shared-memory rings, so each field crosses HBM
+// about once: 4 passes for K3 and K6, 5 for K4 and K7, 6 for K9, 3 for
+// K15, their bounds (see the z-marching section below).  The others do not
 // march: one thread per padded cell, each launch fusing ONE stencil apply
-// with its elementwise epilogue.  K2, K8 and K10-K16 are one launch each
-// at their bounds' pass counts: mvdot 3, cgmv 7, residual and rich 4,
-// cheb0 5, cheb 6, pre2 4, restrict and prolong 3.  K9 (descentu) is a
-// first-port sequence of three launches with its intermediates in device
-// memory (the wrapper allocates them): 12 field passes against a bound of
-// 6.  Every chained step writes zero outside the domain (the fused7
-// mask_dom), so the next step's stencil sees the Neumann dropped-entry
-// boundary.
+// with its elementwise epilogue.  K2, K8, K10-K14 and K16 are one launch
+// each at their bounds' pass counts: mvdot 3, cgmv 7, residual and rich 4,
+// cheb0 5, cheb 6, pre2 4, prolong 3.  Every chained step writes zero
+// outside the domain (the fused7 mask_dom), so the next step's stencil
+// sees the Neumann dropped-entry boundary.
 //
-// K8 (cgmv) and K9 (descentu) carry the CG vector updates.  K8 is one
-// launch: p' = z + beta p is formed at each of the star's seven reads, and
-// x' = x + alpha_prev p rides along (4 field reads, 3 writes).  K9 is K3's
-// math with the residual update r' = r - alpha ap formed at each read of
-// its first launch, which writes r' next to x1; its second and third
-// launches are K10's and K15's kernels.  Their CG scalars (beta,
-// alpha_prev, alpha) are device scalars read by pointer: they come out of
-// the previous launches' dots, and passing them by value would cost CG a
-// host read of each per iteration.
+// K8 (cgmv) and K9 (descentu) carry the CG vector updates.  K8: p' = z +
+// beta p is formed at each of the star's seven reads, and x' = x +
+// alpha_prev p rides along (4 field reads, 3 writes).  K9 forms the
+// residual update r' = r - alpha ap once a cell as it stages the plane,
+// and runs K3's steps on r'.  Their CG scalars (beta, alpha_prev, alpha)
+// are device scalars read by pointer: they come out of the previous
+// launches' dots, and passing them by value would cost CG a host read of
+// each per iteration.
 //
 // The CG dot of a mode is a template flag of the kernel that forms it: with
 // DOT the kernel writes one partial per block (block_partial) and the
@@ -47,6 +45,8 @@
 // per-slab partials outside the kernel (fused7.py:928); without it the
 // epilogue is compiled out (the dot-free modes of the non-CG solvers).  An
 // entry point takes partials == nullptr for the dot-free form.
+#include <type_traits>
+
 #include "star7.cuh"
 
 using namespace tps;
@@ -65,23 +65,6 @@ mvdot_kernel(const float* __restrict__ x, const float* __restrict__ diag,
   }
   if (q < g.total) y[q] = out;
   block_partial(dot, partials);
-}
-
-// K15 (restrict) and K9's third launch, the P^T smoothing pass:
-// s = r - gw A_f (D^-1 r), A_f the operator with the filtered legs ``f``.
-__global__ void __launch_bounds__(BLOCK)
-restrict_smooth_kernel(const float* __restrict__ r,
-                       const float* __restrict__ diag, float* __restrict__ s,
-                       Geom g, Legs f, float gw, int pinned) {
-  const long long q = thread_cell();
-  int k, j, i;
-  if (q >= g.total) return;
-  float out = 0.0f;
-  if (cell(g, q, k, j, i)) {
-    const DinvField v{r, diag, 1.0f};
-    out = r[q] - gw * star(v, diag[q] * v(q), q, k, j, i, g, f, pinned);
-  }
-  s[q] = out;
 }
 
 // K16 prolong, the P smoothing pass with the filtered legs ``f``:
@@ -104,15 +87,20 @@ prolong_kernel(const float* __restrict__ t, const float* __restrict__ diag,
 // ---------------------------------------------------------------------------
 // The z-marching kernels, one launch each, with their dot-free forms:
 // K3 (descent_rr) / K3' and K4 (ascent_rz) / K4', the degree-2 V-cycle's
-// fine level, and K6 (descent1_rr) / K6' and K7 (ascent1_rz) / K7', the
-// reference config's degree-1 one.  They replace fused7_call's modes
-// descent(_rr), ascent(_rz) (tpusparse/kernels/fused7.py:575-602,
-// 674-701), descent1(_rr) and ascent1(_rz) (:632-673).
+// fine level, K9 (descentu), the full-fusion body's downstroke, K6
+// (descent1_rr) / K6' and K7 (ascent1_rz) / K7', the reference config's
+// degree-1 fine level, and K15 (restrict), the unfused cycle's P^T
+// smoothing pass.  They replace fused7_call's modes descent(_rr),
+// ascent(_rz) (tpusparse/kernels/fused7.py:575-602, 674-701), descentu
+// (:603-631), descent1(_rr), ascent1(_rz) (:632-673) and restrict
+// (:541-545).
 //
 // Bound on the H100: bytes.  K3 and K6 read b and diag and write x1 and s
 // (4 field passes, 0.1315 ms at 300^3); K4 and K7 read t, b, x1 and diag
-// and write x4 (x3) (5 passes, 0.1644 ms).  K3/K4 chain three stencil
-// applies and K6/K7 two, so a cell's output depends on inputs H = 3 (2)
+// and write x4 (x3) (5 passes, 0.1644 ms); K9 reads r, ap and diag and
+// writes x1, s and r' (6 passes, 0.1973 ms); K15 reads r and diag and
+// writes s (3 passes, 0.0987 ms).  K3/K4/K9 chain three stencil applies,
+// K6/K7 two and K15 one, so a cell's output depends on inputs H = 3 (2, 1)
 // cells away in every direction: H is each kernel's halo.
 //
 // Design, after the TPU kernel's slab streaming with halo planes
@@ -122,8 +110,9 @@ prolong_kernel(const float* __restrict__ t, const float* __restrict__ diag,
 // cells, H of them needed) a side in x: SY x 64 cells, one quad of 4
 // consecutive x cells a thread, copied and stored 16 bytes at a time (the
 // region's columns start on 16 bytes).  K6/K7: SY = 16, tile 12 x 56, 256
-// threads; K3/K4: SY = 40, tile 34 x 56, 640 threads, one block an SM,
-// each thread within 96 registers (the register file's 64 K).  K3/K4 are
+// threads; K3/K4/K9: SY = 40, tile 34 x 56, 640 threads, one block an SM,
+// each thread within 96 registers (the register file's 64 K); K15: SY =
+// 16, tile 14 x 56, 256 threads, 4 blocks an SM.  K3/K4 are
 // bound by the latency their warps cannot hide, not by bytes: the 40-row
 // region holds 20 warps an SM against a 32-row one's 16 and loads 6% fewer
 // rows at 300^3 (9 tiles of 40 against 12 of 32), and ran 9-10% faster; a
@@ -136,7 +125,10 @@ prolong_kernel(const float* __restrict__ t, const float* __restrict__ diag,
 // p, H + 1 steps, each one plane behind the last and on one cell less a
 // side (n = 0 .. H):
 //   n = 0, plane p, the whole region: the first step, into a shared ring
-//      (K3: u = (s0 b) D^-1; K4, K7: t as it is; K6: x1 = g b D^-1);
+//      (K3: u = (s0 b) D^-1; K9: the same on b = r' = r - alpha ap, which
+//      it writes back to r's staging slot for the later steps and, on the
+//      tile, to the output r'; K4, K7: t as it is; K6: x1 = g b D^-1;
+//      K15: u = D^-1 r);
 //   0 < n < H, plane p - n, the tile plus H - n cells a side (rows n to
 //      SY - n; whole quads): a chained step reads its stencil from the
 //      ring of step n - 1 and writes a ring of its own (K3: x1 = u + ad u +
@@ -144,8 +136,10 @@ prolong_kernel(const float* __restrict__ t, const float* __restrict__ diag,
 //      t - gw D^-1 A_f t, then d = g D^-1 (b - A x2) and x3 = x2 + d; K6:
 //      D^-1 r; K7: x2);
 //   n = H, plane p - H, the tile: the last step writes the tile's outputs
-//      (K3, K6: x1 and s = r - gw A_f (D^-1 r); K4: x4 = x3 + ad d + g2 D^-1
-//      (b - A x3); K7: x3 = x2 + g D^-1 (b - A x2)) and adds to the dot.
+//      (K3, K9, K6: x1 and s = r - gw A_f (D^-1 r); K4: x4 = x3 + ad d + g2
+//      D^-1 (b - A x3); K7: x3 = x2 + g D^-1 (b - A x2); K15: s = r - gw A_f
+//      u, whose centre term is r itself) and adds to the dot (K9 adds
+//      <r', r'> at step 0, as K3 adds <b, b>).
 // So each input and output crosses HBM about once: a chunk re-reads its 2 H
 // halo planes and a tile its halo rows and columns (mostly from L2, where
 // the neighbouring blocks that run at the same time put them).  One IEEE
@@ -171,7 +165,8 @@ prolong_kernel(const float* __restrict__ t, const float* __restrict__ diag,
 // the steps wrote one plane earlier, so each ring needs 2 planes and a
 // plane needs one barrier, at its end.  The first K3/K4, in K6/K7's way
 // (16-row regions, three barriers a plane), ran at 0.455 / 0.434 ms at
-// 300^3 (PERF.md section 6).
+// 300^3 (PERF.md section 6).  K9 and K15 are built on K3/K4's way; K9 is
+// K3's kernel with the residual update as a template flag.
 //
 // The launch plan (tiles, z-chunk, grid, shared bytes, partials) is
 // computed by the wrapper (kernels/fused7.py::zmarch_plan); the entry
@@ -183,7 +178,7 @@ constexpr int ZM_SX = ZM_TX + 2 * ZM_HX;     // 64 region columns
 constexpr int ZM_QX = ZM_SX / 4;             // 16 quads a region row
 static_assert(32 % ZM_QX == 0, "a warp holds whole region rows");
 // region rows (the tile's and H a side), one quad of the region a thread:
-// K6/K7 16 rows of 256 threads, K3/K4 40 rows of 640
+// K6/K7/K15 16 rows of 256 threads, K3/K4/K9 40 rows of 640
 constexpr int ZM_SY = 16, ZM3_SY = 40;
 constexpr int ZM_PLANE = ZM_SX * ZM_SY;      // shared floats a K6/K7 plane
 constexpr int ZM3_PLANE = ZM_SX * ZM3_SY;    // and a K3/K4 one
@@ -200,11 +195,19 @@ static_assert(ZM_QX * ZM_SY == BLOCK, "one quad of the region a thread");
 // b, 2 ahead, 5 deep; 2 blocks (104 KB).  K3: b (read at n = 0-2) and diag
 // (n = 0-3), 4 ahead, 8 deep; one block (220 KB).  K4: t (n = 0), x1 (n =
 // 1), diag (n = 1-3) and b (n = 2-3), 1 ahead (its 20 planes of 2 ahead
-// would not fit), 2, 2, 4 and 4 deep; one block (180 KB).
+// would not fit), 2, 2, 4 and 4 deep; one block (180 KB).  K9: r (n = 0-2,
+// as r' from n = 0 on), diag (n = 0-3) and ap (n = 0), 1 ahead (K3's 4 would
+// need 26 planes of 10 KB beside the rings), 4, 8 and 2 deep; one block
+// (200 KB).  K15: r and diag (n = 0; step 1 takes r's centre from the
+// thread's registers), 4 ahead, 5 deep, and one ring of 2 planes; 4 blocks
+// an SM (48 KB each: a fifth does not fit, so that at 300^3 the plan's
+// 132 tiles times 8 z-chunks make 2 whole waves).
 constexpr int ZM6_AHEAD = 3, ZM6_MIN_BLOCKS = 3;
 constexpr int ZM7_AHEAD = 2, ZM7_MIN_BLOCKS = 2;
 constexpr int ZM3_AHEAD = 4, ZM3_MIN_BLOCKS = 1;
 constexpr int ZM4_AHEAD = 1, ZM4_MIN_BLOCKS = 1;
+constexpr int ZM9_AHEAD = 1;
+constexpr int ZM15_AHEAD = 4, ZM15_MIN_BLOCKS = 4;
 
 // Four consecutive cells of a row, one thread's share of every step.
 struct Quad {
@@ -333,21 +336,22 @@ __device__ __forceinline__ Quad quad_star(const Ring& r, const ZQuad& z,
                    r.get(0, z.q), r.get(2, z.q), center, z, k, a, pin);
 }
 
-// Two shared planes of the region (K3/K4): a step writes its newest plane
-// into one while the next step reads the plane before from the other.  The
-// next step's stencil reads only the rows above and below there: the
-// thread keeps its own quads of the three planes it needs (its centre and
-// z neighbours) in registers, and takes its x neighbours from the next
-// lanes (row_neighbours).
+// Two shared planes of the region, of PLANE floats each (K3/K4/K9, K15): a
+// step writes its newest plane into one while the next step reads the
+// plane before from the other.  The next step's stencil reads only the
+// rows above and below there: the thread keeps its own quads of the three
+// planes it needs (its centre and z neighbours) in registers, and takes
+// its x neighbours from the next lanes (row_neighbours).
+template <int PLANE>
 struct Ring2 {
   float* base;
-  int wr;   // offset of the plane written next: 0 or ZM3_PLANE
-  __device__ __forceinline__ void flip() { wr = ZM3_PLANE - wr; }
+  int wr;   // offset of the plane written next: 0 or PLANE
+  __device__ __forceinline__ void flip() { wr = PLANE - wr; }
   __device__ __forceinline__ void put(const Quad& v, int q) const {
     reinterpret_cast<float4*>(base + wr)[q] = float4_of(v);
   }
   __device__ __forceinline__ Quad get(int q) const {
-    return quad_of(reinterpret_cast<const float4*>(base + ZM3_PLANE - wr)[q]);
+    return quad_of(reinterpret_cast<const float4*>(base + PLANE - wr)[q]);
   }
 };
 
@@ -398,7 +402,7 @@ __device__ __forceinline__ void cp_async_wait() {
 }
 
 // The staging ring after the rings: input field F (0-3) keeps its last DF
-// planes.  Plane p of the march (which starts at z0 - H) is in slot
+// planes (at(p) is F's slot of plane p, which K9 also writes).  Plane p of the march (which starts at z0 - H) is in slot
 // (p - z0 + H) % DF of F's.  Each thread copies and reads only its own
 // quad, so cp_async_wait alone, with no barrier, makes a copy visible to
 // its reader.  A slot is copied into again DF planes later, which must come
@@ -454,7 +458,8 @@ struct Staging {
     return v;
   }
 };
-// K6 (b, diag), K7 (t, x1, diag, b), K3 (b, diag), K4 (t, x1, diag, b)
+// K6 (b, diag), K7 (t, x1, diag, b), K3 (b, diag), K4 (t, x1, diag, b),
+// K9 (r, diag, ap), K15 (r, diag)
 using Staging6 = Staging<2, ZM_PLANE, ZM6_AHEAD + 3, ZM6_AHEAD + 3>;
 using Staging7 = Staging<2, ZM_PLANE, ZM7_AHEAD + 3, ZM7_AHEAD + 3,
                          ZM7_AHEAD + 3, ZM7_AHEAD + 3>;
@@ -466,13 +471,15 @@ using Staging3 = Staging<3, ZM3_PLANE, pow2_ceil(ZM3_AHEAD + 3),
 using Staging4 = Staging<3, ZM3_PLANE, pow2_ceil(ZM4_AHEAD + 1),
                          pow2_ceil(ZM4_AHEAD + 1), pow2_ceil(ZM4_AHEAD + 3),
                          pow2_ceil(ZM4_AHEAD + 2)>;
-// the shared bytes of a kernel's rings, ZM_RING_PLANES planes (K6/K7: two
-// of 3; K3/K4: three of 2), and its staging
-constexpr int ZM_RING_PLANES = 6;
-template <class St>
+using Staging9 = Staging<3, ZM3_PLANE, pow2_ceil(ZM9_AHEAD + 3),
+                         pow2_ceil(ZM9_AHEAD + 4), pow2_ceil(ZM9_AHEAD + 1)>;
+using Staging15 = Staging<1, ZM_PLANE, ZM15_AHEAD + 1, ZM15_AHEAD + 1>;
+// the shared bytes of a kernel's rings, RINGS planes (K6/K7: two of 3;
+// K3/K4/K9: three of 2; K15: one of 2), and its staging
+constexpr int ZM_RING_PLANES = 6, ZM15_RING_PLANES = 2;
+template <class St, int RINGS = ZM_RING_PLANES>
 constexpr int zmarch_smem() {
-  return (ZM_RING_PLANES + St::PLANES) * St::PLANE_FLOATS *
-         (int)sizeof(float);
+  return (RINGS + St::PLANES) * St::PLANE_FLOATS * (int)sizeof(float);
 }
 
 __device__ __forceinline__ void store_quad(float* __restrict__ f,
@@ -692,31 +699,41 @@ ascent1_kernel(const float* __restrict__ t, const float* __restrict__ b,
 
 // K3 / K3': u = (s0 b) D^-1;  x1 = u + ad u + g D^-1 (b - A u);
 // r = b - A x1;  s = r - gw A_f (D^-1 r);  partials of <b, b> with DOT.
-template <bool DOT>
+// K9 (UPDATE, always with DOT): b is r' = r - alpha ap, formed at step 0
+// from the staged r (``b``) and ``ap``, written to ``r_new`` on the tile;
+// partials of <r', r'>.  K3 passes ap, alpha_p and r_new as nullptr.
+template <bool DOT, bool UPDATE>
 __global__ void __launch_bounds__(ZM3_THREADS, ZM3_MIN_BLOCKS)
-descent_kernel(const float* __restrict__ b, const float* __restrict__ diag,
-               float* __restrict__ x1, float* __restrict__ s,
+descent_kernel(const float* __restrict__ b, const float* __restrict__ ap,
+               const float* __restrict__ alpha_p,
+               const float* __restrict__ diag, float* __restrict__ x1,
+               float* __restrict__ s, float* __restrict__ r_new,
                float* __restrict__ partials, Geom g, Legs a, Legs f,
                float s0, float ad, float gg, float gw, int pinned,
                int zchunk) {
-  constexpr int H = 3, AHEAD = ZM3_AHEAD;
+  constexpr int H = 3, AHEAD = UPDATE ? ZM9_AHEAD : ZM3_AHEAD;
+  using St = std::conditional_t<UPDATE, Staging9, Staging3>;
   extern __shared__ float4 smem4[];
   float* sm = reinterpret_cast<float*>(smem4);
-  Ring2 ur{sm, 0}, xr{sm + 2 * ZM3_PLANE, 0}, vr{sm + 4 * ZM3_PLANE, 0};
+  Ring2<ZM3_PLANE> ur{sm, 0}, xr{sm + 2 * ZM3_PLANE, 0},
+      vr{sm + 4 * ZM3_PLANE, 0};
   const int nzp = g.nz + 2 * g.face;
   const int z0 = (int)blockIdx.z * zchunk, z1 = min(z0 + zchunk, nzp);
   const ZQuad z = zquad<H, ZM3_SY>(g);
   const bool pin = pins_origin<H>(g, pinned, z0);
-  // b (field 0) and diag (field 1), every quad, staged AHEAD planes ahead:
-  // one copy group a plane, empty past the march, so every wait counts
-  // alike
-  const Staging3 st{sm + ZM_RING_PLANES * ZM3_PLANE, z0};
+  const float alpha = UPDATE ? *alpha_p : 0.0f;
+  // b (field 0), diag (field 1) and K9's ap (field 2), every quad, staged
+  // AHEAD planes ahead: one copy group a plane, empty past the march, so
+  // every wait counts alike
+  const St st{sm + ZM_RING_PLANES * ZM3_PLANE, z0};
   const long long plane = g.plane;
   auto stage = [&](int p, long long off) {
     if (p <= z1 + H - 1) {
       const bool valid = z.field && domain_plane(g, p);
-      st.copy_from<0>(valid ? b + off : b, z, p, valid);
-      st.copy_from<1>(valid ? diag + off : diag, z, p, valid);
+      st.template copy_from<0>(valid ? b + off : b, z, p, valid);
+      st.template copy_from<1>(valid ? diag + off : diag, z, p, valid);
+      if constexpr (UPDATE)
+        st.template copy_from<2>(valid ? ap + off : ap, z, p, valid);
     }
     cp_async_commit();
   };
@@ -738,21 +755,31 @@ descent_kernel(const float* __restrict__ b, const float* __restrict__ diag,
     xr.flip();
     vr.flip();
 
-    // step 0, plane p, the whole region: one reciprocal a cell, u =
-    // (s0 b) D^-1 (b is 0 off the domain, and so is u); <b, b> over the
-    // tile's cells of the chunk's planes
-    const Quad b0 = st.get<0>(g, z, p, 0.0f), d0 = st.get<1>(g, z, p, 1.0f);
+    // step 0, plane p, the whole region: K9's r' = r - alpha ap (0 off the
+    // domain, as r and ap are), kept in r's staging slot for steps 1-2 and
+    // written on the tile; one reciprocal a cell, u = (s0 b) D^-1 (b is 0
+    // off the domain, and so is u); <b, b> over the tile's cells of the
+    // chunk's planes
+    Quad b0 = st.template get<0>(g, z, p, 0.0f);
+    const Quad d0 = st.template get<1>(g, z, p, 1.0f);
+    if constexpr (UPDATE) {
+      const Quad ap0 = st.template get<2>(g, z, p, 0.0f);
+#pragma unroll
+      for (int l = 0; l < 4; ++l) b0.v[l] = b0.v[l] - alpha * ap0.v[l];
+      st.template at<0>(p)[z.q] = float4_of(b0);
+    }
     Quad dinv0, u0;
 #pragma unroll
     for (int l = 0; l < 4; ++l) {
       dinv0.v[l] = 1.0f / d0.v[l];
       u0.v[l] = (s0 * b0.v[l]) * dinv0.v[l];
     }
-    if constexpr (DOT) {
-      if (z.out && p >= z0 && p < z1) {
+    if (z.out && p >= z0 && p < z1) {
+      if constexpr (DOT) {
 #pragma unroll
         for (int l = 0; l < 4; ++l) dot += b0.v[l] * b0.v[l];
       }
+      if constexpr (UPDATE) store_quad_at(r_new, off, b0);
     }
     ur.put(u0, z.q);
 
@@ -762,7 +789,8 @@ descent_kernel(const float* __restrict__ b, const float* __restrict__ diag,
     Quad x1n{};
     if (p - 1 >= z0 - 2 && z.rows(1)) {
       const bool dp = domain_plane(g, p - 1);
-      const Quad b1 = st.raw<0>(z, p - 1), d1 = st.raw<1>(z, p - 1);
+      const Quad b1 = st.template raw<0>(z, p - 1);
+      const Quad d1 = st.template raw<1>(z, p - 1);
       Quad center;
 #pragma unroll
       for (int l = 0; l < 4; ++l) center.v[l] = d1.v[l] * uc.v[l];
@@ -784,7 +812,8 @@ descent_kernel(const float* __restrict__ b, const float* __restrict__ diag,
     Quad r2{}, vn{};
     if (p - 2 >= z0 - 1 && z.rows(2)) {
       const bool dp = domain_plane(g, p - 2);
-      const Quad b2 = st.raw<0>(z, p - 2), d2 = st.raw<1>(z, p - 2);
+      const Quad b2 = st.template raw<0>(z, p - 2);
+      const Quad d2 = st.template raw<1>(z, p - 2);
       Quad center;
 #pragma unroll
       for (int l = 0; l < 4; ++l) center.v[l] = d2.v[l] * xc.v[l];
@@ -804,7 +833,7 @@ descent_kernel(const float* __restrict__ b, const float* __restrict__ diag,
     row_neighbours(vc, left, right);
     if (p - 3 >= z0 && z.out) {
       const bool dp = domain_plane(g, p - 3);
-      const Quad d3 = st.raw<1>(z, p - 3);
+      const Quad d3 = st.template raw<1>(z, p - 3);
       Quad center, so;
 #pragma unroll
       for (int l = 0; l < 4; ++l) center.v[l] = d3.v[l] * vc.v[l];
@@ -849,7 +878,8 @@ ascent_kernel(const float* __restrict__ t, const float* __restrict__ b,
   constexpr int H = 3, AHEAD = ZM4_AHEAD;
   extern __shared__ float4 smem4[];
   float* sm = reinterpret_cast<float*>(smem4);
-  Ring2 tr{sm, 0}, x2r{sm + 2 * ZM3_PLANE, 0}, x3r{sm + 4 * ZM3_PLANE, 0};
+  Ring2<ZM3_PLANE> tr{sm, 0}, x2r{sm + 2 * ZM3_PLANE, 0},
+      x3r{sm + 4 * ZM3_PLANE, 0};
   const int nzp = g.nz + 2 * g.face;
   const int z0 = (int)blockIdx.z * zchunk, z1 = min(z0 + zchunk, nzp);
   const ZQuad z = zquad<H, ZM3_SY>(g);
@@ -983,6 +1013,73 @@ ascent_kernel(const float* __restrict__ t, const float* __restrict__ b,
         (blockIdx.z * gridDim.y + blockIdx.y) * gridDim.x + blockIdx.x);
 }
 
+// K15 restrict, the P^T smoothing pass: u = D^-1 r, one reciprocal a cell;
+// s = r - gw A_f u, the centre term r itself (diag (D^-1 r) == r, as
+// fused7_xla's mode has it).  Halo 1: two steps a plane.
+__global__ void __launch_bounds__(BLOCK, ZM15_MIN_BLOCKS)
+restrict_kernel(const float* __restrict__ r, const float* __restrict__ diag,
+                float* __restrict__ s, Geom g, Legs f, float gw, int pinned,
+                int zchunk) {
+  constexpr int H = 1, AHEAD = ZM15_AHEAD;
+  extern __shared__ float4 smem4[];
+  float* sm = reinterpret_cast<float*>(smem4);
+  Ring2<ZM_PLANE> ur{sm, 0};
+  const int nzp = g.nz + 2 * g.face;
+  const int z0 = (int)blockIdx.z * zchunk, z1 = min(z0 + zchunk, nzp);
+  const ZQuad z = zquad<H, ZM_SY>(g);
+  const bool pin = pins_origin<H>(g, pinned, z0);
+  // r (field 0) and diag (field 1), every quad, staged AHEAD planes ahead
+  const Staging15 st{sm + ZM15_RING_PLANES * ZM_PLANE, z0};
+  const long long plane = g.plane;
+  auto stage = [&](int p, long long off) {
+    if (p <= z1 + H - 1) {
+      const bool valid = z.field && domain_plane(g, p);
+      st.copy_from<0>(valid ? r + off : r, z, p, valid);
+      st.copy_from<1>(valid ? diag + off : diag, z, p, valid);
+    }
+    cp_async_commit();
+  };
+  long long off = (long long)(z0 - H) * plane + z.off;   // the quad's, plane p
+#pragma unroll
+  for (int n = 0; n < AHEAD; ++n) stage(z0 - H + n, off + n * plane);
+
+  // the thread's own quads, kept from earlier planes: u of planes p - 2,
+  // p - 1; r of p - 1
+  Quad um{}, uc{}, rc{};
+  float left, right;
+  for (int p = z0 - H; p <= z1 + H - 1; ++p, off += plane) {
+    stage(p + AHEAD, off + AHEAD * plane);
+    cp_async_wait<AHEAD>();
+    ur.flip();
+
+    // step 0, plane p, the whole region: u = r D^-1 (0 off the domain)
+    const Quad r0 = st.get<0>(g, z, p, 0.0f), d0 = st.get<1>(g, z, p, 1.0f);
+    Quad u0;
+#pragma unroll
+    for (int l = 0; l < 4; ++l) u0.v[l] = r0.v[l] * (1.0f / d0.v[l]);
+    ur.put(u0, z.q);
+
+    // step 1, plane p - 1, the tile: s = r - gw A_f u
+    row_neighbours(uc, left, right);
+    if (p - 1 >= z0 && z.out) {
+      const bool dp = domain_plane(g, p - 1);
+      const Quad w = star_quad(uc, left, right, ur.get(z.q - ZM_QX),
+                               ur.get(z.q + ZM_QX), um, u0, rc, z,
+                               p - 1 - g.face, f, pin);
+      Quad so;
+#pragma unroll
+      for (int l = 0; l < 4; ++l)
+        so.v[l] = dp && z.dom[l] ? rc.v[l] - gw * w.v[l] : 0.0f;
+      store_quad_at(s, off - plane, so);
+    }
+    um = uc;
+    uc = u0;
+    rc = r0;
+    // the one barrier a plane, as in descent_kernel
+    __syncthreads();
+  }
+}
+
 // K8 input p' = z + beta p_old, formed at each read of the star.
 struct PUpdateField {
   const float* __restrict__ z;
@@ -1018,57 +1115,6 @@ cgmv_kernel(const float* __restrict__ z, const float* __restrict__ p,
     w[q] = wo;
     pn[q] = po;
     xn[q] = xo;
-  }
-  block_partial(dot, partials);
-}
-
-// K9 input r' = r_old - alpha ap, formed at each read.
-struct RUpdateField {
-  const float* __restrict__ r;
-  const float* __restrict__ ap;
-  float alpha;
-  __device__ __forceinline__ float operator()(long long q) const {
-    return r[q] - alpha * ap[q];
-  }
-};
-
-// K9 stencil input (s0 r') D^-1: K3's pre-smoother u on the updated residual.
-struct RUpdateDinvField {
-  RUpdateField r;
-  const float* __restrict__ d;
-  float s;
-  __device__ __forceinline__ float operator()(long long q) const {
-    return (s * r(q)) * (1.0f / d[q]);
-  }
-};
-
-// K9 step 1, the residual update and both pre-smoothing steps:
-// r' = r_old - alpha ap;  u = (s0 r') D^-1;  x1 = u + ad u + g D^-1 (r' - A u);
-// partials of <r', r'>.  Steps 2 and 3 are K3's on r'.
-__global__ void __launch_bounds__(BLOCK)
-rupdate_pre_smooth_kernel(const float* __restrict__ r_old,
-                          const float* __restrict__ ap,
-                          const float* __restrict__ alpha_p,
-                          const float* __restrict__ diag,
-                          float* __restrict__ x1, float* __restrict__ r_new,
-                          float* __restrict__ partials, Geom g, Legs a,
-                          float s0, float ad, float gg, int pinned) {
-  const float alpha = *alpha_p;
-  const long long q = thread_cell();
-  int k, j, i;
-  float xo = 0.0f, ro = 0.0f, dot = 0.0f;
-  if (cell(g, q, k, j, i)) {
-    const RUpdateField rn{r_old, ap, alpha};
-    const RUpdateDinvField u{rn, diag, s0};
-    ro = rn(q);
-    const float uq = u(q);
-    const float w = star(u, diag[q] * uq, q, k, j, i, g, a, pinned);
-    xo = uq + ad * uq + gg * ((1.0f / diag[q]) * (ro - w));
-    dot = ro * ro;
-  }
-  if (q < g.total) {
-    x1[q] = xo;
-    r_new[q] = ro;
   }
   block_partial(dot, partials);
 }
@@ -1141,13 +1187,6 @@ extern "C" int tps_mvdot(const float* x, const float* diag, float* y,
   return (int)cudaGetLastError();
 }
 
-// Each launch sequence returns at its first launch error.
-#define TPS_CHECK()                              \
-  do {                                           \
-    const cudaError_t err = cudaGetLastError();  \
-    if (err != cudaSuccess) return (int)err;     \
-  } while (0)
-
 // Every P-smoothing stage below takes the filtered legs f (fcx, fcy, fcz):
 // the -pc_gamg_threshold prolongator smoother (fused7.py:359-365), equal
 // to the operator's legs a when nothing is filtered.
@@ -1193,9 +1232,10 @@ extern "C" int tps_descent(const float* b, const float* diag, float* x1,
     return (int)cudaErrorInvalidValue;
   const Legs a{cx, cy, cz}, f{fcx, fcy, fcz};
   return zmarch_launch<ZM3_THREADS>(
-      partials ? descent_kernel<true> : descent_kernel<false>, tiles_x,
-      tiles_y, chunks, smem_bytes, (cudaStream_t)stream, b, diag, x1, s,
-      partials, g, a, f, s0, ad, gg, gw, pinned, zchunk);
+      partials ? descent_kernel<true, false> : descent_kernel<false, false>,
+      tiles_x, tiles_y, chunks, smem_bytes, (cudaStream_t)stream, b,
+      (const float*)nullptr, (const float*)nullptr, diag, x1, s,
+      (float*)nullptr, partials, g, a, f, s0, ad, gg, gw, pinned, zchunk);
 }
 
 // K4 (ascent_rz) with partials, K4' (ascent) with partials == nullptr.
@@ -1270,27 +1310,25 @@ extern "C" int tps_cgmv(const float* z, const float* p, const float* x,
   return (int)cudaGetLastError();
 }
 
-// K9 descentu: the r-update with the pre-smoother, then the residual (K10's
-// kernel) and the P^T smoothing (K15's) on r'.
+// K9 descentu: one launch of the plan's grid (K3's kernel with the residual
+// update r' = r_old - alpha ap), one partial of <r', r'> a block.
 extern "C" int tps_descentu(const float* r_old, const float* ap,
                             const float* alpha, const float* diag, float* x1,
-                            float* r_new, float* r, float* s, float* partials,
-                            int nz, int ny, int nx, int nxp, float cx,
-                            float cy, float cz, float fcx, float fcy,
-                            float fcz, float s0, float ad, float gg,
-                            float gw, int pinned, void* stream) {
+                            float* s, float* r_new, float* partials, int nz,
+                            int ny, int nx, int nxp, float cx, float cy,
+                            float cz, float fcx, float fcy, float fcz,
+                            float s0, float ad, float gg, float gw,
+                            int pinned, int tiles_x, int tiles_y, int chunks,
+                            int zchunk, int smem_bytes, void* stream) {
   const Geom g = make_geom(nz, ny, nx, nxp);
+  if (!zmarch_plan_ok(g, 3, ZM3_SY, zmarch_smem<Staging9>(), tiles_x,
+                      tiles_y, chunks, zchunk, smem_bytes))
+    return (int)cudaErrorInvalidValue;
   const Legs a{cx, cy, cz}, f{fcx, fcy, fcz};
-  const cudaStream_t st = (cudaStream_t)stream;
-  rupdate_pre_smooth_kernel<<<grid_blocks(g), BLOCK, 0, st>>>(
-      r_old, ap, alpha, diag, x1, r_new, partials, g, a, s0, ad, gg, pinned);
-  TPS_CHECK();
-  step_kernel<RESIDUAL><<<grid_blocks(g), BLOCK, 0, st>>>(
-      x1, r_new, nullptr, diag, r, nullptr, g, a, 0.0f, 0.0f, pinned);
-  TPS_CHECK();
-  restrict_smooth_kernel<<<grid_blocks(g), BLOCK, 0, st>>>(r, diag, s, g, f,
-                                                           gw, pinned);
-  return (int)cudaGetLastError();
+  return zmarch_launch<ZM3_THREADS>(
+      descent_kernel<true, true>, tiles_x, tiles_y, chunks, smem_bytes,
+      (cudaStream_t)stream, r_old, ap, alpha, diag, x1, s, r_new, partials,
+      g, a, f, s0, ad, gg, gw, pinned, zchunk);
 }
 
 // K10-K16, the single-step modes: one launch each.  Unused operands are
@@ -1370,14 +1408,20 @@ extern "C" int tps_pre2(const float* b, const float* diag, float* xo,
 }
 
 // K15 restrict: s = r - g A_f (D^-1 r); (fcx, fcy, fcz) are A_f's legs.
+// One z-marching launch of the plan's grid.
 extern "C" int tps_restrict(const float* r, const float* diag, float* s,
                             int nz, int ny, int nx, int nxp, float fcx,
                             float fcy, float fcz, float gg, int pinned,
-                            void* stream) {
+                            int tiles_x, int tiles_y, int chunks, int zchunk,
+                            int smem_bytes, void* stream) {
   const Geom g = make_geom(nz, ny, nx, nxp);
-  restrict_smooth_kernel<<<grid_blocks(g), BLOCK, 0, (cudaStream_t)stream>>>(
-      r, diag, s, g, Legs{fcx, fcy, fcz}, gg, pinned);
-  return (int)cudaGetLastError();
+  if (!zmarch_plan_ok(g, 1, ZM_SY,
+                      zmarch_smem<Staging15, ZM15_RING_PLANES>(), tiles_x,
+                      tiles_y, chunks, zchunk, smem_bytes))
+    return (int)cudaErrorInvalidValue;
+  return zmarch_launch<BLOCK>(restrict_kernel, tiles_x, tiles_y, chunks,
+                              smem_bytes, (cudaStream_t)stream, r, diag, s, g,
+                              Legs{fcx, fcy, fcz}, gg, pinned, zchunk);
 }
 
 // K16 prolong: out = t - g D^-1 (A_f t).
@@ -1392,15 +1436,21 @@ extern "C" int tps_prolong(const float* t, const float* diag, float* out,
 }
 
 // Registers a thread, spilled (local) bytes a thread and static shared
-// bytes a block of z-marching kernel `which`: 0-7 are K3, K3', K4, K4', K6,
-// K6', K7, K7' (kernels/fused7.py::zmarch_attributes).
+// bytes a block of z-marching kernel `which`: 0-9 are K3, K3', K4, K4', K6,
+// K6', K7, K7', K9, K15 (kernels/fused7.py::zmarch_attributes).
 extern "C" int tps_zmarch_attributes(int which, int* regs, int* local_bytes,
                                      int* static_smem) {
   const void* kernels[] = {
-      (const void*)descent_kernel<true>,  (const void*)descent_kernel<false>,
-      (const void*)ascent_kernel<true>,   (const void*)ascent_kernel<false>,
-      (const void*)descent1_kernel<true>, (const void*)descent1_kernel<false>,
-      (const void*)ascent1_kernel<true>,  (const void*)ascent1_kernel<false>,
+      (const void*)descent_kernel<true, false>,
+      (const void*)descent_kernel<false, false>,
+      (const void*)ascent_kernel<true>,
+      (const void*)ascent_kernel<false>,
+      (const void*)descent1_kernel<true>,
+      (const void*)descent1_kernel<false>,
+      (const void*)ascent1_kernel<true>,
+      (const void*)ascent1_kernel<false>,
+      (const void*)descent_kernel<true, true>,
+      (const void*)restrict_kernel,
   };
   if (which < 0 || which >= (int)(sizeof(kernels) / sizeof(kernels[0])))
     return (int)cudaErrorInvalidValue;

@@ -3,8 +3,9 @@
 // Layout: the port's padded-resident field (tpusparse_torch/kernels/
 // stencil7.py::padded_shape), float32, C order, shape (nz + 2*FACE, ny, nxp):
 // FACE zero planes on each z face, no y padding, x rounded up to a multiple
-// of 4.  One thread owns one padded cell (but in K6/K7, which march tiles
-// through shared memory: fused7.cu); cells outside the domain are written
+// of 4.  One thread owns one padded cell (but in the z-marching kernels
+// of fused7.cu, which march tiles through shared memory, a thread owns a
+// quad of 4 cells of each plane); cells outside the domain are written
 // as zero, which keeps the layout's pad-zero invariant.  The plain
 // (nz, ny, nx) layout is the same geometry with no face planes and
 // nxp = nx (make_geom's face = 0).

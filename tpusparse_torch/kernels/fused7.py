@@ -57,8 +57,8 @@ accepted too.
 D is ``diag`` (pads 1.0), inverted by true division.  All fields are in the
 padded-resident layout (``kernels/stencil7.py::padded_shape``).
 
-K3/K4, K6/K7 and their dot-free forms are one launch each that marches a
-column tile of the (ny, nxp) plane up a z-chunk of planes
+K3/K4, K6/K7, their dot-free forms, K9 and K15 are one launch each that
+marches a column tile of the (ny, nxp) plane up a z-chunk of planes
 (``csrc/fused7.cu``); their launch plan — tiles, z-chunk, grid, shared
 bytes, one dot partial a block — is ``zmarch_plan``, which the CPU tests
 check and the CUDA entry points verify.
@@ -94,13 +94,14 @@ _ASCENT_ARGS = [P] * 6 + [I] * 4 + [F] * 10 + [I] + _ZMARCH_PLAN_ARGS + [P]
 _DESCENT1_ARGS = [P] * 5 + [I] * 4 + [F] * 8 + [I] + _ZMARCH_PLAN_ARGS + [P]
 _ASCENT1_ARGS = [P] * 6 + [I] * 4 + [F] * 8 + [I] + _ZMARCH_PLAN_ARGS + [P]
 _CGMV_ARGS = [P] * 10 + [I] * 4 + [F] * 3 + [I, P]
-_DESCENTU_ARGS = [P] * 9 + [I] * 4 + [F] * 10 + [I, P]
+_DESCENTU_ARGS = [P] * 8 + [I] * 4 + [F] * 10 + [I] + _ZMARCH_PLAN_ARGS + [P]
 _RESIDUAL_ARGS = [P] * 4 + [I] * 4 + [F] * 3 + [I, P]
 _RICH_ARGS = [P] * 4 + [I] * 4 + [F] * 4 + [I, P]
 _CHEB0_ARGS = [P] * 5 + [I] * 4 + [F] * 4 + [I, P]
 _CHEB_ARGS = [P] * 6 + [I] * 4 + [F] * 5 + [I, P]
 _PRE2_ARGS = [P] * 4 + [I] * 4 + [F] * 6 + [I, P]
-_SMOOTH_ARGS = [P] * 3 + [I] * 4 + [F] * 4 + [I, P]   # restrict, prolong
+_RESTRICT_ARGS = [P] * 3 + [I] * 4 + [F] * 4 + [I] + _ZMARCH_PLAN_ARGS + [P]
+_PROLONG_ARGS = [P] * 3 + [I] * 4 + [F] * 4 + [I, P]
 
 
 def _dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -116,13 +117,22 @@ def _partials(shape, device) -> torch.Tensor:
     return torch.empty((cells + block - 1) // block, dtype=torch.float32, device=device)
 
 
-# --- the z-marching launch plan (K3/K4, K6/K7) ---------------------------------
+# --- the z-marching launch plan (K3/K4, K6/K7, K9, K15) -------------------------
 # csrc/fused7.cu's ZM_SX and ZM_TX: a block's region of 64 columns, one
 # 4-cell quad a thread, and its output tile's 56 (the region adds a quad of
 # columns a side, so that rows start on 16 bytes); its rows are the tile's
 # and the kernel's halo H a side
 ZM_REGION_X = 64
 ZM_TILE_X = 56
+# csrc/fused7.cu's ZM_RING_PLANES: the region planes of a kernel's shared
+# rings, K6/K7's two rings of 3 and K3/K4/K9's three of 2 (K15: one of 2)
+ZM_RING_PLANES = 6
+# the most output planes a block marches through: a chunk loads 2 H planes
+# more than it writes, so longer chunks read less twice; 48 gives 300^3 2.7
+# (K6) and 4.0 (K7) waves of blocks and ran K6/K7 a few per cent faster
+# than 32; for K3/K4 34-62 ran within 5% of each other (3.8 waves at 48;
+# PERF.md §6)
+ZM_ZCHUNK = 48
 
 
 @dataclass(frozen=True)
@@ -132,12 +142,15 @@ class ZMarchKernel:
     halo H (the stencil applies it chains: H rows, H planes and one quad of
     columns a side), its region's rows (a thread a quad), the planes each
     staged input field keeps, and the blocks an SM must hold
-    (``__launch_bounds__``), what a wave of blocks is."""
+    (``__launch_bounds__``), what a wave of blocks is; the region planes of
+    its shared rings, and the most planes a z-chunk writes."""
 
     halo: int
     rows: int
     stages: tuple
     blocks_per_sm: int
+    ring_planes: int = ZM_RING_PLANES
+    zchunk: int = ZM_ZCHUNK
 
     @property
     def region(self) -> tuple[int, int]:
@@ -150,7 +163,7 @@ class ZMarchKernel:
     @property
     def smem_bytes(self) -> int:
         """Dynamic shared bytes a block: the rings and the staging ring."""
-        return (ZM_RING_PLANES + sum(self.stages)) * self.rows * ZM_REGION_X * 4
+        return (self.ring_planes + sum(self.stages)) * self.rows * ZM_REGION_X * 4
 
 
 ZM_KERNELS = {
@@ -158,16 +171,12 @@ ZM_KERNELS = {
     "ascent": ZMarchKernel(halo=3, rows=40, stages=(2, 2, 4, 4), blocks_per_sm=1),
     "descent1": ZMarchKernel(halo=2, rows=16, stages=(6, 6), blocks_per_sm=3),
     "ascent1": ZMarchKernel(halo=2, rows=16, stages=(5, 5, 5, 5), blocks_per_sm=2),
+    # K3's region, staged 1 ahead: r 4, diag 8 and ap 2 planes deep
+    "descentu": ZMarchKernel(halo=3, rows=40, stages=(4, 8, 2), blocks_per_sm=1),
+    # one ring of 2 planes; 4 blocks an SM and chunks of at most 40 planes:
+    # at 300^3 132 tiles times 8 chunks of 39, 2 whole waves
+    "restrict": ZMarchKernel(halo=1, rows=16, stages=(5, 5), blocks_per_sm=4, ring_planes=2, zchunk=40),
 }
-# csrc/fused7.cu's ZM_RING_PLANES: the region planes of every kernel's
-# shared rings, K6/K7's two rings of 3 and K3/K4's three of 2
-ZM_RING_PLANES = 6
-# the most output planes a block marches through: a chunk loads 2 H planes
-# more than it writes, so longer chunks read less twice; 48 gives 300^3 2.7
-# (K6) and 4.0 (K7) waves of blocks and ran K6/K7 a few per cent faster
-# than 32; for K3/K4 34-62 ran within 5% of each other (3.8 waves at 48;
-# PERF.md §6)
-ZM_ZCHUNK = 48
 H100_SMS = 132
 
 
@@ -216,14 +225,15 @@ class ZMarchPlan:
 
 def zmarch_plan(shape, kernel: str) -> ZMarchPlan:
     """The launch plan of ``kernel`` ("descent": K3/K3', "ascent": K4/K4',
-    "descent1": K6/K6', "ascent1": K7/K7') for a (nz, ny, nx) field: tiles
-    to cover the padded plane, chunks of at most ``ZM_ZCHUNK`` planes, of
-    equal length but the last, to cover the padded depth, and the shared
-    bytes of its rings and staging ring."""
+    "descent1": K6/K6', "ascent1": K7/K7', "descentu": K9, "restrict": K15)
+    for a (nz, ny, nx) field: tiles to cover the padded plane, chunks of at
+    most the kernel's ``zchunk`` planes, of equal length but the last, to
+    cover the padded depth, and the shared bytes of its rings and staging
+    ring."""
     nzp, ny, nxp = padded_shape(shape)
     spec = ZM_KERNELS[kernel]
     ty, tx = spec.tile
-    chunks = -(-nzp // ZM_ZCHUNK)
+    chunks = -(-nzp // spec.zchunk)
     zchunk = -(-nzp // chunks)
     return ZMarchPlan(
         region=spec.region, tile=spec.tile, tiles_x=-(-nxp // tx), tiles_y=-(-ny // ty), chunks=-(-nzp // zchunk),
@@ -377,6 +387,7 @@ def _check_aligned(*fields: torch.Tensor) -> None:
 ZMARCH_WRAPPERS = (
     "fused7_descent_rr", "fused7_descent", "fused7_ascent_rz", "fused7_ascent",
     "fused7_descent1_rr", "fused7_descent1", "fused7_ascent1_rz", "fused7_ascent1",
+    "fused7_descentu", "fused7_restrict",
 )
 
 
@@ -594,21 +605,23 @@ def fused7_cgmv(diag_p, cx, cy, cz, z_p, p_p, x_p, beta, alpha_prev, shape, pinn
 
 def fused7_descentu(diag_p, cx, cy, cz, r_p, ap_p, s0, ad, g, gw, alpha, shape, pinned: bool, flegs=None):
     """``(x1, s, r', <r', r'>)``: the residual update r' = r - alpha ap and
-    the degree-2 downstroke on r' (K9).  The kernel sequence keeps r' - A x1
-    in scratch device memory."""
+    the degree-2 downstroke on r' (K9), in one launch of K3's kernel that
+    forms r' once a cell as it stages the plane."""
     shape = tuple(shape)
     check_fields(shape, diag_p, r_p, ap_p)
     if r_p.device.type == "cpu":
         return fused7_descentu_torch(diag_p, cx, cy, cz, r_p, ap_p, s0, ad, g, gw, alpha, shape, pinned, flegs)
+    _check_aligned(diag_p, r_p, ap_p)
     alpha_d = _device_scalar(alpha, r_p.device)
-    x1, r_new, r, s = (torch.empty_like(r_p) for _ in range(4))
-    partials = _partials(shape, r_p.device)
+    x1, s, r_new = (torch.empty_like(r_p) for _ in range(3))
+    plan = zmarch_plan(shape, "descentu")
+    partials = _zmarch_partials(plan, True, r_p.device)
     _build.launch(
         "tps_descentu", _DESCENTU_ARGS, r_p.device,
         r_p.data_ptr(), ap_p.data_ptr(), alpha_d.data_ptr(), diag_p.data_ptr(),
-        x1.data_ptr(), r_new.data_ptr(), r.data_ptr(), s.data_ptr(),
-        partials.data_ptr(), *launch_args(shape, cx, cy, cz, *_legs(cx, cy, cz, flegs)),
-        float(s0), float(ad), float(g), float(gw), int(pinned),
+        x1.data_ptr(), s.data_ptr(), r_new.data_ptr(), partials.data_ptr(),
+        *launch_args(shape, cx, cy, cz, *_legs(cx, cy, cz, flegs)),
+        float(s0), float(ad), float(g), float(gw), int(pinned), *plan.launch_args(),
     )
     LAUNCHES["fused7_descentu"] += 1
     return x1, s, r_new, partials.sum()
@@ -707,16 +720,19 @@ def fused7_pre2(diag_p, cx, cy, cz, b_p, s0, ad, g, shape, pinned: bool):
 
 
 def fused7_restrict(diag_p, cx, cy, cz, r_p, g, shape, pinned: bool, flegs=None):
-    """``r - g A_f (D^-1 r)``: the P^T smoothing pass in one launch (K15)."""
+    """``r - g A_f (D^-1 r)``: the P^T smoothing pass in one z-marching
+    launch (K15)."""
     shape = tuple(shape)
     check_fields(shape, diag_p, r_p)
     if r_p.device.type == "cpu":
         return fused7_restrict_torch(diag_p, cx, cy, cz, r_p, g, shape, pinned, flegs)
+    _check_aligned(diag_p, r_p)
     s = torch.empty_like(r_p)
     _build.launch(
-        "tps_restrict", _SMOOTH_ARGS, r_p.device,
+        "tps_restrict", _RESTRICT_ARGS, r_p.device,
         r_p.data_ptr(), diag_p.data_ptr(), s.data_ptr(),
         *launch_args(shape, *_legs(cx, cy, cz, flegs)), float(g), int(pinned),
+        *zmarch_plan(shape, "restrict").launch_args(),
     )
     LAUNCHES["fused7_restrict"] += 1
     return s
@@ -730,7 +746,7 @@ def fused7_prolong(diag_p, cx, cy, cz, t_p, g, shape, pinned: bool, flegs=None):
         return fused7_prolong_torch(diag_p, cx, cy, cz, t_p, g, shape, pinned, flegs)
     out = torch.empty_like(t_p)
     _build.launch(
-        "tps_prolong", _SMOOTH_ARGS, t_p.device,
+        "tps_prolong", _PROLONG_ARGS, t_p.device,
         t_p.data_ptr(), diag_p.data_ptr(), out.data_ptr(),
         *launch_args(shape, *_legs(cx, cy, cz, flegs)), float(g), int(pinned),
     )
