@@ -41,15 +41,17 @@ script exits non-zero without the final line:
    K3' fused7_descent, K4' fused7_ascent, K6' fused7_descent1, K7'
    fused7_ascent1) against their twins as in phase 3, timed at 300^3.
    The z-marching kernels, one launch each (K3, K3', K4, K4', K6, K6', K7,
-   K7', and K9 fused7_descentu and K15 fused7_restrict, which phases 13 and
-   17 time), first at ragged shapes of 1-3 cells a side and of several tiles
-   and z-chunks (``ZMARCH_SHAPES``), pinned and not, with the operator's
-   and with filtered legs, and at 300^3: K6's x1 bit-equal to the twin's,
-   the other fields as in phase 3, the dots by ``_dot_agrees`` (K9's <r',
-   r'>, a sum of squares, to 1e-5 of itself), every face and pad cell
-   exactly 0.  Each time is printed with the field passes of
-   its bound (K3, K6 4; K4, K7 5) and its share of that bound, and each
-   kernel with its registers, spills and shared bytes.
+   K7', and K9 fused7_descentu, K15 fused7_restrict, K2 fused7_mvdot and
+   K14 fused7_pre2, which phases 3, 13 and 17 time), first at ragged shapes
+   of 1-3 cells a side and of several tiles and z-chunks
+   (``ZMARCH_SHAPES``), pinned and not, with the operator's and (all but K2
+   and K14, which have no P-smoothing stage) with filtered legs, and at
+   300^3: K6's x1 bit-equal to the twin's, the other fields as in phase 3,
+   the dots by ``_dot_agrees`` (K9's <r', r'>, a sum of squares, and K2's
+   <x, A x> to 1e-5 of themselves), every face and pad cell exactly 0.
+   Each time is printed with the field passes of its bound (K3, K6 4; K4,
+   K7 5) and its share of that bound, and each z-marching kernel with its
+   registers, spills, shared bytes and waves at 300^3.
 10. The reference's own entry point at 300^3, in process:
    ``tpusparse_torch.__main__.main([... "-config",
    "configs/SolverOptions_GAMG.info", "-ksp_converged_reason",
@@ -277,6 +279,11 @@ KERNELS.update(STEP_KERNELS)
 ZMARCH = ZMARCH_WRAPPERS
 ZMARCH_SHAPES = ((1, 2, 1), (3, 2, 5), (2, 3, 1), (2, 1, 3), (40, 13, 61), (70, 25, 3), (33, 25, 121),
                  (75, 21, 13), (100, 21, 61), (60, 57, 13))
+# the z-marching kernels with no P-smoothing stage, which take no filtered
+# legs, and those whose last output is a dot
+ZMARCH_NO_FLEGS = ("fused7_mvdot", "fused7_pre2")
+ZMARCH_DOTS = ("fused7_descent_rr", "fused7_ascent_rz", "fused7_descent1_rr", "fused7_ascent1_rz",
+               "fused7_mvdot")
 # the kernels held in their filtered-leg forms (the z legs dropped, as the
 # threshold schedule's (1, 3, 3) level does)
 FLEGS_KERNELS = ("fused7_descent_rr", "fused7_ascent_rz", "fused7_restrict", "fused7_prolong")
@@ -554,7 +561,8 @@ def _dot_agrees(name, got, want, args) -> bool:
     its terms' magnitudes: <b, b> has no cancellation, but <b, x3> (and <b,
     x4>) at a handful of cells can sum to 1% of its terms (-0.0134 from 6
     terms of ~0.3 at (2, 3, 1)), where two summation orders differ by 1e-7
-    and a bound on |want| alone would hold rounding to 1e-9."""
+    and a bound on |want| alone would hold rounding to 1e-9.  The other
+    dots (<b, b>, K2's <x, A x>) are held to 1e-5 of themselves."""
     if name in ("fused7_ascent_rz", "fused7_ascent1_rz"):
         scale = (args[5] * want[0]).abs().sum().item()   # |b x4|, |b x3|; b = args[5]
     else:
@@ -564,30 +572,34 @@ def _dot_agrees(name, got, want, args) -> bool:
 
 def check_zmarch(device) -> float:
     """Phase 9's z-marching kernels at ``ZMARCH_SHAPES``, pinned and not,
-    with the operator's and with filtered legs (z dropped), then at 300^3;
-    the max abs field error.  Fields as in ``_compare``; dots by
-    ``_dot_agrees``."""
-    err = 0.0
+    with the operator's and (those that take them) with filtered legs (z
+    dropped), then at 300^3; the max abs field error.  Fields as in
+    ``_compare``; dots by ``_dot_agrees``."""
+    err, held = 0.0, 0
     cases = [(shape, pinned, flegs) for shape in ZMARCH_SHAPES for pinned in (True, False)
              for flegs in (False, True)] + [(SHAPES[-1], True, False)]
     for shape, pinned, flegs in cases:
         args = _inputs(shape, device, pinned)
         for name in ZMARCH:
+            if flegs and name in ZMARCH_NO_FLEGS:
+                continue
             _src, _rep, kernel, twin = KERNELS[name]
             a = args[name]
             legs = (a[1], a[2], 0.0) if flegs else None
-            got, want = kernel(*a, flegs=legs), twin(*a, flegs=legs)
+            kw = {} if name in ZMARCH_NO_FLEGS else {"flegs": legs}
+            got, want = kernel(*a, **kw), twin(*a, **kw)
             torch.cuda.synchronize()
             label = f"{name} {shape} pinned={pinned} flegs={legs}"
-            fields = slice(None, -1) if name.endswith(("_rr", "_rz")) else slice(None)
+            fields = slice(None, -1) if name in ZMARCH_DOTS else slice(None)
             err = max(err, _compare(label, _as_tuple(got)[fields], _as_tuple(want)[fields]))
             if fields.stop is not None:
                 _require(_dot_agrees(name, got, want, a),
                          f"{label}: dot {got[-1].item()} vs {want[-1].item()}")
             _check_zmarch_fields(label, name, got, want, shape)
+            held += 1
         del args
     torch.cuda.empty_cache()
-    print(f"z-marching {', '.join(ZMARCH)}: agree with their twins at {len(cases)} cases"
+    print(f"z-marching {', '.join(ZMARCH)}: agree with their twins in {held} calls at {len(cases)} cases"
           f" ({len(ZMARCH_SHAPES)} ragged shapes pinned and not, with and without filtered legs, and"
           f" {SHAPES[-1]}), K6's x1 bit-equal, faces and pads 0; max abs err {err:.3e}")
     for name in ZMARCH:

@@ -1,7 +1,8 @@
 """The launch plan and the schedule of the z-marching kernels
 (``csrc/fused7.cu``: K3 ``descent_kernel``, K4 ``ascent_kernel``, K6
 ``descent1_kernel``, K7 ``ascent1_kernel``, K9 ``descent_kernel`` with the
-residual update, K15 ``restrict_kernel``), on the CPU.
+residual update, and the halo-1 march of K15 ``restrict_kernel``, K2
+``mvdot_kernel`` and K14 ``pre2_kernel``), on the CPU.
 
 ``zmarch_plan`` is what the CUDA entry points launch: its tiles and z-chunks
 must cover every padded cell exactly once (faces and pads included, since
@@ -12,8 +13,8 @@ and 300^3 must fill the H100.
 The kernels themselves run only on the card (``test_torch_cuda.py``).  Here
 ``_emulate`` replays their schedule block by block with torch on the CPU:
 the same loaded region, the three-plane shared rings rotated once a plane,
-the lag of each step (one step behind the first in K15, two in K6/K7,
-three in K3/K4/K9), the halo each step covers, and the masks by global
+the lag of each step (one step behind the first in K2/K14/K15, two in
+K6/K7, three in K3/K4/K9), the halo each step covers, and the masks by global
 coordinates;
 ring cells a step leaves unwritten are NaN, fresh at every rotation, so a
 step that read one would show.  It must compute the plain twins' function
@@ -38,6 +39,8 @@ from tpusparse_torch.kernels.fused7 import (
     fused7_descent1_rr_torch,
     fused7_descent_rr_torch,
     fused7_descentu_torch,
+    fused7_mvdot_torch,
+    fused7_pre2_torch,
     fused7_restrict_torch,
     zmarch_plan,
 )
@@ -48,7 +51,11 @@ from tpusparse_torch.sparse.padded import PaddedStar, pad_field
 G, AD, S0, GW, G2 = 0.731, 0.377, 1.618, 0.243, 0.519
 # K9's alpha, as tests/test_torch_cuda.py hands it over
 ALPHA = 0.37
-KINDS = ["descent1", "ascent1", "descent", "ascent", "descentu", "restrict"]
+KINDS = ["descent1", "ascent1", "descent", "ascent", "descentu", "restrict", "mvdot", "pre2"]
+# the halo-1 kernels, one march (K15, K2, K14), and those of KINDS that take
+# no filtered legs (they have no P-smoothing stage)
+HALO1 = ("restrict", "mvdot", "pre2")
+NO_FLEGS = ("mvdot", "pre2")
 PLAN_SHAPES = [(1, 1, 1), (3, 2, 5), (2, 3, 1), (7, 5, 9), (40, 11, 13), (33, 25, 121),
                (64, 64, 64), (300, 300, 300)]
 # H100: 227 KB of shared memory a block can have
@@ -161,8 +168,9 @@ def _emulate(kind, op, fields, shape, pinned, flegs):
     """K3 (``kind`` "descent", fields (b,)), K4 ("ascent", fields (t, b,
     x1)), K6 ("descent1", (b,)), K7 ("ascent1", (t, b, x1)), K9
     ("descentu", (r, ap): K3 on r' = r - ALPHA ap, formed at step 0 and
-    written there on the tile as a third output) or K15 ("restrict", (r,))
-    as the kernel schedules it: (outputs..., dot; K15's 0).  Per plane p
+    written there on the tile as a third output), K15 ("restrict", (r,)),
+    K2 ("mvdot", (x,)) or K14 ("pre2", (b,): outputs x' and d') as the
+    kernel schedules it: (outputs..., dot; K15's and K14's 0).  Per plane p
     of a block's march, H + 1 steps: step 0 on plane p over the whole
     region, step n on plane p - n
     over the tile plus H - n cells a side (``cells(n)``), reading its
@@ -170,7 +178,7 @@ def _emulate(kind, op, fields, shape, pinned, flegs):
     quads of step n's rows, whose cells outside ``cells(n)`` no step reads
     (here they stay NaN).  What a thread carries across the lag (its D^-1,
     K3's r, K4's d) or reads again from staging (b, diag) is the plane's
-    own: ``planes[q]``."""
+    own: ``planes[q]``; K2's centre term is diag x, K14's s0 b and K15's r."""
     nz, ny, nx = shape
     nzp, _, nxp = padded_shape(shape)
     spec = ZM_KERNELS[kind]
@@ -188,7 +196,7 @@ def _emulate(kind, op, fields, shape, pinned, flegs):
     a = (float(op.cx), float(op.cy), float(op.cz))
     f = a if flegs is None else flegs
     k3 = kind in ("descent", "descentu")
-    n_outs = {"descent": 2, "descent1": 2, "descentu": 3}.get(kind, 1)
+    n_outs = {"descent": 2, "descent1": 2, "descentu": 3, "pre2": 2}.get(kind, 1)
     outs = [torch.full((nzp, ny, nxp), float("nan")) for _ in range(n_outs)]
     partials = []
     zr, yr, xr = plan.ranges(shape)
@@ -232,9 +240,10 @@ def _emulate(kind, op, fields, shape, pinned, flegs):
                     d = torch.where(dom & dp(p), load(op.diag, p), torch.ones(()))
                     v = planes[p] = dict(d=d, dinv=1.0 / d)
                     planes.pop(p - h - 1, None)
-                    if kind == "restrict":
-                        v["b"] = load(fields[0], p)
-                        rings[0].slots[2] = v["b"] * v["dinv"]
+                    if kind in HALO1:
+                        v["b"] = load(fields[0], p)             # r, x or b
+                        rings[0].slots[2] = {"restrict": v["b"] * v["dinv"], "mvdot": v["b"],
+                                             "pre2": (S0 * v["b"]) * v["dinv"]}[kind]
                     elif kind.startswith("descent"):
                         v["b"] = load(fields[0], p)
                         if kind == "descentu":
@@ -261,6 +270,15 @@ def _emulate(kind, op, fields, shape, pinned, flegs):
                             # the centre term is r itself (diag D^-1 r == r)
                             w = _star(prev, c["b"][sl], q - FACE, j, i, f, pin, sl)
                             write(outs[0], q, sel(q, sl, c["b"][sl] - GW * w))
+                        elif kind == "mvdot":
+                            y = sel(q, sl, star(prev, q, a, sl))
+                            dot += (c["b"][sl] * y).sum()
+                            write(outs[0], q, y)
+                        elif kind == "pre2":
+                            w = _star(prev, S0 * c["b"][sl], q - FACE, j, i, a, pin, sl)
+                            dd = sel(q, sl, AD * mid + G * (c["dinv"][sl] * (c["b"][sl] - w)))
+                            write(outs[0], q, sel(q, sl, mid + dd))
+                            write(outs[1], q, dd)
                         elif kind == "descent1" and n == 1:
                             c["r"] = sel(q, sl, c["b"][sl] - star(prev, q, a, sl))
                             rings[1].slots[2][sl] = c["r"] * c["dinv"][sl]
@@ -317,10 +335,16 @@ SCHEDULE_SHAPES = [(1, 2, 1), (3, 2, 5), (2, 3, 1), (2, 1, 3), (40, 13, 61), (70
                    (100, 21, 61), (60, 57, 13)]
 
 
-@pytest.mark.parametrize("flegs", [None, "z"])
-@pytest.mark.parametrize("pinned", [True, False])
-@pytest.mark.parametrize("shape", SCHEDULE_SHAPES)
-@pytest.mark.parametrize("kind", KINDS)
+# (kind, shape, pinned, flegs), the filtered legs only for the kernels that
+# take them
+SCHEDULE_CASES = [
+    pytest.param(kind, shape, pinned, flegs, id=f"{kind}-shape{n}-{pinned}-{flegs}")
+    for kind in KINDS for n, shape in enumerate(SCHEDULE_SHAPES) for pinned in (True, False)
+    for flegs in ((None,) if kind in NO_FLEGS else (None, "z"))
+]
+
+
+@pytest.mark.parametrize("kind, shape, pinned, flegs", SCHEDULE_CASES)
 def test_zmarch_schedule_computes_the_twin(kind, shape, pinned, flegs):
     op, t, b, x1 = _system(shape, pinned)
     legs = None if flegs is None else (float(op.cx), float(op.cy), 0.0)
@@ -340,19 +364,27 @@ def test_zmarch_schedule_computes_the_twin(kind, shape, pinned, flegs):
     elif kind == "restrict":
         got = _emulate(kind, op, (b,), shape, pinned, legs)[:1]
         want = (fused7_restrict_torch(*args, b, GW, shape, pinned, legs),)
+    elif kind == "mvdot":
+        # x = t
+        got = _emulate(kind, op, (t,), shape, pinned, legs)
+        want = fused7_mvdot_torch(*args, t, shape, pinned)
+    elif kind == "pre2":
+        got = _emulate(kind, op, (b,), shape, pinned, legs)[:2]
+        want = fused7_pre2_torch(*args, b, S0, AD, G, shape, pinned)
     elif kind == "ascent1":
         got = _emulate(kind, op, (t, b, x1), shape, pinned, legs)
         want = fused7_ascent1_rz_torch(*args, t, b, x1, G, GW, shape, pinned, legs)
     else:
         got = _emulate(kind, op, (t, b, x1), shape, pinned, legs)
         want = fused7_ascent_rz_torch(*args, t, b, x1, G, AD, G2, GW, shape, pinned, legs)
-    fields = got if kind == "restrict" else got[:-1]
+    dotless = kind in ("restrict", "pre2")
+    fields = got if dotless else got[:-1]
     outside = ~_in_domain(shape)
     for g_, w_ in zip(fields, want):
         assert not torch.isnan(g_).any()           # every cell written
         assert (g_[outside] == 0).all()            # faces and pads exactly 0
         torch.testing.assert_close(g_, w_, rtol=1e-5, atol=1e-6 * w_.abs().max().item())
-    if kind == "restrict":
+    if dotless:
         return
     # K4's <b, x4> at a handful of cells can cancel to 1% of its terms:
     # held, as chip_smoke.py::_dot_agrees holds it, to 1e-5 of the sum of

@@ -1,8 +1,8 @@
 """On the card: every CUDA kernel of ``tpusparse_torch`` against its plain
 PyTorch twin at small ragged shapes (the P-smoothing stages also with
-filtered legs; the z-marching K3/K4, K6/K7, their dot-free forms, K9 and
-K15 also at shapes of 1-3 cells and several tiles and z-chunks, with their
-face and pad cells),
+filtered legs; the z-marching K2-K4, K6/K7, their dot-free forms, K9, K14
+and K15 also at shapes of 1-3 cells and several tiles and z-chunks, with
+their face and pad cells),
 small stencil (padded, full-fusion, plain layout, the
 unfused padded cycle, W-cycle, threshold schedule, the plain-only GAMG
 options and the standalone PCs), aij and reference-config solves on the
@@ -33,6 +33,8 @@ from tpusparse_torch.kernels.fused7 import (
     _DESCENT1_ARGS,
     _DESCENT_ARGS,
     _DESCENTU_ARGS,
+    _MVDOT_ARGS,
+    _PRE2_ARGS,
     _RESTRICT_ARGS,
     ZMARCH_WRAPPERS,
     fused7_ascent,
@@ -212,22 +214,29 @@ ZMARCH_SHAPES = [(1, 2, 1), (3, 2, 5), (2, 3, 1), (2, 1, 3), (40, 13, 61), (70, 
                  (75, 21, 13), (100, 21, 61), (60, 57, 13)]
 
 
-@pytest.mark.parametrize("flegs", [False, True])
-@pytest.mark.parametrize("pinned", [True, False])
-@pytest.mark.parametrize("shape", ZMARCH_SHAPES)
-@pytest.mark.parametrize("name", ZMARCH)
+# (name, shape, pinned, flegs), the filtered legs only for the kernels that
+# take them (K2 and K14 have no P-smoothing stage)
+ZMARCH_CASES = [
+    pytest.param(name, shape, pinned, flegs, id=f"{name}-shape{n}-{pinned}-{flegs}")
+    for name in ZMARCH for n, shape in enumerate(ZMARCH_SHAPES) for pinned in (True, False)
+    for flegs in ((False, True) if name in FLEGS else (False,))
+]
+
+
+@pytest.mark.parametrize("name, shape, pinned, flegs", ZMARCH_CASES)
 def test_zmarch_kernel_matches_twin(cuda, name, shape, pinned, flegs):
     """One launch a call; K6's x1 bit-equal to the twin's (the same IEEE
     1/d and two products), the other fields at the kernels' tolerances, the
-    dot to 1e-5 of itself (K9's <r', r'> is a sum of squares), K4's <b, x4>
+    dot to 1e-5 of itself (K9's <r', r'> is a sum of squares; K2's <x, A x>
+    a positive form), K4's <b, x4>
     to 1e-5 of the sum of its terms' magnitudes (chip_smoke.py::_dot_agrees: at a handful of cells it
     cancels to 1% of them, and K4 sums it in another block order than its
     twin), and every face and pad cell of each output exactly 0."""
     kernel, twin = CASES[name]
     args = _args(name, shape, pinned, cuda)
-    legs = (args[1], args[2], 0.0) if flegs else None
+    kw = {"flegs": (args[1], args[2], 0.0) if flegs else None} if name in FLEGS else {}
     before = kernels.LAUNCHES[name]
-    got, want = kernel(*args, flegs=legs), twin(*args, flegs=legs)
+    got, want = kernel(*args, **kw), twin(*args, **kw)
     torch.cuda.synchronize()
     assert kernels.LAUNCHES[name] == before + 1
     if name == "fused7_ascent_rz":
@@ -291,11 +300,12 @@ def test_zmarch_entry_points_of_k3_k4_refuse_a_wrong_plan(cuda, kind):
                           G, AD, S0, GW, 1, *bad)
 
 
-@pytest.mark.parametrize("kind", ["descentu", "restrict"])
+@pytest.mark.parametrize("kind", ["descentu", "restrict", "mvdot", "pre2"])
 def test_zmarch_entry_points_of_k9_k15_refuse_a_wrong_plan(cuda, kind):
-    """As K3/K4's: a plan that misses a tile in x, or has another kernel's
-    tile (K6's for K9, K3's for K15), or one plane of shared memory too
-    few, is refused before a launch."""
+    """As K3/K4's, for K9 and the halo-1 kernels K15, K2 and K14: a plan
+    that misses a tile in x, or has another kernel's tile (K6's for K9,
+    K3's for the others), or one plane of shared memory too few, is refused
+    before a launch."""
     shape = (40, 21, 61)
     args = _args(f"fused7_{kind}", shape, True, cuda)
     diag, cx, cy, cz, r = args[:5]
@@ -313,6 +323,17 @@ def test_zmarch_entry_points_of_k9_k15_refuse_a_wrong_plan(cuda, kind):
         head = (r.data_ptr(), ap.data_ptr(), alpha.data_ptr(), diag.data_ptr(), *(o.data_ptr() for o in out),
                 partials.data_ptr(), *launch_args(shape, cx, cy, cz, cx, cy, cz), S0, AD, G, GW, 1)
         name, argtypes = "tps_descentu", _DESCENTU_ARGS
+    elif kind == "mvdot":
+        y = torch.empty_like(r)
+        partials = torch.empty(plan.blocks, dtype=torch.float32, device=cuda)
+        head = (r.data_ptr(), diag.data_ptr(), y.data_ptr(), partials.data_ptr(),
+                *launch_args(shape, cx, cy, cz), 1)
+        name, argtypes = "tps_mvdot", _MVDOT_ARGS
+    elif kind == "pre2":
+        xo, d = torch.empty_like(r), torch.empty_like(r)
+        head = (r.data_ptr(), diag.data_ptr(), xo.data_ptr(), d.data_ptr(),
+                *launch_args(shape, cx, cy, cz), S0, AD, G, 1)
+        name, argtypes = "tps_pre2", _PRE2_ARGS
     else:
         s = torch.empty_like(r)
         head = (r.data_ptr(), diag.data_ptr(), s.data_ptr(), *launch_args(shape, cx, cy, cz), GW, 1)

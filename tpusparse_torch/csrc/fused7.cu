@@ -14,21 +14,23 @@
 // ascent_rz reads t, b, x1, diag and writes x4 (5 passes).
 //
 // Two designs.  The kernels that chain two or three stencil applies, and
-// K15, march: K3/K4 (descent(_rr), ascent(_rz): the degree-2 cycle of the
-// headline solve, of the non-CG solvers, the W-cycle and the threshold
-// schedules), K9 (descentu: K3 with the CG residual update in front, the
-// full-fusion body's downstroke), K6/K7 (descent1(_rr), ascent1(_rz): the
-// reference config's Richardson(1) cycle) and K15 (restrict, one stencil
+// K2, K14 and K15, march: K3/K4 (descent(_rr), ascent(_rz): the degree-2
+// cycle of the headline solve, of the non-CG solvers, the W-cycle and the
+// threshold schedules), K9 (descentu: K3 with the CG residual update in
+// front, the full-fusion body's downstroke), K6/K7 (descent1(_rr),
+// ascent1(_rz): the reference config's Richardson(1) cycle), and the
+// halo-1 kernels K2 (mvdot, CG's A p and <p, A p>), K14 (pre2, the unfused
+// cycle's two Chebyshev pre-smoothing steps) and K15 (restrict, one stencil
 // apply of D^-1 r) are one launch each that marches a column tile up a
 // z-chunk of planes through shared-memory rings, so each field crosses HBM
-// about once: 4 passes for K3 and K6, 5 for K4 and K7, 6 for K9, 3 for
-// K15, their bounds (see the z-marching section below).  The others do not
-// march: one thread per padded cell, each launch fusing ONE stencil apply
-// with its elementwise epilogue.  K2, K8, K10-K14 and K16 are one launch
-// each at their bounds' pass counts: mvdot 3, cgmv 7, residual and rich 4,
-// cheb0 5, cheb 6, pre2 4, prolong 3.  Every chained step writes zero
-// outside the domain (the fused7 mask_dom), so the next step's stencil
-// sees the Neumann dropped-entry boundary.
+// about once: 4 passes for K3, K6 and K14, 5 for K4 and K7, 6 for K9, 3
+// for K2 and K15, their bounds (see the z-marching section below).  The
+// others do not march: one thread per padded cell, each launch fusing ONE
+// stencil apply with its elementwise epilogue.  K8, K10-K13 and K16 are
+// one launch each at their bounds' pass counts: cgmv 7, residual and rich
+// 4, cheb0 5, cheb 6, prolong 3.  Every chained step writes zero outside
+// the domain (the fused7 mask_dom), so the next step's stencil sees the
+// Neumann dropped-entry boundary.
 //
 // K8 (cgmv) and K9 (descentu) carry the CG vector updates.  K8: p' = z +
 // beta p is formed at each of the star's seven reads, and x' = x +
@@ -50,22 +52,6 @@
 #include "star7.cuh"
 
 using namespace tps;
-
-// K2 mvdot: y = A x and partials of <x, A x> (the CG alpha denominator).
-__global__ void __launch_bounds__(BLOCK)
-mvdot_kernel(const float* __restrict__ x, const float* __restrict__ diag,
-             float* __restrict__ y, float* __restrict__ partials, Geom g,
-             Legs a, int pinned) {
-  const long long q = thread_cell();
-  int k, j, i;
-  float out = 0.0f, dot = 0.0f;
-  if (cell(g, q, k, j, i)) {
-    out = star(Field{x}, diag[q] * x[q], q, k, j, i, g, a, pinned);
-    dot = x[q] * out;
-  }
-  if (q < g.total) y[q] = out;
-  block_partial(dot, partials);
-}
 
 // K16 prolong, the P smoothing pass with the filtered legs ``f``:
 // t - gw D^-1 (A_f t).
@@ -89,19 +75,22 @@ prolong_kernel(const float* __restrict__ t, const float* __restrict__ diag,
 // K3 (descent_rr) / K3' and K4 (ascent_rz) / K4', the degree-2 V-cycle's
 // fine level, K9 (descentu), the full-fusion body's downstroke, K6
 // (descent1_rr) / K6' and K7 (ascent1_rz) / K7', the reference config's
-// degree-1 fine level, and K15 (restrict), the unfused cycle's P^T
-// smoothing pass.  They replace fused7_call's modes descent(_rr),
-// ascent(_rz) (tpusparse/kernels/fused7.py:575-602, 674-701), descentu
-// (:603-631), descent1(_rr), ascent1(_rz) (:632-673) and restrict
-// (:541-545).
+// degree-1 fine level, and the halo-1 kernels K2 (mvdot), CG's A p and
+// <p, A p>, K14 (pre2), the unfused cycle's Chebyshev pre-smoothing, and
+// K15 (restrict), its P^T smoothing pass.  They replace fused7_call's
+// modes descent(_rr), ascent(_rz) (tpusparse/kernels/fused7.py:575-602,
+// 674-701), descentu (:603-631), descent1(_rr), ascent1(_rz) (:632-673),
+// mvdot (:515-520), pre2 (:566-573) and restrict (:541-545).
 //
 // Bound on the H100: bytes.  K3 and K6 read b and diag and write x1 and s
 // (4 field passes, 0.1315 ms at 300^3); K4 and K7 read t, b, x1 and diag
 // and write x4 (x3) (5 passes, 0.1644 ms); K9 reads r, ap and diag and
-// writes x1, s and r' (6 passes, 0.1973 ms); K15 reads r and diag and
-// writes s (3 passes, 0.0987 ms).  K3/K4/K9 chain three stencil applies,
-// K6/K7 two and K15 one, so a cell's output depends on inputs H = 3 (2, 1)
-// cells away in every direction: H is each kernel's halo.
+// writes x1, s and r' (6 passes, 0.1973 ms); K2 reads x and diag and
+// writes y (3 passes, 0.0987 ms), K14 reads b and diag and writes x' and
+// d' (4 passes, 0.1315 ms), K15 reads r and diag and writes s (3 passes).
+// K3/K4/K9 chain three stencil applies, K6/K7 two and K2/K14/K15 one, so a
+// cell's output depends on inputs H = 3 (2, 1) cells away in every
+// direction: H is each kernel's halo.
 //
 // Design, after the TPU kernel's slab streaming with halo planes
 // (fused7.py:381-421): a block owns a column tile of the (ny, nxp) plane,
@@ -111,8 +100,8 @@ prolong_kernel(const float* __restrict__ t, const float* __restrict__ diag,
 // consecutive x cells a thread, copied and stored 16 bytes at a time (the
 // region's columns start on 16 bytes).  K6/K7: SY = 16, tile 12 x 56, 256
 // threads; K3/K4/K9: SY = 40, tile 34 x 56, 640 threads, one block an SM,
-// each thread within 96 registers (the register file's 64 K); K15: SY =
-// 16, tile 14 x 56, 256 threads, 4 blocks an SM.  K3/K4 are
+// each thread within 96 registers (the register file's 64 K); K2, K14,
+// K15: SY = 16, tile 14 x 56, 256 threads, 4 blocks an SM.  K3/K4 are
 // bound by the latency their warps cannot hide, not by bytes: the 40-row
 // region holds 20 warps an SM against a 32-row one's 16 and loads 6% fewer
 // rows at 300^3 (9 tiles of 40 against 12 of 32), and ran 9-10% faster; a
@@ -128,7 +117,7 @@ prolong_kernel(const float* __restrict__ t, const float* __restrict__ diag,
 //      (K3: u = (s0 b) D^-1; K9: the same on b = r' = r - alpha ap, which
 //      it writes back to r's staging slot for the later steps and, on the
 //      tile, to the output r'; K4, K7: t as it is; K6: x1 = g b D^-1;
-//      K15: u = D^-1 r);
+//      K2: x as it is; K14: u = (s0 b) D^-1; K15: u = D^-1 r);
 //   0 < n < H, plane p - n, the tile plus H - n cells a side (rows n to
 //      SY - n; whole quads): a chained step reads its stencil from the
 //      ring of step n - 1 and writes a ring of its own (K3: x1 = u + ad u +
@@ -137,9 +126,11 @@ prolong_kernel(const float* __restrict__ t, const float* __restrict__ diag,
 //      D^-1 r; K7: x2);
 //   n = H, plane p - H, the tile: the last step writes the tile's outputs
 //      (K3, K9, K6: x1 and s = r - gw A_f (D^-1 r); K4: x4 = x3 + ad d + g2
-//      D^-1 (b - A x3); K7: x3 = x2 + g D^-1 (b - A x2); K15: s = r - gw A_f
-//      u, whose centre term is r itself) and adds to the dot (K9 adds
-//      <r', r'> at step 0, as K3 adds <b, b>).
+//      D^-1 (b - A x3); K7: x3 = x2 + g D^-1 (b - A x2); K2: y = A x; K14:
+//      d' = ad u + g D^-1 (b - A u) and x' = u + d', the centre term of A u
+//      s0 b; K15: s = r - gw A_f u, whose centre term is r itself) and adds
+//      to the dot (K2 adds <x, y>; K9 adds <r', r'> at step 0, as K3 adds
+//      <b, b>).
 // So each input and output crosses HBM about once: a chunk re-reads its 2 H
 // halo planes and a tile its halo rows and columns (mostly from L2, where
 // the neighbouring blocks that run at the same time put them).  One IEEE
@@ -165,8 +156,10 @@ prolong_kernel(const float* __restrict__ t, const float* __restrict__ diag,
 // the steps wrote one plane earlier, so each ring needs 2 planes and a
 // plane needs one barrier, at its end.  The first K3/K4, in K6/K7's way
 // (16-row regions, three barriers a plane), ran at 0.455 / 0.434 ms at
-// 300^3 (PERF.md section 6).  K9 and K15 are built on K3/K4's way; K9 is
-// K3's kernel with the residual update as a template flag.
+// 300^3 (PERF.md section 6).  K9 and the halo-1 kernels are built on
+// K3/K4's way; K9 is K3's kernel with the residual update as a template
+// flag, and K2, K14 and K15 are one march (march1) with the mode as a
+// template parameter.
 //
 // The launch plan (tiles, z-chunk, grid, shared bytes, partials) is
 // computed by the wrapper (kernels/fused7.py::zmarch_plan); the entry
@@ -178,7 +171,7 @@ constexpr int ZM_SX = ZM_TX + 2 * ZM_HX;     // 64 region columns
 constexpr int ZM_QX = ZM_SX / 4;             // 16 quads a region row
 static_assert(32 % ZM_QX == 0, "a warp holds whole region rows");
 // region rows (the tile's and H a side), one quad of the region a thread:
-// K6/K7/K15 16 rows of 256 threads, K3/K4/K9 40 rows of 640
+// K6/K7/K2/K14/K15 16 rows of 256 threads, K3/K4/K9 40 rows of 640
 constexpr int ZM_SY = 16, ZM3_SY = 40;
 constexpr int ZM_PLANE = ZM_SX * ZM_SY;      // shared floats a K6/K7 plane
 constexpr int ZM3_PLANE = ZM_SX * ZM3_SY;    // and a K3/K4 one
@@ -198,10 +191,11 @@ static_assert(ZM_QX * ZM_SY == BLOCK, "one quad of the region a thread");
 // would not fit), 2, 2, 4 and 4 deep; one block (180 KB).  K9: r (n = 0-2,
 // as r' from n = 0 on), diag (n = 0-3) and ap (n = 0), 1 ahead (K3's 4 would
 // need 26 planes of 10 KB beside the rings), 4, 8 and 2 deep; one block
-// (200 KB).  K15: r and diag (n = 0; step 1 takes r's centre from the
-// thread's registers), 4 ahead, 5 deep, and one ring of 2 planes; 4 blocks
-// an SM (48 KB each: a fifth does not fit, so that at 300^3 the plan's
-// 132 tiles times 8 z-chunks make 2 whole waves).
+// (200 KB).  K2, K14 and K15: their input (x, b, r) and diag (n = 0; step
+// 1 takes what it needs of plane p - 1 from the thread's registers), 4
+// ahead, 5 deep, and one ring of 2 planes; 4 blocks an SM (48 KB each: a
+// fifth does not fit, so that at 300^3 the plan's 132 tiles times 8
+// z-chunks make 2 whole waves).
 constexpr int ZM6_AHEAD = 3, ZM6_MIN_BLOCKS = 3;
 constexpr int ZM7_AHEAD = 2, ZM7_MIN_BLOCKS = 2;
 constexpr int ZM3_AHEAD = 4, ZM3_MIN_BLOCKS = 1;
@@ -459,7 +453,7 @@ struct Staging {
   }
 };
 // K6 (b, diag), K7 (t, x1, diag, b), K3 (b, diag), K4 (t, x1, diag, b),
-// K9 (r, diag, ap), K15 (r, diag)
+// K9 (r, diag, ap), K2 / K14 / K15 (x / b / r, diag)
 using Staging6 = Staging<2, ZM_PLANE, ZM6_AHEAD + 3, ZM6_AHEAD + 3>;
 using Staging7 = Staging<2, ZM_PLANE, ZM7_AHEAD + 3, ZM7_AHEAD + 3,
                          ZM7_AHEAD + 3, ZM7_AHEAD + 3>;
@@ -475,7 +469,7 @@ using Staging9 = Staging<3, ZM3_PLANE, pow2_ceil(ZM9_AHEAD + 3),
                          pow2_ceil(ZM9_AHEAD + 4), pow2_ceil(ZM9_AHEAD + 1)>;
 using Staging15 = Staging<1, ZM_PLANE, ZM15_AHEAD + 1, ZM15_AHEAD + 1>;
 // the shared bytes of a kernel's rings, RINGS planes (K6/K7: two of 3;
-// K3/K4/K9: three of 2; K15: one of 2), and its staging
+// K3/K4/K9: three of 2; K2/K14/K15: one of 2), and its staging
 constexpr int ZM_RING_PLANES = 6, ZM15_RING_PLANES = 2;
 template <class St, int RINGS = ZM_RING_PLANES>
 constexpr int zmarch_smem() {
@@ -1013,13 +1007,35 @@ ascent_kernel(const float* __restrict__ t, const float* __restrict__ b,
         (blockIdx.z * gridDim.y + blockIdx.y) * gridDim.x + blockIdx.x);
 }
 
-// K15 restrict, the P^T smoothing pass: u = D^-1 r, one reciprocal a cell;
-// s = r - gw A_f u, the centre term r itself (diag (D^-1 r) == r, as
-// fused7_xla's mode has it).  Halo 1: two steps a plane.
-__global__ void __launch_bounds__(BLOCK, ZM15_MIN_BLOCKS)
-restrict_kernel(const float* __restrict__ r, const float* __restrict__ diag,
-                float* __restrict__ s, Geom g, Legs f, float gw, int pinned,
-                int zchunk) {
+// The halo-1 marches, two steps a plane: K15 restrict, K2 mvdot and K14
+// pre2, one loop with the mode as a template parameter.
+enum class Halo1 { RESTRICT, MVDOT, PRE2 };
+
+// One block's march of a halo-1 kernel (``in``: K15's r, K2's x, K14's b):
+//   K15 restrict, the P^T smoothing pass: u = D^-1 r, one reciprocal a
+//     cell; out = s = r - gg A u (A: the filtered legs ``a``, gg: gw), the
+//     centre term r itself (diag (D^-1 r) == r, as fused7_xla's mode has
+//     it);
+//   K2 mvdot: out = y = A x, the centre term diag x (the TPU's diag *
+//     win(p, 1, 0) and the twin's), and <x, y> over the domain cells into
+//     partials, one a block;
+//   K14 pre2, both Chebyshev pre-smoothing steps from a zero guess: one
+//     reciprocal a cell, u = (s0 b) D^-1; out = x' = u + d' and dout = d' =
+//     ad u + gg D^-1 (b - A u), the centre term of A u the Pallas kernel's
+//     s0 b (fused7.py:569; the twin's diag ((s0 b) D^-1) is an ulp away).
+// Step 0 puts plane p's u (K2: x) into the ring; step 1 applies the star
+// at plane p - 1 and writes the tile, 0 off the domain.  A thread carries
+// what step 1 needs of its own quad of plane p - 1 in registers (u, and
+// K15's r, K2's diag x, K14's b and D^-1): no second divide, and no
+// staging slot read after its plane's step 0.
+template <Halo1 MODE>
+__device__ __forceinline__ void march1(const float* __restrict__ in,
+                                       const float* __restrict__ diag,
+                                       float* __restrict__ out,
+                                       float* __restrict__ dout,
+                                       float* __restrict__ partials, Geom g,
+                                       Legs a, float s0, float ad, float gg,
+                                       int pinned, int zchunk) {
   constexpr int H = 1, AHEAD = ZM15_AHEAD;
   extern __shared__ float4 smem4[];
   float* sm = reinterpret_cast<float*>(smem4);
@@ -1028,13 +1044,14 @@ restrict_kernel(const float* __restrict__ r, const float* __restrict__ diag,
   const int z0 = (int)blockIdx.z * zchunk, z1 = min(z0 + zchunk, nzp);
   const ZQuad z = zquad<H, ZM_SY>(g);
   const bool pin = pins_origin<H>(g, pinned, z0);
-  // r (field 0) and diag (field 1), every quad, staged AHEAD planes ahead
+  // the input (field 0) and diag (field 1), every quad, staged AHEAD
+  // planes ahead
   const Staging15 st{sm + ZM15_RING_PLANES * ZM_PLANE, z0};
   const long long plane = g.plane;
   auto stage = [&](int p, long long off) {
     if (p <= z1 + H - 1) {
       const bool valid = z.field && domain_plane(g, p);
-      st.copy_from<0>(valid ? r + off : r, z, p, valid);
+      st.copy_from<0>(valid ? in + off : in, z, p, valid);
       st.copy_from<1>(valid ? diag + off : diag, z, p, valid);
     }
     cp_async_commit();
@@ -1044,40 +1061,102 @@ restrict_kernel(const float* __restrict__ r, const float* __restrict__ diag,
   for (int n = 0; n < AHEAD; ++n) stage(z0 - H + n, off + n * plane);
 
   // the thread's own quads, kept from earlier planes: u of planes p - 2,
-  // p - 1; r of p - 1
-  Quad um{}, uc{}, rc{};
-  float left, right;
+  // p - 1; of p - 1 also K15's r / K2's diag x / K14's b (c) and K14's D^-1
+  Quad um{}, uc{}, cc{}, dinvc{};
+  float dot = 0.0f, left, right;
   for (int p = z0 - H; p <= z1 + H - 1; ++p, off += plane) {
     stage(p + AHEAD, off + AHEAD * plane);
     cp_async_wait<AHEAD>();
     ur.flip();
 
-    // step 0, plane p, the whole region: u = r D^-1 (0 off the domain)
-    const Quad r0 = st.get<0>(g, z, p, 0.0f), d0 = st.get<1>(g, z, p, 1.0f);
-    Quad u0;
+    // step 0, plane p, the whole region: u (0 off the domain)
+    const Quad in0 = st.get<0>(g, z, p, 0.0f);
+    Quad u0, c0, dinv0;
+    if constexpr (MODE == Halo1::MVDOT) {
+      const Quad d0 = st.raw<1>(z, p);
 #pragma unroll
-    for (int l = 0; l < 4; ++l) u0.v[l] = r0.v[l] * (1.0f / d0.v[l]);
+      for (int l = 0; l < 4; ++l) c0.v[l] = d0.v[l] * in0.v[l];
+      u0 = in0;
+    } else {
+      const Quad d0 = st.get<1>(g, z, p, 1.0f);
+#pragma unroll
+      for (int l = 0; l < 4; ++l) {
+        dinv0.v[l] = 1.0f / d0.v[l];
+        u0.v[l] = MODE == Halo1::PRE2 ? (s0 * in0.v[l]) * dinv0.v[l]
+                                      : in0.v[l] * dinv0.v[l];
+      }
+      c0 = in0;
+    }
     ur.put(u0, z.q);
 
-    // step 1, plane p - 1, the tile: s = r - gw A_f u
+    // step 1, plane p - 1, the tile
     row_neighbours(uc, left, right);
     if (p - 1 >= z0 && z.out) {
       const bool dp = domain_plane(g, p - 1);
-      const Quad w = star_quad(uc, left, right, ur.get(z.q - ZM_QX),
-                               ur.get(z.q + ZM_QX), um, u0, rc, z,
-                               p - 1 - g.face, f, pin);
-      Quad so;
+      Quad center = cc;
+      if constexpr (MODE == Halo1::PRE2) {
 #pragma unroll
-      for (int l = 0; l < 4; ++l)
-        so.v[l] = dp && z.dom[l] ? rc.v[l] - gw * w.v[l] : 0.0f;
-      store_quad_at(s, off - plane, so);
+        for (int l = 0; l < 4; ++l) center.v[l] = s0 * cc.v[l];
+      }
+      const Quad w = star_quad(uc, left, right, ur.get(z.q - ZM_QX),
+                               ur.get(z.q + ZM_QX), um, u0, center, z,
+                               p - 1 - g.face, a, pin);
+      Quad o, d;
+#pragma unroll
+      for (int l = 0; l < 4; ++l) {
+        const bool cell_in = dp && z.dom[l];
+        if constexpr (MODE == Halo1::RESTRICT) {
+          o.v[l] = cell_in ? cc.v[l] - gg * w.v[l] : 0.0f;
+        } else if constexpr (MODE == Halo1::MVDOT) {
+          o.v[l] = cell_in ? w.v[l] : 0.0f;
+          dot += uc.v[l] * o.v[l];
+        } else {
+          d.v[l] = cell_in ? ad * uc.v[l] + gg * (dinvc.v[l] * (cc.v[l] - w.v[l]))
+                           : 0.0f;
+          o.v[l] = cell_in ? uc.v[l] + d.v[l] : 0.0f;
+        }
+      }
+      store_quad_at(out, off - plane, o);
+      if constexpr (MODE == Halo1::PRE2) store_quad_at(dout, off - plane, d);
     }
     um = uc;
     uc = u0;
-    rc = r0;
+    cc = c0;
+    if constexpr (MODE == Halo1::PRE2) dinvc = dinv0;
     // the one barrier a plane, as in descent_kernel
     __syncthreads();
   }
+  if constexpr (MODE == Halo1::MVDOT)
+    block_partial_at(dot, partials,
+                     (blockIdx.z * gridDim.y + blockIdx.y) * gridDim.x +
+                         blockIdx.x);
+}
+
+// K15 restrict: s = r - gw A_f (D^-1 r).
+__global__ void __launch_bounds__(BLOCK, ZM15_MIN_BLOCKS)
+restrict_kernel(const float* __restrict__ r, const float* __restrict__ diag,
+                float* __restrict__ s, Geom g, Legs f, float gw, int pinned,
+                int zchunk) {
+  march1<Halo1::RESTRICT>(r, diag, s, nullptr, nullptr, g, f, 0.0f, 0.0f, gw,
+                          pinned, zchunk);
+}
+
+// K2 mvdot: y = A x and partials of <x, A x> (the CG alpha denominator).
+__global__ void __launch_bounds__(BLOCK, ZM15_MIN_BLOCKS)
+mvdot_kernel(const float* __restrict__ x, const float* __restrict__ diag,
+             float* __restrict__ y, float* __restrict__ partials, Geom g,
+             Legs a, int pinned, int zchunk) {
+  march1<Halo1::MVDOT>(x, diag, y, nullptr, partials, g, a, 0.0f, 0.0f, 0.0f,
+                       pinned, zchunk);
+}
+
+// K14 pre2: u = (s0 b) D^-1;  d' = ad u + g D^-1 (b - A u);  x' = u + d'.
+__global__ void __launch_bounds__(BLOCK, ZM15_MIN_BLOCKS)
+pre2_kernel(const float* __restrict__ b, const float* __restrict__ diag,
+            float* __restrict__ xo, float* __restrict__ dout, Geom g, Legs a,
+            float s0, float ad, float gg, int pinned, int zchunk) {
+  march1<Halo1::PRE2>(b, diag, xo, dout, nullptr, g, a, s0, ad, gg, pinned,
+                      zchunk);
 }
 
 // K8 input p' = z + beta p_old, formed at each read of the star.
@@ -1153,38 +1232,6 @@ step_kernel(const float* __restrict__ x, const float* __restrict__ b,
   }
   out[q] = o;
   if constexpr (MODE == CHEB0 || MODE == CHEB) dout[q] = dn;
-}
-
-// K14 pre2, both Chebyshev pre-smoothing steps from a zero guess:
-// u = (s0 b) D^-1;  d' = ad u + g D^-1 (b - A u);  out = u + d'.  u is
-// formed on the fly wherever the stencil reads it (fused7_xla :984-987).
-__global__ void __launch_bounds__(BLOCK)
-pre2_kernel(const float* __restrict__ b, const float* __restrict__ diag,
-            float* __restrict__ out, float* __restrict__ dout, Geom g,
-            Legs a, float s0, float ad, float gg, int pinned) {
-  const long long q = thread_cell();
-  int k, j, i;
-  if (q >= g.total) return;
-  float o = 0.0f, dn = 0.0f;
-  if (cell(g, q, k, j, i)) {
-    const DinvField u{b, diag, s0};
-    const float uq = u(q);
-    const float w = star(u, diag[q] * uq, q, k, j, i, g, a, pinned);
-    dn = ad * uq + gg * ((1.0f / diag[q]) * (b[q] - w));
-    o = uq + dn;
-  }
-  out[q] = o;
-  dout[q] = dn;
-}
-
-extern "C" int tps_mvdot(const float* x, const float* diag, float* y,
-                         float* partials, int nz, int ny, int nx, int nxp,
-                         float cx, float cy, float cz, int pinned,
-                         void* stream) {
-  const Geom g = make_geom(nz, ny, nx, nxp);
-  mvdot_kernel<<<grid_blocks(g), BLOCK, 0, (cudaStream_t)stream>>>(
-      x, diag, y, partials, g, Legs{cx, cy, cz}, pinned);
-  return (int)cudaGetLastError();
 }
 
 // Every P-smoothing stage below takes the filtered legs f (fcx, fcy, fcz):
@@ -1396,15 +1443,12 @@ extern "C" int tps_cheb(const float* x, const float* b, const float* d,
               ad, pinned, stream);
 }
 
-// K14 pre2.
-extern "C" int tps_pre2(const float* b, const float* diag, float* xo,
-                        float* dout, int nz, int ny, int nx, int nxp,
-                        float cx, float cy, float cz, float s0, float ad,
-                        float gg, int pinned, void* stream) {
-  const Geom g = make_geom(nz, ny, nx, nxp);
-  pre2_kernel<<<grid_blocks(g), BLOCK, 0, (cudaStream_t)stream>>>(
-      b, diag, xo, dout, g, Legs{cx, cy, cz}, s0, ad, gg, pinned);
-  return (int)cudaGetLastError();
+// The halo-1 kernels' plan: K15's region, staging, ring and shared bytes.
+static bool march1_plan_ok(const Geom& g, int tiles_x, int tiles_y,
+                           int chunks, int zchunk, int smem_bytes) {
+  return zmarch_plan_ok(g, 1, ZM_SY,
+                        zmarch_smem<Staging15, ZM15_RING_PLANES>(), tiles_x,
+                        tiles_y, chunks, zchunk, smem_bytes);
 }
 
 // K15 restrict: s = r - g A_f (D^-1 r); (fcx, fcy, fcz) are A_f's legs.
@@ -1415,13 +1459,42 @@ extern "C" int tps_restrict(const float* r, const float* diag, float* s,
                             int tiles_x, int tiles_y, int chunks, int zchunk,
                             int smem_bytes, void* stream) {
   const Geom g = make_geom(nz, ny, nx, nxp);
-  if (!zmarch_plan_ok(g, 1, ZM_SY,
-                      zmarch_smem<Staging15, ZM15_RING_PLANES>(), tiles_x,
-                      tiles_y, chunks, zchunk, smem_bytes))
+  if (!march1_plan_ok(g, tiles_x, tiles_y, chunks, zchunk, smem_bytes))
     return (int)cudaErrorInvalidValue;
   return zmarch_launch<BLOCK>(restrict_kernel, tiles_x, tiles_y, chunks,
                               smem_bytes, (cudaStream_t)stream, r, diag, s, g,
                               Legs{fcx, fcy, fcz}, gg, pinned, zchunk);
+}
+
+// K2 mvdot: one z-marching launch of the plan's grid, one partial of
+// <x, A x> a block.
+extern "C" int tps_mvdot(const float* x, const float* diag, float* y,
+                         float* partials, int nz, int ny, int nx, int nxp,
+                         float cx, float cy, float cz, int pinned,
+                         int tiles_x, int tiles_y, int chunks, int zchunk,
+                         int smem_bytes, void* stream) {
+  const Geom g = make_geom(nz, ny, nx, nxp);
+  if (!march1_plan_ok(g, tiles_x, tiles_y, chunks, zchunk, smem_bytes))
+    return (int)cudaErrorInvalidValue;
+  return zmarch_launch<BLOCK>(mvdot_kernel, tiles_x, tiles_y, chunks,
+                              smem_bytes, (cudaStream_t)stream, x, diag, y,
+                              partials, g, Legs{cx, cy, cz}, pinned, zchunk);
+}
+
+// K14 pre2: one z-marching launch of the plan's grid.
+extern "C" int tps_pre2(const float* b, const float* diag, float* xo,
+                        float* dout, int nz, int ny, int nx, int nxp,
+                        float cx, float cy, float cz, float s0, float ad,
+                        float gg, int pinned, int tiles_x, int tiles_y,
+                        int chunks, int zchunk, int smem_bytes,
+                        void* stream) {
+  const Geom g = make_geom(nz, ny, nx, nxp);
+  if (!march1_plan_ok(g, tiles_x, tiles_y, chunks, zchunk, smem_bytes))
+    return (int)cudaErrorInvalidValue;
+  return zmarch_launch<BLOCK>(pre2_kernel, tiles_x, tiles_y, chunks,
+                              smem_bytes, (cudaStream_t)stream, b, diag, xo,
+                              dout, g, Legs{cx, cy, cz}, s0, ad, gg, pinned,
+                              zchunk);
 }
 
 // K16 prolong: out = t - g D^-1 (A_f t).
@@ -1436,8 +1509,8 @@ extern "C" int tps_prolong(const float* t, const float* diag, float* out,
 }
 
 // Registers a thread, spilled (local) bytes a thread and static shared
-// bytes a block of z-marching kernel `which`: 0-9 are K3, K3', K4, K4', K6,
-// K6', K7, K7', K9, K15 (kernels/fused7.py::zmarch_attributes).
+// bytes a block of z-marching kernel `which`: 0-11 are K3, K3', K4, K4',
+// K6, K6', K7, K7', K9, K15, K2, K14 (kernels/fused7.py::zmarch_attributes).
 extern "C" int tps_zmarch_attributes(int which, int* regs, int* local_bytes,
                                      int* static_smem) {
   const void* kernels[] = {
@@ -1451,6 +1524,8 @@ extern "C" int tps_zmarch_attributes(int which, int* regs, int* local_bytes,
       (const void*)ascent1_kernel<false>,
       (const void*)descent_kernel<true, true>,
       (const void*)restrict_kernel,
+      (const void*)mvdot_kernel,
+      (const void*)pre2_kernel,
   };
   if (which < 0 || which >= (int)(sizeof(kernels) / sizeof(kernels[0])))
     return (int)cudaErrorInvalidValue;

@@ -61,17 +61,6 @@ struct Field {
   __device__ __forceinline__ float operator()(long long q) const { return p[q]; }
 };
 
-// Stencil input (s * p) * D^-1, formed on the fly at each read: the
-// pre-smoother's u = (s0 * b) * D^-1 and the P^T-smoothing D^-1 r.
-struct DinvField {
-  const float* __restrict__ p;
-  const float* __restrict__ d;
-  float s;
-  __device__ __forceinline__ float operator()(long long q) const {
-    return (s * p[q]) * (1.0f / d[q]);
-  }
-};
-
 // (A u)[q] for in-domain cell (k, j, i) given the diagonal term `center`.
 // Pinned origin (MatZeroRowsColumns, reference src/helper.cpp:274): the
 // three cells that read u[0,0,0] as a neighbour drop that read, and the

@@ -57,8 +57,8 @@ accepted too.
 D is ``diag`` (pads 1.0), inverted by true division.  All fields are in the
 padded-resident layout (``kernels/stencil7.py::padded_shape``).
 
-K3/K4, K6/K7, their dot-free forms, K9 and K15 are one launch each that
-marches a column tile of the (ny, nxp) plane up a z-chunk of planes
+K2-K4, K6/K7, their dot-free forms, K9, K14 and K15 are one launch each
+that marches a column tile of the (ny, nxp) plane up a z-chunk of planes
 (``csrc/fused7.cu``); their launch plan — tiles, z-chunk, grid, shared
 bytes, one dot partial a block — is ``zmarch_plan``, which the CPU tests
 check and the CUDA entry points verify.
@@ -87,8 +87,8 @@ from tpusparse_torch.kernels.stencil7 import (
 )
 
 P, I, F = _build.P, _build.I, _build.F
-_MVDOT_ARGS = [P] * 4 + [I] * 4 + [F] * 3 + [I, P]
 _ZMARCH_PLAN_ARGS = [I] * 5   # tiles_x, tiles_y, chunks, zchunk, smem_bytes
+_MVDOT_ARGS = [P] * 4 + [I] * 4 + [F] * 3 + [I] + _ZMARCH_PLAN_ARGS + [P]
 _DESCENT_ARGS = [P] * 5 + [I] * 4 + [F] * 10 + [I] + _ZMARCH_PLAN_ARGS + [P]
 _ASCENT_ARGS = [P] * 6 + [I] * 4 + [F] * 10 + [I] + _ZMARCH_PLAN_ARGS + [P]
 _DESCENT1_ARGS = [P] * 5 + [I] * 4 + [F] * 8 + [I] + _ZMARCH_PLAN_ARGS + [P]
@@ -99,7 +99,7 @@ _RESIDUAL_ARGS = [P] * 4 + [I] * 4 + [F] * 3 + [I, P]
 _RICH_ARGS = [P] * 4 + [I] * 4 + [F] * 4 + [I, P]
 _CHEB0_ARGS = [P] * 5 + [I] * 4 + [F] * 4 + [I, P]
 _CHEB_ARGS = [P] * 6 + [I] * 4 + [F] * 5 + [I, P]
-_PRE2_ARGS = [P] * 4 + [I] * 4 + [F] * 6 + [I, P]
+_PRE2_ARGS = [P] * 4 + [I] * 4 + [F] * 6 + [I] + _ZMARCH_PLAN_ARGS + [P]
 _RESTRICT_ARGS = [P] * 3 + [I] * 4 + [F] * 4 + [I] + _ZMARCH_PLAN_ARGS + [P]
 _PROLONG_ARGS = [P] * 3 + [I] * 4 + [F] * 4 + [I, P]
 
@@ -109,7 +109,8 @@ def _dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 
 def _partials(shape, device) -> torch.Tensor:
-    """Scratch for one dot partial per thread block."""
+    """Scratch for one dot partial per thread block of K8 (one thread a
+    cell)."""
     cells = 1
     for n in padded_shape(shape):
         cells *= n
@@ -117,7 +118,7 @@ def _partials(shape, device) -> torch.Tensor:
     return torch.empty((cells + block - 1) // block, dtype=torch.float32, device=device)
 
 
-# --- the z-marching launch plan (K3/K4, K6/K7, K9, K15) -------------------------
+# --- the z-marching launch plan (K2-K4, K6/K7, K9, K14, K15) ----------------------
 # csrc/fused7.cu's ZM_SX and ZM_TX: a block's region of 64 columns, one
 # 4-cell quad a thread, and its output tile's 56 (the region adds a quad of
 # columns a side, so that rows start on 16 bytes); its rows are the tile's
@@ -125,7 +126,8 @@ def _partials(shape, device) -> torch.Tensor:
 ZM_REGION_X = 64
 ZM_TILE_X = 56
 # csrc/fused7.cu's ZM_RING_PLANES: the region planes of a kernel's shared
-# rings, K6/K7's two rings of 3 and K3/K4/K9's three of 2 (K15: one of 2)
+# rings, K6/K7's two rings of 3 and K3/K4/K9's three of 2 (K2/K14/K15: one
+# of 2)
 ZM_RING_PLANES = 6
 # the most output planes a block marches through: a chunk loads 2 H planes
 # more than it writes, so longer chunks read less twice; 48 gives 300^3 2.7
@@ -177,6 +179,8 @@ ZM_KERNELS = {
     # at 300^3 132 tiles times 8 chunks of 39, 2 whole waves
     "restrict": ZMarchKernel(halo=1, rows=16, stages=(5, 5), blocks_per_sm=4, ring_planes=2, zchunk=40),
 }
+# K2 and K14 march on K15's machinery: the same two staged fields, ring and plan
+ZM_KERNELS["mvdot"] = ZM_KERNELS["pre2"] = ZM_KERNELS["restrict"]
 H100_SMS = 132
 
 
@@ -225,7 +229,8 @@ class ZMarchPlan:
 
 def zmarch_plan(shape, kernel: str) -> ZMarchPlan:
     """The launch plan of ``kernel`` ("descent": K3/K3', "ascent": K4/K4',
-    "descent1": K6/K6', "ascent1": K7/K7', "descentu": K9, "restrict": K15)
+    "descent1": K6/K6', "ascent1": K7/K7', "descentu": K9, "restrict": K15,
+    "mvdot": K2, "pre2": K14)
     for a (nz, ny, nx) field: tiles to cover the padded plane, chunks of at
     most the kernel's ``zchunk`` planes, of equal length but the last, to
     cover the padded depth, and the shared bytes of its rings and staging
@@ -387,7 +392,7 @@ def _check_aligned(*fields: torch.Tensor) -> None:
 ZMARCH_WRAPPERS = (
     "fused7_descent_rr", "fused7_descent", "fused7_ascent_rz", "fused7_ascent",
     "fused7_descent1_rr", "fused7_descent1", "fused7_ascent1_rz", "fused7_ascent1",
-    "fused7_descentu", "fused7_restrict",
+    "fused7_descentu", "fused7_restrict", "fused7_mvdot", "fused7_pre2",
 )
 
 
@@ -477,17 +482,19 @@ def _launch_ascent1(name, dot, diag_p, cx, cy, cz, t_p, b_p, x1_p, g, gw, shape,
 # --- kernel wrappers -----------------------------------------------------------
 
 def fused7_mvdot(diag_p, cx, cy, cz, x_p, shape, pinned: bool):
-    """``(A x, <x, A x>)`` in one launch (K2)."""
+    """``(A x, <x, A x>)`` in one z-marching launch (K2)."""
     shape = tuple(shape)
     check_fields(shape, diag_p, x_p)
     if x_p.device.type == "cpu":
         return fused7_mvdot_torch(diag_p, cx, cy, cz, x_p, shape, pinned)
+    _check_aligned(diag_p, x_p)
     y = torch.empty_like(x_p)
-    partials = _partials(shape, x_p.device)
+    plan = zmarch_plan(shape, "mvdot")
+    partials = _zmarch_partials(plan, True, x_p.device)
     _build.launch(
         "tps_mvdot", _MVDOT_ARGS, x_p.device,
         x_p.data_ptr(), diag_p.data_ptr(), y.data_ptr(), partials.data_ptr(),
-        *launch_args(shape, cx, cy, cz), int(pinned),
+        *launch_args(shape, cx, cy, cz), int(pinned), *plan.launch_args(),
     )
     LAUNCHES["fused7_mvdot"] += 1
     return y, partials.sum()
@@ -704,16 +711,18 @@ def fused7_cheb(diag_p, cx, cy, cz, x_p, b_p, d_p, ad, g, shape, pinned: bool):
 def fused7_pre2(diag_p, cx, cy, cz, b_p, s0, ad, g, shape, pinned: bool):
     """``(x', d')``: both Chebyshev pre-smoothing steps from a zero guess,
     u = (s0 b) D^-1, d' = ad u + g D^-1 (b - A u), x' = u + d', in one
-    launch (K14)."""
+    z-marching launch (K14)."""
     shape = tuple(shape)
     check_fields(shape, diag_p, b_p)
     if b_p.device.type == "cpu":
         return fused7_pre2_torch(diag_p, cx, cy, cz, b_p, s0, ad, g, shape, pinned)
+    _check_aligned(diag_p, b_p)
     xo, d = torch.empty_like(b_p), torch.empty_like(b_p)
     _build.launch(
         "tps_pre2", _PRE2_ARGS, b_p.device,
         b_p.data_ptr(), diag_p.data_ptr(), xo.data_ptr(), d.data_ptr(),
         *launch_args(shape, cx, cy, cz), float(s0), float(ad), float(g), int(pinned),
+        *zmarch_plan(shape, "pre2").launch_args(),
     )
     LAUNCHES["fused7_pre2"] += 1
     return xo, d
