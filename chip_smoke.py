@@ -18,8 +18,10 @@ script exits non-zero without the final line:
    which would exceed the whole range of K3's x1); dots to 1e-5 relative.
 4. A 24^3 stencil solve must reproduce the JAX package's outcome at that
    size (24 +- 1 inner / 2 outer iterations, reason 2, Linf 1.117e-2).
-5. The stencil path: ``solve_poisson(300, rtol=1e-8, atol=1e-12, pc="gamg",
-   device="cuda")`` with the launch counters reset just before it.  It must
+5. The stencil path through the headline bench entry
+   (``tpusparse_torch.bench.headline.run``: ``solve_poisson(300,
+   rtol=1e-8, atol=1e-12, pc="gamg", device="cuda")``), with the launch
+   counters reset just before it; its JSON line is printed.  It must
    converge with reason 2 in 2-3 outer and 34 +- 2 inner iterations, with
    Linf < 1e-4, and launch K1-K4 at least once each.
 6. K5 (dia_mv, the general-matrix path's banded SpMV) against its plain
@@ -28,11 +30,13 @@ script exits non-zero without the final line:
    ragged n = 40*11*13, then n = 300^3 with K = 7 (the fine level) and
    n = 100^3 with K = 27 (level 1), both timed; rtol 1e-5, atol 1e-6 of
    max|want|.
-7. A 24^3 aij solve (``mat_type="aij"``, the structure-blind route) must
+7. A 24^3 aij solve (``mat_type="aij", structure_detect=False``, the
+   structure-blind route) must
    reproduce the JAX package's CPU outcome (24 +- 1 inner / 2 outer,
    reason 2, Linf 1.117e-2 +- 1e-5).
 8. The general-matrix path at full size: the same 300^3 solve with
-   ``mat_type="aij"``, launch counters reset just before it.  Reason 2,
+   ``mat_type="aij", structure_detect=False``, launch counters reset just
+   before it.  Reason 2,
    Linf < 1e-4, 35 +- 2 inner in 2-3 outer sweeps, K5 launched and K1-K4
    not (the structure-blind route ran).
 
@@ -115,6 +119,28 @@ script exits non-zero without the final line:
    ``none`` (the padded route: K2 and no V-cycle kernel), and ``-mat_type
    aij -mat_structure_detect 0 -mg_coarse_pc_type lu`` (K5).  Each: a
    positive reason and Linf < 1e-3; counts and ``t_solve`` printed.
+23. The default aij route at 300^3: ``solve_poisson(300,
+   mat_type="aij", rtol=1e-8, atol=1e-12, view=True)`` proves the matrix a
+   star and solves it on the stencil route, counters reset just before.
+   Reason 2, Linf < 1e-4, 34 +- 2 inner in 2-3 sweeps (whether the count
+   equals phase 5's is printed), "star DETECTED" in its view and
+   "star_lift" in its setup breakdown, K1-K4 launched and K5 not; its
+   phases, the lift's time and its peak device memory are printed, and
+   whether the lifted f32 fine operator is bitwise the stencil route's.
+   Then the stencil and the lifted solve in turn, twice (each reason 2),
+   their ``t_setup``/``t_solve`` printed beside phases 5, 23 and 8.
+24. ``-mat_type aij -precision f64`` (rtol 1e-8) and ``-precision f32``
+   (rtol 1e-6) through the CLI at 100^3 (the host assembly, lifted onto
+   the plain route): positive reason, Linf < 1e-3, K1p launched by f32
+   only, K5 by neither.
+25. ``-precision f64 -ksp_compute_eigenvalues`` and ``-precision f64
+   -ksp_monitor`` with CG and GMRES through the CLI at 100^3: as many Ritz
+   values as iterations, the least positive; one monitored norm an
+   iteration and the initial one.
+26. ``-pc_dtype bf16 -layout plain`` (rtol 1e-8) and ``-pc_dtype bf16
+   -precision f32`` (rtol 1e-6) through the CLI at 100^3, each beside the
+   same solve with the f32 cycle: positive reason, Linf < 1e-3,
+   "pc_dtype: bf16" in its view.
 
 Then one JSON line with each kernel's route, source, launches (K1-K4 from
 phase 5, K5 from phase 8, K6/K7 from phase 10, K3'/K4' from phase 11,
@@ -149,9 +175,10 @@ import torch
 from tpusparse_torch import kernels
 from tpusparse_torch.__main__ import main as cli_main
 from tpusparse_torch.amg.hierarchy import AMGParams, threshold_schedule
+from tpusparse_torch.bench import headline
 from tpusparse_torch.bench.driver import solve_poisson
 from tpusparse_torch.grid.grid3d import Grid3D
-from tpusparse_torch.grid.poisson import poisson_stencil_device
+from tpusparse_torch.grid.poisson import poisson_dia_device, poisson_stencil_device
 from tpusparse_torch.kernels import _build
 from tpusparse_torch.kernels.diaband import dia_mv, dia_mv_torch
 from tpusparse_torch.kernels.fused7 import (
@@ -204,6 +231,7 @@ from tpusparse_torch.kernels.stencil7 import (
     star7_mv_torch,
 )
 from tpusparse_torch.sparse.padded import PaddedStar, crop_field, pad_field
+from tpusparse_torch.sparse.starlift import star_lift
 
 SEED = 7
 SHAPES = ((40, 11, 13), (300, 300, 300))
@@ -762,6 +790,110 @@ def _grid(n: int) -> list[str]:
     return ["-da_grid_x", str(n), "-da_grid_y", str(n), "-da_grid_z", str(n)]
 
 
+def check_lifted(device, production, blind) -> None:
+    """Phase 23: the default aij route at 300^3 (the star proved, solved on
+    K1-K4), gated as phase 5 and held beside its count; then the stencil
+    and the lifted solve in turn, twice, to tell the route's time from its
+    place in the script, beside phase 8's structure-blind ``t_solve``."""
+    grid = Grid3D(300, 300, 300)
+    torch.cuda.reset_peak_memory_stats(device)
+    op_hi, op_lo, b, exact = poisson_dia_device(grid, device=device)
+    peak_init = torch.cuda.max_memory_allocated(device) / 1e9
+    torch.cuda.reset_peak_memory_stats(device)
+    star_lo = star_lift(op_lo, op_hi, grid.shape)[1]
+    peak_lift = torch.cuda.max_memory_allocated(device) / 1e9
+    print(f"peak device memory at 300^3: the aij assembly {peak_init:.3f} GB, then the lift with the"
+          f" system held {peak_lift:.3f} GB")
+    ref = poisson_stencil_device(grid, dtype=torch.float32, device=device)[0]
+    same = torch.equal(star_lo.diag, ref.diag) and (star_lo.cx, star_lo.cy, star_lo.cz) == (ref.cx, ref.cy, ref.cz)
+    print(f"lifted f32 fine operator at 300^3 bitwise the stencil route's: {same}")
+    del op_hi, op_lo, b, exact, star_lo, ref
+    torch.cuda.empty_cache()
+
+    torch.cuda.reset_peak_memory_stats(device)
+    kernels.reset_launches()
+    rep = solve_poisson(300, mat_type="aij", rtol=1e-8, atol=1e-12, device=device, view=True)
+    used = dict(kernels.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated(device) / 1e9
+    print(rep.solver_view)
+    print(rep.converged_reason_line())
+    print(rep.json_sidecar())
+    print(f"launches (lifted aij): {json.dumps({k: v for k, v in used.items() if v})}")
+    print(f"lifted aij 300^3: {rep.iters} inner + {rep.outer_iters} outer (phase 5: {production.iters} +"
+          f" {production.outer_iters}; equal: {(rep.iters, rep.outer_iters) == (production.iters, production.outer_iters)}),"
+          f" t_init {rep.t_init:.4f} s, t_setup {rep.t_setup:.4f} s (star_lift"
+          f" {1e3 * rep.setup_breakdown.get('star_lift', math.nan):.3f} ms), t_solve {rep.t_solve:.4f} s"
+          f" (phase 5: {production.t_solve:.4f} s), peak device memory {peak:.3f} GB")
+    _require(rep.reason == 2, f"lifted aij: reason {rep.reason} != 2")
+    _require(np.isfinite(rep.linf_error) and rep.linf_error < 1e-4, f"lifted aij: Linf {rep.linf_error} >= 1e-4")
+    _require(rep.outer_iters in (2, 3), f"lifted aij: outer iterations {rep.outer_iters} not in 2-3")
+    _require(abs(rep.iters - 34) <= 2, f"lifted aij: inner iterations {rep.iters} not within 34 +- 2")
+    _require("star DETECTED" in rep.solver_view, "lifted aij: no star detected in its view")
+    _require("star_lift" in rep.setup_breakdown, "lifted aij: no star_lift in its setup breakdown")
+    for name in STENCIL_KERNELS:
+        _require(used[name] > 0, f"the lifted aij route did not launch {name}")
+    _require(used["dia_mv"] == 0, "the lifted aij route launched dia_mv")
+
+    times = {"stencil": [], "lifted aij": []}
+    for _ in range(2):
+        for label, kw in (("stencil", {}), ("lifted aij", {"mat_type": "aij"})):
+            again = solve_poisson(300, rtol=1e-8, atol=1e-12, device=device, **kw)
+            _require(again.reason == 2, f"{label} in turn: reason {again.reason} != 2")
+            times[label].append((again.t_setup, again.t_solve))
+            print(f"in turn, {label} 300^3: {again.iters} inner + {again.outer_iters} outer,"
+                  f" t_setup {again.t_setup:.4f} s, t_solve {again.t_solve:.4f} s")
+    print(f"300^3 t_solve (t_setup) in turn: " + "; ".join(
+        f"{label} " + ", ".join(f"{b:.4f} ({a:.4f})" for a, b in runs) for label, runs in times.items()
+    ) + f"; phase 5 {production.t_solve:.4f}, phase 23 {rep.t_solve:.4f}, phase 8 (structure-blind)"
+        f" {blind.t_solve:.4f} s")
+
+
+def check_uniform_aij_and_records() -> None:
+    """Phases 24-26 at 100^3 through the CLI: uniform precision on the aij
+    route (the lift), the eigenvalues and monitor records of uniform
+    precision, and the bf16 hierarchy."""
+    tol = {"f64": "1e-8", "f32": "1e-6"}
+    for precision in ("f64", "f32"):
+        side, used = run_cli([*_grid(100), "-mat_type", "aij", "-precision", precision, "-ksp_rtol",
+                              tol[precision], "-ksp_atol", "1e-12", "-ksp_converged_reason", "-ksp_view"])
+        label = f"-mat_type aij -precision {precision}"
+        print(f"{label} at 100^3: {side['iters']} iterations, reason {side['reason']}, Linf"
+              f" {side['linf_error']:.6e}, t_init {side['t_init']:.4f} s, breakdown {side['setup_breakdown']}")
+        _require(side["reason"] > 0, f"{label}: reason {side['reason']} is not positive")
+        _require(np.isfinite(side["linf_error"]) and side["linf_error"] < 1e-3,
+                 f"{label}: Linf {side['linf_error']} >= 1e-3")
+        _require("star_lift" in side["setup_breakdown"], f"{label}: the matrix was not lifted")
+        _require((used["star7_mv"] > 0) == (precision == "f32"),
+                 f"{label}: star7_mv launched {used['star7_mv']} times")
+        _require(used["dia_mv"] == 0, f"{label} launched dia_mv")
+
+    side, _ = run_cli([*_grid(100), "-precision", "f64", "-ksp_compute_eigenvalues", "-ksp_rtol", "1e-8",
+                       "-ksp_atol", "1e-12", "-ksp_converged_reason"])
+    eigs = side["eigenvalues"] or []
+    _require(side["reason"] > 0 and len(eigs) == side["iters"] and eigs[0] > 0,
+             f"-ksp_compute_eigenvalues: {len(eigs)} Ritz values for {side['iters']} iterations,"
+             f" least {eigs[:1]}")
+    for ksp in ("cg", "gmres"):
+        side, _ = run_cli([*_grid(100), "-precision", "f64", "-ksp_type", ksp, "-ksp_monitor", "-ksp_rtol",
+                           "1e-8", "-ksp_atol", "1e-12", "-ksp_converged_reason"])
+        hist = side["residual_history"] or []
+        _require(side["reason"] > 0 and len(hist) == side["iters"] + 1,
+                 f"-ksp_monitor {ksp}: {len(hist)} norms for {side['iters']} iterations")
+
+    for argv, rtol in ((["-layout", "plain"], "1e-8"), (["-precision", "f32"], "1e-6")):
+        base = [*_grid(100), *argv, "-ksp_rtol", rtol, "-ksp_atol", "1e-12", "-ksp_converged_reason"]
+        f32, _ = run_cli(base)
+        side, _ = run_cli([*base, "-pc_dtype", "bf16", "-ksp_view"])
+        label = f"-pc_dtype bf16 {' '.join(argv)}"
+        print(f"{label} at 100^3: {side['iters']} inner + {side['outer_iters']} outer, reason"
+              f" {side['reason']}, Linf {side['linf_error']:.6e}, t_solve {side['t_solve']:.4f} s; the f32"
+              f" cycle {f32['iters']} inner + {f32['outer_iters']} outer, t_solve {f32['t_solve']:.4f} s")
+        _require(side["reason"] > 0, f"{label}: reason {side['reason']} is not positive")
+        _require(np.isfinite(side["linf_error"]) and side["linf_error"] < 1e-3,
+                 f"{label}: Linf {side['linf_error']} >= 1e-3")
+        _require("pc_dtype: bf16" in side["solver_view"], f"{label}: no bf16 hierarchy in its view")
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: no CUDA device")
@@ -792,11 +924,14 @@ def main() -> None:
     )
 
     kernels.reset_launches()
-    rep = solve_poisson(300, rtol=1e-8, atol=1e-12, pc="gamg", device=device)
+    torch.cuda.reset_peak_memory_stats(device)
+    rep, line = headline.run(300, device=device)
     launches = dict(kernels.LAUNCHES)
+    print(f"peak device memory of the headline solve: {torch.cuda.max_memory_allocated(device) / 1e9:.3f} GB")
     print(rep.reference_block())
     print(rep.converged_reason_line())
     print(rep.json_sidecar())
+    print(f"headline: {json.dumps(line)}")
     print(f"launches: {json.dumps(launches)}")
     _require(rep.reason == 2, f"reason {rep.reason} != 2")
     _require(np.isfinite(rep.linf_error) and rep.linf_error < 1e-4, f"Linf {rep.linf_error} >= 1e-4")
@@ -809,7 +944,7 @@ def main() -> None:
     production = rep
     rows["dia_mv"] = check_dia(device)
 
-    aij = dict(rtol=1e-8, atol=1e-12, pc="gamg", mat_type="aij")
+    aij = dict(rtol=1e-8, atol=1e-12, pc="gamg", mat_type="aij", structure_detect=False)
     small = solve_poisson(24, device=device, **aij)
     print(f"24^3 aij: {small.json_sidecar()}")
     _require(
@@ -837,6 +972,7 @@ def main() -> None:
     for name in STENCIL_KERNELS:
         _require(aij_launches[name] == 0, f"the aij path launched the stencil kernel {name}")
     launches["dia_mv"] = aij_launches["dia_mv"]
+    blind = rep
 
     check_zmarch(device)
     rows.update(check_kernels(device, tuple(NEW_KERNELS)))
@@ -1018,6 +1154,9 @@ def main() -> None:
             _require(used["star7_mv"] > 0, f"{label} did not launch star7_mv")
             for name, n in used.items():
                 _require(not (name.startswith("fused7") and n), f"{label} launched {name}")
+
+    check_lifted(device, production, blind)
+    check_uniform_aij_and_records()
 
     print(json.dumps({"kernels": [
         {

@@ -1,7 +1,7 @@
 """The general-matrix (aij) slice end to end at 24^3: the JAX package's
 structure-blind solve (``mat_type="aij", structure_detect=False``) against
-the port's ``solve_poisson(mat_type="aij")`` on the CPU, and the options
-the port refuses."""
+the port's on the CPU, the options the port refuses there, and uniform
+precision through the star lift."""
 
 import json
 
@@ -18,7 +18,9 @@ from tpusparse_torch.grid.grid3d import Grid3D
 from tpusparse_torch.grid.poisson import assemble_poisson
 from tpusparse_torch.sparse.dia import DFDIA, DIA
 
-KW = dict(rtol=1e-8, atol=1e-12, pc="gamg", mat_type="aij")
+# the structure-blind route (K5): the default proves the matrix a star
+# and takes the stencil route (tests/test_torch_starlift.py)
+KW = dict(rtol=1e-8, atol=1e-12, pc="gamg", mat_type="aij", structure_detect=False)
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -31,7 +33,7 @@ def _one_thread():
 
 @pytest.fixture(scope="module")
 def reports():
-    want = j_solve_poisson(24, warmup=False, structure_detect=False, **KW)
+    want = j_solve_poisson(24, warmup=False, **KW)
     got = solve_poisson(24, device="cpu", warmup=False, **KW)
     return want, got
 
@@ -67,7 +69,7 @@ def test_aij_counts_match_jax_in_f32(n):
     packages, the port takes the JAX package's counts at sizes between 24^3
     and 300^3 (48^3 differs: there the rho start vector's rounding
     decides, ROADMAP section 3).  ~3 min for both sizes: ``pytest -m slow``."""
-    want = j_solve_poisson(n, warmup=False, structure_detect=False, **KW)
+    want = j_solve_poisson(n, warmup=False, **KW)
     got = solve_poisson(n, device="cpu", warmup=False, **KW)
     assert (got.outer_iters, got.reason) == (want.outer_iters, want.reason)
     # inner within +-1, as at 24^3: f32 dots summed in another order (the
@@ -115,6 +117,18 @@ def test_aij_route_is_structure_blind():
     [(dict(mat_type="csr"), ValueError), (dict(precision="f64"), NotImplementedError)],
 )
 def test_unknown_options_raise(kw, err):
+    """An unknown mat_type, and uniform precision on the structure-blind
+    route (ROADMAP queue 1, item 9.5)."""
     opts = dict(KW, **kw)
     with pytest.raises(err):
         solve_poisson(8, device="cpu", **opts)
+
+
+@pytest.mark.parametrize("precision", ["f64", "f32"])
+def test_uniform_precision_runs_through_the_lift(precision):
+    """``precision="f64"|"f32"`` with the default ``structure_detect``:
+    the lifted star solved on the plain route in that dtype."""
+    rep = solve_poisson(8, device="cpu", warmup=False, view=True,
+                        **dict(KW, structure_detect=True, precision=precision, rtol=1e-6))
+    assert rep.reason == 2 and rep.outer_iters == 0 and rep.precision == precision
+    assert "star DETECTED" in rep.solver_view and "layout: plain" in rep.solver_view

@@ -5,7 +5,8 @@ and K15 also at shapes of 1-3 cells and several tiles and z-chunks, with
 their face and pad cells),
 small stencil (padded, full-fusion, plain layout, the
 unfused padded cycle, W-cycle, threshold schedule, the plain-only GAMG
-options and the standalone PCs), aij and reference-config solves on the
+options and the standalone PCs), aij (structure-blind and lifted),
+uniform-precision aij, bf16-hierarchy and reference-config solves on the
 card against the same solves on the CPU, and ``bench.itprof`` at 24^3.
 
 These tests need a CUDA device and skip without one.  The file imports no
@@ -390,7 +391,8 @@ def test_small_solve_on_card_matches_cpu(cuda):
 
 
 def test_small_aij_solve_on_card_matches_cpu(cuda):
-    kw = dict(rtol=1e-8, atol=1e-12, pc="gamg", warmup=False, mat_type="aij")
+    """The structure-blind aij route (``structure_detect=False``): K5 only."""
+    kw = dict(rtol=1e-8, atol=1e-12, pc="gamg", warmup=False, mat_type="aij", structure_detect=False)
     kernels.reset_launches()
     gpu = solve_poisson(16, device=cuda, **kw)
     assert kernels.LAUNCHES["dia_mv"] > 0
@@ -489,14 +491,23 @@ SOLVES = {
     "xline_bjacobi": (dict(amg_params=AMGParams(bjacobi_bs=18)), {"star7_mv"}, {"fused7_mvdot"}),
     "pc_jacobi": (dict(pc="jacobi"), {"fused7_mvdot"}, {"fused7_descent_rr", "fused7_residual"}),
     "pc_sor": (dict(pc="sor"), {"star7_mv"}, {"fused7_mvdot"}),
-    "aij_lu": (dict(mat_type="aij", amg_params=AMGParams(coarse_solve="lu")), {"dia_mv"}, {"star7_mv"}),
+    "aij_lu": (dict(mat_type="aij", structure_detect=False, amg_params=AMGParams(coarse_solve="lu")),
+               {"dia_mv"}, {"star7_mv"}),
+    # the default aij route: the matrix proved a star, solved on K1-K4
+    "aij_lifted": (dict(mat_type="aij"),
+                   {"star7_mv_padded", "fused7_mvdot", "fused7_descent_rr", "fused7_ascent_rz"},
+                   {"dia_mv", "star7_mv"}),
+    # uniform precision through the lift: the plain f32 route (K1p)
+    "aij_f32": (dict(mat_type="aij", precision="f32", rtol=1e-6), {"star7_mv"}, {"dia_mv", "fused7_mvdot"}),
+    # the bf16 hierarchy on the plain layout: K1p for the f32 inner operator
+    "bf16_plain": (dict(layout="plain", pc_dtype="bf16"), {"star7_mv"}, {"fused7_mvdot", "dia_mv"}),
 }
 
 
 @pytest.mark.parametrize("name", list(SOLVES))
 def test_gamg_options_on_card_match_cpu(cuda, name):
     extra, used, unused = SOLVES[name]
-    kw = dict(rtol=1e-8, atol=1e-12, warmup=False, **extra)
+    kw = {"rtol": 1e-8, "atol": 1e-12, "warmup": False, **extra}
     kernels.reset_launches()
     gpu = solve_poisson(18, device=cuda, **kw)
     assert all(kernels.LAUNCHES[k] > 0 for k in used), kernels.LAUNCHES

@@ -117,7 +117,8 @@ def test_malformed_values_raise_in_both(argv, err):
         ["-precision", "tf"],                    # not to port
         ["-mat_type", "aij", "-mat_structure_detect", "0", "-pc_gamg_aggregation", "banded"],
         ["-profile", "trace_dir"],
-        ["-mat_type", "aij"],                    # -mat_structure_detect 1 by default
+        # uniform precision on the structure-blind route (queue 1, item 9.5)
+        ["-mat_type", "aij", "-mat_structure_detect", "0", "-precision", "f64"],
         ["-mat_type", "aij", "-mat_structure_detect", "0", "-pc_gamg_aggregation", "greedy"],
     ],
 )
@@ -129,8 +130,8 @@ def test_unported_values_raise(argv):
         assert j_load_options(["-config", REF, *argv])  # the JAX package takes them
 
 
-# the preconditioner values this port took last: each parses to the JAX
-# package's fields
+# the preconditioner, aij and pc_dtype values the port took last: each
+# parses to the JAX package's fields
 ACCEPTED = [
     ["-pc_type", "sor"],
     ["-pc_type", "jacobi"],
@@ -141,6 +142,10 @@ ACCEPTED = [
     ["-pc_gamg_threshold", "0.05"],
     ["-pc_mg_cycle_type", "w"],
     ["-mg_levels_ksp_max_it", "3"],
+    ["-mat_type", "aij"],                    # -mat_structure_detect 1 by default
+    ["-mat_type", "aij", "-precision", "f32"],
+    ["-pc_dtype", "bf16", "-layout", "plain"],
+    ["-pc_dtype", "bf16", "-precision", "f64"],
 ]
 
 
@@ -148,7 +153,9 @@ ACCEPTED = [
 def test_accepted_values_parse_as_in_jax(argv):
     got = load_options(["-config", REF, *argv])
     want = j_load_options(["-config", REF, *argv])
-    assert (got.pc_type, got.pc_mg_cycle_type, got.layout) == (want.pc_type, want.pc_mg_cycle_type, want.layout)
+    for f in ("pc_type", "pc_mg_cycle_type", "layout", "mat_type", "mat_structure_detect", "precision",
+              "pc_dtype"):
+        assert getattr(got, f) == getattr(want, f), f
     for f in dataclasses.fields(AMGParams):
         assert getattr(got.amg_params(), f.name) == getattr(want.amg_params(), f.name), f.name
 

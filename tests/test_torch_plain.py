@@ -186,11 +186,24 @@ def test_cli_routes_match_jax(argv):
     "argv, match",
     [
         (["-precision", "tf"], "not to port"),
-        (["-pc_dtype", "bf16", "-layout", "plain"], "queue 1, item 4"),
-        (["-pc_dtype", "bf16", "-precision", "f32"], "queue 1, item 4"),
-        (["-ksp_compute_eigenvalues", "-precision", "f64"], "queue 1, item 8"),
+        (["-mat_type", "aij", "-mat_structure_detect", "0", "-precision", "f32"], "queue 1, item 9.5"),
     ],
 )
 def test_cli_refusals_name_their_roadmap_item(argv, match):
     with pytest.raises(NotImplementedError, match=match):
         main([*_grid(8), *argv, "-device", "cpu"])
+
+
+@pytest.mark.parametrize(
+    "argv, expect",
+    [
+        (["-pc_dtype", "bf16", "-layout", "plain"], "pc_dtype: bf16"),
+        (["-pc_dtype", "bf16", "-precision", "f32"], "pc_dtype: bf16"),
+        (["-ksp_compute_eigenvalues", "-precision", "f64"], "Iteratively computed eigenvalues"),
+    ],
+)
+def test_former_cli_refusals_run(argv, expect):
+    """The values these routes refused until cast_hierarchy and
+    solve/spectrum.py were ported run at 8^3 on the CPU."""
+    text, got = _run(main, [*_grid(8), *argv, "-ksp_view", "-device", "cpu"])
+    assert got["reason"] == 2 and expect in text

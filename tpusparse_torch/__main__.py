@@ -6,15 +6,15 @@ of the Poisson branch of ``tpusparse/__main__.py``.
 
 Prints the reference's output block (``src/main_ksp.cpp:124-129``) plus a
 JSON sidecar line prefixed with ``JSON:``, and what ``-ksp_view``,
-``-ksp_monitor``, ``-ksp_converged_reason``, ``-log_view`` and
-``-options_left`` ask for.  ``-device cuda`` (the default) needs a CUDA
-device; ``-device cpu`` runs every kernel's plain twin on the CPU.
+``-ksp_monitor``, ``-ksp_converged_reason``, ``-ksp_compute_eigenvalues``,
+``-log_view`` and ``-options_left`` ask for.  ``-device cuda`` (the
+default) needs a CUDA device; ``-device cpu`` runs every kernel's plain
+twin on the CPU.
 """
 
 from __future__ import annotations
 
 import sys
-import warnings
 
 import torch
 
@@ -34,18 +34,6 @@ def main(argv: list[str] | None = None) -> int:
             "-device cuda: no CUDA device here; -device cpu runs the"
             " kernels' plain twins"
         )
-    if opts.ksp_compute_eigenvalues:
-        # the JAX driver computes them for uniform-precision CG only and
-        # skips them with a warning elsewhere (driver.py:491-501)
-        if opts.precision != "mixed" and opts.ksp_type == "cg" and not opts.ksp_monitor:
-            raise NotImplementedError(
-                "-ksp_compute_eigenvalues needs solve/spectrum.py, which is not"
-                " ported to tpusparse_torch yet (ROADMAP queue 1, item 8)"
-            )
-        warnings.warn(
-            "-ksp_compute_eigenvalues needs uniform-precision -ksp_type cg"
-            " without -ksp_monitor; skipping eigenvalue computation"
-        )
     rep = solve_poisson(
         opts.da_grid_x, opts.da_grid_y, opts.da_grid_z,
         device=device,
@@ -59,11 +47,15 @@ def main(argv: list[str] | None = None) -> int:
         ksp_gmres_restart=opts.ksp_gmres_restart,
         ksp_richardson_scale=opts.ksp_richardson_scale,
         mat_type=opts.mat_type,
+        structure_detect=bool(opts.mat_structure_detect),
         precision=opts.precision,
         # -layout auto: padded, or plain for the options the padded
         # kernels cannot honour (driver docstring)
         layout=opts.layout,
+        pc_dtype=opts.pc_dtype,
         mg_cycle=opts.pc_mg_cycle_type,
+        # computed for uniform-precision CG; elsewhere the driver warns
+        compute_eigenvalues=opts.ksp_compute_eigenvalues,
         monitor=opts.ksp_monitor,
         view=opts.ksp_view,
     )
@@ -73,6 +65,8 @@ def main(argv: list[str] | None = None) -> int:
         print(rep.monitor_block())
     if opts.ksp_converged_reason:
         print(rep.converged_reason_line())
+    if opts.ksp_compute_eigenvalues and rep.eigenvalues:
+        print(rep.eigenvalues_block())
     print(rep.reference_block())
     if opts.log_view:
         print(rep.log_view())

@@ -420,11 +420,51 @@ def cast_coarse_coefs(hier: Hierarchy, dtype=torch.bfloat16) -> Hierarchy:
     return dataclasses.replace(hier, levels=new)
 
 
+# the Python float fields of a hierarchy that hold data of its dtype (the
+# JAX package's 0-d array leaves): ``cast_hierarchy`` rounds them too
+_DATA_SCALARS = ("rho", "damping", "cx", "cy", "cz", "omega")
+
+
+def cast_hierarchy(hier: Hierarchy, dtype: torch.dtype) -> Hierarchy:
+    """Cast every float field of the hierarchy to ``dtype`` — port of
+    ``tpusparse/amg/hierarchy.py::cast_hierarchy``, JAX's tree map over the
+    float leaves: every float tensor, and the Python float scalars that are
+    data there (``_DATA_SCALARS``) rounded to ``dtype``'s values.
+
+    The V-cycle is an approximate inverse, so a bf16 hierarchy trades
+    mantissa for half the bytes the preconditioner moves.  The driver casts
+    after the build (``pc_dtype="bf16"`` off the padded route), so setup
+    stays in the build dtype.
+    """
+    def cast(v, name=None):
+        if isinstance(v, torch.Tensor):
+            return v.to(dtype) if v.is_floating_point() else v
+        if isinstance(v, float) and name in _DATA_SCALARS:
+            return torch.tensor(v, dtype=torch.float64).to(dtype).item()
+        if dataclasses.is_dataclass(v) and not isinstance(v, type):
+            return dataclasses.replace(v, **{
+                f.name: cast(getattr(v, f.name), f.name) for f in dataclasses.fields(v) if f.init
+            })
+        if isinstance(v, (list, tuple)):
+            return type(v)(cast(e) for e in v)
+        return v
+
+    return cast(hier)
+
+
+def _scalar_type(dtype: torch.dtype):
+    """The numpy scalar type the smoother's scalars are computed in: the
+    level's own (``np_float``), f32 for a bf16 level (numpy has no bf16;
+    XLA computes a bf16 scalar chain in f32 and rounds where it meets the
+    fields)."""
+    return np.float32 if dtype == torch.bfloat16 else np_float(dtype)
+
+
 def _cheb_scalars(hier: Hierarchy, lev: Level, degree: int):
     """(1/theta, theta, [(ad, g) of steps 2..degree]): the Chebyshev
     recurrence's scalars as ``_smooth`` computes them, in numpy scalars of
-    the level's dtype."""
-    rho = np_float(lev.dinv.dtype)(lev.rho)
+    the level's dtype (``_scalar_type``)."""
+    rho = _scalar_type(lev.dinv.dtype)(lev.rho)
     lo = hier.cheby_lo * rho
     hi = hier.cheby_hi * rho
     theta = 0.5 * (hi + lo)

@@ -7,7 +7,8 @@ Prints, after the card's name and power limit:
 
 - ``solve_poisson(n, rtol=1e-8, atol=1e-12, pc="gamg")`` twice (its JSON
   sidecar), then the peak device memory of the second call; with
-  ``--mat-type aij`` the structure-blind general-matrix route; with
+  ``--mat-type aij`` the structure-blind general-matrix route
+  (``structure_detect=False``); with
   ``--config`` the KSP method, tolerances and GAMG parameters of that
   options file, read as the CLI's ``-config`` reads it (the reference
   config: CG, rtol 1e-14, Richardson(1), so the cycle below runs K6/K7);
@@ -164,7 +165,7 @@ def main(argv=None) -> None:
 
     def solve_once():
         rep = solve_poisson(args.n, pc="gamg", device=device, mat_type=args.mat_type, amg_params=params,
-                            ksp=ksp, cg_fusion=args.cg_fusion, **kw)
+                            ksp=ksp, cg_fusion=args.cg_fusion, structure_detect=not aij, **kw)
         print(rep.json_sidecar())
 
     solve_once()

@@ -38,13 +38,16 @@ f32 under f64 defect correction.  The routes:
   method runs on the plain operator in that dtype, preconditioned by the
   plain V-cycle of a hierarchy built in the same dtype (the JAX driver's
   ``:756-764``); in f32 its level-0 applies are K1p, in f64 plain torch.
-- ``mat_type="aij"``: the structure-blind general-matrix route
-  (``_solve_poisson_aij`` with ``structure_detect=False`` in the JAX
-  driver).  The system is a 7-band DIA (f32 ``DIA`` for the inner solves,
-  two-float ``DFDIA`` for the outer residual), the hierarchy the
-  device-resident geometric GAMG (``amg/geo.py``), and the V-cycle the
-  plain one over flat DIA levels; every f32 level apply is kernel K5.
-  ``pc`` is gamg, jacobi or none there.
+- ``mat_type="aij"``: the system as a 7-band DIA (f32 ``DIA`` for the
+  inner solves, two-float ``DFDIA`` for the outer residual; one ``DIA`` in
+  the solve's dtype under uniform precision).  With GAMG and
+  ``structure_detect`` (the JAX default, ``_solve_poisson_aij``'s
+  ``:1062-1150``) ``sparse/starlift.py`` proves it a constant-coefficient
+  star and the solve moves onto the stencil routes above (K1-K4 under mixed
+  precision).  Otherwise it is the structure-blind route: the
+  device-resident geometric GAMG (``amg/geo.py``) and the plain V-cycle
+  over flat DIA levels, every f32 level apply kernel K5; ``pc`` is gamg,
+  jacobi or none there, mixed precision only.
 """
 
 from __future__ import annotations
@@ -53,7 +56,9 @@ import dataclasses
 import functools
 import json
 import time
+import warnings
 
+import numpy as np
 import torch
 
 from tpusparse_torch.amg.fused_cycle import (
@@ -66,6 +71,7 @@ from tpusparse_torch.amg.fused_cycle import (
 from tpusparse_torch.amg.hierarchy import (
     AMGParams,
     cast_coarse_coefs,
+    cast_hierarchy,
     gamg_setup,
     hierarchy_summary,
     plain_cycle_only,
@@ -74,7 +80,11 @@ from tpusparse_torch.amg.hierarchy import (
 )
 from tpusparse_torch.amg.unstructured import gamg_setup_unstructured
 from tpusparse_torch.grid.grid3d import Grid3D
-from tpusparse_torch.grid.poisson import poisson_dia_device, poisson_stencil_device
+from tpusparse_torch.grid.poisson import (
+    assemble_poisson,
+    poisson_dia_device,
+    poisson_stencil_device,
+)
 from tpusparse_torch.solve.bcgs import bicgstab
 from tpusparse_torch.solve.cg import ConvergedReason, cg
 from tpusparse_torch.solve.chebyshev import chebyshev
@@ -84,7 +94,10 @@ from tpusparse_torch.solve.minres import minres
 from tpusparse_torch.solve.pipelined import cg_pipelined
 from tpusparse_torch.solve.refine import cg_refined
 from tpusparse_torch.solve.simple import preonly, richardson
+from tpusparse_torch.solve.spectrum import eigenvalue_block, ritz_values
+from tpusparse_torch.sparse.dia import DIA
 from tpusparse_torch.sparse.padded import PaddedStar, crop_field, pad_field
+from tpusparse_torch.sparse.starlift import star_lift
 
 
 @dataclasses.dataclass
@@ -106,11 +119,18 @@ class SolveReport:
     precision: str = "mixed"
     outer_iters: int = 0
     mat_type: str = "stencil"
-    # -ksp_monitor data: the true ||r||_2 of each outer sweep (index 0 =
-    # ||b||), f32 values as the JAX package records them
+    # t_setup's parts in seconds: "star_lift" (or "star_lift_refused") on
+    # the aij route, "hierarchy_build" with GAMG
+    setup_breakdown: dict | None = None
+    # -ksp_monitor data, f32 values as the JAX package records them: the
+    # true ||r||_2 of each outer sweep under mixed precision, the method's
+    # norm of each iteration under uniform precision (index 0 = initial)
     residual_history: list | None = None
     # -ksp_view text (KSPView + PCView), filled when view=True
     solver_view: str | None = None
+    # -ksp_compute_eigenvalues data: the Ritz values of M A from CG's own
+    # scalars (solve/spectrum.py), ascending
+    eigenvalues: list | None = None
 
     def log_view(self) -> str:
         """PETSc ``-log_view``-style performance summary: phase wall times
@@ -149,6 +169,13 @@ class SolveReport:
             f"  {i} KSP Residual norm {r:e}"
             for i, r in enumerate(self.residual_history)
         )
+
+    def eigenvalues_block(self) -> str:
+        """PETSc ``-ksp_compute_eigenvalues`` output and the kappa(M A)
+        estimate (``solve/spectrum.py::eigenvalue_block``)."""
+        if not self.eigenvalues:
+            return ""
+        return eigenvalue_block(np.asarray(self.eigenvalues))
 
     def converged_reason_line(self) -> str:
         """PETSc ``-ksp_converged_reason`` output (KSPConvergedReasonView
@@ -327,6 +354,18 @@ def _standalone_pc(pc: str, op_lo):
     return None
 
 
+def _assemble_aij(grid: Grid3D, device, precision: str):
+    """The aij system, flat: ``(op_hi, op_lo, b, exact)``.  Under mixed
+    precision on the device (``build_system_aij``); under uniform precision,
+    as the JAX driver's host route, one ``DIA`` in that dtype from
+    ``assemble_poisson``, both operators."""
+    if precision == "mixed":
+        return build_system_aij(grid, device)
+    a, b, exact = assemble_poisson(grid, dtype=np.float32 if precision == "f32" else np.float64)
+    op = DIA.from_csr(a, device=device)
+    return op, op, torch.as_tensor(b, device=device), torch.as_tensor(exact, device=device)
+
+
 def solve_poisson(
     nx: int,
     ny: int | None = None,
@@ -345,8 +384,11 @@ def solve_poisson(
     mat_type: str = "stencil",
     precision: str = "mixed",
     layout: str = "auto",
+    pc_dtype: str = "f32",
     mg_cycle: str = "v",
     extent: tuple[float, float, float] | None = None,
+    structure_detect: bool = True,
+    compute_eigenvalues: bool = False,
     cg_fusion: bool = False,
     monitor: bool = False,
     view: bool = False,
@@ -362,8 +404,13 @@ def solve_poisson(
     as in the JAX driver, each inner solve is capped at ``cg_refined``'s
     ``inner_maxiter`` and the sweeps at its ``max_outer``, so ``maxiter``
     only enters the ``-ksp_view`` text; under uniform precision it caps the
-    solve.  ``monitor`` records the true residual of each outer sweep
-    (mixed precision only), ``view`` the solver's configuration text.
+    solve.  ``monitor`` records the residual norms (``-ksp_monitor``): the
+    true residual of each outer sweep under mixed precision, the method's
+    own norm of each iteration under uniform precision.  ``view`` records
+    the solver's configuration text.  ``compute_eigenvalues``: the Ritz
+    values of M A from CG's scalars (``solve/spectrum.py``), for
+    uniform-precision CG without ``monitor``; elsewhere it warns and is
+    skipped, as in the JAX driver.
 
     ``pc``: "gamg" (the hierarchy of ``amg_params``; ``mg_cycle`` "v" or
     "w"; ``amg_params.threshold`` > 0 builds the semicoarsening schedule of
@@ -371,11 +418,20 @@ def solve_poisson(
     stencil route's plain layout) or "none".  "bjacobi" raises on every
     route, as in the JAX driver without a host matrix.
 
-    ``mat_type``: "stencil" or "aij".  "aij" is the structure-blind route,
-    the JAX driver's ``structure_detect=False``: its default first proves
-    the matrix a star and moves it onto the stencil route
-    (``sparse/starlift.py``), which is not ported.  It runs mixed
-    precision only and ignores ``layout``, as the JAX aij driver does.
+    ``mat_type``: "stencil" or "aij", the system as a general banded matrix
+    (``DIA``, and a two-float ``DFDIA`` outer operator under mixed
+    precision).  With ``pc="gamg"`` and ``structure_detect`` (the JAX
+    default) the driver first proves the matrix a constant-coefficient star
+    (``sparse/starlift.py``) and, on success, solves it on the stencil
+    route: padded, or plain where ``plain_cycle_only`` asks for the plain
+    cycle, ignoring ``layout`` and ``pc_dtype`` as the JAX aij driver does;
+    the proof's time is ``t_setup``'s ``setup_breakdown["star_lift"]``.
+    Otherwise (or where the proof fails, ``"star_lift_refused"``) it runs
+    the structure-blind route: a geometric GAMG over flat DIA levels whose
+    f32 applies are kernel K5, mixed precision only.  The system is
+    assembled on the device under mixed precision (``poisson_dia_device``)
+    and on the host under uniform precision (``assemble_poisson``), the JAX
+    driver's default ``assembly="auto"``.
 
     ``precision``: "mixed" (f32 inner solves under f64 defect correction),
     "f64" or "f32" (uniform: one solve in that dtype, always on plain
@@ -387,10 +443,11 @@ def solve_poisson(
     unless ``plain_cycle_only`` (or ``pc="sor"``) asks for the plain
     cycle.  "padded" raises there.
 
-    The coarse coefficients are bf16 on the padded route with GAMG
-    (``cast_coarse_coefs``) and keep the hierarchy's dtype on the plain
-    and uniform routes, as in the JAX driver with its default ``pc_dtype``
-    ("f32"; its "bf16", ``cast_hierarchy``, is not ported).
+    ``pc_dtype``: "f32", or "bf16", which casts the whole hierarchy
+    (``cast_hierarchy``) on the stencil route's plain layout and under
+    uniform precision; the cycle then takes ``r`` in bf16 and returns ``z``
+    in ``r``'s dtype.  The padded route ignores it, as the JAX driver does,
+    and keeps its own bf16 coarse coefficients (``cast_coarse_coefs``).
 
     ``cg_fusion``: the full-fusion CG body, the JAX driver's
     ``TPUSPARSE_CG_FUSION`` environment switch as an argument.  It takes
@@ -400,11 +457,12 @@ def solve_poisson(
     solve that did not run.
 
     Phase timing protocol (main_ksp.cpp:80-106): init = system build,
-    setup = preconditioner construction, solve = the solve.  The device is
-    brought up before the init timer starts; the setup runs once untimed
-    before its timed run, and the solve once before its timed run, so
-    kernel builds and first-call costs stay out of ``t_setup`` and
-    ``t_solve``.  Every timer read follows a device synchronize.
+    setup = preconditioner construction (and the structure proof), solve =
+    the solve.  The device is brought up before the init timer starts; the
+    setup and the proof run once untimed before their timed run, and the
+    solve once before its timed run, so kernel builds and first-call costs
+    stay out of ``t_setup`` and ``t_solve``.  Every timer read follows a
+    device synchronize.
     """
     if mat_type not in ("stencil", "aij"):
         raise ValueError(f"unknown mat_type {mat_type!r}")
@@ -428,6 +486,8 @@ def solve_poisson(
         raise ValueError(f"unknown precision {precision!r} (mixed | f64 | f32)")
     if layout not in ("auto", "padded", "plain"):
         raise ValueError(f"unknown layout {layout!r} (auto | padded | plain)")
+    if pc_dtype not in ("f32", "bf16"):
+        raise ValueError(f"unknown pc_dtype {pc_dtype!r} (f32 | bf16)")
     params = amg_params or AMGParams()
     plain_only = pc == "sor" or (pc == "gamg" and plain_cycle_only(params))
     if mat_type == "stencil" and layout == "padded" and plain_only:
@@ -437,12 +497,15 @@ def solve_poisson(
             " / -pc_type sor or use layout='plain'/'auto'"
         )
     mixed = precision == "mixed"
+    lift = mat_type == "aij" and pc == "gamg" and structure_detect
     if mat_type == "aij":
         route = "aij"
-        if not mixed:
+        if not mixed and not lift:
             raise NotImplementedError(
-                f"precision={precision!r} with mat_type='aij' is not ported to"
-                f" tpusparse_torch yet (ROADMAP queue 1, item 9)"
+                f"precision={precision!r} with mat_type='aij' runs only through"
+                f" the star lift (pc='gamg', structure_detect=True): the"
+                f" structure-blind route in uniform precision is not ported to"
+                f" tpusparse_torch yet (ROADMAP queue 1, item 9.5)"
             )
     else:
         route = "padded" if mixed and layout != "plain" and not plain_only else "plain"
@@ -452,12 +515,16 @@ def solve_poisson(
             " mixed-precision stencil route: it needs ksp='cg', pc='gamg',"
             " mat_type='stencil', precision='mixed' and layout='padded'"
         )
-    if monitor and not mixed:
-        raise NotImplementedError(
-            "monitor=True under uniform precision needs the Krylov methods'"
-            " own history, which is not ported to tpusparse_torch yet"
-            " (ROADMAP queue 1, item 3)"
+    eigs = compute_eigenvalues
+    if eigs and (mixed or ksp != "cg" or monitor):
+        # PETSc computes them for any KSP; the Lanczos identity is wired
+        # for uniform-precision CG (mixed precision runs many short inner
+        # solves, no single Lanczos process), as in the JAX driver
+        warnings.warn(
+            "-ksp_compute_eigenvalues needs uniform-precision -ksp_type cg"
+            " without -ksp_monitor; skipping eigenvalue computation"
         )
+        eigs = False
     lx, ly, lz = extent or (1.0, 1.0, 1.0)
     grid = Grid3D(nx, ny or nx, nz or nx, lx=lx, ly=ly, lz=lz)
     ksp_solve = _pick_ksp(ksp, ksp_gmres_restart, ksp_richardson_scale, precision)
@@ -481,10 +548,43 @@ def solve_poisson(
         )
         layout_text = "layout: plain"
     else:
-        op, op_lo, b, exact = build_system_aij(grid, device)
+        op, op_lo, b, exact = _assemble_aij(grid, device, precision)
         layout_text = "mat_type: aij (DIA containers)"
     _sync(device)
     t_init = time.perf_counter() - t0
+
+    breakdown = {}
+    view_extra, t_lift = None, 0.0
+    if lift:
+        if warmup:
+            star_lift(op_lo, op, grid.shape)
+            _sync(device)
+        t0 = time.perf_counter()
+        lifted = star_lift(op_lo, op, grid.shape)
+        proved = lifted is not None
+        if proved:
+            # onto the stencil route; the DIA containers go with the names
+            op, op_lo = lifted
+            del lifted
+            b, exact = b.reshape(grid.shape), exact.reshape(grid.shape)
+            route = "padded" if mixed and not plain_only else "plain"
+            if route == "padded":
+                op_lo = PaddedStar.from_star(op_lo)
+            layout_text = "layout: padded-resident" if route == "padded" else "layout: plain"
+            view_extra = (
+                "mat structure: constant-coefficient star DETECTED (exact proof)"
+                " -> structured executor"
+            )
+        _sync(device)
+        t_lift = time.perf_counter() - t0
+        breakdown["star_lift" if proved else "star_lift_refused"] = t_lift
+        if not proved and not mixed:
+            raise NotImplementedError(
+                "the matrix did not prove a star, and the structure-blind aij"
+                " route in uniform precision is not ported to tpusparse_torch"
+                " yet (ROADMAP queue 1, item 9.5)"
+            )
+    bf16 = pc_dtype == "bf16" and pc == "gamg" and mat_type == "stencil" and route == "plain"
 
     # -pc_gamg_threshold on the stencil route: a host strength measure picks
     # a per-axis coarsening schedule (None when isotropic: the threshold-0
@@ -500,13 +600,21 @@ def solve_poisson(
                 return cast_coarse_coefs(gamg_setup(op_lo, params, factors_schedule=sched))
         elif route == "plain":
             def setup():
-                return gamg_setup(op_lo, params, factors_schedule=sched)
+                hier = gamg_setup(op_lo, params, factors_schedule=sched)
+                # the bf16 V-cycle: every stored field of the hierarchy
+                return cast_hierarchy(hier, torch.bfloat16) if bf16 else hier
         else:
             def setup():
                 return gamg_setup_unstructured(op_lo, params)
     else:
         def setup():
             return _standalone_pc(pc, op_lo)
+
+    def m(r):
+        """The GAMG cycle of the plain and uniform routes."""
+        if bf16:
+            return vcycle(pc_state, r.to(torch.bfloat16), gamma=gamma).to(r.dtype)
+        return vcycle(pc_state, r, gamma=gamma)
 
     if route == "padded":
         def solve():
@@ -515,17 +623,19 @@ def solve_poisson(
             return _refined_padded(op, op_lo, b, pc_state, **kw)
     elif mixed:
         def solve():
-            if pc == "gamg":
+            if pc == "gamg" and not bf16:
                 return refined_solve_plain(op, pc_state, b, gamma=gamma, **kw)
             return cg_refined(
-                op.mv, op_lo.mv, b, rtol=rtol, atol=atol, divtol=divtol, m_lo_mv=pc_state,
-                solver=ksp_solve, history=monitor,
+                op.mv, op_lo.mv, b, rtol=rtol, atol=atol, divtol=divtol,
+                m_lo_mv=m if pc == "gamg" else pc_state, solver=ksp_solve, history=monitor,
             )
     else:
+        extra = {"spectrum": True} if eigs else {"history": True} if monitor else {}
+
         def solve():
-            m = (lambda r: vcycle(pc_state, r, gamma=gamma)) if pc == "gamg" else pc_state
             return ksp_solve(
-                op.mv, b, rtol=rtol, atol=atol, divtol=divtol, maxiter=maxiter, m_mv=m,
+                op.mv, b, rtol=rtol, atol=atol, divtol=divtol, maxiter=maxiter,
+                m_mv=m if pc == "gamg" else pc_state, **extra,
             )
 
     if warmup:
@@ -534,7 +644,10 @@ def solve_poisson(
     t0 = time.perf_counter()
     pc_state = setup()
     _sync(device)
-    t_setup = time.perf_counter() - t0
+    t_pc = time.perf_counter() - t0
+    if pc == "gamg":
+        breakdown["hierarchy_build"] = t_pc
+    t_setup = t_lift + t_pc
     if route == "padded" and pc == "gamg":
         layout_text += (
             " (fused fine level)" if fused_fine_supported(pc_state)
@@ -548,15 +661,25 @@ def solve_poisson(
     res = solve()
     _sync(device)
     t_solve = time.perf_counter() - t0
-    res, history = res if monitor else (res, None)
+    res, recorded = res if (monitor or eigs) else (res, None)
 
     if res.reason < 0:
         raise DivergedError(f"Diverged reason: {res.reason}")
+    history = eig_list = None
+    if monitor:
+        # the recorded prefix: one norm per outer sweep under mixed
+        # precision, per iteration under uniform precision
+        count = res.outer_iters if mixed else res.iters
+        history = [float(v) for v in recorded[: count + 1]]
+    elif eigs:
+        eig_list = [float(v) for v in ritz_values(*recorded, res.iters)]
     view_text = None
     if view:
         view_text = "\n".join([
             f"KSP Object: type {ksp}, rtol {rtol:g}, atol {atol:g}, maxit {maxiter}",
             f"  precision: {precision}, {layout_text}",
+            *([f"  {view_extra}"] if view_extra else []),
+            *(["  pc_dtype: bf16 (cast_hierarchy)"] if bf16 else []),
             hierarchy_summary(pc_state, gamma) if pc == "gamg" else f"PC Object: type {pc}",
         ])
     linf = (res.x - exact).abs().max().item()
@@ -579,6 +702,8 @@ def solve_poisson(
         precision=precision,
         outer_iters=getattr(res, "outer_iters", 0),
         mat_type=mat_type,
+        setup_breakdown=breakdown or None,
         residual_history=history,
         solver_view=view_text,
+        eigenvalues=eig_list,
     )

@@ -22,7 +22,7 @@ import shlex
 import warnings
 from pathlib import Path
 
-from tpusparse_torch.amg.hierarchy import AMGParams, plain_cycle_only
+from tpusparse_torch.amg.hierarchy import AMGParams
 
 
 @dataclasses.dataclass
@@ -199,19 +199,12 @@ class Options:
             (self.problem != "poisson", f"-problem {self.problem}", "queue 11"),
             (self.devices > 1, f"-devices {self.devices}", "queue 12"),
             (self.profile, "-profile (the trace)", "queue 13"),
-            # the padded route ignores -pc_dtype, as the JAX driver does;
-            # -layout auto is plain for the options the padded kernels
-            # cannot honour
-            (self.pc_dtype == "bf16" and self.mat_type == "stencil"
-             and (self.layout == "plain" or self.precision != "mixed"
-                  or (self.layout == "auto"
-                      and (self.pc_type == "sor" or plain_cycle_only(self.amg_params())))),
-             "-pc_dtype bf16 on the plain layout or under uniform precision"
-             " (cast_hierarchy)", "queue 1, item 4"),
-            (self.mat_type == "aij" and self.mat_structure_detect,
-             "-mat_type aij with -mat_structure_detect 1 (sparse/starlift.py);"
-             " -mat_structure_detect 0 runs the structure-blind route",
-             "queue 9, item 1"),
+            # uniform precision on the aij route runs through the star lift
+            # only (GAMG, -mat_structure_detect 1)
+            (self.mat_type == "aij" and self.precision in ("f64", "f32")
+             and (not self.mat_structure_detect or self.pc_type != "gamg"),
+             f"-precision {self.precision} with -mat_type aij on the"
+             f" structure-blind route", "queue 1, item 9.5"),
             (self.mat_type == "aij"
              and self.pc_gamg_aggregation in ("greedy", "banded"),
              f"-pc_gamg_aggregation {self.pc_gamg_aggregation}",

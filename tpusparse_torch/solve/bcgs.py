@@ -21,6 +21,7 @@ from tpusparse_torch.solve.cg import (
     ConvergedReason,
     _dot,
     convergence_test,
+    new_history,
     norm_h,
     np_float,
 )
@@ -38,9 +39,12 @@ def bicgstab(
     maxiter: int = 10000,
     m_mv: Callable | None = None,
     divtol: float = 1e5,
-) -> CGResult:
+    history: bool = False,
+):
     """Solve A x = b with preconditioned BiCGStab.  ``divtol`` is accepted
-    for the common interface and, as in the JAX package, not tested."""
+    for the common interface and, as in the JAX package, not tested.
+    ``history=True`` returns ``(result, norms)`` as ``cg`` does; a
+    breakdown's iteration counts but records no norm."""
     if m_mv is None:
         m_mv = lambda r: r  # noqa: E731
     x = torch.zeros_like(b) if x0 is None else x0
@@ -56,6 +60,7 @@ def bicgstab(
     p = v = torch.zeros_like(b)
     rho = alpha = omega = one
     rnorm, it, broke = norm_h(r0, f), 0, False
+    norms = new_history(maxiter, rnorm) if history else None
     reason = classify(rnorm, it)
     while reason == ConvergedReason.ITERATING:
         rho_new = _dot(r0, r)
@@ -87,8 +92,11 @@ def bicgstab(
         r, p, v = r_new, p_new, v_new
         rho, alpha, omega = rho_new, alpha_new, omega_new
         rnorm = f(rn_h)
+        if history:
+            norms[it] = rnorm
         reason = classify(rnorm, it)
-    return CGResult(
+    result = CGResult(
         x=x, iters=it, resnorm=float(rnorm),
         reason=DIVERGED_BREAKDOWN if broke else int(reason), bnorm=float(bnorm),
     )
+    return (result, norms) if history else result

@@ -94,9 +94,44 @@ def convergence_test(f, ref, rtol: float, atol: float, divtol: float, maxiter: i
     return classify
 
 
+def new_history(maxiter: int, first):
+    """The ``history=True`` record of a Krylov method: a ``(maxiter + 1,)``
+    f32 array, index 0 the initial norm, zeros past the last iteration (the
+    JAX package's array)."""
+    norms = np.zeros(maxiter + 1, np.float32)
+    norms[0] = first
+    return norms
+
+
 def norm_h(v: torch.Tensor, f):
     """||v||_2 read to the host as a numpy scalar of type ``f``."""
     return f(torch.sqrt(_dot(v, v)).item())
+
+
+def _check_args(*, fused, x0, state0, return_state, history, spectrum, a_mv_dot, m_mv_dots):
+    """JAX's incompatibility rules between ``cg``'s arguments
+    (``tpusparse/solve/cg.py:172-205``)."""
+    if history and state0 is not None:
+        raise ValueError("history=True is incompatible with state0 resume")
+    if history and return_state:
+        raise ValueError(
+            "history=True is incompatible with return_state=True (the state"
+            " tuple would be returned where the caller expects the history)"
+        )
+    if spectrum and (history or return_state or state0 is not None):
+        raise ValueError(
+            "spectrum=True is incompatible with history/return_state/state0"
+            " (each changes what the extra return slot carries)"
+        )
+    if fused and (
+        x0 is not None or state0 is not None or return_state or history or spectrum
+        or a_mv_dot is not None or m_mv_dots is not None
+    ):
+        raise ValueError(
+            "the full-fusion CG body needs a zero initial guess and is"
+            " incompatible with state0/return_state/history/spectrum/"
+            "a_mv_dot/m_mv_dots"
+        )
 
 
 def cg(
@@ -108,12 +143,16 @@ def cg(
     atol: float = 1e-50,
     maxiter: int = 10000,
     m_mv: Callable | None = None,
+    state0: tuple | None = None,
+    return_state: bool = False,
+    history: bool = False,
     a_mv_dot: Callable | None = None,
     m_mv_dots: Callable | None = None,
+    spectrum: bool = False,
     ab_fused: Callable | None = None,
     m_fused: Callable | None = None,
     divtol: float = 1e5,
-) -> CGResult:
+):
     """Solve A x = b with (preconditioned) CG.
 
     Convergence: ||r||_2 <= max(rtol*||b||_2, atol), checked every
@@ -131,15 +170,30 @@ def cg(
     lacks alpha_k p_k until the next trip; the exit adds the last term),
     which changes no residual the convergence test sees.  It needs a zero
     initial guess and takes neither ``a_mv_dot`` nor ``m_mv_dots``.
+
+    Extra results, as in the JAX package (one at a time):
+
+    - ``history=True`` returns ``(result, norms)``: a ``(maxiter + 1,)``
+      f32 numpy array of the residual norm of each iteration (index 0 the
+      initial one, zeros past ``result.iters``), the ``-ksp_monitor`` data,
+      recorded from the norm the loop reads anyway.
+    - ``spectrum=True`` returns ``(result, (alphas, betas))``: two
+      ``(maxiter,)`` f64 numpy arrays of the iteration's scalars, the
+      Lanczos data of ``solve/spectrum.py``.  They stay on the device
+      until the solve ends and come over in one transfer.
+    - ``return_state=True`` returns ``(result, state)``, the Krylov state
+      ``(x, r, z, p, <r, z>, ||r||, it)``; passed back as ``state0`` it
+      resumes the iteration exactly (``x0`` is then ignored).  The state's
+      counter goes on from where it stopped: a resumed call runs until
+      ``it`` reaches ``maxiter``.
     """
-    if (ab_fused is None) != (m_fused is None):
-        raise ValueError("ab_fused and m_fused must be given together")
     fused = ab_fused is not None
-    if fused and (x0 is not None or a_mv_dot is not None or m_mv_dots is not None):
-        raise ValueError(
-            "the full-fusion CG body needs a zero initial guess and takes"
-            " neither a_mv_dot nor m_mv_dots"
-        )
+    if fused != (m_fused is not None):
+        raise ValueError("ab_fused and m_fused must be given together")
+    _check_args(
+        fused=fused, x0=x0, state0=state0, return_state=return_state, history=history,
+        spectrum=spectrum, a_mv_dot=a_mv_dot, m_mv_dots=m_mv_dots,
+    )
     if m_mv is None:
         m_mv = lambda r: r  # noqa: E731
     if x0 is None:
@@ -151,19 +205,23 @@ def cg(
     if fused:
         return _cg_fused(ab_fused, m_fused, b, x0, f, bnorm, classify)
 
-    x = x0
-    r = b - a_mv(x0)
-    if m_mv_dots is not None:
-        z, rz, rr = m_mv_dots(r)
-        rnorm = torch.sqrt(rr)
+    if state0 is None:
+        x = x0
+        r = b - a_mv(x0)
+        if m_mv_dots is not None:
+            z, rz, rr = m_mv_dots(r)
+            rnorm = torch.sqrt(rr)
+        else:
+            z = m_mv(r)
+            rz = _dot(r, z)
+            rnorm = torch.sqrt(_dot(r, r))
+        p, it = z, 0
     else:
-        z = m_mv(r)
-        rz = _dot(r, z)
-        rnorm = torch.sqrt(_dot(r, r))
-    p = z
-    it = 0
+        x, r, z, p, rz, rnorm, it = state0
     rnorm_h = f(rnorm.item())
     reason = classify(rnorm_h, it)
+    norms = new_history(maxiter, rnorm_h) if history else None
+    scalars = [] if spectrum else None
     while reason == ConvergedReason.ITERATING:
         if a_mv_dot is not None:
             ap, pap = a_mv_dot(p)
@@ -184,12 +242,26 @@ def cg(
         p = z + beta * p
         rz = rz_new
         it += 1
+        if spectrum:
+            scalars.append(torch.stack([alpha, beta]).to(torch.float64))
         rnorm_h = f(rnorm.item())  # the one host read per iteration
+        if history:
+            norms[it] = rnorm_h
         reason = classify(rnorm_h, it)
-    return CGResult(
+    result = CGResult(
         x=x, iters=it, resnorm=float(rnorm_h), reason=int(reason),
         bnorm=float(bnorm),
     )
+    if return_state:
+        return result, (x, r, z, p, rz, rnorm, it)
+    if history:
+        return result, norms
+    if spectrum:
+        ab = np.zeros((2, maxiter), np.float64)
+        if scalars:
+            ab[:, :len(scalars)] = torch.stack(scalars).T.cpu().numpy()  # one transfer
+        return result, (ab[0], ab[1])
+    return result
 
 
 def _cg_fused(ab_fused, m_fused, b, x, f, bnorm, classify) -> CGResult:

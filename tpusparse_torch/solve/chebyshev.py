@@ -22,6 +22,7 @@ from tpusparse_torch.solve.cg import (
     ConvergedReason,
     _dot,
     convergence_test,
+    new_history,
     norm_h,
     np_float,
 )
@@ -42,11 +43,13 @@ def chebyshev(
     emax: float | None = None,
     est_iters: int = 25,
     divtol: float = 1e5,
-) -> CGResult:
+    history: bool = False,
+):
     """Solve A x = b with the preconditioned Chebyshev iteration.
 
     ``emin``/``emax``: spectrum bounds of M A; omitted, an ``est_iters``-step
-    power iteration estimates them.  Same contract as ``cg`` otherwise.
+    power iteration estimates them.  Same contract as ``cg`` otherwise;
+    ``history=True`` returns ``(result, norms)`` as ``cg`` does.
     """
     if m_mv is None:
         m_mv = lambda r: r  # noqa: E731
@@ -83,6 +86,7 @@ def chebyshev(
     d = None
     rho_k = f(1.0)
     rnorm, it = norm_h(r, f), 0
+    norms = new_history(maxiter, rnorm) if history else None
     reason = classify(rnorm, it)
     while reason == ConvergedReason.ITERATING:
         # first step: d = M r / theta; later: the two-term recurrence
@@ -97,5 +101,8 @@ def chebyshev(
         r = r - a_mv(d)
         rho_k = rho_new
         rnorm, it = norm_h(r, f), it + 1
+        if history:
+            norms[it] = rnorm
         reason = classify(rnorm, it)
-    return CGResult(x=x, iters=it, resnorm=float(rnorm), reason=int(reason), bnorm=float(bnorm))
+    result = CGResult(x=x, iters=it, resnorm=float(rnorm), reason=int(reason), bnorm=float(bnorm))
+    return (result, norms) if history else result

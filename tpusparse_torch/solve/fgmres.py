@@ -18,6 +18,7 @@ from tpusparse_torch.solve.cg import (
     CGResult,
     ConvergedReason,
     convergence_test,
+    new_history,
     norm_h,
     np_float,
 )
@@ -35,9 +36,11 @@ def fgmres(
     restart: int = 30,
     m_mv: Callable | None = None,
     divtol: float = 1e5,
-) -> CGResult:
+    history: bool = False,
+):
     """Solve A x = b with flexible (right-preconditioned) GMRES(restart).
-    ``m_mv`` may be a variable or inexact preconditioner."""
+    ``m_mv`` may be a variable or inexact preconditioner.  ``history=True``
+    returns ``(result, norms)`` as ``cg`` does."""
     if m_mv is None:
         m_mv = lambda r: r  # noqa: E731
     x = torch.zeros_like(b) if x0 is None else x0
@@ -52,12 +55,14 @@ def fgmres(
 
     r = b - a_mv(x)                      # TRUE residual (right PC)
     rnorm, it = norm_h(r, f), 0
+    norms = new_history(maxiter, rnorm) if history else None
     while classify(rnorm, it) == ConvergedReason.ITERATING:
         if it:
             r = b - a_mv(x)
-        dx, rnorm, it = _cycle(r, apply, int(restart), classify, rnorm, it, f)
+        dx, rnorm, it = _cycle(r, apply, int(restart), classify, rnorm, it, f, norms)
         x = x + dx.reshape(shape)
-    return CGResult(
+    result = CGResult(
         x=x, iters=it, resnorm=float(rnorm), reason=int(classify(rnorm, it)),
         bnorm=float(bnorm),
     )
+    return (result, norms) if history else result

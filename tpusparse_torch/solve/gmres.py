@@ -24,19 +24,21 @@ from tpusparse_torch.solve.cg import (
     ConvergedReason,
     _dot,
     convergence_test,
+    new_history,
     norm_h,
     np_float,
 )
 
 
-def _cycle(r, apply, m: int, classify, rn, it: int, f):
+def _cycle(r, apply, m: int, classify, rn, it: int, f, norms=None):
     """One restart cycle of (F)GMRES from the residual ``r``.
 
     ``apply(v_j) -> (w, u_j)``: the new Krylov direction and the vector the
     solution update combines (``v_j`` itself for GMRES, ``M^-1 v_j`` for
     FGMRES).  Steps stop once ``classify`` no longer says ITERATING.
     Returns ``(dx, rn, it)``: the update as a flat vector, the last residual
-    estimate |g[j+1]| and the iteration count.
+    estimate |g[j+1]| and the iteration count.  ``norms``, a history
+    array, receives each step's estimate at its iteration's index.
     """
     dt, n = r.dtype, r.numel()
     beta = norm_h(r, f)
@@ -78,6 +80,8 @@ def _cycle(r, apply, m: int, classify, rn, it: int, f):
         rn = f(abs(g[j + 1]))
         it += 1
         j += 1
+        if norms is not None:
+            norms[it] = rn
 
     # back-substitute R y = g on the filled j x j triangle; a column whose
     # rotated diagonal is exactly zero (lucky breakdown) gets a unit
@@ -105,9 +109,12 @@ def gmres(
     restart: int = 30,
     m_mv: Callable | None = None,
     divtol: float = 1e5,
-) -> CGResult:
+    history: bool = False,
+):
     """Solve A x = b with left-preconditioned restarted GMRES(restart).
-    Same result contract as ``cg``; the gate is ``||M b||``-relative."""
+    Same result contract as ``cg``; the gate is ``||M b||``-relative.
+    ``history=True`` returns ``(result, norms)`` as ``cg`` does, of the
+    preconditioned residual norm."""
     if m_mv is None:
         m_mv = lambda r: r  # noqa: E731
     x = torch.zeros_like(b) if x0 is None else x0
@@ -124,12 +131,14 @@ def gmres(
 
     r = pres(x)
     rnorm, it = norm_h(r, f), 0
+    norms = new_history(maxiter, rnorm) if history else None
     while classify(rnorm, it) == ConvergedReason.ITERATING:
         if it:
             r = pres(x)
-        dx, rnorm, it = _cycle(r, apply, int(restart), classify, rnorm, it, f)
+        dx, rnorm, it = _cycle(r, apply, int(restart), classify, rnorm, it, f, norms)
         x = x + dx.reshape(shape)
-    return CGResult(
+    result = CGResult(
         x=x, iters=it, resnorm=float(rnorm), reason=int(classify(rnorm, it)),
         bnorm=float(bnorm),
     )
+    return (result, norms) if history else result

@@ -24,6 +24,7 @@ from tpusparse_torch.solve.cg import (
     ConvergedReason,
     _dot,
     convergence_test,
+    new_history,
     norm_h,
     np_float,
 )
@@ -41,9 +42,12 @@ def minres(
     maxiter: int = 10000,
     m_mv: Callable | None = None,
     divtol: float = 1e5,
-) -> CGResult:
+    history: bool = False,
+):
     """Solve A x = b, A symmetric (indefinite allowed), M definite.  An
-    indefinite M surfaces as DIVERGED_NANORINF."""
+    indefinite M surfaces as DIVERGED_NANORINF.  ``history=True`` returns
+    ``(result, norms)`` as ``cg`` does, with ``phibar`` (the gated norm) in
+    place of ||r||."""
     if m_mv is None:
         m_mv = lambda r: r  # noqa: E731
     x = torch.zeros_like(b) if x0 is None else x0
@@ -71,6 +75,7 @@ def minres(
     cs = -torch.ones((), dtype=dt, device=dev)
     phibar = beta
     phibar_h, it = beta1, 0
+    norms = new_history(maxiter, beta1) if history else None
     # beta1 == 0: r0 = 0 (or M r0 = 0), already converged
     while classify(phibar_h, it) == ConvergedReason.ITERATING and beta1 > 0:
         # Lanczos step: v = y / beta; y <- M (A v - (beta/oldb) r1 -
@@ -105,7 +110,10 @@ def minres(
         x = x + phi * w
         beta = betan
         phibar_h, it = f(phibar.item()), it + 1
-    return CGResult(
+        if history:
+            norms[it] = phibar_h
+    result = CGResult(
         x=x, iters=it, resnorm=float(norm_h(b - a_mv(x), f)),
         reason=int(classify(phibar_h, it)), bnorm=float(bnorm),
     )
+    return (result, norms) if history else result

@@ -25,6 +25,7 @@ from tpusparse_torch.solve.cg import (
     ConvergedReason,
     _dot,
     convergence_test,
+    new_history,
     norm_h,
     np_float,
 )
@@ -42,8 +43,10 @@ def cg_pipelined(
     replace_every: int = 50,
     scalar_dtype: torch.dtype | None = None,
     divtol: float = 1e5,
-) -> CGResult:
-    """Solve A x = b with pipelined PCG.  Same contract as ``cg``.
+    history: bool = False,
+):
+    """Solve A x = b with pipelined PCG.  Same contract as ``cg``;
+    ``history=True`` returns ``(result, norms)`` as ``cg`` does.
 
     ``replace_every``: residual-replacement period (0 disables).
     ``scalar_dtype``: dtype of the recurrence scalars (default b's)."""
@@ -64,6 +67,7 @@ def cg_pipelined(
     z = q = p = s = zeros
     alpha = None
     rnorm, it = norm_h(r, f), 0
+    norms = new_history(maxiter, rnorm) if history else None
     reason = classify(rnorm, it)
     while reason == ConvergedReason.ITERATING:
         # the two applies are independent of this iteration's reductions
@@ -97,5 +101,8 @@ def cg_pipelined(
             z = a_mv(q)
         gamma = gamma_new
         rnorm, it = norm_h(r, f), it + 1
+        if history:
+            norms[it] = rnorm
         reason = classify(rnorm, it)
-    return CGResult(x=x, iters=it, resnorm=float(rnorm), reason=int(reason), bnorm=float(bnorm))
+    result = CGResult(x=x, iters=it, resnorm=float(rnorm), reason=int(reason), bnorm=float(bnorm))
+    return (result, norms) if history else result

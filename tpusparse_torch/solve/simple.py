@@ -11,12 +11,14 @@ from __future__ import annotations
 
 from typing import Callable
 
+import numpy as np
 import torch
 
 from tpusparse_torch.solve.cg import (
     CGResult,
     ConvergedReason,
     convergence_test,
+    new_history,
     norm_h,
     np_float,
 )
@@ -33,9 +35,11 @@ def richardson(
     m_mv: Callable | None = None,
     scale: float = 1.0,
     divtol: float = 1e5,
-) -> CGResult:
+    history: bool = False,
+):
     """Preconditioned Richardson iteration x += scale * M (b - A x)
-    (KSPRICHARDSON with ``-ksp_richardson_scale``)."""
+    (KSPRICHARDSON with ``-ksp_richardson_scale``); ``history=True``
+    returns ``(result, norms)`` as ``cg`` does."""
     if m_mv is None:
         m_mv = lambda r: r  # noqa: E731
     x = torch.zeros_like(b) if x0 is None else x0
@@ -46,13 +50,17 @@ def richardson(
 
     r = b - a_mv(x)
     rnorm, it = norm_h(r, f), 0
+    norms = new_history(maxiter, rnorm) if history else None
     reason = classify(rnorm, it)
     while reason == ConvergedReason.ITERATING:
         x = x + w * m_mv(r)
         r = b - a_mv(x)
         rnorm, it = norm_h(r, f), it + 1
+        if history:
+            norms[it] = rnorm
         reason = classify(rnorm, it)
-    return CGResult(x=x, iters=it, resnorm=float(rnorm), reason=int(reason), bnorm=float(bnorm))
+    result = CGResult(x=x, iters=it, resnorm=float(rnorm), reason=int(reason), bnorm=float(bnorm))
+    return (result, norms) if history else result
 
 
 def preonly(
@@ -65,19 +73,24 @@ def preonly(
     maxiter: int = 1,
     m_mv: Callable | None = None,
     divtol: float = 1e5,
-) -> CGResult:
+    history: bool = False,
+):
     """One preconditioner application, x = M b (KSPPREONLY).
 
     The tolerance and iteration arguments exist for interface compatibility
     and are ignored (PETSc's preonly performs no convergence test); the
-    residual is reported for observability.
+    residual is reported for observability.  ``history=True`` returns
+    ``(result, [||b||, ||b - A x||])`` as f32 values.
     """
     del x0, rtol, atol, maxiter, divtol
     if m_mv is None:
         m_mv = lambda r: r  # noqa: E731
     f = np_float(b.dtype)
     x = m_mv(b)
-    return CGResult(
+    result = CGResult(
         x=x, iters=1, resnorm=float(norm_h(b - a_mv(x), f)),
         reason=int(ConvergedReason.CONVERGED_RTOL), bnorm=float(norm_h(b, f)),
     )
+    if history:
+        return result, np.array([result.bnorm, result.resnorm], np.float32)
+    return result
