@@ -141,11 +141,28 @@ script exits non-zero without the final line:
    -precision f32`` (rtol 1e-6) through the CLI at 100^3, each beside the
    same solve with the f32 cycle: positive reason, Linf < 1e-3,
    "pc_dtype: bf16" in its view.
+27. The z-sharded fine level (p z-shards on the one card): K3z
+   fused7_descent_slab and K4z fused7_ascent_slab against their twins on
+   each slab of the stacked layout (``dist/fused_sharded.py``, halos
+   refreshed), pinned and not, at (12, 11, 13) with p = 4 (nz_l = 3) and
+   (40, 11, 13) with p = 2, and pinned at 300^3 with p = 4, as in phase 3,
+   every face and pad cell exactly 0; each slab's domain planes against one
+   unsharded K3'/K4' launch on the whole field (bit-equal: the same
+   arithmetic on the same values).  At 300^3 the p launches are timed
+   together beside their twins and one unsharded launch, with registers,
+   spills and shared bytes.  Then ``solve_poisson(300, rtol=1e-8,
+   atol=1e-12, pc="gamg", layout="padded", n_devices=4)``, counters reset
+   just before: reason 2, Linf < 1e-4, 2-3 sweeps, inner within 2 of phase
+   15's; K3z and K4z launched alike, 4 a cycle, K1p launched, K2, K3, K4,
+   K3' and K4' not; ``t_setup``, ``t_solve`` and peak memory printed beside
+   phases 5 and 15 and the plain layout's peak memory.  And ``-devices 4``
+   through the CLI at 100^3: a positive reason, Linf < 1e-3, 4 z-shards in
+   its JSON.
 
 Then one JSON line with each kernel's route, source, launches (K1-K4 from
 phase 5, K5 from phase 8, K6/K7 from phase 10, K3'/K4' from phase 11,
 K6'/K7' from phase 12, K8/K9 from phase 14, K1p from phase 15, K10 and
-K12-K16 from phase 18, K11 from phase 19), error,
+K12-K16 from phase 18, K11 from phase 19, K3z/K4z from phase 27), error,
 times, its bound at the timed shape (the larger of its unique field bytes
 over 3.35 TB/s and its operations over 67 TFLOP/s of f32, the H100 SXM's
 published peaks) and the time of one PyTorch call computing the same
@@ -177,6 +194,8 @@ from tpusparse_torch.__main__ import main as cli_main
 from tpusparse_torch.amg.hierarchy import AMGParams, threshold_schedule
 from tpusparse_torch.bench import headline
 from tpusparse_torch.bench.driver import solve_poisson
+from tpusparse_torch.dist.fused_sharded import FusedSharded
+from tpusparse_torch.dist.mesh import make_z_mesh
 from tpusparse_torch.grid.grid3d import Grid3D
 from tpusparse_torch.grid.poisson import poisson_dia_device, poisson_stencil_device
 from tpusparse_torch.kernels import _build
@@ -189,6 +208,8 @@ from tpusparse_torch.kernels.fused7 import (
     fused7_ascent1_torch,
     fused7_ascent_rz,
     fused7_ascent_rz_torch,
+    fused7_ascent_slab,
+    fused7_ascent_slab_torch,
     fused7_ascent_torch,
     fused7_cgmv,
     fused7_cgmv_torch,
@@ -203,6 +224,8 @@ from tpusparse_torch.kernels.fused7 import (
     fused7_descent1_torch,
     fused7_descent_rr,
     fused7_descent_rr_torch,
+    fused7_descent_slab,
+    fused7_descent_slab_torch,
     fused7_descent_torch,
     fused7_descentu,
     fused7_descentu_torch,
@@ -299,6 +322,18 @@ STEP_KERNELS = {
                        fused7_prolong, fused7_prolong_torch),
 }
 KERNELS.update(STEP_KERNELS)
+# K3z/K4z, fused7_call's z-slab form (z0, nzg) of modes descent and ascent
+SLAB_KERNELS = {
+    "fused7_descent_slab": (FUSED7_SRC, "tpusparse/kernels/fused7.py:575",
+                            fused7_descent_slab, fused7_descent_slab_torch),
+    "fused7_ascent_slab": (FUSED7_SRC, "tpusparse/kernels/fused7.py:674",
+                           fused7_ascent_slab, fused7_ascent_slab_torch),
+}
+KERNELS.update(SLAB_KERNELS)
+# phase 27's (global shape, z-shards, pinned) cases: nz_l = 3, the least a
+# shard holds (its neighbours read FACE planes), and 20; the last is timed
+SLAB_CASES = (((12, 11, 13), 4, True), ((12, 11, 13), 4, False), ((40, 11, 13), 2, True),
+              ((40, 11, 13), 2, False), ((300, 300, 300), 4, True))
 # the z-marching kernels (one launch each) and the ragged shapes phase 9
 # holds them at: 1-3 cells a side (never one cell alone: its Neumann row is
 # zero), x not a multiple of 4, several tiles and z-chunks
@@ -346,6 +381,7 @@ FLOPS_PER_CELL = {
     "fused7_residual": STAR + 1, "fused7_rich": STAR + 4, "fused7_cheb0": STAR + 4,
     "fused7_cheb": STAR + 6, "fused7_pre2": STAR + 9, "fused7_restrict": STAR + 4,
     "fused7_prolong": STAR + 4,
+    "fused7_descent_slab": 4 * STAR + 2, "fused7_ascent_slab": 3 * STAR + 14,
 }
 REF_CONFIG = str(pathlib.Path(__file__).resolve().parent / "configs" / "SolverOptions_GAMG.info")
 # the port's own outcome of the 300^3 reference-config solve on the H100
@@ -894,6 +930,159 @@ def check_uniform_aij_and_records() -> None:
         _require("pc_dtype: bf16" in side["solver_view"], f"{label}: no bf16 hierarchy in its view")
 
 
+def _slab_inputs(shape, p, device, pinned):
+    """Phase 27's inputs: the f32 operator's ``FusedSharded`` over p shards,
+    b, t and x1 from a fixed numpy seed in the stacked layout with their
+    halos refreshed (as ``FusedSharded.descent``/``ascent`` leave them), and
+    the same fields unsharded in the padded layout with ``op``, the
+    ``PaddedStar``."""
+    grid = Grid3D(shape[2], shape[1], shape[0])
+    star = poisson_stencil_device(grid, pin=pinned, dtype=torch.float32, device=device)[0]
+    fs = FusedSharded.build(star, make_z_mesh(p, device))
+    rng = np.random.default_rng(SEED)
+    plain = [torch.from_numpy(rng.standard_normal(shape, dtype=np.float32)).to(device) for _ in range(3)]
+    stacked = [fs.exchange_(fs.to_stacked(f)) for f in plain]
+    return fs, stacked, PaddedStar.from_star(star), [pad_field(f) for f in plain]
+
+
+def _slab_args(fs, stacked, i):
+    """(K3z args, K4z args) of shard i, each with its slab's placement."""
+    b, t, x1 = (f[i] for f in stacked)
+    legs = (fs.diag_st[i], fs.cx, fs.cy, fs.cz)
+    place = (fs.local_shape, fs.pinned, i * fs.nz_l, fs.shape[0])
+    return (*legs, b, S0, AD, G, GW, *place), (*legs, t, b, x1, G, AD, G2, GW, *place)
+
+
+def check_slab(device, cases=SLAB_CASES) -> dict:
+    """Phase 27's kernels: K3z/K4z on each slab against their twins (as
+    ``_compare``, every face and pad cell 0), and the slabs' domain planes
+    against one unsharded K3'/K4' launch on the whole field, bit-equal; at
+    the last case the p launches timed together beside their twins and the
+    unsharded launch, their bound over the stacked fields.  The rows."""
+    rows = {name: {"max_abs_err": 0.0, "library_ms": None} for name in SLAB_KERNELS}
+    for shape, p, pinned in cases:
+        fs, stacked, op, padded = _slab_inputs(shape, p, device, pinned)
+        nz_l, ny, nx = fs.local_shape
+        outs = {name: [] for name in SLAB_KERNELS}
+        for i in range(p):
+            for name, a in zip(SLAB_KERNELS, _slab_args(fs, stacked, i)):
+                _src, _rep, kernel, twin = KERNELS[name]
+                got, want = kernel(*a), twin(*a)
+                torch.cuda.synchronize()
+                label = f"{name} {shape} p={p} shard {i} pinned={pinned}"
+                e = _compare(label, got, want)
+                rows[name]["max_abs_err"] = max(rows[name]["max_abs_err"], e)
+                _check_zmarch_fields(label, name, got, want, fs.local_shape)
+                outs[name].append(_as_tuple(got))
+        legs = (op.diag, op.cx, op.cy, op.cz)
+        b, t, x1 = padded
+        whole = {
+            "fused7_descent_slab": fused7_descent(*legs, b, S0, AD, G, GW, shape, pinned),
+            "fused7_ascent_slab": (fused7_ascent(*legs, t, b, x1, G, AD, G2, GW, shape, pinned),),
+        }
+        for name, fields in outs.items():
+            for k, field in enumerate(whole[name]):
+                sharded = torch.cat([o[k][FACE:FACE + nz_l, :, :nx] for o in fields])
+                _require(torch.equal(sharded, crop_field(field, shape)),
+                         f"{name} {shape} p={p} pinned={pinned}: output {k} is not bit-equal to one unsharded"
+                         f" launch's (max abs diff {(sharded - crop_field(field, shape)).abs().max().item():.3e})")
+        print(f"K3z/K4z {shape} p={p} pinned={pinned}: agree with their twins on every slab, faces and pads 0,"
+              f" domain planes bit-equal to one unsharded K3'/K4' launch")
+        if (shape, p, pinned) == cases[-1]:
+            _time_slab(rows, fs, stacked, op, padded)
+        del fs, stacked, op, padded, outs, whole
+        torch.cuda.empty_cache()
+    for name in SLAB_KERNELS:
+        attrs = zmarch_attributes(name)
+        print(f"kernel {name}: {attrs['registers']} registers, {attrs['spilled_bytes']} spilled bytes a thread,"
+              f" {attrs['static_smem_bytes']} static shared bytes a block")
+    return rows
+
+
+def _time_slab(rows, fs, stacked, op, padded) -> None:
+    """The p launches of each slab kernel at ``fs``'s shape timed as one
+    call, their twins likewise, and one unsharded K3'/K4' launch; the bound
+    is the stacked fields' bytes (each slab's face planes included)."""
+    shape, p = fs.shape, fs.p
+    x1_st, s_st, x4_st = (torch.empty_like(stacked[0]) for _ in range(3))
+    args = [_slab_args(fs, stacked, i) for i in range(p)]
+
+    def slabs(k, fn):
+        def run():
+            for i in range(p):
+                fn(*args[i][k], out=(x1_st[i], s_st[i]) if k == 0 else x4_st[i])
+        return run
+
+    def twins(k, fn):
+        return lambda: [fn(*args[i][k]) for i in range(p)]
+
+    legs = (op.diag, op.cx, op.cy, op.cz)
+    b, t, x1 = padded
+    unsharded = {
+        "fused7_descent_slab": (fused7_descent, (*legs, b, S0, AD, G, GW, shape, fs.pinned)),
+        "fused7_ascent_slab": (fused7_ascent, (*legs, t, b, x1, G, AD, G2, GW, shape, fs.pinned)),
+    }
+    b_st, t_st, x1s_st = stacked
+    io = {
+        "fused7_descent_slab": ((fs.diag_st, b_st), (x1_st, s_st)),
+        "fused7_ascent_slab": ((fs.diag_st, t_st, b_st, x1s_st), (x4_st,)),
+    }
+    for k, name in enumerate(SLAB_KERNELS):
+        _src, _rep, kernel, twin = KERNELS[name]
+        row = rows[name]
+        row["ms"] = _time_ms(slabs(k, kernel), ())
+        row["plain_ms"] = _time_ms(twins(k, twin), ())
+        one_ms = _time_ms(*unsharded[name])
+        row.update(_bound(*io[name], FLOPS_PER_CELL[name] * math.prod(shape)))
+        print(f"time {name} {shape} p={p} ({p} launches): kernel {row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms,"
+              f" bound {row['bound_ms']:.4f} ms ({row['bound_by']}, {row['passes']:.2f} stacked-field passes;"
+              f" {100 * row['bound_ms'] / row['ms']:.0f}% of it); one unsharded launch {one_ms:.4f} ms"
+              f" ({row['ms'] / one_ms:.2f}x), one PyTorch call None")
+
+
+def check_sharded(device, production, plain) -> dict:
+    """Phase 27's solves: the 300^3 ``n_devices=4`` solve (its launches
+    returned), its peak memory beside the plain layout's, and ``-devices
+    4`` through the CLI at 100^3."""
+    torch.cuda.reset_peak_memory_stats(device)
+    solve_poisson(300, rtol=1e-8, atol=1e-12, pc="gamg", layout="plain", device=device)
+    plain_peak = torch.cuda.max_memory_allocated(device) / 1e9
+    torch.cuda.reset_peak_memory_stats(device)
+    kernels.reset_launches()
+    rep = solve_poisson(300, rtol=1e-8, atol=1e-12, pc="gamg", layout="padded", n_devices=4, device=device,
+                        view=True)
+    used = dict(kernels.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated(device) / 1e9
+    print(rep.solver_view)
+    print(rep.converged_reason_line())
+    print(rep.json_sidecar())
+    print(f"launches (n_devices=4): {json.dumps({k: v for k, v in used.items() if v})}")
+    print(f"n_devices=4 300^3: {rep.iters} inner + {rep.outer_iters} outer, Linf {rep.linf_error:.6e},"
+          f" t_setup {rep.t_setup:.4f} s, t_solve {rep.t_solve:.4f} s, peak device memory {peak:.3f} GB (the"
+          f" plain layout's {plain_peak:.3f} GB);"
+          f" phase 5 {production.iters} + {production.outer_iters} in {production.t_solve:.4f} s, phase 15"
+          f" {plain['iters']} + {plain['outer_iters']} in {plain['t_solve']:.4f} s")
+    _require(rep.reason == 2, f"n_devices=4: reason {rep.reason} != 2")
+    _require(np.isfinite(rep.linf_error) and rep.linf_error < 1e-4, f"n_devices=4: Linf {rep.linf_error} >= 1e-4")
+    _require(rep.outer_iters in (2, 3), f"n_devices=4: outer iterations {rep.outer_iters} not in 2-3")
+    _require(abs(rep.iters - plain["iters"]) <= 2,
+             f"n_devices=4: {rep.iters} inner, not within 2 of phase 15's {plain['iters']}")
+    k3z, k4z = used["fused7_descent_slab"], used["fused7_ascent_slab"]
+    _require(k3z > 0 and k3z == k4z and k3z % 4 == 0,
+             f"n_devices=4: K3z / K4z launched {k3z} / {k4z} times, not alike and 4 a cycle")
+    _require(used["star7_mv"] > 0, "n_devices=4 did not launch star7_mv")
+    for name in ("fused7_mvdot", "fused7_descent_rr", "fused7_ascent_rz", "fused7_descent", "fused7_ascent"):
+        _require(used[name] == 0, f"n_devices=4 launched {name}")
+
+    side, _ = run_cli([*_grid(100), "-devices", "4", "-ksp_rtol", "1e-8", "-ksp_atol", "1e-12",
+                       "-ksp_converged_reason"])
+    _require(side["reason"] > 0, f"-devices 4: reason {side['reason']} is not positive")
+    _require(np.isfinite(side["linf_error"]) and side["linf_error"] < 1e-3,
+             f"-devices 4: Linf {side['linf_error']} >= 1e-3")
+    _require(side["z_shards"] == 4, f"-devices 4: {side['z_shards']} z-shards in its JSON")
+    return used
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: no CUDA device")
@@ -1157,6 +1346,11 @@ def main() -> None:
 
     check_lifted(device, production, blind)
     check_uniform_aij_and_records()
+
+    rows.update(check_slab(device))
+    sharded = check_sharded(device, production, pl)
+    for name in SLAB_KERNELS:
+        launches[name] = sharded[name]
 
     print(json.dumps({"kernels": [
         {

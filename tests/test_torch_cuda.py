@@ -5,7 +5,7 @@ and K15 also at shapes of 1-3 cells and several tiles and z-chunks, with
 their face and pad cells),
 small stencil (padded, full-fusion, plain layout, the
 unfused padded cycle, W-cycle, threshold schedule, the plain-only GAMG
-options and the standalone PCs), aij (structure-blind and lifted),
+options and the standalone PCs, the z-sharded route), aij (structure-blind and lifted),
 uniform-precision aij, bf16-hierarchy and reference-config solves on the
 card against the same solves on the CPU, and ``bench.itprof`` at 24^3.
 
@@ -29,6 +29,8 @@ from tpusparse_torch.bench.driver import solve_poisson
 from tpusparse_torch.grid.grid3d import Grid3D
 from tpusparse_torch.grid.poisson import poisson_stencil_device
 from tpusparse_torch.kernels.diaband import dia_mv, dia_mv_torch
+from tpusparse_torch.dist.fused_sharded import FusedSharded
+from tpusparse_torch.dist.mesh import make_z_mesh
 from tpusparse_torch.kernels.fused7 import (
     _ASCENT_ARGS,
     _DESCENT1_ARGS,
@@ -45,6 +47,8 @@ from tpusparse_torch.kernels.fused7 import (
     fused7_ascent1_torch,
     fused7_ascent_rz,
     fused7_ascent_rz_torch,
+    fused7_ascent_slab,
+    fused7_ascent_slab_torch,
     fused7_ascent_torch,
     fused7_cgmv,
     fused7_cgmv_torch,
@@ -55,6 +59,8 @@ from tpusparse_torch.kernels.fused7 import (
     fused7_descent1_torch,
     fused7_descent_rr,
     fused7_descent_rr_torch,
+    fused7_descent_slab,
+    fused7_descent_slab_torch,
     fused7_descent_torch,
     fused7_cheb,
     fused7_cheb0,
@@ -85,7 +91,7 @@ from tpusparse_torch.kernels.stencil7 import (
     star7_mv_padded_torch,
     star7_mv_torch,
 )
-from tpusparse_torch.sparse.padded import PaddedStar, pad_field
+from tpusparse_torch.sparse.padded import PaddedStar, crop_field, pad_field
 
 pytestmark = pytest.mark.requires_cuda
 
@@ -298,7 +304,7 @@ def test_zmarch_entry_points_of_k3_k4_refuse_a_wrong_plan(cuda, kind):
     for bad in wrong:
         with pytest.raises(RuntimeError, match=name):
             _build.launch(name, argtypes, cuda, *ptrs, *launch_args(shape, cx, cy, cz, cx, cy, cz),
-                          G, AD, S0, GW, 1, *bad)
+                          G, AD, S0, GW, 1, 0, shape[0], *bad)
 
 
 @pytest.mark.parametrize("kind", ["descentu", "restrict", "mvdot", "pre2"])
@@ -342,6 +348,92 @@ def test_zmarch_entry_points_of_k9_k15_refuse_a_wrong_plan(cuda, kind):
     for bad in wrong:
         with pytest.raises(RuntimeError, match=name):
             _build.launch(name, argtypes, cuda, *head, *bad)
+
+
+# K3z/K4z: (global shape, z-shards) with nz_l = 3, 4, 20 and 75 (several
+# z-chunks a slab); ny = 21 cuts the tiles raggedly
+SLAB_SHAPES = [((12, 11, 13), 4), ((8, 2, 5), 2), ((40, 21, 61), 2), ((150, 13, 7), 2)]
+
+
+@pytest.mark.parametrize("pinned", [True, False])
+@pytest.mark.parametrize("shape, p", SLAB_SHAPES)
+def test_slab_kernels_match_twins_and_one_unsharded_launch(cuda, shape, p, pinned):
+    """K3z and K4z on each slab of the exchanged stacked fields against
+    their twins (one launch a call, every face and pad cell 0), and the
+    slabs' domain planes against one K3'/K4' launch on the whole field:
+    bit-equal, the same arithmetic on the same values."""
+    nz, ny, nx = shape
+    star = poisson_stencil_device(Grid3D(nx, ny, nz), pin=pinned, dtype=torch.float32, device=cuda)[0]
+    fs = FusedSharded.build(star, make_z_mesh(p, cuda))
+    rng = np.random.default_rng(7)
+    plain = [torch.tensor(rng.standard_normal(shape, dtype=np.float32), device=cuda) for _ in range(3)]
+    b, t, x1 = (fs.exchange_(fs.to_stacked(f)) for f in plain)
+    legs = (fs.diag_st, fs.cx, fs.cy, fs.cz)
+    local, nz_l = fs.local_shape, fs.nz_l
+    outs = {"descent": [], "ascent": []}
+    for i in range(p):
+        place = (local, pinned, i * nz_l, nz)
+        cases = {
+            "descent": (fused7_descent_slab, fused7_descent_slab_torch,
+                        (legs[0][i], *legs[1:], b[i], S0, AD, G, GW, *place)),
+            "ascent": (fused7_ascent_slab, fused7_ascent_slab_torch,
+                       (legs[0][i], *legs[1:], t[i], b[i], x1[i], G, AD, G2, GW, *place)),
+        }
+        for mode, (kernel, twin, args) in cases.items():
+            before = kernels.LAUNCHES[f"fused7_{mode}_slab"]
+            got, want = kernel(*args), twin(*args)
+            torch.cuda.synchronize()
+            assert kernels.LAUNCHES[f"fused7_{mode}_slab"] == before + 1
+            _close(got, want, cuda)
+            for field in (got if isinstance(got, tuple) else (got,)):
+                outside = torch.ones_like(field, dtype=torch.bool)
+                outside[FACE:FACE + nz_l, :, :nx] = False
+                assert (field[outside] == 0).all()
+            outs[mode].append(got if isinstance(got, tuple) else (got,))
+    op = PaddedStar.from_star(star)
+    pl = (op.diag, op.cx, op.cy, op.cz)
+    bp, tp, x1p = (pad_field(f) for f in plain)
+    whole = {
+        "descent": fused7_descent(*pl, bp, S0, AD, G, GW, shape, pinned),
+        "ascent": (fused7_ascent(*pl, tp, bp, x1p, G, AD, G2, GW, shape, pinned),),
+    }
+    for mode, fields in outs.items():
+        for k, want in enumerate(whole[mode]):
+            got = torch.cat([f[k][FACE:FACE + nz_l, :, :nx] for f in fields])
+            assert torch.equal(got, crop_field(want, shape))
+
+
+def test_slab_entry_points_refuse_a_dot_or_a_slab_outside_the_grid(cuda):
+    """The slab form is dot-free, and its slab must lie in the global grid."""
+    shape = (12, 11, 13)
+    args = _args("fused7_descent", shape, True, cuda)
+    diag, cx, cy, cz, b = args[:5]
+    x1, s = torch.empty_like(b), torch.empty_like(b)
+    plan = zmarch_plan(shape, "descent")
+    partials = torch.empty(plan.blocks, dtype=torch.float32, device=cuda)
+    head = (b.data_ptr(), diag.data_ptr(), x1.data_ptr(), s.data_ptr())
+    for dot, zg, nzg in ((partials.data_ptr(), 12, 48), (None, 40, 48), (None, -1, 48)):
+        with pytest.raises(RuntimeError, match="tps_descent"):
+            _build.launch("tps_descent", _DESCENT_ARGS, cuda, *head, dot,
+                          *launch_args(shape, cx, cy, cz, cx, cy, cz), S0, AD, G, GW, 1, zg, nzg,
+                          *plan.launch_args())
+
+
+def test_sharded_solve_on_card_matches_cpu(cuda):
+    """``n_devices=4`` at 16^3 (nz_l = 4): K3z/K4z alike, 4 a cycle, and K1p;
+    no K2-K4 or K3'/K4'; the CPU's outcome."""
+    kw = dict(rtol=1e-8, atol=1e-12, pc="gamg", warmup=False, n_devices=4)
+    kernels.reset_launches()
+    gpu = solve_poisson(16, device=cuda, **kw)
+    used = dict(kernels.LAUNCHES)
+    assert used["fused7_descent_slab"] == used["fused7_ascent_slab"] > 0
+    assert used["fused7_descent_slab"] % 4 == 0 and used["star7_mv"] > 0
+    assert all(n == 0 for name, n in used.items()
+               if name not in ("fused7_descent_slab", "fused7_ascent_slab", "star7_mv"))
+    cpu = solve_poisson(16, device="cpu", **kw)
+    assert (gpu.reason, gpu.outer_iters) == (cpu.reason, cpu.outer_iters) == (2, 2)
+    assert abs(gpu.iters - cpu.iters) <= 1
+    assert abs(gpu.linf_error - cpu.linf_error) < 1e-6
 
 
 def _box27(ny, nx):

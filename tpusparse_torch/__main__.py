@@ -54,6 +54,8 @@ def main(argv: list[str] | None = None) -> int:
         layout=opts.layout,
         pc_dtype=opts.pc_dtype,
         mg_cycle=opts.pc_mg_cycle_type,
+        # -devices p: p z-shards of the fine level on the one device
+        n_devices=opts.devices,
         # computed for uniform-precision CG; elsewhere the driver warns
         compute_eigenvalues=opts.ksp_compute_eigenvalues,
         monitor=opts.ksp_monitor,

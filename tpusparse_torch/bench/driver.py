@@ -38,6 +38,12 @@ f32 under f64 defect correction.  The routes:
   method runs on the plain operator in that dtype, preconditioned by the
   plain V-cycle of a hierarchy built in the same dtype (the JAX driver's
   ``:756-764``); in f32 its level-0 applies are K1p, in f64 plain torch.
+- ``n_devices=p`` > 1: the z-sharded route (the JAX driver's ``fused_sh``,
+  ``:396-431``, ``:766-825``): the f32 ``StarStencil3D`` and the plain
+  hierarchy, preconditioned by ``vcycle_fused_sharded``, whose fine level
+  runs once per z-shard (kernels K3z/K4z, ``dist/fused_sharded.py``), and
+  CG's ``Ap`` on K1p.  The p shards live on ONE device; several devices are
+  ROADMAP queue 12, and so is every other ``n_devices > 1`` route.
 - ``mat_type="aij"``: the system as a 7-band DIA (f32 ``DIA`` for the
   inner solves, two-float ``DFDIA`` for the outer residual; one ``DIA`` in
   the solve's dtype under uniform precision).  With GAMG and
@@ -79,6 +85,8 @@ from tpusparse_torch.amg.hierarchy import (
     vcycle,
 )
 from tpusparse_torch.amg.unstructured import gamg_setup_unstructured
+from tpusparse_torch.dist.fused_sharded import FusedSharded, sharded_route_refusal, vcycle_fused_sharded
+from tpusparse_torch.dist.mesh import check_divisible, make_z_mesh
 from tpusparse_torch.grid.grid3d import Grid3D
 from tpusparse_torch.grid.poisson import (
     assemble_poisson,
@@ -131,6 +139,8 @@ class SolveReport:
     # -ksp_compute_eigenvalues data: the Ritz values of M A from CG's own
     # scalars (solve/spectrum.py), ascending
     eigenvalues: list | None = None
+    # the z-shards of the fine level (n_devices), all on ``device``
+    z_shards: int = 1
 
     def log_view(self) -> str:
         """PETSc ``-log_view``-style performance summary: phase wall times
@@ -324,6 +334,19 @@ def refined_solve_plain(
     )
 
 
+def refined_solve_sharded(op_hi, op_lo, pc_state, b, *, rtol: float, atol: float, divtol: float = 1e5,
+                          ksp_solve=cg, history: bool = False, gamma: int = 1):
+    """f64 defect correction around the f32 ``ksp_solve`` on plain fields,
+    preconditioned by the z-sharded fused cycle: ``pc_state`` is the plain
+    hierarchy and its ``FusedSharded``.  As in the JAX driver, CG takes no
+    fused ``<p, Ap>`` here: ``op_lo.mv`` is K1p."""
+    hier, fs = pc_state
+    return cg_refined(
+        op_hi.mv, op_lo.mv, b, rtol=rtol, atol=atol, divtol=divtol,
+        m_lo_mv=lambda r: vcycle_fused_sharded(fs, hier, r, gamma), solver=ksp_solve, history=history,
+    )
+
+
 def _ssor(op):
     """The standalone ``-pc_type sor`` in CG's symmetric form (PETSc's
     ``-pc_sor_symmetric``): one forward and one reversed multicolor
@@ -390,6 +413,7 @@ def solve_poisson(
     structure_detect: bool = True,
     compute_eigenvalues: bool = False,
     cg_fusion: bool = False,
+    n_devices: int = 1,
     monitor: bool = False,
     view: bool = False,
     warmup: bool = True,
@@ -449,6 +473,14 @@ def solve_poisson(
     in ``r``'s dtype.  The padded route ignores it, as the JAX driver does,
     and keeps its own bf16 coarse coefficients (``cast_coarse_coefs``).
 
+    ``n_devices``: p > 1 z-shards of the fine level, all on ``device`` (the
+    z-sharded route above): the mixed-precision stencil solve under GAMG
+    with a degree-2 Chebyshev or Richardson level-0 smoother, on the padded
+    or automatic layout; nz must divide into p shards of at least FACE
+    planes (``ValueError``).  Every other route with p > 1 raises
+    ``NotImplementedError`` (ROADMAP queue 12), as does a threshold
+    schedule that filters level 0.  A W-cycle passes ``gamma`` through.
+
     ``cg_fusion``: the full-fusion CG body, the JAX driver's
     ``TPUSPARSE_CG_FUSION`` environment switch as an argument.  It takes
     the padded mixed-precision stencil route, ``ksp="cg"``, ``pc="gamg"``
@@ -489,6 +521,18 @@ def solve_poisson(
     if pc_dtype not in ("f32", "bf16"):
         raise ValueError(f"unknown pc_dtype {pc_dtype!r} (f32 | bf16)")
     params = amg_params or AMGParams()
+    sharded = n_devices > 1
+    if sharded:
+        refusal = sharded_route_refusal(
+            mat_type=mat_type, precision=precision, pc=pc, layout=layout, pc_dtype=pc_dtype, params=params,
+        )
+        if refusal is not None:
+            raise NotImplementedError(
+                f"n_devices={n_devices} with {refusal} is not ported to tpusparse_torch yet (ROADMAP queue 12:"
+                f" the JAX package runs it as a GSPMD program over a (z, y) mesh)"
+            )
+        if cg_fusion:
+            raise ValueError("cg_fusion=True is single-device: the full-fusion body has no sharded form")
     plain_only = pc == "sor" or (pc == "gamg" and plain_cycle_only(params))
     if mat_type == "stencil" and layout == "padded" and plain_only:
         raise ValueError(
@@ -507,6 +551,8 @@ def solve_poisson(
                 f" structure-blind route in uniform precision is not ported to"
                 f" tpusparse_torch yet (ROADMAP queue 1, item 9.5)"
             )
+    elif sharded:
+        route = "sharded"
     else:
         route = "padded" if mixed and layout != "plain" and not plain_only else "plain"
     if cg_fusion and (route != "padded" or ksp != "cg" or pc != "gamg"):
@@ -529,6 +575,9 @@ def solve_poisson(
     grid = Grid3D(nx, ny or nx, nz or nx, lx=lx, ly=ly, lz=lz)
     ksp_solve = _pick_ksp(ksp, ksp_gmres_restart, ksp_richardson_scale, precision)
     device = torch.device(device)
+    if sharded:
+        mesh = make_z_mesh(n_devices, device)
+        check_divisible(grid.shape, mesh)
     kw = dict(rtol=rtol, atol=atol, divtol=divtol, ksp_solve=ksp_solve, history=monitor)
     # the transfer einsums are f32 products: keep them out of TF32
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -539,14 +588,18 @@ def solve_poisson(
     if route == "padded":
         op, b, exact, op_lo = build_system(grid, device)
         layout_text = "layout: padded-resident"
-    elif route == "plain":
+    elif route in ("plain", "sharded"):
         dtype = torch.float32 if precision == "f32" else torch.float64
         op, b, exact = poisson_stencil_device(grid, dtype=dtype, device=device)
         op_lo = (
             poisson_stencil_device(grid, dtype=torch.float32, device=device)[0]
             if mixed else op
         )
-        layout_text = "layout: plain"
+        layout_text = (
+            "layout: plain" if route == "plain" else
+            f"layout: z-sharded, {n_devices} z-shards of {grid.nz // n_devices} planes on one device"
+            f" ({device})"
+        )
     else:
         op, op_lo, b, exact = _assemble_aij(grid, device, precision)
         layout_text = "mat_type: aij (DIA containers)"
@@ -593,8 +646,18 @@ def solve_poisson(
         threshold_schedule(op_lo, params.threshold, params.factor)
         if pc == "gamg" and route != "aij" else None
     )
+    if route == "sharded" and sched is not None and 1 in sched[0]:
+        # JAX's sharded route passes the kernels no filtered legs, so it
+        # would smooth P with the full ones there (ROADMAP §3)
+        raise NotImplementedError(
+            f"n_devices={n_devices} with a threshold schedule that filters level 0 ({sched[0]}) is not ported"
+            f" to tpusparse_torch yet (ROADMAP queue 12)"
+        )
     if pc == "gamg":
-        if route == "padded":
+        if route == "sharded":
+            def setup():
+                return gamg_setup(op_lo, params, factors_schedule=sched), FusedSharded.build(op_lo, mesh)
+        elif route == "padded":
             def setup():
                 # bf16 coarse coefficient stacks: vectors stay f32
                 return cast_coarse_coefs(gamg_setup(op_lo, params, factors_schedule=sched))
@@ -621,6 +684,9 @@ def solve_poisson(
             if pc == "gamg":
                 return refined_solve(op, op_lo, pc_state, b, cg_fusion=cg_fusion, gamma=gamma, **kw)
             return _refined_padded(op, op_lo, b, pc_state, **kw)
+    elif route == "sharded":
+        def solve():
+            return refined_solve_sharded(op, op_lo, pc_state, b, gamma=gamma, **kw)
     elif mixed:
         def solve():
             if pc == "gamg" and not bf16:
@@ -653,6 +719,8 @@ def solve_poisson(
             " (fused fine level)" if fused_fine_supported(pc_state)
             else " (unfused cycle, kernels K10-K16)"
         )
+    if route == "sharded":
+        layout_text += " (fused fine level per z-shard, kernels K3z/K4z)"
 
     if warmup:
         solve()
@@ -680,7 +748,8 @@ def solve_poisson(
             f"  precision: {precision}, {layout_text}",
             *([f"  {view_extra}"] if view_extra else []),
             *(["  pc_dtype: bf16 (cast_hierarchy)"] if bf16 else []),
-            hierarchy_summary(pc_state, gamma) if pc == "gamg" else f"PC Object: type {pc}",
+            hierarchy_summary(pc_state[0] if route == "sharded" else pc_state, gamma) if pc == "gamg"
+            else f"PC Object: type {pc}",
         ])
     linf = (res.x - exact).abs().max().item()
     return SolveReport(
@@ -706,4 +775,5 @@ def solve_poisson(
         residual_history=history,
         solver_view=view_text,
         eigenvalues=eig_list,
+        z_shards=n_devices,
     )

@@ -23,6 +23,7 @@ import warnings
 from pathlib import Path
 
 from tpusparse_torch.amg.hierarchy import AMGParams
+from tpusparse_torch.dist.fused_sharded import sharded_route_refusal
 
 
 @dataclasses.dataclass
@@ -193,11 +194,17 @@ class Options:
                 "-precision tf (the two-float outer) is not to port: it exists"
                 " because the TPU lacks f64 (ROADMAP, Not to port)"
             )
+        # -devices p runs on the z-sharded route only (p shards on one
+        # device); the rest of -devices is the JAX package's GSPMD routes
+        sharded = None if self.devices <= 1 else sharded_route_refusal(
+            mat_type=self.mat_type, precision=self.precision, pc=self.pc_type, layout=self.layout,
+            pc_dtype=self.pc_dtype, params=self.amg_params(),
+        )
         refused = (
             (self.f, "-f (solve_from_file)", "queue 9, item 4"),
             (self.mat_view, "-mat_view (sparse/io.py)", "queue 9, item 4"),
             (self.problem != "poisson", f"-problem {self.problem}", "queue 11"),
-            (self.devices > 1, f"-devices {self.devices}", "queue 12"),
+            (sharded is not None, f"-devices {self.devices} with {sharded}", "queue 12"),
             (self.profile, "-profile (the trace)", "queue 13"),
             # uniform precision on the aij route runs through the star lift
             # only (GAMG, -mat_structure_detect 1)

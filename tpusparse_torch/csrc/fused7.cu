@@ -5,7 +5,9 @@
 // mvdot, descent(_rr), ascent(_rz), descent1(_rr), ascent1(_rz), cgmv and
 // descentu (the fused fine level), and residual, rich, cheb0, cheb, pre2,
 // restrict and prolong (K10-K16, the single steps of the unfused padded
-// V-cycle), with the math of fused7_xla for each mode.
+// V-cycle), with the math of fused7_xla for each mode.  K3z/K4z are K3'
+// and K4' in fused7_call's z-slab form (z0, nzg: one z-shard of a grid,
+// tpusparse/dist/fused_sharded.py), the same kernels with a template flag.
 //
 // Bound on the H100: bytes.  Each mode is a chain of one to three stencil
 // applies with elementwise epilogues.  The TPU kernel chains them inside
@@ -160,6 +162,21 @@ prolong_kernel(const float* __restrict__ t, const float* __restrict__ diag,
 // K3/K4's way; K9 is K3's kernel with the residual update as a template
 // flag, and K2, K14 and K15 are one march (march1) with the mode as a
 // template parameter.
+//
+// K3z/K4z (the SLAB flag of descent_kernel / ascent_kernel) march one
+// z-shard's slab of nz_l + 2 FACE planes, whose face planes hold the
+// neighbouring shards' planes.  Two predicates take the place of
+// domain_plane: what is staged and computed on is every slab_plane (in the
+// array and in the global domain), while the outputs are written 0 on the
+// slab's face planes, as the layout of tpusparse/dist/fused_sharded.py
+// keeps them between launches; the pin is tested in global planes.
+// Planes the march reaches outside the array (the first chunk starts H
+// below it) are staged as zeros: they feed only face-plane outputs.  The
+// flag adds no work to the unsharded kernels, which compile as before.
+// Bound: bytes, K3'/K4''s 4 / 5 passes over each slab's nz_l + 2 FACE
+// planes, 0.139 / 0.174 ms for the 4 slabs of 300^3 at the H100's 3.35
+// TB/s; the 4 launches took 0.28 / 0.43 ms on an H100 80GB HBM3 at 700 W
+// (PERF.md section 6), each launch under one wave of blocks.
 //
 // The launch plan (tiles, z-chunk, grid, shared bytes, partials) is
 // computed by the wrapper (kernels/fused7.py::zmarch_plan); the entry
@@ -361,17 +378,36 @@ __device__ __forceinline__ void row_neighbours(const Quad& c, float& left,
 
 // The pinned origin's cells, (k, j, i) with k + j + i <= 1, lie in this
 // block's region and march: the first tile in y and x, and a z-chunk whose
-// march (from H planes below z0) reaches domain plane 1.
+// march (from H planes below z0) reaches domain plane 1, global plane 1 in
+// the slab form, whose domain planes start at global plane zg.
 template <int H>
 __device__ __forceinline__ bool pins_origin(const Geom& g, int pinned,
-                                            int z0) {
+                                            int z0, int zg = 0) {
   return pinned && blockIdx.x == 0 && blockIdx.y == 0 &&
-         z0 - H <= g.face + 1;
+         z0 - H + zg <= g.face + 1;
 }
 
 // Plane p of the padded field is a domain plane (k = p - face in [0, nz)).
 __device__ __forceinline__ bool domain_plane(const Geom& g, int p) {
   return p >= g.face && p < g.face + g.nz;
+}
+
+// The slab form of K3/K4 (K3z/K4z, tpusparse/kernels/fused7.py's z0 and
+// nzg, :367-370): the field is one z-shard of a grid of nzg planes, its
+// domain planes the global planes [zg, zg + nz), and its face planes the
+// neighbouring shards' planes (zero where they leave the grid).
+struct ZSlab {
+  int zg, nzg;
+};
+
+// Plane p of the slab is read and computed on: it lies in the array and in
+// the global domain (global plane p - face + zg in [0, nzg)).  With zg = 0
+// and nzg = nz it is domain_plane.  The outputs stay local: a chained
+// step keeps its values on such a face plane (fused7.py's mask_dom,
+// :455-467), and the last step writes 0 there.
+__device__ __forceinline__ bool slab_plane(const Geom& g, ZSlab s, int p) {
+  const int kg = p - g.face + s.zg;
+  return p >= 0 && p < g.nz + 2 * g.face && kg >= 0 && kg < s.nzg;
 }
 
 // One 16-byte cp.async from global to shared memory; with valid false it
@@ -439,17 +475,21 @@ struct Staging {
   __device__ __forceinline__ Quad raw(const ZQuad& z, int p) const {
     return quad_of(at<F>(p)[z.q]);
   }
-  // the thread's quad of field F on plane p: its domain cells' values and
-  // `fill` at the others
+  // the thread's quad of field F on plane p, a domain plane when dp: its
+  // domain cells' values and `fill` at the others
   template <int F>
-  __device__ __forceinline__ Quad get(const Geom& g, const ZQuad& z, int p,
-                                      float fill) const {
+  __device__ __forceinline__ Quad get_if(const ZQuad& z, int p, bool dp,
+                                         float fill) const {
     const Quad got = quad_of(at<F>(p)[z.q]);
-    const bool dp = domain_plane(g, p);
     Quad v;
 #pragma unroll
     for (int l = 0; l < 4; ++l) v.v[l] = dp && z.dom[l] ? got.v[l] : fill;
     return v;
+  }
+  template <int F>
+  __device__ __forceinline__ Quad get(const Geom& g, const ZQuad& z, int p,
+                                      float fill) const {
+    return get_if<F>(z, p, domain_plane(g, p), fill);
   }
 };
 // K6 (b, diag), K7 (t, x1, diag, b), K3 (b, diag), K4 (t, x1, diag, b),
@@ -696,7 +736,10 @@ ascent1_kernel(const float* __restrict__ t, const float* __restrict__ b,
 // K9 (UPDATE, always with DOT): b is r' = r - alpha ap, formed at step 0
 // from the staged r (``b``) and ``ap``, written to ``r_new`` on the tile;
 // partials of <r', r'>.  K3 passes ap, alpha_p and r_new as nullptr.
-template <bool DOT, bool UPDATE>
+// K3z (SLAB, dot-free): K3' on one z-shard (ZSlab): b's face planes hold
+// the neighbours' planes, the steps read and compute on every slab_plane
+// and mask the pin in global planes, and x1 and s are 0 on the face planes.
+template <bool DOT, bool UPDATE, bool SLAB = false>
 __global__ void __launch_bounds__(ZM3_THREADS, ZM3_MIN_BLOCKS)
 descent_kernel(const float* __restrict__ b, const float* __restrict__ ap,
                const float* __restrict__ alpha_p,
@@ -704,7 +747,7 @@ descent_kernel(const float* __restrict__ b, const float* __restrict__ ap,
                float* __restrict__ s, float* __restrict__ r_new,
                float* __restrict__ partials, Geom g, Legs a, Legs f,
                float s0, float ad, float gg, float gw, int pinned,
-               int zchunk) {
+               int zchunk, ZSlab zs) {
   constexpr int H = 3, AHEAD = UPDATE ? ZM9_AHEAD : ZM3_AHEAD;
   using St = std::conditional_t<UPDATE, Staging9, Staging3>;
   extern __shared__ float4 smem4[];
@@ -714,7 +757,14 @@ descent_kernel(const float* __restrict__ b, const float* __restrict__ ap,
   const int nzp = g.nz + 2 * g.face;
   const int z0 = (int)blockIdx.z * zchunk, z1 = min(z0 + zchunk, nzp);
   const ZQuad z = zquad<H, ZM3_SY>(g);
-  const bool pin = pins_origin<H>(g, pinned, z0);
+  const int zg = SLAB ? zs.zg : 0;
+  const bool pin = pins_origin<H>(g, pinned, z0, zg);
+  // the planes the steps read and compute on, and the (global) domain
+  // plane index of padded plane p: p - kofs
+  auto live = [&](int p) {
+    return SLAB ? slab_plane(g, zs, p) : domain_plane(g, p);
+  };
+  const int kofs = g.face - zg;
   const float alpha = UPDATE ? *alpha_p : 0.0f;
   // b (field 0), diag (field 1) and K9's ap (field 2), every quad, staged
   // AHEAD planes ahead: one copy group a plane, empty past the march, so
@@ -723,7 +773,7 @@ descent_kernel(const float* __restrict__ b, const float* __restrict__ ap,
   const long long plane = g.plane;
   auto stage = [&](int p, long long off) {
     if (p <= z1 + H - 1) {
-      const bool valid = z.field && domain_plane(g, p);
+      const bool valid = z.field && live(p);
       st.template copy_from<0>(valid ? b + off : b, z, p, valid);
       st.template copy_from<1>(valid ? diag + off : diag, z, p, valid);
       if constexpr (UPDATE)
@@ -754,8 +804,9 @@ descent_kernel(const float* __restrict__ b, const float* __restrict__ ap,
     // written on the tile; one reciprocal a cell, u = (s0 b) D^-1 (b is 0
     // off the domain, and so is u); <b, b> over the tile's cells of the
     // chunk's planes
-    Quad b0 = st.template get<0>(g, z, p, 0.0f);
-    const Quad d0 = st.template get<1>(g, z, p, 1.0f);
+    const bool dp0 = live(p);
+    Quad b0 = st.template get_if<0>(z, p, dp0, 0.0f);
+    const Quad d0 = st.template get_if<1>(z, p, dp0, 1.0f);
     if constexpr (UPDATE) {
       const Quad ap0 = st.template get<2>(g, z, p, 0.0f);
 #pragma unroll
@@ -782,7 +833,7 @@ descent_kernel(const float* __restrict__ b, const float* __restrict__ ap,
     row_neighbours(uc, left, right);
     Quad x1n{};
     if (p - 1 >= z0 - 2 && z.rows(1)) {
-      const bool dp = domain_plane(g, p - 1);
+      const bool dp = live(p - 1);
       const Quad b1 = st.template raw<0>(z, p - 1);
       const Quad d1 = st.template raw<1>(z, p - 1);
       Quad center;
@@ -790,7 +841,7 @@ descent_kernel(const float* __restrict__ b, const float* __restrict__ ap,
       for (int l = 0; l < 4; ++l) center.v[l] = d1.v[l] * uc.v[l];
       const Quad w = star_quad(uc, left, right, ur.get(z.q - ZM_QX),
                                ur.get(z.q + ZM_QX), um, u0, center, z,
-                               p - 1 - g.face, a, pin);
+                               p - 1 - kofs, a, pin);
 #pragma unroll
       for (int l = 0; l < 4; ++l)
         x1n.v[l] = dp && z.dom[l]
@@ -805,7 +856,7 @@ descent_kernel(const float* __restrict__ b, const float* __restrict__ ap,
     row_neighbours(xc, left, right);
     Quad r2{}, vn{};
     if (p - 2 >= z0 - 1 && z.rows(2)) {
-      const bool dp = domain_plane(g, p - 2);
+      const bool dp = live(p - 2);
       const Quad b2 = st.template raw<0>(z, p - 2);
       const Quad d2 = st.template raw<1>(z, p - 2);
       Quad center;
@@ -813,7 +864,7 @@ descent_kernel(const float* __restrict__ b, const float* __restrict__ ap,
       for (int l = 0; l < 4; ++l) center.v[l] = d2.v[l] * xc.v[l];
       const Quad w = star_quad(xc, left, right, xr.get(z.q - ZM_QX),
                                xr.get(z.q + ZM_QX), xm, x1n, center, z,
-                               p - 2 - g.face, a, pin);
+                               p - 2 - kofs, a, pin);
 #pragma unroll
       for (int l = 0; l < 4; ++l) {
         r2.v[l] = dp && z.dom[l] ? b2.v[l] - w.v[l] : 0.0f;
@@ -833,11 +884,12 @@ descent_kernel(const float* __restrict__ b, const float* __restrict__ ap,
       for (int l = 0; l < 4; ++l) center.v[l] = d3.v[l] * vc.v[l];
       const Quad w = star_quad(vc, left, right, vr.get(z.q - ZM_QX),
                                vr.get(z.q + ZM_QX), vm, vn, center, z,
-                               p - 3 - g.face, f, pin);
+                               p - 3 - kofs, f, pin);
 #pragma unroll
       for (int l = 0; l < 4; ++l)
         so.v[l] = dp && z.dom[l] ? r3.v[l] - gw * w.v[l] : 0.0f;
-      store_quad_at(x1, off - 3 * plane, xm);
+      // x1 is 0 off the domain but, in the slab form, on the face planes
+      store_quad_at(x1, off - 3 * plane, SLAB && !dp ? Quad{} : xm);
       store_quad_at(s, off - 3 * plane, so);
     }
     um = uc;
@@ -861,14 +913,15 @@ descent_kernel(const float* __restrict__ b, const float* __restrict__ ap,
 
 // K4 / K4': x2 = x1 + t - gw D^-1 (A_f t);  d = g D^-1 (b - A x2);
 // x3 = x2 + d;  x4 = x3 + ad d + g2 D^-1 (b - A x3);  partials of <b, x4>
-// with DOT.
-template <bool DOT>
+// with DOT.  K4z (SLAB, dot-free): K4' on one z-shard, as K3z is K3''s
+// (t, x1, b and diag carry the neighbours' planes on their face planes).
+template <bool DOT, bool SLAB = false>
 __global__ void __launch_bounds__(ZM3_THREADS, ZM4_MIN_BLOCKS)
 ascent_kernel(const float* __restrict__ t, const float* __restrict__ b,
               const float* __restrict__ x1, const float* __restrict__ diag,
               float* __restrict__ x4, float* __restrict__ partials, Geom g,
               Legs a, Legs f, float gg, float ad, float g2, float gw,
-              int pinned, int zchunk) {
+              int pinned, int zchunk, ZSlab zs) {
   constexpr int H = 3, AHEAD = ZM4_AHEAD;
   extern __shared__ float4 smem4[];
   float* sm = reinterpret_cast<float*>(smem4);
@@ -877,7 +930,13 @@ ascent_kernel(const float* __restrict__ t, const float* __restrict__ b,
   const int nzp = g.nz + 2 * g.face;
   const int z0 = (int)blockIdx.z * zchunk, z1 = min(z0 + zchunk, nzp);
   const ZQuad z = zquad<H, ZM3_SY>(g);
-  const bool pin = pins_origin<H>(g, pinned, z0);
+  const int zg = SLAB ? zs.zg : 0;
+  const bool pin = pins_origin<H>(g, pinned, z0, zg);
+  // as in descent_kernel
+  auto live = [&](int p) {
+    return SLAB ? slab_plane(g, zs, p) : domain_plane(g, p);
+  };
+  const int kofs = g.face - zg;
   // each field copied AHEAD planes before its first read: t (field 0,
   // every quad) of plane p, x1 and diag (fields 1, 2: step 1's rows) of
   // p - 1, b (field 3: step 2's rows) of p - 2; none below the march
@@ -885,16 +944,16 @@ ascent_kernel(const float* __restrict__ t, const float* __restrict__ b,
   const long long plane = g.plane;
   auto stage = [&](int p, long long off) {
     if (p <= z1 + H - 1) {
-      const bool valid = z.field && domain_plane(g, p);
+      const bool valid = z.field && live(p);
       st.copy_from<0>(valid ? t + off : t, z, p, valid);
     }
     if (p - 1 >= z0 - H) {
-      const bool valid = z.rows(1) && z.field && domain_plane(g, p - 1);
+      const bool valid = z.rows(1) && z.field && live(p - 1);
       st.copy_from<1>(valid ? x1 + (off - plane) : x1, z, p - 1, valid);
       st.copy_from<2>(valid ? diag + (off - plane) : diag, z, p - 1, valid);
     }
     if (p - 2 >= z0 - H) {
-      const bool valid = z.rows(2) && z.field && domain_plane(g, p - 2);
+      const bool valid = z.rows(2) && z.field && live(p - 2);
       st.copy_from<3>(valid ? b + (off - 2 * plane) : b, z, p - 2, valid);
     }
     cp_async_commit();
@@ -918,7 +977,7 @@ ascent_kernel(const float* __restrict__ t, const float* __restrict__ b,
     x3r.flip();
 
     // step 0, plane p: t into its ring (0 off the domain)
-    const Quad t0 = st.get<0>(g, z, p, 0.0f);
+    const Quad t0 = st.get_if<0>(z, p, live(p), 0.0f);
     tr.put(t0, z.q);
 
     // step 1, plane p - 1, the tile plus 2 cells a side: one reciprocal a
@@ -926,7 +985,7 @@ ascent_kernel(const float* __restrict__ t, const float* __restrict__ b,
     row_neighbours(tc, left, right);
     Quad dinv1{}, x2n{};
     if (p - 1 >= z0 - 2 && z.rows(1)) {
-      const bool dp = domain_plane(g, p - 1);
+      const bool dp = live(p - 1);
       const Quad x11 = st.raw<1>(z, p - 1), d1 = st.raw<2>(z, p - 1);
       Quad center;
 #pragma unroll
@@ -936,7 +995,7 @@ ascent_kernel(const float* __restrict__ t, const float* __restrict__ b,
       }
       const Quad w = star_quad(tc, left, right, tr.get(z.q - ZM_QX),
                                tr.get(z.q + ZM_QX), tm, t0, center, z,
-                               p - 1 - g.face, f, pin);
+                               p - 1 - kofs, f, pin);
 #pragma unroll
       for (int l = 0; l < 4; ++l)
         x2n.v[l] = dp && z.dom[l]
@@ -950,14 +1009,14 @@ ascent_kernel(const float* __restrict__ t, const float* __restrict__ b,
     row_neighbours(x2c, left, right);
     Quad d2{}, x3n{};
     if (p - 2 >= z0 - 1 && z.rows(2)) {
-      const bool dp = domain_plane(g, p - 2);
+      const bool dp = live(p - 2);
       const Quad dg2 = st.raw<2>(z, p - 2), b2 = st.raw<3>(z, p - 2);
       Quad center;
 #pragma unroll
       for (int l = 0; l < 4; ++l) center.v[l] = dg2.v[l] * x2c.v[l];
       const Quad w = star_quad(x2c, left, right, x2r.get(z.q - ZM_QX),
                                x2r.get(z.q + ZM_QX), x2m, x2n, center, z,
-                               p - 2 - g.face, a, pin);
+                               p - 2 - kofs, a, pin);
 #pragma unroll
       for (int l = 0; l < 4; ++l) {
         const bool in = dp && z.dom[l];
@@ -978,7 +1037,7 @@ ascent_kernel(const float* __restrict__ t, const float* __restrict__ b,
       for (int l = 0; l < 4; ++l) center.v[l] = dg3.v[l] * x3c.v[l];
       const Quad w = star_quad(x3c, left, right, x3r.get(z.q - ZM_QX),
                                x3r.get(z.q + ZM_QX), x3m, x3n, center, z,
-                               p - 3 - g.face, a, pin);
+                               p - 3 - kofs, a, pin);
 #pragma unroll
       for (int l = 0; l < 4; ++l) {
         out.v[l] = dp && z.dom[l]
@@ -1264,44 +1323,64 @@ static int zmarch_launch(Kernel kernel, int tiles_x, int tiles_y, int chunks,
   return (int)cudaGetLastError();
 }
 
+// The slab of (nz, zg, nzg): its domain planes are the global planes
+// [zg, zg + nz) of a grid of nzg; (0, nz) is the whole grid, the
+// unsharded kernels' case.  A slab the global grid does not hold is refused.
+static bool slab_ok(int nz, int zg, int nzg) {
+  return zg >= 0 && nz > 0 && zg + nz <= nzg;
+}
+static bool is_slab(int nz, int zg, int nzg) { return zg != 0 || nzg != nz; }
+
 // K3 (descent_rr) with partials, K3' (descent) with partials == nullptr:
-// one launch of the plan's grid, one partial a block.
+// one launch of the plan's grid, one partial a block.  K3z, K3' on the
+// slab (zg, nzg) of a z-sharded grid, where that is not the whole grid
+// (dot-free only).
 extern "C" int tps_descent(const float* b, const float* diag, float* x1,
                            float* s, float* partials, int nz, int ny, int nx,
                            int nxp, float cx, float cy, float cz, float fcx,
                            float fcy, float fcz, float s0, float ad, float gg,
-                           float gw, int pinned, int tiles_x, int tiles_y,
-                           int chunks, int zchunk, int smem_bytes,
-                           void* stream) {
+                           float gw, int pinned, int zg, int nzg, int tiles_x,
+                           int tiles_y, int chunks, int zchunk,
+                           int smem_bytes, void* stream) {
   const Geom g = make_geom(nz, ny, nx, nxp);
+  const bool slab = is_slab(nz, zg, nzg);
   if (!zmarch_plan_ok(g, 3, ZM3_SY, zmarch_smem<Staging3>(), tiles_x,
-                      tiles_y, chunks, zchunk, smem_bytes))
+                      tiles_y, chunks, zchunk, smem_bytes) ||
+      !slab_ok(nz, zg, nzg) || (slab && partials))
     return (int)cudaErrorInvalidValue;
   const Legs a{cx, cy, cz}, f{fcx, fcy, fcz};
   return zmarch_launch<ZM3_THREADS>(
-      partials ? descent_kernel<true, false> : descent_kernel<false, false>,
+      slab ? descent_kernel<false, false, true>
+           : partials ? descent_kernel<true, false>
+                      : descent_kernel<false, false>,
       tiles_x, tiles_y, chunks, smem_bytes, (cudaStream_t)stream, b,
       (const float*)nullptr, (const float*)nullptr, diag, x1, s,
-      (float*)nullptr, partials, g, a, f, s0, ad, gg, gw, pinned, zchunk);
+      (float*)nullptr, partials, g, a, f, s0, ad, gg, gw, pinned, zchunk,
+      ZSlab{zg, nzg});
 }
 
-// K4 (ascent_rz) with partials, K4' (ascent) with partials == nullptr.
+// K4 (ascent_rz) with partials, K4' (ascent) with partials == nullptr, and
+// K4z, K4' on a slab, as tps_descent.
 extern "C" int tps_ascent(const float* t, const float* b, const float* x1,
                           const float* diag, float* x4, float* partials,
                           int nz, int ny, int nx, int nxp, float cx, float cy,
                           float cz, float fcx, float fcy, float fcz, float gg,
-                          float ad, float g2, float gw, int pinned,
-                          int tiles_x, int tiles_y, int chunks, int zchunk,
-                          int smem_bytes, void* stream) {
+                          float ad, float g2, float gw, int pinned, int zg,
+                          int nzg, int tiles_x, int tiles_y, int chunks,
+                          int zchunk, int smem_bytes, void* stream) {
   const Geom g = make_geom(nz, ny, nx, nxp);
+  const bool slab = is_slab(nz, zg, nzg);
   if (!zmarch_plan_ok(g, 3, ZM3_SY, zmarch_smem<Staging4>(), tiles_x,
-                      tiles_y, chunks, zchunk, smem_bytes))
+                      tiles_y, chunks, zchunk, smem_bytes) ||
+      !slab_ok(nz, zg, nzg) || (slab && partials))
     return (int)cudaErrorInvalidValue;
   const Legs a{cx, cy, cz}, f{fcx, fcy, fcz};
   return zmarch_launch<ZM3_THREADS>(
-      partials ? ascent_kernel<true> : ascent_kernel<false>, tiles_x, tiles_y,
-      chunks, smem_bytes, (cudaStream_t)stream, t, b, x1, diag, x4, partials,
-      g, a, f, gg, ad, g2, gw, pinned, zchunk);
+      slab ? ascent_kernel<false, true>
+           : partials ? ascent_kernel<true> : ascent_kernel<false>,
+      tiles_x, tiles_y, chunks, smem_bytes, (cudaStream_t)stream, t, b, x1,
+      diag, x4, partials, g, a, f, gg, ad, g2, gw, pinned, zchunk,
+      ZSlab{zg, nzg});
 }
 
 // K6 (descent1_rr) with partials, K6' (descent1) with partials == nullptr:
@@ -1375,7 +1454,7 @@ extern "C" int tps_descentu(const float* r_old, const float* ap,
   return zmarch_launch<ZM3_THREADS>(
       descent_kernel<true, true>, tiles_x, tiles_y, chunks, smem_bytes,
       (cudaStream_t)stream, r_old, ap, alpha, diag, x1, s, r_new, partials,
-      g, a, f, s0, ad, gg, gw, pinned, zchunk);
+      g, a, f, s0, ad, gg, gw, pinned, zchunk, ZSlab{0, nz});
 }
 
 // K10-K16, the single-step modes: one launch each.  Unused operands are
@@ -1509,8 +1588,9 @@ extern "C" int tps_prolong(const float* t, const float* diag, float* out,
 }
 
 // Registers a thread, spilled (local) bytes a thread and static shared
-// bytes a block of z-marching kernel `which`: 0-11 are K3, K3', K4, K4',
-// K6, K6', K7, K7', K9, K15, K2, K14 (kernels/fused7.py::zmarch_attributes).
+// bytes a block of z-marching kernel `which`: 0-13 are K3, K3', K4, K4',
+// K6, K6', K7, K7', K9, K15, K2, K14, K3z, K4z
+// (kernels/fused7.py::zmarch_attributes).
 extern "C" int tps_zmarch_attributes(int which, int* regs, int* local_bytes,
                                      int* static_smem) {
   const void* kernels[] = {
@@ -1526,6 +1606,8 @@ extern "C" int tps_zmarch_attributes(int which, int* regs, int* local_bytes,
       (const void*)restrict_kernel,
       (const void*)mvdot_kernel,
       (const void*)pre2_kernel,
+      (const void*)descent_kernel<false, false, true>,
+      (const void*)ascent_kernel<false, true>,
   };
   if (which < 0 || which >= (int)(sizeof(kernels) / sizeof(kernels[0])))
     return (int)cudaErrorInvalidValue;

@@ -14,6 +14,8 @@ LAUNCHES = {
     "fused7_ascent_rz": 0,
     "fused7_descent": 0,
     "fused7_ascent": 0,
+    "fused7_descent_slab": 0,
+    "fused7_ascent_slab": 0,
     "fused7_descent1_rr": 0,
     "fused7_ascent1_rz": 0,
     "fused7_descent1": 0,

@@ -48,6 +48,17 @@ epilogue compiled out, for the V-cycle of the non-CG solvers.  The dots are
 what CG needs next: ``<p, Ap>`` for alpha, ``||r||^2`` and ``<r, z>`` (the
 cycle's input b IS the residual and its output IS z).
 
+``descent_slab`` and ``ascent_slab`` (K3z/K4z) are K3' and K4' in
+``fused7_call``'s z-slab form (its ``z0``/``nzg``, ``fused7.py:813-814``):
+the fields are one z-shard of a grid of ``nzg`` planes, whose domain planes
+are the global planes [z0, z0 + nz) and whose face planes hold the
+neighbouring shards' planes (``dist/fused_sharded.py`` refreshes them).
+The chained steps keep their values on those face planes where they lie
+in the global domain, the pin is tested in global planes, and the outputs
+are 0 on every face plane, the stacked layout's invariant.  Their twins
+run the unsharded twins' math on ``star7_mv_padded_torch``'s global
+placement and zero the output faces.
+
 K8 (``cgmv``) and K9 (``descentu``) take their CG scalars (beta,
 alpha_prev, alpha) as 0-d tensors, as CG computes them from the kernels'
 dots: the CUDA kernels read them from device memory, so a CG iteration
@@ -79,6 +90,7 @@ import torch
 
 from tpusparse_torch.kernels import LAUNCHES, _build
 from tpusparse_torch.kernels.stencil7 import (
+    FACE,
     check_fields,
     launch_args,
     padded_shape,
@@ -89,8 +101,9 @@ from tpusparse_torch.kernels.stencil7 import (
 P, I, F = _build.P, _build.I, _build.F
 _ZMARCH_PLAN_ARGS = [I] * 5   # tiles_x, tiles_y, chunks, zchunk, smem_bytes
 _MVDOT_ARGS = [P] * 4 + [I] * 4 + [F] * 3 + [I] + _ZMARCH_PLAN_ARGS + [P]
-_DESCENT_ARGS = [P] * 5 + [I] * 4 + [F] * 10 + [I] + _ZMARCH_PLAN_ARGS + [P]
-_ASCENT_ARGS = [P] * 6 + [I] * 4 + [F] * 10 + [I] + _ZMARCH_PLAN_ARGS + [P]
+# ..., pinned, zg, nzg (the slab form's placement), the plan, the stream
+_DESCENT_ARGS = [P] * 5 + [I] * 4 + [F] * 10 + [I] * 3 + _ZMARCH_PLAN_ARGS + [P]
+_ASCENT_ARGS = [P] * 6 + [I] * 4 + [F] * 10 + [I] * 3 + _ZMARCH_PLAN_ARGS + [P]
 _DESCENT1_ARGS = [P] * 5 + [I] * 4 + [F] * 8 + [I] + _ZMARCH_PLAN_ARGS + [P]
 _ASCENT1_ARGS = [P] * 6 + [I] * 4 + [F] * 8 + [I] + _ZMARCH_PLAN_ARGS + [P]
 _CGMV_ARGS = [P] * 10 + [I] * 4 + [F] * 3 + [I, P]
@@ -248,8 +261,8 @@ def zmarch_plan(shape, kernel: str) -> ZMarchPlan:
 
 # --- plain twins -------------------------------------------------------------
 
-def _mv(diag_p, cx, cy, cz, shape, pinned):
-    return lambda v: star7_mv_padded_torch(diag_p, cx, cy, cz, v, shape, pinned)
+def _mv(diag_p, cx, cy, cz, shape, pinned, z0=0, nzg=None):
+    return lambda v: star7_mv_padded_torch(diag_p, cx, cy, cz, v, shape, pinned, z0, nzg)
 
 
 def _legs(cx, cy, cz, flegs):
@@ -262,9 +275,10 @@ def fused7_mvdot_torch(diag_p, cx, cy, cz, x_p, shape, pinned: bool):
     return y, _dot(x_p, y)
 
 
-def fused7_descent_torch(diag_p, cx, cy, cz, b_p, s0, ad, g, gw, shape, pinned: bool, flegs=None):
-    mv = _mv(diag_p, cx, cy, cz, shape, pinned)
-    fmv = _mv(diag_p, *_legs(cx, cy, cz, flegs), shape, pinned)
+def fused7_descent_torch(diag_p, cx, cy, cz, b_p, s0, ad, g, gw, shape, pinned: bool, flegs=None,
+                         z0=0, nzg=None):
+    mv = _mv(diag_p, cx, cy, cz, shape, pinned, z0, nzg)
+    fmv = _mv(diag_p, *_legs(cx, cy, cz, flegs), shape, pinned, z0, nzg)
     dinv = 1.0 / diag_p
     u = (s0 * b_p) * dinv
     x1 = u + ad * u + g * (dinv * (b_p - mv(u)))
@@ -278,9 +292,10 @@ def fused7_descent_rr_torch(diag_p, cx, cy, cz, b_p, s0, ad, g, gw, shape, pinne
     return x1, s, _dot(b_p, b_p)
 
 
-def fused7_ascent_torch(diag_p, cx, cy, cz, t_p, b_p, x1_p, g, ad, g2, gw, shape, pinned: bool, flegs=None):
-    mv = _mv(diag_p, cx, cy, cz, shape, pinned)
-    fmv = _mv(diag_p, *_legs(cx, cy, cz, flegs), shape, pinned)
+def fused7_ascent_torch(diag_p, cx, cy, cz, t_p, b_p, x1_p, g, ad, g2, gw, shape, pinned: bool, flegs=None,
+                        z0=0, nzg=None):
+    mv = _mv(diag_p, cx, cy, cz, shape, pinned, z0, nzg)
+    fmv = _mv(diag_p, *_legs(cx, cy, cz, flegs), shape, pinned, z0, nzg)
     dinv = 1.0 / diag_p
     x2 = x1_p + t_p - gw * (dinv * fmv(t_p))
     d = g * (dinv * (b_p - mv(x2)))
@@ -291,6 +306,28 @@ def fused7_ascent_torch(diag_p, cx, cy, cz, t_p, b_p, x1_p, g, ad, g2, gw, shape
 def fused7_ascent_rz_torch(diag_p, cx, cy, cz, t_p, b_p, x1_p, g, ad, g2, gw, shape, pinned: bool, flegs=None):
     x4 = fused7_ascent_torch(diag_p, cx, cy, cz, t_p, b_p, x1_p, g, ad, g2, gw, shape, pinned, flegs)
     return x4, _dot(b_p, x4)
+
+
+def _zero_faces(f_p: torch.Tensor, shape) -> torch.Tensor:
+    """``f_p`` with its FACE planes on each z face set to 0."""
+    nz = shape[0]
+    f_p[:FACE] = 0.0
+    f_p[FACE + nz:] = 0.0
+    return f_p
+
+
+def fused7_descent_slab_torch(diag_p, cx, cy, cz, b_p, s0, ad, g, gw, shape, pinned: bool, z0: int, nzg: int):
+    """Plain twin of K3z: K3''s twin on the slab placed at global plane
+    ``z0`` of ``nzg``, its outputs' face planes 0."""
+    x1, s = fused7_descent_torch(diag_p, cx, cy, cz, b_p, s0, ad, g, gw, shape, pinned, None, z0, nzg)
+    return _zero_faces(x1, shape), _zero_faces(s, shape)
+
+
+def fused7_ascent_slab_torch(diag_p, cx, cy, cz, t_p, b_p, x1_p, g, ad, g2, gw, shape, pinned: bool, z0: int,
+                             nzg: int):
+    """Plain twin of K4z: K4''s twin on the slab, its output's face planes 0."""
+    x4 = fused7_ascent_torch(diag_p, cx, cy, cz, t_p, b_p, x1_p, g, ad, g2, gw, shape, pinned, None, z0, nzg)
+    return _zero_faces(x4, shape)
 
 
 def fused7_descent1_torch(diag_p, cx, cy, cz, b_p, g, gw, shape, pinned: bool, flegs=None):
@@ -388,12 +425,14 @@ def _check_aligned(*fields: torch.Tensor) -> None:
             raise ValueError("the z-marching kernels need fields that start on 16 bytes")
 
 
-# the z-marching wrappers in csrc/fused7.cu's ``tps_zmarch_attributes`` order
+# the z-marching wrappers in csrc/fused7.cu's ``tps_zmarch_attributes`` order,
+# then the slab forms K3z/K4z (their kernels' too)
 ZMARCH_WRAPPERS = (
     "fused7_descent_rr", "fused7_descent", "fused7_ascent_rz", "fused7_ascent",
     "fused7_descent1_rr", "fused7_descent1", "fused7_ascent1_rz", "fused7_ascent1",
     "fused7_descentu", "fused7_restrict", "fused7_mvdot", "fused7_pre2",
 )
+SLAB_WRAPPERS = ("fused7_descent_slab", "fused7_ascent_slab")
 
 
 def zmarch_attributes(name: str) -> dict:
@@ -404,7 +443,8 @@ def zmarch_attributes(name: str) -> dict:
     fn.argtypes = [I, P, P, P]
     fn.restype = I
     regs, local, static = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
-    rc = fn(ZMARCH_WRAPPERS.index(name), ctypes.byref(regs), ctypes.byref(local), ctypes.byref(static))
+    rc = fn((ZMARCH_WRAPPERS + SLAB_WRAPPERS).index(name), ctypes.byref(regs), ctypes.byref(local),
+            ctypes.byref(static))
     if rc != 0:
         raise RuntimeError(f"tps_zmarch_attributes: CUDA error {rc}")
     return {"registers": regs.value, "spilled_bytes": local.value, "static_smem_bytes": static.value}
@@ -415,9 +455,10 @@ def _zmarch_partials(plan: ZMarchPlan, dot: bool, device):
     return torch.empty(plan.blocks, dtype=torch.float32, device=device) if dot else None
 
 
-def _launch_descent(name, dot, diag_p, cx, cy, cz, b_p, s0, ad, g, gw, shape, pinned, flegs):
-    _check_aligned(diag_p, b_p)
-    x1, s = torch.empty_like(b_p), torch.empty_like(b_p)
+def _launch_descent(name, dot, diag_p, cx, cy, cz, b_p, s0, ad, g, gw, shape, pinned, flegs,
+                    z0=0, nzg=None, out=None):
+    x1, s = out if out is not None else (torch.empty_like(b_p), torch.empty_like(b_p))
+    _check_aligned(diag_p, b_p, x1, s)
     plan = zmarch_plan(shape, "descent")
     partials = _zmarch_partials(plan, dot, b_p.device)
     _build.launch(
@@ -425,15 +466,17 @@ def _launch_descent(name, dot, diag_p, cx, cy, cz, b_p, s0, ad, g, gw, shape, pi
         b_p.data_ptr(), diag_p.data_ptr(), x1.data_ptr(), s.data_ptr(),
         partials.data_ptr() if dot else None,
         *launch_args(shape, cx, cy, cz, *_legs(cx, cy, cz, flegs)),
-        float(s0), float(ad), float(g), float(gw), int(pinned), *plan.launch_args(),
+        float(s0), float(ad), float(g), float(gw), int(pinned), int(z0), shape[0] if nzg is None else int(nzg),
+        *plan.launch_args(),
     )
     LAUNCHES[name] += 1
     return (x1, s, partials.sum()) if dot else (x1, s)
 
 
-def _launch_ascent(name, dot, diag_p, cx, cy, cz, t_p, b_p, x1_p, g, ad, g2, gw, shape, pinned, flegs):
-    _check_aligned(diag_p, t_p, b_p, x1_p)
-    x4 = torch.empty_like(t_p)
+def _launch_ascent(name, dot, diag_p, cx, cy, cz, t_p, b_p, x1_p, g, ad, g2, gw, shape, pinned, flegs,
+                   z0=0, nzg=None, out=None):
+    x4 = out if out is not None else torch.empty_like(t_p)
+    _check_aligned(diag_p, t_p, b_p, x1_p, x4)
     plan = zmarch_plan(shape, "ascent")
     partials = _zmarch_partials(plan, dot, t_p.device)
     _build.launch(
@@ -441,7 +484,8 @@ def _launch_ascent(name, dot, diag_p, cx, cy, cz, t_p, b_p, x1_p, g, ad, g2, gw,
         t_p.data_ptr(), b_p.data_ptr(), x1_p.data_ptr(), diag_p.data_ptr(),
         x4.data_ptr(), partials.data_ptr() if dot else None,
         *launch_args(shape, cx, cy, cz, *_legs(cx, cy, cz, flegs)),
-        float(g), float(ad), float(g2), float(gw), int(pinned), *plan.launch_args(),
+        float(g), float(ad), float(g2), float(gw), int(pinned), int(z0), shape[0] if nzg is None else int(nzg),
+        *plan.launch_args(),
     )
     LAUNCHES[name] += 1
     return (x4, partials.sum()) if dot else x4
@@ -540,6 +584,46 @@ def fused7_ascent(diag_p, cx, cy, cz, t_p, b_p, x1_p, g, ad, g2, gw, shape, pinn
         return fused7_ascent_torch(diag_p, cx, cy, cz, t_p, b_p, x1_p, g, ad, g2, gw, shape, pinned, flegs)
     return _launch_ascent("fused7_ascent", False, diag_p, cx, cy, cz, t_p, b_p, x1_p, g, ad, g2, gw, shape,
                           pinned, flegs)
+
+
+def _check_slab(shape, z0, nzg, out, *fields) -> None:
+    """Raise unless the slab (``shape``, ``z0``) lies in a grid of ``nzg``
+    planes and each ``out`` field is a field of the slab."""
+    if not (0 <= z0 and z0 + shape[0] <= nzg):
+        raise ValueError(f"slab of {shape[0]} planes at global plane {z0} is not inside a grid of {nzg}")
+    if out is not None:
+        check_fields(shape, *fields, *out)
+
+
+def fused7_descent_slab(diag_p, cx, cy, cz, b_p, s0, ad, g, gw, shape, pinned: bool, z0: int, nzg: int,
+                        out=None):
+    """``(x1, s)``: K3' on one z-slab of a grid of ``nzg`` planes whose
+    domain planes are global planes [z0, z0 + nz), b's face planes holding
+    its neighbours' planes (K3z); x1 and s are 0 on the face planes.
+    ``out``: the two output fields to write (fresh ones by default)."""
+    shape = tuple(shape)
+    check_fields(shape, diag_p, b_p)
+    _check_slab(shape, z0, nzg, out, diag_p)
+    if b_p.device.type == "cpu":
+        got = fused7_descent_slab_torch(diag_p, cx, cy, cz, b_p, s0, ad, g, gw, shape, pinned, z0, nzg)
+        return got if out is None else tuple(o.copy_(v) for o, v in zip(out, got))
+    return _launch_descent("fused7_descent_slab", False, diag_p, cx, cy, cz, b_p, s0, ad, g, gw, shape, pinned,
+                           None, z0, nzg, out)
+
+
+def fused7_ascent_slab(diag_p, cx, cy, cz, t_p, b_p, x1_p, g, ad, g2, gw, shape, pinned: bool, z0: int,
+                       nzg: int, out=None):
+    """``x4``: K4' on one z-slab (K4z), its t, b and x1 holding the
+    neighbours' planes on their face planes; x4 is 0 on the face planes.
+    ``out``: the output field to write (a fresh one by default)."""
+    shape = tuple(shape)
+    check_fields(shape, diag_p, t_p, b_p, x1_p)
+    _check_slab(shape, z0, nzg, None if out is None else (out,), diag_p)
+    if t_p.device.type == "cpu":
+        got = fused7_ascent_slab_torch(diag_p, cx, cy, cz, t_p, b_p, x1_p, g, ad, g2, gw, shape, pinned, z0, nzg)
+        return got if out is None else out.copy_(got)
+    return _launch_ascent("fused7_ascent_slab", False, diag_p, cx, cy, cz, t_p, b_p, x1_p, g, ad, g2, gw, shape,
+                          pinned, None, z0, nzg, out)
 
 
 def fused7_descent1_rr(diag_p, cx, cy, cz, b_p, g, gw, shape, pinned: bool, flegs=None):

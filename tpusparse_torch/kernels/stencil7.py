@@ -117,12 +117,21 @@ def domain_index(shape, device):
     return k, j, i
 
 
-def star7_mv_padded_torch(diag_p, cx, cy, cz, x_p, shape, pinned: bool):
+def star7_mv_padded_torch(diag_p, cx, cy, cz, x_p, shape, pinned: bool, z0: int = 0, nzg: int | None = None):
     """Plain twin of K1: the math of ``PaddedStar._mv_xla``
-    (``tpusparse/sparse/padded.py:141-175``) on the port's layout."""
+    (``tpusparse/sparse/padded.py:141-175``) on the port's layout.
+
+    ``z0``/``nzg``: the field is one z-slab of a grid of ``nzg`` planes
+    whose domain planes are the global planes [z0, z0 + nz), as in
+    ``fused7_call``'s sharded form: its face planes hold the neighbouring
+    slabs' planes, the domain and the pin are tested in global planes, and
+    y is kept on every plane of the global domain the slab holds.  The
+    defaults (0, nz) are the whole grid."""
     nz, ny, nx = shape
+    nzg = nz if nzg is None else nzg
     k, j, i = domain_index(shape, x_p.device)
-    in_dom = (k >= 0) & (k < nz) & (j < ny) & (i < nx)
+    k = k + z0
+    in_dom = (k >= 0) & (k < nzg) & (j < ny) & (i < nx)
     zero = torch.zeros((), dtype=x_p.dtype, device=x_p.device)
     if pinned:
         origin = (k == 0) & (j == 0) & (i == 0)
