@@ -8,7 +8,9 @@ residual update, and the halo-1 march of K15 ``restrict_kernel``, K2
 must cover every padded cell exactly once (faces and pads included, since
 the kernels write every output cell), its partials count must be its block
 count, its shared memory must fit a block and the blocks an SM must hold,
-and 300^3 must fill the H100.
+and 300^3 must fill the H100.  K3z/K4z's one launch over the stacked
+slabs (``zmarch_slab_plan``) covers every slab exactly once, with its
+z-chunks chosen by the plan's wave model.
 
 The kernels themselves run only on the card (``test_torch_cuda.py``).  Here
 ``_emulate`` replays their schedule block by block with torch on the CPU:
@@ -43,6 +45,7 @@ from tpusparse_torch.kernels.fused7 import (
     fused7_pre2_torch,
     fused7_restrict_torch,
     zmarch_plan,
+    zmarch_slab_plan,
 )
 from tpusparse_torch.kernels.stencil7 import FACE, padded_shape
 from tpusparse_torch.sparse.padded import PaddedStar, pad_field
@@ -110,6 +113,78 @@ def test_zmarch_plan_fills_the_h100_at_300(kernel):
     assert 65536 // (plan.blocks_per_sm * 32 * warps) >= 64
     # a chunk re-reads 2 H halo planes: at most a seventh more input bytes
     assert plan.zchunk >= 7 * 2 * ZM_KERNELS[kernel].halo
+
+
+def test_unsharded_k3_k4_plans_are_unchanged_at_300():
+    """K3/K4 (and K3'/K4') keep their plan: 7 chunks of 44 of the 306
+    padded planes, 6 x 9 tiles, 378 blocks."""
+    for kernel in ("descent", "ascent"):
+        plan = zmarch_plan((300, 300, 300), kernel)
+        assert (plan.tiles_x, plan.tiles_y, plan.chunks, plan.zchunk, plan.shards) == (6, 9, 7, 44, 1)
+        assert plan.blocks == 378
+
+
+# K3z/K4z's stacked slabs: (global shape, z-shards) of tests/test_torch_cuda.py's
+# SLAB_SHAPES and 300^3 over 2 and 4 shards
+SLAB_PLAN_CASES = [((12, 11, 13), 4), ((8, 2, 5), 2), ((40, 21, 61), 2), ((150, 13, 7), 2),
+                   ((300, 300, 300), 2), ((300, 300, 300), 4)]
+
+
+@pytest.mark.parametrize("kernel", ["descent", "ascent"])
+@pytest.mark.parametrize("shape, p", SLAB_PLAN_CASES)
+def test_zmarch_slab_plan_covers_each_slab_cell_once(shape, p, kernel):
+    """One launch over the p stacked slabs: its blocks, decoded as the
+    kernel decodes blockIdx.z (slab i = z // chunks), write every cell of
+    the stack (p slabs of nz_l + 2 FACE planes) exactly once, and each block
+    only cells of its own slab; the plan has K3'/K4''s tiles and shared
+    bytes, and p times the chunks of one slab."""
+    nz, ny, nx = shape
+    local = (nz // p, ny, nx)
+    plan = zmarch_slab_plan(local, kernel, p)
+    one = zmarch_plan(local, kernel)
+    assert (plan.tiles_x, plan.tiles_y, plan.smem_bytes, plan.region) == (
+        one.tiles_x, one.tiles_y, one.smem_bytes, one.region)
+    assert plan.shards == p and plan.blocks == one.tiles_x * one.tiles_y * plan.chunks * p
+    nzp, _, nxp = padded_shape(local)
+    assert plan.chunks == -(-nzp // plan.zchunk)   # what tps_descent / tps_ascent check
+    zr, yr, xr = plan.ranges(local)
+    assert len(zr) == p * plan.chunks
+    hits = np.zeros(p * nzp, dtype=np.int64)
+    for bz, (lo, hi) in enumerate(zr):
+        i = bz // plan.chunks
+        assert i * nzp <= lo < hi <= (i + 1) * nzp
+        hits[lo:hi] += 1
+    assert (hits == 1).all()
+    for n, ranges in ((ny, yr), (nxp, xr)):
+        hits = np.zeros(n, dtype=np.int64)
+        for lo, hi in ranges:
+            hits[lo:hi] += 1
+        assert (hits == 1).all()
+
+
+def _slab_cost(blocks_per_chunk, chunks, zchunk, halo=3):
+    """The slab plan's model: waves (rounded up) times planes marched."""
+    return -(-blocks_per_chunk * chunks // H100_SMS) * (zchunk + 2 * halo)
+
+
+@pytest.mark.parametrize("kernel", ["descent", "ascent"])
+def test_zmarch_slab_plan_fills_whole_waves_at_300_over_4(kernel):
+    """At 300^3 over 4 shards (nz_l = 75, 81 padded planes a slab, 54
+    tiles) the rule takes 3 chunks of 27: 648 blocks, 4.91 waves of one
+    block an SM, cost 5 x 33 = 165 against 188 for a slab's own 2 chunks of
+    41 (4 waves of 47) and 174 for 1 chunk of 81 (2 of 87); no chunk count
+    costs less.  One slab alone (q = 1) keeps 2 chunks of 41."""
+    plan = zmarch_slab_plan((75, 300, 300), kernel, 4)
+    assert (plan.chunks, plan.zchunk, plan.blocks) == (3, 27, 648)
+    assert plan.waves(H100_SMS) == pytest.approx(648 / 132)
+    per_chunk = plan.tiles_x * plan.tiles_y * 4
+    assert _slab_cost(per_chunk, 3, 27) == 165
+    assert (_slab_cost(per_chunk, 2, 41), _slab_cost(per_chunk, 1, 81)) == (188, 174)
+    for n in range(1, 82):
+        zchunk = -(-81 // n)
+        assert _slab_cost(per_chunk, -(-81 // zchunk), zchunk) >= 165
+    single = zmarch_slab_plan((75, 300, 300), kernel, 1)
+    assert (single.chunks, single.zchunk, single.blocks) == (2, 41, 108)
 
 
 # --- the schedule, replayed ---------------------------------------------------

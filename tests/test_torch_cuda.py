@@ -81,6 +81,7 @@ from tpusparse_torch.kernels.fused7 import (
     fused7_rich,
     fused7_rich_torch,
     zmarch_plan,
+    zmarch_slab_plan,
 )
 from tpusparse_torch.kernels.stencil7 import (
     FACE,
@@ -304,7 +305,7 @@ def test_zmarch_entry_points_of_k3_k4_refuse_a_wrong_plan(cuda, kind):
     for bad in wrong:
         with pytest.raises(RuntimeError, match=name):
             _build.launch(name, argtypes, cuda, *ptrs, *launch_args(shape, cx, cy, cz, cx, cy, cz),
-                          G, AD, S0, GW, 1, 0, shape[0], *bad)
+                          G, AD, S0, GW, 1, 0, shape[0], 1, *bad)
 
 
 @pytest.mark.parametrize("kind", ["descentu", "restrict", "mvdot", "pre2"])
@@ -351,45 +352,54 @@ def test_zmarch_entry_points_of_k9_k15_refuse_a_wrong_plan(cuda, kind):
 
 
 # K3z/K4z: (global shape, z-shards) with nz_l = 3, 4, 20 and 75 (several
-# z-chunks a slab); ny = 21 cuts the tiles raggedly
+# z-chunks a slab, down to chunks of 1 plane); ny = 21 cuts the tiles
+# raggedly
 SLAB_SHAPES = [((12, 11, 13), 4), ((8, 2, 5), 2), ((40, 21, 61), 2), ((150, 13, 7), 2)]
 
 
 @pytest.mark.parametrize("pinned", [True, False])
 @pytest.mark.parametrize("shape, p", SLAB_SHAPES)
 def test_slab_kernels_match_twins_and_one_unsharded_launch(cuda, shape, p, pinned):
-    """K3z and K4z on each slab of the exchanged stacked fields against
-    their twins (one launch a call, every face and pad cell 0), and the
-    slabs' domain planes against one K3'/K4' launch on the whole field:
-    bit-equal, the same arithmetic on the same values."""
+    """K3z and K4z on the exchanged stacked fields, one launch a call over
+    all p slabs (q = p) and one a slab (q = 1), against their twins (every
+    face and pad cell 0); each slab's domain planes bit-equal between the
+    two and to one K3'/K4' launch on the whole field: the same arithmetic
+    on the same values."""
     nz, ny, nx = shape
     star = poisson_stencil_device(Grid3D(nx, ny, nz), pin=pinned, dtype=torch.float32, device=cuda)[0]
     fs = FusedSharded.build(star, make_z_mesh(p, cuda))
     rng = np.random.default_rng(7)
     plain = [torch.tensor(rng.standard_normal(shape, dtype=np.float32), device=cuda) for _ in range(3)]
     b, t, x1 = (fs.exchange_(fs.to_stacked(f)) for f in plain)
-    legs = (fs.diag_st, fs.cx, fs.cy, fs.cz)
     local, nz_l = fs.local_shape, fs.nz_l
-    outs = {"descent": [], "ascent": []}
-    for i in range(p):
-        place = (local, pinned, i * nz_l, nz)
-        cases = {
-            "descent": (fused7_descent_slab, fused7_descent_slab_torch,
-                        (legs[0][i], *legs[1:], b[i], S0, AD, G, GW, *place)),
+
+    def cases(sl, z0):
+        legs = (fs.diag_st[sl], fs.cx, fs.cy, fs.cz)
+        place = (local, pinned, z0, nz)
+        return {
+            "descent": (fused7_descent_slab, fused7_descent_slab_torch, (*legs, b[sl], S0, AD, G, GW, *place)),
             "ascent": (fused7_ascent_slab, fused7_ascent_slab_torch,
-                       (legs[0][i], *legs[1:], t[i], b[i], x1[i], G, AD, G2, GW, *place)),
+                       (*legs, t[sl], b[sl], x1[sl], G, AD, G2, GW, *place)),
         }
-        for mode, (kernel, twin, args) in cases.items():
+
+    def run(sl, z0):
+        outs = {}
+        for mode, (kernel, twin, args) in cases(sl, z0).items():
             before = kernels.LAUNCHES[f"fused7_{mode}_slab"]
             got, want = kernel(*args), twin(*args)
             torch.cuda.synchronize()
             assert kernels.LAUNCHES[f"fused7_{mode}_slab"] == before + 1
             _close(got, want, cuda)
-            for field in (got if isinstance(got, tuple) else (got,)):
+            got = got if isinstance(got, tuple) else (got,)
+            for field in got:
                 outside = torch.ones_like(field, dtype=torch.bool)
-                outside[FACE:FACE + nz_l, :, :nx] = False
+                outside[..., FACE:FACE + nz_l, :, :nx] = False
                 assert (field[outside] == 0).all()
-            outs[mode].append(got if isinstance(got, tuple) else (got,))
+            outs[mode] = got
+        return outs
+
+    stacked = run(slice(None), 0)
+    single = [run(i, i * nz_l) for i in range(p)]
     op = PaddedStar.from_star(star)
     pl = (op.diag, op.cx, op.cy, op.cz)
     bp, tp, x1p = (pad_field(f) for f in plain)
@@ -397,37 +407,57 @@ def test_slab_kernels_match_twins_and_one_unsharded_launch(cuda, shape, p, pinne
         "descent": fused7_descent(*pl, bp, S0, AD, G, GW, shape, pinned),
         "ascent": (fused7_ascent(*pl, tp, bp, x1p, G, AD, G2, GW, shape, pinned),),
     }
-    for mode, fields in outs.items():
+    for mode, fields in stacked.items():
         for k, want in enumerate(whole[mode]):
-            got = torch.cat([f[k][FACE:FACE + nz_l, :, :nx] for f in fields])
-            assert torch.equal(got, crop_field(want, shape))
+            assert torch.equal(fields[k], torch.stack([o[mode][k] for o in single]))
+            assert torch.equal(fields[k][:, FACE:FACE + nz_l, :, :nx].reshape(shape), crop_field(want, shape))
 
 
 def test_slab_entry_points_refuse_a_dot_or_a_slab_outside_the_grid(cuda):
-    """The slab form is dot-free, and its slab must lie in the global grid."""
+    """The slab form is dot-free, and its slabs must lie in the global grid:
+    one slab, or the last of q stacked ones."""
     shape = (12, 11, 13)
     args = _args("fused7_descent", shape, True, cuda)
     diag, cx, cy, cz, b = args[:5]
-    x1, s = torch.empty_like(b), torch.empty_like(b)
-    plan = zmarch_plan(shape, "descent")
+    stack, diag_st = torch.zeros((4, *b.shape), dtype=b.dtype, device=cuda), diag.expand(4, *b.shape).contiguous()
+    x1, s = torch.empty_like(stack), torch.empty_like(stack)
+    plan = zmarch_slab_plan(shape, "descent", 4)
     partials = torch.empty(plan.blocks, dtype=torch.float32, device=cuda)
-    head = (b.data_ptr(), diag.data_ptr(), x1.data_ptr(), s.data_ptr())
-    for dot, zg, nzg in ((partials.data_ptr(), 12, 48), (None, 40, 48), (None, -1, 48)):
+    head = (stack.data_ptr(), diag_st.data_ptr(), x1.data_ptr(), s.data_ptr())
+    for dot, zg, nzg, q in ((partials.data_ptr(), 12, 48, 1), (None, 40, 48, 1), (None, -1, 48, 1),
+                            (None, 12, 48, 4), (None, 0, 47, 4), (None, 0, 48, 0)):
         with pytest.raises(RuntimeError, match="tps_descent"):
             _build.launch("tps_descent", _DESCENT_ARGS, cuda, *head, dot,
-                          *launch_args(shape, cx, cy, cz, cx, cy, cz), S0, AD, G, GW, 1, zg, nzg,
+                          *launch_args(shape, cx, cy, cz, cx, cy, cz), S0, AD, G, GW, 1, zg, nzg, q,
                           *plan.launch_args())
+    # the same four slabs from global plane 0 fill the grid of 48
+    _build.launch("tps_descent", _DESCENT_ARGS, cuda, *head, None, *launch_args(shape, cx, cy, cz, cx, cy, cz),
+                  S0, AD, G, GW, 1, 0, 48, 4, *plan.launch_args())
+    torch.cuda.synchronize()
 
 
-def test_sharded_solve_on_card_matches_cpu(cuda):
-    """``n_devices=4`` at 16^3 (nz_l = 4): K3z/K4z alike, 4 a cycle, and K1p;
-    no K2-K4 or K3'/K4'; the CPU's outcome."""
+def test_sharded_solve_on_card_matches_cpu(cuda, monkeypatch):
+    """``n_devices=4`` at 16^3 (nz_l = 4): K3z/K4z alike, one launch a
+    stroke (``FusedSharded.descent`` / ``ascent``), and K1p; no K2-K4 or
+    K3'/K4'; the CPU's outcome."""
     kw = dict(rtol=1e-8, atol=1e-12, pc="gamg", warmup=False, n_devices=4)
+    strokes = {"descent": 0, "ascent": 0}
+
+    def counted(name):
+        fn = getattr(FusedSharded, name)
+
+        def stroke(self, *args):
+            strokes[name] += 1
+            return fn(self, *args)
+        return stroke
+
+    for name in strokes:
+        monkeypatch.setattr(FusedSharded, name, counted(name))
     kernels.reset_launches()
     gpu = solve_poisson(16, device=cuda, **kw)
     used = dict(kernels.LAUNCHES)
-    assert used["fused7_descent_slab"] == used["fused7_ascent_slab"] > 0
-    assert used["fused7_descent_slab"] % 4 == 0 and used["star7_mv"] > 0
+    assert used["fused7_descent_slab"] == strokes["descent"] == strokes["ascent"] == used["fused7_ascent_slab"] > 0
+    assert used["star7_mv"] > 0
     assert all(n == 0 for name, n in used.items()
                if name not in ("fused7_descent_slab", "fused7_ascent_slab", "star7_mv"))
     cpu = solve_poisson(16, device="cpu", **kw)

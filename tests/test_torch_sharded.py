@@ -1,7 +1,8 @@
 """The z-sharded fine level against the JAX package's: the stacked layout and
 its halo exchange, the K3z/K4z twins (``fused7_descent_slab`` /
-``fused7_ascent_slab``) on each slab against ``fused7_call``'s z-slab form
-in the Pallas interpreter, the slab twins over all shards against the
+``fused7_ascent_slab``) on each slab, one slab a call and all slabs
+stacked, against ``fused7_call``'s z-slab form in the Pallas interpreter,
+one wrapper call a stroke, the slab twins over all shards against the
 unsharded twin, ``vcycle_fused_sharded`` against the JAX package's plain
 ``vcycle`` on one hierarchy, ``solve_poisson(..., n_devices=4)`` and
 ``-devices 4`` against the JAX package, and the routes ``n_devices > 1``
@@ -154,38 +155,102 @@ SLAB_CASES = [
 ]
 
 
-@pytest.mark.parametrize("mode", ["descent", "ascent"])
-@pytest.mark.parametrize("shape, p, i, pinned", SLAB_CASES)
-def test_slab_twin_matches_pallas_interpreter(mode, shape, p, i, pinned):
-    """Shard i's K3z (K4z) twin against ``fused7_call(mode, ...,
-    interpret=True, z0=i nz_l, nzg=nz)`` on the same slab: the domain
-    planes at tests/test_fused7.py:53-69's tolerances (``_check_field``),
-    every face plane 0 in both.  nz_l = 3 takes the JAX kernel's one slab
-    of 3 planes (``tz_override``: its slab-depth ladder starts at 4)."""
+def _jax_slab(mode, shape, p, i, pinned, diag, legs, f):
+    """Shard i's outputs of ``fused7_call(mode, ..., interpret=True, z0=i
+    nz_l, nzg=nz)`` (a tuple, JAX's layout).  nz_l = 3 takes the JAX
+    kernel's one slab of 3 planes (``tz_override``: its slab-depth ladder
+    starts at 4)."""
     nz, ny, nx = shape
     nz_l = nz // p
-    diag, legs, f = _fields(shape)
-    sd = _slab(diag, i, nz_l, fill=1.0)
-    slabs = {k: _slab(v, i, nz_l) for k, v in f.items()}
-    local = (nz_l, ny, nx)
-    jd = _jax_padded(sd, 1.0)
-    jb, jt, jx1 = (_jax_padded(slabs[k]) for k in ("b", "t", "x1"))
-    pd = _port_padded(sd, 1.0)
-    pb, pt, px1 = (_port_padded(slabs[k]) for k in ("b", "t", "x1"))
+    jd = _jax_padded(_slab(diag, i, nz_l, fill=1.0), 1.0)
+    jb, jt, jx1 = (_jax_padded(_slab(f[k], i, nz_l)) for k in ("b", "t", "x1"))
+    kw = dict(shape=(nz_l, ny, nx), pinned=pinned, interpret=True, gw=GW, tz_override=nz_l, z0=i * nz_l, nzg=nz)
     if mode == "descent":
-        want = fused7_call("descent", jd, *legs, jb, jb, jb, G, AD, S0, shape=local, pinned=pinned,
-                           interpret=True, gw=GW, tz_override=nz_l, z0=i * nz_l, nzg=nz)
-        got = fused7_descent_slab(pd, *legs, pb, S0, AD, G, GW, local, pinned, i * nz_l, nz)
-    else:
-        want = (fused7_call("ascent", jd, *legs, jt, jb, jx1, G, AD, S0, shape=local, pinned=pinned,
-                            interpret=True, gw=GW, g2=G2, tz_override=nz_l, z0=i * nz_l, nzg=nz),)
-        got = (fused7_ascent_slab(pd, *legs, pt, pb, px1, G, AD, G2, GW, local, pinned, i * nz_l, nz),)
-    assert kernels.LAUNCHES[f"fused7_{mode}_slab"] == 0   # CPU tensors: the twin
+        return tuple(fused7_call("descent", jd, *legs, jb, jb, jb, G, AD, S0, **kw))
+    return (fused7_call("ascent", jd, *legs, jt, jb, jx1, G, AD, S0, g2=G2, **kw),)
+
+
+def _port_slab(mode, shape, pinned, z0, nzg, legs, d, fields):
+    """The port's K3z (K4z) wrapper on slab fields (one slab, or stacked)
+    of a grid of ``nzg`` planes, its outputs as a tuple."""
+    b, t, x1 = fields
+    if mode == "descent":
+        return fused7_descent_slab(d, *legs, b, S0, AD, G, GW, shape, pinned, z0, nzg)
+    return (fused7_ascent_slab(d, *legs, t, b, x1, G, AD, G2, GW, shape, pinned, z0, nzg),)
+
+
+def _check_slab_against_jax(got, want, nz_l, nx, ny):
+    """A slab's outputs against JAX's: the domain planes at
+    tests/test_fused7.py:53-69's tolerances (``_check_field``), every face
+    plane 0 in both, and the port's x pads 0."""
     for g_, w_ in zip(got, want):
         w_ = np.asarray(w_)
         _check_field(g_[FACE:FACE + nz_l, :, :nx].numpy(), w_[FACE:FACE + nz_l, :ny, :nx])
         assert (g_[:FACE] == 0).all() and (g_[FACE + nz_l:] == 0).all() and (g_[..., nx:] == 0).all()
         assert (w_[:FACE] == 0).all() and (w_[FACE + nz_l:] == 0).all()
+
+
+@pytest.mark.parametrize("mode", ["descent", "ascent"])
+@pytest.mark.parametrize("shape, p, i, pinned", SLAB_CASES)
+def test_slab_twin_matches_pallas_interpreter(mode, shape, p, i, pinned):
+    """Shard i's K3z (K4z) twin on its one slab (q = 1) against
+    ``fused7_call(mode, ..., interpret=True, z0=i nz_l, nzg=nz)`` on the
+    same slab (``_check_slab_against_jax``)."""
+    nz, ny, nx = shape
+    nz_l = nz // p
+    diag, legs, f = _fields(shape)
+    local = (nz_l, ny, nx)
+    pd = _port_padded(_slab(diag, i, nz_l, fill=1.0), 1.0)
+    fields = [_port_padded(_slab(f[k], i, nz_l)) for k in ("b", "t", "x1")]
+    got = _port_slab(mode, local, pinned, i * nz_l, nz, legs, pd, fields)
+    assert kernels.LAUNCHES[f"fused7_{mode}_slab"] == 0   # CPU tensors: the twin
+    _check_slab_against_jax(got, _jax_slab(mode, shape, p, i, pinned, diag, legs, f), nz_l, nx, ny)
+
+
+@pytest.mark.parametrize("mode", ["descent", "ascent"])
+@pytest.mark.parametrize("pinned", [True, False], ids=["pinned", "free"])
+@pytest.mark.parametrize("shape, p", SLABS)
+def test_stacked_slab_twin_matches_pallas_interpreter(mode, shape, p, pinned):
+    """The K3z (K4z) twin on all p slabs stacked (q = p, one wrapper call)
+    against ``fused7_call``'s z-slab form on each shard, as the q = 1
+    case."""
+    nz, ny, nx = shape
+    nz_l = nz // p
+    diag, legs, f = _fields(shape)
+    pd = torch.stack([_port_padded(_slab(diag, i, nz_l, fill=1.0), 1.0) for i in range(p)])
+    fields = [torch.stack([_port_padded(_slab(f[k], i, nz_l)) for i in range(p)]) for k in ("b", "t", "x1")]
+    got = _port_slab(mode, (nz_l, ny, nx), pinned, 0, nz, legs, pd, fields)
+    assert all(g_.shape == pd.shape for g_ in got)
+    for i in range(p):
+        _check_slab_against_jax([g_[i] for g_ in got], _jax_slab(mode, shape, p, i, pinned, diag, legs, f),
+                                nz_l, nx, ny)
+
+
+def test_fused_sharded_makes_one_wrapper_call_a_stroke(monkeypatch):
+    """``FusedSharded.descent`` / ``ascent`` call K3z / K4z's wrapper once a
+    stroke, on the whole (p, ...) stack from global plane 0: on the card,
+    one launch a stroke."""
+    import tpusparse_torch.dist.fused_sharded as fsm
+
+    calls = []
+
+    def counted(name, fn):
+        def wrapper(diag_p, *args, **kw):
+            calls.append((name, tuple(diag_p.shape), kw["z0"], kw["nzg"]))
+            return fn(diag_p, *args, **kw)
+        return wrapper
+
+    monkeypatch.setattr(fsm, "fused7_descent_slab", counted("descent", fused7_descent_slab))
+    monkeypatch.setattr(fsm, "fused7_ascent_slab", counted("ascent", fused7_ascent_slab))
+    shape, p = (12, 6, 7), 4
+    diag, legs, f = _fields(shape)
+    fs = FusedSharded.build(star_from_numpy(diag, *legs, True, device="cpu"), make_z_mesh(p, "cpu"))
+    b_st, t_st, x1_st = (fs.to_stacked(torch.from_numpy(f[k])) for k in ("b", "t", "x1"))
+    fs.descent(b_st, S0, AD, G, GW)
+    fs.ascent(t_st, b_st, x1_st, G, AD, G2, GW)
+    stack = tuple(fs.diag_st.shape)
+    assert stack == (p, 3 + 2 * FACE, 6, 8)
+    assert calls == [("descent", stack, 0, 12), ("ascent", stack, 0, 12)]
 
 
 @pytest.mark.parametrize("pinned", [True, False])
@@ -220,6 +285,20 @@ def test_slab_wrappers_refuse_a_slab_outside_the_grid():
         fused7_descent_slab(pd, *legs, pb, S0, AD, G, GW, (4, 6, 7), True, 6, 8)
     with pytest.raises(ValueError, match="not inside"):
         fused7_ascent_slab(pd, *legs, pb, pb, pb, G, AD, G2, GW, (4, 6, 7), True, -1, 8)
+    # two stacked slabs of 4 planes: from plane 0 they fill the grid of 8,
+    # from plane 4 the last one leaves it
+    sd, sb = torch.stack([pd, pd]), torch.stack([pb, pb])
+    assert fused7_descent_slab(sd, *legs, sb, S0, AD, G, GW, (4, 6, 7), True, 0, 8)[0].shape == sb.shape
+    with pytest.raises(ValueError, match="not inside"):
+        fused7_descent_slab(sd, *legs, sb, S0, AD, G, GW, (4, 6, 7), True, 4, 8)
+    with pytest.raises(ValueError, match="not inside"):
+        fused7_ascent_slab(sd, *legs, sb, sb, sb, G, AD, G2, GW, (4, 6, 7), True, 4, 8)
+    # stacked and unstacked fields mixed, or a stack that is not contiguous
+    with pytest.raises(ValueError, match="padded_shape"):
+        fused7_descent_slab(sd, *legs, pb, S0, AD, G, GW, (4, 6, 7), True, 0, 8)
+    with pytest.raises(ValueError, match="contiguous"):
+        fused7_ascent_slab(sd, *legs, sb, sb, sb.transpose(2, 3).contiguous().transpose(2, 3), G, AD, G2, GW,
+                           (4, 6, 7), True, 0, 8)
 
 
 # --- the sharded V-cycle --------------------------------------------------

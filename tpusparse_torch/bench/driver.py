@@ -41,7 +41,8 @@ f32 under f64 defect correction.  The routes:
 - ``n_devices=p`` > 1: the z-sharded route (the JAX driver's ``fused_sh``,
   ``:396-431``, ``:766-825``): the f32 ``StarStencil3D`` and the plain
   hierarchy, preconditioned by ``vcycle_fused_sharded``, whose fine level
-  runs once per z-shard (kernels K3z/K4z, ``dist/fused_sharded.py``), and
+  runs on every z-shard, one launch a stroke over all of them (kernels
+  K3z/K4z, ``dist/fused_sharded.py``), and
   CG's ``Ap`` on K1p.  The p shards live on ONE device; several devices are
   ROADMAP queue 12, and so is every other ``n_devices > 1`` route.
 - ``mat_type="aij"``: the system as a 7-band DIA (f32 ``DIA`` for the

@@ -163,20 +163,27 @@ prolong_kernel(const float* __restrict__ t, const float* __restrict__ diag,
 // flag, and K2, K14 and K15 are one march (march1) with the mode as a
 // template parameter.
 //
-// K3z/K4z (the SLAB flag of descent_kernel / ascent_kernel) march one
-// z-shard's slab of nz_l + 2 FACE planes, whose face planes hold the
-// neighbouring shards' planes.  Two predicates take the place of
-// domain_plane: what is staged and computed on is every slab_plane (in the
-// array and in the global domain), while the outputs are written 0 on the
-// slab's face planes, as the layout of tpusparse/dist/fused_sharded.py
-// keeps them between launches; the pin is tested in global planes.
-// Planes the march reaches outside the array (the first chunk starts H
-// below it) are staged as zeros: they feed only face-plane outputs.  The
-// flag adds no work to the unsharded kernels, which compile as before.
+// K3z/K4z (the SLAB flag of descent_kernel / ascent_kernel) march the q
+// z-shards of the stacked layout (q, nz_l + 2 FACE, ny, nxp) in one
+// launch, each slab's face planes holding the neighbouring shards' planes.
+// blockIdx.z is shard * chunks + chunk (slab_of): a block finds its slab's
+// offset in the stack and its global placement before anything else.  Two
+// predicates take the place of domain_plane: what is staged and computed
+// on is every slab_plane (in the slab's array and in the global domain),
+// while the outputs are written 0 on the slab's face planes, as the layout
+// of tpusparse/dist/fused_sharded.py keeps them between launches; the pin
+// is tested in global planes.  Planes the march reaches outside the slab's
+// array (the first chunk starts H below it, the last ends H above) are
+// staged as zeros, never read from the neighbouring slab in the stack:
+// they feed only face-plane outputs.  The flag adds no work to the
+// unsharded kernels, which compile as before.  q = 1 is one slab alone,
+// what a card of a multi-card run would launch.
 // Bound: bytes, K3'/K4''s 4 / 5 passes over each slab's nz_l + 2 FACE
 // planes, 0.139 / 0.174 ms for the 4 slabs of 300^3 at the H100's 3.35
-// TB/s; the 4 launches took 0.28 / 0.43 ms on an H100 80GB HBM3 at 700 W
-// (PERF.md section 6), each launch under one wave of blocks.
+// TB/s.  One launch a slab held one block an SM to 0.82 of a wave at 300^3
+// / 4 and ran at 40-50% of the bound (PERF.md section 6); one launch over
+// every slab with z-chunks chosen for the whole grid
+// (kernels/fused7.py::zmarch_slab_plan) fills whole waves instead.
 //
 // The launch plan (tiles, z-chunk, grid, shared bytes, partials) is
 // computed by the wrapper (kernels/fused7.py::zmarch_plan); the entry
@@ -393,21 +400,46 @@ __device__ __forceinline__ bool domain_plane(const Geom& g, int p) {
 }
 
 // The slab form of K3/K4 (K3z/K4z, tpusparse/kernels/fused7.py's z0 and
-// nzg, :367-370): the field is one z-shard of a grid of nzg planes, its
-// domain planes the global planes [zg, zg + nz), and its face planes the
-// neighbouring shards' planes (zero where they leave the grid).
+// nzg, :367-370): the fields are q consecutive z-shards of a grid of nzg
+// planes, stacked in one array of q slabs of nz + 2 face planes each.
+// Slab i's domain planes are the global planes [zg0 + i nz, zg0 + (i + 1)
+// nz), and its face planes the neighbouring shards' planes (zero where
+// they leave the grid).  One launch covers every slab: blockIdx.z is
+// i * chunks + the z-chunk within slab i (slab_of).
 struct ZSlab {
-  int zg, nzg;
+  int zg0, nzg, chunks;
 };
 
-// Plane p of the slab is read and computed on: it lies in the array and in
-// the global domain (global plane p - face + zg in [0, nzg)).  With zg = 0
-// and nzg = nz it is domain_plane.  The outputs stay local: a chained
-// step keeps its values on such a face plane (fused7.py's mask_dom,
-// :455-467), and the last step writes 0 there.
-__device__ __forceinline__ bool slab_plane(const Geom& g, ZSlab s, int p) {
-  const int kg = p - g.face + s.zg;
-  return p >= 0 && p < g.nz + 2 * g.face && kg >= 0 && kg < s.nzg;
+// The z-chunk of this block within its slab, and the slab's first domain
+// plane's global index zg and the offset of its first plane from the
+// stacked array's (64-bit, as the march's offsets).  Without SLAB the
+// slab is the whole field and the chunk is blockIdx.z.
+template <bool SLAB>
+__device__ __forceinline__ int slab_of(const Geom& g, ZSlab s, int& zg,
+                                       long long& base) {
+  if constexpr (!SLAB) {
+    zg = 0;
+    base = 0;
+    return (int)blockIdx.z;
+  } else {
+    const int i = (int)blockIdx.z / s.chunks;
+    zg = s.zg0 + i * g.nz;
+    base = (long long)i * (g.nz + 2 * g.face) * g.plane;
+    return (int)blockIdx.z - i * s.chunks;
+  }
+}
+
+// Plane p of a slab is read and computed on: it lies in the slab's array
+// and in the global domain (global plane p - kofs in [0, nzg), kofs = face
+// - zg for a slab whose domain starts at global plane zg).  A plane
+// outside the array, the neighbouring slab's in the stack, is never read.
+// With kofs = face and nzg = nz it is domain_plane.  The outputs stay
+// local: a chained step keeps its values on such a face plane (fused7.py's
+// mask_dom, :455-467), and the last step writes 0 there.
+__device__ __forceinline__ bool slab_plane(const Geom& g, int kofs, int nzg,
+                                           int p) {
+  const int kg = p - kofs;
+  return p >= 0 && p < g.nz + 2 * g.face && kg >= 0 && kg < nzg;
 }
 
 // One 16-byte cp.async from global to shared memory; with valid false it
@@ -736,9 +768,10 @@ ascent1_kernel(const float* __restrict__ t, const float* __restrict__ b,
 // K9 (UPDATE, always with DOT): b is r' = r - alpha ap, formed at step 0
 // from the staged r (``b``) and ``ap``, written to ``r_new`` on the tile;
 // partials of <r', r'>.  K3 passes ap, alpha_p and r_new as nullptr.
-// K3z (SLAB, dot-free): K3' on one z-shard (ZSlab): b's face planes hold
-// the neighbours' planes, the steps read and compute on every slab_plane
-// and mask the pin in global planes, and x1 and s are 0 on the face planes.
+// K3z (SLAB, dot-free): K3' on each of the q stacked z-shards (ZSlab) in
+// one launch: b's face planes hold the neighbours' planes, the steps read
+// and compute on every slab_plane and mask the pin in global planes, and
+// x1 and s are 0 on the face planes.
 template <bool DOT, bool UPDATE, bool SLAB = false>
 __global__ void __launch_bounds__(ZM3_THREADS, ZM3_MIN_BLOCKS)
 descent_kernel(const float* __restrict__ b, const float* __restrict__ ap,
@@ -755,16 +788,21 @@ descent_kernel(const float* __restrict__ b, const float* __restrict__ ap,
   Ring2<ZM3_PLANE> ur{sm, 0}, xr{sm + 2 * ZM3_PLANE, 0},
       vr{sm + 4 * ZM3_PLANE, 0};
   const int nzp = g.nz + 2 * g.face;
-  const int z0 = (int)blockIdx.z * zchunk, z1 = min(z0 + zchunk, nzp);
+  // the block's slab (its global placement and offset in the stack, read
+  // before the pin test and the first stage) and its z-chunk there
+  int zg;
+  long long base;
+  const int z0 = slab_of<SLAB>(g, zs, zg, base) * zchunk,
+            z1 = min(z0 + zchunk, nzp);
   const ZQuad z = zquad<H, ZM3_SY>(g);
-  const int zg = SLAB ? zs.zg : 0;
   const bool pin = pins_origin<H>(g, pinned, z0, zg);
-  // the planes the steps read and compute on, and the (global) domain
-  // plane index of padded plane p: p - kofs
-  auto live = [&](int p) {
-    return SLAB ? slab_plane(g, zs, p) : domain_plane(g, p);
-  };
+  // the (global) domain plane index of padded plane p, p - kofs, and the
+  // planes the steps read and compute on (the slab's placement kept in
+  // kofs alone: one register)
   const int kofs = g.face - zg;
+  auto live = [&](int p) {
+    return SLAB ? slab_plane(g, kofs, zs.nzg, p) : domain_plane(g, p);
+  };
   const float alpha = UPDATE ? *alpha_p : 0.0f;
   // b (field 0), diag (field 1) and K9's ap (field 2), every quad, staged
   // AHEAD planes ahead: one copy group a plane, empty past the march, so
@@ -781,7 +819,8 @@ descent_kernel(const float* __restrict__ b, const float* __restrict__ ap,
     }
     cp_async_commit();
   };
-  long long off = (long long)(z0 - H) * plane + z.off;   // the quad's, plane p
+  // the quad's offset in the stack, plane p of the block's slab
+  long long off = base + (long long)(z0 - H) * plane + z.off;
 #pragma unroll
   for (int n = 0; n < AHEAD; ++n) stage(z0 - H + n, off + n * plane);
 
@@ -913,8 +952,9 @@ descent_kernel(const float* __restrict__ b, const float* __restrict__ ap,
 
 // K4 / K4': x2 = x1 + t - gw D^-1 (A_f t);  d = g D^-1 (b - A x2);
 // x3 = x2 + d;  x4 = x3 + ad d + g2 D^-1 (b - A x3);  partials of <b, x4>
-// with DOT.  K4z (SLAB, dot-free): K4' on one z-shard, as K3z is K3''s
-// (t, x1, b and diag carry the neighbours' planes on their face planes).
+// with DOT.  K4z (SLAB, dot-free): K4' on each stacked z-shard, as K3z is
+// K3''s (t, x1, b and diag carry the neighbours' planes on their face
+// planes).
 template <bool DOT, bool SLAB = false>
 __global__ void __launch_bounds__(ZM3_THREADS, ZM4_MIN_BLOCKS)
 ascent_kernel(const float* __restrict__ t, const float* __restrict__ b,
@@ -928,15 +968,17 @@ ascent_kernel(const float* __restrict__ t, const float* __restrict__ b,
   Ring2<ZM3_PLANE> tr{sm, 0}, x2r{sm + 2 * ZM3_PLANE, 0},
       x3r{sm + 4 * ZM3_PLANE, 0};
   const int nzp = g.nz + 2 * g.face;
-  const int z0 = (int)blockIdx.z * zchunk, z1 = min(z0 + zchunk, nzp);
-  const ZQuad z = zquad<H, ZM3_SY>(g);
-  const int zg = SLAB ? zs.zg : 0;
-  const bool pin = pins_origin<H>(g, pinned, z0, zg);
   // as in descent_kernel
-  auto live = [&](int p) {
-    return SLAB ? slab_plane(g, zs, p) : domain_plane(g, p);
-  };
+  int zg;
+  long long base;
+  const int z0 = slab_of<SLAB>(g, zs, zg, base) * zchunk,
+            z1 = min(z0 + zchunk, nzp);
+  const ZQuad z = zquad<H, ZM3_SY>(g);
+  const bool pin = pins_origin<H>(g, pinned, z0, zg);
   const int kofs = g.face - zg;
+  auto live = [&](int p) {
+    return SLAB ? slab_plane(g, kofs, zs.nzg, p) : domain_plane(g, p);
+  };
   // each field copied AHEAD planes before its first read: t (field 0,
   // every quad) of plane p, x1 and diag (fields 1, 2: step 1's rows) of
   // p - 1, b (field 3: step 2's rows) of p - 2; none below the march
@@ -958,7 +1000,7 @@ ascent_kernel(const float* __restrict__ t, const float* __restrict__ b,
     }
     cp_async_commit();
   };
-  long long off = (long long)(z0 - H) * plane + z.off;   // the quad's, plane p
+  long long off = base + (long long)(z0 - H) * plane + z.off;   // as K3's
 #pragma unroll
   for (int n = 0; n < AHEAD; ++n) stage(z0 - H + n, off + n * plane);
 
@@ -1323,64 +1365,71 @@ static int zmarch_launch(Kernel kernel, int tiles_x, int tiles_y, int chunks,
   return (int)cudaGetLastError();
 }
 
-// The slab of (nz, zg, nzg): its domain planes are the global planes
-// [zg, zg + nz) of a grid of nzg; (0, nz) is the whole grid, the
-// unsharded kernels' case.  A slab the global grid does not hold is refused.
-static bool slab_ok(int nz, int zg, int nzg) {
-  return zg >= 0 && nz > 0 && zg + nz <= nzg;
+// The q stacked slabs of (nz, zg0, nzg): slab i's domain planes are the
+// global planes [zg0 + i nz, zg0 + (i + 1) nz) of a grid of nzg; (0, nz,
+// q = 1) is the whole grid, the unsharded kernels' case.  Slabs the global
+// grid does not hold (the last one's end checked), or more than a grid's z
+// extent of blocks (q times the chunks), are refused.
+static bool slab_ok(int nz, int zg0, int nzg, int q, int chunks) {
+  return zg0 >= 0 && nz > 0 && q > 0 && zg0 + (long long)q * nz <= nzg &&
+         (long long)q * chunks <= 65535;
 }
-static bool is_slab(int nz, int zg, int nzg) { return zg != 0 || nzg != nz; }
+static bool is_slab(int nz, int zg0, int nzg, int q) {
+  return zg0 != 0 || nzg != nz || q != 1;
+}
 
 // K3 (descent_rr) with partials, K3' (descent) with partials == nullptr:
-// one launch of the plan's grid, one partial a block.  K3z, K3' on the
-// slab (zg, nzg) of a z-sharded grid, where that is not the whole grid
-// (dot-free only).
+// one launch of the plan's grid, one partial a block.  K3z, K3' on the q
+// stacked slabs (zg0, nzg) of a z-sharded grid, where that is not the
+// whole grid (dot-free only): one launch of q times the plan's z-chunks,
+// the plan's chunks covering each slab's padded depth.
 extern "C" int tps_descent(const float* b, const float* diag, float* x1,
                            float* s, float* partials, int nz, int ny, int nx,
                            int nxp, float cx, float cy, float cz, float fcx,
                            float fcy, float fcz, float s0, float ad, float gg,
-                           float gw, int pinned, int zg, int nzg, int tiles_x,
-                           int tiles_y, int chunks, int zchunk,
+                           float gw, int pinned, int zg0, int nzg, int q,
+                           int tiles_x, int tiles_y, int chunks, int zchunk,
                            int smem_bytes, void* stream) {
   const Geom g = make_geom(nz, ny, nx, nxp);
-  const bool slab = is_slab(nz, zg, nzg);
+  const bool slab = is_slab(nz, zg0, nzg, q);
   if (!zmarch_plan_ok(g, 3, ZM3_SY, zmarch_smem<Staging3>(), tiles_x,
                       tiles_y, chunks, zchunk, smem_bytes) ||
-      !slab_ok(nz, zg, nzg) || (slab && partials))
+      !slab_ok(nz, zg0, nzg, q, chunks) || (slab && partials))
     return (int)cudaErrorInvalidValue;
   const Legs a{cx, cy, cz}, f{fcx, fcy, fcz};
   return zmarch_launch<ZM3_THREADS>(
       slab ? descent_kernel<false, false, true>
            : partials ? descent_kernel<true, false>
                       : descent_kernel<false, false>,
-      tiles_x, tiles_y, chunks, smem_bytes, (cudaStream_t)stream, b,
+      tiles_x, tiles_y, q * chunks, smem_bytes, (cudaStream_t)stream, b,
       (const float*)nullptr, (const float*)nullptr, diag, x1, s,
       (float*)nullptr, partials, g, a, f, s0, ad, gg, gw, pinned, zchunk,
-      ZSlab{zg, nzg});
+      ZSlab{zg0, nzg, chunks});
 }
 
 // K4 (ascent_rz) with partials, K4' (ascent) with partials == nullptr, and
-// K4z, K4' on a slab, as tps_descent.
+// K4z, K4' on q stacked slabs, as tps_descent.
 extern "C" int tps_ascent(const float* t, const float* b, const float* x1,
                           const float* diag, float* x4, float* partials,
                           int nz, int ny, int nx, int nxp, float cx, float cy,
                           float cz, float fcx, float fcy, float fcz, float gg,
-                          float ad, float g2, float gw, int pinned, int zg,
-                          int nzg, int tiles_x, int tiles_y, int chunks,
-                          int zchunk, int smem_bytes, void* stream) {
+                          float ad, float g2, float gw, int pinned, int zg0,
+                          int nzg, int q, int tiles_x, int tiles_y,
+                          int chunks, int zchunk, int smem_bytes,
+                          void* stream) {
   const Geom g = make_geom(nz, ny, nx, nxp);
-  const bool slab = is_slab(nz, zg, nzg);
+  const bool slab = is_slab(nz, zg0, nzg, q);
   if (!zmarch_plan_ok(g, 3, ZM3_SY, zmarch_smem<Staging4>(), tiles_x,
                       tiles_y, chunks, zchunk, smem_bytes) ||
-      !slab_ok(nz, zg, nzg) || (slab && partials))
+      !slab_ok(nz, zg0, nzg, q, chunks) || (slab && partials))
     return (int)cudaErrorInvalidValue;
   const Legs a{cx, cy, cz}, f{fcx, fcy, fcz};
   return zmarch_launch<ZM3_THREADS>(
       slab ? ascent_kernel<false, true>
            : partials ? ascent_kernel<true> : ascent_kernel<false>,
-      tiles_x, tiles_y, chunks, smem_bytes, (cudaStream_t)stream, t, b, x1,
-      diag, x4, partials, g, a, f, gg, ad, g2, gw, pinned, zchunk,
-      ZSlab{zg, nzg});
+      tiles_x, tiles_y, q * chunks, smem_bytes, (cudaStream_t)stream, t, b,
+      x1, diag, x4, partials, g, a, f, gg, ad, g2, gw, pinned, zchunk,
+      ZSlab{zg0, nzg, chunks});
 }
 
 // K6 (descent1_rr) with partials, K6' (descent1) with partials == nullptr:
@@ -1454,7 +1503,7 @@ extern "C" int tps_descentu(const float* r_old, const float* ap,
   return zmarch_launch<ZM3_THREADS>(
       descent_kernel<true, true>, tiles_x, tiles_y, chunks, smem_bytes,
       (cudaStream_t)stream, r_old, ap, alpha, diag, x1, s, r_new, partials,
-      g, a, f, s0, ad, gg, gw, pinned, zchunk, ZSlab{0, nz});
+      g, a, f, s0, ad, gg, gw, pinned, zchunk, ZSlab{0, nz, chunks});
 }
 
 // K10-K16, the single-step modes: one launch each.  Unused operands are

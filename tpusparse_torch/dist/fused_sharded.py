@@ -7,14 +7,15 @@ nxp)`` (each shard's z-slab with its own FACE halo planes, zero between
 launches), the halo planes of the operands a launch reads are refreshed
 just before it, and the kernels mask in global z (``fused7_call``'s ``z0``,
 ``nzg``).  Here the p shards all live on one device (``dist/mesh.py``): the
-exchange is a copy of planes between slabs, and a launch a shard runs K3z
-or K4z (``kernels/fused7.py::fused7_descent_slab`` / ``fused7_ascent_slab``).
+exchange is a copy of planes between slabs, and one launch a stroke runs
+K3z or K4z over every slab of the stack
+(``kernels/fused7.py::fused7_descent_slab`` / ``fused7_ascent_slab``).
 
 The coarse hierarchy and the Krylov shell stay unsharded: plain fields and
 the plain ``hierarchy.vcycle`` from level 1 down.  ``vcycle_fused_sharded``
-stitches the two per cycle: stack -> K3z per shard -> unstack -> T^T
-(``dist/seam.py``) -> coarse cycle -> T -> stack -> K4z per shard ->
-unstack.
+stitches the two per cycle: stack -> K3z over the shards -> unstack ->
+T^T (``dist/seam.py``) -> coarse cycle -> T -> stack -> K4z over the
+shards -> unstack.
 
 Not ported: ``preflight_sharded``, Mosaic's slab-depth check (ROADMAP, Not
 to port).
@@ -109,30 +110,25 @@ class FusedSharded:
         x_st[-1, FACE + nz_l:] = 0.0
         return x_st
 
-    # --- the fused launches, one a shard -------------------------------------
-    def _slab(self, i: int) -> dict:
-        return dict(shape=self.local_shape, pinned=self.pinned, z0=i * self.nz_l, nzg=self.shape[0])
+    # --- the fused launches, one a stroke over every shard --------------------
+    def _slabs(self) -> dict:
+        return dict(shape=self.local_shape, pinned=self.pinned, z0=0, nzg=self.shape[0])
 
     def descent(self, b_st: torch.Tensor, s0, ad, g, gw):
-        """``(x1_st, s_st)``: the downstroke (K3z) on each shard, after
-        refreshing b's halos in place (the stroke's one stencil input)."""
+        """``(x1_st, s_st)``: the downstroke (K3z) on every shard in one
+        call, after refreshing b's halos in place (the stroke's one stencil
+        input)."""
         self.exchange_(b_st)
-        x1_st, s_st = torch.empty_like(b_st), torch.empty_like(b_st)
-        for i in range(self.p):
-            fused7_descent_slab(self.diag_st[i], self.cx, self.cy, self.cz, b_st[i], s0, ad, g, gw,
-                                out=(x1_st[i], s_st[i]), **self._slab(i))
-        return x1_st, s_st
+        return fused7_descent_slab(self.diag_st, self.cx, self.cy, self.cz, b_st, s0, ad, g, gw, **self._slabs())
 
     def ascent(self, t_st: torch.Tensor, b_st: torch.Tensor, x1_st: torch.Tensor, g, ad, g2, gw):
-        """``x4_st``: the upstroke (K4z) on each shard, after refreshing
-        the halos of t, b and x1 in place (the operands it reads there)."""
+        """``x4_st``: the upstroke (K4z) on every shard in one call, after
+        refreshing the halos of t, b and x1 in place (the operands it reads
+        there)."""
         for f in (t_st, b_st, x1_st):
             self.exchange_(f)
-        x4_st = torch.empty_like(t_st)
-        for i in range(self.p):
-            fused7_ascent_slab(self.diag_st[i], self.cx, self.cy, self.cz, t_st[i], b_st[i], x1_st[i],
-                               g, ad, g2, gw, out=x4_st[i], **self._slab(i))
-        return x4_st
+        return fused7_ascent_slab(self.diag_st, self.cx, self.cy, self.cz, t_st, b_st, x1_st, g, ad, g2, gw,
+                                  **self._slabs())
 
 
 def _level0_cfg(params: AMGParams) -> tuple[str, int]:

@@ -50,14 +50,17 @@ cycle's input b IS the residual and its output IS z).
 
 ``descent_slab`` and ``ascent_slab`` (K3z/K4z) are K3' and K4' in
 ``fused7_call``'s z-slab form (its ``z0``/``nzg``, ``fused7.py:813-814``):
-the fields are one z-shard of a grid of ``nzg`` planes, whose domain planes
-are the global planes [z0, z0 + nz) and whose face planes hold the
-neighbouring shards' planes (``dist/fused_sharded.py`` refreshes them).
-The chained steps keep their values on those face planes where they lie
-in the global domain, the pin is tested in global planes, and the outputs
-are 0 on every face plane, the stacked layout's invariant.  Their twins
-run the unsharded twins' math on ``star7_mv_padded_torch``'s global
-placement and zero the output faces.
+the fields are q consecutive z-shards of a grid of ``nzg`` planes, stacked
+(q, nz + 2 FACE, ny, nxp), or one shard (a field of the slab, q = 1); slab
+i's domain planes are the global planes [z0 + i nz, z0 + (i + 1) nz) and
+its face planes hold the neighbouring shards' planes
+(``dist/fused_sharded.py`` refreshes them).  The chained steps keep their
+values on those face planes where they lie in the global domain, the pin
+is tested in global planes, and the outputs are 0 on every face plane, the
+stacked layout's invariant.  A CUDA tensor makes one launch over every
+slab, its z-chunks chosen for the whole grid (``zmarch_slab_plan``).
+Their twins run the unsharded twins' math on ``star7_mv_padded_torch``'s
+global placement, slab by slab, and zero the output faces.
 
 K8 (``cgmv``) and K9 (``descentu``) take their CG scalars (beta,
 alpha_prev, alpha) as 0-d tensors, as CG computes them from the kernels'
@@ -84,7 +87,8 @@ per block — no atomics, so a solve repeats its iteration counts.
 from __future__ import annotations
 
 import ctypes
-from dataclasses import dataclass
+import functools
+from dataclasses import dataclass, replace
 
 import torch
 
@@ -101,9 +105,10 @@ from tpusparse_torch.kernels.stencil7 import (
 P, I, F = _build.P, _build.I, _build.F
 _ZMARCH_PLAN_ARGS = [I] * 5   # tiles_x, tiles_y, chunks, zchunk, smem_bytes
 _MVDOT_ARGS = [P] * 4 + [I] * 4 + [F] * 3 + [I] + _ZMARCH_PLAN_ARGS + [P]
-# ..., pinned, zg, nzg (the slab form's placement), the plan, the stream
-_DESCENT_ARGS = [P] * 5 + [I] * 4 + [F] * 10 + [I] * 3 + _ZMARCH_PLAN_ARGS + [P]
-_ASCENT_ARGS = [P] * 6 + [I] * 4 + [F] * 10 + [I] * 3 + _ZMARCH_PLAN_ARGS + [P]
+# ..., pinned, zg0, nzg, q (the slab form's placement and slab count), the
+# plan, the stream
+_DESCENT_ARGS = [P] * 5 + [I] * 4 + [F] * 10 + [I] * 4 + _ZMARCH_PLAN_ARGS + [P]
+_ASCENT_ARGS = [P] * 6 + [I] * 4 + [F] * 10 + [I] * 4 + _ZMARCH_PLAN_ARGS + [P]
 _DESCENT1_ARGS = [P] * 5 + [I] * 4 + [F] * 8 + [I] + _ZMARCH_PLAN_ARGS + [P]
 _ASCENT1_ARGS = [P] * 6 + [I] * 4 + [F] * 8 + [I] + _ZMARCH_PLAN_ARGS + [P]
 _CGMV_ARGS = [P] * 10 + [I] * 4 + [F] * 3 + [I, P]
@@ -201,8 +206,9 @@ H100_SMS = 132
 class ZMarchPlan:
     """The grid of one z-marching launch: ``tiles_x`` x ``tiles_y`` column
     tiles of ``tile`` output cells in the (ny, nxp) plane times ``chunks``
-    z-chunks of ``zchunk`` padded planes, one block of a thread a quad of
-    its ``region`` each; ``smem_bytes`` of dynamic shared memory a block,
+    z-chunks of ``zchunk`` padded planes in each of ``shards`` stacked
+    slabs (K3z/K4z; 1 for every other kernel), one block of a thread a quad
+    of its ``region`` each; ``smem_bytes`` of dynamic shared memory a block,
     of which an SM holds ``blocks_per_sm`` blocks."""
 
     region: tuple[int, int]
@@ -213,28 +219,32 @@ class ZMarchPlan:
     zchunk: int
     smem_bytes: int
     blocks_per_sm: int
+    shards: int = 1
 
     @property
     def blocks(self) -> int:
         """Thread blocks, and dot partials (one a block)."""
-        return self.tiles_x * self.tiles_y * self.chunks
+        return self.tiles_x * self.tiles_y * self.chunks * self.shards
 
     def waves(self, sms: int = H100_SMS) -> float:
         """Blocks over the blocks ``sms`` SMs hold at once."""
         return self.blocks / (sms * self.blocks_per_sm)
 
     def ranges(self, shape) -> tuple[list, list, list]:
-        """The padded-field output ranges of the blocks along z, y and x,
-        as the kernel computes them from ``blockIdx``: chunk c writes planes
-        [c zchunk, min((c + 1) zchunk, nzp)), tile t of y rows [t TY,
-        min((t + 1) TY, ny)), and likewise in x up to nxp."""
+        """The output ranges of the blocks along z, y and x, as the kernel
+        computes them from ``blockIdx``: in z, over the ``shards`` stacked
+        slabs of ``shape``'s padded depth nzp, block z = i chunks + c writes
+        slab i's planes [c zchunk, min((c + 1) zchunk, nzp)), planes i nzp
+        further in the stack; tile t of y rows [t TY, min((t + 1) TY, ny)),
+        and likewise in x up to nxp."""
         nzp, ny, nxp = padded_shape(shape)
         ty, tx = self.tile
 
         def cut(n, step, parts):
             return [(c * step, min((c + 1) * step, n)) for c in range(parts)]
 
-        return cut(nzp, self.zchunk, self.chunks), cut(ny, ty, self.tiles_y), cut(nxp, tx, self.tiles_x)
+        zs = [(i * nzp + lo, i * nzp + hi) for i in range(self.shards) for lo, hi in cut(nzp, self.zchunk, self.chunks)]
+        return zs, cut(ny, ty, self.tiles_y), cut(nxp, tx, self.tiles_x)
 
     def launch_args(self) -> tuple[int, int, int, int, int]:
         return self.tiles_x, self.tiles_y, self.chunks, self.zchunk, self.smem_bytes
@@ -257,6 +267,38 @@ def zmarch_plan(shape, kernel: str) -> ZMarchPlan:
         region=spec.region, tile=spec.tile, tiles_x=-(-nxp // tx), tiles_y=-(-ny // ty), chunks=-(-nzp // zchunk),
         zchunk=zchunk, smem_bytes=spec.smem_bytes, blocks_per_sm=spec.blocks_per_sm,
     )
+
+
+@functools.lru_cache(maxsize=None)
+def zmarch_slab_plan(shape: tuple[int, int, int], kernel: str, shards: int) -> ZMarchPlan:
+    """The plan of one K3z ("descent") or K4z ("ascent") launch over
+    ``shards`` stacked slabs of local ``shape`` (nz_l, ny, nx): the tiles
+    of ``zmarch_plan``, and the z-chunks a slab chosen for the whole grid.
+
+    The rule: a kernel that holds ``blocks_per_sm`` blocks an SM costs
+    about (its waves of blocks, rounded up) times (the planes a block
+    marches, zchunk + 2 H).  Of every chunk count n = 1 .. nzp (chunks of
+    zchunk = ceil(nzp / n) planes, equal but the last), take the one of
+    least ceil(blocks / (132 blocks_per_sm)) (zchunk + 2 H), blocks =
+    tiles times shards times chunks; of equal costs, the fewest chunks (the
+    fewest halo planes read twice).  A short chunk re-reads its 2 H planes
+    more often (a chunk of 27 reads 22% more), which the rule trades
+    against a last wave that leaves SMs idle.  At 300^3 over 4 shards
+    (nzp = 81, 54 tiles) it takes 3 chunks of 27: 648 blocks, 5 waves of
+    33 planes, where a slab's own 2 chunks of 41 make 4 waves of 47.
+    Cached: the sharded cycle asks for the same plan every stroke."""
+    nzp = padded_shape(shape)[0]
+    plan = zmarch_plan(shape, kernel)
+    wave = H100_SMS * plan.blocks_per_sm
+    tiles = plan.tiles_x * plan.tiles_y * shards
+    halo = ZM_KERNELS[kernel].halo
+
+    def cost(zchunk):   # (the model's cost, the chunks) of chunks of zchunk planes
+        chunks = -(-nzp // zchunk)
+        return -(-tiles * chunks // wave) * (zchunk + 2 * halo), chunks
+
+    zchunk = min({-(-nzp // n) for n in range(1, nzp + 1)}, key=cost)
+    return replace(plan, chunks=-(-nzp // zchunk), zchunk=zchunk, shards=shards)
 
 
 # --- plain twins -------------------------------------------------------------
@@ -318,14 +360,25 @@ def _zero_faces(f_p: torch.Tensor, shape) -> torch.Tensor:
 
 def fused7_descent_slab_torch(diag_p, cx, cy, cz, b_p, s0, ad, g, gw, shape, pinned: bool, z0: int, nzg: int):
     """Plain twin of K3z: K3''s twin on the slab placed at global plane
-    ``z0`` of ``nzg``, its outputs' face planes 0."""
+    ``z0`` of ``nzg``, its outputs' face planes 0; on stacked fields (q,
+    ...), on each slab i, placed at z0 + i nz_l."""
+    if b_p.dim() == 4:
+        outs = [fused7_descent_slab_torch(diag_p[i], cx, cy, cz, b_p[i], s0, ad, g, gw, shape, pinned,
+                                          z0 + i * shape[0], nzg) for i in range(b_p.shape[0])]
+        return tuple(torch.stack(f) for f in zip(*outs))
     x1, s = fused7_descent_torch(diag_p, cx, cy, cz, b_p, s0, ad, g, gw, shape, pinned, None, z0, nzg)
     return _zero_faces(x1, shape), _zero_faces(s, shape)
 
 
 def fused7_ascent_slab_torch(diag_p, cx, cy, cz, t_p, b_p, x1_p, g, ad, g2, gw, shape, pinned: bool, z0: int,
                              nzg: int):
-    """Plain twin of K4z: K4''s twin on the slab, its output's face planes 0."""
+    """Plain twin of K4z: K4''s twin on the slab, its output's face planes
+    0; on stacked fields, on each slab as K3z's twin."""
+    if t_p.dim() == 4:
+        return torch.stack([
+            fused7_ascent_slab_torch(diag_p[i], cx, cy, cz, t_p[i], b_p[i], x1_p[i], g, ad, g2, gw, shape, pinned,
+                                     z0 + i * shape[0], nzg) for i in range(t_p.shape[0])
+        ])
     x4 = fused7_ascent_torch(diag_p, cx, cy, cz, t_p, b_p, x1_p, g, ad, g2, gw, shape, pinned, None, z0, nzg)
     return _zero_faces(x4, shape)
 
@@ -455,37 +508,42 @@ def _zmarch_partials(plan: ZMarchPlan, dot: bool, device):
     return torch.empty(plan.blocks, dtype=torch.float32, device=device) if dot else None
 
 
-def _launch_descent(name, dot, diag_p, cx, cy, cz, b_p, s0, ad, g, gw, shape, pinned, flegs,
-                    z0=0, nzg=None, out=None):
-    x1, s = out if out is not None else (torch.empty_like(b_p), torch.empty_like(b_p))
-    _check_aligned(diag_p, b_p, x1, s)
-    plan = zmarch_plan(shape, "descent")
+def _placement(kernel, shape, slab):
+    """(plan, (zg0, nzg, q)) of a K3/K4 launch: the whole field's, or with
+    ``slab`` = (z0, nzg, q) the slab form's over q stacked slabs."""
+    if slab is None:
+        return zmarch_plan(shape, kernel), (0, shape[0], 1)
+    z0, nzg, q = slab
+    return zmarch_slab_plan(shape, kernel, q), (int(z0), int(nzg), q)
+
+
+def _launch_descent(name, dot, diag_p, cx, cy, cz, b_p, s0, ad, g, gw, shape, pinned, flegs, slab=None):
+    x1, s = torch.empty_like(b_p), torch.empty_like(b_p)
+    _check_aligned(diag_p, b_p)
+    plan, place = _placement("descent", shape, slab)
     partials = _zmarch_partials(plan, dot, b_p.device)
     _build.launch(
         "tps_descent", _DESCENT_ARGS, b_p.device,
         b_p.data_ptr(), diag_p.data_ptr(), x1.data_ptr(), s.data_ptr(),
         partials.data_ptr() if dot else None,
         *launch_args(shape, cx, cy, cz, *_legs(cx, cy, cz, flegs)),
-        float(s0), float(ad), float(g), float(gw), int(pinned), int(z0), shape[0] if nzg is None else int(nzg),
-        *plan.launch_args(),
+        float(s0), float(ad), float(g), float(gw), int(pinned), *place, *plan.launch_args(),
     )
     LAUNCHES[name] += 1
     return (x1, s, partials.sum()) if dot else (x1, s)
 
 
-def _launch_ascent(name, dot, diag_p, cx, cy, cz, t_p, b_p, x1_p, g, ad, g2, gw, shape, pinned, flegs,
-                   z0=0, nzg=None, out=None):
-    x4 = out if out is not None else torch.empty_like(t_p)
-    _check_aligned(diag_p, t_p, b_p, x1_p, x4)
-    plan = zmarch_plan(shape, "ascent")
+def _launch_ascent(name, dot, diag_p, cx, cy, cz, t_p, b_p, x1_p, g, ad, g2, gw, shape, pinned, flegs, slab=None):
+    x4 = torch.empty_like(t_p)
+    _check_aligned(diag_p, t_p, b_p, x1_p)
+    plan, place = _placement("ascent", shape, slab)
     partials = _zmarch_partials(plan, dot, t_p.device)
     _build.launch(
         "tps_ascent", _ASCENT_ARGS, t_p.device,
         t_p.data_ptr(), b_p.data_ptr(), x1_p.data_ptr(), diag_p.data_ptr(),
         x4.data_ptr(), partials.data_ptr() if dot else None,
         *launch_args(shape, cx, cy, cz, *_legs(cx, cy, cz, flegs)),
-        float(g), float(ad), float(g2), float(gw), int(pinned), int(z0), shape[0] if nzg is None else int(nzg),
-        *plan.launch_args(),
+        float(g), float(ad), float(g2), float(gw), int(pinned), *place, *plan.launch_args(),
     )
     LAUNCHES[name] += 1
     return (x4, partials.sum()) if dot else x4
@@ -586,44 +644,44 @@ def fused7_ascent(diag_p, cx, cy, cz, t_p, b_p, x1_p, g, ad, g2, gw, shape, pinn
                           pinned, flegs)
 
 
-def _check_slab(shape, z0, nzg, out, *fields) -> None:
-    """Raise unless the slab (``shape``, ``z0``) lies in a grid of ``nzg``
-    planes and each ``out`` field is a field of the slab."""
-    if not (0 <= z0 and z0 + shape[0] <= nzg):
-        raise ValueError(f"slab of {shape[0]} planes at global plane {z0} is not inside a grid of {nzg}")
-    if out is not None:
-        check_fields(shape, *fields, *out)
+def _slab_count(shape, z0, nzg, *fields) -> int:
+    """The slabs q the fields hold: 1 for fields of the slab ``shape``, q
+    for fields of q such slabs stacked, (q, nz + 2 FACE, ny, nxp).  Raise
+    unless the fields are alike (``check_fields``) and the q slabs from
+    global plane ``z0`` lie in a grid of ``nzg`` planes."""
+    stack = fields[0].shape[0] if fields[0].dim() > 3 else None
+    check_fields(shape, *fields, stack=stack)
+    q = stack or 1
+    if not (q > 0 and 0 <= z0 and z0 + q * shape[0] <= nzg):
+        raise ValueError(f"{q} slab(s) of {shape[0]} planes from global plane {z0} are not inside a grid of {nzg}")
+    return q
 
 
-def fused7_descent_slab(diag_p, cx, cy, cz, b_p, s0, ad, g, gw, shape, pinned: bool, z0: int, nzg: int,
-                        out=None):
-    """``(x1, s)``: K3' on one z-slab of a grid of ``nzg`` planes whose
-    domain planes are global planes [z0, z0 + nz), b's face planes holding
-    its neighbours' planes (K3z); x1 and s are 0 on the face planes.
-    ``out``: the two output fields to write (fresh ones by default)."""
+def fused7_descent_slab(diag_p, cx, cy, cz, b_p, s0, ad, g, gw, shape, pinned: bool, z0: int, nzg: int):
+    """``(x1, s)``: K3' on z-slabs of ``shape`` of a grid of ``nzg`` planes
+    (K3z): one slab (fields of ``padded_shape(shape)``) or q stacked, (q,
+    *padded_shape(shape)), slab i's domain planes the global planes [z0 + i
+    nz, z0 + (i + 1) nz), b's face planes holding the neighbours' planes;
+    x1 and s are 0 on the face planes.  One launch over every slab."""
     shape = tuple(shape)
-    check_fields(shape, diag_p, b_p)
-    _check_slab(shape, z0, nzg, out, diag_p)
+    q = _slab_count(shape, z0, nzg, diag_p, b_p)
     if b_p.device.type == "cpu":
-        got = fused7_descent_slab_torch(diag_p, cx, cy, cz, b_p, s0, ad, g, gw, shape, pinned, z0, nzg)
-        return got if out is None else tuple(o.copy_(v) for o, v in zip(out, got))
+        return fused7_descent_slab_torch(diag_p, cx, cy, cz, b_p, s0, ad, g, gw, shape, pinned, z0, nzg)
     return _launch_descent("fused7_descent_slab", False, diag_p, cx, cy, cz, b_p, s0, ad, g, gw, shape, pinned,
-                           None, z0, nzg, out)
+                           None, (z0, nzg, q))
 
 
 def fused7_ascent_slab(diag_p, cx, cy, cz, t_p, b_p, x1_p, g, ad, g2, gw, shape, pinned: bool, z0: int,
-                       nzg: int, out=None):
-    """``x4``: K4' on one z-slab (K4z), its t, b and x1 holding the
-    neighbours' planes on their face planes; x4 is 0 on the face planes.
-    ``out``: the output field to write (a fresh one by default)."""
+                       nzg: int):
+    """``x4``: K4' on one z-slab or q stacked (K4z), as K3z's, t, b and x1
+    holding the neighbours' planes on their face planes; x4 is 0 on the
+    face planes.  One launch over every slab."""
     shape = tuple(shape)
-    check_fields(shape, diag_p, t_p, b_p, x1_p)
-    _check_slab(shape, z0, nzg, None if out is None else (out,), diag_p)
+    q = _slab_count(shape, z0, nzg, diag_p, t_p, b_p, x1_p)
     if t_p.device.type == "cpu":
-        got = fused7_ascent_slab_torch(diag_p, cx, cy, cz, t_p, b_p, x1_p, g, ad, g2, gw, shape, pinned, z0, nzg)
-        return got if out is None else out.copy_(got)
+        return fused7_ascent_slab_torch(diag_p, cx, cy, cz, t_p, b_p, x1_p, g, ad, g2, gw, shape, pinned, z0, nzg)
     return _launch_ascent("fused7_ascent_slab", False, diag_p, cx, cy, cz, t_p, b_p, x1_p, g, ad, g2, gw, shape,
-                          pinned, None, z0, nzg, out)
+                          pinned, None, (z0, nzg, q))
 
 
 def fused7_descent1_rr(diag_p, cx, cy, cz, b_p, g, gw, shape, pinned: bool, flegs=None):

@@ -83,10 +83,11 @@ def padded_shape(shape: tuple[int, int, int]) -> tuple[int, int, int]:
     return (nz + 2 * FACE, ny, _pad_to(nx, 4))
 
 
-def check_fields(shape: tuple[int, int, int], *fields: torch.Tensor) -> None:
+def check_fields(shape: tuple[int, int, int], *fields: torch.Tensor, stack: int | None = None) -> None:
     """Raise unless every field is a contiguous f32 tensor of
-    ``padded_shape(shape)`` on one device."""
-    want = padded_shape(shape)
+    ``padded_shape(shape)`` on one device; with ``stack`` = q, of q such
+    fields stacked, ``(q, *padded_shape(shape))``."""
+    want = padded_shape(shape) if stack is None else (stack, *padded_shape(shape))
     dev = fields[0].device
     for f in fields:
         if tuple(f.shape) != want:
