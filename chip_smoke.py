@@ -161,16 +161,39 @@ script exits non-zero without the final line:
    ``t_solve`` and peak memory printed beside phases 5 and 15 and the plain
    layout's peak memory.  And ``-devices 4`` through the CLI at 100^3: a
    positive reason, Linf < 1e-3, 4 z-shards in its JSON.
+28. The object API (``tpusparse_torch.KSP``) and block solves.  K1p over a
+   stack (``star7_mv_batched``, one launch for k columns) against its twin
+   at (40, 11, 13) with k = 3 and at 300^3 with k = 4, as in phase 3, and
+   each column bit-equal to one K1p launch on it; at 300^3 timed beside its
+   twin, the k single K1p launches and cuSPARSE's SpMM of the star's CSR
+   with the (n, k) block, with its bound share.  Then ``KSP(rtol=1e-8,
+   atol=1e-12)`` on the f64 ``poisson_stencil_device`` system at 300^3
+   (the padded route), counters reset just before: the first solve at
+   phase 5's gates (reason 2, 34 +- 2 inner in 2-3 sweeps, Linf < 1e-4),
+   K1-K4 launched; a second solve of 2b reusing the hierarchy (one build
+   in all, counted) with x2 = 2 x1 to 1e-6; a solve from x0 = x1 in at most
+   one sweep; ``t_setup``, the solve times and peak memory printed.
+   ``mat_solve`` of the columns [b, 5b, b + 0.1 sin(7b), -b], counters
+   reset just before: reason 2 in every column, each column's inner count
+   within 2 of phase 15's, Linf < 1e-4 in column 0, column 1 equal to 5 x
+   column 0 to 1e-5; ``star7_mv_batched`` launched and no fused7 kernel;
+   time, peak memory and launches printed.  ``cg_checkpointed`` at 100^3
+   (f32 K1p operator, plain GAMG cycle, a snapshot every 5 iterations)
+   cut by ``maxiter`` and resumed: the uninterrupted run's iterations and
+   reason, x within 1e-6.  And ``solve_poisson(100, precision="f64",
+   ksp_norm_type="preconditioned")``: a positive reason.
 
 Then one JSON line with each kernel's route, source, launches (K1-K4 from
 phase 5, K5 from phase 8, K6/K7 from phase 10, K3'/K4' from phase 11,
 K6'/K7' from phase 12, K8/K9 from phase 14, K1p from phase 15, K10 and
-K12-K16 from phase 18, K11 from phase 19, K3z/K4z from phase 27), error,
+K12-K16 from phase 18, K11 from phase 19, K3z/K4z from phase 27, the
+batched K1p from phase 28's ``mat_solve``), error,
 times, its bound at the timed shape (the larger of its unique field bytes
 over 3.35 TB/s and its operations over 67 TFLOP/s of f32, the H100 SXM's
 published peaks) and the time of one PyTorch call computing the same
 function where there is one (K1, K1p and K5: the cuSPARSE CSR matvec of
-the same matrix; K10: ``torch.addmm`` of that CSR; K15/K16: the CSR matvec
+the same matrix; the batched K1p: cuSPARSE's SpMM of that CSR with the
+block; K10: ``torch.addmm`` of that CSR; K15/K16: the CSR matvec
 of the matrix their pass applies; null for the other fused modes), and as
 the last line
 ``{"ok": true, "device": {...}}``.
@@ -188,14 +211,16 @@ import re
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
 import torch
 
-from tpusparse_torch import kernels
+from tpusparse_torch import KSP, kernels
+from tpusparse_torch import ksp as ksp_module
 from tpusparse_torch.__main__ import main as cli_main
-from tpusparse_torch.amg.hierarchy import AMGParams, threshold_schedule
+from tpusparse_torch.amg.hierarchy import AMGParams, gamg_setup, threshold_schedule, vcycle
 from tpusparse_torch.bench import headline
 from tpusparse_torch.bench.driver import solve_poisson
 from tpusparse_torch.dist.fused_sharded import FusedSharded
@@ -257,10 +282,13 @@ from tpusparse_torch.kernels.stencil7 import (
     launch_args,
     padded_shape,
     star7_mv,
+    star7_mv_batched,
     star7_mv_padded,
     star7_mv_padded_torch,
     star7_mv_torch,
 )
+from tpusparse_torch.solve.cg import cg
+from tpusparse_torch.solve.checkpoint import CheckpointConfig, cg_checkpointed
 from tpusparse_torch.sparse.padded import PaddedStar, crop_field, pad_field
 from tpusparse_torch.sparse.starlift import star_lift
 
@@ -338,6 +366,13 @@ SLAB_KERNELS = {
                            fused7_ascent_slab, fused7_ascent_slab_torch),
 }
 KERNELS.update(SLAB_KERNELS)
+# K1p over a stack of k columns (KSP.mat_solve's fine-level apply, which the
+# JAX package runs as the vmapped XLA form of K1p's function)
+KERNELS["star7_mv_batched"] = (
+    "tpusparse_torch/csrc/stencil7.cu", "tpusparse/kernels/stencil7.py:330", star7_mv_batched, star7_mv_torch,
+)
+# phase 28's (shape, columns) of the batched K1p; the last is timed
+BATCHED_CASES = (((40, 11, 13), 3), ((300, 300, 300), 4))
 # phase 27's (global shape, z-shards, pinned) cases: nz_l = 3, the least a
 # shard holds (its neighbours read FACE planes), and 20; the last is timed
 SLAB_CASES = (((12, 11, 13), 4, True), ((12, 11, 13), 4, False), ((40, 11, 13), 2, True),
@@ -1088,6 +1123,164 @@ def _time_slab(rows, fs, stacked, op, padded) -> None:
                   f" blocks, {swept.waves():.2f} waves: {ms:.4f} ms ({100 * row['bound_ms'] / ms:.0f}% of the bound)")
 
 
+def check_batched(device) -> dict:
+    """Phase 28's kernel check: the batched K1p against its twin and, column
+    by column, bit for bit against K1p at each case; timed at the last
+    beside its twin, the k single K1p launches and cuSPARSE's SpMM."""
+    row = {"max_abs_err": 0.0, "library_ms": None}
+    for shape, k in BATCHED_CASES:
+        nz, ny, nx = shape
+        star = poisson_stencil_device(Grid3D(nx, ny, nz), dtype=torch.float32, device=device)[0]
+        rng = np.random.default_rng(SEED)
+        x = torch.from_numpy(rng.standard_normal((k, *shape), dtype=np.float32)).to(device)
+        args = (star.diag, star.cx, star.cy, star.cz, x, star.pinned)
+        got, want = star7_mv_batched(*args), star7_mv_torch(*args)
+        torch.cuda.synchronize()
+        err = _compare(f"star7_mv_batched {shape} k={k}", got, want)
+        row["max_abs_err"] = max(row["max_abs_err"], err)
+
+        def singles():
+            return [star7_mv(*args[:4], x[c], star.pinned) for c in range(k)]
+
+        one = singles()
+        _require(all(torch.equal(got[c], one[c]) for c in range(k)),
+                 f"star7_mv_batched {shape} k={k}: a column differs from its K1p launch")
+        print(f"kernel star7_mv_batched {shape} k={k}: agrees with its twin, max abs err {err:.3e};"
+              f" each column bit-equal to one star7_mv launch")
+        if (shape, k) != BATCHED_CASES[-1]:
+            continue
+        csr = _star_csr(*args[:4], star.pinned)
+        block = x.reshape(k, -1).T.contiguous()
+        _compare(f"cuSPARSE SpMM {shape} k={k}", (csr @ block).T.reshape(got.shape), want)
+        row.update(_bound(args, got, FLOPS_PER_CELL["star7_mv"] * k * math.prod(shape)))
+        row["ms"] = _time_ms(star7_mv_batched, args)
+        row["plain_ms"] = _time_ms(star7_mv_torch, args)
+        row["library_ms"] = _time_ms(lambda m, v: m @ v, (csr, block))
+        singles_ms = _time_ms(singles, ())
+        print(f"time star7_mv_batched {shape} k={k}: kernel {row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms,"
+              f" {k} single star7_mv launches {singles_ms:.4f} ms, one PyTorch call (cuSPARSE SpMM)"
+              f" {row['library_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms ({row['bound_by']},"
+              f" {row['passes']:.2f} field passes; {100 * row['bound_ms'] / row['ms']:.0f}% of it)")
+        del csr, block
+    torch.cuda.empty_cache()
+    return row
+
+
+@contextlib.contextmanager
+def _counting_setups():
+    """Count the hierarchy builds of the KSP object (``gamg_setup`` as
+    ``tpusparse_torch.ksp`` calls it) while the block runs."""
+    builds = [0]
+    saved = ksp_module.gamg_setup
+
+    def counted(*args, **kw):
+        builds[0] += 1
+        return saved(*args, **kw)
+
+    try:
+        ksp_module.gamg_setup = counted
+        yield builds
+    finally:
+        ksp_module.gamg_setup = saved
+
+
+def _timed(device, fn, *args, **kw):
+    """(fn's result, its seconds on the host clock, synchronized)."""
+    torch.cuda.synchronize(device)
+    t0 = time.perf_counter()
+    out = fn(*args, **kw)
+    torch.cuda.synchronize(device)
+    return out, time.perf_counter() - t0
+
+
+def check_ksp(device, plain, n=300) -> int:
+    """Phase 28's solves through the object API at n^3 = 300^3: a KSP
+    solve, its reuse for 2b and from x0, and ``mat_solve`` of four columns;
+    the batched K1p's launches in ``mat_solve`` returned."""
+    op, b, exact = poisson_stencil_device(Grid3D(n, n, n), device=device)
+    torch.cuda.reset_peak_memory_stats(device)
+    with _counting_setups() as builds:
+        kernels.reset_launches()
+        ksp = KSP(rtol=1e-8, atol=1e-12)
+        _, t_setup = _timed(device, lambda: ksp.set_operators(op).setup())
+        first, t_first = _timed(device, ksp.solve, b)
+        used = dict(kernels.LAUNCHES)
+        second, t_second = _timed(device, ksp.solve, 2.0 * b)
+        warm, t_warm = _timed(device, ksp.solve, b, x0=first.x)
+    peak = torch.cuda.max_memory_allocated(device) / 1e9
+    linf = (first.x - exact).abs().max().item()
+    print(f"launches (KSP solve): {json.dumps({k: v for k, v in used.items() if v})}")
+    print(f"KSP {n}^3: t_setup {t_setup:.4f} s ({builds[0]} hierarchy build); solve(b) {first.iters} inner +"
+          f" {first.outer_iters} outer, reason {first.reason}, Linf {linf:.6e}, {t_first:.4f} s; solve(2b)"
+          f" {second.iters} + {second.outer_iters} in {t_second:.4f} s; solve(b, x0=x1) {warm.iters} +"
+          f" {warm.outer_iters}, reason {warm.reason}, {t_warm:.4f} s; peak device memory {peak:.3f} GB")
+    _require(first.reason == 2, f"KSP: reason {first.reason} != 2")
+    _require(np.isfinite(linf) and linf < 1e-4, f"KSP: Linf {linf} >= 1e-4")
+    _require(first.outer_iters in (2, 3), f"KSP: outer iterations {first.outer_iters} not in 2-3")
+    _require(abs(first.iters - 34) <= 2, f"KSP: inner iterations {first.iters} not within 34 +- 2")
+    for name in STENCIL_KERNELS:
+        _require(used[name] > 0, f"the KSP solve did not launch {name}")
+    _require(builds[0] == 1, f"KSP: {builds[0]} hierarchy builds for three solves, not one")
+    scale = 2.0 * first.x.abs().max().item()
+    _require((second.x - 2.0 * first.x).abs().max().item() <= 1e-6 * scale, "KSP: x(2b) != 2 x(b) to 1e-6")
+    _require(warm.reason > 0 and warm.outer_iters <= 1,
+             f"KSP from x0 = x1: reason {warm.reason}, {warm.outer_iters} sweeps, not at most 1")
+    del first, second, warm
+
+    cols = torch.stack([b, 5.0 * b, b + 0.1 * torch.sin(7.0 * b), -b])
+    torch.cuda.reset_peak_memory_stats(device)
+    kernels.reset_launches()
+    res, t_mat = _timed(device, ksp.mat_solve, cols)
+    used = dict(kernels.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated(device) / 1e9
+    iters, reasons = res.iters.tolist(), res.reason.tolist()
+    linf = (res.x[0] - exact).abs().max().item()
+    print(f"launches (mat_solve): {json.dumps({k: v for k, v in used.items() if v})}")
+    print(f"mat_solve {n}^3, columns [b, 5b, b + 0.1 sin(7b), -b]: inner {iters}, outer"
+          f" {res.outer_iters.tolist()}, reasons {reasons}, Linf (column 0) {linf:.6e}, {t_mat:.4f} s (the plain"
+          f" twin hierarchy's build included), peak device memory {peak:.3f} GB; phase 15: {plain['iters']} +"
+          f" {plain['outer_iters']}")
+    _require(all(r == 2 for r in reasons), f"mat_solve: reasons {reasons}, not 2 in every column")
+    _require(all(abs(i - plain["iters"]) <= 2 for i in iters),
+             f"mat_solve: inner {iters}, not each within 2 of phase 15's {plain['iters']}")
+    _require(np.isfinite(linf) and linf < 1e-4, f"mat_solve: Linf {linf} >= 1e-4 in column 0")
+    _require((res.x[1] - 5.0 * res.x[0]).abs().max().item() <= 1e-5 * res.x[1].abs().max().item(),
+             "mat_solve: column 1 != 5 x column 0 to 1e-5")
+    _require(used["star7_mv_batched"] > 0, "mat_solve did not launch star7_mv_batched")
+    for name, n in used.items():
+        _require(not (name.startswith("fused7") and n), f"mat_solve launched {name}")
+    return used["star7_mv_batched"]
+
+
+def check_checkpointed(device, n=100) -> None:
+    """Phase 28's checkpointed CG at n^3 = 100^3 (f32 K1p operator, plain
+    GAMG cycle): cut by maxiter, resumed, held to one uninterrupted run;
+    then a uniform-precision solve under the preconditioned norm."""
+    op, b, _ = poisson_stencil_device(Grid3D(n, n, n), dtype=torch.float32, device=device)
+    hier = gamg_setup(op, AMGParams())
+    kw = dict(rtol=1e-6, m_mv=lambda r: vcycle(hier, r))
+    direct = cg(op.mv, b, maxiter=200, **kw)
+    with tempfile.TemporaryDirectory(dir=pathlib.Path(__file__).resolve().parent) as tmp:
+        cfg = CheckpointConfig(path=pathlib.Path(tmp) / "cg.npz", every=5)
+        cut, n_cut = cg_checkpointed(op.mv, b, cfg, maxiter=12, **kw)
+        res, total = cg_checkpointed(op.mv, b, cfg, maxiter=200, **kw)
+    rel = (res.x - direct.x).abs().max().item() / direct.x.abs().max().item()
+    print(f"cg_checkpointed {n}^3 (every 5): cut at {n_cut} (reason {cut.reason}), resumed to {total}"
+          f" iterations, reason {res.reason}; uninterrupted {direct.iters}, reason {direct.reason}; x within"
+          f" {rel:.3e}")
+    _require(not cut.converged() and n_cut == 12, f"cg_checkpointed: the cut run took {n_cut}, reason {cut.reason}")
+    _require((total, res.reason) == (direct.iters, direct.reason),
+             f"cg_checkpointed: {total} iterations, reason {res.reason}; uninterrupted {direct.iters},"
+             f" reason {direct.reason}")
+    _require(rel <= 1e-6, f"cg_checkpointed: x differs from the uninterrupted run's by {rel:.3e}")
+
+    rep = solve_poisson(n, precision="f64", rtol=1e-8, atol=1e-12, ksp_norm_type="preconditioned",
+                        device=device)
+    print(f"ksp_norm_type preconditioned, precision f64 at {n}^3: {rep.iters} iterations, reason {rep.reason},"
+          f" Linf {rep.linf_error:.6e}")
+    _require(rep.reason > 0, f"ksp_norm_type preconditioned: reason {rep.reason} is not positive")
+
+
 @contextlib.contextmanager
 def _counting_strokes():
     """Count the calls of ``FusedSharded.descent`` and ``ascent`` (the
@@ -1424,6 +1617,10 @@ def main() -> None:
     sharded = check_sharded(device, production, pl)
     for name in SLAB_KERNELS:
         launches[name] = sharded[name]
+
+    rows["star7_mv_batched"] = check_batched(device)
+    launches["star7_mv_batched"] = check_ksp(device, pl)
+    check_checkpointed(device)
 
     print(json.dumps({"kernels": [
         {

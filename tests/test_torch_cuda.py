@@ -7,7 +7,9 @@ small stencil (padded, full-fusion, plain layout, the
 unfused padded cycle, W-cycle, threshold schedule, the plain-only GAMG
 options and the standalone PCs, the z-sharded route), aij (structure-blind and lifted),
 uniform-precision aij, bf16-hierarchy and reference-config solves on the
-card against the same solves on the CPU, and ``bench.itprof`` at 24^3.
+card against the same solves on the CPU, ``bench.itprof`` at 24^3, and
+K1p over a stack (``star7_mv_batched``) with the ``KSP`` object's solve,
+reuse and ``mat_solve`` at 18^3 against the CPU.
 
 These tests need a CUDA device and skip without one.  The file imports no
 JAX, so it also runs where JAX is not installed:
@@ -21,7 +23,7 @@ import numpy as np
 import pytest
 import torch
 
-from tpusparse_torch import kernels
+from tpusparse_torch import KSP, kernels
 from tpusparse_torch.kernels import _build
 from tpusparse_torch.amg.hierarchy import AMGParams
 from tpusparse_torch.bench import itprof
@@ -88,6 +90,7 @@ from tpusparse_torch.kernels.stencil7 import (
     launch_args,
     padded_shape,
     star7_mv,
+    star7_mv_batched,
     star7_mv_padded,
     star7_mv_padded_torch,
     star7_mv_torch,
@@ -650,3 +653,57 @@ def test_itprof_runs_on_card(cuda, capsys):
     itprof.main(["24", "3"])
     out = capsys.readouterr().out
     assert "FULL CG+AMG iteration" in out and "FULL fused-CG iteration" in out
+
+
+@pytest.mark.parametrize("pinned", [True, False])
+@pytest.mark.parametrize("shape, k", [((40, 11, 13), 3), ((7, 5, 9), 1), ((3, 2, 1), 2), ((12, 12, 12), 4)])
+def test_star7_mv_batched_matches_twin_and_k1p(cuda, shape, k, pinned):
+    """K1p over a stack: one launch, the twin's values, and each column bit
+    for bit one K1p launch on it."""
+    nz, ny, nx = shape
+    star = poisson_stencil_device(Grid3D(nx, ny, nz), pin=pinned, dtype=torch.float32, device=cuda)[0]
+    x = torch.tensor(np.random.default_rng(7).standard_normal((k, *shape), dtype=np.float32), device=cuda)
+    args = (star.diag, star.cx, star.cy, star.cz, x, pinned)
+    before = kernels.LAUNCHES["star7_mv_batched"]
+    got, want = star7_mv_batched(*args), star7_mv_torch(*args)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["star7_mv_batched"] == before + 1
+    _close(got, want, cuda)
+    for c in range(k):
+        assert torch.equal(got[c], star7_mv(*args[:4], x[c], pinned))
+
+
+def _ksp_run(device):
+    """A KSP solve at 18^3, its reuse for 2b, and mat_solve of three
+    columns, with the launches of the solve and of mat_solve."""
+    op, b, exact = poisson_stencil_device(Grid3D(18, 18, 18), device=device)
+    ksp = KSP(rtol=1e-8, atol=1e-12).set_operators(op)
+    kernels.reset_launches()
+    first = ksp.solve(b)
+    solve_used = dict(kernels.LAUNCHES)
+    hier = ksp._pc_state
+    second = ksp.solve(2.0 * b)
+    assert ksp._pc_state is hier  # KSPSetReusePreconditioner
+    assert torch.equal(second.x, 2.0 * first.x)
+    kernels.reset_launches()
+    block = ksp.mat_solve(torch.stack([b, 5.0 * b, -b]))
+    return first, (first.x - exact).abs().max().item(), block, solve_used, dict(kernels.LAUNCHES)
+
+
+def test_ksp_object_on_card_matches_cpu(cuda):
+    """The object API on the card: the solve on K1-K4 (the padded route),
+    mat_solve on the batched K1p and no fused7 kernel, each held to the
+    same run on the CPU (inner within 1, as the solves above)."""
+    gpu, gpu_linf, gpu_block, solve_used, block_used = _ksp_run(cuda)
+    assert all(solve_used[name] > 0 for name in
+               ("star7_mv_padded", "fused7_mvdot", "fused7_descent_rr", "fused7_ascent_rz"))
+    assert block_used["star7_mv_batched"] > 0
+    assert all(n == 0 for name, n in block_used.items() if name.startswith("fused7"))
+    cpu, cpu_linf, cpu_block, _, _ = _ksp_run("cpu")
+    assert (gpu.reason, gpu.outer_iters) == (cpu.reason, cpu.outer_iters) == (2, 2)
+    assert abs(gpu.iters - cpu.iters) <= 1
+    assert abs(gpu_linf - cpu_linf) < 1e-6
+    assert gpu_block.reason.tolist() == cpu_block.reason.tolist() == [2, 2, 2]
+    assert gpu_block.outer_iters.tolist() == cpu_block.outer_iters.tolist()
+    assert (gpu_block.iters.cpu() - cpu_block.iters).abs().max().item() <= 1
+    torch.testing.assert_close(gpu_block.x.cpu(), cpu_block.x, rtol=0, atol=1e-6 * cpu_block.x.abs().max().item())

@@ -49,7 +49,8 @@ def test_port_imports_no_jax():
     "module",
     ["__main__", "config/options.py", "config/__init__.py", "solve/simple.py",
      "solve/chebyshev.py", "solve/pipelined.py", "solve/gmres.py", "solve/fgmres.py",
-     "solve/bcgs.py", "solve/minres.py"],
+     "solve/bcgs.py", "solve/minres.py", "ksp.py", "solve/multi.py", "solve/checkpoint.py",
+     "solve/__init__.py", "__init__.py"],
 )
 def test_cli_and_ksp_modules_are_scanned_and_import(module):
     """The CLI, the options database and the Krylov family are among the

@@ -136,3 +136,55 @@ def test_cg_refined_reasons_match_jax(systems, kw, reason):
     got = cg_refined(op.mv, lambda v: op.mv(v.double()).float(), b, inner_maxiter=5, **kw)
     assert got.reason == int(want.reason) == reason
     assert (got.iters, got.outer_iters) == (int(want.iters), int(want.outer_iters))
+
+
+@pytest.mark.parametrize("norm_type", ["unpreconditioned", "preconditioned", "none"])
+def test_cg_norm_type_matches_jax(systems, norm_type):
+    """-ksp_norm_type in cg (f64, Jacobi): the preconditioned norm
+    sqrt(|<r, z>|) gated at rtol ||b||_2, and "none" running maxiter
+    iterations to CONVERGED_ITS; counts, reasons and norms JAX's."""
+    (jop, jb), (op, b) = systems
+    maxiter = 7 if norm_type == "none" else 2000
+    want = j_cg(jop.mv, jb, rtol=1e-8, m_mv=lambda r: r / jop.diag, maxiter=maxiter, norm_type=norm_type)
+    got = cg(op.mv, b, rtol=1e-8, m_mv=lambda r: r / op.diag, maxiter=maxiter, norm_type=norm_type)
+    assert (got.iters, got.reason) == (int(want.iters), int(want.reason))
+    assert got.resnorm == pytest.approx(float(want.resnorm), rel=1e-6)
+    np.testing.assert_allclose(got.x.numpy(), np.asarray(want.x), rtol=0, atol=1e-8 * np.abs(got.x.numpy()).max())
+    if norm_type == "none":
+        assert (got.iters, got.reason) == (7, ConvergedReason.CONVERGED_ITS)
+    else:
+        assert got.reason == ConvergedReason.CONVERGED_RTOL
+    with pytest.raises(ValueError, match="norm_type"):
+        cg(op.mv, b, norm_type="natural")
+
+
+def test_cg_norm_none_reports_nan(systems):
+    """Under "none" a non-finite norm still ends the solve."""
+    _, (op, b) = systems
+    got = cg(lambda x: op.mv(x) * float("nan"), b, maxiter=5, norm_type="none")
+    assert got.reason == ConvergedReason.DIVERGED_NANORINF
+
+
+@pytest.mark.parametrize("norm_type, kw", [
+    ("preconditioned", dict(precision="f64")),
+    ("none", dict(precision="f64", maxiter=9)),
+    ("preconditioned", dict(layout="padded")),
+])
+def test_solve_poisson_ksp_norm_type_matches_jax(norm_type, kw):
+    """solve_poisson's ksp_norm_type (CG's norm_type on the stencil route,
+    JAX's driver:317/:369): uniform f64 and the padded mixed route, where
+    CG keeps the fused <p, Ap> and the dot-fused cycle."""
+    from tpusparse.bench.driver import solve_poisson as j_solve_poisson
+    from tpusparse_torch.bench.driver import _pick_ksp, solve_poisson
+
+    common = dict(rtol=1e-8, atol=1e-12, warmup=False, ksp_norm_type=norm_type, **kw)
+    want = j_solve_poisson(16, **common)
+    got = solve_poisson(16, device="cpu", **common)
+    assert (got.reason, got.outer_iters) == (want.reason, want.outer_iters)
+    assert got.reason > 0
+    assert abs(got.iters - want.iters) <= (0 if kw.get("precision") == "f64" else 1)
+    assert abs(got.linf_error - want.linf_error) < 1e-6
+    if norm_type == "none":
+        assert (got.iters, got.reason) == (9, ConvergedReason.CONVERGED_ITS)
+    assert _pick_ksp("cg", ksp_norm_type=norm_type).keywords == {"norm_type": norm_type}
+    assert _pick_ksp("cg", ksp_norm_type="unpreconditioned") is cg

@@ -15,7 +15,18 @@ and K1p), built with nvcc at first use and bound with ctypes
 dispatches by tensor device only: a CPU tensor runs the kernel's plain
 PyTorch twin, a CUDA tensor launches the kernel or raises.
 
+The object API is the JAX package's: ``KSP`` (``ksp.py``, PETSc's
+KSPSetOperators / KSPSetUp / KSPSolve / KSPMatSolve) over ``Grid3D`` and
+``StarStencil3D``.  Importing the package builds no kernel and touches no
+CUDA device.
+
 The package imports ``torch`` and numpy, never ``jax``.
 """
 
 __version__ = "0.1.0"
+
+from tpusparse_torch.grid.grid3d import Grid3D
+from tpusparse_torch.ksp import KSP, KSPResult
+from tpusparse_torch.sparse.stencil import StarStencil3D
+
+__all__ = ["Grid3D", "KSP", "KSPResult", "StarStencil3D", "__version__"]

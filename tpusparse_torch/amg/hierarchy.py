@@ -173,8 +173,14 @@ def dense_coarse_inverse(op) -> torch.Tensor:
 
 
 def _coarse_direct(lev: Level, b: torch.Tensor) -> torch.Tensor:
-    """Apply the dense coarse inverse (field or flat view)."""
-    x = lev.coarse_inv @ b.reshape(-1).to(lev.coarse_inv.dtype)
+    """Apply the dense coarse inverse to a field or flat vector, or to a
+    stack of k of them as one product inv @ B.T."""
+    inv = lev.coarse_inv
+    n = inv.shape[0]
+    if b.numel() == n:
+        x = inv @ b.reshape(-1).to(inv.dtype)
+    else:
+        x = (inv @ b.reshape(-1, n).T.to(inv.dtype)).T
     return x.to(b.dtype).reshape(b.shape)
 
 
@@ -563,8 +569,11 @@ def vcycle(hier: Hierarchy, b: torch.Tensor, level: int = 0, gamma: int = 1) -> 
 
     ``gamma`` is the cycle index (``-pc_mg_cycle_type``): 1 a V-cycle, 2 a
     W-cycle, which re-enters the coarse hierarchy on the updated coarse
-    residual.  Symmetric — the post-smoother is the adjoint of the
-    pre-smoother — so a valid CG preconditioner.  Coarse solve: preonly +
+    residual.  On plain levels ``b`` may be a stack of k fields (leading
+    axis), each cycled as the single-field cycle would: the block apply of
+    ``KSP.mat_solve``; a padded level takes one field.  Symmetric — the
+    post-smoother is the adjoint of the pre-smoother — so a valid CG
+    preconditioner.  Coarse solve: preonly +
     Jacobi, the block-Jacobi sub-PC, or the dense LU.  A padded level runs
     the unfused cycle on K10-K16 (``_smooth_padded``, ``PaddedStar.residual``,
     ``PaddedTransfer.{restrict_steps, prolong_steps}``).

@@ -107,17 +107,18 @@ class StructuredTransfer:
         return coarse_shape(self.fine_shape, self.factor)
 
     def t_apply(self, e_c: torch.Tensor) -> torch.Tensor:
-        """T e_c: normalized piecewise-constant interpolation (coarse -> fine)."""
+        """T e_c: normalized piecewise-constant interpolation (coarse ->
+        fine), of a field or of each field of a stack with leading axes."""
         x = e_c * self.tnorm
-        x = torch.einsum("zc,cde->zde", self.sz, x)
-        x = torch.einsum("yd,zde->zye", self.sy, x)
-        return torch.einsum("xe,zye->zyx", self.sx, x)
+        x = torch.einsum("zc,...cde->...zde", self.sz, x)
+        x = torch.einsum("yd,...zde->...zye", self.sy, x)
+        return torch.einsum("xe,...zye->...zyx", self.sx, x)
 
     def tT_apply(self, r: torch.Tensor) -> torch.Tensor:
-        """T^T r: block sums (fine -> coarse)."""
-        x = torch.einsum("zyx,zc->cyx", r, self.sz)
-        x = torch.einsum("cyx,yd->cdx", x, self.sy)
-        x = torch.einsum("cdx,xe->cde", x, self.sx)
+        """T^T r: block sums (fine -> coarse), as ``t_apply`` on stacks."""
+        x = torch.einsum("...zyx,zc->...cyx", r, self.sz)
+        x = torch.einsum("...cyx,yd->...cdx", x, self.sy)
+        x = torch.einsum("...cdx,xe->...cde", x, self.sx)
         return x * self.tnorm
 
     def prolong(self, fine_op, dinv: torch.Tensor, e_c: torch.Tensor) -> torch.Tensor:

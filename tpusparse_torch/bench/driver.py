@@ -219,12 +219,17 @@ class DivergedError(RuntimeError):
 
 def _pick_ksp(
     ksp: str, ksp_gmres_restart: int = 30, ksp_richardson_scale: float = 1.0,
-    precision: str = "mixed",
+    precision: str = "mixed", ksp_norm_type: str = "default",
 ):
     """The solver a ``-ksp_type`` name selects: the inner solver under mixed
-    precision, the whole solve under uniform precision."""
+    precision, the whole solve under uniform precision.  ``ksp_norm_type``
+    ("default", "unpreconditioned", "preconditioned" or "none") reaches CG
+    only, as in the JAX driver (``tpusparse/bench/driver.py:179-187``)."""
     solvers = {
-        "cg": cg,
+        "cg": (
+            functools.partial(cg, norm_type=ksp_norm_type)
+            if ksp_norm_type not in ("default", "unpreconditioned") else cg
+        ),
         # under mixed precision, f64 recurrence scalars and residual
         # replacement every 5: the f32 recurrences NaN'd at >= 144^3 on the
         # TPU (the JAX driver's :189-217); vectors and dots stay f32
@@ -267,7 +272,7 @@ def _refined_padded(op, op_lo, b, m_lo_mv, *, rtol, atol, divtol=1e5, ksp_solve=
     """f64 defect correction around the f32 ``ksp_solve`` on padded fields,
     preconditioned by ``m_lo_mv`` (None: none).  CG also takes the fused
     ``<p, Ap>`` (K2) and, where given, the dot-fused preconditioner."""
-    if ksp_solve is cg:
+    if getattr(ksp_solve, "func", ksp_solve) is cg:  # CG under any norm_type
         fused.setdefault("a_lo_mv_dot", op_lo.mv_dot)
         if m_lo_mv_dots is not None:
             fused["m_lo_mv_dots"] = m_lo_mv_dots
@@ -281,6 +286,7 @@ def _refined_padded(op, op_lo, b, m_lo_mv, *, rtol, atol, divtol=1e5, ksp_solve=
 def refined_solve(
     op, op_lo, pc_state, b, *, rtol: float, atol: float, divtol: float = 1e5,
     ksp_solve=cg, history: bool = False, cg_fusion: bool = False, gamma: int = 1,
+    **limits,
 ):
     """f64 defect correction around the f32 ``ksp_solve`` preconditioned by
     the padded cycle (a W-cycle for ``gamma`` 2).  Where the fine level
@@ -288,8 +294,9 @@ def refined_solve(
     ``<p, Ap>``, every other method the dot-free cycle; elsewhere every
     method takes the unfused padded cycle (K10-K16).  ``cg_fusion`` adds
     the full-fusion pair, which ``cg_refined`` puts before both (CG only;
-    a degree-2 fine smoother, ``cg_fusion_supported``)."""
-    fused = {}
+    a degree-2 fine smoother, ``cg_fusion_supported``).  ``limits``:
+    ``cg_refined``'s ``max_outer`` and ``inner_maxiter``."""
+    fused = dict(limits)
     if cg_fusion:
         if not cg_fusion_supported(pc_state):
             raise ValueError(
@@ -418,6 +425,7 @@ def solve_poisson(
     monitor: bool = False,
     view: bool = False,
     warmup: bool = True,
+    ksp_norm_type: str = "default",
 ) -> SolveReport:
     """End-to-end solve on the ``nx`` x ``ny`` x ``nz`` grid (``ny``/``nz``
     default to ``nx``) over the box ``extent`` = (lx, ly, lz) (the unit
@@ -425,7 +433,10 @@ def solve_poisson(
     configs/PETSc_SolverOptions_GAMG.info:1-4, AMG options: ``amg_params``
     or ``AMGParams()``) on ``device``.
 
-    ``ksp``: the Krylov method (``_pick_ksp``).  Under mixed precision,
+    ``ksp``: the Krylov method (``_pick_ksp``), with ``ksp_norm_type``
+    (CG's ``norm_type``; "default" is the unpreconditioned norm) on the
+    stencil route; the aij route ignores it, as the JAX driver's does (it
+    does not hand it to ``_solve_poisson_aij``).  Under mixed precision,
     as in the JAX driver, each inner solve is capped at ``cg_refined``'s
     ``inner_maxiter`` and the sweeps at its ``max_outer``, so ``maxiter``
     only enters the ``-ksp_view`` text; under uniform precision it caps the
@@ -574,7 +585,10 @@ def solve_poisson(
         eigs = False
     lx, ly, lz = extent or (1.0, 1.0, 1.0)
     grid = Grid3D(nx, ny or nx, nz or nx, lx=lx, ly=ly, lz=lz)
-    ksp_solve = _pick_ksp(ksp, ksp_gmres_restart, ksp_richardson_scale, precision)
+    ksp_solve = _pick_ksp(
+        ksp, ksp_gmres_restart, ksp_richardson_scale, precision,
+        ksp_norm_type if mat_type == "stencil" else "default",
+    )
     device = torch.device(device)
     if sharded:
         mesh = make_z_mesh(n_devices, device)

@@ -47,8 +47,8 @@ class Options:
     ksp_compute_eigenvalues: bool = False  # uniform-precision CG only
     log_view: bool = False          # phase times + flop accounting
     ksp_richardson_scale: float = 1.0  # top-level KSPRICHARDSON damping
-    # -ksp_norm_type: parsed and validated, but the mixed-precision driver
-    # never reads it (as in the JAX CLI, ROADMAP section 3)
+    # -ksp_norm_type: parsed and validated, but the CLI does not hand it to
+    # solve_poisson's ksp_norm_type (as in the JAX CLI, ROADMAP section 3)
     ksp_norm_type: str = "default"
     ksp_gmres_restart: int = 30
 

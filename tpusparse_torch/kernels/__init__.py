@@ -9,6 +9,7 @@ every kernel: reset the counts, drive the path, read them.
 LAUNCHES = {
     "star7_mv_padded": 0,
     "star7_mv": 0,
+    "star7_mv_batched": 0,
     "fused7_mvdot": 0,
     "fused7_descent_rr": 0,
     "fused7_ascent_rz": 0,

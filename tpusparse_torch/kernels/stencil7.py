@@ -17,13 +17,22 @@ is zero; diag's pads hold 1.0.
 ``star7_mv`` (K1p) is the apply on plain ``(nz, ny, nx)`` f32 fields, the
 counterpart of ``star7_mv_pallas``.  The JAX kernel pads x and diag into the
 resident layout, runs K1 and crops y; on the H100 K1's neighbour reads are
-already masked by the domain bounds, so ``csrc/stencil7.cu`` launches the
-same kernel on the unpadded field (a geometry with no face planes and
-``nxp = nx``) and skips the 4 field passes of pad and crop.
+already masked by the domain bounds, so ``csrc/stencil7.cu`` runs the star
+on the unpadded field (a geometry with no face planes and ``nxp = nx``) and
+skips the 4 field passes of pad and crop.
 
-``star7_mv_padded`` and ``star7_mv`` dispatch by tensor device only: a CPU
-tensor runs the plain twin (``star7_mv_padded_torch``, ``star7_mv_torch``),
-a CUDA tensor launches ``csrc/stencil7.cu`` (or raises).
+``star7_mv_batched`` is K1p over a stack of k plain fields, ``(k, nz, ny,
+nx)``, in one launch that reads diag once a cell: the f32 fine-level apply
+of ``KSP.mat_solve``'s block solve, where the JAX package vmaps the star's
+XLA form (``tpusparse/ksp.py:792-806``).  Both kernels spell out every
+rounding of the star, so each column of a stack is bit for bit a K1p
+launch.  Its twin is ``star7_mv_torch``, which broadcasts over leading
+axes.
+
+``star7_mv_padded``, ``star7_mv`` and ``star7_mv_batched`` dispatch by
+tensor device only: a CPU tensor runs the plain twin
+(``star7_mv_padded_torch``, ``star7_mv_torch``), a CUDA tensor launches
+``csrc/stencil7.cu`` (or raises).
 """
 
 from __future__ import annotations
@@ -47,15 +56,17 @@ def _shift(x: torch.Tensor, axis: int, direction: int) -> torch.Tensor:
 
 
 def _origin_mask(x: torch.Tensor) -> torch.Tensor:
-    """Boolean mask of the pinned cell (0, 0, 0), shaped like ``x``."""
+    """Boolean mask of the pinned cell (0, 0, 0) of each field, shaped
+    like ``x``."""
     m = torch.zeros(x.shape, dtype=torch.bool, device=x.device)
-    m[0, 0, 0] = True
+    m[..., 0, 0, 0] = True
     return m
 
 
 def star7_mv_torch(diag, cx, cy, cz, x, pinned: bool):
-    """Plain twin of K1p, and the apply of every dtype: y = A @ x on plain
-    (nz, ny, nx) fields of any float dtype (``StarStencil3D.mv``'s math,
+    """Plain twin of K1p and of ``star7_mv_batched``, and the apply of
+    every dtype: y = A @ x on plain (nz, ny, nx) fields of any float dtype,
+    or on a stack of them with leading axes (``StarStencil3D.mv``'s math,
     ``tpusparse/sparse/stencil.py:140-152``).  The pinned cell x[0,0,0] is
     zeroed before the shifts and y[0,0,0] rewritten after."""
     if pinned:
@@ -64,9 +75,9 @@ def star7_mv_torch(diag, cx, cy, cz, x, pinned: bool):
     else:
         xn = x
     y = diag * x
-    y += cx * (_shift(xn, 2, 1) + _shift(xn, 2, -1))
-    y += cy * (_shift(xn, 1, 1) + _shift(xn, 1, -1))
-    y += cz * (_shift(xn, 0, 1) + _shift(xn, 0, -1))
+    y += cx * (_shift(xn, -1, 1) + _shift(xn, -1, -1))
+    y += cy * (_shift(xn, -2, 1) + _shift(xn, -2, -1))
+    y += cz * (_shift(xn, -3, 1) + _shift(xn, -3, -1))
     if pinned:
         # pinned row: y[0] = diag[0] * x[0] only
         y = torch.where(origin, diag * x, y)
@@ -176,17 +187,28 @@ def star7_mv_padded(diag_p, cx, cy, cz, x_p, shape, pinned: bool):
     return y
 
 
-_STAR7_PLAIN_ARGS = [_build.P] * 3 + [_build.I] * 3 + [_build.F] * 3 + [_build.I, _build.P]
+_STAR7_PLAIN_ARGS = [_build.P] * 3 + [_build.I] * 4 + [_build.F] * 3 + [_build.I, _build.P]
 
 
-def star7_mv(diag, cx, cy, cz, x, pinned: bool):
-    """y = A @ x on plain (nz, ny, nx) f32 fields (K1p).
+def _launch_plain(diag, cx, cy, cz, x, pinned: bool, k: int) -> torch.Tensor:
+    """Launch K1p over the k stacked plain fields of x (k = 1: one field)."""
+    y = torch.empty_like(x)
+    _build.launch(
+        "tps_star7_mv_plain", _STAR7_PLAIN_ARGS, x.device,
+        x.data_ptr(), diag.data_ptr(), y.data_ptr(), *diag.shape, k,
+        float(cx), float(cy), float(cz), int(pinned),
+    )
+    return y
 
-    CUDA tensors run ``csrc/stencil7.cu``; CPU tensors the plain twin.
-    """
+
+def _check_plain(diag, x, leading: int) -> None:
+    """Raise unless diag is one plain (nz, ny, nx) f32 field and x is one
+    (``leading`` 0) or a stack of k >= 1 of them (``leading`` 1), both
+    contiguous, on one CPU or CUDA device."""
     shape = tuple(x.shape)
-    if len(shape) != 3 or tuple(diag.shape) != shape:
-        raise ValueError(f"x {shape} and diag {tuple(diag.shape)}: want one (nz, ny, nx)")
+    if len(shape) != 3 + leading or tuple(diag.shape) != shape[leading:] or 0 in shape[:leading]:
+        want = "one (nz, ny, nx)" if not leading else "x (k >= 1, nz, ny, nx) over diag (nz, ny, nx)"
+        raise ValueError(f"x {shape} and diag {tuple(diag.shape)}: want {want}")
     for f in (diag, x):
         if f.dtype != torch.float32:
             raise TypeError(f"field dtype {f.dtype}, the kernel takes float32")
@@ -194,15 +216,33 @@ def star7_mv(diag, cx, cy, cz, x, pinned: bool):
             raise ValueError("fields must be contiguous")
     if diag.device != x.device:
         raise ValueError(f"fields on {diag.device} and {x.device}")
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"no kernel or twin for device {x.device}")
+
+
+def star7_mv(diag, cx, cy, cz, x, pinned: bool):
+    """y = A @ x on plain (nz, ny, nx) f32 fields (K1p).
+
+    CUDA tensors run ``csrc/stencil7.cu``; CPU tensors the plain twin.
+    """
+    _check_plain(diag, x, 0)
     if x.device.type == "cpu":
         return star7_mv_torch(diag, cx, cy, cz, x, pinned)
-    if x.device.type != "cuda":
-        raise ValueError(f"no kernel or twin for device {x.device}")
-    y = torch.empty_like(x)
-    _build.launch(
-        "tps_star7_mv_plain", _STAR7_PLAIN_ARGS, x.device,
-        x.data_ptr(), diag.data_ptr(), y.data_ptr(), *shape,
-        float(cx), float(cy), float(cz), int(pinned),
-    )
+    y = _launch_plain(diag, cx, cy, cz, x, pinned, 1)
     LAUNCHES["star7_mv"] += 1
+    return y
+
+
+def star7_mv_batched(diag, cx, cy, cz, x, pinned: bool):
+    """y[c] = A @ x[c] for each column c of the f32 stack x (k, nz, ny, nx),
+    over one diag (nz, ny, nx): K1p over the stack in one launch, each
+    column bit for bit one ``star7_mv`` launch.
+
+    CUDA tensors run ``csrc/stencil7.cu``; CPU tensors the plain twin.
+    """
+    _check_plain(diag, x, 1)
+    if x.device.type == "cpu":
+        return star7_mv_torch(diag, cx, cy, cz, x, pinned)
+    y = _launch_plain(diag, cx, cy, cz, x, pinned, x.shape[0])
+    LAUNCHES["star7_mv_batched"] += 1
     return y

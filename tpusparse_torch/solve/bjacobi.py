@@ -89,23 +89,36 @@ class BlockJacobi:
 
     def apply(self, r: torch.Tensor) -> torch.Tensor:
         """z = inv(blockdiag(A)) @ r on the flat vector or any field view of
-        it; z keeps r's shape."""
+        it, or on each of a stack of them (leading axes); z keeps r's
+        shape."""
         nb, bs = self.dinv_blocks.shape[0], self.bs
-        pad = nb * bs - self.n
-        rf = r.reshape(-1)
-        rb = (torch.nn.functional.pad(rf, (0, pad)) if pad else rf).reshape(nb, bs)
-        z = torch.einsum("kij,kj->ki", self.dinv_blocks, rb).reshape(-1)
-        return (z[: self.n] if pad else z).reshape(r.shape)
+        rb = _blocks(r, self.n, nb, bs)
+        z = torch.einsum("kij,mkj->mki", self.dinv_blocks, rb)
+        return _unblock(z, self.n, r.shape)
+
+
+def _blocks(r: torch.Tensor, n: int, nb: int, bs: int) -> torch.Tensor:
+    """r (m fields of n values, any view) as (m, nb, bs) blocks, the tail
+    block padded with zeros."""
+    rf = r.reshape(-1, n)
+    pad = nb * bs - n
+    return (torch.nn.functional.pad(rf, (0, pad)) if pad else rf).reshape(-1, nb, bs)
+
+
+def _unblock(z: torch.Tensor, n: int, shape) -> torch.Tensor:
+    """Inverse of ``_blocks``: drop the tail padding, take ``shape``."""
+    z = z.reshape(z.shape[0], -1)
+    return (z[:, :n] if z.shape[1] != n else z).reshape(shape)
 
 
 def _sh_dn(v: torch.Tensor, k: int, fill: float = 0.0) -> torch.Tensor:
-    """result[:, j] = v[:, j-k] (entries below the block start read fill)."""
-    return torch.cat([torch.full_like(v[:, :k], fill), v[:, :-k]], dim=1)
+    """result[..., j] = v[..., j-k] (entries below the block start read fill)."""
+    return torch.cat([torch.full_like(v[..., :k], fill), v[..., :-k]], dim=-1)
 
 
 def _sh_up(v: torch.Tensor, k: int, fill: float = 0.0) -> torch.Tensor:
-    """result[:, j] = v[:, j+k] (entries past the block end read fill)."""
-    return torch.cat([v[:, k:], torch.full_like(v[:, -k:], fill)], dim=1)
+    """result[..., j] = v[..., j+k] (entries past the block end read fill)."""
+    return torch.cat([v[..., k:], torch.full_like(v[..., -k:], fill)], dim=-1)
 
 
 @dataclasses.dataclass
@@ -158,10 +171,7 @@ class PCRLineJacobi:
         """z = inv(blockdiag(tridiag)) @ r: replay the PCR ladder on r.
         Same shape contract as :meth:`BlockJacobi.apply`."""
         nb, bs = self.binv.shape
-        pad = nb * bs - self.n
-        rf = r.reshape(-1)
-        d = (torch.nn.functional.pad(rf, (0, pad)) if pad else rf).reshape(nb, bs)
+        d = _blocks(r, self.n, nb, bs)
         for alpha, gamma, k in zip(self.alphas, self.gammas, self.shifts):
             d = d + alpha * _sh_dn(d, k) + gamma * _sh_up(d, k)
-        z = (self.binv * d).reshape(-1)
-        return (z[: self.n] if pad else z).reshape(r.shape)
+        return _unblock(self.binv * d, self.n, r.shape)

@@ -152,6 +152,7 @@ def cg(
     ab_fused: Callable | None = None,
     m_fused: Callable | None = None,
     divtol: float = 1e5,
+    norm_type: str = "unpreconditioned",
 ):
     """Solve A x = b with (preconditioned) CG.
 
@@ -170,6 +171,13 @@ def cg(
     lacks alpha_k p_k until the next trip; the exit adds the last term),
     which changes no residual the convergence test sees.  It needs a zero
     initial guess and takes neither ``a_mv_dot`` nor ``m_mv_dots``.
+
+    ``norm_type`` (-ksp_norm_type): "unpreconditioned" (||r||_2, the
+    default), "preconditioned" (||r||_M = sqrt(|<r, z>|), PETSc CG's own
+    default, still gated against ``rtol * ||b||_2``), or "none" (no
+    residual test: run ``maxiter`` iterations and report CONVERGED_ITS, or
+    DIVERGED_NANORINF on a non-finite norm; PETSc KSP_NORM_NONE).  As in the
+    JAX package, the full-fusion body keeps ||r||_2 under "preconditioned".
 
     Extra results, as in the JAX package (one at a time):
 
@@ -190,6 +198,8 @@ def cg(
     fused = ab_fused is not None
     if fused != (m_fused is not None):
         raise ValueError("ab_fused and m_fused must be given together")
+    if norm_type not in ("unpreconditioned", "preconditioned", "none"):
+        raise ValueError(f"unknown norm_type {norm_type!r}")
     _check_args(
         fused=fused, x0=x0, state0=state0, return_state=return_state, history=history,
         spectrum=spectrum, a_mv_dot=a_mv_dot, m_mv_dots=m_mv_dots,
@@ -201,7 +211,14 @@ def cg(
 
     f = np_float(b.dtype)
     bnorm = norm_h(b, f)
-    classify = convergence_test(f, bnorm, rtol, atol, divtol, maxiter)
+    if norm_type == "none":
+        def classify(rnorm, it):
+            if not math.isfinite(rnorm):
+                return ConvergedReason.DIVERGED_NANORINF
+            return ConvergedReason.CONVERGED_ITS if it >= maxiter else ConvergedReason.ITERATING
+    else:
+        classify = convergence_test(f, bnorm, rtol, atol, divtol, maxiter)
+    precond_norm = norm_type == "preconditioned"
     if fused:
         return _cg_fused(ab_fused, m_fused, b, x0, f, bnorm, classify)
 
@@ -215,6 +232,8 @@ def cg(
             z = m_mv(r)
             rz = _dot(r, z)
             rnorm = torch.sqrt(_dot(r, r))
+        if precond_norm:
+            rnorm = torch.sqrt(torch.abs(rz))
         p, it = z, 0
     else:
         x, r, z, p, rz, rnorm, it = state0
@@ -238,6 +257,8 @@ def cg(
             z = m_mv(r)
             rz_new = _dot(r, z)
             rnorm = torch.sqrt(_dot(r, r))
+        if precond_norm:
+            rnorm = torch.sqrt(torch.abs(rz_new))
         beta = rz_new / rz
         p = z + beta * p
         rz = rz_new

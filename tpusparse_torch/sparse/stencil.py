@@ -15,7 +15,9 @@ x[0,0,0] is zeroed before the shifts and y[0,0,0] is rewritten after.
 
 ``mv`` runs kernel K1p (``kernels/stencil7.py::star7_mv``) on f32 fields,
 the inner operator of the plain layout and of uniform f32 precision, as
-the JAX package takes ``star7_mv_pallas`` for f32 only.  Other dtypes run
+the JAX package takes ``star7_mv_pallas`` for f32 only, and on a stack of
+k f32 fields ``(k, nz, ny, nx)`` the batched K1p (``star7_mv_batched``, one
+launch for the stack: ``KSP.mat_solve``'s block apply).  Other dtypes run
 the same math in plain torch: the f64 outer operator of the mixed-precision
 solve and the operator of uniform f64 precision, since the H100 has f64 in
 hardware.
@@ -27,7 +29,7 @@ import dataclasses
 
 import torch
 
-from tpusparse_torch.kernels.stencil7 import star7_mv, star7_mv_torch
+from tpusparse_torch.kernels.stencil7 import star7_mv, star7_mv_batched, star7_mv_torch
 
 
 @dataclasses.dataclass
@@ -54,11 +56,13 @@ class StarStencil3D:
         return self.diag.dtype
 
     def mv(self, x: torch.Tensor) -> torch.Tensor:
-        """y = A @ x on the 3D field view (nz, ny, nx)."""
-        if x.shape != self.diag.shape:
-            raise ValueError(f"x shape {tuple(x.shape)} != grid {self.grid_shape}")
+        """y = A @ x on the 3D field view (nz, ny, nx), or on each field of
+        a stack (k, nz, ny, nx)."""
+        if x.dim() not in (3, 4) or x.shape[-3:] != self.diag.shape:
+            raise ValueError(f"x shape {tuple(x.shape)}: not grid {self.grid_shape} or a stack of it")
         if x.dtype == self.dtype == torch.float32:
-            return star7_mv(self.diag, self.cx, self.cy, self.cz, x.contiguous(), self.pinned)
+            mv = star7_mv if x.dim() == 3 else star7_mv_batched
+            return mv(self.diag, self.cx, self.cy, self.cz, x.contiguous(), self.pinned)
         return star7_mv_torch(self.diag, self.cx, self.cy, self.cz, x, self.pinned)
 
     def diagonal_field(self) -> torch.Tensor:

@@ -6,7 +6,8 @@ With geometric 3x3x3 aggregation and a once-smoothed prolongator every
 coarse operator couples only the 27 immediate neighbours, so its action is
 ``sum_o coef[o] * x_shifted_by_o`` — shifted multiply-adds, no column
 indices.  The apply stays plain torch: the coarse levels hold 1/27 of the
-fine level's cells and less.
+fine level's cells and less.  Fields may carry leading axes (a stack of
+k right-hand sides, ``KSP.mat_solve``): the shifts act on the last three.
 """
 
 from __future__ import annotations
@@ -25,21 +26,22 @@ CENTER = OFFSETS.index((0, 0, 0))  # = 13
 
 
 def pad1(x: torch.Tensor) -> torch.Tensor:
-    """One zero cell around every face: the source of all 27 shifts."""
+    """One zero cell around every face of the last three axes: the source
+    of all 27 shifts."""
     return F.pad(x, (1, 1, 1, 1, 1, 1))
 
 
 def shifted_view(xp: torch.Tensor, off, shape) -> torch.Tensor:
-    """x[p + off] with zero fill, as a view of ``xp = pad1(x)``."""
+    """x[..., p + off] with zero fill, as a view of ``xp = pad1(x)``."""
     (dk, dj, di), (nz, ny, nx) = off, shape
-    return xp[1 + dk:1 + dk + nz, 1 + dj:1 + dj + ny, 1 + di:1 + di + nx]
+    return xp[..., 1 + dk:1 + dk + nz, 1 + dj:1 + dj + ny, 1 + di:1 + di + nx]
 
 
 def shift3(x: torch.Tensor, off: tuple[int, int, int]) -> torch.Tensor:
-    """out[p] = x[p + off] with zero fill."""
+    """out[..., p] = x[..., p + off] with zero fill."""
     if all(d == 0 for d in off):
         return x
-    return shifted_view(pad1(x), off, tuple(x.shape))
+    return shifted_view(pad1(x), off, tuple(x.shape[-3:]))
 
 
 @dataclasses.dataclass
@@ -63,7 +65,8 @@ class VarStencil27:
         return self.coef.dtype
 
     def mv(self, x: torch.Tensor) -> torch.Tensor:
-        """y = A @ x on the 3D field view (same accumulation order as JAX)."""
+        """y = A @ x on the 3D field view, or on each field of a stack with
+        leading axes (same accumulation order as JAX)."""
         y = self.coef[CENTER] * x
         xp = pad1(x)
         for o, off in enumerate(OFFSETS):
