@@ -182,18 +182,49 @@ script exits non-zero without the final line:
    cut by ``maxiter`` and resumed: the uninterrupted run's iterations and
    reason, x within 1e-6.  And ``solve_poisson(100, precision="f64",
    ksp_norm_type="preconditioned")``: a positive reason.
+29. The file route (PETSc's ex10) at 300^3 through the CLI, in one
+   temporary directory removed after phase 31: ``-mat_view
+   binary:<file>`` writes the assembled system (matrix, rhs, exact
+   solution; 2.8 GB; it also runs the stencil solve), then ``-f <file>
+   -ksp_rtol 1e-8 -ksp_atol 1e-12 -ksp_view_solution binary:<file>``,
+   counters reset just before: reason 2, 35 +- 2 inner in 2-3 sweeps,
+   Linf < 1e-4, K5 launched and no star7/fused7 kernel; the solution file
+   read back holds the solve's x (its Linf against the file's exact
+   vector is the report's, exactly).  The file's size, the assembly and
+   write seconds, t_init's parts (read, diagonals, host_bands, upload), t_setup,
+   t_solve and peak device memory are printed.
+30. The structure-blind aij route in uniform precision through the CLI:
+   ``-mat_structure_detect 0 -precision f32`` at 300^3 (rtol 1e-6; K5
+   launched) and ``-precision f64`` at 100^3 (rtol 1e-8; no kernel), each
+   a positive reason and Linf < 1e-3; and ``solve_poisson(100,
+   mat_type="aij", structure_detect=False, pc="bjacobi", assembly="host",
+   amg_params=AMGParams(bjacobi_bs=100))`` (the x-line blocks in their
+   PCR form): a positive reason, Linf < 1e-3.
+31. K5 over a stack (``dia_mv_batched``) against its twin on the Poisson
+   bands at (40, 11, 13), pinned and not, with k = 3, on a 27-band set at
+   the ragged n with k = 2 and on the pinned 300^3 bands with k = 4, as in
+   phase 3, and each column bit-equal to one K5 launch on it; at 300^3
+   timed beside its twin, the k single K5 launches and cuSPARSE's SpMM of
+   the matrix's CSR with the (n, k) block, with its bound share.  Then
+   ``KSP(rtol=1e-8, atol=1e-12)`` on the matrix read from phase 29's file,
+   its hierarchy built before the counters are reset, and ``mat_solve``
+   of the columns [b, 5b, b + 0.1 sin(7b), -b]: reason 2 in every column,
+   each within 2 of phase 29's inner count, Linf < 1e-4 in columns 0, 1
+   (/ 5) and 3; ``dia_mv_batched`` launched and the single ``dia_mv`` not;
+   time and peak memory printed.
 
 Then one JSON line with each kernel's route, source, launches (K1-K4 from
 phase 5, K5 from phase 8, K6/K7 from phase 10, K3'/K4' from phase 11,
 K6'/K7' from phase 12, K8/K9 from phase 14, K1p from phase 15, K10 and
 K12-K16 from phase 18, K11 from phase 19, K3z/K4z from phase 27, the
-batched K1p from phase 28's ``mat_solve``), error,
+batched K1p from phase 28's ``mat_solve``, the batched K5 from phase 31's),
+error,
 times, its bound at the timed shape (the larger of its unique field bytes
 over 3.35 TB/s and its operations over 67 TFLOP/s of f32, the H100 SXM's
 published peaks) and the time of one PyTorch call computing the same
 function where there is one (K1, K1p and K5: the cuSPARSE CSR matvec of
-the same matrix; the batched K1p: cuSPARSE's SpMM of that CSR with the
-block; K10: ``torch.addmm`` of that CSR; K15/K16: the CSR matvec
+the same matrix; the batched K1p and K5: cuSPARSE's SpMM of that CSR with
+the block; K10: ``torch.addmm`` of that CSR; K15/K16: the CSR matvec
 of the matrix their pass applies; null for the other fused modes), and as
 the last line
 ``{"ok": true, "device": {...}}``.
@@ -208,6 +239,7 @@ import json
 import math
 import pathlib
 import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -228,7 +260,7 @@ from tpusparse_torch.dist.mesh import make_z_mesh
 from tpusparse_torch.grid.grid3d import Grid3D
 from tpusparse_torch.grid.poisson import poisson_dia_device, poisson_stencil_device
 from tpusparse_torch.kernels import _build
-from tpusparse_torch.kernels.diaband import dia_mv, dia_mv_torch
+from tpusparse_torch.kernels.diaband import dia_mv, dia_mv_batched, dia_mv_torch
 from tpusparse_torch.kernels.fused7 import (
     fused7_ascent,
     fused7_ascent1,
@@ -289,6 +321,7 @@ from tpusparse_torch.kernels.stencil7 import (
 )
 from tpusparse_torch.solve.cg import cg
 from tpusparse_torch.solve.checkpoint import CheckpointConfig, cg_checkpointed
+from tpusparse_torch.sparse.io import load_petsc_vec, read_petsc_objects
 from tpusparse_torch.sparse.padded import PaddedStar, crop_field, pad_field
 from tpusparse_torch.sparse.starlift import star_lift
 
@@ -373,6 +406,18 @@ KERNELS["star7_mv_batched"] = (
 )
 # phase 28's (shape, columns) of the batched K1p; the last is timed
 BATCHED_CASES = (((40, 11, 13), 3), ((300, 300, 300), 4))
+# K5 over a stack of k columns (KSP.mat_solve's apply of a DIA operator,
+# which the JAX package runs as the vmapped XLA form of DIA.mv)
+KERNELS["dia_mv_batched"] = (
+    "tpusparse_torch/csrc/diaband.cu", "tpusparse/kernels/diaband.py:248", dia_mv_batched, dia_mv_torch,
+)
+# phase 31's (label, grid shape, pinned, columns) of the batched K5 on the
+# Poisson bands, and a 27-band set with offsets that leave the matrix at
+# a ragged n; the last is timed
+DIA_BATCHED_CASES = (("star7 (40, 11, 13) pinned", (40, 11, 13), True, 3),
+                     ("star7 (40, 11, 13)", (40, 11, 13), False, 3),
+                     ("27-band n=40*11*13", None, None, 2),
+                     ("star7 300^3 pinned", (300, 300, 300), True, 4))
 # phase 27's (global shape, z-shards, pinned) cases: nz_l = 3, the least a
 # shard holds (its neighbours read FACE planes), and 20; the last is timed
 SLAB_CASES = (((12, 11, 13), 4, True), ((12, 11, 13), 4, False), ((40, 11, 13), 2, True),
@@ -1349,6 +1394,158 @@ def check_sharded(device, production, plain) -> dict:
     return used
 
 
+def _dia_batched_inputs(shape, pinned, k, device, rng):
+    """Phase 31's operands: f32 Poisson bands on ``shape`` (pinned or not)
+    or random bands of the 27-band set, and a random (k, n) stack."""
+    if shape is None:
+        n, offsets = DIA_CASES[1][1], DIA_CASES[1][2]
+        bands = torch.from_numpy(rng.standard_normal((len(offsets), n), dtype=np.float32)).to(device)
+    else:
+        nz, ny, nx = shape
+        op_lo = poisson_dia_device(Grid3D(nx, ny, nz), pin=pinned, device=device)[1]
+        bands, offsets, n = op_lo.bands, op_lo.offsets, op_lo.n_rows
+    x = torch.from_numpy(rng.standard_normal((k, n), dtype=np.float32)).to(device)
+    return bands, x, offsets
+
+
+def check_dia_batched(device) -> dict:
+    """Phase 31's kernel check: the batched K5 against its twin and, column
+    by column, bit for bit against K5 at each case; timed at the last
+    beside its twin, the k single K5 launches and cuSPARSE's SpMM of the
+    matrix's CSR with the (n, k) block."""
+    row = {"max_abs_err": 0.0}
+    rng = np.random.default_rng(SEED)
+    for label, shape, pinned, k in DIA_BATCHED_CASES:
+        bands, x, offsets = _dia_batched_inputs(shape, pinned, k, device, rng)
+        got, want = dia_mv_batched(bands, x, offsets), dia_mv_torch(bands, x, offsets)
+        torch.cuda.synchronize()
+        err = _compare(f"dia_mv_batched {label} k={k}", got, want)
+        row["max_abs_err"] = max(row["max_abs_err"], err)
+
+        def singles():
+            return [dia_mv(bands, x[c], offsets) for c in range(k)]
+
+        one = singles()
+        _require(all(torch.equal(got[c], one[c]) for c in range(k)),
+                 f"dia_mv_batched {label} k={k}: a column differs from its K5 launch")
+        print(f"kernel dia_mv_batched {label} (K={len(offsets)}) k={k}: agrees with its twin, max abs err"
+              f" {err:.3e}; each column bit-equal to one dia_mv launch")
+        if label != DIA_BATCHED_CASES[-1][0]:
+            continue
+        n = bands.shape[1]
+        csr = _csr_of(bands, offsets)
+        block = x.T.contiguous()
+        _compare(f"cuSPARSE SpMM {label} k={k}", (csr @ block).T.contiguous(), want)
+        row.update(_bound((bands, x), got, 2 * len(offsets) * k * n))
+        row["ms"] = _time_ms(dia_mv_batched, (bands, x, offsets))
+        row["plain_ms"] = _time_ms(dia_mv_torch, (bands, x, offsets))
+        row["library_ms"] = _time_ms(lambda m, v: m @ v, (csr, block))
+        singles_ms = _time_ms(singles, ())
+        one_ms = _time_ms(dia_mv, (bands, x[0], offsets))
+        print(f"time dia_mv_batched {label} (K={len(offsets)}) k={k}: kernel {row['ms']:.4f} ms, plain"
+              f" {row['plain_ms']:.4f} ms, {k} single dia_mv launches {singles_ms:.4f} ms (one {one_ms:.4f}"
+              f" ms), one PyTorch call (cuSPARSE SpMM) {row['library_ms']:.4f} ms, bound"
+              f" {row['bound_ms']:.4f} ms ({row['bound_by']}, {100 * row['bound_ms'] / row['ms']:.0f}% of it)")
+        del csr, block
+    torch.cuda.empty_cache()
+    return row
+
+
+def check_file_route(device, tmp) -> tuple[dict, str]:
+    """Phase 29: the reference's ex10 workflow at 300^3 through the CLI:
+    ``-mat_view`` writes the assembled system, ``-f`` solves it with
+    ``-ksp_view_solution``; the solution file read back.  Returns the
+    ``-f`` run's JSON sidecar and the matrix file."""
+    mat, sol = f"{tmp}/p300.petsc", f"{tmp}/x300.petsc"
+    run_cli([*_grid(300), "-mat_view", f"binary:{mat}", "-ksp_rtol", "1e-8", "-ksp_atol", "1e-12",
+             "-ksp_converged_reason"])
+    size = pathlib.Path(mat).stat().st_size
+    torch.cuda.reset_peak_memory_stats(device)
+    side, used = run_cli(["-f", mat, "-ksp_rtol", "1e-8", "-ksp_atol", "1e-12", "-ksp_converged_reason",
+                          "-ksp_view", "-ksp_view_solution", f"binary:{sol}"])
+    peak = torch.cuda.max_memory_allocated(device) / 1e9
+    init = side["init_breakdown"]
+    print(f"-f 300^3: file {size / 1e9:.3f} GB; read {init['read']:.3f} s, diagonals {init['diagonals']:.3f} s,"
+          f" host_bands {init['host_bands']:.3f} s,"
+          f" upload {init['upload']:.3f} s; t_init {side['t_init']:.4f} s, t_setup {side['t_setup']:.4f} s,"
+          f" t_solve {side['t_solve']:.4f} s; {side['iters']} inner + {side['outer_iters']} outer, reason"
+          f" {side['reason']}, Linf {side['linf_error']:.6e}; peak device memory {peak:.3f} GB")
+    _require(side["reason"] == 2, f"-f: reason {side['reason']} != 2")
+    _require(np.isfinite(side["linf_error"]) and 0.0 <= side["linf_error"] < 1e-4,
+             f"-f: Linf {side['linf_error']} not in [0, 1e-4)")
+    _require(side["outer_iters"] in (2, 3), f"-f: outer iterations {side['outer_iters']} not in 2-3")
+    _require(abs(side["iters"] - 35) <= 2, f"-f: inner iterations {side['iters']} not within 35 +- 2")
+    _require(used["dia_mv"] > 0, "-f did not launch dia_mv")
+    for name, count in used.items():
+        _require(not (name.startswith(("star7", "fused7")) and count), f"-f launched {name}")
+    t0 = time.perf_counter()
+    x = load_petsc_vec(sol)
+    exact = read_petsc_objects(mat)[2]
+    linf = float(np.abs(x - exact).max())
+    print(f"-ksp_view_solution: {pathlib.Path(sol).stat().st_size / 1e6:.1f} MB read back in"
+          f" {time.perf_counter() - t0:.3f} s with the matrix file; its Linf against the file's exact vector"
+          f" {linf:.6e} (the solve's {side['linf_error']:.6e})")
+    _require(x.shape == exact.shape and linf == side["linf_error"],
+             "-ksp_view_solution: the file's x is not the solve's (its Linf differs)")
+    return side, mat
+
+
+def check_uniform_blind(device) -> None:
+    """Phase 30: the structure-blind aij route in uniform precision
+    through the CLI (-precision f32 at 300^3 on K5, f64 at 100^3 in plain
+    torch), and the standalone block Jacobi from the host CSR at 100^3
+    (x-lines, bs = nx: the PCR form past the dense cap)."""
+    blind = ["-mat_type", "aij", "-mat_structure_detect", "0", "-ksp_atol", "1e-12", "-ksp_converged_reason"]
+    for n, precision, rtol in ((300, "f32", "1e-6"), (100, "f64", "1e-8")):
+        side, used = run_cli([*_grid(n), *blind, "-precision", precision, "-ksp_rtol", rtol])
+        label = f"-mat_type aij -mat_structure_detect 0 -precision {precision} at {n}^3"
+        print(f"{label}: {side['iters']} iterations, reason {side['reason']}, Linf {side['linf_error']:.6e},"
+              f" t_init {side['t_init']:.4f} s, t_setup {side['t_setup']:.4f} s, t_solve {side['t_solve']:.4f} s")
+        _require(side["reason"] > 0, f"{label}: reason {side['reason']} is not positive")
+        _require(np.isfinite(side["linf_error"]) and side["linf_error"] < 1e-3,
+                 f"{label}: Linf {side['linf_error']} >= 1e-3")
+        _require((used["dia_mv"] > 0) == (precision == "f32"), f"{label}: dia_mv launched {used['dia_mv']} times")
+    kernels.reset_launches()
+    rep = solve_poisson(100, mat_type="aij", structure_detect=False, pc="bjacobi", assembly="host",
+                        amg_params=AMGParams(bjacobi_bs=100), rtol=1e-8, atol=1e-12, device=device)
+    print(f"pc='bjacobi' bs=100 (x-lines, PCR) at 100^3: {rep.iters} inner + {rep.outer_iters} outer, reason"
+          f" {rep.reason}, Linf {rep.linf_error:.6e}, t_init {rep.t_init:.4f} s, t_setup {rep.t_setup:.4f} s,"
+          f" t_solve {rep.t_solve:.4f} s; dia_mv {kernels.LAUNCHES['dia_mv']} launches")
+    _require(rep.reason > 0, f"bjacobi: reason {rep.reason} is not positive")
+    _require(np.isfinite(rep.linf_error) and rep.linf_error < 1e-3, f"bjacobi: Linf {rep.linf_error} >= 1e-3")
+
+
+def check_file_mat_solve(device, mat: str, inner: int) -> int:
+    """Phase 31's block solve: ``KSP.mat_solve`` of four columns on the
+    300^3 matrix read from the file, the hierarchy built before the counts
+    are reset; returns the batched K5's launches in ``mat_solve``."""
+    objs = read_petsc_objects(mat)
+    ksp = KSP(rtol=1e-8, atol=1e-12).set_operators(objs[0], device=device)
+    ksp.setup()
+    b = torch.as_tensor(objs[1], device=device)
+    exact = torch.as_tensor(objs[2], device=device)
+    del objs
+    cols = torch.stack([b, 5.0 * b, b + 0.1 * torch.sin(7.0 * b), -b])
+    torch.cuda.reset_peak_memory_stats(device)
+    kernels.reset_launches()
+    res, t_mat = _timed(device, ksp.mat_solve, cols)
+    used = dict(kernels.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated(device) / 1e9
+    iters, reasons = res.iters.tolist(), res.reason.tolist()
+    linf = [(res.x[c] - s * exact).abs().max().item() / abs(s) for c, s in ((0, 1.0), (1, 5.0), (3, -1.0))]
+    print(f"launches (mat_solve on the file matrix): {json.dumps({k: v for k, v in used.items() if v})}")
+    print(f"mat_solve of the 300^3 file matrix, columns [b, 5b, b + 0.1 sin(7b), -b]: inner {iters}, outer"
+          f" {res.outer_iters.tolist()}, reasons {reasons}, Linf of columns 0, 1 / 5, 3 {linf}, {t_mat:.4f} s,"
+          f" peak device memory {peak:.3f} GB; phase 29: {inner} inner")
+    _require(all(r == 2 for r in reasons), f"mat_solve (file): reasons {reasons}, not 2 in every column")
+    _require(all(abs(i - inner) <= 2 for i in iters),
+             f"mat_solve (file): inner {iters}, not each within 2 of phase 29's {inner}")
+    _require(all(np.isfinite(v) and v < 1e-4 for v in linf), f"mat_solve (file): Linf {linf} not < 1e-4")
+    _require(used["dia_mv_batched"] > 0, "mat_solve (file) did not launch dia_mv_batched")
+    _require(used["dia_mv"] == 0, "mat_solve (file) launched the single dia_mv")
+    return used["dia_mv_batched"]
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: no CUDA device")
@@ -1621,6 +1818,16 @@ def main() -> None:
     rows["star7_mv_batched"] = check_batched(device)
     launches["star7_mv_batched"] = check_ksp(device, pl)
     check_checkpointed(device)
+
+    # phases 29-31 share the 300^3 system file, removed at their end
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_", dir=pathlib.Path(__file__).resolve().parent)
+    try:
+        side, mat = check_file_route(device, tmp)
+        check_uniform_blind(device)
+        rows["dia_mv_batched"] = check_dia_batched(device)
+        launches["dia_mv_batched"] = check_file_mat_solve(device, mat, side["iters"])
+    finally:
+        shutil.rmtree(tmp)
 
     print(json.dumps({"kernels": [
         {

@@ -94,7 +94,7 @@ def test_host_assembly_gives_the_device_outcome():
     dev = solve_poisson(12, device="cpu", warmup=False, **KW)
     op_hi, op_lo, b, exact = _host_system(12)
     res = refined_solve_plain(
-        op_hi, gamg_setup_unstructured(op_lo, AMGParams()), b, rtol=KW["rtol"], atol=KW["atol"],
+        op_hi, gamg_setup_unstructured(None, AMGParams(), fine_op=op_lo), b, rtol=KW["rtol"], atol=KW["atol"],
     )
     assert (res.iters, res.outer_iters, res.reason) == (dev.iters, dev.outer_iters, dev.reason)
     assert (res.x - exact).abs().max().item() == pytest.approx(dev.linf_error, rel=1e-9)
@@ -107,18 +107,18 @@ def test_aij_route_is_structure_blind():
     assert isinstance(op_hi, DFDIA) and isinstance(op_lo, DIA)
     assert op_lo.offsets == (-64, -8, -1, 0, 1, 8, 64)
     assert b.shape == exact.shape == (8**3,) and b.dtype == torch.float64
-    hier = gamg_setup_unstructured(op_lo, AMGParams())
+    hier = gamg_setup_unstructured(None, AMGParams(), fine_op=op_lo)
     assert all(isinstance(lev.op, DIA) for lev in hier.levels)
     assert all(isinstance(lev.transfer, GeoTransfer) for lev in hier.levels[:-1])
 
 
 @pytest.mark.parametrize(
     "kw, err",
-    [(dict(mat_type="csr"), ValueError), (dict(precision="f64"), NotImplementedError)],
+    [(dict(mat_type="csr"), ValueError), (dict(precision="f64", assembly="device"), ValueError)],
 )
 def test_unknown_options_raise(kw, err):
-    """An unknown mat_type, and uniform precision on the structure-blind
-    route (ROADMAP queue 1, item 9.5)."""
+    """An unknown mat_type, and the device assembly under uniform precision
+    (the JAX driver's rule: it assembles the mixed-precision split)."""
     opts = dict(KW, **kw)
     with pytest.raises(err):
         solve_poisson(8, device="cpu", **opts)

@@ -195,7 +195,7 @@ def test_help_and_refusals(capsys):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         main([*_grid(8), "-problem", "diffusion", "-device", "cpu"])
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        main([*_grid(8), "-f", "system.bin", "-device", "cpu"])
+        main([*_grid(8), "-f", "system.bin", "-pc_bjacobi_bs", "4", "-device", "cpu"])
 
 
 def test_cuda_device_needs_cuda(monkeypatch):

@@ -9,7 +9,9 @@ options and the standalone PCs, the z-sharded route), aij (structure-blind and l
 uniform-precision aij, bf16-hierarchy and reference-config solves on the
 card against the same solves on the CPU, ``bench.itprof`` at 24^3, and
 K1p over a stack (``star7_mv_batched``) with the ``KSP`` object's solve,
-reuse and ``mat_solve`` at 18^3 against the CPU.
+reuse and ``mat_solve`` at 18^3 against the CPU, and K5 over a stack
+(``dia_mv_batched``) with the file route, ``mat_solve`` on a DIA operator
+and the structure-blind aij route in uniform precision against the CPU.
 
 These tests need a CUDA device and skip without one.  The file imports no
 JAX, so it also runs where JAX is not installed:
@@ -29,8 +31,11 @@ from tpusparse_torch.amg.hierarchy import AMGParams
 from tpusparse_torch.bench import itprof
 from tpusparse_torch.bench.driver import solve_poisson
 from tpusparse_torch.grid.grid3d import Grid3D
-from tpusparse_torch.grid.poisson import poisson_stencil_device
-from tpusparse_torch.kernels.diaband import dia_mv, dia_mv_torch
+from tpusparse_torch.bench.driver import solve_from_file
+from tpusparse_torch.grid.poisson import assemble_poisson, poisson_dia_device, poisson_stencil_device
+from tpusparse_torch.kernels.diaband import dia_mv, dia_mv_batched, dia_mv_torch
+from tpusparse_torch.sparse.dia import DIA
+from tpusparse_torch.sparse.io import save_petsc_mat, save_petsc_vec
 from tpusparse_torch.dist.fused_sharded import FusedSharded
 from tpusparse_torch.dist.mesh import make_z_mesh
 from tpusparse_torch.kernels.fused7 import (
@@ -707,3 +712,103 @@ def test_ksp_object_on_card_matches_cpu(cuda):
     assert gpu_block.outer_iters.tolist() == cpu_block.outer_iters.tolist()
     assert (gpu_block.iters.cpu() - cpu_block.iters).abs().max().item() <= 1
     torch.testing.assert_close(gpu_block.x.cpu(), cpu_block.x, rtol=0, atol=1e-6 * cpu_block.x.abs().max().item())
+
+
+@pytest.mark.parametrize("pinned", [True, False])
+@pytest.mark.parametrize("shape, k", [((40, 11, 13), 3), ((7, 5, 9), 1), ((3, 2, 2), 2), ((12, 12, 12), 6)])
+def test_dia_mv_batched_matches_twin_and_k5(cuda, shape, k, pinned):
+    """K5 over a stack of the Poisson bands: one launch, the twin's values,
+    and each column bit for bit one K5 launch on it."""
+    nz, ny, nx = shape
+    op = poisson_dia_device(Grid3D(nx, ny, nz), pin=pinned, device=cuda)[1]
+    x = torch.tensor(np.random.default_rng(7).standard_normal((k, op.n_rows), dtype=np.float32), device=cuda)
+    before = dict(kernels.LAUNCHES)
+    got, want = dia_mv_batched(op.bands, x, op.offsets), dia_mv_torch(op.bands, x, op.offsets)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["dia_mv_batched"] == before["dia_mv_batched"] + 1
+    assert kernels.LAUNCHES["dia_mv"] == before["dia_mv"]
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-6 * want.abs().max().item())
+    for c in range(k):
+        assert torch.equal(got[c], dia_mv(op.bands, x[c], op.offsets))
+    assert torch.equal(op.mv(x), got)
+
+
+def test_dia_mv_batched_on_random_bands(cuda):
+    """The 27-band set and offsets past both ends, k = 5, bit for bit K5."""
+    n, offsets = 40 * 11 * 13, (-(40 * 11 * 13) + 1, *_box27(11, 13)[1:-1], 40 * 11 * 13 - 1)
+    rng = np.random.default_rng(11)
+    bands = torch.tensor(rng.standard_normal((len(offsets), n), dtype=np.float32), device=cuda)
+    x = torch.tensor(rng.standard_normal((5, n), dtype=np.float32), device=cuda)
+    got = dia_mv_batched(bands, x, offsets)
+    torch.testing.assert_close(got, dia_mv_torch(bands, x, offsets), rtol=1e-5, atol=1e-5)
+    assert all(torch.equal(got[c], dia_mv(bands, x[c], offsets)) for c in range(5))
+
+
+def test_f64_dia_mv_launches_no_k5(cuda):
+    """An f64 DIA applies in plain torch on the card, as on the CPU; K5
+    itself refuses f64."""
+    op = poisson_dia_device(Grid3D(9, 8, 7), device=cuda)[1]
+    op64 = DIA(op.bands.double(), op.offsets, op.shape)
+    x = torch.tensor(np.random.default_rng(3).standard_normal((2, op.n_rows)), device=cuda)
+    kernels.reset_launches()
+    y, ys = op64.mv(x[0]), op64.mv(x)
+    assert not any(kernels.LAUNCHES.values())
+    want = dia_mv_torch(op64.bands.cpu(), x.cpu(), op.offsets)
+    torch.testing.assert_close(ys.cpu(), want, rtol=1e-14, atol=0)
+    assert torch.equal(ys[0], y)
+    with pytest.raises(TypeError):
+        dia_mv(op64.bands, x[0], op.offsets)
+
+
+def _file_run(device, path):
+    """solve_from_file of ``path`` and mat_solve of three columns through
+    KSP on its matrix, with the launches of each."""
+    kernels.reset_launches()
+    rep = solve_from_file(path, device=device, rtol=1e-8, atol=1e-12)
+    file_used = dict(kernels.LAUNCHES)
+    a, b, _ = assemble_poisson(Grid3D(16, 16, 16))
+    ksp = KSP(rtol=1e-8, atol=1e-12).set_operators(a, device=device)
+    ksp.setup()
+    b = torch.tensor(b, device=device)
+    kernels.reset_launches()
+    block = ksp.mat_solve(torch.stack([b, 5.0 * b, -b]))
+    return rep, file_used, block, dict(kernels.LAUNCHES)
+
+
+def test_file_route_and_dia_mat_solve_on_card_match_cpu(cuda, tmp_path):
+    """The -f route on K5 and mat_solve on the batched K5 (no single K5
+    launch), each held to the same run on the CPU, at 16^3 (at 14^3 the
+    second sweep's inner count sits on the small-grid knife edge, ROADMAP
+    section 3: 26 on the card, 34 on the CPU)."""
+    a, b, exact = assemble_poisson(Grid3D(16, 16, 16))
+    path = str(tmp_path / "p16.petsc")
+    save_petsc_mat(path, a)
+    save_petsc_vec(path, b, append=True)
+    save_petsc_vec(path, exact, append=True)
+    gpu, file_used, gpu_block, block_used = _file_run(cuda, path)
+    assert file_used["dia_mv"] > 0
+    assert all(n == 0 for name, n in file_used.items() if name != "dia_mv")
+    assert block_used["dia_mv_batched"] > 0 and block_used["dia_mv"] == 0
+    cpu, _, cpu_block, _ = _file_run("cpu", path)
+    assert (gpu.reason, gpu.outer_iters) == (cpu.reason, cpu.outer_iters) == (2, 2)
+    assert abs(gpu.iters - cpu.iters) <= 1
+    assert abs(gpu.linf_error - cpu.linf_error) < 1e-6
+    assert gpu_block.reason.tolist() == cpu_block.reason.tolist() == [2, 2, 2]
+    assert gpu_block.outer_iters.tolist() == cpu_block.outer_iters.tolist()
+    assert (gpu_block.iters.cpu() - cpu_block.iters).abs().max().item() <= 1
+    torch.testing.assert_close(gpu_block.x.cpu(), cpu_block.x, rtol=0, atol=1e-6 * cpu_block.x.abs().max().item())
+
+
+@pytest.mark.parametrize("precision, rtol, k5", [("f64", 1e-8, False), ("f32", 1e-6, True)])
+def test_uniform_aij_on_card_matches_cpu(cuda, precision, rtol, k5):
+    """The structure-blind aij route in uniform precision: f32 levels on
+    K5, f64 levels in plain torch (no kernel)."""
+    kw = dict(rtol=rtol, atol=1e-12, warmup=False, mat_type="aij", structure_detect=False, precision=precision)
+    kernels.reset_launches()
+    gpu = solve_poisson(16, device=cuda, **kw)
+    assert (kernels.LAUNCHES["dia_mv"] > 0) == k5
+    assert all(n == 0 for name, n in kernels.LAUNCHES.items() if name != "dia_mv")
+    cpu = solve_poisson(16, device="cpu", **kw)
+    assert gpu.reason == cpu.reason == 2
+    assert abs(gpu.iters - cpu.iters) <= 1
+    assert abs(gpu.linf_error - cpu.linf_error) < (1e-6 if precision == "f64" else 2e-5)

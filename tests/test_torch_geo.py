@@ -33,7 +33,7 @@ from tpusparse_torch.amg.geo import (
 from tpusparse_torch.amg.hierarchy import AMGParams, vcycle
 from tpusparse_torch.amg.unstructured import gamg_setup_unstructured
 from tpusparse_torch.grid.grid3d import Grid3D
-from tpusparse_torch.grid.poisson import poisson_dia_device
+from tpusparse_torch.grid.poisson import poisson_dia_device, poisson_stencil_device
 from tpusparse_torch.interop import dia_from_numpy, hierarchy_from_numpy
 from tpusparse_torch.sparse.dia import DIA
 
@@ -175,7 +175,7 @@ def jax_hier():
 @pytest.fixture(scope="module")
 def port_hier():
     _, op, _, _ = poisson_dia_device(Grid3D(N, N, N), device="cpu")
-    return gamg_setup_unstructured(op, AMGParams())
+    return gamg_setup_unstructured(None, AMGParams(), fine_op=op)
 
 
 def test_setup_levels_match_jax(jax_hier, port_hier):
@@ -255,16 +255,17 @@ def test_gamg_setup_geo_needs_no_host_matrix():
 def test_setup_refuses_unported_routes(params, err):
     _, op, _, _ = poisson_dia_device(Grid3D(6, 6, 6), device="cpu")
     with pytest.raises(err):
-        gamg_setup_unstructured(op, params)
+        gamg_setup_unstructured(None, params, fine_op=op)
 
 
 def test_setup_refuses_non_grid_patterns():
     n = 100
     bands = torch.ones((3, n))
     tri = DIA(bands=bands, offsets=(-1, 0, 1), shape=(n, n))
-    with pytest.raises(NotImplementedError, match="queue 9"):
-        gamg_setup_unstructured(tri, AMGParams())
-    # a fine operator that is not a DIA (the two-float outer one)
-    op_hi, _, _, _ = poisson_dia_device(Grid3D(6, 6, 6), device="cpu")
-    with pytest.raises(NotImplementedError, match="DFDIA"):
-        gamg_setup_unstructured(op_hi, AMGParams())
+    with pytest.raises(NotImplementedError, match="item 9.2"):
+        gamg_setup_unstructured(None, AMGParams(), fine_op=tri)
+    # a fine operator that is not banded (the DIA family's uniform-f64
+    # two-float operator is, and takes the geometric route)
+    star = poisson_stencil_device(Grid3D(6, 6, 6), device="cpu")[0]
+    with pytest.raises(NotImplementedError, match="StarStencil3D"):
+        gamg_setup_unstructured(None, AMGParams(), fine_op=star)

@@ -50,11 +50,13 @@ def test_port_imports_no_jax():
     ["__main__", "config/options.py", "config/__init__.py", "solve/simple.py",
      "solve/chebyshev.py", "solve/pipelined.py", "solve/gmres.py", "solve/fgmres.py",
      "solve/bcgs.py", "solve/minres.py", "ksp.py", "solve/multi.py", "solve/checkpoint.py",
-     "solve/__init__.py", "__init__.py"],
+     "solve/__init__.py", "__init__.py", "sparse/io.py", "sparse/coo.py", "sparse/bsr.py",
+     "sparse/reorder.py", "sparse/__init__.py", "bench/__init__.py"],
 )
 def test_cli_and_ksp_modules_are_scanned_and_import(module):
-    """The CLI, the options database and the Krylov family are among the
-    files test_port_imports_no_jax scans, and each imports on its own."""
+    """The CLI, the options database, the Krylov family and the file
+    route's modules are among the files test_port_imports_no_jax scans,
+    and each imports on its own."""
     import importlib
 
     path = PKG / (module if module.endswith(".py") else f"{module}.py")

@@ -168,18 +168,26 @@ def test_flat_vectors_roundtrip(solves):
 
 
 def test_host_matrices_are_refused_and_jax_solves_them():
-    """A HostCSR or scipy matrix (the JAX package's host route, with RCM
-    and banded ELL) raises naming items 9.4 and 10; JAX solves it."""
-    grid = Grid3D(N, N, N)
-    a, b_np, exact_np = j_assemble_poisson(JGrid3D(N, N, N), dtype=np.float64)
-    res = JKSP(rtol=1e-8).set_operators(a).solve(jnp.asarray(b_np))
-    assert res.converged and float(jnp.abs(res.x - jnp.asarray(exact_np)).max()) < 2e-1
-    host, _, _ = assemble_poisson(grid)
-    for a_host in (host, sp.csr_matrix((host.data, host.indices, host.indptr), shape=host.shape)):
-        with pytest.raises(NotImplementedError, match="9.4 and 10"):
-            KSP(rtol=1e-8).set_operators(a_host)
+    """A HostCSR or scipy matrix goes to the device as the DIA family and
+    solves as the JAX package's host route does (JAX's outer count and
+    reason, inner within 1, x to 1e-6).  A host matrix past the DIA
+    family's 192 diagonals, and ``mat_reorder="rcm"``, raise naming item
+    10 (RCM and the banded ELL); JAX solves the first."""
+    a, b_np, _ = j_assemble_poisson(JGrid3D(N, N, N), dtype=np.float64)
+    want = JKSP(rtol=1e-8).set_operators(a).solve(jnp.asarray(b_np))
+    host, b, _ = assemble_poisson(Grid3D(N, N, N))
     assert isinstance(host, HostCSR)
-    with pytest.raises(NotImplementedError, match="9.4 and 10"):
+    for a_host in (host, sp.csr_matrix((host.data, host.indices, host.indptr), shape=host.shape)):
+        _same_mixed(KSP(rtol=1e-8).set_operators(a_host, device="cpu").solve(torch.tensor(b)), want)
+    rng = np.random.default_rng(3)
+    scattered = sp.random(400, 400, density=0.05, random_state=rng, format="csr")
+    scattered = (scattered + scattered.T + 40.0 * sp.eye(400)).tocsr()
+    rhs = np.ones(400)
+    jres = JKSP(rtol=1e-8, pc_type="jacobi", precision="f64").set_operators(scattered).solve(jnp.asarray(rhs))
+    assert jres.converged
+    with pytest.raises(NotImplementedError, match="item 10"):
+        KSP(rtol=1e-8, pc_type="jacobi", precision="f64").set_operators(scattered, device="cpu")
+    with pytest.raises(NotImplementedError, match="item 10"):
         KSP(mat_reorder="rcm")
 
 
@@ -187,19 +195,23 @@ def test_dia_family_general_route_matches_jax():
     """A DFDIA outer with its f32 DIA (the aij route's containers) runs the
     geometric GAMG of gamg_setup_unstructured: JAX's outer count and
     reason, inner within 1, on the same system; the f32 DIA defaults to
-    the DFDIA's hi bands.  A DIA outer (uniform precision) raises naming
-    item 9.5."""
+    the DFDIA's hi bands.  An f64 DIA outer under mixed precision (its f32
+    cast the inner operator) and under f64, and the DFDIA under f64, solve
+    as in JAX."""
     jhi, jlo, jb, _ = j_poisson_dia_device(JGrid3D(N, N, N))
     want = JKSP(rtol=1e-8).set_operators(jhi, jlo).solve(jb)
     op_hi, op_lo, b, exact = poisson_dia_device(Grid3D(N, N, N), device="cpu")
     got = KSP(rtol=1e-8).set_operators(op_hi, op_lo).solve(b)
     _same_mixed(got, want)
     assert torch.equal(KSP(rtol=1e-8).set_operators(op_hi).solve(b).x, got.x)
-    for precision in ("mixed", "f64"):
-        with pytest.raises(NotImplementedError, match="9.5"):
-            KSP(rtol=1e-8, precision=precision).set_operators(DIA(op_lo.bands.double(), op_lo.offsets, op_lo.shape))
-    with pytest.raises(NotImplementedError, match="9.5"):
-        KSP(rtol=1e-8, precision="f64").set_operators(op_hi)
+    j64 = tpusparse.sparse.DIA(bands=jlo.bands.astype(jnp.float64), offsets=jlo.offsets, shape=jlo.shape)
+    dia64 = DIA(op_lo.bands.double(), op_lo.offsets, op_lo.shape)
+    _same_mixed(KSP(rtol=1e-8).set_operators(dia64).solve(b), JKSP(rtol=1e-8).set_operators(j64).solve(jb))
+    for jop, op in ((j64, dia64), (jhi, op_hi)):
+        want = JKSP(rtol=1e-8, precision="f64").set_operators(jop).solve(jb)
+        got = KSP(rtol=1e-8, precision="f64").set_operators(op).solve(b)
+        assert (got.iters, got.reason) == (int(want.iters), int(want.reason))
+        np.testing.assert_allclose(got.x.numpy(), np.asarray(want.x), rtol=0, atol=1e-10)
 
 
 def test_from_options():
@@ -358,12 +370,17 @@ def test_compute_eigenvalues_matches_jax(solves, layout):
 
 
 def test_exports_match_the_jax_package():
-    """The package exports JAX's top-level names but the two whose routes
-    wait (ELL, item 9.2; HostCSR, item 9.4), and the solvers JAX's
-    solve/__init__.py exports but the two that are not to port; importing
-    builds no kernel."""
-    assert set(tpusparse_torch.__all__) == set(tpusparse.__all__) - {"ELL", "HostCSR"}
+    """The package exports JAX's top-level names but ELL (item 9.2), the
+    sparse package JAX's but ELL and PallasDIA (not to port), and the
+    solvers JAX's solve/__init__.py exports but the two that are not to
+    port; importing builds no kernel."""
+    assert set(tpusparse_torch.__all__) == set(tpusparse.__all__) - {"ELL"}
     assert tpusparse_torch.StarStencil3D is StarStencil3D
+    assert tpusparse_torch.HostCSR is HostCSR
+    import tpusparse.sparse as j_sparse
+    import tpusparse_torch.sparse as t_sparse
+    assert set(t_sparse.__all__) == set(j_sparse.__all__) - {"ELL", "PallasDIA", "StarStencilDF"}
+    assert all(hasattr(t_sparse, name) for name in t_sparse.__all__)
     import tpusparse.solve as j_solve
     import tpusparse_torch.solve as t_solve
     assert set(t_solve.__all__) == set(j_solve.__all__) - {"cg_hostloop", "cg_refined_tf"}

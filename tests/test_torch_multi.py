@@ -18,6 +18,7 @@ from tpusparse.amg.hierarchy import AMGParams as JAMGParams
 from tpusparse.amg.hierarchy import gamg_setup as j_gamg_setup
 from tpusparse.amg.hierarchy import vcycle as j_vcycle
 from tpusparse.grid.grid3d import Grid3D as JGrid3D
+from tpusparse.grid.poisson import poisson_dia_device as j_poisson_dia_device
 from tpusparse.grid.poisson import poisson_stencil_device as j_poisson_stencil_device
 from tpusparse.solve.multi import cg_multi as j_cg_multi
 from tpusparse.solve.multi import refined_multi as j_refined_multi
@@ -324,7 +325,20 @@ def test_ksp_mat_solve_requires_cg():
 
 
 def test_ksp_mat_solve_on_dia_needs_a_batched_k5():
+    """mat_solve on the DIA family (the f32 level applies on the batched
+    K5's twin, dia_mv_torch over the stack): JAX's outer counts and
+    reasons, inner within 1, x to 1e-6, and each column the single solve
+    of it (same counts, x to 1e-6)."""
+    jhi, jlo, jb, _ = j_poisson_dia_device(JGrid3D(12, 12, 12))
+    want = JKSP(rtol=1e-8).set_operators(jhi, jlo).mat_solve(jnp.stack([jb, -2.0 * jb]))
     op_hi, op_lo, b, _ = poisson_dia_device(Grid3D(12, 12, 12), device="cpu")
     ksp = KSP(rtol=1e-8).set_operators(op_hi, op_lo)
-    with pytest.raises(NotImplementedError, match="batched K5"):
-        ksp.mat_solve(torch.stack([b, b]))
+    got = ksp.mat_solve(torch.stack([b, -2.0 * b]))
+    assert got.outer_iters.tolist() == np.asarray(want.outer_iters).tolist()
+    assert got.reason.tolist() == np.asarray(want.reason).tolist() == [2, 2]
+    assert np.abs(got.iters.numpy() - np.asarray(want.iters)).max() <= 1
+    wx = np.asarray(want.x)
+    assert np.abs(got.x.numpy() - wx).max() <= 1e-6 * np.abs(wx).max()
+    single = ksp.solve(b)
+    assert (int(got.iters[0]), int(got.outer_iters[0])) == (single.iters, single.outer_iters)
+    assert (got.x[0] - single.x).abs().max().item() <= 1e-6 * single.x.abs().max().item()

@@ -110,15 +110,14 @@ def test_malformed_values_raise_in_both(argv, err):
 @pytest.mark.parametrize(
     "argv",
     [
-        ["-f", "system.bin"],
-        ["-mat_view", "binary:out.bin"],
+        ["-f", "system.bin", "-pc_bjacobi_bs", "4"],   # GAMG with block Jacobi on aij (queue 1, item 9.2)
+        ["-mat_type", "aij", "-pc_gamg_aggregation", "greedy"],
         ["-problem", "diffusion"],
         ["-devices", "4"],
         ["-precision", "tf"],                    # not to port
         ["-mat_type", "aij", "-mat_structure_detect", "0", "-pc_gamg_aggregation", "banded"],
         ["-profile", "trace_dir"],
-        # uniform precision on the structure-blind route (queue 1, item 9.5)
-        ["-mat_type", "aij", "-mat_structure_detect", "0", "-precision", "f64"],
+        ["-mat_type", "aij", "-mat_structure_detect", "0", "-pc_bjacobi_bs", "4"],
         ["-mat_type", "aij", "-mat_structure_detect", "0", "-pc_gamg_aggregation", "greedy"],
     ],
 )
@@ -146,6 +145,11 @@ ACCEPTED = [
     ["-mat_type", "aij", "-precision", "f32"],
     ["-pc_dtype", "bf16", "-layout", "plain"],
     ["-pc_dtype", "bf16", "-precision", "f64"],
+    # the file route and uniform precision on the structure-blind aij route
+    ["-f", "system.bin", "-ksp_view_solution", "binary:x.bin"],
+    ["-mat_view", "binary:out.bin"],
+    ["-mat_type", "aij", "-mat_structure_detect", "0", "-precision", "f64"],
+    ["-mat_type", "aij", "-mat_structure_detect", "0", "-pc_type", "bjacobi", "-pc_bjacobi_bs", "4"],
 ]
 
 
@@ -154,7 +158,7 @@ def test_accepted_values_parse_as_in_jax(argv):
     got = load_options(["-config", REF, *argv])
     want = j_load_options(["-config", REF, *argv])
     for f in ("pc_type", "pc_mg_cycle_type", "layout", "mat_type", "mat_structure_detect", "precision",
-              "pc_dtype"):
+              "pc_dtype", "f", "mat_view", "ksp_view_solution"):
         assert getattr(got, f) == getattr(want, f), f
     for f in dataclasses.fields(AMGParams):
         assert getattr(got.amg_params(), f.name) == getattr(want.amg_params(), f.name), f.name

@@ -186,7 +186,7 @@ def test_cli_routes_match_jax(argv):
     "argv, match",
     [
         (["-precision", "tf"], "not to port"),
-        (["-mat_type", "aij", "-mat_structure_detect", "0", "-precision", "f32"], "queue 1, item 9.5"),
+        (["-mat_type", "aij", "-mat_structure_detect", "0", "-pc_bjacobi_bs", "4"], "queue 1, item 9.2"),
     ],
 )
 def test_cli_refusals_name_their_roadmap_item(argv, match):

@@ -147,12 +147,13 @@ def block_weight_field_dev(shape, bs, dtype=torch.float32, *, device):
 
 def _up(sz, sy, sx, e_c: torch.Tensor) -> torch.Tensor:
     """T0 e_c as three axis contractions with the membership matrices,
-    flat -> flat."""
-    e3 = e_c.reshape(sz.shape[1], sy.shape[1], sx.shape[1])
-    t = torch.einsum("Zc,cyx->Zyx", sz, e3)
-    t = torch.einsum("Yc,zcx->zYx", sy, t)
-    t = torch.einsum("Xc,zyc->zyX", sx, t)
-    return t.reshape(-1)
+    flat -> flat, of a vector or of each column of a stack (k, n)."""
+    lead = tuple(e_c.shape[:-1])
+    e3 = e_c.reshape(*lead, sz.shape[1], sy.shape[1], sx.shape[1])
+    t = torch.einsum("Zc,...cyx->...Zyx", sz, e3)
+    t = torch.einsum("Yc,...zcx->...zYx", sy, t)
+    t = torch.einsum("Xc,...zyc->...zyX", sx, t)
+    return t.reshape(*lead, -1)
 
 
 @dataclasses.dataclass
@@ -164,6 +165,8 @@ class GeoTransfer:
     three contractions with the per-axis 0/1 membership matrices
     ``sz/sy/sx``; the smoothing factor reuses the level operator's mv.
     ``omega`` is a Python float holding a value of the level's dtype.
+    ``prolong`` and ``restrict`` take a vector or a stack of columns (k,
+    n), ``KSP.mat_solve``'s block, each column as its vector form.
     """
 
     w: torch.Tensor        # (n_fine,) 1/sqrt(|block|) per member
@@ -198,12 +201,13 @@ class GeoTransfer:
         return _up(self.sz, self.sy, self.sx, e_c)
 
     def _down(self, v: torch.Tensor) -> torch.Tensor:
-        """T0^T v as three axis contractions, flat -> flat."""
-        v3 = v.reshape(self.fine_shape)
-        t = torch.einsum("Zc,Zyx->cyx", self.sz, v3)
-        t = torch.einsum("Yc,zYx->zcx", self.sy, t)
-        t = torch.einsum("Xc,zyX->zyc", self.sx, t)
-        return t.reshape(-1)
+        """T0^T v as three axis contractions, flat -> flat, as ``_up``."""
+        lead = tuple(v.shape[:-1])
+        v3 = v.reshape(*lead, *self.fine_shape)
+        t = torch.einsum("Zc,...Zyx->...cyx", self.sz, v3)
+        t = torch.einsum("Yc,...zYx->...zcx", self.sy, t)
+        t = torch.einsum("Xc,...zyX->...zyc", self.sx, t)
+        return t.reshape(*lead, -1)
 
     def prolong(self, fine_op, dinv: torch.Tensor, e_c: torch.Tensor) -> torch.Tensor:
         """x_f = P e_c = (I - omega D^-1 A) T e_c."""

@@ -130,7 +130,7 @@ def _aij_route(n, device, params, kw):
     """The same pieces for the structure-blind general-matrix route."""
     op, op_lo, b, _ = build_system_aij(Grid3D(n, n, n), device)
     return dict(
-        setup=lambda: gamg_setup_unstructured(op_lo, params),
+        setup=lambda: gamg_setup_unstructured(None, params, fine_op=op_lo),
         galerkin=galerkin_probe_geo,
         pc=lambda hier: hier,
         cycle=vcycle,

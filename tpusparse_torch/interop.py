@@ -18,6 +18,7 @@ from tpusparse_torch.amg.geo import GeoTransfer
 from tpusparse_torch.amg.hierarchy import Hierarchy, Level
 from tpusparse_torch.amg.transfer import StructuredTransfer
 from tpusparse_torch.solve.bjacobi import BlockJacobi, PCRLineJacobi
+from tpusparse_torch.sparse.csr import HostCSR
 from tpusparse_torch.sparse.dia import DFDIA, DIA
 from tpusparse_torch.sparse.padded import PaddedStar, PaddedTransfer, pad_field
 from tpusparse_torch.sparse.stencil import StarStencil3D
@@ -56,11 +57,24 @@ def dfdia_from_numpy(hi, lo, offsets, shape, *, device) -> DFDIA:
     )
 
 
+def host_csr_from_numpy(indptr, indices, data, shape) -> HostCSR:
+    """A HostCSR from the JAX package's (numpy) arrays, copied."""
+    return HostCSR(
+        indptr=np.array(indptr, dtype=np.int64), indices=np.array(indices, dtype=np.int32),
+        data=np.array(data), shape=tuple(int(s) for s in shape),
+    )
+
+
+def block_jacobi_from_numpy(dinv_blocks, bs, n, *, device) -> BlockJacobi:
+    """A dense block-Jacobi sub-PC from its inverted blocks (nb, bs, bs)."""
+    return BlockJacobi(dinv_blocks=_put(dinv_blocks, device), bs=int(bs), n=int(n))
+
+
 def _bjac_from_numpy(d, device):
     """A block-Jacobi sub-PC: ``{"dinv_blocks", "bs", "n"}`` (dense) or
     ``{"alphas", "gammas", "binv", "bs", "n", "shifts"}`` (PCR)."""
     if "dinv_blocks" in d:
-        return BlockJacobi(dinv_blocks=_put(d["dinv_blocks"], device), bs=int(d["bs"]), n=int(d["n"]))
+        return block_jacobi_from_numpy(d["dinv_blocks"], d["bs"], d["n"], device=device)
     return PCRLineJacobi(
         alphas=tuple(_put(a, device) for a in d["alphas"]),
         gammas=tuple(_put(g, device) for g in d["gammas"]),

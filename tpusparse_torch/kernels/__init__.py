@@ -31,6 +31,7 @@ LAUNCHES = {
     "fused7_restrict": 0,
     "fused7_prolong": 0,
     "dia_mv": 0,
+    "dia_mv_batched": 0,
 }
 
 

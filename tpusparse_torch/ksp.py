@@ -30,18 +30,22 @@ Example::
     x2 = ksp.solve(2.0 * b).x         # reuses the hierarchy
     xs = ksp.mat_solve(torch.stack([b, 5.0 * b])).x   # KSPMatSolve
 
-Not ported: host matrices (``HostCSR``/scipy, with ``-mat_reorder`` and
-the banded ELL executor; ROADMAP items 9.4 and 10), the uniform-precision
-DIA route (item 9.5) and ``mat_solve`` on DIA-family operators (a batched
-K5, ROADMAP queue 2); each raises ``NotImplementedError``.  The JAX
-package's ``_solve_chunked`` (a libtpu workaround) and jit caches are not
-to port.
+A host matrix (``HostCSR``, or anything scipy can turn into a CSR) goes
+to the device as the DIA family, as in the JAX package: under mixed
+precision one f32 upload is both the hierarchy's fine operator and the hi
+half of a ``DFDIA`` outer operator; under uniform precision one ``DIA`` in
+the solve's dtype is both operators.  The host matrix is kept for
+``pc_type="bjacobi"``.  A host matrix with more than 192 diagonals and
+``mat_reorder="rcm"`` (RCM and the banded-ELL executor, ROADMAP queue 1,
+item 10) raise ``NotImplementedError``.  The JAX package's
+``_solve_chunked`` (a libtpu workaround) and jit caches are not to port.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import functools
+import time
 from typing import Any
 
 import numpy as np
@@ -57,30 +61,22 @@ from tpusparse_torch.amg.hierarchy import (
     vcycle,
 )
 from tpusparse_torch.amg.unstructured import gamg_setup_unstructured
-from tpusparse_torch.bench.driver import DivergedError, _pick_ksp, _ssor, refined_solve
+from tpusparse_torch.bench.driver import DivergedError, _pick_ksp, _ssor, _standalone_pc, refined_solve
 from tpusparse_torch.solve.cg import cg
 from tpusparse_torch.solve.multi import MultiResult, cg_multi, refined_multi
 from tpusparse_torch.solve.refine import cg_refined
 from tpusparse_torch.solve.spectrum import ritz_values
-from tpusparse_torch.sparse.dia import DFDIA, DIA
+from tpusparse_torch.sparse.csr import HostCSR
+from tpusparse_torch.sparse.dia import DFDIA, DIA, host_dia_operators
+from tpusparse_torch.sparse.reorder import distinct_diagonals
 from tpusparse_torch.sparse.padded import PaddedStar, crop_field, pad_field
 from tpusparse_torch.sparse.stencil import StarStencil3D
 
 __all__ = ["KSP", "KSPResult"]
 
-_HOST = (
-    "a host matrix (HostCSR or scipy) is not ported to tpusparse_torch yet (ROADMAP queue 1,"
-    " items 9.4 and 10: the host CSR, its reordering and banded-ELL executor); pass a"
-    " StarStencil3D, a DFDIA with its f32 DIA, or an object with mv"
-)
-_UNIFORM_DIA = (
-    "is not ported to tpusparse_torch yet (ROADMAP queue 1, item 9.5: the DIA route in"
-    " uniform precision); the DIA family runs as a DFDIA outer with its f32 DIA under"
-    " precision='mixed'"
-)
-_BATCHED_K5 = (
-    "mat_solve on a DIA-family operator needs a batched K5 (dia_mv over a stack of"
-    " columns), which is not ported to tpusparse_torch yet (ROADMAP queue 2, batched K5)"
+_ITEM_10 = (
+    "is not ported to tpusparse_torch yet (ROADMAP queue 1, item 10: RCM reordering and the"
+    " banded-ELL executor)"
 )
 
 
@@ -140,8 +136,9 @@ class KSP:
     keep it (the new operator is applied, the old preconditioner
     preconditions).  ``error_if_not_converged`` is
     ``-ksp_error_if_not_converged``: raise ``DivergedError`` on a negative
-    reason.  ``mat_reorder``: "auto" and "none" are accepted (they act on
-    host matrices only); "rcm" raises ``NotImplementedError``.
+    reason.  ``mat_reorder``: "auto" and "none" are accepted (no host
+    matrix that the port takes needs a reordering); "rcm" raises
+    ``NotImplementedError``.
     """
 
     def __init__(
@@ -174,7 +171,7 @@ class KSP:
         if mat_reorder not in ("auto", "rcm", "none"):
             raise ValueError(f"unknown mat_reorder {mat_reorder!r}")
         if mat_reorder == "rcm":
-            raise NotImplementedError(f"mat_reorder='rcm': {_HOST}")
+            raise NotImplementedError(f"mat_reorder='rcm' {_ITEM_10}")
         self.ksp_type = ksp_type
         self.pc_type = pc_type
         self.rtol = rtol
@@ -192,6 +189,7 @@ class KSP:
         self._ksp_solve = _pick_ksp(ksp_type, gmres_restart, richardson_scale, precision)
         self._op = None             # the A of A x = b (the outer operator)
         self._op_lo = None          # its f32 twin under mixed precision (inner solves, PC)
+        self._host_a = None         # the host matrix set_operators took, or None
         self._pc_state = None       # hierarchy / inverse diagonal / SSOR apply / None
         self._op_lo_plain = None    # the pre-padding twin (mat_solve's plain hierarchy)
         self._pc_state_plain = None  # mat_solve's plain hierarchy on the padded layout
@@ -234,30 +232,33 @@ class KSP:
 
     # -- KSPSetOperators ---------------------------------------------------
 
-    def set_operators(self, a: Any, a_lo: Any = None) -> "KSP":
+    def set_operators(self, a: Any, a_lo: Any = None, *, device="cuda", timings: dict | None = None) -> "KSP":
         """KSPSetOperators(ksp, A, A): attach the operator.
 
         ``a`` may be a ``StarStencil3D`` (the structured route), a
-        ``DFDIA`` (the general route under mixed precision, with its f32
-        ``DIA`` as ``a_lo`` or, by default, a ``DIA`` of its hi bands) or any
-        object with an ``mv`` method (``pc_type`` jacobi also needs
-        ``diagonal()``, sor ``gs_color_masks()``).  ``a_lo``: the
-        low-precision twin for mixed precision (default: an f32 cast of
-        ``a``).  With ``reuse_preconditioner`` an existing preconditioner is
-        kept; on the padded layout the new twin is padded too when it is a
-        star on the same grid, and otherwise the preconditioner is dropped.
+        ``DFDIA`` or ``DIA`` (the general route: under mixed precision a
+        ``DFDIA`` with its f32 ``DIA`` as ``a_lo`` or, by default, a ``DIA``
+        of its hi bands; under uniform precision a ``DIA`` in the solve's
+        dtype), a host matrix (``HostCSR``, or anything scipy makes a CSR
+        of), which goes to ``device`` as the DIA family, or any object with
+        an ``mv`` method (``pc_type`` jacobi also needs ``diagonal()``, sor
+        ``gs_color_masks()``).  ``a_lo``: the low-precision twin for mixed
+        precision (default: an f32 cast of ``a``).  ``timings``: a dict that
+        receives the seconds of a host matrix's diagonal count
+        (``diagonals``), band extraction (``host_bands``) and upload
+        (``upload``).  With
+        ``reuse_preconditioner`` an existing preconditioner is kept; on the
+        padded layout the new twin is padded too when it is a star on the
+        same grid, and otherwise the preconditioner is dropped.
         """
-        if not hasattr(a, "mv"):
-            raise NotImplementedError(_HOST)
         mixed = self.precision == "mixed"
-        if isinstance(a, DIA) or (isinstance(a, DFDIA) and not mixed):
-            raise NotImplementedError(
-                f"a {type(a).__name__} operator under precision={self.precision!r} {_UNIFORM_DIA}"
-            )
+        self._host_a = None
+        if isinstance(a, HostCSR) or not hasattr(a, "mv"):
+            a, a_lo = self._upload_host(a, device, timings)
         self._op = a
         if a_lo is not None:
             self._op_lo = a_lo
-        elif isinstance(a, DFDIA):
+        elif mixed and isinstance(a, DFDIA):
             self._op_lo = DIA(bands=a.hi, offsets=a.offsets, shape=a.shape)
         elif mixed:
             self._op_lo = _cast_floating(a, torch.float32)
@@ -278,6 +279,22 @@ class KSP:
                 self._drop_pc()
         return self
 
+    def _upload_host(self, a, device, timings: dict | None):
+        """A host matrix as the DIA family on ``device``: (outer operator,
+        inner operator).  Keeps the HostCSR for ``pc_type="bjacobi"``."""
+        if not isinstance(a, HostCSR):
+            import scipy.sparse as sp
+
+            a = HostCSR.from_scipy(sp.csr_matrix(a))
+        t0 = time.perf_counter()
+        diagonals = distinct_diagonals(a)
+        if timings is not None:
+            timings["diagonals"] = time.perf_counter() - t0
+        if diagonals > 192:  # DIA.host_bands' gate
+            raise NotImplementedError(f"a host matrix with {diagonals} diagonals (> 192) {_ITEM_10}")
+        self._host_a = a
+        return host_dia_operators(a, self.precision, device=device, timings=timings)
+
     # -- KSPSetUp ----------------------------------------------------------
 
     def setup(self) -> "KSP":
@@ -294,13 +311,15 @@ class KSP:
             if kind == "structured":
                 self._setup_structured(gamma)
             elif kind == "general":
-                self._pc_state = gamg_setup_unstructured(self._op_lo, self.amg_params)
+                self._pc_state = gamg_setup_unstructured(
+                    self._host_a, self.amg_params, fine_op=self._op_lo,
+                )
                 # the hierarchy's fine level is the inner operator
                 self._op_lo = self._pc_state.levels[0].op
                 self._m = functools.partial(self._cycle, self._pc_state)
             else:
                 raise ValueError(
-                    "pc_type='gamg' needs a StarStencil3D or DFDIA operator — got"
+                    "pc_type='gamg' needs a StarStencil3D, DIA-family or HostCSR/scipy operator — got"
                     f" {type(self._op).__name__}"
                 )
         elif self.pc_type == "jacobi":
@@ -316,9 +335,10 @@ class KSP:
                 )
             self._pc_state = self._m = _ssor(self._op_lo)
         elif self.pc_type == "bjacobi":
-            raise ValueError(
-                "pc_type='bjacobi' on the KSP object needs a HostCSR/scipy operator"
-                " (set_operators with a host matrix keeps it)"
+            # from the host matrix set_operators kept: bs = bjacobi_bs, or
+            # point Jacobi for bs 0 or 1, in the inner operator's dtype
+            self._pc_state = self._m = _standalone_pc(
+                "bjacobi", self._op_lo, self._host_a, self.amg_params.bjacobi_bs,
             )
         else:  # none
             self._pc_state = ()
@@ -423,8 +443,9 @@ class KSP:
         """KSPMatSolve parity: solve A X = B for a block of right-hand sides,
         ``b_block`` stacking the columns on axis 0 ((k, n) flat or (k, nz,
         ny, nx) fields), with one batched apply an operator use: the f32
-        star's is one ``star7_mv_batched`` launch over the stack, the
-        V-cycle's levels take the stack whole (``solve/multi.py``).
+        star's is one ``star7_mv_batched`` launch over the stack, an f32
+        DIA's one ``dia_mv_batched`` launch, and the V-cycle's levels take
+        the stack whole (``solve/multi.py``).
         Converged columns are frozen while the rest finish.  Returns a
         ``MultiResult`` with per-column iterations, residuals and reasons.
 
@@ -436,8 +457,6 @@ class KSP:
         if self.ksp_type != "cg":
             raise ValueError(f"mat_solve supports ksp_type='cg' (block CG); got {self.ksp_type!r}")
         self.setup()
-        if _op_kind(self._op) == "general":
-            raise NotImplementedError(_BATCHED_K5)
         gshape = getattr(self._op, "grid_shape", None)
         flat_in = gshape is not None and b_block.dim() == 2
         if flat_in:

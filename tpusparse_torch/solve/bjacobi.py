@@ -1,28 +1,30 @@
-"""Block-Jacobi preconditioner — port of the structured part of
-``tpusparse/solve/bjacobi.py``.
+"""Block-Jacobi preconditioner — port of ``tpusparse/solve/bjacobi.py``.
 
 Real PCBJACOBI, not the point degeneracy: the bs x bs diagonal blocks of A
-are assembled from a structured operator's band fields
-(``flat_band_fields``), inverted once at setup, and applied as
+are assembled from a host CSR matrix (``BlockJacobi.build``, the aij
+route's standalone ``-pc_type bjacobi``) or from a structured operator's
+band fields (``flat_band_fields``, the ``-pc_bjacobi_bs`` sub-PC of the
+GAMG level smoother, ``amg/hierarchy.py::gamg_setup``), inverted once at
+setup, and applied as
 
     z_block = inv(A_block) @ r_block,
 
 one batched (nb, bs, bs) x (nb, bs) product.  Tridiagonal blocks past the
 dense entry cap (the x-line case, bs = nx: at 300^3 dense line blocks would
 hold ~32 GB) are solved exactly by parallel cyclic reduction
-(``PCRLineJacobi``) instead.  ``-pc_bjacobi_bs`` selects it as the GAMG
-level smoother's sub-PC (``amg/hierarchy.py::gamg_setup``).
-
-The JAX package's host-CSR builder ``BlockJacobi.build`` (the aij route's
-standalone ``-pc_type bjacobi``) is not ported: the port's aij route keeps
-no host matrix.
+(``PCRLineJacobi``) instead.  The host work of ``build`` stays numpy;
+the apply is one ``torch.einsum`` over the blocks, the JAX package's XLA
+einsum.
 """
 
 from __future__ import annotations
 
 import dataclasses
 
+import numpy as np
 import torch
+
+from tpusparse_torch.sparse.csr import HostCSR
 
 
 def _eye(bs: int, k: int, dtype, device) -> torch.Tensor:
@@ -44,6 +46,48 @@ class BlockJacobi:
     # this many block entries (f32: 256 MiB) tridiagonal blocks go to the
     # O(n log bs) PCR solve; anything denser must shrink bs.
     DENSE_ENTRY_CAP = 64 * 2**20
+
+    @classmethod
+    def build(cls, a, bs: int, dtype=None, *, device="cuda"):
+        """Extract and invert the diagonal blocks of a HostCSR (or scipy)
+        matrix on the host; the blocks go to ``device`` in ``dtype`` (a
+        numpy dtype; default f64).  The tail block is padded with identity
+        and an empty diagonal entry is taken as 1.  Past
+        ``DENSE_ENTRY_CAP`` tridiagonal blocks return a
+        :class:`PCRLineJacobi`; denser ones raise."""
+        if not isinstance(a, HostCSR):
+            a = HostCSR.from_scipy(a)
+        n = a.n_rows
+        nb = -(-n // bs)
+        rows = np.repeat(np.arange(n, dtype=np.int64), a.row_nnz())
+        cols = a.indices.astype(np.int64)
+        mask = rows // bs == cols // bs
+
+        def put(v):
+            return torch.as_tensor(v if dtype is None else v.astype(dtype), device=device)
+
+        if nb * bs * bs > cls.DENSE_ENTRY_CAP:
+            off = (cols - rows)[mask]
+            if not np.all(np.abs(off) <= 1):
+                raise ValueError(
+                    f"bjacobi bs={bs}: dense inverted blocks would hold {nb * bs * bs:.3g} entries"
+                    f" (> {cls.DENSE_ENTRY_CAP:.3g} cap) and the blocks are not tridiagonal — shrink bs"
+                )
+            tri = np.zeros((3, nb * bs), np.float64)
+            tri[off + 1, rows[mask]] = a.data[mask]
+            tri[1, n:] = 1.0  # the identity tail block
+            tri[1, tri[1] == 0.0] = 1.0  # a singular block, regularized
+            lo, d, up = (r.reshape(nb, bs) for r in put(tri))
+            return PCRLineJacobi.build(lo, d, up, n)
+        blocks = np.zeros((nb, bs, bs), np.float64)
+        blocks[rows[mask] // bs, rows[mask] % bs, cols[mask] % bs] = a.data[mask]
+        tail = np.arange(n, nb * bs)
+        blocks[tail // bs, tail % bs, tail % bs] = 1.0  # the identity tail block
+        # a structurally empty diagonal entry would make its block singular
+        # (PETSc's bjacobi fails there): regularized
+        dg = np.einsum("kii->ki", blocks)
+        dg[dg == 0.0] = 1.0
+        return cls(dinv_blocks=put(np.linalg.inv(blocks)), bs=bs, n=n)
 
     @classmethod
     def from_bands(cls, diag: torch.Tensor, bands: dict, bs: int):

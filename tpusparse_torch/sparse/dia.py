@@ -10,11 +10,15 @@ has 7 bands, its geometric Galerkin coarse operators at most 27.  Storage
 is ``bands (K, n)`` with ``bands[k, r] = A[r, r + offsets[k]]``; rows whose
 diagonal leaves the matrix hold zeros.
 
-``DIA.mv`` goes through ``kernels/diaband.py::dia_mv``: on a CUDA tensor the
-hand-written K5 kernel, on a CPU tensor its plain twin.  ``DFDIA`` is the
-two-float (hi + lo f32) outer operator of the mixed-precision solve; its
-apply stays plain torch in x's dtype (f64), once per outer sweep, as the JAX
-package computes it in XLA.
+``DIA.mv`` on float32 bands goes through ``kernels/diaband.py``: a vector
+to ``dia_mv`` (K5), a stack of columns (k, n) to ``dia_mv_batched``; on a
+CUDA tensor the hand-written kernels, on a CPU tensor their plain twin.
+Bands of any other dtype (the f64 levels of uniform precision) apply in
+plain torch in ascending band order, which is the JAX package's own XLA
+``DIA.mv``: its Pallas K5 is f32 only, as the port's kernels are.
+``DFDIA`` is the two-float (hi + lo f32) outer operator of the
+mixed-precision solve; its apply stays plain torch in x's dtype (f64),
+once per outer sweep, as the JAX package computes it in XLA.
 """
 
 from __future__ import annotations
@@ -24,7 +28,7 @@ import dataclasses
 import numpy as np
 import torch
 
-from tpusparse_torch.kernels.diaband import _shift, dia_mv
+from tpusparse_torch.kernels.diaband import _shift, dia_mv, dia_mv_batched, dia_mv_torch
 from tpusparse_torch.sparse.csr import HostCSR
 
 
@@ -41,8 +45,16 @@ class DIA:
         return self.shape[0]
 
     @property
+    def n_cols(self) -> int:
+        return self.shape[1]
+
+    @property
     def dtype(self) -> torch.dtype:
         return self.bands.dtype
+
+    @property
+    def nnz(self) -> int:
+        return int(torch.count_nonzero(self.bands))
 
     @staticmethod
     def host_bands(csr, max_offsets: int = 192, dtype=None):
@@ -56,7 +68,19 @@ class DIA:
         data = csr.data.astype(dtype) if dtype is not None else csr.data
         if off.size == 0:
             return np.zeros((1, n), data.dtype), (0,), (n, m)
-        offsets, k = np.unique(off, return_inverse=True)
+        # the distinct offsets and each entry's band without np.unique's
+        # O(nnz log nnz) sort where the offset range is small (a banded
+        # matrix): a bincount and a lookup table, one linear pass each
+        omin = int(off.min())
+        span = int(off.max()) - omin + 1
+        if span <= max(4 * off.size, 1 << 24):
+            offsets = np.flatnonzero(np.bincount(off - omin, minlength=span)) + omin
+            lut = np.zeros(span, np.int64)
+            lut[offsets - omin] = np.arange(offsets.size)
+            k = lut[off - omin]
+        else:
+            offsets = np.unique(off)
+            k = np.searchsorted(offsets, off)
         if offsets.size > max_offsets:
             raise ValueError(
                 f"matrix occupies {offsets.size} diagonals > max_offsets={max_offsets}"
@@ -71,9 +95,49 @@ class DIA:
         bands, offsets, shape = cls.host_bands(csr, max_offsets, dtype)
         return cls(bands=torch.as_tensor(bands, device=device), offsets=offsets, shape=shape)
 
+    def to_scipy(self):
+        import scipy.sparse as sp
+
+        bands = self.bands.cpu().numpy()
+        n, m = self.shape
+        rows, cols, vals = [], [], []
+        for k, o in enumerate(self.offsets):
+            r = np.arange(max(0, -o), min(n, m - o))
+            v = bands[k, r]
+            keep = v != 0
+            rows.append(r[keep])
+            cols.append(r[keep] + o)
+            vals.append(v[keep])
+        a = sp.csr_matrix(
+            (np.concatenate(vals), (np.concatenate(rows), np.concatenate(cols))), shape=self.shape,
+        )
+        a.sum_duplicates()
+        a.sort_indices()
+        return a
+
     def mv(self, x: torch.Tensor) -> torch.Tensor:
-        """y = A @ x: K5 on a CUDA tensor, its plain twin on a CPU one."""
-        return dia_mv(self.bands, x, self.offsets)
+        """y = A @ x for a vector (n,), or for each column of a stack (k,
+        n): K5 or the batched K5 on f32 bands, plain torch on any other."""
+        if self.dtype != torch.float32:
+            return dia_mv_torch(self.bands, x, self.offsets)
+        kernel = dia_mv if x.dim() == 1 else dia_mv_batched
+        return kernel(self.bands, x.contiguous(), self.offsets)
+
+    def mm(self, x: torch.Tensor) -> torch.Tensor:
+        """Y = A @ X for dense X of shape (n_cols, j), in plain torch."""
+        n = self.n_rows
+        y = self.bands[0][:, None] * _shift(x, self.offsets[0], n, dim=0)
+        for k, o in enumerate(self.offsets[1:], start=1):
+            y = y + self.bands[k][:, None] * _shift(x, o, n, dim=0)
+        return y
+
+    def rmv(self, y: torch.Tensor) -> torch.Tensor:
+        """x = A^T @ y: the products shifted the other way, in plain torch."""
+        m = self.n_cols
+        x = _shift(self.bands[0] * y, -self.offsets[0], m)
+        for k, o in enumerate(self.offsets[1:], start=1):
+            x = x + _shift(self.bands[k] * y, -o, m)
+        return x
 
     def diagonal(self) -> torch.Tensor:
         if 0 in self.offsets:
@@ -91,7 +155,7 @@ class DFDIA:
     may alias the f32 hierarchy's fine-level bands.
 
     ``grid`` (the JAX package's 3-D view, ``sparse/griddia.py``) is not
-    ported: only the flat form exists here.
+    ported (ROADMAP queue 1, item 9.2): only the flat form exists here.
     """
 
     hi: torch.Tensor                 # (K, n) f32
@@ -103,17 +167,30 @@ class DFDIA:
     def __post_init__(self):
         if self.grid is not None:
             raise NotImplementedError(
-                "the 3-D grid view of DFDIA (sparse/griddia.py) is not ported yet"
+                "the 3-D grid view of DFDIA (sparse/griddia.py) is not ported to tpusparse_torch yet"
+                " (ROADMAP queue 1, item 9.2)"
             )
 
     @classmethod
-    def from_host_bands(cls, bands64: np.ndarray, offsets, shape, *, device) -> "DFDIA":
+    def from_host_bands(cls, bands64: np.ndarray, offsets, shape, *, device, hi_dev=None) -> "DFDIA":
         """Split host f64 bands into tensors on ``device``; upload lo only
-        when nonzero."""
+        when nonzero.  ``hi_dev``: an f32 band tensor already uploaded to
+        alias as ``hi``; it must equal ``float32(bands64)``, which is
+        checked on its shape, dtype and first and last entries."""
         hi_np = bands64.astype(np.float32)
         lo_np = (bands64 - hi_np.astype(np.float64)).astype(np.float32)
+        if hi_dev is None:
+            hi_dev = torch.as_tensor(hi_np, device=device)
+        elif tuple(hi_dev.shape) != hi_np.shape or hi_dev.dtype != torch.float32 or (
+            hi_np.size and (hi_dev.reshape(-1)[[0, -1]].cpu().numpy() != hi_np.reshape(-1)[[0, -1]]).any()
+        ):
+            # lo was computed against the host bands: a stale alias would
+            # build hi + lo != A
+            raise ValueError(
+                f"hi_dev {tuple(hi_dev.shape)} {hi_dev.dtype} is not float32(bands64) {hi_np.shape}"
+            )
         return cls(
-            hi=torch.as_tensor(hi_np, device=device),
+            hi=hi_dev,
             lo=torch.as_tensor(lo_np, device=device) if np.any(lo_np) else None,
             offsets=tuple(int(o) for o in offsets),
             shape=tuple(shape),
@@ -123,9 +200,14 @@ class DFDIA:
     def n_rows(self) -> int:
         return self.shape[0]
 
+    @property
+    def dtype(self) -> torch.dtype:
+        return torch.float64  # the dtype mv applies in
+
     def mv(self, x: torch.Tensor) -> torch.Tensor:
         """y = A x in x's dtype (each band promoted on the fly), hi terms in
-        ascending band order, then lo terms."""
+        ascending band order, then lo terms; for a vector (n,) or for each
+        column of a stack (k, n)."""
         dt, n = x.dtype, self.n_rows
         y = self.hi[0].to(dt) * _shift(x, self.offsets[0], n)
         for k, o in enumerate(self.offsets[1:], start=1):
@@ -143,3 +225,29 @@ class DFDIA:
         if self.lo is not None:
             d = d + self.lo[k].to(torch.float64)
         return d
+
+
+def host_dia_operators(csr, precision: str, *, device, timings: dict | None = None):
+    """A host matrix on ``device`` as the DIA family, the JAX package's
+    rule: ``(op_hi, op_lo)``.  Under ``precision="mixed"`` one f32 upload
+    serves both precisions, the f32 ``DIA`` of the inner solves and the
+    hierarchy and the hi half of the two-float ``DFDIA`` outer operator
+    (whose lo half uploads only where A is not exactly f32); under
+    ``"f64"``/``"f32"`` one ``DIA`` in that dtype is both.  ``timings``
+    receives the seconds of the band extraction (``host_bands``) and of the
+    upload (``upload``, synchronized)."""
+    import time
+
+    t0 = time.perf_counter()
+    bands, offsets, shape = DIA.host_bands(csr, dtype=np.float32 if precision == "f32" else None)
+    t1 = time.perf_counter()
+    if precision == "mixed":
+        op_lo = DIA(bands=torch.as_tensor(bands.astype(np.float32), device=device), offsets=offsets, shape=shape)
+        op_hi = DFDIA.from_host_bands(bands, offsets, shape, device=device, hi_dev=op_lo.bands)
+    else:
+        op_hi = op_lo = DIA(bands=torch.as_tensor(bands, device=device), offsets=offsets, shape=shape)
+    if timings is not None:
+        if op_lo.bands.device.type == "cuda":
+            torch.cuda.synchronize(op_lo.bands.device)
+        timings.update(host_bands=t1 - t0, upload=time.perf_counter() - t1)
+    return op_hi, op_lo
