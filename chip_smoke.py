@@ -212,6 +212,33 @@ script exits non-zero without the final line:
    each within 2 of phase 29's inner count, Linf < 1e-4 in columns 0, 1
    (/ 5) and 3; ``dia_mv_batched`` launched and the single ``dia_mv`` not;
    time and peak memory printed.
+32. K5 past 48 bands (the cap is the DIA family's 192): K5 and the batched
+   K5 at K = 49, 65 and 192 on n = 40*11*13 + 7 with random offsets past
+   both ends and 3 columns: K5, the batched K5 and the twin each within the
+   f32 sum's error bound (K u sum_k |b_k x|) of the f64 sum (K5 rounds once
+   a term with ``__fmaf_rn``, the twin twice), each batched column bit for
+   bit a K5 launch; at 1M rows with K = 65 and 192 contiguous bands, K5
+   timed beside its twin, its bound ((K+2) n 4 bytes over 3.35 TB/s) and
+   cuSPARSE's CSR matvec; and phase 6's K = 7 time at 300^3 within 5% of
+   its 0.463 ms row.
+33. Item 9.2's host routes at 1M rows, counters reset before each: the
+   greedy route (``-mat_type aij -pc_gamg_aggregation greedy``, mixed, rtol
+   1e-8) and GAMG's block-Jacobi level smoother (``-mat_type aij
+   -mat_structure_detect 0 -pc_bjacobi_bs 100``) at 100^3 through the CLI:
+   reason 2, Linf < 1e-3, K5 launched and no stencil kernel, the setup
+   breakdown, the levels (``-ksp_view``) and peak memory printed; ``KSP``
+   on the 61-diagonal matrix at 1M rows with GAMG and with Jacobi: reason
+   2, true relative residual <= 1e-8, 8 +- 2 / 14 +- 2 inner (JAX's counts
+   at 2000 rows), K5 launched; and the greedy, banded and block-Jacobi
+   routes at 16^3 on the card and on the CPU: reason 2, outer equal, inner
+   within 2.
+34. The banded route at full size: ``-mat_type aij -mat_structure_detect 0
+   -pc_gamg_aggregation banded`` at 300^3 (device assembly): reason 2,
+   Linf < 1e-4, K5 launched; and ``bench.deviceaggbench`` at 27,000,000
+   rows (the pinned wrap chain built on the card, setup cold and warm with
+   its breakdown and peak memory, the mixed solve to rtol 1e-8): reason
+   positive, true relative residual in f64 <= 1e-8, K5 launched; its JSON
+   line printed.
 
 Then one JSON line with each kernel's route, source, launches (K1-K4 from
 phase 5, K5 from phase 8, K6/K7 from phase 10, K3'/K4' from phase 11,
@@ -253,7 +280,7 @@ from tpusparse_torch import KSP, kernels
 from tpusparse_torch import ksp as ksp_module
 from tpusparse_torch.__main__ import main as cli_main
 from tpusparse_torch.amg.hierarchy import AMGParams, gamg_setup, threshold_schedule, vcycle
-from tpusparse_torch.bench import headline
+from tpusparse_torch.bench import deviceaggbench, headline
 from tpusparse_torch.bench.driver import solve_poisson
 from tpusparse_torch.dist.fused_sharded import FusedSharded
 from tpusparse_torch.dist.mesh import make_z_mesh
@@ -1546,6 +1573,166 @@ def check_file_mat_solve(device, mat: str, inner: int) -> int:
     return used["dia_mv_batched"]
 
 
+# phase 32: band counts past the old cap of 48, to the DIA family's 192, on
+# the ragged n; the timed ones at 1M rows as contiguous bands
+WIDE_KS = (49, 65, 192)
+WIDE_TIMED = (65, 192)
+WIDE_N = 1_000_000
+# K5's row at 300^3 with K = 7 in PERF.md section 6 (PRs 12-14): 0.459-0.463 ms
+K7_ROW_MS = 0.463
+
+
+def _within_f32_bound(name, out, bands, x, offsets) -> None:
+    """Raise unless ``out`` is within the f32 sum's error bound, K u sum_k
+    |b_k x|, of the f64 sum (K5 rounds once a term with __fmaf_rn, its twin
+    twice, so the two agree to this bound, not bit for bit)."""
+    exact = dia_mv_torch(bands.double(), x.double(), offsets)
+    bound = len(offsets) * 2.0**-24 * dia_mv_torch(bands.abs().double(), x.abs().double(), offsets)
+    _require(bool(((out.double() - exact).abs() <= bound).all()), f"{name}: outside the f32 sum's error bound")
+
+
+def check_dia_wide(device, k7_ms: float) -> dict:
+    """Phase 32 (K5 past 48 bands): K5 and the batched K5 at K = 49, 65
+    and 192 on the ragged n with offsets past both ends, K5 and its twin
+    within the f32 error bound of the f64 sum and each batched column bit
+    for bit a K5 launch; at 1M rows with K = 65 and 192 (contiguous
+    bands) K5 timed beside its twin, its bound and cuSPARSE's CSR matvec;
+    and phase 6's K = 7 time at 300^3 within 5% of its row."""
+    rng = np.random.default_rng(SEED)
+    for k in WIDE_KS:
+        n = RAGGED + 7
+        offsets = tuple(sorted(rng.choice(np.arange(-n + 1, n), k, replace=False).tolist()))
+        bands = torch.from_numpy(rng.standard_normal((k, n), dtype=np.float32)).to(device)
+        x = torch.from_numpy(rng.standard_normal((3, n), dtype=np.float32)).to(device)
+        y, ys = dia_mv(bands, x[0], offsets), dia_mv_batched(bands, x, offsets)
+        want = dia_mv_torch(bands, x, offsets)
+        for label, out in (("dia_mv", y), ("dia_mv_batched", ys), ("twin", want)):
+            _within_f32_bound(f"{label} K={k} n={n}", out, bands, x[0] if out.dim() == 1 else x, offsets)
+        _require(all(torch.equal(ys[c], dia_mv(bands, x[c], offsets)) for c in range(3)),
+                 f"dia_mv_batched K={k}: a column is not bit for bit a K5 launch")
+        err = (ys - want).abs().max().item()
+        print(f"kernel dia_mv / dia_mv_batched K={k} n={n}: within the f32 bound of the f64 sum, columns"
+              f" bit-equal to K5, max abs err vs the twin {err:.3e}")
+    out = {}
+    for k in WIDE_TIMED:
+        offsets = tuple(range(-(k // 2), k - k // 2))
+        bands = torch.from_numpy(rng.standard_normal((k, WIDE_N), dtype=np.float32)).to(device)
+        x = torch.from_numpy(rng.standard_normal(WIDE_N, dtype=np.float32)).to(device)
+        got, want = dia_mv(bands, x, offsets), dia_mv_torch(bands, x, offsets)
+        _within_f32_bound(f"dia_mv K={k} n=1M", got, bands, x, offsets)
+        ms, plain_ms = _time_ms(dia_mv, (bands, x, offsets)), _time_ms(dia_mv_torch, (bands, x, offsets))
+        csr = _csr_of(bands, offsets)
+        _within_f32_bound(f"csr matvec K={k}", csr @ x, bands, x, offsets)
+        library_ms = _time_ms(lambda a, v: a @ v, (csr, x))
+        bound = _bound((bands, x), got, 2 * k * WIDE_N)
+        print(f"time dia_mv K={k} n=1M: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, cuSPARSE CSR matvec"
+              f" {library_ms:.4f} ms, bound {bound['bound_ms']:.4f} ms ({bound['bound_by']};"
+              f" {100 * bound['bound_ms'] / ms:.0f}% of it)")
+        out[k] = dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms, **bound)
+        del bands, x, got, want, csr
+        torch.cuda.empty_cache()
+    print(f"dia_mv K=7 at 300^3 (phase 6): {k7_ms:.4f} ms, its row {K7_ROW_MS} ms + 5% at most")
+    _require(k7_ms <= 1.05 * K7_ROW_MS, f"dia_mv K=7 at 300^3: {k7_ms:.4f} ms, more than 5% over {K7_ROW_MS}")
+    return out
+
+
+def _band61(n: int):
+    """The SPD matrix of 61 diagonals (offsets -30..30, diagonal 10,
+    off-diagonals -1/(1+|o|)) as a scipy CSR; JAX's KSP solves it in 8
+    iterations with GAMG (the greedy route) and 14 with Jacobi."""
+    import scipy.sparse as sp
+
+    offs = list(range(-30, 31))
+    return sp.diags([np.full(n - abs(o), 10.0 if o == 0 else -1.0 / (1 + abs(o))) for o in offs], offs,
+                    shape=(n, n), format="csr")
+
+
+def _aij_cli(label: str, argv: list[str], linf: float, device) -> tuple[dict, dict]:
+    """One aij CLI solve (counters reset just before it), gated: reason 2,
+    Linf < ``linf``, K5 launched and no stencil kernel; its setup breakdown
+    and peak memory printed."""
+    torch.cuda.reset_peak_memory_stats(device)
+    side, used = run_cli(argv)
+    print(f"{label}: {side['iters']} inner + {side['outer_iters']} outer, reason {side['reason']}, Linf"
+          f" {side['linf_error']:.6e}, t_init {side['t_init']:.3f} s, t_setup {side['t_setup']:.3f} s"
+          f" {json.dumps(side['setup_breakdown'])}, t_solve {side['t_solve']:.4f} s, peak device memory"
+          f" {torch.cuda.max_memory_allocated(device) / 1e9:.3f} GB")
+    _require(side["reason"] == 2, f"{label}: reason {side['reason']} != 2")
+    _require(np.isfinite(side["linf_error"]) and side["linf_error"] < linf,
+             f"{label}: Linf {side['linf_error']} >= {linf}")
+    _require(used["dia_mv"] > 0, f"{label} did not launch dia_mv")
+    for name in STENCIL_KERNELS:
+        _require(used[name] == 0, f"{label} launched the stencil kernel {name}")
+    return side, used
+
+
+def check_greedy(device) -> int:
+    """Phase 33 (item 9.2's host routes at 1M rows): the greedy route and
+    the block-Jacobi level smoother through the CLI at 100^3, KSP on the
+    61-diagonal matrix at 1M rows with GAMG and Jacobi, and each route at
+    16^3 on the card against the CPU.  Returns the greedy solve's K5
+    launches."""
+    tol = ["-ksp_rtol", "1e-8", "-ksp_atol", "1e-12", "-ksp_converged_reason", "-ksp_view"]
+    _, used = _aij_cli("greedy 100^3", [*_grid(100), "-mat_type", "aij", "-pc_gamg_aggregation", "greedy", *tol],
+                       1e-3, device)
+    _aij_cli("aij -pc_bjacobi_bs 100 at 100^3",
+             [*_grid(100), "-mat_type", "aij", "-mat_structure_detect", "0", "-pc_bjacobi_bs", "100", *tol],
+             1e-3, device)
+    n = 1_000_000
+    a = _band61(n)
+    b = torch.from_numpy(np.random.default_rng(SEED).standard_normal(n)).to(device)
+    for pc, want in (("gamg", 8), ("jacobi", 14)):
+        torch.cuda.reset_peak_memory_stats(device)
+        t0 = time.perf_counter()
+        solver = KSP(pc_type=pc, rtol=1e-8).set_operators(a, device=device)
+        t1 = time.perf_counter()
+        solver.setup()
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        kernels.reset_launches()
+        res = solver.solve(b)
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        rel = (torch.linalg.vector_norm(b - solver._op.mv(res.x)) / torch.linalg.vector_norm(b)).item()
+        levels = [(type(lev.op).__name__, lev.op.shape[0]) for lev in solver._pc_state.levels] if pc == "gamg" else []
+        print(f"KSP {pc} on the 61-diagonal matrix at 1M rows: {res.iters} inner + {res.outer_iters} outer,"
+              f" reason {res.reason}, true relative residual {rel:.3e}, set_operators {t1 - t0:.3f} s, setup"
+              f" {t2 - t1:.3f} s, solve {t3 - t2:.4f} s, K5 launches {kernels.LAUNCHES['dia_mv']}, peak device"
+              f" memory {torch.cuda.max_memory_allocated(device) / 1e9:.3f} GB, levels {levels}")
+        _require(res.reason == 2 and rel <= 1e-8, f"KSP {pc} 61 diagonals: reason {res.reason}, residual {rel}")
+        _require(abs(res.iters - want) <= 2, f"KSP {pc} 61 diagonals: {res.iters} inner, not {want} +- 2 (JAX's)")
+        _require(kernels.LAUNCHES["dia_mv"] > 0, f"KSP {pc} 61 diagonals did not launch dia_mv")
+        del solver, res
+    del a, b
+    torch.cuda.empty_cache()
+    for label, kw in (("greedy", dict(aggregation="greedy")),
+                      ("banded", dict(aggregation="banded", structure_detect=False)),
+                      ("bjacobi", dict(structure_detect=False, amg_params=AMGParams(bjacobi_bs=16)))):
+        kw = dict(rtol=1e-8, atol=1e-12, mat_type="aij", **kw)
+        gpu, cpu = solve_poisson(16, device=device, **kw), solve_poisson(16, device="cpu", **kw)
+        print(f"16^3 {label}: card {gpu.iters} + {gpu.outer_iters}, CPU {cpu.iters} + {cpu.outer_iters},"
+              f" Linf {gpu.linf_error:.6e} / {cpu.linf_error:.6e}")
+        _require(gpu.reason == cpu.reason == 2 and gpu.outer_iters == cpu.outer_iters
+                 and abs(gpu.iters - cpu.iters) <= 2, f"16^3 {label}: the card's counts are not the CPU's")
+    return used["dia_mv"]
+
+
+def check_banded(device) -> None:
+    """Phase 34 (the banded route at full size): -pc_gamg_aggregation
+    banded at 300^3 with device assembly, and the deviceaggbench record at
+    27M rows."""
+    tol = ["-ksp_rtol", "1e-8", "-ksp_atol", "1e-12", "-ksp_converged_reason", "-ksp_view"]
+    _aij_cli("banded 300^3", [*_grid(300), "-mat_type", "aij", "-mat_structure_detect", "0",
+                              "-pc_gamg_aggregation", "banded", *tol], 1e-4, device)
+    kernels.reset_launches()
+    rec = deviceaggbench.run(27_000_000, device=device)
+    print(f"deviceaggbench: {json.dumps(rec)}")
+    print(f"deviceaggbench launches: {json.dumps({k: v for k, v in kernels.LAUNCHES.items() if v})}")
+    _require(rec["reason"] > 0, f"deviceaggbench: reason {rec['reason']} is not positive")
+    _require(rec["true_rel_residual"] <= 1e-8, f"deviceaggbench: true residual {rec['true_rel_residual']} > 1e-8")
+    _require(kernels.LAUNCHES["dia_mv"] > 0, "deviceaggbench did not launch dia_mv")
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: no CUDA device")
@@ -1828,6 +2015,12 @@ def main() -> None:
         launches["dia_mv_batched"] = check_file_mat_solve(device, mat, side["iters"])
     finally:
         shutil.rmtree(tmp)
+
+    t0 = time.perf_counter()
+    check_dia_wide(device, rows["dia_mv"]["ms"])
+    check_greedy(device)
+    check_banded(device)
+    print(f"phases 32-34: {time.perf_counter() - t0:.1f} s")
 
     print(json.dumps({"kernels": [
         {

@@ -11,7 +11,10 @@ card against the same solves on the CPU, ``bench.itprof`` at 24^3, and
 K1p over a stack (``star7_mv_batched``) with the ``KSP`` object's solve,
 reuse and ``mat_solve`` at 18^3 against the CPU, and K5 over a stack
 (``dia_mv_batched``) with the file route, ``mat_solve`` on a DIA operator
-and the structure-blind aij route in uniform precision against the CPU.
+and the structure-blind aij route in uniform precision against the CPU,
+and K5 with 49-192 bands, ELL and the factored transfer (same bits twice),
+and the greedy, banded and block-Jacobi-level aij routes at 16^3 against
+the CPU.
 
 These tests need a CUDA device and skip without one.  The file imports no
 JAX, so it also runs where JAX is not installed:
@@ -812,3 +815,77 @@ def test_uniform_aij_on_card_matches_cpu(cuda, precision, rtol, k5):
     assert gpu.reason == cpu.reason == 2
     assert abs(gpu.iters - cpu.iters) <= 1
     assert abs(gpu.linf_error - cpu.linf_error) < (1e-6 if precision == "f64" else 2e-5)
+
+
+@pytest.mark.parametrize("k", [49, 65, 192])
+def test_k5_past_48_bands_matches_twin_and_k5(cuda, k):
+    """K5 and the batched K5 with 49-192 bands (the DIA family's cap) on a
+    ragged n, offsets past both ends: K5 and its twin (which rounds each
+    product and sum apart, where K5 rounds once a term with __fmaf_rn)
+    within the f32 error bound of the f64 sum, and each batched column
+    bit for bit a K5 launch."""
+    n = 40 * 11 * 13 + 7
+    rng = np.random.default_rng(k)
+    offsets = tuple(sorted(rng.choice(np.arange(-n + 1, n), k, replace=False).tolist()))
+    bands = torch.tensor(rng.standard_normal((k, n), dtype=np.float32), device=cuda)
+    x = torch.tensor(rng.standard_normal((3, n), dtype=np.float32), device=cuda)
+    kernels.reset_launches()
+    y = dia_mv(bands, x[0], offsets)
+    ys = dia_mv_batched(bands, x, offsets)
+    assert kernels.LAUNCHES["dia_mv"] == kernels.LAUNCHES["dia_mv_batched"] == 1
+    # within the f32 sum's error bound, K u sum_k |b_k x|, of the f64 sum,
+    # as the twin is
+    exact = dia_mv_torch(bands.double(), x.double(), offsets)
+    bound = k * 2.0**-24 * dia_mv_torch(bands.abs().double(), x.abs().double(), offsets)
+    for out in (ys, dia_mv_torch(bands, x, offsets)):
+        assert bool(((out.double() - exact).abs() <= bound).all())
+    assert torch.equal(ys[0], y)
+    assert all(torch.equal(ys[c], dia_mv(bands, x[c], offsets)) for c in range(3))
+
+
+def test_ell_and_factored_transfer_on_card(cuda):
+    """ELL.mv and rmv on the card against the CPU; FactoredTransfer's
+    restrict gives the same bits twice (no float atomics)."""
+    import scipy.sparse as sp
+
+    from tpusparse_torch.amg.unstructured import gamg_setup_unstructured
+    from tpusparse_torch.sparse.csr import HostCSR
+    from tpusparse_torch.sparse.ell import ELL
+
+    rng = np.random.default_rng(5)
+    a = sp.random(3000, 2500, density=0.004, random_state=rng, format="csr")
+    a.data = rng.standard_normal(a.nnz) + 1.0
+    h = HostCSR.from_scipy(a)
+    ell_c, ell_g = ELL.from_csr(h, dtype=np.float32, device="cpu"), ELL.from_csr(h, dtype=np.float32, device=cuda)
+    x = torch.tensor(rng.standard_normal(2500), dtype=torch.float32)
+    y = torch.tensor(rng.standard_normal(3000), dtype=torch.float32)
+    torch.testing.assert_close(ell_g.mv(x.to(cuda)).cpu(), ell_c.mv(x), rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(ell_g.rmv(y.to(cuda)).cpu(), ell_c.rmv(y), rtol=1e-5, atol=1e-5)
+    assert torch.equal(ell_g.rmv(y.to(cuda)), ell_g.rmv(y.to(cuda)))
+    a16, _, _ = assemble_poisson(Grid3D(16, 16, 16))
+    hier = gamg_setup_unstructured(a16, AMGParams(), dtype=np.float32, aggregation="greedy", device=cuda)
+    lev = hier.levels[0]
+    r = torch.tensor(rng.standard_normal(a16.shape[0]), dtype=torch.float32, device=cuda)
+    first = lev.transfer.restrict(lev.op, lev.dinv, r)
+    assert all(torch.equal(first, lev.transfer.restrict(lev.op, lev.dinv, r)) for _ in range(5))
+
+
+@pytest.mark.parametrize(
+    "kw", [dict(aggregation="greedy"), dict(aggregation="banded", structure_detect=False),
+           dict(structure_detect=False, amg_params=AMGParams(bjacobi_bs=16))],
+    ids=["greedy", "banded", "bjacobi"],
+)
+def test_item_9_2_routes_on_card_match_cpu(cuda, kw):
+    """The greedy, banded and block-Jacobi-level aij routes at 16^3 on K5:
+    the card's counts within 2 inner of the CPU's, outer equal, and two
+    card runs give the same counts."""
+    kw = dict(rtol=1e-8, atol=1e-12, mat_type="aij", **kw)
+    kernels.reset_launches()
+    gpu = solve_poisson(16, device=cuda, **kw)
+    assert kernels.LAUNCHES["dia_mv"] > 0
+    again = solve_poisson(16, device=cuda, **kw)
+    cpu = solve_poisson(16, device="cpu", **kw)
+    assert gpu.reason == cpu.reason == 2 and gpu.outer_iters == cpu.outer_iters
+    assert abs(gpu.iters - cpu.iters) <= 2
+    assert (again.iters, again.outer_iters) == (gpu.iters, gpu.outer_iters)
+    assert abs(gpu.linf_error - cpu.linf_error) < 1e-6

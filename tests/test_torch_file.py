@@ -176,16 +176,19 @@ def test_cli_f_with_the_standalone_block_jacobi(tmp_path, capsys):
     assert f"Matrix: {path}" in out and got["linf_error"] == -1.0
 
 
-def test_refusals_name_items_9_2_and_10(tmp_path):
-    """What the file route still refuses: GAMG with -pc_bjacobi_bs and a
-    pattern that is no 3-D grid (the greedy route, item 9.2), and a matrix
-    past the DIA family's 192 diagonals (RCM and the banded ELL, item 10)."""
+def test_refusals_name_items_9_2_and_10(tmp_path, capsys):
+    """GAMG on a pattern that is no 3-D grid (the greedy route) and with
+    -pc_bjacobi_bs, which item 9.2 brought, solve as in JAX; the file
+    route still refuses a matrix past the DIA family's 192 diagonals (RCM
+    and the banded ELL, item 10)."""
     tri = str(tmp_path / "tri.petsc")
     save_petsc_mat(tri, sp.diags([-1.0, 2.5, -1.0], [-1, 0, 1], shape=(64, 64), format="csr"))
-    with pytest.raises(NotImplementedError, match="item 9.2"):
-        solve_from_file(tri, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 9.2"):
-        main(["-f", tri, "-pc_bjacobi_bs", "4", "-device", "cpu"])
+    _same(solve_from_file(tri, device="cpu", **TOL), j_solve_from_file(tri, **TOL))
+    args = ["-f", tri, "-pc_bjacobi_bs", "4", "-ksp_rtol", "1e-8"]
+    _, got = _cli(main, [*args, "-device", "cpu"], capsys)
+    _, want = _cli(j_main, args, capsys)
+    assert (got["outer_iters"], got["reason"]) == (want["outer_iters"], want["reason"])
+    assert abs(got["iters"] - want["iters"]) <= 1
     rng = np.random.default_rng(3)
     m = sp.random(400, 400, density=0.05, random_state=rng, format="csr")
     scattered = str(tmp_path / "scattered.petsc")

@@ -18,6 +18,7 @@ from tpusparse.amg.geo import grid_reach as j_grid_reach
 from tpusparse.amg.geo import infer_grid3d as j_infer_grid3d
 from tpusparse.amg.hierarchy import AMGParams as JAMGParams
 from tpusparse.amg.hierarchy import vcycle as j_vcycle
+from tpusparse.amg.unstructured import gamg_setup_unstructured as j_gamg_setup_unstructured
 from tpusparse.grid.grid3d import Grid3D as JGrid3D
 from tpusparse.grid.poisson import poisson_dia_device as j_poisson_dia_device
 from tpusparse.sparse.dia import DIA as JDIA
@@ -243,10 +244,11 @@ def test_gamg_setup_geo_needs_no_host_matrix():
 @pytest.mark.parametrize(
     "params, err",
     [
-        (AMGParams(bjacobi_bs=4), NotImplementedError),
-        # x-line block Jacobi (bs = nx) on the aij route: its blocks need
-        # the host CSR (the LU coarse solve that stood here is ported)
-        (AMGParams(bjacobi_bs=6), NotImplementedError),
+        # block Jacobi on the aij route leaves the geometric setup for the
+        # host one, whose blocks need the host CSR: without it JAX raises
+        # the same ValueError (the LU coarse solve that stood here is ported)
+        (AMGParams(bjacobi_bs=4), ValueError),
+        (AMGParams(bjacobi_bs=6), ValueError),
         (AMGParams(coarse_solve="cholesky"), ValueError),
         (AMGParams(smoother="sor"), ValueError),
         (AMGParams(nsmooths=-1), ValueError),
@@ -259,13 +261,19 @@ def test_setup_refuses_unported_routes(params, err):
 
 
 def test_setup_refuses_non_grid_patterns():
-    n = 100
-    bands = torch.ones((3, n))
+    """A non-grid pattern with no host matrix takes the banded route, as in
+    JAX (it was refused before item 9.2); a fine operator that is not
+    banded is still refused (the DIA family's uniform-f64 two-float
+    operator is banded, and takes the geometric route)."""
+    n = 1000
+    bands = torch.tensor([[-1.0] * n, [2.5] * n, [-1.0] * n])
     tri = DIA(bands=bands, offsets=(-1, 0, 1), shape=(n, n))
-    with pytest.raises(NotImplementedError, match="item 9.2"):
-        gamg_setup_unstructured(None, AMGParams(), fine_op=tri)
-    # a fine operator that is not banded (the DIA family's uniform-f64
-    # two-float operator is, and takes the geometric route)
+    hier = gamg_setup_unstructured(None, AMGParams(), fine_op=tri)
+    want = j_gamg_setup_unstructured(
+        None, JAMGParams(), fine_op=JDIA(bands=jnp.asarray(bands.numpy()), offsets=(-1, 0, 1), shape=(n, n)),
+    )
+    assert [lev.op.n_rows for lev in hier.levels] == [lev.op.shape[0] for lev in want.levels]
+    assert type(hier.levels[0].transfer).__name__ == type(want.levels[0].transfer).__name__ == "SegTransfer"
     star = poisson_stencil_device(Grid3D(6, 6, 6), device="cpu")[0]
-    with pytest.raises(NotImplementedError, match="StarStencil3D"):
+    with pytest.raises(ValueError, match="StarStencil3D"):
         gamg_setup_unstructured(None, AMGParams(), fine_op=star)

@@ -51,7 +51,10 @@ def test_port_imports_no_jax():
      "solve/chebyshev.py", "solve/pipelined.py", "solve/gmres.py", "solve/fgmres.py",
      "solve/bcgs.py", "solve/minres.py", "ksp.py", "solve/multi.py", "solve/checkpoint.py",
      "solve/__init__.py", "__init__.py", "sparse/io.py", "sparse/coo.py", "sparse/bsr.py",
-     "sparse/reorder.py", "sparse/__init__.py", "bench/__init__.py"],
+     "sparse/reorder.py", "sparse/__init__.py", "bench/__init__.py",
+     # item 9.2: the containers, the setup engine and the two setups
+     "sparse/ell.py", "sparse/dia.py", "native.py", "amg/unstructured.py", "amg/deviceagg.py",
+     "bench/deviceaggbench.py"],
 )
 def test_cli_and_ksp_modules_are_scanned_and_import(module):
     """The CLI, the options database, the Krylov family and the file

@@ -370,16 +370,16 @@ def test_compute_eigenvalues_matches_jax(solves, layout):
 
 
 def test_exports_match_the_jax_package():
-    """The package exports JAX's top-level names but ELL (item 9.2), the
-    sparse package JAX's but ELL and PallasDIA (not to port), and the
+    """The package exports JAX's top-level names, the sparse package
+    JAX's but PallasDIA and StarStencilDF (not to port), and the
     solvers JAX's solve/__init__.py exports but the two that are not to
     port; importing builds no kernel."""
-    assert set(tpusparse_torch.__all__) == set(tpusparse.__all__) - {"ELL"}
+    assert set(tpusparse_torch.__all__) == set(tpusparse.__all__)
     assert tpusparse_torch.StarStencil3D is StarStencil3D
     assert tpusparse_torch.HostCSR is HostCSR
     import tpusparse.sparse as j_sparse
     import tpusparse_torch.sparse as t_sparse
-    assert set(t_sparse.__all__) == set(j_sparse.__all__) - {"ELL", "PallasDIA", "StarStencilDF"}
+    assert set(t_sparse.__all__) == set(j_sparse.__all__) - {"PallasDIA", "StarStencilDF"}
     assert all(hasattr(t_sparse, name) for name in t_sparse.__all__)
     import tpusparse.solve as j_solve
     import tpusparse_torch.solve as t_solve

@@ -110,15 +110,17 @@ def test_malformed_values_raise_in_both(argv, err):
 @pytest.mark.parametrize(
     "argv",
     [
-        ["-f", "system.bin", "-pc_bjacobi_bs", "4"],   # GAMG with block Jacobi on aij (queue 1, item 9.2)
-        ["-mat_type", "aij", "-pc_gamg_aggregation", "greedy"],
+        # the item-9.2 values that stood here (-pc_gamg_aggregation greedy
+        # and banded, -pc_bjacobi_bs with GAMG on aij) are ported: ACCEPTED
+        ["-problem", "diffusion", "-mat_type", "aij"],
+        ["-mat_type", "aij", "-devices", "2"],
         ["-problem", "diffusion"],
         ["-devices", "4"],
         ["-precision", "tf"],                    # not to port
-        ["-mat_type", "aij", "-mat_structure_detect", "0", "-pc_gamg_aggregation", "banded"],
+        ["-profile", "trace_dir", "-mat_type", "aij"],
         ["-profile", "trace_dir"],
-        ["-mat_type", "aij", "-mat_structure_detect", "0", "-pc_bjacobi_bs", "4"],
-        ["-mat_type", "aij", "-mat_structure_detect", "0", "-pc_gamg_aggregation", "greedy"],
+        ["-mat_type", "aij", "-mat_structure_detect", "0", "-devices", "2"],
+        ["-problem", "diffusion", "-pc_gamg_aggregation", "greedy"],
     ],
 )
 def test_unported_values_raise(argv):
@@ -150,6 +152,12 @@ ACCEPTED = [
     ["-mat_view", "binary:out.bin"],
     ["-mat_type", "aij", "-mat_structure_detect", "0", "-precision", "f64"],
     ["-mat_type", "aij", "-mat_structure_detect", "0", "-pc_type", "bjacobi", "-pc_bjacobi_bs", "4"],
+    # item 9.2: greedy and banded GAMG, and GAMG's block-Jacobi levels on aij
+    ["-f", "system.bin", "-pc_bjacobi_bs", "4"],
+    ["-mat_type", "aij", "-pc_gamg_aggregation", "greedy"],
+    ["-mat_type", "aij", "-mat_structure_detect", "0", "-pc_gamg_aggregation", "banded"],
+    ["-mat_type", "aij", "-mat_structure_detect", "0", "-pc_bjacobi_bs", "4"],
+    ["-mat_type", "aij", "-mat_structure_detect", "0", "-pc_gamg_aggregation", "greedy"],
 ]
 
 
@@ -158,7 +166,7 @@ def test_accepted_values_parse_as_in_jax(argv):
     got = load_options(["-config", REF, *argv])
     want = j_load_options(["-config", REF, *argv])
     for f in ("pc_type", "pc_mg_cycle_type", "layout", "mat_type", "mat_structure_detect", "precision",
-              "pc_dtype", "f", "mat_view", "ksp_view_solution"):
+              "pc_dtype", "f", "mat_view", "ksp_view_solution", "pc_gamg_aggregation"):
         assert getattr(got, f) == getattr(want, f), f
     for f in dataclasses.fields(AMGParams):
         assert getattr(got.amg_params(), f.name) == getattr(want.amg_params(), f.name), f.name

@@ -186,7 +186,9 @@ def test_cli_routes_match_jax(argv):
     "argv, match",
     [
         (["-precision", "tf"], "not to port"),
-        (["-mat_type", "aij", "-mat_structure_detect", "0", "-pc_bjacobi_bs", "4"], "queue 1, item 9.2"),
+        # -mat_structure_detect 0 -pc_bjacobi_bs 4 on aij stood here; item
+        # 9.2 runs it (tests/test_torch_unstructured.py)
+        (["-problem", "diffusion"], "queue 11"),
     ],
 )
 def test_cli_refusals_name_their_roadmap_item(argv, match):

@@ -192,7 +192,7 @@ def test_structure_detect_chooses_the_route(monkeypatch, detect):
     rep = solve_poisson(12, mat_type="aij", structure_detect=detect, view=True, **KW)
     assert rep.reason == 2
     assert ("star DETECTED" in rep.solver_view) == detect
-    assert ("mat_type: aij (DIA containers)" in rep.solver_view) == (not detect)
+    assert ("mat_type: aij (DIA/HybridDIA containers)" in rep.solver_view) == (not detect)  # JAX's words
     assert (len(calls) == 0) == detect
     assert ("star_lift" in rep.setup_breakdown) == detect
 

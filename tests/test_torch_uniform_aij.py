@@ -3,7 +3,7 @@ block Jacobi from the host CSR, the assembly rules and ``KSP`` on host
 matrices, against the JAX package on the CPU: JAX's outer count and
 reason, inner within 1 (f32 summation order), Linf within 1e-6 (uniform
 f32: 2e-5, tests/test_torch_plain.py's rule); the refusals that remain
-name ROADMAP items 9.2 and 10."""
+name ROADMAP queue 12 and item 10."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -191,21 +191,27 @@ def test_ksp_mat_solve_on_a_dia_operator_matches_jax(precision):
 
 
 def test_remaining_refusals_name_items_9_2_and_10():
-    """GAMG's block-Jacobi level smoother on aij and a non-grid pattern
-    (the greedy and banded routes, item 9.2), the 3-D DFDIA view (item
-    9.2), a host matrix past 192 diagonals and mat_reorder="rcm" (item 10)."""
+    """What item 9.2 brought now runs as in JAX: GAMG's block-Jacobi level
+    smoother on aij and a non-grid pattern (the greedy route).  Still
+    refused: the 3-D DFDIA view (queue 12, with the sharded executor that
+    builds it), a host matrix past 192 diagonals and mat_reorder="rcm"
+    (item 10)."""
     import scipy.sparse as sp
 
     from tpusparse_torch.sparse.dia import DFDIA
 
-    with pytest.raises(NotImplementedError, match="queue 1, item 9.2"):
-        solve_poisson(8, device="cpu", rtol=1e-8, **{**BLIND, "warmup": False}, assembly="host",
-                      amg_params=AMGParams(bjacobi_bs=4))
+    kw = dict(rtol=1e-8, **{**BLIND, "warmup": False}, assembly="host")
+    got = solve_poisson(8, device="cpu", amg_params=AMGParams(bjacobi_bs=4), **kw)
+    want = j_solve_poisson(8, amg_params=JAMGParams(bjacobi_bs=4), **kw)
+    assert (got.iters, got.outer_iters, got.reason) == (want.iters, want.outer_iters, want.reason)
+    assert got.reason == 2 and got.linf_error == pytest.approx(want.linf_error, abs=1e-6)
     tri = sp.diags([-1.0, 2.5, -1.0], [-1, 0, 1], shape=(50, 50), format="csr")
-    with pytest.raises(NotImplementedError, match="queue 1, item 9.2"):
-        KSP(rtol=1e-8).set_operators(tri, device="cpu").setup()
+    b = np.ones(50)
+    got = KSP(rtol=1e-8).set_operators(tri, device="cpu").solve(torch.tensor(b))
+    want = JKSP(rtol=1e-8).set_operators(tri).solve(jnp.asarray(b))
+    assert (got.iters, got.outer_iters, got.reason) == (int(want.iters), int(want.outer_iters), int(want.reason))
     op_hi = poisson_dia_device(Grid3D(4, 4, 4), device="cpu")[0]
-    with pytest.raises(NotImplementedError, match="queue 1, item 9.2"):
+    with pytest.raises(NotImplementedError, match="queue 12"):
         DFDIA(op_hi.hi, op_hi.lo, op_hi.offsets, op_hi.shape, grid=((4, 4, 4), ()))
     rng = np.random.default_rng(3)
     m = sp.random(300, 300, density=0.05, random_state=rng, format="csr")

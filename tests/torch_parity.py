@@ -29,9 +29,30 @@ def _star(op, crop):
     }
 
 
+def _general_op(op):
+    """A JAX DIA, ELL or HybridDIA as interop's dict."""
+    if hasattr(op, "rem"):
+        return {"dia": _general_op(op.dia), "rem": None if op.rem is None else _general_op(op.rem)}
+    if hasattr(op, "cols"):
+        return {"cols": np.asarray(op.cols), "vals": np.asarray(op.vals), "shape": op.shape}
+    return {"bands": np.asarray(op.bands), "offsets": op.offsets, "shape": op.shape}
+
+
+def _general_transfer(tr):
+    """A JAX FactoredTransfer, SegTransfer or ELLTransfer as interop's dict."""
+    if hasattr(tr, "agg"):
+        return {"agg": np.asarray(tr.agg), "w": np.asarray(tr.w), "omega": np.asarray(tr.omega),
+                "n_coarse": tr.n_coarse, "nsmooths": tr.nsmooths}
+    if hasattr(tr, "s"):
+        return {"s": tr.s, "w": np.asarray(tr.w), "omega": np.asarray(tr.omega), "n_fine": tr.n_fine,
+                "n_coarse": tr.n_coarse}
+    return {"p": _general_op(tr.p), "r": _general_op(tr.r)}
+
+
 def jax_levels(jh):
     """The JAX hierarchy ``jh`` (padded or plain fine star and 27-point
-    coarse levels, or flat DIA levels with geometric transfers; optional
+    coarse levels, or flat DIA/ELL/HybridDIA levels with geometric,
+    factored, segment or ELL transfers; optional
     filtered operators, block-Jacobi sub-PCs and the dense coarse inverse)
     as numpy level dicts."""
     out = []
@@ -39,14 +60,16 @@ def jax_levels(jh):
         padded = isinstance(lev.op, JPaddedStar)
         if padded or isinstance(lev.op, JStarStencil3D):
             op = _star(lev.op, crop=padded)
-        elif hasattr(lev.op, "bands"):
-            op = {"bands": np.asarray(lev.op.bands), "offsets": lev.op.offsets, "shape": lev.op.shape}
+        elif hasattr(lev.op, "bands") or hasattr(lev.op, "cols") or hasattr(lev.op, "rem"):
+            op = _general_op(lev.op)
         else:
             op = {"coef": np.asarray(lev.op.coef, dtype=np.float32)}
         dinv = np.asarray(j_crop_field(lev.dinv, lev.op.true_shape)) if padded else np.asarray(lev.dinv)
         inner = getattr(lev.transfer, "inner", lev.transfer)
         transfer = None
-        if inner is not None and hasattr(inner, "w"):
+        if inner is not None and (hasattr(inner, "agg") or hasattr(inner, "s") or hasattr(inner, "p")):
+            transfer = _general_transfer(inner)
+        elif inner is not None and hasattr(inner, "w"):
             transfer = {
                 "w": np.asarray(inner.w), "omega": np.asarray(inner.omega),
                 "sz": np.asarray(inner.sz), "sy": np.asarray(inner.sy), "sx": np.asarray(inner.sx),

@@ -30,6 +30,7 @@ __version__ = "0.1.0"
 from tpusparse_torch.grid.grid3d import Grid3D
 from tpusparse_torch.ksp import KSP, KSPResult
 from tpusparse_torch.sparse.csr import HostCSR
+from tpusparse_torch.sparse.ell import ELL
 from tpusparse_torch.sparse.stencil import StarStencil3D
 
-__all__ = ["Grid3D", "HostCSR", "KSP", "KSPResult", "StarStencil3D", "__version__"]
+__all__ = ["ELL", "Grid3D", "HostCSR", "KSP", "KSPResult", "StarStencil3D", "__version__"]

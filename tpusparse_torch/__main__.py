@@ -116,6 +116,7 @@ def main(argv: list[str] | None = None) -> int:
             ksp_richardson_scale=opts.ksp_richardson_scale,
             mat_type=opts.mat_type,
             structure_detect=bool(opts.mat_structure_detect),
+            aggregation=opts.pc_gamg_aggregation,
             precision=opts.precision,
             # -layout auto: padded, or plain for the options the padded
             # kernels cannot honour (driver docstring)

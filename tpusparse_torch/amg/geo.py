@@ -127,6 +127,18 @@ def coarse_dims(shape, bs):
     return tuple(-(-s // b) for s, b in zip(shape, bs))
 
 
+def geo_aggregate_ids(shape, bs) -> np.ndarray:
+    """The aggregate id of every fine cell under bz x by x bx index blocks,
+    coarse cells in 3-D lexicographic order: (n,) int64 on the host, for
+    the host route's tentative prolongator and Galerkin product."""
+    nz, ny, nx = shape
+    _, cys, cxs = coarse_dims(shape, bs)
+    z, y, x = np.meshgrid(
+        np.arange(nz) // bs[0], np.arange(ny) // bs[1], np.arange(nx) // bs[2], indexing="ij",
+    )
+    return (z * cys * cxs + y * cxs + x).reshape(-1)
+
+
 def _ax_sizes(s, b):
     c = -(-s // b)
     out = np.full(c, b, np.float64)

@@ -51,15 +51,17 @@ f32 under f64 defect correction.  The routes:
   ``structure_detect`` (the JAX default, ``_solve_poisson_aij``'s
   ``:1062-1150``) ``sparse/starlift.py`` proves it a constant-coefficient
   star and the solve moves onto the stencil routes above (K1-K4 under mixed
-  precision).  Otherwise it is the structure-blind route: the
-  device-resident geometric GAMG (``amg/geo.py``) and the plain V-cycle
-  over flat DIA levels in the inner dtype, every f32 level apply kernel K5
+  precision); an explicit ``aggregation="greedy"`` skips the proof.
+  Otherwise it is the structure-blind route: ``amg/unstructured.py``'s
+  GAMG (geometric on a grid pattern, greedy on the host CSR, banded on the
+  device, routed as the JAX package routes) and the plain V-cycle over
+  DIA-family levels in the inner dtype, every f32 band apply kernel K5
   (f64 levels apply in plain torch); ``pc`` is gamg, jacobi, bjacobi (from
   the host CSR) or none there, in any precision.
 - ``solve_from_file``: a system read from a PETSc binary or MatrixMarket
   file (the JAX driver's ``:1478-1608``, PETSc's ex10), through ``KSP`` on
   the host matrix: the DIA family on the device and, with GAMG, the
-  geometric route above.
+  router's "auto" rule above.
 """
 
 from __future__ import annotations
@@ -99,6 +101,7 @@ from tpusparse_torch.grid.poisson import (
     poisson_dia_device,
     poisson_stencil_device,
 )
+from tpusparse_torch.kernels._build import library as kernel_library
 from tpusparse_torch.solve.bcgs import bicgstab
 from tpusparse_torch.solve.bjacobi import BlockJacobi
 from tpusparse_torch.solve.cg import ConvergedReason, cg
@@ -461,6 +464,7 @@ def solve_poisson(
     extent: tuple[float, float, float] | None = None,
     structure_detect: bool = True,
     assembly: str = "auto",
+    aggregation: str = "auto",
     compute_eigenvalues: bool = False,
     cg_fusion: bool = False,
     n_devices: int = 1,
@@ -506,15 +510,19 @@ def solve_poisson(
     route: padded, or plain where ``plain_cycle_only`` asks for the plain
     cycle, ignoring ``layout`` and ``pc_dtype`` as the JAX aij driver does;
     the proof's time is ``t_setup``'s ``setup_breakdown["star_lift"]``.
-    Otherwise (or where the proof fails, ``"star_lift_refused"``) it runs
-    the structure-blind route: a geometric GAMG over flat DIA levels in the
-    inner dtype, whose f32 applies are kernel K5 (f64 levels apply in plain
-    torch), or a standalone PC.  ``assembly`` (aij only, the JAX driver's
-    rules): "device" assembles on the device (``poisson_dia_device``, mixed
-    precision only, and no host CSR for ``bjacobi_bs``), "host" with
-    ``assemble_poisson`` on the host (and keeps the HostCSR ``pc="bjacobi"``
-    needs), and "auto" on the device under mixed precision where no
-    ``bjacobi_bs`` sub-PC asks for the host CSR, on the host otherwise.
+    An explicit ``aggregation="greedy"`` skips the proof, as in the JAX
+    driver.  Otherwise (or where the proof fails, ``"star_lift_refused"``)
+    it runs the structure-blind route: ``amg/unstructured.py``'s GAMG
+    (``aggregation`` "auto", "geometric", "greedy" or "banded", routed as
+    the JAX package routes it, the setup's sub-phases in
+    ``setup_breakdown``) over DIA-family levels in the inner dtype, whose
+    f32 band applies are kernel K5 (f64 levels apply in plain torch), or a
+    standalone PC.  ``assembly`` (aij only, the JAX driver's rules):
+    "device" assembles on the device (``poisson_dia_device``, mixed
+    precision only, and neither greedy aggregation nor a ``bjacobi_bs``
+    sub-PC, which need the host CSR), "host" with ``assemble_poisson`` on
+    the host (and keeps the HostCSR), and "auto" on the device under mixed
+    precision where the setup needs no host CSR, on the host otherwise.
 
     ``precision``: "mixed" (f32 inner solves under f64 defect correction),
     "f64" or "f32" (uniform: one solve in that dtype, always on plain
@@ -598,19 +606,23 @@ def solve_poisson(
             " -pc_bjacobi_bs / -mg_levels_pc_type sor / -mg_coarse_pc_type lu"
             " / -pc_type sor or use layout='plain'/'auto'"
         )
+    if aggregation not in ("auto", "geometric", "greedy", "banded"):
+        raise ValueError(f"unknown aggregation {aggregation!r}")
     mixed = precision == "mixed"
-    lift = mat_type == "aij" and pc == "gamg" and structure_detect
+    # an explicit greedy asks for the general machinery: no star proof
+    lift = mat_type == "aij" and pc == "gamg" and structure_detect and aggregation != "greedy"
     if mat_type == "aij":
         route = "aij"
         if assembly == "device" and not mixed:
             raise ValueError("assembly='device' requires precision='mixed'")
-        # the block-Jacobi level smoother on the structure-blind route runs
-        # the greedy setup, which needs the host CSR (and is item 9.2)
-        host_pc = pc == "gamg" and params.bjacobi_bs != 0
-        if assembly == "device" and host_pc:
+        if assembly == "device" and pc == "gamg" and (aggregation == "greedy" or params.bjacobi_bs):
             raise ValueError(
-                "assembly='device' leaves no host CSR, but bjacobi_bs requires one — use assembly='host'"
+                "assembly='device' leaves no host CSR, but greedy aggregation / bjacobi_bs require one"
+                " — use assembly='host'"
             )
+        # the setups that need no host matrix (the JAX driver's geo_route):
+        # geometric and banded, and every standalone PC but bjacobi
+        geo_route = pc != "gamg" or (aggregation != "greedy" and params.bjacobi_bs == 0)
     elif sharded:
         route = "sharded"
     else:
@@ -665,10 +677,10 @@ def solve_poisson(
         )
     else:
         on_device = assembly == "device" or (
-            assembly == "auto" and mixed and not host_pc and min(grid.shape) >= 2
+            assembly == "auto" and mixed and geo_route and min(grid.shape) >= 2
         )
         op, op_lo, b, exact, host_a = _assemble_aij(grid, device, precision, on_device)
-        layout_text = "mat_type: aij (DIA containers)"
+        layout_text = "mat_type: aij (DIA/HybridDIA containers)"
     _sync(device)
     t_init = time.perf_counter() - t0
 
@@ -727,9 +739,12 @@ def solve_poisson(
                 # the bf16 V-cycle: every stored field of the hierarchy
                 return cast_hierarchy(hier, torch.bfloat16) if bf16 else hier
         else:
+            sub_phases = {}
+
             def setup():
                 return gamg_setup_unstructured(
                     host_a, params, dtype=np.float32 if mixed else None, fine_op=op_lo,
+                    timings=sub_phases, aggregation=aggregation,
                 )
     else:
         def setup():
@@ -766,15 +781,22 @@ def solve_poisson(
                 m_mv=m if pc == "gamg" else pc_state, **extra,
             )
 
-    if warmup:
+    host_setup = route == "aij" and pc == "gamg" and not geo_route
+    if warmup and not host_setup:
         setup()
         _sync(device)
+    elif warmup and device.type == "cuda":
+        # the host setup is not run twice (its cost is host work no cache
+        # covers, as the JAX driver reasons); the kernels are built first
+        kernel_library()
     t0 = time.perf_counter()
     pc_state = setup()
     _sync(device)
     t_pc = time.perf_counter() - t0
     if pc == "gamg":
         breakdown["hierarchy_build"] = t_pc
+        if route == "aij":
+            breakdown.update({k: v for k, v in sub_phases.items() if k != "hierarchy_build"})
     t_setup = t_lift + t_pc
     if route == "padded" and pc == "gamg":
         layout_text += (

@@ -200,20 +200,10 @@ class Options:
             mat_type=self.mat_type, precision=self.precision, pc=self.pc_type, layout=self.layout,
             pc_dtype=self.pc_dtype, params=self.amg_params(),
         )
-        # the general-matrix routes that run GAMG without the star lift:
-        # -f, and -mat_type aij with -mat_structure_detect 0
-        blind = bool(self.f) or (self.mat_type == "aij" and not self.mat_structure_detect)
         refused = (
             (self.problem != "poisson", f"-problem {self.problem}", "queue 11"),
             (sharded is not None, f"-devices {self.devices} with {sharded}", "queue 12"),
             (self.profile, "-profile (the trace)", "queue 13"),
-            (self.mat_type == "aij"
-             and self.pc_gamg_aggregation in ("greedy", "banded"),
-             f"-pc_gamg_aggregation {self.pc_gamg_aggregation}",
-             "queue 1, item 9.2"),
-            # the JAX package runs them on the greedy host setup
-            (blind and self.pc_type == "gamg" and self.pc_bjacobi_bs != 0,
-             "-pc_bjacobi_bs with GAMG on a general matrix", "queue 1, item 9.2"),
         )
         for cond, what, item in refused:
             if cond:

@@ -39,9 +39,10 @@
 namespace {
 
 constexpr int BLOCK = 256;
-constexpr int MAX_BANDS = 48;
+constexpr int MAX_BANDS = 192;  // the DIA family's cap (DIA.host_bands)
 constexpr long long MAX_BLOCKS = 132 * 8 * 4;  // SMs x resident blocks x 4 waves
 
+// passed by value: 1.5 KB of the 4 KB kernel-parameter space
 struct Offsets {
   long long v[MAX_BANDS];
 };

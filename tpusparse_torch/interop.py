@@ -14,12 +14,15 @@ import torch
 
 import dataclasses
 
+from tpusparse_torch.amg.deviceagg import SegTransfer
 from tpusparse_torch.amg.geo import GeoTransfer
 from tpusparse_torch.amg.hierarchy import Hierarchy, Level
 from tpusparse_torch.amg.transfer import StructuredTransfer
+from tpusparse_torch.amg.unstructured import ELLTransfer, FactoredTransfer, member_table
 from tpusparse_torch.solve.bjacobi import BlockJacobi, PCRLineJacobi
 from tpusparse_torch.sparse.csr import HostCSR
-from tpusparse_torch.sparse.dia import DFDIA, DIA
+from tpusparse_torch.sparse.dia import DFDIA, DIA, HybridDIA
+from tpusparse_torch.sparse.ell import ELL
 from tpusparse_torch.sparse.padded import PaddedStar, PaddedTransfer, pad_field
 from tpusparse_torch.sparse.stencil import StarStencil3D
 from tpusparse_torch.sparse.varstencil import VarStencil27
@@ -57,6 +60,47 @@ def dfdia_from_numpy(hi, lo, offsets, shape, *, device) -> DFDIA:
     )
 
 
+def ell_from_numpy(cols, vals, shape, *, device) -> ELL:
+    """An ELL from the JAX package's width-major (width, n_rows) arrays."""
+    return ELL(
+        cols=_put(np.asarray(cols, np.int64), device), vals=_put(vals, device),
+        shape=tuple(int(s) for s in shape),
+    )
+
+
+def _general_op(d, device):
+    """A flat level operator: ``{"bands", "offsets", "shape"}`` (DIA),
+    ``{"cols", "vals", "shape"}`` (ELL) or ``{"dia", "rem"}`` (HybridDIA,
+    ``rem`` an ELL dict or None)."""
+    if "dia" in d:
+        return HybridDIA(
+            dia=_general_op(d["dia"], device),
+            rem=None if d["rem"] is None else _general_op(d["rem"], device),
+        )
+    if "cols" in d:
+        return ell_from_numpy(d["cols"], d["vals"], d["shape"], device=device)
+    return dia_from_numpy(d["bands"], d["offsets"], d["shape"], device=device)
+
+
+def _general_transfer(tr, device):
+    """``{"agg", "w", "omega", "n_coarse", "nsmooths"}`` (FactoredTransfer),
+    ``{"s", "w", "omega", "n_fine", "n_coarse"}`` (SegTransfer) or ``{"p",
+    "r"}`` ELL dicts (ELLTransfer)."""
+    if "agg" in tr:
+        agg = np.asarray(tr["agg"], np.int64)
+        n_c = int(tr["n_coarse"])
+        return FactoredTransfer(
+            agg=_put(agg, device), w=_put(tr["w"], device), omega=float(tr["omega"]),
+            members=_put(member_table(agg, n_c), device), n_coarse=n_c, nsmooths=int(tr["nsmooths"]),
+        )
+    if "s" in tr:
+        return SegTransfer(
+            w=float(tr["w"]), omega=float(tr["omega"]), s=int(tr["s"]), n_fine=int(tr["n_fine"]),
+            n_coarse=int(tr["n_coarse"]),
+        )
+    return ELLTransfer(p=_general_op(tr["p"], device), r=_general_op(tr["r"], device))
+
+
 def host_csr_from_numpy(indptr, indices, data, shape) -> HostCSR:
     """A HostCSR from the JAX package's (numpy) arrays, copied."""
     return HostCSR(
@@ -90,14 +134,15 @@ def hierarchy_from_numpy(
 
     Each level: ``op`` — ``{"diag", "cx", "cy", "cz", "pinned"}`` for the
     fine star (padded unless ``"plain": True``), ``{"coef"}`` for a
-    27-point level or ``{"bands", "offsets", "shape"}`` for a flat DIA
-    level; ``dinv`` (true shape); ``rho``; ``transfer`` — ``None`` on the
+    27-point level or a flat level (``_general_op``: DIA, ELL or
+    HybridDIA); ``dinv`` (true shape); ``rho``; ``transfer`` — ``None`` on the
     coarsest level, else ``{"omega", "tnorm", "sz", "sy", "sx",
     "fine_shape", "factor"}`` (per-axis factors) for a structured transfer,
     with ``"fop"`` — ``{"cx", "cy", "cz"}`` (the filtered star's legs) or
     ``{"coef"}`` (masked 27-point coefficients) — under a threshold
     schedule, or ``{"w", "omega", "sz", "sy", "sx", "fine_shape", "bs"}``
-    for a ``GeoTransfer``.  Optional: ``coarse_inv`` (the dense LU coarse
+    for a ``GeoTransfer``, or a transfer of the general route
+    (``_general_transfer``).  Optional: ``coarse_inv`` (the dense LU coarse
     inverse) and ``bjac`` (``_bjac_from_numpy``).
     """
     out = []
@@ -115,15 +160,17 @@ def hierarchy_from_numpy(
                 op_d["pinned"], device=device,
             )
             dinv = pad_field(_put(lv["dinv"], device), 1.0)
-        elif "bands" in op_d:
-            op = dia_from_numpy(op_d["bands"], op_d["offsets"], op_d["shape"], device=device)
+        elif "bands" in op_d or "cols" in op_d or "dia" in op_d:
+            op = _general_op(op_d, device)
             dinv = _put(lv["dinv"], device)
         else:
             op = VarStencil27(coef=_put(op_d["coef"], device))
             dinv = _put(lv["dinv"], device)
         tr = lv["transfer"]
         transfer = None
-        if tr is not None and "bs" in tr:
+        if tr is not None and ("agg" in tr or "s" in tr or "p" in tr):
+            transfer = _general_transfer(tr, device)
+        elif tr is not None and "bs" in tr:
             transfer = GeoTransfer(
                 w=_put(tr["w"], device),
                 omega=float(tr["omega"]),

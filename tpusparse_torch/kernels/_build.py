@@ -1,6 +1,9 @@
 """Build and load the CUDA kernels: nvcc into a shared library with a plain C
 interface, loaded with ctypes.
 
+The host setup engine ``csrc/native.cpp`` (plain C++, no CUDA) is built
+the same way by ``build_native`` with g++, for ``tpusparse_torch/native.py``.
+
 At first use, every ``csrc/*.cu`` is compiled for ``sm_90a`` by an nvcc
 of its own, all started together, and the objects are linked into one
 library under ``csrc/build/`` (listed in ``.gitignore``).  The library's
@@ -64,20 +67,26 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found on PATH or under CUDA_HOME")
 
 
-def build() -> Path:
-    """Path of the kernel library, compiling it when its sources changed."""
-    lib = BUILD_DIR / f"libtpusparse_torch_{_digest()}.so"
+def _built(lib: Path, compile_to) -> Path:
+    """``lib``, made by ``compile_to(path)`` unless it exists: written
+    under a temporary name and renamed, so a concurrent reader never sees
+    half a file."""
     if lib.exists():
         return lib
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
     try:
-        _compile(sources(), tmp)
+        compile_to(tmp)
     except RuntimeError:
         tmp.unlink(missing_ok=True)
         raise
-    os.replace(tmp, lib)  # atomic: a concurrent reader never sees half a file
+    os.replace(tmp, lib)
     return lib
+
+
+def build() -> Path:
+    """Path of the kernel library, compiling it when its sources changed."""
+    return _built(BUILD_DIR / f"libtpusparse_torch_{_digest()}.so", lambda out: _compile(sources(), out))
 
 
 def _compile(srcs: list[Path], out: Path) -> None:
@@ -104,6 +113,28 @@ def _compile(srcs: list[Path], out: Path) -> None:
     finally:
         for obj in objs:
             obj.unlink(missing_ok=True)
+
+
+NATIVE_SRC = CSRC / "native.cpp"
+GXX_FLAGS = ("-O3", "-fPIC", "-std=c++17", "-shared")
+
+
+def build_native() -> Path:
+    """Path of the host setup engine (``csrc/native.cpp``, plain C++ for
+    the CPU), compiled with g++ into ``csrc/build/`` when its source or
+    flags changed; raise with g++'s messages when it fails."""
+    h = hashlib.sha256(" ".join(GXX_FLAGS).encode())
+    h.update(NATIVE_SRC.read_bytes())
+
+    def gxx(out: Path) -> None:
+        exe = shutil.which("g++") or shutil.which("c++")
+        if exe is None:
+            raise RuntimeError("g++ not found on PATH: the setup engine (csrc/native.cpp) cannot be built")
+        proc = subprocess.run([exe, *GXX_FLAGS, "-o", str(out), str(NATIVE_SRC)], capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"g++ failed with code {proc.returncode}:\n{proc.stderr}")
+
+    return _built(BUILD_DIR / f"libtpusparse_torch_native_{h.hexdigest()[:16]}.so", gxx)
 
 
 def library() -> ctypes.CDLL:

@@ -33,7 +33,7 @@ import torch
 
 from tpusparse_torch.kernels import LAUNCHES, _build
 
-MAX_BANDS = 48
+MAX_BANDS = 192  # the DIA family's cap, DIA.host_bands(max_offsets=192)
 
 
 def _shift(x: torch.Tensor, o: int, n: int | None = None, dim: int = -1) -> torch.Tensor:
@@ -67,7 +67,7 @@ def dia_mv_torch(bands: torch.Tensor, x: torch.Tensor, offsets) -> torch.Tensor:
 def check_operands(bands: torch.Tensor, x: torch.Tensor, offsets, stacked: bool = False) -> None:
     """Raise unless ``bands`` (K, n) and ``x`` ((n,), or (k, n) when
     ``stacked``) are contiguous f32 tensors on one device, with 1 <= K <=
-    48, K offsets and n < 2^31."""
+    MAX_BANDS (192), K offsets and n < 2^31."""
     want = 2 if stacked else 1
     if bands.dim() != 2 or x.dim() != want or x.shape[-1] != bands.shape[1]:
         raise ValueError(

@@ -35,7 +35,9 @@ to the device as the DIA family, as in the JAX package: under mixed
 precision one f32 upload is both the hierarchy's fine operator and the hi
 half of a ``DFDIA`` outer operator; under uniform precision one ``DIA`` in
 the solve's dtype is both operators.  The host matrix is kept for
-``pc_type="bjacobi"``.  A host matrix with more than 192 diagonals and
+``pc_type="bjacobi"`` and for GAMG's greedy setup and block-Jacobi level
+smoother (``amg/unstructured.py``), which take it where its pattern is no
+3-D grid.  A host matrix with more than 192 diagonals and
 ``mat_reorder="rcm"`` (RCM and the banded-ELL executor, ROADMAP queue 1,
 item 10) raise ``NotImplementedError``.  The JAX package's
 ``_solve_chunked`` (a libtpu workaround) and jit caches are not to port.
@@ -311,8 +313,12 @@ class KSP:
             if kind == "structured":
                 self._setup_structured(gamma)
             elif kind == "general":
+                # the router's "auto" rule, as the JAX package's KSP takes it:
+                # geometric on a grid, greedy on the host matrix kept, banded
+                # without one or past GREEDY_ROW_LIMIT rows
                 self._pc_state = gamg_setup_unstructured(
                     self._host_a, self.amg_params, fine_op=self._op_lo,
+                    dtype=np.float32 if self.precision == "mixed" else None,
                 )
                 # the hierarchy's fine level is the inner operator
                 self._op_lo = self._pc_state.levels[0].op

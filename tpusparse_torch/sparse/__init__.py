@@ -1,13 +1,14 @@
 """Sparse containers: the stencil operators and the padded-resident layout,
-the host CSR and its PETSc binary I/O, and the COO, BSR and DIA families —
-the exports of ``tpusparse/sparse/__init__.py`` but ``PallasDIA`` and the
-two-float ``StarStencilDF`` (ROADMAP "Not to port") and ``ELL`` (queue 1,
-item 9.2)."""
+the host CSR and its PETSc binary I/O, the COO, BSR and DIA families and
+the padded ELL: the exports of ``tpusparse/sparse/__init__.py`` but
+``PallasDIA`` and the two-float ``StarStencilDF`` (ROADMAP "Not to
+port")."""
 
 from tpusparse_torch.sparse.bsr import BSR
 from tpusparse_torch.sparse.coo import COO
 from tpusparse_torch.sparse.csr import HostCSR
 from tpusparse_torch.sparse.dia import DIA
+from tpusparse_torch.sparse.ell import ELL
 from tpusparse_torch.sparse.io import (
     load_matrix,
     load_petsc_mat,
@@ -24,6 +25,7 @@ __all__ = [
     "COO",
     "HostCSR",
     "DIA",
+    "ELL",
     "PaddedStar",
     "StarStencil3D",
     "VarStencil27",

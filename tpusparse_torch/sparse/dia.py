@@ -16,7 +16,9 @@ CUDA tensor the hand-written kernels, on a CPU tensor their plain twin.
 Bands of any other dtype (the f64 levels of uniform precision) apply in
 plain torch in ascending band order, which is the JAX package's own XLA
 ``DIA.mv``: its Pallas K5 is f32 only, as the port's kernels are.
-``DFDIA`` is the two-float (hi + lo f32) outer operator of the
+``HybridDIA`` keeps the heaviest diagonals of a matrix past the DIA cap
+as a DIA (K5) and the rest as a thin ``ELL`` gather (``auto_container``
+picks one or the other).  ``DFDIA`` is the two-float (hi + lo f32) outer operator of the
 mixed-precision solve; its apply stays plain torch in x's dtype (f64),
 once per outer sweep, as the JAX package computes it in XLA.
 """
@@ -146,6 +148,100 @@ class DIA:
 
 
 @dataclasses.dataclass
+class HybridDIA:
+    """DIA for the heavy diagonals plus a thin ELL remainder.
+
+    Matrices that occupy too many distinct diagonals for pure DIA (the
+    Galerkin coarse operators of greedy aggregation: a few dominant
+    near-grid offsets and a scatter of ragged-boundary entries) split: the
+    most populated diagonals carry the bulk of the entries through K5, and
+    the rest is an ``ELL`` gather.  ``mv`` takes a vector or a stack of
+    columns (k, n).
+    """
+
+    dia: DIA
+    rem: object | None   # ELL, or None when the bands cover everything
+
+    @classmethod
+    def from_csr(cls, csr, max_bands: int = 64, dtype=None, *, device) -> "HybridDIA":
+        """Keep the ``max_bands`` most populated diagonals (and the main
+        one) as DIA, the rest as ELL.  The bands are chosen with the JAX
+        package's numpy calls (``np.unique`` counts, a reversed
+        ``np.argsort``), so tied counts pick the same diagonals."""
+        import scipy.sparse as sp
+
+        from tpusparse_torch.sparse.ell import ELL
+
+        if not isinstance(csr, HostCSR):
+            csr = HostCSR.from_scipy(csr)
+        n, m = csr.shape
+        rows = np.repeat(np.arange(n, dtype=np.int64), np.diff(csr.indptr))
+        off = csr.indices.astype(np.int64) - rows
+        offsets, counts = np.unique(off, return_counts=True)
+        if offsets.size > max_bands:
+            order = np.argsort(counts)[::-1]
+            keep = set(offsets[order[:max_bands]].tolist())
+            keep.add(0)
+        else:
+            keep = set(offsets.tolist()) | {0}
+        in_dia = np.isin(off, np.fromiter(keep, np.int64))
+
+        def sub(mask):
+            return sp.csr_matrix((csr.data[mask], (rows[mask], csr.indices[mask])), shape=(n, m))
+
+        dia = DIA.from_csr(sub(in_dia), max_offsets=max_bands + 1, dtype=dtype, device=device)
+        rem = None
+        if (~in_dia).any():
+            rem = ELL.from_csr(sub(~in_dia), dtype=dtype, device=device)
+        return cls(dia=dia, rem=rem)
+
+    @property
+    def shape(self) -> tuple[int, int]:
+        return self.dia.shape
+
+    @property
+    def n_rows(self) -> int:
+        return self.dia.n_rows
+
+    @property
+    def n_cols(self) -> int:
+        return self.dia.n_cols
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return self.dia.dtype
+
+    @property
+    def nnz(self) -> int:
+        return self.dia.nnz + (self.rem.nnz if self.rem is not None else 0)
+
+    def mv(self, x: torch.Tensor) -> torch.Tensor:
+        y = self.dia.mv(x)
+        if self.rem is not None:
+            y = y + self.rem.mv(x)
+        return y
+
+    def diagonal(self) -> torch.Tensor:
+        return self.dia.diagonal()  # the main diagonal is always a band
+
+    def to_scipy(self):
+        a = self.dia.to_scipy()
+        if self.rem is not None:
+            a = (a + self.rem.to_csr().to_scipy()).tocsr()
+        return a
+
+
+def auto_container(csr, max_bands: int = 64, dtype=None, *, device):
+    """The level container of a host matrix past the DIA cap: pure DIA
+    when its ``max_bands`` heaviest diagonals cover it, else a
+    ``HybridDIA``.  The JAX package's ``auto_container`` without its gather
+    cap (a libtpu crash cap, not to port): no widened DIA, no banded
+    ELL."""
+    hyb = HybridDIA.from_csr(csr, max_bands=max_bands, dtype=dtype, device=device)
+    return hyb.dia if hyb.rem is None else hyb
+
+
+@dataclasses.dataclass
 class DFDIA:
     """Two-float (hi + lo f32) banded matrix that applies in x's dtype.
 
@@ -155,7 +251,10 @@ class DFDIA:
     may alias the f32 hierarchy's fine-level bands.
 
     ``grid`` (the JAX package's 3-D view, ``sparse/griddia.py``) is not
-    ported (ROADMAP queue 1, item 9.2): only the flat form exists here.
+    ported: only the JAX package's sharded general executor
+    (``dist/general.py``) builds it, so it belongs with the multi-device
+    work (ROADMAP queue 12).  No single-device entry point builds it, and
+    the JAX driver keeps the flat form, measured faster there.
     """
 
     hi: torch.Tensor                 # (K, n) f32
@@ -168,7 +267,7 @@ class DFDIA:
         if self.grid is not None:
             raise NotImplementedError(
                 "the 3-D grid view of DFDIA (sparse/griddia.py) is not ported to tpusparse_torch yet"
-                " (ROADMAP queue 1, item 9.2)"
+                " (ROADMAP queue 12: only the sharded general executor builds it)"
             )
 
     @classmethod
