@@ -189,15 +189,20 @@ def test_every_ksp_type_through_the_cli(ksp):
     _same_outcome(want, got, inner_window=1, linf_abs=1e-6)
 
 
-def test_help_and_refusals(capsys):
+def test_help_and_refusals(capsys, tmp_path):
+    """-help, and the two values refused here before item 11 and -profile
+    were ported: -problem diffusion solves (tests/test_torch_diffusion.py
+    holds it to JAX) and -profile writes a trace (tests/test_torch_
+    profiling.py).  (-f with -pc_bjacobi_bs, refused here before item 9.2,
+    solves: tests/test_torch_unstructured.py.)"""
     assert main(["-help"]) == 0
     assert "-device" in capsys.readouterr().out
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        main([*_grid(8), "-problem", "diffusion", "-device", "cpu"])
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        # (-f with -pc_bjacobi_bs, refused here before item 9.2, solves:
-        # tests/test_torch_unstructured.py)
-        main([*_grid(8), "-profile", "trace_dir", "-device", "cpu"])
+    text, got = _run(main, [*_grid(8), "-problem", "diffusion", "-device", "cpu"])
+    assert got["reason"] > 0 and got["mat_type"] == "varstencil"
+    assert "Problem: diffusion(contrast=100)" in text
+    text, got = _run(main, [*_grid(8), "-profile", str(tmp_path / "trace_dir"), "-device", "cpu"])
+    assert got["reason"] > 0
+    assert len(list((tmp_path / "trace_dir").glob("*.pt.trace.json"))) == 1
 
 
 def test_cuda_device_needs_cuda(monkeypatch):

@@ -14,7 +14,9 @@ reuse and ``mat_solve`` at 18^3 against the CPU, and K5 over a stack
 and the structure-blind aij route in uniform precision against the CPU,
 and K5 with 49-192 bands, ELL and the factored transfer (same bits twice),
 and the greedy, banded and block-Jacobi-level aij routes at 16^3 against
-the CPU.
+the CPU, and the diffusion solve at 16^3 and the RCM-reordered route (the
+ELL pair, K5 on its HybridDIA level 0) against the CPU and the natural
+order.
 
 These tests need a CUDA device and skip without one.  The file imports no
 JAX, so it also runs where JAX is not installed:
@@ -889,3 +891,63 @@ def test_item_9_2_routes_on_card_match_cpu(cuda, kw):
     assert abs(gpu.iters - cpu.iters) <= 2
     assert (again.iters, again.outer_iters) == (gpu.iters, gpu.outer_iters)
     assert abs(gpu.linf_error - cpu.linf_error) < 1e-6
+
+
+def test_diffusion_on_card_matches_cpu(cuda):
+    """solve_diffusion at 16^3 (mixed, contrast 100) on the card: reason 2,
+    the CPU's outer count and inner within 2, Linf within 1e-6 of it."""
+    from tpusparse_torch.bench.driver import solve_diffusion
+
+    gpu = solve_diffusion(16, device=cuda)
+    cpu = solve_diffusion(16, device="cpu")
+    assert gpu.reason == cpu.reason == 2 and gpu.outer_iters == cpu.outer_iters
+    assert abs(gpu.iters - cpu.iters) <= 2
+    assert abs(gpu.linf_error - cpu.linf_error) < 1e-6
+
+
+def _scrambled(n: int, seed: int = 0):
+    """The pinned n^3 Poisson system, randomly permuted: (matrix, b, p)."""
+    from tpusparse_torch.sparse.reorder import permute_csr
+
+    a, b, _ = assemble_poisson(Grid3D(n, n, n))
+    p = np.random.default_rng(seed).permutation(a.n_rows)
+    return a, permute_csr(a, p), b, p
+
+
+def test_reordered_ell_pair_on_card(cuda):
+    """A scrambled 12^3 matrix, reordered by RCM, goes to the card as the
+    f64 and f32 ELL pair (past 192 diagonals): each apply agrees with the
+    host CSR's, f64 to 1e-12 and f32 to 1e-5 of max|y|."""
+    from tpusparse_torch.sparse.ell import ELL
+
+    _, s, _, _ = _scrambled(12)
+    solver = KSP(rtol=1e-8).set_operators(s, device=cuda)
+    assert isinstance(solver._op, ELL) and isinstance(solver._op_lo, ELL)
+    assert (solver._op.dtype, solver._op_lo.dtype) == (torch.float64, torch.float32)
+    x = np.random.default_rng(2).standard_normal(s.n_rows)
+    want = solver._host_a.mv(x)
+    scale = np.abs(want).max()
+    y64 = solver._op.mv(torch.tensor(x, device=cuda)).cpu().numpy()
+    y32 = solver._op_lo.mv(torch.tensor(x, dtype=torch.float32, device=cuda)).cpu().numpy()
+    assert np.abs(y64 - want).max() <= 1e-12 * scale
+    assert np.abs(y32 - want).max() <= 1e-5 * scale
+
+
+def test_reordered_solve_on_card_launches_k5(cuda):
+    """The reordered GAMG solve of a scrambled 14^3 system on the card:
+    level 0 a HybridDIA whose bands run K5 (dia_mv launched), reason 2,
+    the CPU's counts (inner within 2), and x equal to the natural-order
+    solve's, permuted, to 1e-6."""
+    a, s, b, p = _scrambled(14)
+    bp = torch.tensor(b[p], device=cuda)
+    solver = KSP(rtol=1e-8).set_operators(s, device=cuda)
+    solver.setup()
+    assert type(solver._op_lo).__name__ == "HybridDIA"
+    kernels.reset_launches()
+    res = solver.solve(bp)
+    assert kernels.LAUNCHES["dia_mv"] > 0
+    cpu = KSP(rtol=1e-8).set_operators(s, device="cpu").solve(bp.cpu())
+    assert res.reason == cpu.reason == 2 and res.outer_iters == cpu.outer_iters
+    assert abs(res.iters - cpu.iters) <= 2
+    natural = KSP(rtol=1e-8).set_operators(a, device=cuda).solve(torch.tensor(b, device=cuda))
+    assert (res.x - natural.x[torch.as_tensor(p, device=cuda)]).abs().max().item() <= 1e-6

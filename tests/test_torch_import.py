@@ -54,7 +54,9 @@ def test_port_imports_no_jax():
      "sparse/reorder.py", "sparse/__init__.py", "bench/__init__.py",
      # item 9.2: the containers, the setup engine and the two setups
      "sparse/ell.py", "sparse/dia.py", "native.py", "amg/unstructured.py", "amg/deviceagg.py",
-     "bench/deviceaggbench.py"],
+     "bench/deviceaggbench.py",
+     # items 11 and 10 and -profile: the diffusion family, RCM, the record
+     "grid/diffusion.py", "bench/reorderbench.py", "utils/profiling.py", "utils/__init__.py"],
 )
 def test_cli_and_ksp_modules_are_scanned_and_import(module):
     """The CLI, the options database, the Krylov family and the file

@@ -171,8 +171,10 @@ def test_host_matrices_are_refused_and_jax_solves_them():
     """A HostCSR or scipy matrix goes to the device as the DIA family and
     solves as the JAX package's host route does (JAX's outer count and
     reason, inner within 1, x to 1e-6).  A host matrix past the DIA
-    family's 192 diagonals, and ``mat_reorder="rcm"``, raise naming item
-    10 (RCM and the banded ELL); JAX solves the first."""
+    family's 192 diagonals, and ``mat_reorder="rcm"``, raised naming item
+    10 before it was ported: now the first is reordered by RCM onto the
+    padded ELL and solves as JAX's does (its counts, x to 1e-8), and the
+    second reorders any matrix."""
     a, b_np, _ = j_assemble_poisson(JGrid3D(N, N, N), dtype=np.float64)
     want = JKSP(rtol=1e-8).set_operators(a).solve(jnp.asarray(b_np))
     host, b, _ = assemble_poisson(Grid3D(N, N, N))
@@ -185,10 +187,13 @@ def test_host_matrices_are_refused_and_jax_solves_them():
     rhs = np.ones(400)
     jres = JKSP(rtol=1e-8, pc_type="jacobi", precision="f64").set_operators(scattered).solve(jnp.asarray(rhs))
     assert jres.converged
-    with pytest.raises(NotImplementedError, match="item 10"):
-        KSP(rtol=1e-8, pc_type="jacobi", precision="f64").set_operators(scattered, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 10"):
-        KSP(mat_reorder="rcm")
+    ksp = KSP(rtol=1e-8, pc_type="jacobi", precision="f64").set_operators(scattered, device="cpu")
+    got = ksp.solve(torch.tensor(rhs))
+    assert ksp._perm is not None and (got.iters, got.reason) == (int(jres.iters), int(jres.reason))
+    assert np.abs(got.x.numpy() - np.asarray(jres.x)).max() <= 1e-8
+    rcm = KSP(rtol=1e-8, mat_reorder="rcm").set_operators(host, device="cpu")
+    assert rcm._perm is not None
+    _same_mixed(rcm.solve(torch.tensor(b)), JKSP(rtol=1e-8, mat_reorder="rcm").set_operators(a).solve(jnp.asarray(b_np)))
 
 
 def test_dia_family_general_route_matches_jax():

@@ -111,16 +111,17 @@ def test_malformed_values_raise_in_both(argv, err):
     "argv",
     [
         # the item-9.2 values that stood here (-pc_gamg_aggregation greedy
-        # and banded, -pc_bjacobi_bs with GAMG on aij) are ported: ACCEPTED
-        ["-problem", "diffusion", "-mat_type", "aij"],
+        # and banded, -pc_bjacobi_bs with GAMG on aij) are ported, and so
+        # are -problem diffusion and -profile (items 11 and 13): ACCEPTED
+        ["-problem", "diffusion", "-devices", "2"],
         ["-mat_type", "aij", "-devices", "2"],
-        ["-problem", "diffusion"],
+        ["-problem", "diffusion", "-devices", "4", "-mat_type", "aij"],
         ["-devices", "4"],
         ["-precision", "tf"],                    # not to port
-        ["-profile", "trace_dir", "-mat_type", "aij"],
-        ["-profile", "trace_dir"],
+        ["-profile", "trace_dir", "-mat_type", "aij", "-devices", "2"],
+        ["-profile", "trace_dir", "-devices", "2", "-layout", "plain"],
         ["-mat_type", "aij", "-mat_structure_detect", "0", "-devices", "2"],
-        ["-problem", "diffusion", "-pc_gamg_aggregation", "greedy"],
+        ["-problem", "diffusion", "-pc_gamg_aggregation", "greedy", "-devices", "2"],
     ],
 )
 def test_unported_values_raise(argv):
@@ -158,6 +159,15 @@ ACCEPTED = [
     ["-mat_type", "aij", "-mat_structure_detect", "0", "-pc_gamg_aggregation", "banded"],
     ["-mat_type", "aij", "-mat_structure_detect", "0", "-pc_bjacobi_bs", "4"],
     ["-mat_type", "aij", "-mat_structure_detect", "0", "-pc_gamg_aggregation", "greedy"],
+    # item 11 (the diffusion family), item 10 (-mat_reorder) and -profile
+    ["-problem", "diffusion", "-mat_type", "aij"],
+    ["-problem", "diffusion"],
+    ["-problem", "diffusion", "-diffusion_contrast", "10"],
+    ["-profile", "trace_dir", "-mat_type", "aij"],
+    ["-profile", "trace_dir"],
+    ["-problem", "diffusion", "-pc_gamg_aggregation", "greedy"],
+    ["-f", "system.bin", "-mat_reorder", "rcm"],
+    ["-f", "system.bin", "-mat_reorder", "none"],
 ]
 
 
@@ -166,7 +176,8 @@ def test_accepted_values_parse_as_in_jax(argv):
     got = load_options(["-config", REF, *argv])
     want = j_load_options(["-config", REF, *argv])
     for f in ("pc_type", "pc_mg_cycle_type", "layout", "mat_type", "mat_structure_detect", "precision",
-              "pc_dtype", "f", "mat_view", "ksp_view_solution", "pc_gamg_aggregation"):
+              "pc_dtype", "f", "mat_view", "ksp_view_solution", "pc_gamg_aggregation", "problem", "profile",
+              "diffusion_contrast", "mat_reorder"):
         assert getattr(got, f) == getattr(want, f), f
     for f in dataclasses.fields(AMGParams):
         assert getattr(got.amg_params(), f.name) == getattr(want.amg_params(), f.name), f.name

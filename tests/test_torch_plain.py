@@ -187,8 +187,10 @@ def test_cli_routes_match_jax(argv):
     [
         (["-precision", "tf"], "not to port"),
         # -mat_structure_detect 0 -pc_bjacobi_bs 4 on aij stood here; item
-        # 9.2 runs it (tests/test_torch_unstructured.py)
-        (["-problem", "diffusion"], "queue 11"),
+        # 9.2 runs it (tests/test_torch_unstructured.py).  -problem
+        # diffusion, refused as queue 11 before, runs on one device
+        # (tests/test_torch_diffusion.py); several are queue 12
+        (["-problem", "diffusion", "-devices", "2"], "queue 12"),
     ],
 )
 def test_cli_refusals_name_their_roadmap_item(argv, match):

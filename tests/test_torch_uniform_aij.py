@@ -194,8 +194,8 @@ def test_remaining_refusals_name_items_9_2_and_10():
     """What item 9.2 brought now runs as in JAX: GAMG's block-Jacobi level
     smoother on aij and a non-grid pattern (the greedy route).  Still
     refused: the 3-D DFDIA view (queue 12, with the sharded executor that
-    builds it), a host matrix past 192 diagonals and mat_reorder="rcm"
-    (item 10)."""
+    builds it).  A host matrix past 192 diagonals and mat_reorder="rcm",
+    refused as item 10 before it was ported, solve as in JAX."""
     import scipy.sparse as sp
 
     from tpusparse_torch.sparse.dia import DFDIA
@@ -215,7 +215,10 @@ def test_remaining_refusals_name_items_9_2_and_10():
         DFDIA(op_hi.hi, op_hi.lo, op_hi.offsets, op_hi.shape, grid=((4, 4, 4), ()))
     rng = np.random.default_rng(3)
     m = sp.random(300, 300, density=0.05, random_state=rng, format="csr")
-    with pytest.raises(NotImplementedError, match="queue 1, item 10"):
-        KSP(rtol=1e-8).set_operators((m + m.T + 30.0 * sp.eye(300)).tocsr(), device="cpu")
-    with pytest.raises(NotImplementedError, match="queue 1, item 10"):
-        KSP(mat_reorder="rcm")
+    wide = (m + m.T + 30.0 * sp.eye(300)).tocsr()
+    b = np.ones(300)
+    for reorder in ("auto", "rcm"):
+        got = KSP(rtol=1e-8, mat_reorder=reorder).set_operators(wide, device="cpu").solve(torch.tensor(b))
+        want = JKSP(rtol=1e-8, mat_reorder=reorder).set_operators(wide).solve(jnp.asarray(b))
+        assert (got.iters, got.outer_iters, got.reason) == (int(want.iters), int(want.outer_iters), int(want.reason))
+        assert np.abs(got.x.numpy() - np.asarray(want.x)).max() <= 1e-6

@@ -1,11 +1,14 @@
 """CLI driver — the reference's benchmark binary on the PyTorch port; port
-of the Poisson branch and the file route of ``tpusparse/__main__.py``.
+of ``tpusparse/__main__.py``: the Poisson problem, the diffusion family
+and the file route.
 
     python -m tpusparse_torch -da_grid_x 300 -da_grid_y 300 -da_grid_z 300 \
         -config configs/SolverOptions_GAMG.info
     python -m tpusparse_torch -da_grid_x 300 -da_grid_y 300 -da_grid_z 300 \
         -mat_view binary:p300.petsc
     python -m tpusparse_torch -f p300.petsc -ksp_view_solution binary:x300.petsc
+    python -m tpusparse_torch -problem diffusion -da_grid_x 192 -da_grid_y 192 \
+        -da_grid_z 192 -diffusion_contrast 100 -ksp_rtol 1e-8
 
 Prints the reference's output block (``src/main_ksp.cpp:124-129``) plus a
 JSON sidecar line prefixed with ``JSON:``, and what ``-ksp_view``,
@@ -15,7 +18,12 @@ binary:<file>`` writes the assembled Poisson system (matrix, rhs, exact
 solution) as PETSc binary objects before the solve; ``-f <file>`` solves
 the system of a PETSc binary or MatrixMarket file instead (PETSc's ex10,
 ``bench/driver.py::solve_from_file``), and ``-ksp_view_solution
-binary:<file>`` writes its solution.  ``-device cuda`` (the default) needs
+binary:<file>`` writes its solution; ``-mat_reorder auto|rcm|none``
+orders its matrix (``KSP``).  ``-problem diffusion`` solves the
+variable-coefficient diffusion problem (``bench/driver.py::
+solve_diffusion``; CG + GAMG only, ``-diffusion_contrast``).
+``-profile <dir>`` writes a ``torch.profiler`` trace of the solve into
+``<dir>`` (``utils/profiling.py``).  ``-device cuda`` (the default) needs
 a CUDA device; ``-device cpu`` runs every kernel's plain twin on the CPU.
 """
 
@@ -48,8 +56,7 @@ def _export(opts) -> None:
     fname = _viewer_file(opts.mat_view)
     if opts.problem != "poisson":
         # the export assembles the Poisson system: for another problem it
-        # would not be the system of the run (-problem diffusion is ROADMAP
-        # queue 11)
+        # would not be the system of the run
         raise ValueError(
             f"-mat_view export supports -problem poisson only (the requested problem is {opts.problem!r})"
         )
@@ -66,9 +73,42 @@ def _export(opts) -> None:
     )
 
 
+def _diffusion(opts, device):
+    """-problem diffusion: the second problem family, CG + GAMG only.  A
+    method the user asked for explicitly is never silently replaced: any
+    other -ksp_type or -pc_type is an error, as in the JAX CLI."""
+    import warnings
+
+    from tpusparse_torch.bench.driver import solve_diffusion
+
+    provided = getattr(opts, "_provided", ())
+    if "ksp_type" in provided and opts.ksp_type != "cg":
+        raise ValueError(
+            f"-problem diffusion runs -ksp_type cg (got {opts.ksp_type!r}); other Krylov methods are not"
+            " wired to the diffusion driver"
+        )
+    if "pc_type" in provided and opts.pc_type != "gamg":
+        raise ValueError(f"-problem diffusion runs -pc_type gamg (got {opts.pc_type!r})")
+    if opts.ksp_monitor or opts.ksp_compute_eigenvalues:
+        warnings.warn("-ksp_monitor/-ksp_compute_eigenvalues are not wired to the diffusion driver; ignoring")
+    return solve_diffusion(
+        opts.da_grid_x, opts.da_grid_y, opts.da_grid_z,
+        device=device,
+        contrast=opts.diffusion_contrast,
+        rtol=opts.ksp_rtol,
+        atol=opts.ksp_atol,
+        divtol=opts.ksp_divtol,
+        maxiter=opts.ksp_max_it,
+        precision=opts.precision,
+        amg_params=opts.amg_params(),
+        mg_cycle=opts.pc_mg_cycle_type,
+        view=opts.ksp_view,
+    )
+
+
 def main(argv: list[str] | None = None) -> int:
-    from tpusparse_torch.bench.driver import solve_from_file, solve_poisson
     from tpusparse_torch.config.options import help_text, load_options, options_left_report
+    from tpusparse_torch.utils.profiling import trace
 
     args = argv if argv is not None else sys.argv[1:]
     if "-help" in args or "--help" in args:
@@ -83,8 +123,37 @@ def main(argv: list[str] | None = None) -> int:
         )
     if opts.mat_view and not opts.f:
         _export(opts)
+    if not opts.f and opts.problem not in ("poisson", "diffusion"):
+        raise ValueError(f"unknown -problem {opts.problem!r} (poisson | diffusion)")
+    # the Poisson branch's extra blocks (-ksp_monitor, -ksp_compute_eigenvalues,
+    # -log_view), as in the JAX CLI
+    poisson = not opts.f and opts.problem == "poisson"
+    with trace(opts.profile):
+        rep = _solve(opts, device)
+    if opts.ksp_view and rep.solver_view:
+        print(rep.solver_view)
+    if opts.ksp_monitor and poisson:
+        print(rep.monitor_block())
+    if opts.ksp_converged_reason:
+        print(rep.converged_reason_line())
+    if opts.ksp_compute_eigenvalues and rep.eigenvalues:
+        print(rep.eigenvalues_block())
+    print(rep.reference_block())
+    if opts.log_view and poisson:
+        print(rep.log_view())
+    print("JSON:", rep.json_sidecar())
+    if opts.options_left:
+        print(options_left_report(opts))
+    return 0
+
+
+def _solve(opts, device):
+    """The solve the options ask for: the file route, the diffusion
+    problem or the Poisson problem."""
+    from tpusparse_torch.bench.driver import solve_from_file, solve_poisson
+
     if opts.f:
-        rep = solve_from_file(
+        return solve_from_file(
             opts.f,
             device=device,
             rtol=opts.ksp_rtol,
@@ -100,51 +169,38 @@ def main(argv: list[str] | None = None) -> int:
             ksp_richardson_scale=opts.ksp_richardson_scale,
             view=opts.ksp_view,
             solution_out=_viewer_file(opts.ksp_view_solution),
+            mat_reorder=opts.mat_reorder,
         )
-    else:
-        rep = solve_poisson(
-            opts.da_grid_x, opts.da_grid_y, opts.da_grid_z,
-            device=device,
-            rtol=opts.ksp_rtol,
-            atol=opts.ksp_atol,
-            divtol=opts.ksp_divtol,
-            maxiter=opts.ksp_max_it,
-            pc=opts.pc_type,
-            amg_params=opts.amg_params(),
-            ksp=opts.ksp_type,
-            ksp_gmres_restart=opts.ksp_gmres_restart,
-            ksp_richardson_scale=opts.ksp_richardson_scale,
-            mat_type=opts.mat_type,
-            structure_detect=bool(opts.mat_structure_detect),
-            aggregation=opts.pc_gamg_aggregation,
-            precision=opts.precision,
-            # -layout auto: padded, or plain for the options the padded
-            # kernels cannot honour (driver docstring)
-            layout=opts.layout,
-            pc_dtype=opts.pc_dtype,
-            mg_cycle=opts.pc_mg_cycle_type,
-            # -devices p: p z-shards of the fine level on the one device
-            n_devices=opts.devices,
-            # computed for uniform-precision CG; elsewhere the driver warns
-            compute_eigenvalues=opts.ksp_compute_eigenvalues,
-            monitor=opts.ksp_monitor,
-            view=opts.ksp_view,
-        )
-    if opts.ksp_view and rep.solver_view:
-        print(rep.solver_view)
-    if opts.ksp_monitor and not opts.f:
-        print(rep.monitor_block())
-    if opts.ksp_converged_reason:
-        print(rep.converged_reason_line())
-    if opts.ksp_compute_eigenvalues and rep.eigenvalues:
-        print(rep.eigenvalues_block())
-    print(rep.reference_block())
-    if opts.log_view and not opts.f:
-        print(rep.log_view())
-    print("JSON:", rep.json_sidecar())
-    if opts.options_left:
-        print(options_left_report(opts))
-    return 0
+    if opts.problem == "diffusion":
+        return _diffusion(opts, device)
+    return solve_poisson(
+        opts.da_grid_x, opts.da_grid_y, opts.da_grid_z,
+        device=device,
+        rtol=opts.ksp_rtol,
+        atol=opts.ksp_atol,
+        divtol=opts.ksp_divtol,
+        maxiter=opts.ksp_max_it,
+        pc=opts.pc_type,
+        amg_params=opts.amg_params(),
+        ksp=opts.ksp_type,
+        ksp_gmres_restart=opts.ksp_gmres_restart,
+        ksp_richardson_scale=opts.ksp_richardson_scale,
+        mat_type=opts.mat_type,
+        structure_detect=bool(opts.mat_structure_detect),
+        aggregation=opts.pc_gamg_aggregation,
+        precision=opts.precision,
+        # -layout auto: padded, or plain for the options the padded
+        # kernels cannot honour (driver docstring)
+        layout=opts.layout,
+        pc_dtype=opts.pc_dtype,
+        mg_cycle=opts.pc_mg_cycle_type,
+        # -devices p: p z-shards of the fine level on the one device
+        n_devices=opts.devices,
+        # computed for uniform-precision CG; elsewhere the driver warns
+        compute_eigenvalues=opts.ksp_compute_eigenvalues,
+        monitor=opts.ksp_monitor,
+        view=opts.ksp_view,
+    )
 
 
 if __name__ == "__main__":

@@ -60,8 +60,16 @@ f32 under f64 defect correction.  The routes:
   the host CSR) or none there, in any precision.
 - ``solve_from_file``: a system read from a PETSc binary or MatrixMarket
   file (the JAX driver's ``:1478-1608``, PETSc's ex10), through ``KSP`` on
-  the host matrix: the DIA family on the device and, with GAMG, the
-  router's "auto" rule above.
+  the host matrix: the DIA family on the device (RCM-reordered, or the
+  padded ELL, past 192 diagonals) and, with GAMG, the router's "auto"
+  rule above.
+- ``solve_diffusion``: the variable-coefficient diffusion problem (the
+  JAX driver's ``:1341-1477``) over a ``VarStencil27`` fine level and the
+  plain cycle, CG + GAMG only.
+
+Each driver marks its phases for ``-profile`` traces
+(``utils/profiling.py::annotate``): ``tpusparse:init``,
+``tpusparse:setup`` and ``tpusparse:solve``.
 """
 
 from __future__ import annotations
@@ -118,6 +126,7 @@ from tpusparse_torch.sparse.dia import host_dia_operators
 from tpusparse_torch.sparse.io import load_matrix, read_petsc_objects, save_petsc_vec
 from tpusparse_torch.sparse.padded import PaddedStar, crop_field, pad_field
 from tpusparse_torch.sparse.starlift import star_lift
+from tpusparse_torch.utils.profiling import annotate
 
 
 @dataclasses.dataclass
@@ -154,7 +163,8 @@ class SolveReport:
     # the z-shards of the fine level (n_devices), all on ``device``
     z_shards: int = 1
     # a file-loaded system (solve_from_file): the file, nx x ny the
-    # matrix's shape, linf_error -1 where the file holds no exact solution
+    # matrix's shape, linf_error -1 where the file holds no exact solution;
+    # or another grid problem than Poisson (solve_diffusion)
     source: str | None = None
     source_is_file: bool = False
     # t_init's parts in seconds where it has some: the file read
@@ -222,11 +232,13 @@ class SolveReport:
 
         A file-loaded system names the file and the matrix's shape in place
         of the grid line, and prints "n/a" for the error norm when the file
-        holds no exact solution (``linf_error`` < 0)."""
-        head = (
-            f"Matrix: {self.source} [{self.nx} x {self.ny}]" if self.source_is_file
-            else f"[Nx, Ny, Nz]: [{self.nx}, {self.ny}, {self.nz}]"
-        )
+        holds no exact solution (``linf_error`` < 0); another grid problem
+        (diffusion) is named above the grid line."""
+        head = f"[Nx, Ny, Nz]: [{self.nx}, {self.ny}, {self.nz}]"
+        if self.source_is_file:
+            head = f"Matrix: {self.source} [{self.nx} x {self.ny}]"
+        elif self.source:
+            head = f"Problem: {self.source}\n{head}"
         linf = f"{self.linf_error:f}" if self.linf_error >= 0.0 else "n/a (no exact solution in file)"
         return (
             f"{head}\n"
@@ -660,28 +672,29 @@ def solve_poisson(
     _sync(device)
 
     t0 = time.perf_counter()
-    if route == "padded":
-        op, b, exact, op_lo = build_system(grid, device)
-        layout_text = "layout: padded-resident"
-    elif route in ("plain", "sharded"):
-        dtype = torch.float32 if precision == "f32" else torch.float64
-        op, b, exact = poisson_stencil_device(grid, dtype=dtype, device=device)
-        op_lo = (
-            poisson_stencil_device(grid, dtype=torch.float32, device=device)[0]
-            if mixed else op
-        )
-        layout_text = (
-            "layout: plain" if route == "plain" else
-            f"layout: z-sharded, {n_devices} z-shards of {grid.nz // n_devices} planes on one device"
-            f" ({device})"
-        )
-    else:
-        on_device = assembly == "device" or (
-            assembly == "auto" and mixed and geo_route and min(grid.shape) >= 2
-        )
-        op, op_lo, b, exact, host_a = _assemble_aij(grid, device, precision, on_device)
-        layout_text = "mat_type: aij (DIA/HybridDIA containers)"
-    _sync(device)
+    with annotate("tpusparse:init"):
+        if route == "padded":
+            op, b, exact, op_lo = build_system(grid, device)
+            layout_text = "layout: padded-resident"
+        elif route in ("plain", "sharded"):
+            dtype = torch.float32 if precision == "f32" else torch.float64
+            op, b, exact = poisson_stencil_device(grid, dtype=dtype, device=device)
+            op_lo = (
+                poisson_stencil_device(grid, dtype=torch.float32, device=device)[0]
+                if mixed else op
+            )
+            layout_text = (
+                "layout: plain" if route == "plain" else
+                f"layout: z-sharded, {n_devices} z-shards of {grid.nz // n_devices} planes on one device"
+                f" ({device})"
+            )
+        else:
+            on_device = assembly == "device" or (
+                assembly == "auto" and mixed and geo_route and min(grid.shape) >= 2
+            )
+            op, op_lo, b, exact, host_a = _assemble_aij(grid, device, precision, on_device)
+            layout_text = "mat_type: aij (DIA/HybridDIA containers)"
+        _sync(device)
     t_init = time.perf_counter() - t0
 
     breakdown = {}
@@ -790,7 +803,8 @@ def solve_poisson(
         # covers, as the JAX driver reasons); the kernels are built first
         kernel_library()
     t0 = time.perf_counter()
-    pc_state = setup()
+    with annotate("tpusparse:setup"):
+        pc_state = setup()
     _sync(device)
     t_pc = time.perf_counter() - t0
     if pc == "gamg":
@@ -810,7 +824,8 @@ def solve_poisson(
         solve()
         _sync(device)
     t0 = time.perf_counter()
-    res = solve()
+    with annotate("tpusparse:solve"):
+        res = solve()
     _sync(device)
     t_solve = time.perf_counter() - t0
     res, recorded = res if (monitor or eigs) else (res, None)
@@ -863,6 +878,132 @@ def solve_poisson(
     )
 
 
+def solve_diffusion(
+    nx: int,
+    ny: int | None = None,
+    nz: int | None = None,
+    *,
+    device="cuda",
+    contrast: float = 100.0,
+    rtol: float = 1e-8,
+    atol: float = 1e-12,
+    divtol: float = 1e5,
+    maxiter: int = 10000,
+    precision: str = "mixed",
+    amg_params: AMGParams | None = None,
+    mg_cycle: str = "v",
+    warmup: bool = True,
+    view: bool = False,
+) -> SolveReport:
+    """The second problem family through the driver's protocol on
+    ``device``: variable-coefficient diffusion -div(kappa grad u) = f with
+    a ``contrast``-to-1 inclusion field (``grid/diffusion.py``); port of
+    the JAX driver's ``solve_diffusion``.
+
+    The fine level is a ``VarStencil27`` (the star proof fails by
+    construction), preconditioned by the plain GAMG cycle of the probed
+    Galerkin hierarchy built eagerly on the f32 operator; CG runs in f32
+    under f64 defect correction (``cg_refined``) under mixed precision, in
+    the solve's dtype otherwise.  The gate is algebraic: exact = the
+    smooth field cos cos cos - 1 (zero at the pinned cell), b = A exact in
+    the hi dtype, Linf against exact: the solver's accuracy, not a
+    discretization error.  Phases as ``solve_poisson``'s: the setup and
+    the solve run once untimed first, and every timer read follows a
+    device synchronize.
+    """
+    from tpusparse_torch.grid.diffusion import default_kappa, diffusion_stencil
+
+    ny = ny or nx
+    nz = nz or nx
+    if precision not in ("mixed", "f64", "f32"):
+        raise ValueError(f"problem=diffusion supports precision mixed|f64|f32, got {precision!r}")
+    if mg_cycle not in ("v", "w"):
+        raise ValueError(f"unknown mg_cycle {mg_cycle!r}")
+    mixed = precision == "mixed"
+    hi_dtype = np.float32 if precision == "f32" else np.float64
+    params = amg_params or AMGParams()
+    gamma = 1 if mg_cycle == "v" else 2
+    device = torch.device(device)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.zeros((), dtype=torch.float32, device=device)  # bring-up, outside the phases
+    _sync(device)
+
+    t0 = time.perf_counter()
+    with annotate("tpusparse:init"):
+        grid = Grid3D(nx, ny, nz)
+        kappa = default_kappa(grid, contrast=contrast)
+        op = diffusion_stencil(grid, kappa, dtype=hi_dtype, device=device)
+        # the f32 operator from kappa in f32 (JAX's), not cast from the f64 one
+        op_lo = diffusion_stencil(grid, kappa, dtype=np.float32, device=device) if mixed else op
+        zc, yc, xc = np.meshgrid(
+            grid.cell_centers("z"), grid.cell_centers("y"), grid.cell_centers("x"), indexing="ij",
+        )
+        exact = torch.from_numpy(
+            (np.cos(2 * np.pi * xc) * np.cos(2 * np.pi * yc) * np.cos(2 * np.pi * zc) - 1.0).astype(hi_dtype)
+        ).to(device)
+        del kappa, zc, yc, xc
+        b = op.mv(exact)
+        _sync(device)
+    t_init = time.perf_counter() - t0
+
+    if warmup:
+        gamg_setup(op_lo, params)
+        _sync(device)
+    t0 = time.perf_counter()
+    with annotate("tpusparse:setup"):
+        hier = gamg_setup(op_lo, params)
+    _sync(device)
+    t_setup = time.perf_counter() - t0
+
+    def m(r):
+        return vcycle(hier, r, gamma=gamma)
+
+    if mixed:
+        def solve():
+            return cg_refined(op.mv, op_lo.mv, b, rtol=rtol, atol=atol, divtol=divtol, m_lo_mv=m)
+    else:
+        def solve():
+            return cg(op.mv, b, rtol=rtol, atol=atol, divtol=divtol, maxiter=maxiter, m_mv=m)
+
+    if warmup:
+        solve()
+        _sync(device)
+    t0 = time.perf_counter()
+    with annotate("tpusparse:solve"):
+        res = solve()
+    _sync(device)
+    t_solve = time.perf_counter() - t0
+    if res.reason < 0:
+        raise DivergedError(f"Diverged reason: {res.reason}")
+
+    view_text = None
+    if view:
+        view_text = "\n".join([
+            f"KSP Object: type cg, rtol {rtol:g}, atol {atol:g}, maxit {maxiter}",
+            f"  precision: {precision}, problem: diffusion (contrast {contrast:g}, VarStencil27 fine level)",
+            hierarchy_summary(hier, gamma),
+        ])
+    return SolveReport(
+        nx=nx, ny=ny, nz=nz,
+        iters=res.iters,
+        resnorm=res.resnorm,
+        linf_error=(res.x - exact).abs().max().item(),
+        reason=res.reason,
+        t_init=t_init,
+        t_setup=t_setup,
+        t_solve=t_solve,
+        rtol=rtol,
+        atol=atol,
+        pc="gamg",
+        device=torch.cuda.get_device_name(device) if device.type == "cuda" else device.type,
+        precision=precision,
+        outer_iters=getattr(res, "outer_iters", 0),
+        mat_type="varstencil",
+        solver_view=view_text,
+        source=f"diffusion(contrast={contrast:g})",
+    )
+
+
 def solve_from_file(
     path: str,
     *,
@@ -880,6 +1021,7 @@ def solve_from_file(
     ksp_richardson_scale: float = 1.0,
     view: bool = False,
     solution_out: str = "",
+    mat_reorder: str = "auto",
 ) -> SolveReport:
     """Solve a system read from a file on ``device`` — PETSc KSP tutorial
     ``ex10`` ("solve a linear system from a file"), ``MatLoad``/``VecLoad``
@@ -895,6 +1037,9 @@ def solve_from_file(
 
     ``solution_out``: after a successful solve, write x to this path in
     PETSc binary format (``-ksp_view_solution binary:<file>``).
+    ``mat_reorder`` (``-mat_reorder``): ``KSP``'s "auto" (RCM when the
+    file's order occupies more than 192 diagonals), "rcm" or "none"; the
+    JAX driver parses the option but leaves ``KSP`` at "auto".
 
     Phases (``main_ksp.cpp:80-106``): ``t_init`` the file read and the
     upload, split in ``init_breakdown`` ("read", "diagonals", "host_bands",
@@ -911,43 +1056,47 @@ def solve_from_file(
     _sync(device)
 
     t0 = time.perf_counter()
-    exact = None
-    if path.endswith((".mtx", ".mtx.gz", ".mm")):
-        a, rhs = load_matrix(path)
-    else:
-        objs = read_petsc_objects(path)
-        a = next((o for o in objs if isinstance(o, HostCSR)), None)
-        if a is None:
-            raise ValueError(f"no matrix object in {path}")
-        vecs = [o for o in objs if not isinstance(o, HostCSR)]
-        rhs = vecs[0] if vecs else None
-        exact = vecs[1] if len(vecs) > 1 else None
-    if a.shape[0] != a.shape[1]:
-        raise ValueError(f"matrix is {a.shape[0]} x {a.shape[1]}, not square")
-    if rhs is not None and rhs.size != a.shape[0]:
-        raise ValueError(f"rhs length {rhs.size} != rows {a.shape[0]}")
-    b_host = np.ones(a.shape[0]) if rhs is None else rhs
-    init = {"read": time.perf_counter() - t0}
+    with annotate("tpusparse:init"):
+        exact = None
+        if path.endswith((".mtx", ".mtx.gz", ".mm")):
+            a, rhs = load_matrix(path)
+        else:
+            objs = read_petsc_objects(path)
+            a = next((o for o in objs if isinstance(o, HostCSR)), None)
+            if a is None:
+                raise ValueError(f"no matrix object in {path}")
+            vecs = [o for o in objs if not isinstance(o, HostCSR)]
+            rhs = vecs[0] if vecs else None
+            exact = vecs[1] if len(vecs) > 1 else None
+        if a.shape[0] != a.shape[1]:
+            raise ValueError(f"matrix is {a.shape[0]} x {a.shape[1]}, not square")
+        if rhs is not None and rhs.size != a.shape[0]:
+            raise ValueError(f"rhs length {rhs.size} != rows {a.shape[0]}")
+        b_host = np.ones(a.shape[0]) if rhs is None else rhs
+        init = {"read": time.perf_counter() - t0}
 
-    solver = KSP(
-        ksp_type=ksp, pc_type=pc, rtol=rtol, atol=atol, divtol=divtol, maxiter=maxiter,
-        precision=precision, amg_params=amg_params, mg_cycle=mg_cycle,
-        gmres_restart=ksp_gmres_restart, richardson_scale=ksp_richardson_scale,
-    )
-    solver.set_operators(a, device=device, timings=init)
-    b = torch.as_tensor(b_host, dtype=torch.float32 if precision == "f32" else torch.float64, device=device)
-    _sync(device)
+        solver = KSP(
+            ksp_type=ksp, pc_type=pc, rtol=rtol, atol=atol, divtol=divtol, maxiter=maxiter,
+            precision=precision, amg_params=amg_params, mg_cycle=mg_cycle,
+            gmres_restart=ksp_gmres_restart, richardson_scale=ksp_richardson_scale,
+            mat_reorder=mat_reorder,
+        )
+        solver.set_operators(a, device=device, timings=init)
+        b = torch.as_tensor(b_host, dtype=torch.float32 if precision == "f32" else torch.float64, device=device)
+        _sync(device)
     t_init = time.perf_counter() - t0
 
     t0 = time.perf_counter()
-    solver.setup()
+    with annotate("tpusparse:setup"):
+        solver.setup()
     _sync(device)
     t_setup = time.perf_counter() - t0
 
     solver.solve(b)  # first-call costs, outside the timed solve
     _sync(device)
     t0 = time.perf_counter()
-    res = solver.solve(b)
+    with annotate("tpusparse:solve"):
+        res = solver.solve(b)
     _sync(device)
     t_solve = time.perf_counter() - t0
     if res.reason < 0:

@@ -201,9 +201,10 @@ class Options:
             pc_dtype=self.pc_dtype, params=self.amg_params(),
         )
         refused = (
-            (self.problem != "poisson", f"-problem {self.problem}", "queue 11"),
+            # the diffusion driver is single-device (JAX's ignores -devices)
+            (self.problem == "diffusion" and self.devices > 1, f"-problem diffusion -devices {self.devices}",
+             "queue 12"),
             (sharded is not None, f"-devices {self.devices} with {sharded}", "queue 12"),
-            (self.profile, "-profile (the trace)", "queue 13"),
         )
         for cond, what, item in refused:
             if cond:

@@ -1,11 +1,13 @@
 // The host setup engine of the general-matrix GAMG route: Vanek greedy
 // aggregation, CSR SpGEMM and CSR transpose (the Galerkin product
-// A_c = P^T (A P), PETSc's MatPtAP).  Setup work runs once per matrix, on
+// A_c = P^T (A P), PETSc's MatPtAP), and the reverse Cuthill-McKee
+// ordering that bounds the bandwidth of a matrix of any pattern.  Setup work runs once per matrix, on
 // the host, as PETSc runs it inside KSPSetUp; the solve never calls it.
 //
 // The decisions are those of tpusparse/amg/unstructured.py's greedy
 // aggregation (and of its pure-Python twin in tpusparse_torch/amg/
-// unstructured.py), so both packages build the same aggregates.  The
+// unstructured.py), so both packages build the same aggregates; the RCM
+// order is that of tpusparse/native's rcm, element for element.  The
 // SpGEMM sums each output entry in the order it meets the products, row
 // by row; a scipy product may sum in another order, so coarse levels
 // agree with it to rounding.
@@ -140,6 +142,66 @@ void tps_csr_transpose(int64_t n_rows, int64_t n_cols, const int64_t* indptr,
       b_data[q] = data[p];
     }
   }
+}
+
+// perm (int64[n], perm[new] = old) <- the reverse Cuthill-McKee order of
+// the graph of a structurally symmetric pattern (callers symmetrize
+// first).  For each component, in order of its least node: a
+// breadth-first sweep from that node finds the last level, whose first
+// node of least degree starts the real sweep (George-Liu's two-sweep
+// pseudo-peripheral start); each node's unvisited neighbours are queued
+// by increasing degree, ties by index; the whole order is reversed.
+void tps_rcm_order(int64_t n, const int64_t* indptr, const int32_t* indices,
+                   int64_t* perm) {
+  std::vector<int64_t> deg(static_cast<size_t>(n));
+  for (int64_t i = 0; i < n; ++i) deg[i] = indptr[i + 1] - indptr[i];
+  std::vector<uint8_t> visited(static_cast<size_t>(n), 0);
+  std::vector<uint8_t> probed(static_cast<size_t>(n), 0);
+  std::vector<int64_t> order, queue, sweep, nbrs;
+  order.reserve(static_cast<size_t>(n));
+
+  // a breadth-first sweep from start into out, marking mark; returns
+  // where the last level begins in out
+  auto bfs = [&](int64_t start, std::vector<uint8_t>& mark,
+                 std::vector<int64_t>& out) -> size_t {
+    out.clear();
+    out.push_back(start);
+    mark[start] = 1;
+    size_t head = 0, level_begin = 0, level_end = 1;
+    while (head < out.size()) {
+      if (head == level_end) {
+        level_begin = level_end;
+        level_end = out.size();
+      }
+      const int64_t u = out[head++];
+      nbrs.clear();
+      for (int64_t p = indptr[u]; p < indptr[u + 1]; ++p) {
+        const int64_t v = indices[p];
+        if (!mark[v]) {
+          mark[v] = 1;
+          nbrs.push_back(v);
+        }
+      }
+      std::sort(nbrs.begin(), nbrs.end(), [&](int64_t a, int64_t b) {
+        return deg[a] != deg[b] ? deg[a] < deg[b] : a < b;
+      });
+      out.insert(out.end(), nbrs.begin(), nbrs.end());
+    }
+    if (level_end < out.size()) level_begin = level_end;
+    return level_begin;
+  };
+
+  for (int64_t s = 0; s < n; ++s) {
+    if (visited[s]) continue;
+    const size_t last = bfs(s, probed, sweep);
+    int64_t start = sweep[last];
+    for (size_t i = last; i < sweep.size(); ++i)
+      if (deg[sweep[i]] < deg[start]) start = sweep[i];
+    for (const int64_t v : sweep) probed[v] = 0;  // the component, unmarked
+    bfs(start, visited, queue);
+    order.insert(order.end(), queue.begin(), queue.end());
+  }
+  for (int64_t i = 0; i < n; ++i) perm[i] = order[n - 1 - i];
 }
 
 }  // extern "C"

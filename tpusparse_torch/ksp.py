@@ -30,17 +30,25 @@ Example::
     x2 = ksp.solve(2.0 * b).x         # reuses the hierarchy
     xs = ksp.mat_solve(torch.stack([b, 5.0 * b])).x   # KSPMatSolve
 
-A host matrix (``HostCSR``, or anything scipy can turn into a CSR) goes
-to the device as the DIA family, as in the JAX package: under mixed
-precision one f32 upload is both the hierarchy's fine operator and the hi
-half of a ``DFDIA`` outer operator; under uniform precision one ``DIA`` in
-the solve's dtype is both operators.  The host matrix is kept for
+A host matrix (``HostCSR``, or anything scipy can turn into a CSR) of
+any sparsity pattern goes to the device as in the JAX package.  With
+``mat_reorder="rcm"``, or "auto" when its order occupies more than 192
+diagonals, it is first permuted by reverse Cuthill-McKee
+(``sparse/reorder.py``): the solve runs in the permuted space, P A P^T
+(P x) = P b, and ``solve`` and ``mat_solve`` permute b and x0 on the way
+in and x on the way out.  A matrix of at most 192 diagonals then goes
+as the DIA family: under mixed precision one f32 upload is both the
+hierarchy's fine operator and the hi half of a ``DFDIA`` outer operator;
+under uniform precision one ``DIA`` in the solve's dtype is both
+operators.  A wider one goes as the padded ``ELL`` (f64 outer, f32 inner
+under mixed precision; one dtype otherwise), where JAX takes its
+``BandedELL``, whose windows exist only to keep gathers below libtpu's
+crash size; GAMG's level 0 is then ``auto_container``'s ``HybridDIA``,
+whose band part runs kernel K5.  The host matrix is kept (permuted) for
 ``pc_type="bjacobi"`` and for GAMG's greedy setup and block-Jacobi level
 smoother (``amg/unstructured.py``), which take it where its pattern is no
-3-D grid.  A host matrix with more than 192 diagonals and
-``mat_reorder="rcm"`` (RCM and the banded-ELL executor, ROADMAP queue 1,
-item 10) raise ``NotImplementedError``.  The JAX package's
-``_solve_chunked`` (a libtpu workaround) and jit caches are not to port.
+3-D grid.  The JAX package's ``_solve_chunked`` (a libtpu workaround)
+and jit caches are not to port.
 """
 
 from __future__ import annotations
@@ -69,17 +77,15 @@ from tpusparse_torch.solve.multi import MultiResult, cg_multi, refined_multi
 from tpusparse_torch.solve.refine import cg_refined
 from tpusparse_torch.solve.spectrum import ritz_values
 from tpusparse_torch.sparse.csr import HostCSR
-from tpusparse_torch.sparse.dia import DFDIA, DIA, host_dia_operators
-from tpusparse_torch.sparse.reorder import distinct_diagonals
+from tpusparse_torch.sparse.dia import DFDIA, DIA, HybridDIA, host_dia_operators
+from tpusparse_torch.sparse.ell import ELL
+from tpusparse_torch.sparse.reorder import distinct_diagonals, inverse_permutation, permute_csr, rcm_permutation
 from tpusparse_torch.sparse.padded import PaddedStar, crop_field, pad_field
 from tpusparse_torch.sparse.stencil import StarStencil3D
 
 __all__ = ["KSP", "KSPResult"]
 
-_ITEM_10 = (
-    "is not ported to tpusparse_torch yet (ROADMAP queue 1, item 10: RCM reordering and the"
-    " banded-ELL executor)"
-)
+MAX_DIA_DIAGONALS = 192  # the DIA family's storage gate (DIA.host_bands)
 
 
 @dataclasses.dataclass
@@ -102,7 +108,7 @@ def _op_kind(op) -> str:
     'opaque' (anything with an ``mv``)."""
     if isinstance(op, StarStencil3D):
         return "structured"
-    if isinstance(op, (DIA, DFDIA)):
+    if isinstance(op, (DIA, DFDIA, HybridDIA, ELL)):
         return "general"
     return "opaque"
 
@@ -138,9 +144,9 @@ class KSP:
     keep it (the new operator is applied, the old preconditioner
     preconditions).  ``error_if_not_converged`` is
     ``-ksp_error_if_not_converged``: raise ``DivergedError`` on a negative
-    reason.  ``mat_reorder``: "auto" and "none" are accepted (no host
-    matrix that the port takes needs a reordering); "rcm" raises
-    ``NotImplementedError``.
+    reason.  ``mat_reorder`` (a host matrix only): "rcm" permutes it by
+    reverse Cuthill-McKee, "auto" only when its order occupies more than
+    192 diagonals, "none" never.
     """
 
     def __init__(
@@ -172,8 +178,6 @@ class KSP:
             raise ValueError(f"unknown layout {layout!r}")
         if mat_reorder not in ("auto", "rcm", "none"):
             raise ValueError(f"unknown mat_reorder {mat_reorder!r}")
-        if mat_reorder == "rcm":
-            raise NotImplementedError(f"mat_reorder='rcm' {_ITEM_10}")
         self.ksp_type = ksp_type
         self.pc_type = pc_type
         self.rtol = rtol
@@ -191,7 +195,9 @@ class KSP:
         self._ksp_solve = _pick_ksp(ksp_type, gmres_restart, richardson_scale, precision)
         self._op = None             # the A of A x = b (the outer operator)
         self._op_lo = None          # its f32 twin under mixed precision (inner solves, PC)
-        self._host_a = None         # the host matrix set_operators took, or None
+        self._host_a = None         # the host matrix set_operators took (permuted), or None
+        self._perm = None           # the RCM order on the device (perm[new] = old), or None
+        self._iperm = None          # its inverse
         self._pc_state = None       # hierarchy / inverse diagonal / SSOR apply / None
         self._op_lo_plain = None    # the pre-padding twin (mat_solve's plain hierarchy)
         self._pc_state_plain = None  # mat_solve's plain hierarchy on the padded layout
@@ -242,19 +248,21 @@ class KSP:
         ``DFDIA`` with its f32 ``DIA`` as ``a_lo`` or, by default, a ``DIA``
         of its hi bands; under uniform precision a ``DIA`` in the solve's
         dtype), a host matrix (``HostCSR``, or anything scipy makes a CSR
-        of), which goes to ``device`` as the DIA family, or any object with
-        an ``mv`` method (``pc_type`` jacobi also needs ``diagonal()``, sor
+        of), which goes to ``device`` as the DIA family or an ``ELL``,
+        reordered as ``mat_reorder`` says, or any object with an ``mv``
+        method (``pc_type`` jacobi also needs ``diagonal()``, sor
         ``gs_color_masks()``).  ``a_lo``: the low-precision twin for mixed
         precision (default: an f32 cast of ``a``).  ``timings``: a dict that
         receives the seconds of a host matrix's diagonal count
-        (``diagonals``), band extraction (``host_bands``) and upload
+        (``diagonals``), its reordering (``rcm``: the order and the
+        permuted copy), band extraction (``host_bands``) and upload
         (``upload``).  With
         ``reuse_preconditioner`` an existing preconditioner is kept; on the
         padded layout the new twin is padded too when it is a star on the
         same grid, and otherwise the preconditioner is dropped.
         """
         mixed = self.precision == "mixed"
-        self._host_a = None
+        self._host_a = self._perm = self._iperm = None
         if isinstance(a, HostCSR) or not hasattr(a, "mv"):
             a, a_lo = self._upload_host(a, device, timings)
         self._op = a
@@ -282,8 +290,10 @@ class KSP:
         return self
 
     def _upload_host(self, a, device, timings: dict | None):
-        """A host matrix as the DIA family on ``device``: (outer operator,
-        inner operator).  Keeps the HostCSR for ``pc_type="bjacobi"``."""
+        """A host matrix on ``device``, RCM-permuted as ``mat_reorder``
+        says: (outer operator, inner operator), the DIA family up to 192
+        diagonals, else ``ELL``.  Keeps the (permuted) HostCSR for
+        ``pc_type="bjacobi"`` and GAMG's host routes."""
         if not isinstance(a, HostCSR):
             import scipy.sparse as sp
 
@@ -292,10 +302,29 @@ class KSP:
         diagonals = distinct_diagonals(a)
         if timings is not None:
             timings["diagonals"] = time.perf_counter() - t0
-        if diagonals > 192:  # DIA.host_bands' gate
-            raise NotImplementedError(f"a host matrix with {diagonals} diagonals (> 192) {_ITEM_10}")
+        if self.mat_reorder == "rcm" or (self.mat_reorder == "auto" and diagonals > MAX_DIA_DIAGONALS):
+            t0 = time.perf_counter()
+            perm = rcm_permutation(a)
+            a = permute_csr(a, perm)
+            diagonals = distinct_diagonals(a)
+            self._perm = torch.as_tensor(perm, device=device)
+            self._iperm = torch.as_tensor(inverse_permutation(perm), device=device)
+            if timings is not None:
+                timings["rcm"] = time.perf_counter() - t0
         self._host_a = a
-        return host_dia_operators(a, self.precision, device=device, timings=timings)
+        if diagonals <= MAX_DIA_DIAGONALS:
+            return host_dia_operators(a, self.precision, device=device, timings=timings)
+        # too many diagonals for the DIA family, even reordered: the padded
+        # ELL (JAX's BandedELL; its windows are a libtpu workaround)
+        t0 = time.perf_counter()
+        if self.precision == "mixed":
+            op_hi = ELL.from_csr(a, dtype=np.float64, device=device)
+            op_lo = ELL.from_csr(a, dtype=np.float32, device=device)
+        else:
+            op_hi = op_lo = ELL.from_csr(a, dtype=np.float32 if self.precision == "f32" else None, device=device)
+        if timings is not None:
+            timings["upload"] = time.perf_counter() - t0
+        return op_hi, op_lo
 
     # -- KSPSetUp ----------------------------------------------------------
 
@@ -315,10 +344,12 @@ class KSP:
             elif kind == "general":
                 # the router's "auto" rule, as the JAX package's KSP takes it:
                 # geometric on a grid, greedy on the host matrix kept, banded
-                # without one or past GREEDY_ROW_LIMIT rows
+                # without one or past GREEDY_ROW_LIMIT rows; an ELL inner
+                # operator leaves level 0 to the host route's container
+                dia_family = hasattr(self._op_lo, "offsets")
                 self._pc_state = gamg_setup_unstructured(
-                    self._host_a, self.amg_params, fine_op=self._op_lo,
-                    dtype=np.float32 if self.precision == "mixed" else None,
+                    self._host_a, self.amg_params, fine_op=self._op_lo if dia_family else None,
+                    dtype=np.float32 if self.precision == "mixed" else None, device=_device_of(self._op_lo),
                 )
                 # the hierarchy's fine level is the inner operator
                 self._op_lo = self._pc_state.levels[0].op
@@ -418,9 +449,14 @@ class KSP:
         solved as the defect system A dx = b - A x0 with the gate kept at
         max(rtol*||b||, atol) of the ORIGINAL right-hand side, so a good
         warm start exits at once.  A structured operator takes flat vectors
-        too, and answers in kind.
+        too, and answers in kind.  A reordered host matrix solves in the
+        permuted space: b and x0 are permuted in, x out.
         """
         self.setup()
+        if self._perm is not None:
+            b = b.reshape(-1)[self._perm]
+            if x0 is not None:
+                x0 = x0.reshape(-1)[self._perm]
         gshape = getattr(self._op, "grid_shape", None)
         flat_in = gshape is not None and b.dim() == 1
         if flat_in:
@@ -434,6 +470,8 @@ class KSP:
             bnorm_ref = torch.linalg.vector_norm(b).item()  # the ORIGINAL rhs norm
             res = self._run(b - self._op.mv(x0), 0.0, max(self.rtol * bnorm_ref, self.atol))
             x = res.x + x0
+        if self._perm is not None:
+            x = x[self._iperm]
         out = KSPResult(
             x=x.reshape(-1) if flat_in else x,
             iters=int(res.iters),
@@ -459,6 +497,9 @@ class KSP:
         padded layout, a plain twin hierarchy is built once from the
         pre-padding operator, as the JAX package does.  The preconditioner
         is GAMG, Jacobi, or none for every other ``pc_type``, as there.
+        A reordered host matrix permutes each column as ``solve`` does; the
+        JAX package's ``mat_solve`` does not, and so solves the permuted
+        system with the unpermuted block (ROADMAP §3).
         """
         if self.ksp_type != "cg":
             raise ValueError(f"mat_solve supports ksp_type='cg' (block CG); got {self.ksp_type!r}")
@@ -467,6 +508,8 @@ class KSP:
         flat_in = gshape is not None and b_block.dim() == 2
         if flat_in:
             b_block = b_block.reshape((b_block.shape[0], *gshape))
+        if self._perm is not None:
+            b_block = b_block[:, self._perm]
         op_lo, pc_state = self._op_lo, self._pc_state
         if self._encode is not None:
             if self._pc_state_plain is None:
@@ -486,6 +529,8 @@ class KSP:
             )
         else:
             res = cg_multi(self._op.mv, b_block, maxiter=self.maxiter, m_mv=m, **limits)
+        if self._perm is not None:
+            res = dataclasses.replace(res, x=res.x[:, self._iperm])
         if flat_in:
             res = dataclasses.replace(res, x=res.x.reshape((res.x.shape[0], -1)))
         self._check(res.reason.tolist())

@@ -1,13 +1,15 @@
 """ctypes bindings of the host setup engine, ``csrc/native.cpp`` — the port's
 own copy of the JAX package's native engine (greedy aggregation, CSR
 SpGEMM and transpose: the Galerkin product P^T A P of the greedy GAMG
-route).
+route; the reverse Cuthill-McKee order of ``sparse/reorder.py``).
 
 The library is built with g++ at first use into ``csrc/build/``
 (``kernels/_build.py::build_native``).  There is no fallback: when it
 cannot be built, the setup raises, since the pure-Python twins
 (``amg/unstructured.py::_greedy_aggregate_py``, a scipy product) take
-minutes at a million rows.  The twins stay for the tests.
+minutes at a million rows.  The twins stay for the tests.  RCM has no
+twin: scipy's ``reverse_cuthill_mckee`` gives another order, and the
+greedy aggregates, hence the iteration counts, follow the order.
 """
 
 from __future__ import annotations
@@ -43,6 +45,8 @@ def lib() -> ctypes.CDLL:
         lib_.tps_spgemm_numeric.restype = None
         lib_.tps_csr_transpose.argtypes = [i64, i64, _I64P, _I32P, _F64P, _I64P, _I32P, _F64P]
         lib_.tps_csr_transpose.restype = None
+        lib_.tps_rcm_order.argtypes = [i64, _I64P, _I32P, _I64P]
+        lib_.tps_rcm_order.restype = None
         _lib = lib_
     return _lib
 
@@ -95,3 +99,13 @@ def aggregate(a: HostCSR, strong: np.ndarray) -> tuple[np.ndarray, int]:
         np.ascontiguousarray(strong, np.uint8), agg,
     )
     return agg, int(count)
+
+
+def rcm(a: HostCSR) -> np.ndarray:
+    """The reverse Cuthill-McKee order of a structurally symmetric
+    pattern: int64[n] with perm[new] = old."""
+    perm = np.empty(a.n_rows, np.int64)
+    lib().tps_rcm_order(
+        a.n_rows, np.ascontiguousarray(a.indptr, np.int64), np.ascontiguousarray(a.indices, np.int32), perm,
+    )
+    return perm

@@ -15,6 +15,7 @@ from __future__ import annotations
 import dataclasses
 import itertools
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -61,6 +62,11 @@ class VarStencil27:
         return tuple(self.coef.shape[1:])
 
     @property
+    def shape(self) -> tuple[int, int]:
+        n = int(np.prod(self.grid_shape))
+        return (n, n)
+
+    @property
     def dtype(self) -> torch.dtype:
         return self.coef.dtype
 
@@ -74,6 +80,12 @@ class VarStencil27:
                 continue
             y = y + self.coef[o] * shifted_view(xp, off, self.grid_shape)
         return y
+
+    def mv_flat(self, x: torch.Tensor) -> torch.Tensor:
+        return self.mv(x.reshape(self.grid_shape)).reshape(-1)
+
+    def __matmul__(self, x: torch.Tensor) -> torch.Tensor:
+        return self.mv(x) if x.dim() == 3 else self.mv_flat(x)
 
     def diagonal_field(self) -> torch.Tensor:
         return self.coef[CENTER]
@@ -117,3 +129,29 @@ class VarStencil27:
             f = torch.where(valid, self.coef[o3], zero)
             out[o] = out[o] + f if o in out else f
         return out
+
+    def to_csr(self):
+        """The matrix as a host ``HostCSR`` (zero coefficients and those
+        whose target leaves the grid dropped; bf16 widened to f32), for
+        tests and interop."""
+        import scipy.sparse as sp
+
+        from tpusparse_torch.sparse.csr import HostCSR
+
+        nz, ny, nx = self.grid_shape
+        n = nz * ny * nx
+        coef = self.coef.detach().cpu()
+        coef = (coef.float() if coef.dtype == torch.bfloat16 else coef).numpy().reshape(27, n)
+        k, j, i = np.meshgrid(np.arange(nz), np.arange(ny), np.arange(nx), indexing="ij")
+        rows, cols, vals = [], [], []
+        for o, (dk, dj, di) in enumerate(OFFSETS):
+            kk, jj, ii = k + dk, j + dj, i + di
+            valid = ((kk >= 0) & (kk < nz) & (jj >= 0) & (jj < ny) & (ii >= 0) & (ii < nx)).reshape(-1)
+            keep = valid & (coef[o] != 0)
+            rows.append(np.flatnonzero(keep))
+            cols.append(((kk * ny + jj) * nx + ii).reshape(-1)[keep])
+            vals.append(coef[o][keep])
+        m = sp.csr_matrix((np.concatenate(vals), (np.concatenate(rows), np.concatenate(cols))), shape=(n, n))
+        m.sum_duplicates()
+        m.sort_indices()
+        return HostCSR.from_scipy(m)
