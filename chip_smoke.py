@@ -35,8 +35,10 @@ script exits non-zero without the final line:
    reproduce the JAX package's CPU outcome (24 +- 1 inner / 2 outer,
    reason 2, Linf 1.117e-2 +- 1e-5).
 8. The general-matrix path at full size: the same 300^3 solve with
-   ``mat_type="aij", structure_detect=False``, launch counters reset just
-   before it.  Reason 2,
+   ``mat_type="aij", structure_detect=False`` through the aij headline
+   entry (``headline.run(300, mat_type="aij", structure_detect=False)``,
+   ``bench_aij.py --nodetect``), launch counters reset just before it; its
+   JSON line (``poisson300_aij_nodetect_cg_gamg_solve_s``) printed.  Reason 2,
    Linf < 1e-4, 35 +- 2 inner in 2-3 outer sweeps, K5 launched and K1-K4
    not (the structure-blind route ran).
 
@@ -119,8 +121,10 @@ script exits non-zero without the final line:
    ``none`` (the padded route: K2 and no V-cycle kernel), and ``-mat_type
    aij -mat_structure_detect 0 -mg_coarse_pc_type lu`` (K5).  Each: a
    positive reason and Linf < 1e-3; counts and ``t_solve`` printed.
-23. The default aij route at 300^3: ``solve_poisson(300,
-   mat_type="aij", rtol=1e-8, atol=1e-12, view=True)`` proves the matrix a
+23. The default aij route at 300^3 through the aij headline entry
+   (``headline.run(300, mat_type="aij", view=True)``, ``bench_aij.py``:
+   ``solve_poisson(300, mat_type="aij", rtol=1e-8, atol=1e-12)``; its JSON
+   line ``poisson300_aij_cg_gamg_solve_s`` printed) proves the matrix a
    star and solves it on the stencil route, counters reset just before.
    Reason 2, Linf < 1e-4, 34 +- 2 inner in 2-3 sweeps (whether the count
    equals phase 5's is printed), "star DETECTED" in its view and
@@ -152,10 +156,16 @@ script exits non-zero without the final line:
    the same values).  At 300^3 the one stacked launch is timed beside its
    twin, the p single-slab launches and one unsharded launch, with its
    bound share, chunks and waves, and at 1-5 z-chunks a slab (the plan
-   takes 3); registers and spills (at most 96, none) are gated.  Then
-   ``solve_poisson(300, rtol=1e-8, atol=1e-12, pc="gamg", layout="padded",
-   n_devices=4)``, counters reset just before: reason 2, Linf < 1e-4, 2-3
-   sweeps, inner within 2 of phase 15's; K3z and K4z launched once a
+   takes 3); registers and spills (at most 96, none) are gated.  Then the
+   strong sweep of ``bench.scaling.run_strong(300, (1, 2, 4), rtol=1e-8,
+   atol=1e-12, pc="gamg", layout="padded")``, the counters (launches,
+   strokes, peak memory) reset just before each point and read just after:
+   every point reason 2 with inner within 2 of the one-shard point's, K3z
+   and K4z launched where d > 1, each reference line printed, the record
+   written into a temporary directory of the checkout (``emulated``) and
+   read back.  Its 4-shard point is ``solve_poisson(300, rtol=1e-8,
+   atol=1e-12, pc="gamg", layout="padded", n_devices=4)``: reason 2,
+   Linf < 1e-4, 2-3 sweeps, inner within 2 of phase 15's; K3z and K4z launched once a
    stroke (the calls of ``FusedSharded.descent`` / ``ascent``, one each a
    V-cycle), K1p launched, K2, K3, K4, K3' and K4' not; ``t_setup``,
    ``t_solve`` and peak memory printed beside phases 5 and 15 and the plain
@@ -260,6 +270,25 @@ script exits non-zero without the final line:
    ``ascent_kernel``, ``mvdot_kernel``) and K1 (``star7_mv_kernel``), and
    whose host events name the three annotated phases; its size, its
    events and the solve's times printed.
+38. ``bench.bwprobe`` at the JAX package's sizes (2-, 3-, 4- and 1-pass
+   rows at 64, 143 and 512 MB, axpy over the padded and plain 300^3 fields,
+   bf16 axpy at 512 MB): every row at most 1.05 x 3.35 TB/s (more is a
+   broken timer); each row's share of 3.35 TB/s and the measured ceiling
+   (the best 2-4-pass GB/s) printed with the card's name and power limit.
+39. ``bench.spmv`` at 300^3 in f32 and f64 (one f64 host assembly, cast
+   for f32), the launch counters reset just before each dtype's rows: K1
+   (``stencil7_cuda_resident``), K1p (``stencil7_mv``, f32) and K5
+   (``diaband_cuda7``) launched by their rows and no kernel by the f64
+   rows; each kernel row at most 1.05 x 3.35 TB/s by its traffic model (the
+   ELL row exempt: its model counts every gather of x); one apply of each
+   kernel row against its container's plain twin (rtol 1e-5, atol 1e-6 of
+   max|want|); every row printed with its share of 3.35 TB/s and of phase
+   38's ceiling.
+40. The weak sweep ``bench.scaling.run_weak(64, (1, 2, 4, 8), rtol=1e-8)``
+   (the JAX package's constant-h protocol), counters reset around each
+   point: every point reason 2, K3z and K4z launched where d > 1, the
+   record (efficiencies and the NVLink projection) written into a
+   temporary directory of the checkout and read back.
 
 Then one JSON line with each kernel's route, source, launches (K1-K4 from
 phase 5, K5 from phase 8, K6/K7 from phase 10, K3'/K4' from phase 11,
@@ -301,12 +330,12 @@ from tpusparse_torch import KSP, kernels
 from tpusparse_torch import ksp as ksp_module
 from tpusparse_torch.__main__ import main as cli_main
 from tpusparse_torch.amg.hierarchy import AMGParams, gamg_setup, threshold_schedule, vcycle
-from tpusparse_torch.bench import deviceaggbench, headline, reorderbench
+from tpusparse_torch.bench import bwprobe, deviceaggbench, headline, reorderbench, scaling, spmv
 from tpusparse_torch.bench.driver import solve_diffusion, solve_poisson
 from tpusparse_torch.dist.fused_sharded import FusedSharded
 from tpusparse_torch.dist.mesh import make_z_mesh
 from tpusparse_torch.grid.grid3d import Grid3D
-from tpusparse_torch.grid.poisson import poisson_dia_device, poisson_stencil_device
+from tpusparse_torch.grid.poisson import assemble_poisson, poisson_dia_device, poisson_stencil_device
 from tpusparse_torch.kernels import _build
 from tpusparse_torch.kernels.diaband import dia_mv, dia_mv_batched, dia_mv_torch
 from tpusparse_torch.kernels.fused7 import (
@@ -528,6 +557,15 @@ REF_INNER, REF_INNER_WINDOW, REF_OUTER = 767, 40, (4, 5, 6)
 # the plain layout's 300^3 inner count (the padded route's 34: both run
 # Chebyshev(2) over the same hierarchy)
 PLAIN_INNER = 34
+# phase 27's strong sweep at 300^3 and phase 40's weak sweep at 64^3 a
+# shard (``bench.scaling``): z-shard counts on the one card
+STRONG_SHARDS = (1, 2, 4)
+WEAK_SHARDS = (1, 2, 4, 8)
+# phase 39's kernel rows of ``bench.spmv`` (K1, K1p, K5): a row's GB/s, by
+# its traffic model, may pass the published rate by 5% (no more: a broken
+# timer), as may every row of phase 38's ``bench.bwprobe``
+SPMV_KERNELS = ("star7_mv_padded", "star7_mv", "dia_mv")
+RATE_SLACK = 1.05
 # the JAX package's records on its TPU (runs/diffusion_192_c100.json,
 # runs/reordered_matrix_100.json): the scale the card's counts are held to.
 # The diffusion count follows the f32 inner solves' rounding: on the CPU
@@ -995,12 +1033,14 @@ def check_lifted(device, production, blind) -> None:
 
     torch.cuda.reset_peak_memory_stats(device)
     kernels.reset_launches()
-    rep = solve_poisson(300, mat_type="aij", rtol=1e-8, atol=1e-12, device=device, view=True)
+    rep, line = headline.run(300, device=device, mat_type="aij", view=True)
     used = dict(kernels.LAUNCHES)
     peak = torch.cuda.max_memory_allocated(device) / 1e9
     print(rep.solver_view)
     print(rep.converged_reason_line())
     print(rep.json_sidecar())
+    print(f"headline (aij): {json.dumps(line)}")
+    _require(line["metric"] == "poisson300_aij_cg_gamg_solve_s", f"lifted aij metric {line['metric']}")
     print(f"launches (lifted aij): {json.dumps({k: v for k, v in used.items() if v})}")
     print(f"lifted aij 300^3: {rep.iters} inner + {rep.outer_iters} outer (phase 5: {production.iters} +"
           f" {production.outer_iters}; equal: {(rep.iters, rep.outer_iters) == (production.iters, production.outer_iters)}),"
@@ -1406,20 +1446,68 @@ def _counting_strokes():
             setattr(FusedSharded, name, fn)
 
 
-def check_sharded(device, production, plain) -> dict:
-    """Phase 27's solves: the 300^3 ``n_devices=4`` solve (its launches
-    returned), its peak memory beside the plain layout's, and ``-devices
-    4`` through the CLI at 100^3."""
+def _sweep(strong: bool, device, tmp, **kw) -> tuple[list, dict]:
+    """One ``bench.scaling`` sweep (strong at 300^3 over ``STRONG_SHARDS``
+    or weak at 64 a shard over ``WEAK_SHARDS``), the launch and stroke
+    counters and the peak memory reset just before each point's solve and
+    read just after it: (its points, {shards: (report, launches, strokes,
+    peak GB, GB held before)}).  Every point reason 2, K3z and K4z launched where d > 1;
+    the record written into ``tmp`` (emulated) and read back.  Each point's
+    peak is printed beside what the script held when its count began."""
+    seen, held = {}, {}
+    with _counting_strokes() as strokes:
+        def reset():
+            kernels.reset_launches()
+            strokes.update(descent=0, ascent=0)
+            torch.cuda.reset_peak_memory_stats(device)
+            held["GB"] = torch.cuda.memory_allocated(device) / 1e9
+
+        def on_point(p, rep):
+            seen[p.n_devices] = (rep, dict(kernels.LAUNCHES), dict(strokes),
+                                 torch.cuda.max_memory_allocated(device) / 1e9, held["GB"])
+            reset()
+
+        reset()
+        if strong:
+            pts = scaling.run_strong(300, STRONG_SHARDS, rtol=1e-8, device=device, on_point=on_point, **kw)
+        else:
+            pts = scaling.run_weak(64, WEAK_SHARDS, rtol=1e-8, device=device, on_point=on_point, **kw)
+    mode = "strong" if strong else "weak"
+    for d, (rep, used, _, peak, before) in seen.items():
+        k3z, k4z = used["fused7_descent_slab"], used["fused7_ascent_slab"]
+        print(f"{mode} {d} z-shards: {rep.iters} inner + {rep.outer_iters} outer, reason {rep.reason}, t_setup"
+              f" {rep.t_setup:.4f} s, t_solve {rep.t_solve:.4f} s, K3z / K4z {k3z} / {k4z}, peak {peak:.3f} GB"
+              f" ({before:.3f} GB held before)")
+        _require(rep.reason == 2, f"{mode} scaling, {d} z-shards: reason {rep.reason} != 2")
+        _require(np.isfinite(rep.linf_error), f"{mode} scaling, {d} z-shards: Linf {rep.linf_error}")
+        if d > 1:
+            _require(k3z > 0 and k4z > 0, f"{mode} scaling, {d} z-shards: K3z / K4z launched {k3z} / {k4z} times")
+    path = pathlib.Path(tmp) / f"torch_scaling_{mode}.json"
+    scaling.save_json(pts, mode, path, backend="cuda")
+    rec = json.loads(path.read_text())
+    print(f"{mode} efficiency (emulated: every shard on one card): {json.dumps(rec['efficiency'])}")
+    if not strong:
+        print(f"weak time-to-solution efficiency: {json.dumps(rec['tts_efficiency'])}; projection:"
+              f" {json.dumps(rec['projection'])}")
+    _require(rec["emulated"] is True and rec["backend"] == "cuda" and len(rec["points"]) == len(pts),
+             f"the {mode} record: emulated {rec['emulated']}, backend {rec['backend']}")
+    return pts, seen
+
+
+def check_sharded(device, production, plain, tmp) -> dict:
+    """Phase 27's solves: the strong sweep at 300^3 over ``STRONG_SHARDS``
+    z-shards (``bench.scaling.run_strong``), whose 4-shard point is the
+    ``n_devices=4`` solve (its launches returned), its peak memory beside
+    the plain layout's, and ``-devices 4`` through the CLI at 100^3."""
     torch.cuda.reset_peak_memory_stats(device)
     solve_poisson(300, rtol=1e-8, atol=1e-12, pc="gamg", layout="plain", device=device)
     plain_peak = torch.cuda.max_memory_allocated(device) / 1e9
-    torch.cuda.reset_peak_memory_stats(device)
-    with _counting_strokes() as strokes:
-        kernels.reset_launches()
-        rep = solve_poisson(300, rtol=1e-8, atol=1e-12, pc="gamg", layout="padded", n_devices=4, device=device,
-                            view=True)
-        used = dict(kernels.LAUNCHES)
-    peak = torch.cuda.max_memory_allocated(device) / 1e9
+    pts, seen = _sweep(True, device, tmp, atol=1e-12, pc="gamg", layout="padded", view=True)
+    one = seen[1][0]
+    for d, (rep, *_) in seen.items():
+        _require(abs(rep.iters - one.iters) <= 2,
+                 f"strong scaling: {d} z-shards take {rep.iters} inner, not within 2 of one shard's {one.iters}")
+    rep, used, strokes, peak, _ = seen[4]
     print(rep.solver_view)
     print(rep.converged_reason_line())
     print(rep.json_sidecar())
@@ -1832,6 +1920,69 @@ def check_profile(device, tmp) -> None:
         _require(phase in host_names, f"the -profile trace names no {phase} phase")
 
 
+def check_bwprobe(device) -> float:
+    """Phase 38: ``bench.bwprobe`` at the JAX package's sizes; every row
+    under ``RATE_SLACK`` x 3.35 TB/s.  Returns the measured ceiling (GB/s)."""
+    probes = bwprobe.run(device=device)
+    for p in probes:
+        print(f"{p.line()}   {100 * p.gb_s * 1e9 / HBM_BYTES_S:5.1f}% of 3.35 TB/s")
+        _require(p.gb_s * 1e9 <= RATE_SLACK * HBM_BYTES_S,
+                 f"bwprobe {p.name}: {p.gb_s:.1f} GB/s past {RATE_SLACK} x 3.35 TB/s (a broken timer)")
+    print(bwprobe.summary(probes, device))
+    return max(bwprobe.ceiling(probes).values())
+
+
+def _spmv_twin(row):
+    """The plain twin of the kernel that ``row.op.mv`` launches."""
+    op, x = row.op, row.x
+    if row.kernel == "star7_mv":
+        return star7_mv_torch(op.diag, op.cx, op.cy, op.cz, x, op.pinned)
+    if row.kernel == "star7_mv_padded":
+        return star7_mv_padded_torch(op.diag, op.cx, op.cy, op.cz, x, op.true_shape, op.pinned)
+    return dia_mv_torch(op.bands, x, op.offsets)
+
+
+def check_spmv(device, ceiling: float) -> None:
+    """Phase 39: ``bench.spmv`` at 300^3 in f32 and f64 over one f64 host
+    assembly, the launch counters reset just before each dtype's timed rows
+    and read just after: K1, K1p and K5 launched by their f32 rows, no
+    kernel by the f64 rows; each kernel row at most ``RATE_SLACK`` x 3.35
+    TB/s (the ELL row is exempt: its model counts every gather of x); then
+    one apply of each kernel row against its container's plain twin (not
+    counted).  Each row printed with its share of the published rate and
+    of phase 38's measured ceiling."""
+    t0 = time.perf_counter()
+    system = assemble_poisson(Grid3D(300, 300, 300))
+    print(f"spmv: the 300^3 host CSR in f64, {system[0].nnz} nonzeros, {time.perf_counter() - t0:.1f} s")
+    for dtype in (torch.float32, torch.float64):
+        t0 = time.perf_counter()
+        rs = spmv.rows(300, dtype, device, system)
+        built = time.perf_counter() - t0
+        kernels.reset_launches()
+        stats = spmv.bench_rows(rs)
+        used = dict(kernels.LAUNCHES)
+        print(f"spmv {dtype}: rows built in {built:.1f} s; launches {json.dumps({k: v for k, v in used.items() if v})}")
+        for r, st in zip(rs, stats):
+            print(f"{st.line()}  {100 * st.gb_s * 1e9 / HBM_BYTES_S:.1f}% of 3.35 TB/s,"
+                  f" {100 * st.gb_s / ceiling:.1f}% of the measured {ceiling:.1f} GB/s"
+                  + (f" ({r.kernel})" if r.kernel else ""))
+            if r.kernel:
+                _require(used[r.kernel] > 0, f"spmv {r.name} did not launch {r.kernel}")
+                _require(st.gb_s * 1e9 <= RATE_SLACK * HBM_BYTES_S,
+                         f"spmv {r.name}: {st.gb_s:.1f} GB/s past {RATE_SLACK} x 3.35 TB/s")
+        if dtype == torch.float32:
+            _require({r.kernel for r in rs if r.kernel} == set(SPMV_KERNELS),
+                     f"spmv f32 rows run {[r.kernel for r in rs]}, not each of {SPMV_KERNELS}")
+        else:
+            _require(not any(used.values()), "the f64 spmv rows launched a kernel")
+        for r in rs:
+            if r.kernel:
+                err = _compare(r.name, r.op.mv(r.x), _spmv_twin(r))
+                print(f"{r.name}: one apply against the plain twin, max abs err {err:.3e}")
+        del rs, stats
+        torch.cuda.empty_cache()
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: no CUDA device")
@@ -1893,12 +2044,14 @@ def main() -> None:
     )
 
     kernels.reset_launches()
-    rep = solve_poisson(300, device=device, **aij)
+    rep, line = headline.run(300, device=device, mat_type="aij", structure_detect=False)
     aij_launches = dict(kernels.LAUNCHES)
     print(rep.reference_block())
     print(rep.converged_reason_line())
     print(rep.json_sidecar())
+    print(f"headline (aij --nodetect): {json.dumps(line)}")
     print(f"launches (aij): {json.dumps(aij_launches)}")
+    _require(line["metric"] == "poisson300_aij_nodetect_cg_gamg_solve_s", f"aij metric {line['metric']}")
     _require(rep.reason == 2, f"aij reason {rep.reason} != 2")
     _require(np.isfinite(rep.linf_error) and rep.linf_error < 1e-4, f"aij Linf {rep.linf_error} >= 1e-4")
     # 35 + 2 in f32 (the TPU's 42 + 3 differs; the JAX package in f32 on
@@ -2097,7 +2250,11 @@ def main() -> None:
     check_uniform_aij_and_records()
 
     rows.update(check_slab(device))
-    sharded = check_sharded(device, production, pl)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_", dir=pathlib.Path(__file__).resolve().parent)
+    try:
+        sharded = check_sharded(device, production, pl, tmp)
+    finally:
+        shutil.rmtree(tmp)
     for name in SLAB_KERNELS:
         launches[name] = sharded[name]
 
@@ -2131,6 +2288,17 @@ def main() -> None:
     finally:
         shutil.rmtree(tmp)
     print(f"phases 35-37: {time.perf_counter() - t0:.1f} s")
+
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    ceiling = check_bwprobe(device)
+    check_spmv(device, ceiling)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_", dir=pathlib.Path(__file__).resolve().parent)
+    try:
+        _sweep(False, device, tmp)
+    finally:
+        shutil.rmtree(tmp)
+    print(f"phases 38-40: {time.perf_counter() - t0:.1f} s")
 
     print(json.dumps({"kernels": [
         {

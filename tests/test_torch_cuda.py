@@ -951,3 +951,84 @@ def test_reordered_solve_on_card_launches_k5(cuda):
     assert abs(res.iters - cpu.iters) <= 2
     natural = KSP(rtol=1e-8).set_operators(a, device=cuda).solve(torch.tensor(b, device=cuda))
     assert (res.x - natural.x[torch.as_tensor(p, device=cuda)]).abs().max().item() <= 1e-6
+
+
+# --- the measurement tooling: bench.spmv, bench.bwprobe, bench.scaling -------
+
+def _spmv_twin(row):
+    op, x = row.op, row.x
+    if row.kernel == "star7_mv":
+        return star7_mv_torch(op.diag, op.cx, op.cy, op.cz, x, op.pinned)
+    if row.kernel == "star7_mv_padded":
+        return star7_mv_padded_torch(op.diag, op.cx, op.cy, op.cz, x, op.true_shape, op.pinned)
+    return dia_mv_torch(op.bands, x, op.offsets)
+
+
+@pytest.mark.parametrize("n", [16, 33, 48])
+def test_spmv_rows_launch_their_kernels(cuda, n):
+    """``bench.spmv``'s f32 rows on the card: K1p (stencil7), K1 (the
+    resident padded row) and K5 (diaband_cuda7), each one launch an apply
+    and equal to its container's plain twin (rtol 1e-5, atol 1e-6 of
+    max|want|); the ELL row launches nothing; the rows time."""
+    from tpusparse_torch.bench import spmv
+
+    rs = spmv.rows(n, torch.float32, cuda)
+    assert [r.name for r in rs] == [f"stencil7_mv_{n}^3_float32", f"stencil7_cuda_resident_{n}^3_f32",
+                                    f"diaband_cuda7_mv_{n}^3_f32", f"ell8_mv_{n}^3_float32"]
+    assert [r.kernel for r in rs] == ["star7_mv", "star7_mv_padded", "dia_mv", None]
+    for r in rs:
+        kernels.reset_launches()
+        y = r.op.mv(r.x)
+        assert sum(kernels.LAUNCHES.values()) == (r.kernel is not None)
+        if r.kernel:
+            assert kernels.LAUNCHES[r.kernel] == 1
+            want = _spmv_twin(r)
+            torch.testing.assert_close(y, want, rtol=1e-5, atol=1e-6 * want.abs().max().item())
+    stats = spmv.bench_rows(rs, reps=3)
+    assert all(s.seconds > 0 and s.bytes > 0 for s in stats)
+
+
+def test_spmv_f64_rows_launch_no_kernel(cuda):
+    from tpusparse_torch.bench import spmv
+
+    kernels.reset_launches()
+    stats = spmv.run(16, reps=2, dtype=torch.float64, device=cuda)
+    assert [s.name for s in stats] == ["stencil7_mv_16^3_float64", "dia7_mv_16^3_float64",
+                                       "ell8_mv_16^3_float64"]
+    assert not any(kernels.LAUNCHES.values())
+
+
+def test_bwprobe_runs_on_card(cuda):
+    """``bench.bwprobe`` at a few MB: every row, bytes = passes x size."""
+    from tpusparse_torch.bench import bwprobe
+
+    probes = bwprobe.run((4, 8), ((10, 11, 12),), 4, device=cuda, reps=3, chains=2)
+    assert len(probes) == 4 * 2 + 1 + 1
+    for p in probes:
+        assert p.seconds > 0 and p.bytes == p.passes * p.size
+    assert sorted(bwprobe.ceiling(probes)) == [2, 3, 4]
+    assert "," in bwprobe.card(cuda)   # nvidia-smi's "name, power limit"
+
+
+def test_strong_sweep_on_card_launches_k3z_k4z(cuda):
+    """``bench.scaling.run_strong`` at 48^3 over 1 and 2 z-shards on the
+    card: the 2-shard point launches K3z/K4z (the 1-shard point does not),
+    both reason 2, each inner count within 2 of the CPU's at that point
+    (at 48^3 the one-shard padded route takes 24 and the z-sharded route
+    the plain layout's 21, on the card and the CPU alike)."""
+    from tpusparse_torch.bench import scaling
+
+    seen = {}
+
+    def on_point(p, rep):
+        seen[p.n_devices] = (rep, dict(kernels.LAUNCHES))
+        kernels.reset_launches()
+
+    kernels.reset_launches()
+    pts = scaling.run_strong(48, [1, 2], device=cuda, layout="padded", on_point=on_point)
+    cpu = scaling.run_strong(48, [1, 2], device="cpu", layout="padded")
+    for d, (rep, used) in seen.items():
+        assert rep.reason == 2
+        assert (used["fused7_descent_slab"] > 0 and used["fused7_ascent_slab"] > 0) == (d > 1)
+    for got, want in zip(pts, cpu):
+        assert abs(got.iters - want.iters) <= 2
