@@ -167,7 +167,8 @@ script exits non-zero without the final line:
    atol=1e-12, pc="gamg", layout="padded", n_devices=4)``: reason 2,
    Linf < 1e-4, 2-3 sweeps, inner within 2 of phase 15's; K3z and K4z launched once a
    stroke (the calls of ``FusedSharded.descent`` / ``ascent``, one each a
-   V-cycle), K1p launched, K2, K3, K4, K3' and K4' not; ``t_setup``,
+   V-cycle), K1h launched (CG's A p, a launch a shard), K2, K3, K4, K3'
+   and K4' not; ``t_setup``,
    ``t_solve`` and peak memory printed beside phases 5 and 15 and the plain
    layout's peak memory.  And ``-devices 4`` through the CLI at 100^3: a
    positive reason, Linf < 1e-3, 4 z-shards in its JSON.
@@ -289,11 +290,35 @@ script exits non-zero without the final line:
    point: every point reason 2, K3z and K4z launched where d > 1, the
    record (efficiencies and the NVLink projection) written into a
    temporary directory of the checkout and read back.
+41. K1h (``star7_mv_halo``, the halo form of K1p: one (z, y) block with its
+   four ghost planes, ``dist/halo.py``) on each block of a one-process
+   mesh: at (8, 6, 13) on the (8, 1) and (2, 6) meshes (one-plane blocks
+   in z and in y), pinned and not, and at 300^3 on the (2, 2) and (4, 1)
+   meshes, pinned; each block against its twin (rtol 1e-5, atol 1e-6 of
+   max|want|), and the blocks together bit-equal to one K1p launch on the
+   global field.  At 300^3 on (2, 2): the four launches (ghosts made
+   before) timed beside one K1p launch, the twins, the whole halo apply
+   (ghost copies included) and cuSPARSE's CSR matvec of the star, with its
+   bound (3 passes of the field and the ghost planes over 3.35 TB/s).
+42. ``-devices p`` on torchrun ranks that share ``cuda:0`` over gloo
+   (``python -m torch.distributed.run --standalone --nproc-per-node W
+   chip_smoke.py --rank-cli <argv>``: the CLI on each rank, then the
+   rank's launch counts, written to a file of its own, since ranks that
+   share one stdout pipe may interleave their lines), beside the same options in this one process:
+   the fused z route at 300^3 with ``-devices 2`` on W = 2 and ``-devices
+   4`` on W = 4, ``-layout plain -devices 4`` at 300^3 (the (2, 2) mesh)
+   on W = 2, and ``-precision f32 -devices 4`` at 100^3 on W = 2.  Each:
+   every rank exits 0 within its time limit (else the phase fails, its
+   ranks killed), reason 2, inner within 2 of the one-process run's, Linf
+   < 1e-4 at 300^3 (1e-3 at 100^3), K1h launched on every rank, K3z/K4z
+   on every rank of the fused route.  Times printed, labelled: ranks that
+   share one card are no scaling result.
 
 Then one JSON line with each kernel's route, source, launches (K1-K4 from
 phase 5, K5 from phase 8, K6/K7 from phase 10, K3'/K4' from phase 11,
 K6'/K7' from phase 12, K8/K9 from phase 14, K1p from phase 15, K10 and
-K12-K16 from phase 18, K11 from phase 19, K3z/K4z from phase 27, the
+K12-K16 from phase 18, K11 from phase 19, K3z/K4z from phase 27, K1h from
+phase 42's one-process (z, y) run at 300^3, the
 batched K1p from phase 28's ``mat_solve``, the batched K5 from phase 31's),
 error,
 times, its bound at the timed shape (the larger of its unique field bytes
@@ -316,7 +341,9 @@ import json
 import math
 import pathlib
 import re
+import os
 import shutil
+import signal
 import statistics
 import subprocess
 import sys
@@ -333,7 +360,8 @@ from tpusparse_torch.amg.hierarchy import AMGParams, gamg_setup, threshold_sched
 from tpusparse_torch.bench import bwprobe, deviceaggbench, headline, reorderbench, scaling, spmv
 from tpusparse_torch.bench.driver import solve_diffusion, solve_poisson
 from tpusparse_torch.dist.fused_sharded import FusedSharded
-from tpusparse_torch.dist.mesh import make_z_mesh
+from tpusparse_torch.dist.halo import HaloStar, block_ghosts
+from tpusparse_torch.dist.mesh import make_mesh, make_z_mesh
 from tpusparse_torch.grid.grid3d import Grid3D
 from tpusparse_torch.grid.poisson import assemble_poisson, poisson_dia_device, poisson_stencil_device
 from tpusparse_torch.kernels import _build
@@ -392,6 +420,8 @@ from tpusparse_torch.kernels.stencil7 import (
     padded_shape,
     star7_mv,
     star7_mv_batched,
+    star7_mv_halo,
+    star7_mv_halo_torch,
     star7_mv_padded,
     star7_mv_padded_torch,
     star7_mv_torch,
@@ -481,6 +511,29 @@ KERNELS.update(SLAB_KERNELS)
 KERNELS["star7_mv_batched"] = (
     "tpusparse_torch/csrc/stencil7.cu", "tpusparse/kernels/stencil7.py:330", star7_mv_batched, star7_mv_torch,
 )
+# K1h, K1p's halo form: one (z, y) block of a rank's slab with its ghost
+# planes (dist/halo.py), what tpusparse/dist/halo.py::_mv_shard applies per
+# shard, K1p's function (star7_mv_pallas) on the block
+KERNELS["star7_mv_halo"] = (
+    "tpusparse_torch/csrc/stencil7.cu", "tpusparse/kernels/stencil7.py:330", star7_mv_halo, star7_mv_halo_torch,
+)
+# phase 41's (global shape, mesh, pinned): one-plane blocks in z and in y,
+# then 300^3; the (2, 2) mesh at 300^3 is timed
+HALO_CASES = (((8, 6, 13), (8, 1), True), ((8, 6, 13), (8, 1), False), ((8, 6, 13), (2, 6), True),
+              ((8, 6, 13), (2, 6), False), ((300, 300, 300), (4, 1), True), ((300, 300, 300), (2, 2), True))
+# phase 42: (label, ranks, CLI arguments, the one-process run's Linf gate);
+# every rank on cuda:0, over gloo
+RANK_PHASES = (
+    ("fused z, -devices 2", 2, (300, "-devices", "2", "-ksp_rtol", "1e-8"), 1e-4),
+    ("fused z, -devices 4", 4, (300, "-devices", "4", "-ksp_rtol", "1e-8"), 1e-4),
+    ("(z, y) plain, -layout plain -devices 4", 2, (300, "-layout", "plain", "-devices", "4", "-ksp_rtol", "1e-8"),
+     1e-4),
+    ("(z, y) plain, -precision f32 -devices 4", 2, (100, "-precision", "f32", "-devices", "4", "-ksp_rtol", "1e-6"),
+     1e-3),
+)
+RANK_TIMEOUT = 240
+# the environment variable that names the directory of phase 42's rank records
+RANK_RECORDS = "CHIP_SMOKE_RANK_RECORDS"
 # phase 28's (shape, columns) of the batched K1p; the last is timed
 BATCHED_CASES = (((40, 11, 13), 3), ((300, 300, 300), 4))
 # K5 over a stack of k columns (KSP.mat_solve's apply of a DIA operator,
@@ -1527,7 +1580,7 @@ def check_sharded(device, production, plain, tmp) -> dict:
     _require(k3z > 0 and k3z == k4z == strokes["descent"] == strokes["ascent"],
              f"n_devices=4: K3z / K4z launched {k3z} / {k4z} times in {strokes['descent']} / {strokes['ascent']}"
              " strokes, not one a stroke")
-    _require(used["star7_mv"] > 0, "n_devices=4 did not launch star7_mv")
+    _require(used["star7_mv_halo"] > 0, "n_devices=4 did not launch star7_mv_halo (CG's Ap, a launch a shard)")
     for name in ("fused7_mvdot", "fused7_descent_rr", "fused7_ascent_rz", "fused7_descent", "fused7_ascent"):
         _require(used[name] == 0, f"n_devices=4 launched {name}")
 
@@ -1537,7 +1590,7 @@ def check_sharded(device, production, plain, tmp) -> dict:
     _require(np.isfinite(side["linf_error"]) and side["linf_error"] < 1e-3,
              f"-devices 4: Linf {side['linf_error']} >= 1e-3")
     _require(side["z_shards"] == 4, f"-devices 4: {side['z_shards']} z-shards in its JSON")
-    return used
+    return used, seen
 
 
 def _dia_batched_inputs(shape, pinned, k, device, rng):
@@ -1983,6 +2036,177 @@ def check_spmv(device, ceiling: float) -> None:
         torch.cuda.empty_cache()
 
 
+def check_halo(device) -> tuple[dict, int]:
+    """Phase 41: K1h on each block of a one-process mesh against its twin,
+    the blocks together bit-equal to one K1p launch; timed at 300^3 on the
+    (2, 2) mesh.  (its row, the launches of one halo apply there)."""
+    row = {"max_abs_err": 0.0}
+    for shape, mesh_shape, pinned in HALO_CASES:
+        nz, ny, nx = shape
+        star = poisson_stencil_device(Grid3D(nx, ny, nz), pin=pinned, dtype=torch.float32, device=device)[0]
+        x = torch.from_numpy(np.random.default_rng(SEED).standard_normal(shape, dtype=np.float32)).to(device)
+        mesh = make_mesh(mesh_shape[0] * mesh_shape[1], mesh_shape, device)
+        hs = HaloStar.build(star, mesh)
+        before = kernels.LAUNCHES["star7_mv_halo"]
+        got = hs.mv(x)
+        per_apply = kernels.LAUNCHES["star7_mv_halo"] - before
+        want = star7_mv(star.diag, star.cx, star.cy, star.cz, x, star.pinned)
+        torch.cuda.synchronize()
+        _require(per_apply == mesh.p, f"K1h {shape} {mesh_shape}: {per_apply} launches, not one a block")
+        _require(torch.equal(got, want), f"K1h {shape} {mesh_shape}: the blocks are not bit-equal to one K1p launch"
+                 f" (max diff {(got - want).abs().max().item():.3e})")
+        calls, twins, y = [], [], torch.empty_like(x)
+        for blk in mesh.blocks(shape):
+            zs, ys = slice(blk.z0, blk.z0 + blk.nz), slice(blk.y0, blk.y0 + blk.ny)
+            origin = 0 if pinned and blk.z0 == 0 and blk.y0 == 0 else -1
+            args = (star.diag[zs, ys], star.cx, star.cy, star.cz, x[zs, ys], *block_ghosts(x, None, None, blk, pinned),
+                    origin)
+            out = y[zs, ys]
+            calls.append((args, out))
+            twin = star7_mv_halo_torch(*args)
+            twins.append(twin)
+            row["max_abs_err"] = max(row["max_abs_err"], _compare(f"star7_mv_halo {shape} {mesh_shape}",
+                                                                  star7_mv_halo(*args, out=out), twin))
+        print(f"kernel star7_mv_halo {shape} on the {mesh_shape} mesh{'' if pinned else ', unpinned'}: each block"
+              f" agrees with its twin, the blocks bit-equal to one star7_mv launch ({per_apply} launches)")
+        if shape == HALO_CASES[-1][0] and mesh_shape == HALO_CASES[-1][1]:
+            def blocks():
+                for args, out in calls:
+                    star7_mv_halo(*args, out=out)
+
+            def blocks_twin():
+                for args, _ in calls:
+                    star7_mv_halo_torch(*args)
+
+            ghosts = [g for args, _ in calls for g in args[5:9] if g is not None]
+            ghost_bytes = sum(g.numel() * g.element_size() for g in ghosts)
+            t_bytes = (3 * x.numel() * x.element_size() + ghost_bytes) / HBM_BYTES_S
+            t_ops = FLOPS_PER_CELL["star7_mv"] * x.numel() / F32_FLOP_S
+            row.update(bound_ms=max(t_bytes, t_ops) * 1e3, bound_by="bytes" if t_bytes >= t_ops else "operations")
+            row["ms"] = _time_ms(blocks, ())
+            row["plain_ms"] = _time_ms(blocks_twin, ())
+            k1p_ms = _time_ms(star7_mv, (star.diag, star.cx, star.cy, star.cz, x, star.pinned))
+            apply_ms = _time_ms(hs.mv, (x,))
+            csr = _star_csr(star.diag, star.cx, star.cy, star.cz, star.pinned)
+            flat = x.reshape(-1).contiguous()
+            _compare("one PyTorch call star7_mv_halo", (csr @ flat).reshape(shape), want)
+            row["library_ms"] = _time_ms(lambda m, v: m @ v, (csr, flat))
+            del csr
+            print(f"time star7_mv_halo {shape} on the {mesh_shape} mesh: {mesh.p} K1h launches {row['ms']:.4f} ms"
+                  f" (one K1p launch {k1p_ms:.4f} ms; the halo apply with its ghost copies {apply_ms:.4f} ms),"
+                  f" plain {row['plain_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms ({row['bound_by']}; 3 field"
+                  f" passes and {ghost_bytes / 1e6:.2f} MB of ghosts; {100 * row['bound_ms'] / row['ms']:.0f}% of"
+                  f" it), one PyTorch call (cuSPARSE) {row['library_ms']:.4f} ms")
+        del star, x, hs, got, want, calls, twins, y
+        torch.cuda.empty_cache()
+    return row
+
+
+def _rank_run(world: int, argv: list[str], scratch: str | None = None) -> tuple[dict, list, float]:
+    """The CLI on ``world`` torchrun ranks sharing cuda:0 (gloo): rank 0's
+    JSON sidecar, each rank's launches and strokes, and the wall seconds of
+    the whole run.  A rank that fails or outlives ``RANK_TIMEOUT`` fails
+    the phase; the run's processes are killed on the way out.  The ranks
+    share one stdout pipe, where a write of one rank can land inside
+    another's line, so each rank's record comes back in a file of its own
+    (``RANK_RECORDS``, a directory made in ``scratch``, by default the
+    checkout) and stdout holds rank 0's report alone."""
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone", f"--nproc-per-node={world}",
+           str(pathlib.Path(__file__).resolve()), "--rank-cli", *argv]
+    root = str(pathlib.Path(__file__).resolve().parent)
+    records = tempfile.mkdtemp(prefix="chip_smoke_ranks_", dir=scratch or root)
+    env = {**os.environ, "PYTHONPATH": os.pathsep.join([root, os.environ.get("PYTHONPATH", "")]),
+           RANK_RECORDS: records}
+    t0 = time.perf_counter()
+    try:
+        proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, env=env,
+                                cwd=root, start_new_session=True)
+        try:
+            out, err = proc.communicate(timeout=RANK_TIMEOUT)
+        except subprocess.TimeoutExpired:
+            os.killpg(proc.pid, signal.SIGKILL)
+            proc.communicate()
+            raise AssertionError(f"{world} ranks {argv}: not done within {RANK_TIMEOUT} s") from None
+        finally:
+            if proc.poll() is None:
+                os.killpg(proc.pid, signal.SIGKILL)
+        wall = time.perf_counter() - t0
+        _require(proc.returncode == 0,
+                 f"{world} ranks {argv}: exit code {proc.returncode}\n{out[-3000:]}\n{err[-3000:]}")
+        side = [line for line in out.splitlines() if line.startswith("JSON: ")]
+        _require(len(side) == 1, f"{world} ranks {argv}: {len(side)} JSON sidecars (rank 0 alone prints one)")
+        files = sorted(pathlib.Path(records).glob("rank*.json"))
+        _require(len(files) == world, f"{world} ranks {argv}: {len(files)} rank records")
+        ranks = sorted((json.loads(f.read_text()) for f in files), key=lambda r: r["rank"])
+        _require([r["rank"] for r in ranks] == list(range(world)), f"{world} ranks {argv}: rank records {ranks}")
+    finally:
+        shutil.rmtree(records)
+    return json.loads(side[0][len("JSON: "):]), ranks, wall
+
+
+def rank_cli(argv: list[str]) -> int:
+    """Phase 42's worker, one a torchrun rank: the CLI (which joins the
+    process group), then this rank's launches and the fused route's
+    strokes, written to ``rank<r>.json`` in the directory that
+    ``RANK_RECORDS`` names (renamed into place once whole)."""
+    kernels.reset_launches()
+    with _counting_strokes() as strokes:
+        rc = cli_main(argv)
+    rank = int(os.environ["RANK"])
+    path = pathlib.Path(os.environ[RANK_RECORDS]) / f"rank{rank}.json"
+    part = path.with_suffix(".part")
+    part.write_text(json.dumps({"rank": rank, "launches": {
+        k: v for k, v in kernels.LAUNCHES.items() if v}, "strokes": strokes}))
+    part.rename(path)
+    return rc
+
+
+def check_ranks(device, strong: dict) -> dict:
+    """Phase 42: each of ``RANK_PHASES`` on its torchrun ranks beside the
+    same options in this process (the fused points from phase 27's strong
+    sweep, ``strong``; the others run here).  The (z, y) 300^3 run's
+    launches in this process are returned: its K1h count is the kernel's
+    main-path count."""
+    torch.cuda.empty_cache()
+    main_path = {}
+    for label, world, (n, *opts), linf in RANK_PHASES:
+        argv = [*_grid(n), *opts, "-ksp_atol", "1e-12", "-ksp_converged_reason"]
+        p = int(opts[opts.index("-devices") + 1])
+        if "-layout" not in opts and "-precision" not in opts:
+            ref = strong[p][0]
+            ref = {"iters": ref.iters, "outer_iters": ref.outer_iters, "t_solve": ref.t_solve}
+        else:
+            ref, used = run_cli(argv)
+            if n == 300:
+                main_path = used
+            _require(used["star7_mv_halo"] > 0, f"{label}, one process: K1h not launched")
+        torch.cuda.empty_cache()
+        side, ranks, wall = _rank_run(world, argv)
+        print(f"{label} on {world} ranks sharing cuda:0 (gloo; NOT a scaling result: the ranks share one card):"
+              f" {side['iters']} inner + {side['outer_iters']} outer, reason {side['reason']}, Linf"
+              f" {side['linf_error']:.6e}, mesh {side['mesh']}, t_setup {side['t_setup']:.4f} s, t_solve"
+              f" {side['t_solve']:.4f} s, {wall:.1f} s in all; one process: {ref['iters']} + {ref['outer_iters']}"
+              f" in {ref['t_solve']:.4f} s")
+        for r in ranks:
+            used = r["launches"]
+            print(f"  rank {r['rank']}: K1h {used.get('star7_mv_halo', 0)}, K3z / K4z"
+                  f" {used.get('fused7_descent_slab', 0)} / {used.get('fused7_ascent_slab', 0)} in"
+                  f" {r['strokes']['descent']} / {r['strokes']['ascent']} strokes")
+            _require(used.get("star7_mv_halo", 0) > 0, f"{label}: rank {r['rank']} did not launch K1h")
+            if label.startswith("fused"):
+                _require(used.get("fused7_descent_slab", 0) > 0 and used.get("fused7_ascent_slab", 0) > 0,
+                         f"{label}: rank {r['rank']} did not launch K3z / K4z")
+        _require(side["ranks"] == world and side["z_shards"] == p,
+                 f"{label}: ranks {side['ranks']}, p {side['z_shards']}")
+        _require(side["reason"] == 2, f"{label}: reason {side['reason']} != 2")
+        _require(abs(side["iters"] - ref["iters"]) <= 2,
+                 f"{label}: {side['iters']} inner, not within 2 of the one-process run's {ref['iters']}")
+        _require(np.isfinite(side["linf_error"]) and side["linf_error"] < linf,
+                 f"{label}: Linf {side['linf_error']} >= {linf}")
+    return main_path
+
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: no CUDA device")
@@ -2252,7 +2476,7 @@ def main() -> None:
     rows.update(check_slab(device))
     tmp = tempfile.mkdtemp(prefix="chip_smoke_", dir=pathlib.Path(__file__).resolve().parent)
     try:
-        sharded = check_sharded(device, production, pl, tmp)
+        sharded, strong = check_sharded(device, production, pl, tmp)
     finally:
         shutil.rmtree(tmp)
     for name in SLAB_KERNELS:
@@ -2300,6 +2524,11 @@ def main() -> None:
         shutil.rmtree(tmp)
     print(f"phases 38-40: {time.perf_counter() - t0:.1f} s")
 
+    t0 = time.perf_counter()
+    rows["star7_mv_halo"] = check_halo(device)
+    launches["star7_mv_halo"] = check_ranks(device, strong)["star7_mv_halo"]
+    print(f"phases 41-42: {time.perf_counter() - t0:.1f} s")
+
     print(json.dumps({"kernels": [
         {
             "name": name, "route": "cuda", "source": src, "replaces": replaces,
@@ -2317,4 +2546,6 @@ def main() -> None:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--rank-cli"]:
+        sys.exit(rank_cli(sys.argv[2:]))
     main()

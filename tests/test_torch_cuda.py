@@ -16,7 +16,8 @@ and K5 with 49-192 bands, ELL and the factored transfer (same bits twice),
 and the greedy, banded and block-Jacobi-level aij routes at 16^3 against
 the CPU, and the diffusion solve at 16^3 and the RCM-reordered route (the
 ELL pair, K5 on its HybridDIA level 0) against the CPU and the natural
-order.
+order, and K1h (``star7_mv_halo``) on each block of a one-process mesh
+against its twin and, the blocks together, one K1p launch.
 
 These tests need a CUDA device and skip without one.  The file imports no
 JAX, so it also runs where JAX is not installed:
@@ -451,8 +452,8 @@ def test_slab_entry_points_refuse_a_dot_or_a_slab_outside_the_grid(cuda):
 
 def test_sharded_solve_on_card_matches_cpu(cuda, monkeypatch):
     """``n_devices=4`` at 16^3 (nz_l = 4): K3z/K4z alike, one launch a
-    stroke (``FusedSharded.descent`` / ``ascent``), and K1p; no K2-K4 or
-    K3'/K4'; the CPU's outcome."""
+    stroke (``FusedSharded.descent`` / ``ascent``), K1p and K1h; no K2-K4
+    or K3'/K4'; the CPU's outcome."""
     kw = dict(rtol=1e-8, atol=1e-12, pc="gamg", warmup=False, n_devices=4)
     strokes = {"descent": 0, "ascent": 0}
 
@@ -470,9 +471,11 @@ def test_sharded_solve_on_card_matches_cpu(cuda, monkeypatch):
     gpu = solve_poisson(16, device=cuda, **kw)
     used = dict(kernels.LAUNCHES)
     assert used["fused7_descent_slab"] == strokes["descent"] == strokes["ascent"] == used["fused7_ascent_slab"] > 0
-    assert used["star7_mv"] > 0
+    # K1p in the setup (rho, Galerkin probing), K1h for CG's Ap (a launch a
+    # shard, dist/halo.py)
+    assert used["star7_mv"] > 0 and used["star7_mv_halo"] > 0
     assert all(n == 0 for name, n in used.items()
-               if name not in ("fused7_descent_slab", "fused7_ascent_slab", "star7_mv"))
+               if name not in ("fused7_descent_slab", "fused7_ascent_slab", "star7_mv", "star7_mv_halo"))
     cpu = solve_poisson(16, device="cpu", **kw)
     assert (gpu.reason, gpu.outer_iters) == (cpu.reason, cpu.outer_iters) == (2, 2)
     assert abs(gpu.iters - cpu.iters) <= 1
@@ -1032,3 +1035,49 @@ def test_strong_sweep_on_card_launches_k3z_k4z(cuda):
         assert (used["fused7_descent_slab"] > 0 and used["fused7_ascent_slab"] > 0) == (d > 1)
     for got, want in zip(pts, cpu):
         assert abs(got.iters - want.iters) <= 2
+
+
+@pytest.mark.parametrize("pinned", [True, False])
+@pytest.mark.parametrize("shape, mesh_shape", [((8, 6, 13), (8, 1)), ((8, 6, 13), (2, 6)), ((12, 12, 12), (2, 2)),
+                                               ((7, 5, 9), (1, 5))])
+def test_star7_mv_halo_matches_twin_and_k1p(cuda, shape, mesh_shape, pinned):
+    """K1h on each block of a one-process mesh (one-plane blocks in z and
+    in y among them) against its twin, and the blocks together bit-equal to
+    one K1p launch on the global field; one launch a block."""
+    from tpusparse_torch.dist.halo import HaloStar, block_ghosts
+    from tpusparse_torch.dist.mesh import make_mesh
+    from tpusparse_torch.kernels.stencil7 import star7_mv, star7_mv_halo, star7_mv_halo_torch
+
+    nz, ny, nx = shape
+    star = poisson_stencil_device(Grid3D(nx, ny, nz), pin=pinned, dtype=torch.float32, device=cuda)[0]
+    x = torch.tensor(np.random.default_rng(7).standard_normal(shape, dtype=np.float32), device=cuda)
+    mesh = make_mesh(mesh_shape[0] * mesh_shape[1], mesh_shape, cuda)
+    kernels.reset_launches()
+    got = HaloStar.build(star, mesh).mv(x)
+    assert kernels.LAUNCHES["star7_mv_halo"] == mesh.p
+    assert torch.equal(got, star7_mv(star.diag, star.cx, star.cy, star.cz, x, pinned))
+    for blk in mesh.blocks(shape):
+        zs, ys = slice(blk.z0, blk.z0 + blk.nz), slice(blk.y0, blk.y0 + blk.ny)
+        args = (star.diag[zs, ys], star.cx, star.cy, star.cz, x[zs, ys], *block_ghosts(x, None, None, blk, pinned),
+                0 if pinned and blk.z0 == blk.y0 == 0 else -1)
+        want = star7_mv_halo_torch(*args)
+        _close(star7_mv_halo(*args), want, cuda)            # into a new contiguous block
+        _close(star7_mv_halo(*args, out=torch.empty_like(x)[zs, ys]), want, cuda)   # into a view
+
+
+def test_star7_mv_halo_refuses_mixed_devices_and_bad_ghosts(cuda):
+    """A CUDA block launches K1h or raises: a ghost on the CPU, a ghost of
+    the wrong shape or a block that is not unit-stride in x."""
+    from tpusparse_torch.kernels.stencil7 import star7_mv_halo
+
+    x = torch.ones((4, 3, 5), device=cuda)
+    with pytest.raises(ValueError, match="fields on"):
+        star7_mv_halo(x, 1.0, 1.0, 1.0, x, torch.ones((3, 5)), None, None, None)
+    with pytest.raises(ValueError, match="ghost"):
+        star7_mv_halo(x, 1.0, 1.0, 1.0, x, None, torch.ones((4, 5), device=cuda), None, None)
+    with pytest.raises(ValueError, match="unit-stride"):
+        xt = x.transpose(1, 2)
+        star7_mv_halo(xt, 1.0, 1.0, 1.0, xt, None, None, None, None)
+    with pytest.raises(ValueError, match="unit-stride"):
+        star7_mv_halo(x, 1.0, 1.0, 1.0, x, None, None, None, None, out=torch.empty((4, 5, 3), device=cuda)
+                      .transpose(1, 2))

@@ -113,13 +113,13 @@ def test_malformed_values_raise_in_both(argv, err):
         # the item-9.2 values that stood here (-pc_gamg_aggregation greedy
         # and banded, -pc_bjacobi_bs with GAMG on aij) are ported, and so
         # are -problem diffusion and -profile (items 11 and 13): ACCEPTED
+        # -devices p beside aij, the reference config, -profile and the
+        # plain layout are ported too (queue 12): test_devices_values_are_accepted
         ["-problem", "diffusion", "-devices", "2"],
-        ["-mat_type", "aij", "-devices", "2"],
         ["-problem", "diffusion", "-devices", "4", "-mat_type", "aij"],
-        ["-devices", "4"],
         ["-precision", "tf"],                    # not to port
-        ["-profile", "trace_dir", "-mat_type", "aij", "-devices", "2"],
-        ["-profile", "trace_dir", "-devices", "2", "-layout", "plain"],
+        # the JAX driver refuses it too (its words); the sharded general
+        # executor is queue 12
         ["-mat_type", "aij", "-mat_structure_detect", "0", "-devices", "2"],
         ["-problem", "diffusion", "-pc_gamg_aggregation", "greedy", "-devices", "2"],
     ],
@@ -130,6 +130,24 @@ def test_unported_values_raise(argv):
     with warnings.catch_warnings():
         warnings.simplefilter("ignore")
         assert j_load_options(["-config", REF, *argv])  # the JAX package takes them
+
+
+@pytest.mark.parametrize(
+    "argv",
+    [
+        # refused as queue 12 until the split solve was ported (dist/)
+        ["-mat_type", "aij", "-devices", "2"],
+        ["-devices", "4"],
+        ["-profile", "trace_dir", "-mat_type", "aij", "-devices", "2"],
+        ["-profile", "trace_dir", "-devices", "2", "-layout", "plain"],
+    ],
+)
+def test_devices_values_are_accepted(argv):
+    got = load_options(["-config", REF, *argv])
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        want = j_load_options(["-config", REF, *argv])
+    assert (got.devices, got.mat_type, got.layout) == (want.devices, want.mat_type, want.layout)
 
 
 # the preconditioner, aij and pc_dtype values the port took last: each

@@ -143,8 +143,13 @@ def test_record_keys_match_jax(sweeps, mode, tmp_path):
 
 
 def test_point_outside_the_route_raises_naming_queue_12():
-    with pytest.raises(NotImplementedError, match="queue 12"):
-        scaling.run_strong(12, [2], precision="f64", device="cpu")
+    """A point off the fused z route (uniform f64 here), refused as queue
+    12 before the (z, y) route was ported, runs there; a point whose options
+    the JAX driver refuses with n_devices > 1 raises in its words."""
+    pts = scaling.run_strong(12, [1, 2], precision="f64", device="cpu")
+    assert [p.n_devices for p in pts] == [1, 2] and abs(pts[0].iters - pts[1].iters) <= 1
+    with pytest.raises(NotImplementedError, match="single-device"):
+        scaling.run_strong(12, [2], pc="sor", device="cpu")
 
 
 def test_scaling_main_writes_its_own_record(tmp_path, monkeypatch, capsys):

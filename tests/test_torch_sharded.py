@@ -5,8 +5,9 @@ stacked, against ``fused7_call``'s z-slab form in the Pallas interpreter,
 one wrapper call a stroke, the slab twins over all shards against the
 unsharded twin, ``vcycle_fused_sharded`` against the JAX package's plain
 ``vcycle`` on one hierarchy, ``solve_poisson(..., n_devices=4)`` and
-``-devices 4`` against the JAX package, and the routes ``n_devices > 1``
-does not take.
+``-devices 4`` against the JAX package, and every other ``n_devices > 1``
+option set: run on the (z, y) route, or refused as the JAX driver refuses
+it.
 
 On the CPU every wrapper runs its plain twin; ``test_torch_cuda.py`` holds
 the CUDA kernels against the twins on the card.
@@ -404,18 +405,26 @@ def test_devices_through_both_clis():
     assert got["z_shards"] == 4
 
 
-# --- the routes n_devices > 1 does not take -----------------------------------
+# --- the other n_devices > 1 routes and the refusals -----------------------------
 
 def test_indivisible_or_thin_shards_raise_value_error():
+    """The z mesh refuses shards that do not divide nz or hold fewer than
+    FACE planes.  The driver sends such grids to the (z, y) plain route
+    (JAX's GSPMD route, which takes them), and refuses a grid that the
+    (z, y) mesh does not divide, with JAX's message."""
     diag, legs, _ = _fields((18, 6, 7))
     with pytest.raises(ValueError, match="divisible"):
         FusedSharded.build(star_from_numpy(diag, *legs, True, device="cpu"), make_z_mesh(4, "cpu"))
     with pytest.raises(ValueError, match="divisible"):
-        solve_poisson(8, 8, 18, n_devices=4, device="cpu")
+        solve_poisson(8, 9, 18, n_devices=4, device="cpu")
     with pytest.raises(ValueError, match="fewer"):
         check_divisible((8, 6, 7), make_z_mesh(4, "cpu"))
+    diag, legs, _ = _fields((8, 6, 7))
     with pytest.raises(ValueError, match="fewer"):
-        solve_poisson(8, 8, 8, n_devices=4, device="cpu")
+        FusedSharded.build(star_from_numpy(diag, *legs, True, device="cpu"), make_z_mesh(4, "cpu"))
+    for nz in (18, 8):
+        rep = solve_poisson(8, 8, nz, n_devices=4, device="cpu", rtol=1e-6)
+        assert rep.reason == 2 and (rep.sharded_route, rep.mesh) == ("(z, y) plain", [2, 2])
 
 
 QUEUE12 = [
@@ -437,16 +446,39 @@ QUEUE12 = [
     # a threshold schedule that filters level 0: (1, 3, 3) on this box
     dict(extent=(1.0, 1.0, 3.0), amg_params=AMGParams(threshold=0.05)),
 ]
+# the JAX driver refuses these with n_devices > 1, in these words
+JAX_REFUSED = {"pc=sor": "pc_type='sor' is single-device", "mat_type=aij-structure_detect=False":
+               "requires structure_detect"}
 
 
-@pytest.mark.parametrize("kw", QUEUE12, ids=lambda kw: "-".join(f"{k}={v}" for k, v in kw.items()))
+def _id(kw):
+    return "-".join(f"{k}={v}" for k, v in kw.items())
+
+
+@pytest.mark.parametrize("kw", QUEUE12, ids=_id)
 def test_other_routes_raise_naming_queue_12(kw):
-    with pytest.raises(NotImplementedError, match="queue 12"):
-        solve_poisson(12, n_devices=4, device="cpu", rtol=1e-6, **kw)
+    """Every route that raised naming queue 12 before the split solve was
+    ported: the two the JAX driver refuses raise its words; the others run
+    (the fused z route for the lifted aij matrix, the (z, y) plain route
+    for the rest) to the outcome of the same options on one device: the
+    same reason, inner within 2, Linf within 1e-6 + 1e-3 |Linf|."""
+    if _id(kw) in JAX_REFUSED:
+        with pytest.raises(NotImplementedError, match=JAX_REFUSED[_id(kw)]):
+            solve_poisson(12, n_devices=4, device="cpu", rtol=1e-6, **kw)
+        return
+    got = solve_poisson(12, n_devices=4, device="cpu", rtol=1e-6, **kw)
+    one = solve_poisson(12, device="cpu", rtol=1e-6, **kw)
+    assert got.reason == one.reason > 0 and got.outer_iters == one.outer_iters
+    assert abs(got.iters - one.iters) <= 2
+    assert abs(got.linf_error - one.linf_error) < 1e-6 + 1e-3 * abs(one.linf_error)
+    route = ("fused z", [4, 1]) if kw == {"mat_type": "aij"} else ("(z, y) plain", [2, 2])
+    assert (got.sharded_route, got.mesh, got.ranks) == (*route, 1)
 
 
 def test_multi_device_mesh_and_cg_fusion_are_refused():
-    with pytest.raises(NotImplementedError, match="queue 12"):
+    """A mesh takes this rank's one device (its ranks come from the process
+    group); the full-fusion body is single-device."""
+    with pytest.raises(ValueError, match="one device"):
         make_z_mesh(2, ["cpu", "cpu"])
     with pytest.raises(ValueError, match="single-device"):
         solve_poisson(12, n_devices=4, device="cpu", cg_fusion=True)
@@ -455,17 +487,21 @@ def test_multi_device_mesh_and_cg_fusion_are_refused():
 @pytest.mark.parametrize(
     "argv, refused",
     [
-        (["-devices", "4"], False),
-        (["-devices", "4", "-pc_mg_cycle_type", "w"], False),
-        (["-devices", "4", "-layout", "plain"], True),
-        (["-devices", "4", "-mg_levels_ksp_max_it", "3"], True),
-        (["-devices", "4", "-mat_type", "aij"], True),
-        (["-devices", "4", "-pc_type", "jacobi"], True),
+        (["-devices", "4"], None),
+        (["-devices", "4", "-pc_mg_cycle_type", "w"], None),
+        (["-devices", "4", "-layout", "plain"], None),
+        (["-devices", "4", "-mg_levels_ksp_max_it", "3"], None),
+        (["-devices", "4", "-mat_type", "aij"], None),
+        (["-devices", "4", "-pc_type", "jacobi"], None),
+        (["-devices", "4", "-pc_type", "sor"], "pc_type='sor' is single-device"),
+        (["-devices", "4", "-mat_type", "aij", "-mat_structure_detect", "0"], "requires structure_detect"),
     ],
 )
 def test_devices_option_refused_off_the_sharded_route(argv, refused):
+    """The options database takes every -devices option set the JAX driver
+    runs, and refuses what it refuses, in its words."""
     if refused:
-        with pytest.raises(NotImplementedError, match="queue 12"):
+        with pytest.raises(NotImplementedError, match=refused):
             load_options(argv)
     else:
         assert load_options(argv).devices == 4

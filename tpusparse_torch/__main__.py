@@ -25,6 +25,17 @@ solve_diffusion``; CG + GAMG only, ``-diffusion_contrast``).
 ``-profile <dir>`` writes a ``torch.profiler`` trace of the solve into
 ``<dir>`` (``utils/profiling.py``).  ``-device cuda`` (the default) needs
 a CUDA device; ``-device cpu`` runs every kernel's plain twin on the CPU.
+
+``-devices p`` splits the Poisson solve over p blocks (``dist/``).  Under
+torchrun, the reference's ``aprun -n W``,
+
+    python -m torch.distributed.run --standalone --nproc-per-node W \
+        -m tpusparse_torch -da_grid_x 300 -da_grid_y 300 -da_grid_z 300 -devices 4
+
+each of the W ranks joins the process group (``dist/multihost.py``: NCCL
+with one card a rank, gloo where ranks share a card or run on the CPU),
+holds p/W of the blocks on ``cuda:{LOCAL_RANK % device_count}``, and only
+rank 0 prints.
 """
 
 from __future__ import annotations
@@ -33,6 +44,7 @@ import sys
 import time
 
 import torch
+import torch.distributed
 
 
 def _viewer_file(spec: str) -> str:
@@ -107,8 +119,8 @@ def _diffusion(opts, device):
 
 
 def main(argv: list[str] | None = None) -> int:
-    from tpusparse_torch.config.options import help_text, load_options, options_left_report
-    from tpusparse_torch.utils.profiling import trace
+    from tpusparse_torch.config.options import help_text, load_options
+    from tpusparse_torch.dist import multihost
 
     args = argv if argv is not None else sys.argv[1:]
     if "-help" in args or "--help" in args:
@@ -121,6 +133,33 @@ def main(argv: list[str] | None = None) -> int:
             "-device cuda: no CUDA device here; -device cpu runs the"
             " kernels' plain twins"
         )
+    # the process group: torchrun's (joined here, left at the end), or one
+    # the caller made
+    joined = not torch.distributed.is_initialized()
+    if not multihost.initialize(device=device):
+        return _main(opts, device, True)
+    try:
+        world, rank = torch.distributed.get_world_size(), torch.distributed.get_rank()
+        if opts.f or opts.problem != "poisson" or opts.devices % world:
+            raise ValueError(
+                f"{world} ranks run the Poisson solve split over -devices p, with W | p (got -devices"
+                f" {opts.devices}{', -f' if opts.f else ''}, -problem {opts.problem})"
+            )
+        return _main(opts, multihost.rank_device(device), rank == 0)
+    finally:
+        if joined:
+            multihost.finalize()
+
+
+def _main(opts, device, report: bool) -> int:
+    """The run the options ask for on ``device``; ``report``: print (rank 0,
+    or the one process)."""
+    from tpusparse_torch.config.options import options_left_report
+    from tpusparse_torch.utils.profiling import trace
+
+    if not report:
+        _solve(opts, device)
+        return 0
     if opts.mat_view and not opts.f:
         _export(opts)
     if not opts.f and opts.problem not in ("poisson", "diffusion"):

@@ -38,13 +38,19 @@ f32 under f64 defect correction.  The routes:
   method runs on the plain operator in that dtype, preconditioned by the
   plain V-cycle of a hierarchy built in the same dtype (the JAX driver's
   ``:756-764``); in f32 its level-0 applies are K1p, in f64 plain torch.
-- ``n_devices=p`` > 1: the z-sharded route (the JAX driver's ``fused_sh``,
-  ``:396-431``, ``:766-825``): the f32 ``StarStencil3D`` and the plain
-  hierarchy, preconditioned by ``vcycle_fused_sharded``, whose fine level
-  runs on every z-shard, one launch a stroke over all of them (kernels
-  K3z/K4z, ``dist/fused_sharded.py``), and
-  CG's ``Ap`` on K1p.  The p shards live on ONE device; several devices are
-  ROADMAP queue 12, and so is every other ``n_devices > 1`` route.
+- ``n_devices=p`` > 1: the solve split over a mesh of p blocks held by
+  the W ranks of the ``torch.distributed`` process group (W = 1 without
+  one: one process holds every block; ``dist/mesh.py``), each rank's
+  vectors its own z-slab, every global reduction all-reduced
+  (``solve/reduce.py``), the coarse levels whole on every rank.  The
+  route mirrors the JAX driver's (``:396-431``, ``:766-830``): where the
+  fused kernels take level 0 (``fused_route_ok``) the fused z route, the
+  fine level as z-slabs, one K3z/K4z launch a stroke over the rank's slabs
+  (``dist/fused_sharded.py``); every other option set the (z, y) plain
+  route, JAX's GSPMD program, with level 0 sharded
+  (``shard_hierarchy``).  On both the operators are ``HaloStar``s: each
+  f32 apply runs kernel K1h on each of the rank's blocks after the
+  boundary-plane exchange (``dist/halo.py``), f64 the torch apply.
 - ``mat_type="aij"``: the system as a 7-band DIA (f32 ``DIA`` for the
   inner solves, two-float ``DFDIA`` for the outer residual; one ``DIA`` in
   the solve's dtype under uniform precision).  With GAMG and
@@ -74,6 +80,7 @@ Each driver marks its phases for ``-profile`` traces
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import functools
 import json
@@ -101,8 +108,21 @@ from tpusparse_torch.amg.hierarchy import (
     vcycle,
 )
 from tpusparse_torch.amg.unstructured import gamg_setup_unstructured
-from tpusparse_torch.dist.fused_sharded import FusedSharded, sharded_route_refusal, vcycle_fused_sharded
-from tpusparse_torch.dist.mesh import check_divisible, make_z_mesh
+from tpusparse_torch.dist.fused_sharded import (
+    AIJ_UNLIFTED,
+    FusedSharded,
+    fused_route_ok,
+    sharded_route_refusal,
+    vcycle_fused_sharded,
+)
+from tpusparse_torch.dist.halo import HaloStar
+from tpusparse_torch.dist.mesh import (
+    make_mesh,
+    make_z_mesh,
+    process_group,
+    shard_hierarchy,
+    shard_system,
+)
 from tpusparse_torch.grid.grid3d import Grid3D
 from tpusparse_torch.grid.poisson import (
     assemble_poisson,
@@ -160,8 +180,12 @@ class SolveReport:
     # -ksp_compute_eigenvalues data: the Ritz values of M A from CG's own
     # scalars (solve/spectrum.py), ascending
     eigenvalues: list | None = None
-    # the z-shards of the fine level (n_devices), all on ``device``
+    # the blocks of the fine level (n_devices), the mesh's (pz, py), the
+    # ranks that held them and the route ("fused z" or "(z, y) plain")
     z_shards: int = 1
+    mesh: list | None = None
+    ranks: int = 1
+    sharded_route: str | None = None
     # a file-loaded system (solve_from_file): the file, nx x ny the
     # matrix's shape, linf_error -1 where the file holds no exact solution;
     # or another grid problem than Poisson (solve_diffusion)
@@ -552,13 +576,22 @@ def solve_poisson(
     in ``r``'s dtype.  The padded route ignores it, as the JAX driver does,
     and keeps its own bf16 coarse coefficients (``cast_coarse_coefs``).
 
-    ``n_devices``: p > 1 z-shards of the fine level, all on ``device`` (the
-    z-sharded route above): the mixed-precision stencil solve under GAMG
-    with a degree-2 Chebyshev or Richardson level-0 smoother, on the padded
-    or automatic layout; nz must divide into p shards of at least FACE
-    planes (``ValueError``).  Every other route with p > 1 raises
-    ``NotImplementedError`` (ROADMAP queue 12), as does a threshold
-    schedule that filters level 0.  A W-cycle passes ``gamma`` through.
+    ``n_devices``: p > 1 blocks of the fine level over the ranks of the
+    ``torch.distributed`` process group, or all in this process without one
+    (the sharded routes above): every option set the JAX driver runs with
+    ``n_devices > 1``.  The fused z route takes the mixed-precision solve
+    under GAMG with a degree-2 Chebyshev or Richardson level-0 smoother
+    on the padded or automatic layout, nz divided into p z-slabs of at
+    least FACE planes, p/W a rank; every other option set takes the (z, y)
+    plain route on ``make_mesh(p)``, whose (pz, py) must divide (nz, ny)
+    and W pz (``ValueError``, JAX's message).  A threshold schedule that
+    filters level 0 takes the (z, y) route with the filtered P smoother
+    sharded, JAX's one-device answer (its fused route drops the filtered
+    legs: ROADMAP §3).  Refused as the JAX driver refuses them, with its
+    messages (``NotImplementedError``): a standalone SOR or block-Jacobi PC,
+    and an aij matrix that does not reach the star lift.  ``device`` is
+    this rank's.  The report's ``linf_error`` is all-reduced; only the
+    caller decides who prints it.
 
     ``cg_fusion``: the full-fusion CG body, the JAX driver's
     ``TPUSPARSE_CG_FUSION`` environment switch as an argument.  It takes
@@ -577,6 +610,15 @@ def solve_poisson(
     """
     if mat_type not in ("stencil", "aij"):
         raise ValueError(f"unknown mat_type {mat_type!r}")
+    sharded = n_devices > 1
+    if sharded:
+        refusal = sharded_route_refusal(
+            mat_type=mat_type, pc=pc, structure_detect=structure_detect, aggregation=aggregation,
+        )
+        if refusal is not None:
+            raise NotImplementedError(refusal)
+        if cg_fusion:
+            raise ValueError("cg_fusion=True is single-device: the full-fusion body has no sharded form")
     # SSOR needs a colorable stencil, block Jacobi the aij route's host CSR
     if pc not in ("gamg", "jacobi", "sor", "bjacobi", "none") or (mat_type, pc) in (
         ("aij", "sor"), ("stencil", "bjacobi"),
@@ -599,18 +641,6 @@ def solve_poisson(
     if pc_dtype not in ("f32", "bf16"):
         raise ValueError(f"unknown pc_dtype {pc_dtype!r} (f32 | bf16)")
     params = amg_params or AMGParams()
-    sharded = n_devices > 1
-    if sharded:
-        refusal = sharded_route_refusal(
-            mat_type=mat_type, precision=precision, pc=pc, layout=layout, pc_dtype=pc_dtype, params=params,
-        )
-        if refusal is not None:
-            raise NotImplementedError(
-                f"n_devices={n_devices} with {refusal} is not ported to tpusparse_torch yet (ROADMAP queue 12:"
-                f" the JAX package runs it as a GSPMD program over a (z, y) mesh)"
-            )
-        if cg_fusion:
-            raise ValueError("cg_fusion=True is single-device: the full-fusion body has no sharded form")
     plain_only = pc == "sor" or (pc == "gamg" and plain_cycle_only(params))
     if mat_type == "stencil" and layout == "padded" and plain_only:
         raise ValueError(
@@ -662,14 +692,19 @@ def solve_poisson(
         ksp_norm_type if mat_type == "stencil" else "default",
     )
     device = torch.device(device)
-    if sharded:
-        mesh = make_z_mesh(n_devices, device)
-        check_divisible(grid.shape, mesh)
+    # several ranks: every timer read follows a barrier as well
+    barrier = sharded and process_group()[1] > 1
+
+    def sync():
+        _sync(device)
+        if barrier:
+            torch.distributed.barrier()
+
     kw = dict(rtol=rtol, atol=atol, divtol=divtol, ksp_solve=ksp_solve, history=monitor)
     # the transfer einsums are f32 products: keep them out of TF32
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.zeros((), dtype=torch.float32, device=device)  # bring-up, outside the phases
-    _sync(device)
+    sync()
 
     t0 = time.perf_counter()
     with annotate("tpusparse:init"):
@@ -683,18 +718,14 @@ def solve_poisson(
                 poisson_stencil_device(grid, dtype=torch.float32, device=device)[0]
                 if mixed else op
             )
-            layout_text = (
-                "layout: plain" if route == "plain" else
-                f"layout: z-sharded, {n_devices} z-shards of {grid.nz // n_devices} planes on one device"
-                f" ({device})"
-            )
+            layout_text = "layout: plain"
         else:
             on_device = assembly == "device" or (
                 assembly == "auto" and mixed and geo_route and min(grid.shape) >= 2
             )
             op, op_lo, b, exact, host_a = _assemble_aij(grid, device, precision, on_device)
             layout_text = "mat_type: aij (DIA/HybridDIA containers)"
-        _sync(device)
+        sync()
     t_init = time.perf_counter() - t0
 
     breakdown = {}
@@ -702,7 +733,7 @@ def solve_poisson(
     if lift:
         if warmup:
             star_lift(op_lo, op, grid.shape)
-            _sync(device)
+            sync()
         t0 = time.perf_counter()
         lifted = star_lift(op_lo, op, grid.shape)
         proved = lifted is not None
@@ -711,7 +742,7 @@ def solve_poisson(
             op, op_lo = lifted
             del lifted
             b, exact = b.reshape(grid.shape), exact.reshape(grid.shape)
-            route = "padded" if mixed and not plain_only else "plain"
+            route = "sharded" if sharded else "padded" if mixed and not plain_only else "plain"
             if route == "padded":
                 op_lo = PaddedStar.from_star(op_lo)
             layout_text = "layout: padded-resident" if route == "padded" else "layout: plain"
@@ -719,10 +750,11 @@ def solve_poisson(
                 "mat structure: constant-coefficient star DETECTED (exact proof)"
                 " -> structured executor"
             )
-        _sync(device)
+        sync()
         t_lift = time.perf_counter() - t0
         breakdown["star_lift" if proved else "star_lift_refused"] = t_lift
-    bf16 = pc_dtype == "bf16" and pc == "gamg" and mat_type == "stencil" and route == "plain"
+        if sharded and not proved:
+            raise NotImplementedError(AIJ_UNLIFTED)
 
     # -pc_gamg_threshold on the stencil route: a host strength measure picks
     # a per-axis coarsening schedule (None when isotropic: the threshold-0
@@ -731,26 +763,48 @@ def solve_poisson(
         threshold_schedule(op_lo, params.threshold, params.factor)
         if pc == "gamg" and route != "aij" else None
     )
-    if route == "sharded" and sched is not None and 1 in sched[0]:
-        # JAX's sharded route passes the kernels no filtered legs, so it
-        # would smooth P with the full ones there (ROADMAP §3)
-        raise NotImplementedError(
-            f"n_devices={n_devices} with a threshold schedule that filters level 0 ({sched[0]}) is not ported"
-            f" to tpusparse_torch yet (ROADMAP queue 12)"
+    # the global f32 operator every rank builds its hierarchy from
+    op_setup, mesh = op_lo, None
+    if route == "sharded":
+        # the fused z route, or the (z, y) plain route (JAX's GSPMD
+        # program).  A schedule that filters level 0 takes the plain route
+        # with the filtered P smoother sharded: JAX's fused route passes no
+        # filtered legs (ROADMAP §3)
+        fused = fused_route_ok(
+            precision=precision, pc=pc, layout="auto" if mat_type == "aij" else layout,
+            pc_dtype="f32" if mat_type == "aij" else pc_dtype, params=params, grid_shape=grid.shape,
+            n_devices=n_devices, world=process_group()[1], filtered=sched is not None and 1 in sched[0],
         )
+        mesh = make_z_mesh(n_devices, device) if fused else make_mesh(n_devices, device=device)
+        op, b, exact = shard_system(op, b, exact, mesh)
+        op_lo = HaloStar.build(op_lo, mesh) if mixed else op
+        if fused:
+            where = "one device" if mesh.world == 1 else f"{mesh.world} ranks, {n_devices // mesh.world} a rank"
+            layout_text = (
+                f"layout: z-sharded, {n_devices} z-shards of {grid.nz // n_devices} planes on {where} ({device})"
+            )
+        else:
+            route = "plain"
+            where = "one device" if mesh.world == 1 else f"{mesh.world} ranks"
+            layout_text = (
+                f"layout: plain, (z, y) mesh {mesh.pz} x {mesh.py} of {grid.nz // mesh.pz} x"
+                f" {grid.ny // mesh.py}-plane blocks on {where} ({device})"
+            )
+    bf16 = pc_dtype == "bf16" and pc == "gamg" and mat_type == "stencil" and route == "plain"
     if pc == "gamg":
         if route == "sharded":
             def setup():
-                return gamg_setup(op_lo, params, factors_schedule=sched), FusedSharded.build(op_lo, mesh)
+                return gamg_setup(op_setup, params, factors_schedule=sched), FusedSharded.build(op_setup, mesh)
         elif route == "padded":
             def setup():
                 # bf16 coarse coefficient stacks: vectors stay f32
                 return cast_coarse_coefs(gamg_setup(op_lo, params, factors_schedule=sched))
         elif route == "plain":
             def setup():
-                hier = gamg_setup(op_lo, params, factors_schedule=sched)
+                hier = gamg_setup(op_setup, params, factors_schedule=sched)
                 # the bf16 V-cycle: every stored field of the hierarchy
-                return cast_hierarchy(hier, torch.bfloat16) if bf16 else hier
+                hier = cast_hierarchy(hier, torch.bfloat16) if bf16 else hier
+                return hier if mesh is None else shard_hierarchy(hier, mesh)
         else:
             sub_phases = {}
 
@@ -797,7 +851,7 @@ def solve_poisson(
     host_setup = route == "aij" and pc == "gamg" and not geo_route
     if warmup and not host_setup:
         setup()
-        _sync(device)
+        sync()
     elif warmup and device.type == "cuda":
         # the host setup is not run twice (its cost is host work no cache
         # covers, as the JAX driver reasons); the kernels are built first
@@ -805,7 +859,7 @@ def solve_poisson(
     t0 = time.perf_counter()
     with annotate("tpusparse:setup"):
         pc_state = setup()
-    _sync(device)
+    sync()
     t_pc = time.perf_counter() - t0
     if pc == "gamg":
         breakdown["hierarchy_build"] = t_pc
@@ -819,14 +873,18 @@ def solve_poisson(
         )
     if route == "sharded":
         layout_text += " (fused fine level per z-shard, kernels K3z/K4z)"
+    # a split solve's global reductions go over the ranks
+    def split():
+        return mesh.reductions(grid.shape) if mesh is not None else contextlib.nullcontext()
 
     if warmup:
-        solve()
-        _sync(device)
+        with split():
+            solve()
+        sync()
     t0 = time.perf_counter()
-    with annotate("tpusparse:solve"):
+    with annotate("tpusparse:solve"), split():
         res = solve()
-    _sync(device)
+    sync()
     t_solve = time.perf_counter() - t0
     res, recorded = res if (monitor or eigs) else (res, None)
 
@@ -850,7 +908,8 @@ def solve_poisson(
             hierarchy_summary(pc_state[0] if route == "sharded" else pc_state, gamma) if pc == "gamg"
             else f"PC Object: type {pc}",
         ])
-    linf = (res.x - exact).abs().max().item()
+    linf = (res.x - exact).abs().max()
+    linf = (linf if mesh is None else mesh.allreduce(linf, "max")).item()
     return SolveReport(
         nx=grid.nx, ny=grid.ny, nz=grid.nz,
         iters=res.iters,
@@ -875,6 +934,9 @@ def solve_poisson(
         solver_view=view_text,
         eigenvalues=eig_list,
         z_shards=n_devices,
+        mesh=None if mesh is None else [mesh.pz, mesh.py],
+        ranks=1 if mesh is None else mesh.world,
+        sharded_route=None if mesh is None else "fused z" if route == "sharded" else "(z, y) plain",
     )
 
 

@@ -4,18 +4,19 @@ reference's PBS benchmark jobs.
 The reference's protocol (``runs/single-node-scaling.pbs:56-67``,
 ``runs/multiple-node-scaling.pbs:57-68``): run the same problem at a sweep
 of rank counts, log each run's block, plot KSPSolve time against ranks.
-Here the sweep is over z-shards of the fine level on ONE device:
-``solve_poisson(..., n_devices=d)`` is the z-sharded route
-(``dist/fused_sharded.py``: kernels K3z/K4z, one launch a stroke over every
-shard, and K1p for CG's A p).  Each point prints the reference's log line
-and the sweep writes a JSON record in the JAX package's format, so
-``bench/plots.py`` reads either package's records.
+Here the sweep is over the blocks of the fine level in ONE process:
+``solve_poisson(..., n_devices=d)`` is the split solve (``dist/``): the
+fused z route where the options take it (kernels K3z/K4z, one launch a
+stroke over every shard, and K1h for CG's A p), the (z, y) plain route
+otherwise.  Each point prints the reference's log line and the sweep
+writes a JSON record in the JAX package's format, so ``bench/plots.py``
+reads either package's records.
 
-Every point's shards share one device, so every record says
+Every point's blocks share one device, so every record says
 ``"emulated": true``: its times validate code paths, not hardware scaling.
-Several cards are ROADMAP queue 12; a point outside the z-sharded route
-(uniform precision, aij, the plain layout, ...) raises
-``NotImplementedError`` naming it, from ``solve_poisson``.
+A sweep over ranks (one card a rank) is ROADMAP queue 12; a point whose
+options the JAX driver refuses with ``n_devices > 1`` raises
+``NotImplementedError`` in its words, from ``solve_poisson``.
 
 Strong scaling: fixed global problem, more shards.  Weak scaling: fixed
 per-shard box on the JAX package's constant-h protocol.  The record has the
@@ -251,7 +252,7 @@ def save_json(
     rec = {
         "mode": mode,
         "backend": backend,
-        # every shard of every point shares one device (several devices are
+        # every shard of every point shares one device (a sweep over ranks is
         # ROADMAP queue 12): wall times validate code paths, not hardware
         # scaling, and the plots watermark the record
         "emulated": True,

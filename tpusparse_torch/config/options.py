@@ -194,17 +194,18 @@ class Options:
                 "-precision tf (the two-float outer) is not to port: it exists"
                 " because the TPU lacks f64 (ROADMAP, Not to port)"
             )
-        # -devices p runs on the z-sharded route only (p shards on one
-        # device); the rest of -devices is the JAX package's GSPMD routes
+        # -devices p runs every route the JAX driver runs with n_devices > 1
+        # (dist/); it refuses what the JAX driver refuses, in its words
         sharded = None if self.devices <= 1 else sharded_route_refusal(
-            mat_type=self.mat_type, precision=self.precision, pc=self.pc_type, layout=self.layout,
-            pc_dtype=self.pc_dtype, params=self.amg_params(),
+            mat_type=self.mat_type, pc=self.pc_type, structure_detect=bool(self.mat_structure_detect),
+            aggregation=self.pc_gamg_aggregation,
         )
+        if sharded is not None and not self.f:
+            raise NotImplementedError(sharded)
         refused = (
             # the diffusion driver is single-device (JAX's ignores -devices)
             (self.problem == "diffusion" and self.devices > 1, f"-problem diffusion -devices {self.devices}",
              "queue 12"),
-            (sharded is not None, f"-devices {self.devices} with {sharded}", "queue 12"),
         )
         for cond, what, item in refused:
             if cond:

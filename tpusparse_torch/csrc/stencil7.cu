@@ -119,6 +119,76 @@ extern "C" int tps_star7_mv_plain(const float* x, const float* diag, float* y,
   return (int)cudaGetLastError();
 }
 
+// K1h, the halo form of K1p: y = A x on one (z, y) block (nz, ny, nx) of
+// a rank's z-slab, its neighbours' planes read from four ghost planes.
+// Replaces what tpusparse/dist/halo.py::_mv_shard computes under shard_map
+// (the per-shard star with ppermuted boundary planes); its single-device
+// kernel is tpusparse/kernels/stencil7.py::star7_mv_pallas, as K1p's.
+//
+// The block may be a strided view of the rank's slab (plane stride sp, row
+// stride sr, x unit-stride; y its own, osp and osr), so y is written in
+// place into the rank's output with no copy of x, diag or y.  The ghosts are contiguous: z-low
+// and z-high (ny, nx), y-low and y-high (nz, nx); a null pointer is a zero
+// face (the domain boundary).  `origin` is the block's flat (k, j, i) index
+// of the pinned cell, or -1: that row keeps its diagonal term, and its
+// neighbours' reads of it are dropped (the caller ships ghost planes with
+// the origin already masked, tpusparse/dist/halo.py:84-96).
+//
+// Every rounding is star_rn's, so each cell sums in K1p's order: the blocks'
+// outputs, put together, are bit for bit one K1p launch on the global field.
+// Bound: bytes, 3 passes of the block (x, diag, y) plus the four ghost
+// planes.  One thread a cell; making it fast (one launch over a rank's
+// blocks, the exchange fused) is later work.
+__global__ void __launch_bounds__(BLOCK)
+star7_mv_halo_kernel(const float* __restrict__ x, const float* __restrict__ diag,
+                     float* __restrict__ y, int nz, int ny, int nx, long long sp,
+                     long long sr, long long osp, long long osr, const float* __restrict__ zlo,
+                     const float* __restrict__ zhi, const float* __restrict__ ylo,
+                     const float* __restrict__ yhi, Legs a, long long origin) {
+  const long long q = thread_cell();
+  const long long plane = (long long)ny * nx;
+  if (q >= (long long)nz * plane) return;
+  const int k = (int)(q / plane);
+  const int rem = (int)(q - (long long)k * plane);
+  const int j = rem / nx;
+  const int i = rem - j * nx;
+  const long long o = (long long)k * sp + (long long)j * sr + i;
+  const long long oy = (long long)k * osp + (long long)j * osr + i;
+  const float center = __fmul_rn(diag[o], x[o]);
+  if (q == origin) {
+    y[oy] = center;
+    return;
+  }
+  float xm = i > 0 ? x[o - 1] : 0.0f;
+  float xp = i < nx - 1 ? x[o + 1] : 0.0f;
+  float ym = j > 0 ? x[o - sr] : (ylo ? ylo[(long long)k * nx + i] : 0.0f);
+  float yp = j < ny - 1 ? x[o + sr] : (yhi ? yhi[(long long)k * nx + i] : 0.0f);
+  float zm = k > 0 ? x[o - sp] : (zlo ? zlo[(long long)j * nx + i] : 0.0f);
+  float zp = k < nz - 1 ? x[o + sp] : (zhi ? zhi[(long long)j * nx + i] : 0.0f);
+  if (origin >= 0) {
+    if (i > 0 && q - 1 == origin) xm = 0.0f;
+    if (i < nx - 1 && q + 1 == origin) xp = 0.0f;
+    if (j > 0 && q - nx == origin) ym = 0.0f;
+    if (j < ny - 1 && q + nx == origin) yp = 0.0f;
+    if (k > 0 && q - plane == origin) zm = 0.0f;
+    if (k < nz - 1 && q + plane == origin) zp = 0.0f;
+  }
+  const float s = __fmaf_rn(a.cx, __fadd_rn(xp, xm), center);
+  y[oy] = __fmaf_rn(a.cz, __fadd_rn(zp, zm), __fmaf_rn(a.cy, __fadd_rn(yp, ym), s));
+}
+
+extern "C" int tps_star7_mv_halo(const float* x, const float* diag, float* y,
+                                 int nz, int ny, int nx, long long sp, long long sr,
+                                 long long osp, long long osr, const float* zlo, const float* zhi, const float* ylo,
+                                 const float* yhi, float cx, float cy, float cz,
+                                 long long origin, void* stream) {
+  const long long total = (long long)nz * ny * nx;
+  const unsigned blocks = (unsigned)((total + BLOCK - 1) / BLOCK);
+  star7_mv_halo_kernel<<<blocks, BLOCK, 0, (cudaStream_t)stream>>>(
+      x, diag, y, nz, ny, nx, sp, sr, osp, osr, zlo, zhi, ylo, yhi, Legs{cx, cy, cz}, origin);
+  return (int)cudaGetLastError();
+}
+
 extern "C" const char* tps_error_string(int code) {
   return cudaGetErrorString((cudaError_t)code);
 }

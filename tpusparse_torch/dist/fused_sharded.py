@@ -1,21 +1,24 @@
 """The z-sharded fused fine level — port of ``tpusparse/dist/fused_sharded.py``
-on one device.
+on the ranks of ``dist/mesh.py``.
 
 The JAX package runs the fused fine-level kernels once per z-shard under
 ``shard_map``: fields live in the stacked layout ``(p, nz_l + 2 FACE, ny,
 nxp)`` (each shard's z-slab with its own FACE halo planes, zero between
 launches), the halo planes of the operands a launch reads are refreshed
 just before it, and the kernels mask in global z (``fused7_call``'s ``z0``,
-``nzg``).  Here the p shards all live on one device (``dist/mesh.py``): the
-exchange is a copy of planes between slabs, and one launch a stroke runs
-K3z or K4z over every slab of the stack
-(``kernels/fused7.py::fused7_descent_slab`` / ``fused7_ascent_slab``).
+``nzg``).  Here the p shards are spread over the W ranks of the z mesh
+(``make_z_mesh``): a rank holds p/W consecutive shards stacked, ``(p/W,
+nz_l + 2 FACE, ny, nxp)``; the exchange copies planes between its own
+slabs and sends and receives FACE planes with ranks r +- 1, and one launch
+a stroke runs K3z or K4z over the rank's slabs
+(``kernels/fused7.py::fused7_descent_slab`` / ``fused7_ascent_slab``),
+placed at the rank's first global plane.
 
-The coarse hierarchy and the Krylov shell stay unsharded: plain fields and
-the plain ``hierarchy.vcycle`` from level 1 down.  ``vcycle_fused_sharded``
-stitches the two per cycle: stack -> K3z over the shards -> unstack ->
-T^T (``dist/seam.py``) -> coarse cycle -> T -> stack -> K4z over the
-shards -> unstack.
+The coarse hierarchy stays whole on every rank (the plain
+``hierarchy.vcycle`` from level 1 down); the Krylov vectors are the
+rank's z-slabs.  ``vcycle_fused_sharded`` stitches the two per cycle:
+stack -> K3z over the rank's shards -> unstack -> T^T (``dist/seam.py``,
+all-reduced) -> coarse cycle -> T -> stack -> K4z -> unstack.
 
 Not ported: ``preflight_sharded``, Mosaic's slab-depth check (ROADMAP, Not
 to port).
@@ -31,7 +34,7 @@ import torch.nn.functional as F
 from tpusparse_torch.amg.fused_cycle import _fine_scalars
 from tpusparse_torch.amg.hierarchy import AMGParams, Hierarchy, coarse_cycle, plain_cycle_only
 from tpusparse_torch.amg.transfer import StructuredTransfer
-from tpusparse_torch.dist.mesh import ZMesh, check_divisible
+from tpusparse_torch.dist.mesh import Mesh, check_divisible
 from tpusparse_torch.dist.seam import ShardedTransfer
 from tpusparse_torch.kernels.fused7 import fused7_ascent_slab, fused7_descent_slab
 from tpusparse_torch.kernels.stencil7 import FACE, padded_shape
@@ -48,13 +51,13 @@ class FusedSharded:
     that 1 / diag is finite wherever the kernels evaluate it.
     """
 
-    diag_st: torch.Tensor          # (p, nz_l + 2 FACE, ny, nxp)
+    diag_st: torch.Tensor          # (p / W, nz_l + 2 FACE, ny, nxp)
     cx: float
     cy: float
     cz: float
     shape: tuple[int, int, int]    # the GLOBAL (nz, ny, nx)
     pinned: bool
-    mesh: ZMesh
+    mesh: Mesh
 
     @property
     def p(self) -> int:
@@ -65,13 +68,20 @@ class FusedSharded:
         return self.shape[0] // self.p
 
     @property
+    def q(self) -> int:
+        """The shards this rank holds."""
+        return self.p // self.mesh.world
+
+    @property
     def local_shape(self) -> tuple[int, int, int]:
         return (self.nz_l, self.shape[1], self.shape[2])
 
     @classmethod
-    def build(cls, op: StarStencil3D, mesh: ZMesh) -> "FusedSharded":
-        """From the f32 plain operator: its diagonal stacked, its halos
-        refreshed once, then its zeros set to 1.0 (``fused_sharded.py:97-125``)."""
+    def build(cls, op: StarStencil3D, mesh: Mesh) -> "FusedSharded":
+        """From the f32 plain operator (the whole grid's, as every rank
+        holds it): this rank's diagonal stacked, its halos refreshed once,
+        then its zeros set to 1.0 (``fused_sharded.py:97-125``).  A
+        collective: every rank builds together."""
         if op.dtype != torch.float32:
             raise TypeError(f"the fused kernels take a float32 operator, not {op.dtype}")
         check_divisible(op.grid_shape, mesh)
@@ -79,40 +89,45 @@ class FusedSharded:
             diag_st=op.diag.new_zeros(()), cx=op.cx, cy=op.cy, cz=op.cz,
             shape=tuple(op.grid_shape), pinned=op.pinned, mesh=mesh,
         )
-        diag_st = fs.exchange_(fs.to_stacked(op.diag))
+        diag_st = fs.exchange_(fs.to_stacked(mesh.local(op.diag)))
         fs.diag_st = torch.where(diag_st == 0, torch.ones((), dtype=diag_st.dtype, device=diag_st.device), diag_st)
         return fs
 
     # --- layout -----------------------------------------------------------
     def to_stacked(self, x: torch.Tensor) -> torch.Tensor:
-        """(nz, ny, nx) -> the stacked layout, halo planes and pads zero."""
-        nz, ny, nx = self.shape
+        """The rank's slab (nz / W, ny, nx) -> the stacked layout, halo
+        planes and pads zero."""
+        _, ny, nx = self.shape
         nxp = padded_shape(self.shape)[2]
-        x4 = x.reshape(self.p, self.nz_l, ny, nx)
+        x4 = x.reshape(self.q, self.nz_l, ny, nx)
         return F.pad(x4, (0, nxp - nx, 0, 0, FACE, FACE))
 
     def from_stacked(self, x_st: torch.Tensor) -> torch.Tensor:
-        """The stacked layout -> (nz, ny, nx)."""
-        nz, ny, nx = self.shape
-        return x_st[:, FACE:FACE + self.nz_l, :, :nx].reshape(nz, ny, nx)
+        """The stacked layout -> the rank's slab (nz / W, ny, nx)."""
+        _, ny, nx = self.shape
+        return x_st[:, FACE:FACE + self.nz_l, :, :nx].reshape(self.q * self.nz_l, ny, nx)
 
     # --- halo exchange ------------------------------------------------------
     def exchange_(self, x_st: torch.Tensor) -> torch.Tensor:
         """Refresh the FACE halo planes of every shard in place: shard i's
         low halo gets shard i - 1's top FACE domain planes, its high halo
         shard i + 1's bottom ones, and the global faces stay zero (the
-        ``ppermute`` pair of ``fused_sharded.py:141-161``).  Reads domain
-        planes only and writes halo planes only (nz_l >= FACE)."""
+        ``ppermute`` pair of ``fused_sharded.py:141-161``).  Between the
+        rank's own shards a copy; its first and last shards' halos come
+        from ranks r -1 and r + 1.  Reads domain planes only and writes
+        halo planes only (nz_l >= FACE)."""
         nz_l = self.nz_l
+        lo, hi = self.mesh.exchange(x_st[0, FACE:2 * FACE], x_st[-1, nz_l:nz_l + FACE])
         x_st[1:, :FACE] = x_st[:-1, nz_l:nz_l + FACE]
         x_st[:-1, FACE + nz_l:] = x_st[1:, FACE:2 * FACE]
-        x_st[0, :FACE] = 0.0
-        x_st[-1, FACE + nz_l:] = 0.0
+        x_st[0, :FACE] = 0.0 if lo is None else lo
+        x_st[-1, FACE + nz_l:] = 0.0 if hi is None else hi
         return x_st
 
     # --- the fused launches, one a stroke over every shard --------------------
     def _slabs(self) -> dict:
-        return dict(shape=self.local_shape, pinned=self.pinned, z0=0, nzg=self.shape[0])
+        return dict(shape=self.local_shape, pinned=self.pinned, z0=self.mesh.rows(self.shape[0]).start,
+                    nzg=self.shape[0])
 
     def descent(self, b_st: torch.Tensor, s0, ad, g, gw):
         """``(x1_st, s_st)``: the downstroke (K3z) on every shard in one
@@ -140,30 +155,57 @@ def _level0_cfg(params: AMGParams) -> tuple[str, int]:
     return params.smoother, params.degree
 
 
-def sharded_route_refusal(*, mat_type: str, precision: str, pc: str, layout: str, pc_dtype: str,
-                          params: AMGParams) -> str | None:
-    """Why these options have no z-sharded route in the port, or None.
-
-    The route (the JAX driver's ``fused_sh``, ``tpusparse/bench/driver.py:
-    404-431``) is the mixed-precision stencil solve under GAMG whose level 0
-    the fused kernels take (``fused_sharded_supported``: a degree-2
-    Chebyshev or Richardson point-Jacobi smoother, f32).  The JAX package
-    runs every other ``n_devices > 1`` solve as a GSPMD program over a
-    (z, y) mesh, which is ROADMAP queue 12."""
-    smoother, degree = _level0_cfg(params)
-    if mat_type != "stencil":
-        return f"mat_type {mat_type}"
-    if precision != "mixed":
-        return f"precision {precision}"
-    if pc != "gamg":
-        return f"pc {pc}"
-    if layout == "plain" or plain_cycle_only(params):
-        return "the plain layout (or a plain-only smoother / coarse solve)"
-    if pc_dtype != "f32":
-        return f"pc_dtype {pc_dtype}"
-    if smoother not in ("chebyshev", "richardson") or degree != 2:
-        return f"a {smoother}({degree}) level-0 smoother (the fused kernels take degree 2)"
+def sharded_route_refusal(*, mat_type: str, pc: str, structure_detect: bool = True,
+                          aggregation: str = "auto") -> str | None:
+    """The JAX driver's refusal of these options with ``n_devices > 1``, in
+    its words, or None: a standalone SOR or block-Jacobi PC
+    (``tpusparse/bench/driver.py:404-408``), and an aij matrix that does
+    not reach the star lift (``:971-978``, ``:1146-1151``): the sharded
+    general executor (``dist/general.py``) has no driver route there
+    either."""
+    if mat_type == "stencil" and pc in ("sor", "bjacobi"):
+        return (
+            f"pc_type={pc!r} is single-device (its state is not wired"
+            " through the sharding layer); use gamg/jacobi multi-device"
+        )
+    if mat_type == "aij" and not structure_detect:
+        # the sharded general executor is ROADMAP queue 12 in the port
+        return (
+            "mat_type=aij multi-device driver requires structure_detect"
+            " (general path: use dist.general.DistDIA)"
+            " (ROADMAP queue 12: dist/general.py is not ported to tpusparse_torch yet)"
+        )
+    if mat_type == "aij" and (pc != "gamg" or aggregation == "greedy"):
+        return AIJ_UNLIFTED
     return None
+
+
+# the JAX driver's refusal of a multi-device aij solve off the star lift
+AIJ_UNLIFTED = (
+    "mat_type=aij multi-device: the matrix did not prove star-"
+    "structured (or pc/aggregation preclude the lift) — use "
+    "dist.general.DistDIA for sharded general matrices"
+)
+
+
+def fused_route_ok(*, precision: str, pc: str, layout: str, pc_dtype: str, params: AMGParams,
+                   grid_shape, n_devices: int, world: int, filtered: bool) -> bool:
+    """Whether a solve on ``n_devices`` blocks takes the fused z route (the
+    JAX driver's ``fused_sh``, ``tpusparse/bench/driver.py:396-431``, and
+    its ``fused_sharded_supported`` check), else the (z, y) plain route:
+    the mixed-precision solve under GAMG, off the plain layout and the
+    plain-only options, with f32 levels whose level 0 the fused kernels
+    take (a degree-2 Chebyshev or Richardson smoother, no filtered P
+    smoother: ``filtered``), on z-slabs of at least FACE planes, p/W of
+    them a rank.  Where the JAX driver's preflight declines the kernels it
+    runs the plain cycle; here the shape decides the same way."""
+    smoother, degree = _level0_cfg(params)
+    nz = grid_shape[0]
+    return (
+        precision == "mixed" and pc == "gamg" and layout != "plain" and not plain_cycle_only(params)
+        and pc_dtype == "f32" and smoother in ("chebyshev", "richardson") and degree == 2 and not filtered
+        and nz % n_devices == 0 and nz // n_devices >= FACE and n_devices % world == 0
+    )
 
 
 def fused_sharded_supported(hier: Hierarchy) -> bool:

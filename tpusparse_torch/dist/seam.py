@@ -1,17 +1,22 @@
-"""The level-0 transfer of the z-sharded fine level — port of
-``tpusparse/dist/seam.py`` on the port's z mesh.
+"""The level-0 transfer on the (z, y) mesh — port of ``tpusparse/dist/seam.py``.
 
-The JAX package contracts each device's own block of the fine field against
-the matching rows of the aggregation matrices, giving a coarse-shaped
-partial that is zero outside the block's aggregates, and sums the partials
-with one ``psum``.  Prolongation is the transpose: each device builds its
-own fine block from the coarse field.  Here every shard lives on one
-device, so the partials are summed in shard order (what stands in for the
-``psum``), and the fine blocks are concatenated along z.  This keeps the
-seam's rounding as the sharded JAX route has it, where the single-device
-``StructuredTransfer`` contracts the whole field at once.
+The JAX package contracts each device's own (z, y) block of the fine field
+against the matching rows of the aggregation matrices, giving a
+coarse-shaped partial that is zero outside the block's aggregates, and sums
+the partials with one ``psum``; prolongation is the transpose, each device
+building its own fine block from the replicated coarse field with no
+communication.  Here each rank contracts its blocks, sums their partials in
+block order, and all-reduces the sum over the ranks (``Mesh.allreduce``:
+one coarse-sized all-reduce, n/27 values, at each restriction); it builds
+its own blocks of the fine field from the coarse one, which every rank
+holds whole.  On one rank the partials are summed in block order, what
+stands in for the ``psum``, which keeps the seam's rounding as the sharded
+route has it, where the single-device ``StructuredTransfer`` contracts the
+whole field at once.
 
-``restrict`` and ``prolong`` keep ``StructuredTransfer``'s formulas.
+``restrict`` and ``prolong`` keep ``StructuredTransfer``'s formulas; their
+fine-grid applies run on the sharded operator (or the sharded filtered
+``fop``, ``dist/mesh.py::shard_hierarchy``).
 """
 
 from __future__ import annotations
@@ -21,16 +26,16 @@ import dataclasses
 import torch
 
 from tpusparse_torch.amg.transfer import StructuredTransfer
-from tpusparse_torch.dist.mesh import ZMesh
+from tpusparse_torch.dist.mesh import Mesh
 
 
 @dataclasses.dataclass
 class ShardedTransfer:
-    """A level-0 ``StructuredTransfer`` whose T and T^T contract shard by
-    shard over the z mesh."""
+    """A level-0 ``StructuredTransfer`` whose T and T^T contract block by
+    block over the mesh's blocks of this rank."""
 
     inner: StructuredTransfer
-    mesh: ZMesh
+    mesh: Mesh
 
     @property
     def c_shape(self):
@@ -52,34 +57,36 @@ class ShardedTransfer:
     def fop(self):
         return self.inner.fop
 
-    def _rows(self):
-        """The z rows of the aggregation matrix each shard contracts."""
-        bz = self.inner.fine_shape[0] // self.mesh.p
-        return [slice(i * bz, (i + 1) * bz) for i in range(self.mesh.p)]
+    def _rows(self, blk):
+        """The rows of sz and sy that block ``blk`` contracts."""
+        tr = self.inner
+        return tr.sz[blk.gz0:blk.gz0 + blk.nz], tr.sy[blk.y0:blk.y0 + blk.ny]
 
     def tT_apply(self, r: torch.Tensor) -> torch.Tensor:
-        """T^T r: each shard's block sums into a full coarse-shaped partial,
-        and the partials are summed in shard order."""
+        """T^T r: each block of the rank's slab ``r`` sums into a full
+        coarse-shaped partial; the partials are summed in block order, then
+        over the ranks."""
         tr = self.inner
         total = None
-        for rows in self._rows():
-            x = torch.einsum("zyx,zc->cyx", r[rows], tr.sz[rows])
-            x = torch.einsum("cyx,yd->cdx", x, tr.sy)
+        for blk in self.mesh.blocks(tr.fine_shape):
+            sz, sy = self._rows(blk)
+            x = torch.einsum("zyx,zc->cyx", r[blk.z0:blk.z0 + blk.nz, blk.y0:blk.y0 + blk.ny], sz)
+            x = torch.einsum("cyx,yd->cdx", x, sy)
             x = torch.einsum("cdx,xe->cde", x, tr.sx)
             total = x if total is None else total + x
-        return total * tr.tnorm
+        return self.mesh.allreduce(total) * tr.tnorm
 
     def t_apply(self, e_c: torch.Tensor) -> torch.Tensor:
-        """T e_c: each shard builds its own fine block from the coarse
-        field."""
+        """T e_c: each block of the rank's slab built from the coarse field."""
         tr = self.inner
         x = e_c * tr.tnorm
-        blocks = []
-        for rows in self._rows():
-            y = torch.einsum("zc,cde->zde", tr.sz[rows], x)
-            y = torch.einsum("yd,zde->zye", tr.sy, y)
-            blocks.append(torch.einsum("xe,zye->zyx", tr.sx, y))
-        return torch.cat(blocks, dim=0)
+        out = x.new_empty(self.mesh.local_shape(tr.fine_shape))
+        for blk in self.mesh.blocks(tr.fine_shape):
+            sz, sy = self._rows(blk)
+            y = torch.einsum("zc,cde->zde", sz, x)
+            y = torch.einsum("yd,zde->zye", sy, y)
+            out[blk.z0:blk.z0 + blk.nz, blk.y0:blk.y0 + blk.ny] = torch.einsum("xe,zye->zyx", tr.sx, y)
+        return out
 
     def prolong(self, fine_op, dinv: torch.Tensor, e_c: torch.Tensor) -> torch.Tensor:
         """x_f = P e_c = (I - omega D^{-1} A) T e_c."""

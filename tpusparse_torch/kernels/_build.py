@@ -21,6 +21,7 @@ JAX kernels.
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import hashlib
 import os
 import shutil
@@ -39,6 +40,7 @@ NVCC_FLAGS = (
 # ctypes argument codes for ``kernel`` signatures
 P = ctypes.c_void_p   # device pointer or stream
 I = ctypes.c_int
+L = ctypes.c_longlong
 F = ctypes.c_float
 
 _lib = None
@@ -70,17 +72,23 @@ def _nvcc() -> str:
 def _built(lib: Path, compile_to) -> Path:
     """``lib``, made by ``compile_to(path)`` unless it exists: written
     under a temporary name and renamed, so a concurrent reader never sees
-    half a file."""
+    half a file.  An exclusive lock on ``csrc/build/.lock`` holds the
+    check and the build, so ranks that start together build once: the
+    first builds, the others wait and load its library."""
     if lib.exists():
         return lib
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
-    try:
-        compile_to(tmp)
-    except RuntimeError:
-        tmp.unlink(missing_ok=True)
-        raise
-    os.replace(tmp, lib)
+    with open(BUILD_DIR / ".lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        if lib.exists():
+            return lib
+        tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
+        try:
+            compile_to(tmp)
+        except RuntimeError:
+            tmp.unlink(missing_ok=True)
+            raise
+        os.replace(tmp, lib)
     return lib
 
 

@@ -29,10 +29,17 @@ rounding of the star, so each column of a stack is bit for bit a K1p
 launch.  Its twin is ``star7_mv_torch``, which broadcasts over leading
 axes.
 
-``star7_mv_padded``, ``star7_mv`` and ``star7_mv_batched`` dispatch by
-tensor device only: a CPU tensor runs the plain twin
-(``star7_mv_padded_torch``, ``star7_mv_torch``), a CUDA tensor launches
-``csrc/stencil7.cu`` (or raises).
+``star7_mv_halo`` (K1h) is K1p's halo form: the star on one (z, y) block
+of a rank's slab, whose neighbours' planes come from four ghost planes
+(``dist/halo.py``), the counterpart of what ``tpusparse/dist/halo.py::
+_mv_shard`` computes per shard.  Its twin is ``star7_mv_halo_torch``, bit
+for bit ``star7_mv_torch`` on the cells of the block.
+
+``star7_mv_padded``, ``star7_mv``, ``star7_mv_batched`` and
+``star7_mv_halo`` dispatch by tensor device only: a CPU tensor runs the
+plain twin (``star7_mv_padded_torch``, ``star7_mv_torch``,
+``star7_mv_halo_torch``), a CUDA tensor launches ``csrc/stencil7.cu`` (or
+raises).
 """
 
 from __future__ import annotations
@@ -246,3 +253,100 @@ def star7_mv_batched(diag, cx, cy, cz, x, pinned: bool):
     y = _launch_plain(diag, cx, cy, cz, x, pinned, x.shape[0])
     LAUNCHES["star7_mv_batched"] += 1
     return y
+
+
+def star7_mv_halo_torch(diag, cx, cy, cz, x, zlo, zhi, ylo, yhi, origin: int = -1):
+    """Plain twin of K1h, and the halo apply of every dtype: y = A @ x on
+    one (nz, ny, nx) block whose neighbours' planes are the ghosts ``zlo``,
+    ``zhi`` (ny, nx) and ``ylo``, ``yhi`` (nz, nx), None for a zero face.
+    ``origin``: the block's flat index of the pinned cell, or -1; the
+    ghosts come with it masked already.  Each cell is ``star7_mv_torch``'s
+    arithmetic on the same operands, so the blocks' outputs are bit for bit
+    its output on the global field."""
+    nz, ny, nx = x.shape
+    ext = x.new_zeros((nz + 2, ny + 2, nx))
+    ext[1:-1, 1:-1] = x
+    if origin >= 0:
+        k, j, i = _unravel(origin, ny, nx)
+        ext[1 + k, 1 + j, i] = 0.0
+    for g, idx in ((zlo, (0, slice(1, -1))), (zhi, (-1, slice(1, -1))),
+                   (ylo, (slice(1, -1), 0)), (yhi, (slice(1, -1), -1))):
+        if g is not None:
+            ext[idx] = g
+    xn = ext[1:-1, 1:-1]
+    y = diag * x
+    y += cx * (_shift(xn, -1, 1) + _shift(xn, -1, -1))
+    y += cy * (ext[1:-1, 2:] + ext[1:-1, :-2])
+    y += cz * (ext[2:, 1:-1] + ext[:-2, 1:-1])
+    if origin >= 0:
+        y[k, j, i] = diag[k, j, i] * x[k, j, i]
+    return y
+
+
+def _unravel(q: int, ny: int, nx: int) -> tuple[int, int, int]:
+    k, rem = divmod(int(q), ny * nx)
+    return (k, *divmod(rem, nx))
+
+
+_STAR7_HALO_ARGS = (
+    [_build.P] * 3 + [_build.I] * 3 + [_build.L] * 4 + [_build.P] * 4 + [_build.F] * 3 + [_build.L, _build.P]
+)
+
+
+def _check_halo(diag, x, out, ghosts) -> None:
+    """Raise unless x, diag and out are f32 (nz, ny, nx) views of one
+    shape, unit stride in x, x and diag with one set of strides, and each
+    ghost is None or a contiguous f32 plane of its face's shape, all on
+    one CPU or CUDA device."""
+    if x.dim() != 3 or 0 in x.shape:
+        raise ValueError(f"x {tuple(x.shape)}: want one (nz, ny, nx) block")
+    nz, ny, nx = x.shape
+
+    def strides(f):   # a dim of one cell has no stride that matters
+        return tuple(st for st, n in zip(f.stride(), f.shape) if n > 1)
+
+    if diag.shape != x.shape or strides(diag) != strides(x):
+        raise ValueError(f"diag {tuple(diag.shape)}/{diag.stride()} != x {tuple(x.shape)}/{x.stride()}")
+    if out is not None and out.shape != x.shape:
+        raise ValueError(f"out {tuple(out.shape)} != x {tuple(x.shape)}")
+    if x.stride(2) != 1 or (out is not None and out.stride(2) != 1):
+        raise ValueError("the block and its output must be unit-stride in x")
+    faces = {"zlo": (ny, nx), "zhi": (ny, nx), "ylo": (nz, nx), "yhi": (nz, nx)}
+    for (name, want), g in zip(faces.items(), ghosts):
+        if g is not None and (tuple(g.shape) != want or not g.is_contiguous()):
+            raise ValueError(f"ghost {name} {tuple(g.shape)}: want a contiguous {want}")
+    fields = [f for f in (diag, x, out, *ghosts) if f is not None]
+    for f in fields:
+        if f.dtype != torch.float32:
+            raise TypeError(f"field dtype {f.dtype}, the kernel takes float32")
+        if f.device != x.device:
+            raise ValueError(f"fields on {f.device} and {x.device}")
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"no kernel or twin for device {x.device}")
+
+
+def star7_mv_halo(diag, cx, cy, cz, x, zlo, zhi, ylo, yhi, origin: int = -1, out=None):
+    """y = A @ x on one f32 (z, y) block with its ghost planes (K1h); see
+    ``star7_mv_halo_torch`` for the arguments.  ``x``, ``diag`` and
+    ``out`` may be strided views of a rank's slab (x and diag with one set
+    of strides, all unit stride in x): y is written into ``out`` (a new
+    contiguous block when None) and returned.
+
+    CUDA tensors run ``csrc/stencil7.cu``; CPU tensors the plain twin.
+    """
+    ghosts = (zlo, zhi, ylo, yhi)
+    _check_halo(diag, x, out, ghosts)
+    if x.device.type == "cpu":
+        y = star7_mv_halo_torch(diag, cx, cy, cz, x, *ghosts, origin)
+        return y if out is None else out.copy_(y)
+    if out is None:
+        out = torch.empty(x.shape, dtype=x.dtype, device=x.device)
+    nz, ny, nx = x.shape
+    _build.launch(
+        "tps_star7_mv_halo", _STAR7_HALO_ARGS, x.device,
+        x.data_ptr(), diag.data_ptr(), out.data_ptr(), nz, ny, nx, x.stride(0), x.stride(1), out.stride(0),
+        out.stride(1),
+        *(0 if g is None else g.data_ptr() for g in ghosts), float(cx), float(cy), float(cz), int(origin),
+    )
+    LAUNCHES["star7_mv_halo"] += 1
+    return out

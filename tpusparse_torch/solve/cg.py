@@ -29,6 +29,8 @@ from typing import Callable
 import numpy as np
 import torch
 
+from tpusparse_torch.solve.reduce import allreduce
+
 
 class ConvergedReason(enum.IntEnum):
     """PETSc's KSPConvergedReason sign convention (> 0 converged, < 0
@@ -59,8 +61,9 @@ class CGResult:
 
 
 def _dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """Flattened dot as a 0-d device tensor."""
-    return torch.dot(a.reshape(-1), b.reshape(-1))
+    """Flattened dot as a 0-d device tensor, summed over the ranks of a
+    split solve (``solve/reduce.py``)."""
+    return allreduce(torch.dot(a.reshape(-1), b.reshape(-1)))
 
 
 def np_float(dtype: torch.dtype):

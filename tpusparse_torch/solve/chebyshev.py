@@ -26,6 +26,7 @@ from tpusparse_torch.solve.cg import (
     norm_h,
     np_float,
 )
+from tpusparse_torch.solve.reduce import global_offset
 
 __all__ = ["chebyshev"]
 
@@ -66,7 +67,9 @@ def chebyshev(
     if emax is None:
         # rho(M A) by power iteration from the deterministic non-smooth start
         # of estimate_rho_dinv_a, over b's own layout as the JAX code does
-        idx = torch.arange(b.numel(), dtype=torch.int64, device=b.device).to(b.dtype)
+        # (global indices when b is a rank's slab)
+        off = global_offset()
+        idx = torch.arange(off, off + b.numel(), dtype=torch.int64, device=b.device).to(b.dtype)
         v = torch.sin(idx * 0.7 + 0.3).reshape(b.shape)
         v = v / torch.sqrt(_dot(v, v))
         for _ in range(est_iters):

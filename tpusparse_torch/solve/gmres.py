@@ -28,6 +28,7 @@ from tpusparse_torch.solve.cg import (
     norm_h,
     np_float,
 )
+from tpusparse_torch.solve.reduce import allreduce
 
 
 def _cycle(r, apply, m: int, classify, rn, it: int, f, norms=None):
@@ -55,9 +56,9 @@ def _cycle(r, apply, m: int, classify, rn, it: int, f, norms=None):
         us.append(u)
         # CGS2: two rounds of classical Gram-Schmidt as matrix products;
         # unfilled basis rows are zero, so masking is automatic
-        c1 = v @ w
+        c1 = allreduce(v @ w)
         w = w - v.T @ c1
-        c2 = v @ w
+        c2 = allreduce(v @ w)
         w = w - v.T @ c2
         col = torch.cat([c1 + c2, torch.sqrt(_dot(w, w))[None]]).cpu().numpy()
         hj, wnorm = col[: m + 1], col[m + 1]

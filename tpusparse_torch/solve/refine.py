@@ -27,7 +27,8 @@ from typing import Callable
 import numpy as np
 import torch
 
-from tpusparse_torch.solve.cg import ConvergedReason, cg
+from tpusparse_torch.solve.cg import ConvergedReason, _dot, cg
+from tpusparse_torch.solve.reduce import distributed
 
 
 @dataclasses.dataclass
@@ -45,6 +46,10 @@ class RefinedResult:
 
 
 def _norm(r: torch.Tensor) -> float:
+    """||r||_2: over the ranks of a split solve, the root of the summed
+    squares (``solve/reduce.py``)."""
+    if distributed():
+        return torch.sqrt(_dot(r, r)).item()
     return torch.linalg.vector_norm(r).item()
 
 
