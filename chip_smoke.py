@@ -167,8 +167,8 @@ script exits non-zero without the final line:
    atol=1e-12, pc="gamg", layout="padded", n_devices=4)``: reason 2,
    Linf < 1e-4, 2-3 sweeps, inner within 2 of phase 15's; K3z and K4z launched once a
    stroke (the calls of ``FusedSharded.descent`` / ``ascent``, one each a
-   V-cycle), K1h launched (CG's A p, a launch a shard), K2, K3, K4, K3'
-   and K4' not; ``t_setup``,
+   V-cycle), K1h launched once an f32 halo apply (CG's A p, the calls of
+   ``HaloStar.mv`` on f32), K2, K3, K4, K3' and K4' not; ``t_setup``,
    ``t_solve`` and peak memory printed beside phases 5 and 15 and the plain
    layout's peak memory.  And ``-devices 4`` through the CLI at 100^3: a
    positive reason, Linf < 1e-3, 4 z-shards in its JSON.
@@ -290,16 +290,24 @@ script exits non-zero without the final line:
    point: every point reason 2, K3z and K4z launched where d > 1, the
    record (efficiencies and the NVLink projection) written into a
    temporary directory of the checkout and read back.
-41. K1h (``star7_mv_halo``, the halo form of K1p: one (z, y) block with its
-   four ghost planes, ``dist/halo.py``) on each block of a one-process
-   mesh: at (8, 6, 13) on the (8, 1) and (2, 6) meshes (one-plane blocks
-   in z and in y), pinned and not, and at 300^3 on the (2, 2) and (4, 1)
-   meshes, pinned; each block against its twin (rtol 1e-5, atol 1e-6 of
-   max|want|), and the blocks together bit-equal to one K1p launch on the
-   global field.  At 300^3 on (2, 2): the four launches (ghosts made
-   before) timed beside one K1p launch, the twins, the whole halo apply
-   (ghost copies included) and cuSPARSE's CSR matvec of the star, with its
-   bound (3 passes of the field and the ghost planes over 3.35 TB/s).
+41. K1h (``star7_mv_halo``, the halo form of K1p: one block with its four
+   ghost planes; ``dist/halo.py`` launches it once a rank an apply, over
+   the rank's slab): its registers, spills and shared bytes (``nvcc
+   -Xptxas -v`` on ``csrc/stencil7.cu`` and the runtime's attributes; a
+   spill fails the phase).  The halo apply on one-process meshes, at (8,
+   6, 13) on the (8, 1) and (2, 6) meshes (one-plane blocks in z and in
+   y), pinned and not, and at 300^3 on the (4, 1) and (2, 2) meshes,
+   pinned: one launch an apply, bit-equal to one K1p launch on the global
+   field and against the twin (rtol 1e-5, atol 1e-6 of max|want|); K1h on
+   each block of the mesh (strided views, ghost planes) against its twin,
+   the blocks together bit-equal to one K1p launch.  At 300^3 the apply
+   timed on both meshes; on (2, 2) the launch beside the per-block
+   launches (ghosts made before), one K1p launch, the twin and cuSPARSE's
+   CSR matvec of the star.  Then rank 1's slab of a 4-rank z split of
+   300^3, (75, 300, 300) with its two received planes: bit-equal to K1p's
+   rows, against its twin, timed after an L2 flush (a 1 GiB read).  Each time printed with its bound (3
+   passes of the block and its ghost planes over 3.35 TB/s), its share and
+   its launch plan (tiles, z-chunks, blocks, waves).
 42. ``-devices p`` on torchrun ranks that share ``cuda:0`` over gloo
    (``python -m torch.distributed.run --standalone --nproc-per-node W
    chip_smoke.py --rank-cli <argv>``: the CLI on each rank, then the
@@ -310,8 +318,9 @@ script exits non-zero without the final line:
    on W = 2, and ``-precision f32 -devices 4`` at 100^3 on W = 2.  Each:
    every rank exits 0 within its time limit (else the phase fails, its
    ranks killed), reason 2, inner within 2 of the one-process run's, Linf
-   < 1e-4 at 300^3 (1e-3 at 100^3), K1h launched on every rank, K3z/K4z
-   on every rank of the fused route.  Times printed, labelled: ranks that
+   < 1e-4 at 300^3 (1e-3 at 100^3), K1h launched once an f32 halo apply
+   on every rank and in the one process, K3z/K4z on every rank of the
+   fused route.  Times printed, labelled: ranks that
    share one card are no scaling result.
 
 Then one JSON line with each kernel's route, source, launches (K1-K4 from
@@ -416,6 +425,10 @@ from tpusparse_torch.kernels.fused7 import (
 )
 from tpusparse_torch.kernels.stencil7 import (
     FACE,
+    HALO_SMEM_BYTES,
+    HALO_TILE,
+    halo_attributes,
+    halo_plan,
     launch_args,
     padded_shape,
     star7_mv,
@@ -518,9 +531,11 @@ KERNELS["star7_mv_halo"] = (
     "tpusparse_torch/csrc/stencil7.cu", "tpusparse/kernels/stencil7.py:330", star7_mv_halo, star7_mv_halo_torch,
 )
 # phase 41's (global shape, mesh, pinned): one-plane blocks in z and in y,
-# then 300^3; the (2, 2) mesh at 300^3 is timed
+# then 300^3 (the apply timed on both meshes, the (2, 2) mesh's beside the
+# per-block launches); and its rank slab: (global shape, ranks, rank)
 HALO_CASES = (((8, 6, 13), (8, 1), True), ((8, 6, 13), (8, 1), False), ((8, 6, 13), (2, 6), True),
               ((8, 6, 13), (2, 6), False), ((300, 300, 300), (4, 1), True), ((300, 300, 300), (2, 2), True))
+HALO_SLAB = ((300, 300, 300), 4, 1)
 # phase 42: (label, ranks, CLI arguments, the one-process run's Linf gate);
 # every rank on cuda:0, over gloo
 RANK_PHASES = (
@@ -737,6 +752,30 @@ def _time_ms(fn, args, reps=12, per=5) -> float:
         end.record()
         end.synchronize()
         times.append(start.elapsed_time(end) / per)
+    return statistics.median(times)
+
+
+def _time_cold_ms(fn, args, reps=12) -> float:
+    """Median over ``reps`` of one call's time, each after a 1 GiB read
+    that fills the 50 MB L2 cache with clean lines: a block smaller than
+    the cache as a solve meets it, not as a loop of launches leaves it (a
+    write would leave dirty lines, whose write-back the call would pay).
+    The read keeps the card busy for ~0.35 ms, longer than the call's host
+    work (its wrapper's checks), so the call's launch waits behind it and
+    that host work is not timed, as it is in back-to-back calls of a short
+    kernel."""
+    flush = torch.zeros(256 << 20, dtype=torch.float32, device=torch.cuda.current_device())
+    fn(*args)
+    times = []
+    for _ in range(reps):
+        flush.sum()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn(*args)
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
     return statistics.median(times)
 
 
@@ -1480,23 +1519,25 @@ def check_checkpointed(device, n=100) -> None:
 @contextlib.contextmanager
 def _counting_strokes():
     """Count the calls of ``FusedSharded.descent`` and ``ascent`` (the
-    sharded cycle's strokes) while the block runs."""
-    strokes = {"descent": 0, "ascent": 0}
-    saved = {name: getattr(FusedSharded, name) for name in strokes}
+    sharded cycle's strokes) and the f32 halo applies (``HaloStar.mv`` of
+    an f32 slab, one K1h launch each) while the block runs."""
+    strokes = {"descent": 0, "ascent": 0, "halo": 0}
+    saved = {"descent": FusedSharded.descent, "ascent": FusedSharded.ascent, "halo": HaloStar.mv}
 
     def counted(name, fn):
         def stroke(self, *args):
-            strokes[name] += 1
+            if name != "halo" or args[0].dtype == torch.float32:
+                strokes[name] += 1
             return fn(self, *args)
         return stroke
 
     try:
         for name, fn in saved.items():
-            setattr(FusedSharded, name, counted(name, fn))
+            setattr(HaloStar if name == "halo" else FusedSharded, "mv" if name == "halo" else name,
+                    counted(name, fn))
         yield strokes
     finally:
-        for name, fn in saved.items():
-            setattr(FusedSharded, name, fn)
+        FusedSharded.descent, FusedSharded.ascent, HaloStar.mv = saved.values()
 
 
 def _sweep(strong: bool, device, tmp, **kw) -> tuple[list, dict]:
@@ -1511,7 +1552,7 @@ def _sweep(strong: bool, device, tmp, **kw) -> tuple[list, dict]:
     with _counting_strokes() as strokes:
         def reset():
             kernels.reset_launches()
-            strokes.update(descent=0, ascent=0)
+            strokes.update(descent=0, ascent=0, halo=0)
             torch.cuda.reset_peak_memory_stats(device)
             held["GB"] = torch.cuda.memory_allocated(device) / 1e9
 
@@ -1580,7 +1621,10 @@ def check_sharded(device, production, plain, tmp) -> dict:
     _require(k3z > 0 and k3z == k4z == strokes["descent"] == strokes["ascent"],
              f"n_devices=4: K3z / K4z launched {k3z} / {k4z} times in {strokes['descent']} / {strokes['ascent']}"
              " strokes, not one a stroke")
-    _require(used["star7_mv_halo"] > 0, "n_devices=4 did not launch star7_mv_halo (CG's Ap, a launch a shard)")
+    print(f"n_devices=4: K1h {used['star7_mv_halo']} launches in {strokes['halo']} f32 halo applies")
+    _require(used["star7_mv_halo"] > 0 and used["star7_mv_halo"] == strokes["halo"],
+             f"n_devices=4: K1h launched {used['star7_mv_halo']} times in {strokes['halo']} f32 halo applies (CG's"
+             " A p), not one an apply")
     for name in ("fused7_mvdot", "fused7_descent_rr", "fused7_ascent_rz", "fused7_descent", "fused7_ascent"):
         _require(used[name] == 0, f"n_devices=4 launched {name}")
 
@@ -2036,10 +2080,66 @@ def check_spmv(device, ceiling: float) -> None:
         torch.cuda.empty_cache()
 
 
-def check_halo(device) -> tuple[dict, int]:
-    """Phase 41: K1h on each block of a one-process mesh against its twin,
-    the blocks together bit-equal to one K1p launch; timed at 300^3 on the
-    (2, 2) mesh.  (its row, the launches of one halo apply there)."""
+def _halo_ptxas() -> list[str]:
+    """nvcc -Xptxas -v's report of K1h's two forms (``csrc/stencil7.cu``
+    compiled with the library's flags into a temporary directory of the
+    checkout): the lines of each form's registers, stack and spills."""
+    src = _build.CSRC / "stencil7.cu"
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_ptxas_", dir=pathlib.Path(__file__).resolve().parent)
+    try:
+        proc = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-Xptxas", "-v", "-c", "-o",
+                               str(pathlib.Path(tmp) / "stencil7.o"), str(src)], capture_output=True, text=True)
+    finally:
+        shutil.rmtree(tmp)
+    _require(proc.returncode == 0, f"nvcc -Xptxas -v stencil7.cu: {proc.stderr[-2000:]}")
+    lines, keep = [], 0
+    for line in proc.stderr.splitlines():
+        if "Compiling entry function" in line:
+            keep = "star7_mv_halo_kernel" in line
+        if keep and ("Function properties" not in line):
+            lines.append(line.strip())
+    return lines
+
+
+def _halo_bound(x, ghosts) -> tuple[float, str]:
+    """K1h's bound on a block ``x`` with ``ghosts``: 3 passes of the block
+    (x and diag read, y written) and the ghost planes over the HBM rate, or
+    its operations over the f32 rate."""
+    nbytes = 3 * x.numel() * x.element_size() + sum(g.numel() * g.element_size() for g in ghosts if g is not None)
+    t_bytes, t_ops = nbytes / HBM_BYTES_S, FLOPS_PER_CELL["star7_mv"] * x.numel() / F32_FLOP_S
+    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
+
+
+def _halo_line(label, ms, bound, shape) -> str:
+    plan = halo_plan(tuple(shape))
+    return (f"{label} {tuple(shape)}: {ms:.4f} ms, bound {bound:.4f} ms ({100 * bound / ms:.0f}% of it); plan"
+            f" {plan.tiles_y} x {plan.tiles_x} tiles of {HALO_TILE[0]} x {HALO_TILE[1]}, {plan.chunks} z-chunks of"
+            f" {plan.zchunk}, {plan.blocks} blocks, {plan.waves():.2f} waves")
+
+
+def check_halo(device) -> dict:
+    """Phase 41: the halo apply on one-process meshes, one K1h launch over
+    the slab, bit-equal to one K1p launch, and K1h on each block of the
+    mesh (strided views, ghost planes) against its twin, the blocks
+    together bit-equal to K1p; at 300^3 on the (4, 1) and (2, 2) meshes
+    the apply timed, on (2, 2) beside the per-block launches, one K1p
+    launch, the twin and cuSPARSE's CSR matvec; then rank 1's slab of a
+    4-rank split of 300^3, (75, 300, 300) with its two received planes,
+    bit-equal to K1p's rows and timed after an L2 flush.  Each timed shape with its bound,
+    its share and its plan; K1h's registers, spills and shared bytes
+    (``nvcc -Xptxas -v`` and the runtime's attributes), no spill allowed.
+    The row of the 300^3 (2, 2) apply's launch is returned."""
+    report = _halo_ptxas()
+    print("K1h, nvcc -Xptxas -v:\n  " + "\n  ".join(report))
+    for aligned in (True, False):
+        attrs = halo_attributes(aligned)
+        print(f"K1h {'16-byte' if aligned else '4-byte'} form: {attrs['registers']} registers,"
+              f" {attrs['spilled_bytes']} spilled bytes, {attrs['static_smem_bytes']} + {HALO_SMEM_BYTES} shared"
+              f" bytes a block, {attrs['blocks_per_sm']} blocks an SM")
+        _require(attrs["spilled_bytes"] == 0, f"K1h spills {attrs['spilled_bytes']} bytes a thread")
+    spills = [m.groups() for m in map(re.compile(r"(\d+) bytes spill stores, (\d+) bytes spill loads").search, report)
+              if m]
+    _require(len(spills) == 2 and all(sp == ("0", "0") for sp in spills), f"nvcc -Xptxas -v: K1h spills {spills}")
     row = {"max_abs_err": 0.0}
     for shape, mesh_shape, pinned in HALO_CASES:
         nz, ny, nx = shape
@@ -2052,10 +2152,13 @@ def check_halo(device) -> tuple[dict, int]:
         per_apply = kernels.LAUNCHES["star7_mv_halo"] - before
         want = star7_mv(star.diag, star.cx, star.cy, star.cz, x, star.pinned)
         torch.cuda.synchronize()
-        _require(per_apply == mesh.p, f"K1h {shape} {mesh_shape}: {per_apply} launches, not one a block")
-        _require(torch.equal(got, want), f"K1h {shape} {mesh_shape}: the blocks are not bit-equal to one K1p launch"
+        _require(per_apply == 1, f"K1h {shape} {mesh_shape}: {per_apply} launches a halo apply, not one")
+        _require(torch.equal(got, want), f"K1h {shape} {mesh_shape}: the apply is not bit-equal to one K1p launch"
                  f" (max diff {(got - want).abs().max().item():.3e})")
-        calls, twins, y = [], [], torch.empty_like(x)
+        slab = (star.diag, star.cx, star.cy, star.cz, x, None, None, None, None, 0 if pinned else -1)
+        row["max_abs_err"] = max(row["max_abs_err"], _compare(f"star7_mv_halo {shape}", got,
+                                                              star7_mv_halo_torch(*slab)))
+        calls, y = [], torch.empty_like(x)
         for blk in mesh.blocks(shape):
             zs, ys = slice(blk.z0, blk.z0 + blk.nz), slice(blk.y0, blk.y0 + blk.ny)
             origin = 0 if pinned and blk.z0 == 0 and blk.y0 == 0 else -1
@@ -2063,42 +2166,59 @@ def check_halo(device) -> tuple[dict, int]:
                     origin)
             out = y[zs, ys]
             calls.append((args, out))
-            twin = star7_mv_halo_torch(*args)
-            twins.append(twin)
             row["max_abs_err"] = max(row["max_abs_err"], _compare(f"star7_mv_halo {shape} {mesh_shape}",
-                                                                  star7_mv_halo(*args, out=out), twin))
-        print(f"kernel star7_mv_halo {shape} on the {mesh_shape} mesh{'' if pinned else ', unpinned'}: each block"
-              f" agrees with its twin, the blocks bit-equal to one star7_mv launch ({per_apply} launches)")
-        if shape == HALO_CASES[-1][0] and mesh_shape == HALO_CASES[-1][1]:
+                                                                  star7_mv_halo(*args, out=out),
+                                                                  star7_mv_halo_torch(*args)))
+        _require(torch.equal(y, want), f"K1h {shape} {mesh_shape}: the blocks are not bit-equal to one K1p launch")
+        print(f"kernel star7_mv_halo {shape} on the {mesh_shape} mesh{'' if pinned else ', unpinned'}: the apply"
+              f" ({per_apply} launch) and the {mesh.p} blocks bit-equal to one star7_mv launch, each against its twin")
+        if nz == 300:
+            bound, by = _halo_bound(x, ())
+            apply_ms = _time_ms(hs.mv, (x,))
+            print(_halo_line(f"time the halo apply on the {mesh_shape} mesh, one K1h launch", apply_ms, bound, shape))
+        if nz == 300 and mesh_shape == (2, 2):
             def blocks():
                 for args, out in calls:
                     star7_mv_halo(*args, out=out)
 
-            def blocks_twin():
-                for args, _ in calls:
-                    star7_mv_halo_torch(*args)
-
             ghosts = [g for args, _ in calls for g in args[5:9] if g is not None]
-            ghost_bytes = sum(g.numel() * g.element_size() for g in ghosts)
-            t_bytes = (3 * x.numel() * x.element_size() + ghost_bytes) / HBM_BYTES_S
-            t_ops = FLOPS_PER_CELL["star7_mv"] * x.numel() / F32_FLOP_S
-            row.update(bound_ms=max(t_bytes, t_ops) * 1e3, bound_by="bytes" if t_bytes >= t_ops else "operations")
-            row["ms"] = _time_ms(blocks, ())
-            row["plain_ms"] = _time_ms(blocks_twin, ())
+            block_bound = _halo_bound(x, ghosts)[0]
+            block_ms = _time_ms(blocks, ())
+            row.update(bound_ms=bound, bound_by=by)
+            row["ms"] = _time_ms(star7_mv_halo, slab)
+            row["plain_ms"] = _time_ms(star7_mv_halo_torch, slab)
             k1p_ms = _time_ms(star7_mv, (star.diag, star.cx, star.cy, star.cz, x, star.pinned))
-            apply_ms = _time_ms(hs.mv, (x,))
             csr = _star_csr(star.diag, star.cx, star.cy, star.cz, star.pinned)
             flat = x.reshape(-1).contiguous()
             _compare("one PyTorch call star7_mv_halo", (csr @ flat).reshape(shape), want)
             row["library_ms"] = _time_ms(lambda m, v: m @ v, (csr, flat))
             del csr
-            print(f"time star7_mv_halo {shape} on the {mesh_shape} mesh: {mesh.p} K1h launches {row['ms']:.4f} ms"
-                  f" (one K1p launch {k1p_ms:.4f} ms; the halo apply with its ghost copies {apply_ms:.4f} ms),"
-                  f" plain {row['plain_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms ({row['bound_by']}; 3 field"
-                  f" passes and {ghost_bytes / 1e6:.2f} MB of ghosts; {100 * row['bound_ms'] / row['ms']:.0f}% of"
-                  f" it), one PyTorch call (cuSPARSE) {row['library_ms']:.4f} ms")
-        del star, x, hs, got, want, calls, twins, y
+            print(_halo_line("time star7_mv_halo, one launch over the slab", row["ms"], bound, shape))
+            print(f"time star7_mv_halo {shape} on the {mesh_shape} mesh: the {mesh.p} per-block launches"
+                  f" {block_ms:.4f} ms (bound {block_bound:.4f} ms with {sum(g.numel() for g in ghosts) * 4 / 1e6:.2f}"
+                  f" MB of ghosts, {100 * block_bound / block_ms:.0f}% of it); one K1p launch {k1p_ms:.4f} ms"
+                  f" ({100 * bound / k1p_ms:.0f}%), plain {row['plain_ms']:.4f} ms, one PyTorch call (cuSPARSE)"
+                  f" {row['library_ms']:.4f} ms")
+        del star, x, hs, got, want, calls, y
         torch.cuda.empty_cache()
+    # rank 1's slab of a 4-rank z split: its two ghost planes are the
+    # received planes of ranks 0 and 2
+    (nz, ny, nx), ranks, r = HALO_SLAB
+    star = poisson_stencil_device(Grid3D(nx, ny, nz), pin=True, dtype=torch.float32, device=device)[0]
+    x = torch.from_numpy(np.random.default_rng(SEED).standard_normal((nz, ny, nx), dtype=np.float32)).to(device)
+    want = star7_mv(star.diag, star.cx, star.cy, star.cz, x, star.pinned)
+    rows = slice(r * nz // ranks, (r + 1) * nz // ranks)
+    args = (star.diag[rows], star.cx, star.cy, star.cz, x[rows], x[rows.start - 1].clone(), x[rows.stop].clone(),
+            None, None, -1)
+    got = star7_mv_halo(*args)
+    _require(torch.equal(got, want[rows]), "K1h on a rank's slab is not bit-equal to one K1p launch's rows")
+    row["max_abs_err"] = max(row["max_abs_err"], _compare("star7_mv_halo, a rank's slab", got,
+                                                          star7_mv_halo_torch(*args)))
+    bound = _halo_bound(args[4], args[5:9])[0]
+    print(_halo_line(f"time star7_mv_halo on rank {r}'s slab of {ranks} with its two received planes (bit-equal to"
+                     " K1p's rows), after an L2 flush", _time_cold_ms(star7_mv_halo, args), bound, args[4].shape))
+    del star, x, want, args, got
+    torch.cuda.empty_cache()
     return row
 
 
@@ -2176,10 +2296,14 @@ def check_ranks(device, strong: dict) -> dict:
             ref = strong[p][0]
             ref = {"iters": ref.iters, "outer_iters": ref.outer_iters, "t_solve": ref.t_solve}
         else:
-            ref, used = run_cli(argv)
+            with _counting_strokes() as strokes:
+                ref, used = run_cli(argv)
             if n == 300:
                 main_path = used
-            _require(used["star7_mv_halo"] > 0, f"{label}, one process: K1h not launched")
+            print(f"{label}, one process: K1h {used['star7_mv_halo']} launches in {strokes['halo']} f32 halo applies")
+            _require(used["star7_mv_halo"] > 0 and used["star7_mv_halo"] == strokes["halo"],
+                     f"{label}, one process: K1h launched {used['star7_mv_halo']} times in {strokes['halo']} f32 halo"
+                     " applies, not one an apply")
         torch.cuda.empty_cache()
         side, ranks, wall = _rank_run(world, argv)
         print(f"{label} on {world} ranks sharing cuda:0 (gloo; NOT a scaling result: the ranks share one card):"
@@ -2189,10 +2313,12 @@ def check_ranks(device, strong: dict) -> dict:
               f" in {ref['t_solve']:.4f} s")
         for r in ranks:
             used = r["launches"]
-            print(f"  rank {r['rank']}: K1h {used.get('star7_mv_halo', 0)}, K3z / K4z"
-                  f" {used.get('fused7_descent_slab', 0)} / {used.get('fused7_ascent_slab', 0)} in"
+            print(f"  rank {r['rank']}: K1h {used.get('star7_mv_halo', 0)} in {r['strokes']['halo']} f32 halo"
+                  f" applies, K3z / K4z {used.get('fused7_descent_slab', 0)} / {used.get('fused7_ascent_slab', 0)} in"
                   f" {r['strokes']['descent']} / {r['strokes']['ascent']} strokes")
-            _require(used.get("star7_mv_halo", 0) > 0, f"{label}: rank {r['rank']} did not launch K1h")
+            _require(0 < used.get("star7_mv_halo", 0) == r["strokes"]["halo"],
+                     f"{label}: rank {r['rank']} launched K1h {used.get('star7_mv_halo', 0)} times in"
+                     f" {r['strokes']['halo']} f32 halo applies, not one an apply")
             if label.startswith("fused"):
                 _require(used.get("fused7_descent_slab", 0) > 0 and used.get("fused7_ascent_slab", 0) > 0,
                          f"{label}: rank {r['rank']} did not launch K3z / K4z")

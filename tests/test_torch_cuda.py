@@ -16,8 +16,9 @@ and K5 with 49-192 bands, ELL and the factored transfer (same bits twice),
 and the greedy, banded and block-Jacobi-level aij routes at 16^3 against
 the CPU, and the diffusion solve at 16^3 and the RCM-reordered route (the
 ELL pair, K5 on its HybridDIA level 0) against the CPU and the natural
-order, and K1h (``star7_mv_halo``) on each block of a one-process mesh
-against its twin and, the blocks together, one K1p launch.
+order, and K1h (``star7_mv_halo``) over a one-process mesh's slab and on
+each of its blocks, and on strided views with ghost planes, against its
+twin and bit-equal to one K1p launch.
 
 These tests need a CUDA device and skip without one.  The file imports no
 JAX, so it also runs where JAX is not installed:
@@ -471,8 +472,8 @@ def test_sharded_solve_on_card_matches_cpu(cuda, monkeypatch):
     gpu = solve_poisson(16, device=cuda, **kw)
     used = dict(kernels.LAUNCHES)
     assert used["fused7_descent_slab"] == strokes["descent"] == strokes["ascent"] == used["fused7_ascent_slab"] > 0
-    # K1p in the setup (rho, Galerkin probing), K1h for CG's Ap (a launch a
-    # shard, dist/halo.py)
+    # K1p in the setup (rho, Galerkin probing), K1h for CG's Ap (one launch
+    # an apply, dist/halo.py)
     assert used["star7_mv"] > 0 and used["star7_mv_halo"] > 0
     assert all(n == 0 for name, n in used.items()
                if name not in ("fused7_descent_slab", "fused7_ascent_slab", "star7_mv", "star7_mv_halo"))
@@ -1039,11 +1040,14 @@ def test_strong_sweep_on_card_launches_k3z_k4z(cuda):
 
 @pytest.mark.parametrize("pinned", [True, False])
 @pytest.mark.parametrize("shape, mesh_shape", [((8, 6, 13), (8, 1)), ((8, 6, 13), (2, 6)), ((12, 12, 12), (2, 2)),
-                                               ((7, 5, 9), (1, 5))])
+                                               ((7, 5, 9), (1, 5)), ((20, 17, 70), (2, 1)), ((24, 40, 136), (4, 2)),
+                                               ((40, 300, 300), (2, 2))])
 def test_star7_mv_halo_matches_twin_and_k1p(cuda, shape, mesh_shape, pinned):
-    """K1h on each block of a one-process mesh (one-plane blocks in z and
-    in y among them) against its twin, and the blocks together bit-equal to
-    one K1p launch on the global field; one launch a block."""
+    """K1h over a one-process mesh's slab (one launch) and on each of its
+    blocks (one-plane blocks in z and in y, quad tails, several tiles in x
+    and y, slabs of several z-chunks and 300 x 300 planes among them)
+    against its twin, the slab and the blocks put together bit-equal to one
+    K1p launch on the global field."""
     from tpusparse_torch.dist.halo import HaloStar, block_ghosts
     from tpusparse_torch.dist.mesh import make_mesh
     from tpusparse_torch.kernels.stencil7 import star7_mv, star7_mv_halo, star7_mv_halo_torch
@@ -1054,15 +1058,83 @@ def test_star7_mv_halo_matches_twin_and_k1p(cuda, shape, mesh_shape, pinned):
     mesh = make_mesh(mesh_shape[0] * mesh_shape[1], mesh_shape, cuda)
     kernels.reset_launches()
     got = HaloStar.build(star, mesh).mv(x)
-    assert kernels.LAUNCHES["star7_mv_halo"] == mesh.p
-    assert torch.equal(got, star7_mv(star.diag, star.cx, star.cy, star.cz, x, pinned))
+    assert kernels.LAUNCHES["star7_mv_halo"] == 1
+    want_global = star7_mv(star.diag, star.cx, star.cy, star.cz, x, pinned)
+    assert torch.equal(got, want_global)
+    _close(got, star7_mv_halo_torch(star.diag, star.cx, star.cy, star.cz, x, None, None, None, None,
+                                    0 if pinned else -1), cuda)
+    blocks = torch.empty_like(x)
     for blk in mesh.blocks(shape):
         zs, ys = slice(blk.z0, blk.z0 + blk.nz), slice(blk.y0, blk.y0 + blk.ny)
         args = (star.diag[zs, ys], star.cx, star.cy, star.cz, x[zs, ys], *block_ghosts(x, None, None, blk, pinned),
                 0 if pinned and blk.z0 == blk.y0 == 0 else -1)
         want = star7_mv_halo_torch(*args)
         _close(star7_mv_halo(*args), want, cuda)            # into a new contiguous block
-        _close(star7_mv_halo(*args, out=torch.empty_like(x)[zs, ys]), want, cuda)   # into a view
+        _close(star7_mv_halo(*args, out=blocks[zs, ys]), want, cuda)   # into a view
+    assert torch.equal(blocks, want_global)
+
+
+def _k1p_of_block(diag, cx, cy, cz, x, zlo, zhi, ylo, yhi, origin):
+    """K1h's function by one K1p launch: the block inside an (nz + 2, ny
+    + 2, nx) field whose faces hold its ghosts (zeros for None), unpinned,
+    with the origin's x zeroed so that its neighbours read 0, and the
+    origin's row diag x.  Bit for bit what K1h must write."""
+    from tpusparse_torch.kernels.stencil7 import star7_mv
+
+    nz, ny, nx = x.shape
+    big = x.new_zeros((nz + 2, ny + 2, nx))
+    big[1:-1, 1:-1] = x
+    for g, idx in ((zlo, (0, slice(1, -1))), (zhi, (-1, slice(1, -1))), (ylo, (slice(1, -1), 0)),
+                   (yhi, (slice(1, -1), -1))):
+        if g is not None:
+            big[idx] = g
+    bdiag = torch.ones_like(big)
+    bdiag[1:-1, 1:-1] = diag
+    if origin >= 0:
+        k, rem = divmod(origin, ny * nx)
+        j, i = divmod(rem, nx)
+        big[1 + k, 1 + j, i] = 0.0
+    y = star7_mv(bdiag, cx, cy, cz, big, False)[1:-1, 1:-1].contiguous()
+    if origin >= 0:
+        y[k, j, i] = diag[k, j, i] * x[k, j, i]
+    return y
+
+
+@pytest.mark.parametrize("origin", [-1, 0, "inside"])
+@pytest.mark.parametrize("ghosts", [False, True])
+@pytest.mark.parametrize("shape, width, x0", [((9, 7, 13), 20, 3), ((6, 18, 64), 72, 4), ((5, 3, 300), 300, 0),
+                                              ((33, 21, 68), 76, 1)])
+def test_star7_mv_halo_views_ghosts_and_origin(cuda, shape, width, x0, ghosts, origin):
+    """K1h on strided views of larger fields (row stride != nx; bases on
+    16 bytes or not: the 16-byte and the 4-byte forms), with four ghost
+    planes or none, pinned at the block's corner, inside it or not:
+    against its twin, and bit-equal to one K1p launch over the block with
+    its ghosts as faces; the output written into a view of its own
+    strides."""
+    from tpusparse_torch.kernels.stencil7 import star7_mv_halo, star7_mv_halo_torch
+
+    nz, ny, nx = shape
+    rng = np.random.default_rng(11)
+
+    def field(*dims):
+        return torch.tensor(rng.standard_normal(dims, dtype=np.float32), device=cuda)
+
+    big_x, big_d = field(nz + 3, ny + 5, width), 6.0 + field(nz + 3, ny + 5, width).abs()
+    x, diag = big_x[2:2 + nz, 1:1 + ny, x0:x0 + nx], big_d[2:2 + nz, 1:1 + ny, x0:x0 + nx]
+    g = (field(ny, nx), field(ny, nx), field(nz, nx), field(nz, nx)) if ghosts else (None,) * 4
+    o = {-1: -1, 0: 0, "inside": ((nz // 2) * ny + ny // 2) * nx + nx // 2}[origin]
+    out = torch.full((nz + 1, ny + 2, width + 4), float("nan"), device=cuda)
+    view = out[1:, 1:1 + ny, x0:x0 + nx]
+    args = (diag, 1.5, -0.75, 0.5, x, *g, o)
+    got = star7_mv_halo(*args, out=view)
+    assert got.data_ptr() == view.data_ptr()
+    want = _k1p_of_block(*args)
+    assert torch.equal(view, want)
+    _close(view, star7_mv_halo_torch(*args), cuda)
+    rest = out.clone()
+    rest[1:, 1:1 + ny, x0:x0 + nx] = float("nan")
+    assert torch.isnan(rest).all()     # nothing written outside the view
+    assert torch.equal(star7_mv_halo(*args), want)      # into a new contiguous block
 
 
 def test_star7_mv_halo_refuses_mixed_devices_and_bad_ghosts(cuda):
@@ -1081,3 +1153,14 @@ def test_star7_mv_halo_refuses_mixed_devices_and_bad_ghosts(cuda):
     with pytest.raises(ValueError, match="unit-stride"):
         star7_mv_halo(x, 1.0, 1.0, 1.0, x, None, None, None, None, out=torch.empty((4, 5, 3), device=cuda)
                       .transpose(1, 2))
+    # the entry point refuses a plan that does not cover the block once
+    from tpusparse_torch.kernels.stencil7 import _STAR7_HALO_ARGS, halo_plan
+
+    y = torch.empty_like(x)
+    plan = halo_plan(tuple(x.shape))
+    for bad in ((plan.tiles_x + 1, plan.tiles_y, plan.chunks, plan.zchunk),
+                (plan.tiles_x, plan.tiles_y, plan.chunks + 1, plan.zchunk),
+                (plan.tiles_x, plan.tiles_y, plan.chunks, 0)):
+        with pytest.raises(RuntimeError, match="tps_star7_mv_halo"):
+            _build.launch("tps_star7_mv_halo", _STAR7_HALO_ARGS, cuda, x.data_ptr(), x.data_ptr(), y.data_ptr(),
+                          4, 3, 5, 15, 5, 15, 5, 0, 0, 0, 0, 1.0, 1.0, 1.0, -1, *bad, plan.smem_bytes)

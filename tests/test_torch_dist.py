@@ -45,7 +45,7 @@ from tpusparse_torch.dist.mesh import _factor2
 from tpusparse_torch.grid.grid3d import Grid3D
 from tpusparse_torch.grid.poisson import poisson_stencil_device
 from tpusparse_torch.interop import star_from_numpy
-from tpusparse_torch.kernels.stencil7 import star7_mv_halo, star7_mv_halo_torch, star7_mv_torch
+from tpusparse_torch.kernels.stencil7 import halo_plan, star7_mv_halo, star7_mv_halo_torch, star7_mv_torch
 from torch_parity import port_copy
 
 # (nz, ny, nx) = (8, 4, 6): the (8, 1) mesh has one-plane blocks in z, the
@@ -140,6 +140,51 @@ def test_halo_apply_matches_jax_halo_mv(mesh_shape, pin):
         y = star7_mv_halo(op.diag[zs, ys], op.cx, op.cy, op.cz, xt[zs, ys], *block_ghosts(xt, None, None, blk, pin),
                           origin)
         assert torch.equal(y, got[zs, ys])
+
+
+@pytest.mark.parametrize("pin", [True, False])
+@pytest.mark.parametrize("mesh_shape", [(2, 4), (4, 2), (8, 1), (1, 8)])
+def test_halo_mv_makes_one_k1h_call_a_rank(monkeypatch, mesh_shape, pin):
+    """``halo_mv`` on f32 applies the star to the rank's whole slab in one
+    ``star7_mv_halo`` call, whatever the mesh: bit for bit
+    ``star7_mv_torch`` on the global field, and JAX's ``halo_mv`` over
+    ``make_mesh(8, shape)`` (f32 rounding)."""
+    from tpusparse_torch.dist import halo
+
+    calls = []
+
+    def counted(*args, **kw):
+        calls.append(tuple(args[4].shape))
+        return star7_mv_halo(*args, **kw)
+
+    monkeypatch.setattr(halo, "star7_mv_halo", counted)
+    shape = (8, 8, 5)
+    jop, op, x = _systems(shape, pin)
+    jmesh = j_make_mesh(8, shape=mesh_shape)
+    jop_s, jx_s, _ = j_shard_system(jop, jnp.asarray(x), jnp.asarray(x), jmesh)
+    want = np.asarray(j_halo_mv(jop_s, jx_s, jmesh))
+    mesh = make_mesh(8, mesh_shape)
+    xt = torch.from_numpy(x)
+    got = HaloStar.build(op, mesh).mv(xt)
+    assert calls == [shape]
+    assert torch.equal(got, star7_mv_torch(op.diag, op.cx, op.cy, op.cz, xt, op.pinned))
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-6, atol=1e-6 * np.abs(want).max())
+
+
+@pytest.mark.parametrize("shape", [(300, 300, 300), (75, 300, 300), (8, 6, 13), (7, 5, 9), (2, 4, 6), (1, 6, 13)])
+def test_halo_plan_covers_the_block_once(shape):
+    """K1h's launch plan: its chunks and tiles cover the block's cells
+    exactly once (the entry point refuses any other plan), and at 300^3
+    and on a (75, 300, 300) rank slab it fills whole waves."""
+    plan = halo_plan(shape)
+    for n, cuts in zip(shape, plan.ranges(shape)):
+        assert cuts[0][0] == 0 and cuts[-1][1] == n
+        assert all(lo < hi for lo, hi in cuts) and all(a[1] == b[0] for a, b in zip(cuts, cuts[1:]))
+    assert plan.launch_args() == (plan.tiles_x, plan.tiles_y, plan.chunks, plan.zchunk, plan.smem_bytes)
+    if shape[1:] == (300, 300):
+        assert (plan.tiles_x, plan.tiles_y) == (5, 19)
+        assert (plan.chunks, plan.zchunk) == {300: (4, 75), 75: (4, 19)}[shape[0]]
+        assert plan.waves() <= 1
 
 
 def test_halo_apply_of_f64_and_bf16_is_the_torch_apply():

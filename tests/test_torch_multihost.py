@@ -56,12 +56,16 @@ def test_a_failed_rank_fails_the_run_and_its_peer_is_killed(tmp_path):
         run_ranks("torch_ranks:fail_on_rank1", 2, tmp_path, timeout=20)
 
 
-@pytest.mark.parametrize("world, mesh_shape", [(2, (2, 4)), (4, (8, 1)), (4, (4, 2))])
-def test_halo_apply_on_ranks_is_the_global_star(tmp_path, world, mesh_shape):
+@pytest.mark.parametrize("world, shape, mesh_shape", [(2, (8, 4, 6), (2, 4)), (4, (8, 4, 6), (8, 1)),
+                                                     (4, (8, 4, 6), (4, 2)), (2, (2, 4, 6), (2, 1))])
+def test_halo_apply_on_ranks_is_the_global_star(tmp_path, world, shape, mesh_shape):
     """Each rank's slab of the halo apply, its boundary planes exchanged
-    with ranks r +- 1: bit for bit the global star apply's rows."""
-    got = run_ranks("torch_ranks:halo", world, tmp_path, shape=(8, 4, 6), mesh_shape=mesh_shape)
-    assert [r["rows"] for r in got] == [[8 // world * i, 8 // world * (i + 1)] for i in range(world)]
+    with ranks r +- 1: bit for bit the global star apply's rows; with
+    one-plane slabs (2, 4, 6) on 2 ranks, pinned, both of a slab's z
+    neighbours are received planes and rank 0 ships the origin's plane."""
+    got = run_ranks("torch_ranks:halo", world, tmp_path, shape=shape, mesh_shape=mesh_shape, pinned=True)
+    nz_r = shape[0] // world
+    assert [r["rows"] for r in got] == [[nz_r * i, nz_r * (i + 1)] for i in range(world)]
     for r in got:
         assert np.array_equal(np.array(r["y"]), np.array(r["want"]))
 

@@ -49,7 +49,7 @@ f32 under f64 defect correction.  The routes:
   (``dist/fused_sharded.py``); every other option set the (z, y) plain
   route, JAX's GSPMD program, with level 0 sharded
   (``shard_hierarchy``).  On both the operators are ``HaloStar``s: each
-  f32 apply runs kernel K1h on each of the rank's blocks after the
+  f32 apply is one launch of kernel K1h over the rank's slab after the
   boundary-plane exchange (``dist/halo.py``), f64 the torch apply.
 - ``mat_type="aij"``: the system as a 7-band DIA (f32 ``DIA`` for the
   inner solves, two-float ``DFDIA`` for the outer residual; one ``DIA`` in

@@ -227,19 +227,6 @@ constexpr int ZM4_AHEAD = 1, ZM4_MIN_BLOCKS = 1;
 constexpr int ZM9_AHEAD = 1;
 constexpr int ZM15_AHEAD = 4, ZM15_MIN_BLOCKS = 4;
 
-// Four consecutive cells of a row, one thread's share of every step.
-struct Quad {
-  float v[4];
-};
-
-__device__ __forceinline__ Quad quad_of(float4 f) {
-  return Quad{{f.x, f.y, f.z, f.w}};
-}
-
-__device__ __forceinline__ float4 float4_of(const Quad& q) {
-  return make_float4(q.v[0], q.v[1], q.v[2], q.v[3]);
-}
-
 // The thread's quad: its place in the region, its domain coordinates, and
 // which of its cells each step covers.  The region starts ZM_HX columns and
 // H rows before the tile, so a quad lies wholly inside or wholly outside
@@ -442,27 +429,6 @@ __device__ __forceinline__ bool slab_plane(const Geom& g, int kofs, int nzg,
   return p >= 0 && p < g.nz + 2 * g.face && kg >= 0 && kg < nzg;
 }
 
-// One 16-byte cp.async from global to shared memory; with valid false it
-// reads nothing and writes zeros (src-size 0).
-__device__ __forceinline__ void cp_async16(float4* dst, const float* src,
-                                           bool valid) {
-  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
-               "l"(src), "r"(valid ? 16 : 0));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-// Wait until at most N of this thread's copy groups are in flight.  The
-// memory clobber keeps the compiler from moving the reads of the staged
-// planes above the wait.
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
 // The staging ring after the rings: input field F (0-3) keeps its last DF
 // planes (at(p) is F's slot of plane p, which K9 also writes).  Plane p of the march (which starts at z0 - H) is in slot
 // (p - z0 + H) % DF of F's.  Each thread copies and reads only its own
@@ -490,7 +456,7 @@ struct Staging {
   template <int F>
   __device__ __forceinline__ void copy_from(const float* src, const ZQuad& z,
                                             int p, bool valid) const {
-    cp_async16(at<F>(p) + z.q, src, valid);
+    cp_async16(at<F>(p) + z.q, src, valid ? 16 : 0);
   }
   // copy the thread's quad of field F, plane p (zeros where it has none)
   template <int F>

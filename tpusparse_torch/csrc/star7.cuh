@@ -117,4 +117,49 @@ __device__ __forceinline__ long long thread_cell() {
   return (long long)blockIdx.x * BLOCK + threadIdx.x;
 }
 
+// Four consecutive cells of a row, one thread's share of a z-marching
+// kernel's every step.
+struct Quad {
+  float v[4];
+};
+
+__device__ __forceinline__ Quad quad_of(float4 f) {
+  return Quad{{f.x, f.y, f.z, f.w}};
+}
+
+__device__ __forceinline__ float4 float4_of(const Quad& q) {
+  return make_float4(q.v[0], q.v[1], q.v[2], q.v[3]);
+}
+
+// One 16-byte cp.async from global to shared memory that reads the first
+// `bytes` (0-16) of src, 16-byte aligned, and writes zeros for the rest
+// (src-size; 0 reads nothing).
+__device__ __forceinline__ void cp_async16(void* dst, const float* src,
+                                           int bytes) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
+               "l"(src), "r"(bytes));
+}
+
+// One 4-byte cp.async: src's cell, or a zero with valid false (src not
+// read).
+__device__ __forceinline__ void cp_async4(float* dst, const float* src,
+                                          bool valid) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d),
+               "l"(src), "r"(valid ? 4 : 0));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+// Wait until at most N of this thread's copy groups are in flight.  The
+// memory clobber keeps the compiler from moving the reads of the staged
+// planes above the wait.
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
 }  // namespace tps

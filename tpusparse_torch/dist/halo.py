@@ -5,22 +5,25 @@ PETSc's ``MatMult_MPIAIJ`` posts its neighbour exchanges, computes the
 diagonal block from local data, then adds the ghost contributions; the
 JAX package writes the same pattern with ``ppermute`` under ``shard_map``
 (``halo.py:32-134``).  Here the rank ships its two boundary z-planes to
-ranks r +- 1 (``Mesh.exchange``) and then runs each of its blocks through
-kernel K1h (``kernels/stencil7.py::star7_mv_halo``) with its four ghost
-planes: a copy of the neighbouring block's plane inside the rank, a
-received plane at the rank's z ends, and a zero face (None) at the domain
-boundary.  K1h writes each block's output in place into the rank's slab.
+ranks r +- 1 (``Mesh.exchange``) and then applies the star to its whole
+z-slab in one launch of kernel K1h (``kernels/stencil7.py::
+star7_mv_halo``), with the two received planes as its z ghosts (None,
+a zero face, at the domain boundary and on one rank).  A rank holds
+whole z-rows of the mesh's blocks over every y, so its blocks' y
+neighbours and the z neighbours between its blocks are in its own slab:
+the (z, y) blocks need no launch and no ghost copy of their own.
+``block_ghosts`` gives a block its four ghost planes, for driving K1h
+block by block as the JAX package's shards apply it.
 
 The pinned origin follows the JAX package exactly (``halo.py:84-96``):
-the origin lives at local (0, 0, 0) of block (0, 0) on rank 0, and is
-masked out of x before any neighbour read, including the planes it ships
-(with one-plane blocks the origin's plane IS the face sent); its row keeps
+the origin lives at local (0, 0, 0) of rank 0's slab, and is masked out
+of x before any neighbour read, including the planes it ships (with a
+one-plane slab the origin's plane IS the face sent up); its row keeps
 diag x.
 
 Fields of another dtype than f32 (the f64 outer operator, a bf16 level 0)
-take the same torch arithmetic as the single-device apply
-(``star7_mv_torch``), over the rank's slab as one block with its two
-received planes: bit for bit that apply on the global field.
+take the same apply in torch arithmetic (``star7_mv_halo_torch``), K1h's
+twin: bit for bit the single-device apply on the global field.
 """
 
 from __future__ import annotations
@@ -121,9 +124,9 @@ def block_ghosts(x: torch.Tensor, lo, hi, blk, origin_rank: bool):
 
 def halo_mv(op: HaloStar, x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
     """y = A @ x on this rank's slab ``x`` of a field on ``mesh``: the
-    boundary planes exchanged with ranks r +- 1, then K1h on each of the
-    rank's blocks (f32), or the torch apply over the slab (other dtypes).
-    Equals ``op.mv`` of the global operator on the global field."""
+    boundary planes exchanged with ranks r +- 1, then one K1h launch over
+    the slab (f32), or its twin (other dtypes).  Equals ``op.mv`` of the
+    global operator on the global field."""
     if tuple(x.shape) != op.local_shape:
         raise ValueError(f"x {tuple(x.shape)}: not this rank's slab {op.local_shape} of {op.shape}")
     x = x.contiguous()
@@ -132,12 +135,5 @@ def halo_mv(op: HaloStar, x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
     if origin_rank and x.shape[0] == 1:
         hi_send = _masked(hi_send)   # the origin's plane is the face shipped up
     lo, hi = mesh.exchange(x[0], hi_send)
-    if x.dtype != torch.float32:
-        return star7_mv_halo_torch(op.diag, op.cx, op.cy, op.cz, x, lo, hi, None, None, 0 if origin_rank else -1)
-    y = torch.empty_like(x)
-    for blk in mesh.blocks(op.shape):
-        zs, ys = slice(blk.z0, blk.z0 + blk.nz), slice(blk.y0, blk.y0 + blk.ny)
-        origin = 0 if origin_rank and blk.z0 == 0 and blk.y0 == 0 else -1
-        star7_mv_halo(op.diag[zs, ys], op.cx, op.cy, op.cz, x[zs, ys], *block_ghosts(x, lo, hi, blk, origin_rank),
-                      origin, out=y[zs, ys])
-    return y
+    apply = star7_mv_halo if x.dtype == torch.float32 else star7_mv_halo_torch
+    return apply(op.diag, op.cx, op.cy, op.cz, x, lo, hi, None, None, 0 if origin_rank else -1)

@@ -9,8 +9,9 @@ send/recv and all-reduces its dots.  Here a mesh of ``pz x py`` blocks
 (``make_mesh`` factors p as JAX's ``_factor2`` does) is spread over the W
 ranks of the process group: W divides pz, and rank r holds the blocks of
 mesh z-rows [r pz/W, (r + 1) pz/W) over every y.  Its vectors are its own
-z-slab (nz/W, ny, nx).  Between its own blocks a ghost plane is a copy; at
-its two z ends ``exchange`` sends and receives planes with ranks r +- 1
+z-slab (nz/W, ny, nx), whose blocks' neighbours between them are its own
+planes (the halo apply reads them in place, ``dist/halo.py``); at its two
+z ends ``exchange`` sends and receives planes with ranks r +- 1
 (``batch_isend_irecv``); the domain boundary gets zero planes.  W = 1 (no
 process group) is one process holding all p blocks, which is how the CPU
 tests meet the JAX package's 8 virtual devices; W = p is one block a rank.
@@ -188,7 +189,7 @@ def process_group():
     return dist.group.WORLD, dist.get_world_size(), dist.get_rank()
 
 
-def make_mesh(n_devices: int, shape: tuple[int, int] | None = None, device="cpu", *, halo: int = 1) -> Mesh:
+def make_mesh(n_devices: int, shape: tuple[int, int] | None = None, device="cuda", *, halo: int = 1) -> Mesh:
     """A (z, y) mesh of ``n_devices`` blocks (``shape`` = (pz, py), or
     ``_factor2``'s) over the ranks of the default process group, this
     rank's fields on ``device``.  W ranks must divide pz."""
@@ -211,7 +212,7 @@ def make_mesh(n_devices: int, shape: tuple[int, int] | None = None, device="cpu"
     return Mesh(pz=pz, py=py, device=torch.device(device), halo=halo, group=group, world=world, rank=rank)
 
 
-def make_z_mesh(n_shards: int, device="cpu") -> Mesh:
+def make_z_mesh(n_shards: int, device="cuda") -> Mesh:
     """The 1-D z mesh of ``n_shards`` z-slabs of at least FACE planes (the
     fused z route), over the ranks of the default process group."""
     return make_mesh(n_shards, (n_shards, 1), device, halo=FACE)

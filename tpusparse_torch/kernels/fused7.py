@@ -95,11 +95,13 @@ import torch
 from tpusparse_torch.kernels import LAUNCHES, _build
 from tpusparse_torch.kernels.stencil7 import (
     FACE,
+    H100_SMS,
     check_fields,
     launch_args,
     padded_shape,
     star7_mv_padded,
     star7_mv_padded_torch,
+    wave_zchunk,
 )
 
 P, I, F = _build.P, _build.I, _build.F
@@ -199,7 +201,6 @@ ZM_KERNELS = {
 }
 # K2 and K14 march on K15's machinery: the same two staged fields, ring and plan
 ZM_KERNELS["mvdot"] = ZM_KERNELS["pre2"] = ZM_KERNELS["restrict"]
-H100_SMS = 132
 
 
 @dataclass(frozen=True)
@@ -275,29 +276,15 @@ def zmarch_slab_plan(shape: tuple[int, int, int], kernel: str, shards: int) -> Z
     ``shards`` stacked slabs of local ``shape`` (nz_l, ny, nx): the tiles
     of ``zmarch_plan``, and the z-chunks a slab chosen for the whole grid.
 
-    The rule: a kernel that holds ``blocks_per_sm`` blocks an SM costs
-    about (its waves of blocks, rounded up) times (the planes a block
-    marches, zchunk + 2 H).  Of every chunk count n = 1 .. nzp (chunks of
-    zchunk = ceil(nzp / n) planes, equal but the last), take the one of
-    least ceil(blocks / (132 blocks_per_sm)) (zchunk + 2 H), blocks =
-    tiles times shards times chunks; of equal costs, the fewest chunks (the
-    fewest halo planes read twice).  A short chunk re-reads its 2 H planes
-    more often (a chunk of 27 reads 22% more), which the rule trades
-    against a last wave that leaves SMs idle.  At 300^3 over 4 shards
-    (nzp = 81, 54 tiles) it takes 3 chunks of 27: 648 blocks, 5 waves of
-    33 planes, where a slab's own 2 chunks of 41 make 4 waves of 47.
-    Cached: the sharded cycle asks for the same plan every stroke."""
+    The chunks by ``wave_zchunk``'s rule over the nzp padded planes, with
+    tiles times shards blocks a chunk: at 300^3 over 4 shards (nzp = 81,
+    54 tiles) 3 chunks of 27, 648 blocks, 5 waves of 33 planes, where a
+    slab's own 2 chunks of 41 make 4 waves of 47.  Cached: the sharded
+    cycle asks for the same plan every stroke."""
     nzp = padded_shape(shape)[0]
     plan = zmarch_plan(shape, kernel)
-    wave = H100_SMS * plan.blocks_per_sm
-    tiles = plan.tiles_x * plan.tiles_y * shards
-    halo = ZM_KERNELS[kernel].halo
-
-    def cost(zchunk):   # (the model's cost, the chunks) of chunks of zchunk planes
-        chunks = -(-nzp // zchunk)
-        return -(-tiles * chunks // wave) * (zchunk + 2 * halo), chunks
-
-    zchunk = min({-(-nzp // n) for n in range(1, nzp + 1)}, key=cost)
+    zchunk = wave_zchunk(nzp, plan.tiles_x * plan.tiles_y * shards, H100_SMS * plan.blocks_per_sm,
+                         ZM_KERNELS[kernel].halo)
     return replace(plan, chunks=-(-nzp // zchunk), zchunk=zchunk, shards=shards)
 
 

@@ -29,11 +29,15 @@ rounding of the star, so each column of a stack is bit for bit a K1p
 launch.  Its twin is ``star7_mv_torch``, which broadcasts over leading
 axes.
 
-``star7_mv_halo`` (K1h) is K1p's halo form: the star on one (z, y) block
-of a rank's slab, whose neighbours' planes come from four ghost planes
-(``dist/halo.py``), the counterpart of what ``tpusparse/dist/halo.py::
-_mv_shard`` computes per shard.  Its twin is ``star7_mv_halo_torch``, bit
-for bit ``star7_mv_torch`` on the cells of the block.
+``star7_mv_halo`` (K1h) is K1p's halo form: the star on one (nz, ny, nx)
+block whose neighbours' planes come from four ghost planes, the
+counterpart of what ``tpusparse/dist/halo.py::_mv_shard`` computes per
+shard.  ``dist/halo.py::halo_mv`` launches it once a rank an apply, on
+the rank's whole z-slab with its two received planes; a block of the
+mesh, a strided view with y ghosts, takes it too.  One launch marches up
+the block in z-chunks of the plan ``halo_plan`` chooses.  Its twin is
+``star7_mv_halo_torch``, bit for bit ``star7_mv_torch`` on the cells of
+the block.
 
 ``star7_mv_padded``, ``star7_mv``, ``star7_mv_batched`` and
 ``star7_mv_halo`` dispatch by tensor device only: a CPU tensor runs the
@@ -43,6 +47,10 @@ raises).
 """
 
 from __future__ import annotations
+
+import ctypes
+import functools
+from dataclasses import dataclass
 
 import torch
 
@@ -289,8 +297,105 @@ def _unravel(q: int, ny: int, nx: int) -> tuple[int, int, int]:
 
 
 _STAR7_HALO_ARGS = (
-    [_build.P] * 3 + [_build.I] * 3 + [_build.L] * 4 + [_build.P] * 4 + [_build.F] * 3 + [_build.L, _build.P]
+    [_build.P] * 3 + [_build.I] * 3 + [_build.L] * 4 + [_build.P] * 4 + [_build.F] * 3 + [_build.L]
+    + [_build.I] * 5 + [_build.P]
 )
+
+# csrc/stencil7.cu's HX_TY x HX_TX tile of a block of 256 threads, a quad of
+# 4 x cells a thread; its ring of HX_DEPTH staged planes of the tile's rows
+# and one a side, HX_ROW floats a row; the blocks an SM must hold
+# (HX_MIN_BLOCKS, __launch_bounds__), what a wave of blocks is
+HALO_TILE = (16, 64)
+HALO_SMEM_BYTES = 4 * (HALO_TILE[0] + 2) * (HALO_TILE[1] + 8) * 4
+HALO_BLOCKS_PER_SM = 3
+H100_SMS = 132
+
+
+def wave_zchunk(nz: int, tiles: int, wave: int, halo: int) -> int:
+    """The z-chunk of a z-marching launch of ``tiles`` column tiles over
+    ``nz`` planes, a wave being the ``wave`` blocks the card holds at once.
+
+    The rule: a launch costs about (its waves of blocks, rounded up) times
+    (the planes a block marches, zchunk + 2 ``halo``).  Of every chunk
+    count n = 1 .. nz (chunks of ceil(nz / n) planes, equal but the last),
+    take the one of least cost; of equal costs, the fewest chunks (the
+    fewest halo planes read twice).  A short chunk re-reads its 2 ``halo``
+    planes more often (a chunk of 27 reads 22% more with a halo of 3),
+    which the rule trades against a last wave that leaves SMs idle."""
+
+    def cost(zchunk):
+        chunks = -(-nz // zchunk)
+        return -(-tiles * chunks // wave) * (zchunk + 2 * halo), chunks
+
+    return min({-(-nz // n) for n in range(1, nz + 1)}, key=cost)
+
+
+@dataclass(frozen=True)
+class HaloPlan:
+    """The grid of one K1h launch: ``tiles_y`` x ``tiles_x`` tiles of
+    ``HALO_TILE`` cells over the (ny, nx) plane times ``chunks`` z-chunks
+    of ``zchunk`` planes, one block of 256 threads each, ``smem_bytes`` of
+    dynamic shared memory a block."""
+
+    tiles_x: int
+    tiles_y: int
+    chunks: int
+    zchunk: int
+    smem_bytes: int = HALO_SMEM_BYTES
+
+    @property
+    def blocks(self) -> int:
+        return self.tiles_x * self.tiles_y * self.chunks
+
+    def waves(self) -> float:
+        """Blocks over the blocks the H100's SMs hold at once."""
+        return self.blocks / (H100_SMS * HALO_BLOCKS_PER_SM)
+
+    def ranges(self, shape) -> tuple[list, list, list]:
+        """The cells the blocks write along z, y and x, as the kernel
+        computes them from ``blockIdx``: chunk c planes [c zchunk, min((c +
+        1) zchunk, nz)), tile t rows [t TY, min((t + 1) TY, ny)), likewise
+        in x."""
+        nz, ny, nx = shape
+        ty, tx = HALO_TILE
+
+        def cut(n, step, parts):
+            return [(c * step, min((c + 1) * step, n)) for c in range(parts)]
+
+        return cut(nz, self.zchunk, self.chunks), cut(ny, ty, self.tiles_y), cut(nx, tx, self.tiles_x)
+
+    def launch_args(self) -> tuple[int, int, int, int, int]:
+        return self.tiles_x, self.tiles_y, self.chunks, self.zchunk, self.smem_bytes
+
+
+@functools.lru_cache(maxsize=None)
+def halo_plan(shape: tuple[int, int, int]) -> HaloPlan:
+    """The plan of one K1h launch over an (nz, ny, nx) block: the tiles
+    that cover the plane, and the z-chunks by ``wave_zchunk``'s rule (a
+    halo of one plane).  At 300^3 (95 tiles) 4 chunks of 75: 380 blocks,
+    one wave of 396; a (75, 300, 300) rank slab 4 chunks of 19.  Cached: a
+    solve asks for the same plan every apply."""
+    nz, ny, nx = shape
+    ty, tx = HALO_TILE
+    tiles_y, tiles_x = -(-ny // ty), -(-nx // tx)
+    zchunk = wave_zchunk(nz, tiles_x * tiles_y, H100_SMS * HALO_BLOCKS_PER_SM, 1)
+    return HaloPlan(tiles_x=tiles_x, tiles_y=tiles_y, chunks=-(-nz // zchunk), zchunk=zchunk)
+
+
+def halo_attributes(aligned: bool = True) -> dict:
+    """K1h's compiled kernel (on the card), its 16-byte (``aligned``) or
+    4-byte form: registers a thread, spilled bytes a thread, static shared
+    bytes a block and the blocks an SM holds with the plan's dynamic
+    shared bytes."""
+    fn = _build.library().tps_halo_attributes
+    fn.argtypes = [_build.I, _build.P, _build.P, _build.P, _build.P]
+    fn.restype = _build.I
+    out = [ctypes.c_int() for _ in range(4)]
+    rc = fn(int(aligned), *(ctypes.byref(v) for v in out))
+    if rc != 0:
+        raise RuntimeError(f"tps_halo_attributes: CUDA error {rc}")
+    names = ("registers", "spilled_bytes", "static_smem_bytes", "blocks_per_sm")
+    return dict(zip(names, (v.value for v in out)))
 
 
 def _check_halo(diag, x, out, ghosts) -> None:
@@ -326,13 +431,15 @@ def _check_halo(diag, x, out, ghosts) -> None:
 
 
 def star7_mv_halo(diag, cx, cy, cz, x, zlo, zhi, ylo, yhi, origin: int = -1, out=None):
-    """y = A @ x on one f32 (z, y) block with its ghost planes (K1h); see
-    ``star7_mv_halo_torch`` for the arguments.  ``x``, ``diag`` and
-    ``out`` may be strided views of a rank's slab (x and diag with one set
-    of strides, all unit stride in x): y is written into ``out`` (a new
-    contiguous block when None) and returned.
+    """y = A @ x on one f32 block with its ghost planes (K1h): a rank's
+    slab or a (z, y) block of it; see ``star7_mv_halo_torch`` for the
+    arguments.  ``x``, ``diag`` and ``out`` may be strided views of a
+    rank's slab (x and diag with one set of strides, all unit stride in
+    x): y is written into ``out`` (a new contiguous block when None) and
+    returned.
 
-    CUDA tensors run ``csrc/stencil7.cu``; CPU tensors the plain twin.
+    CUDA tensors run ``csrc/stencil7.cu``, one launch of ``halo_plan``'s
+    grid; CPU tensors the plain twin.
     """
     ghosts = (zlo, zhi, ylo, yhi)
     _check_halo(diag, x, out, ghosts)
@@ -347,6 +454,7 @@ def star7_mv_halo(diag, cx, cy, cz, x, zlo, zhi, ylo, yhi, origin: int = -1, out
         x.data_ptr(), diag.data_ptr(), out.data_ptr(), nz, ny, nx, x.stride(0), x.stride(1), out.stride(0),
         out.stride(1),
         *(0 if g is None else g.data_ptr() for g in ghosts), float(cx), float(cy), float(cz), int(origin),
+        *halo_plan((nz, ny, nx)).launch_args(),
     )
     LAUNCHES["star7_mv_halo"] += 1
     return out
