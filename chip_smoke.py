@@ -231,7 +231,7 @@ script exits non-zero without the final line:
    bit a K5 launch; at 1M rows with K = 65 and 192 contiguous bands, K5
    timed beside its twin, its bound ((K+2) n 4 bytes over 3.35 TB/s) and
    cuSPARSE's CSR matvec; and phase 6's K = 7 time at 300^3 within 5% of
-   its 0.463 ms row.
+   its 0.394 ms row.
 33. Item 9.2's host routes at 1M rows, counters reset before each: the
    greedy route (``-mat_type aij -pc_gamg_aggregation greedy``, mixed, rtol
    1e-8) and GAMG's block-Jacobi level smoother (``-mat_type aij
@@ -322,19 +322,46 @@ script exits non-zero without the final line:
    on every rank and in the one process, K3z/K4z on every rank of the
    fused route.  Times printed, labelled: ranks that
    share one card are no scaling result.
+43. The block-row executor for general matrices (``dist/general.py``),
+   the launch counters reset before each solve: (i) the f32 hierarchy of
+   the structure-blind aij route at 300^3 (geometric, ``GeoTransfer``s)
+   and its block-row form over ``make_row_mesh(4)`` in this process, f32
+   CG with the V-cycle at rtol 1e-6 on each: reason converged, the same
+   inner count, x bit for bit, one K5h launch an f32 ``DistDIA`` apply
+   (counted) and none in the unsharded solve; (ii) the greedy route's
+   hierarchy at 100^3 (``FactoredTransfer``s, ``HybridDIA`` levels) over
+   ``make_row_mesh(2)`` with ``min_shard_rows=1`` (its levels of 7002, 227
+   and 6 rows do not divide into 4 blocks), the same gates, at least 2
+   levels sharded and a ``DistHybridDIA`` applied; (iii) (i) on 2 torchrun
+   ranks sharing cuda:0 over gloo (``chip_smoke.py --rank-general``, each
+   rank's record and rows of x in a file of its own): each rank one K5h
+   launch an apply, reason converged, inner within 2 of (i), max|x_ranks -
+   x_(i)| <= 1e-4 max|x_(i)|, labelled no scaling result; (iv) K5h's
+   registers and spills (``nvcc -Xptxas -v``; a spill fails the phase),
+   K5h on rank 1's rows of a 4-rank split of the 300^3 fine operator
+   with its two 90,000-entry windows, bit-equal to one K5 launch's rows,
+   against its twin and the cuSPARSE CSR matvec of the same rows, each
+   timed after a 1 GiB read flush beside its bound, then K5h over the
+   whole vector bit-equal to K5 (one kernel: K5 is K5h on all n rows);
+   (v) ``bench.scaling
+   strong --n 100 --devices 2,4`` on 2 torchrun ranks (``--rank-scaling``):
+   every point reason 2 on each rank, rank 0's record with ``"ranks": 2``
+   and ``"emulated": true``.  Phase 41 also times rank 1's slab's twin
+   and the cuSPARSE CSR matvec of the slab's rows after the same flush.
 
 Then one JSON line with each kernel's route, source, launches (K1-K4 from
 phase 5, K5 from phase 8, K6/K7 from phase 10, K3'/K4' from phase 11,
 K6'/K7' from phase 12, K8/K9 from phase 14, K1p from phase 15, K10 and
 K12-K16 from phase 18, K11 from phase 19, K3z/K4z from phase 27, K1h from
 phase 42's one-process (z, y) run at 300^3, the
-batched K1p from phase 28's ``mat_solve``, the batched K5 from phase 31's),
+batched K1p from phase 28's ``mat_solve``, the batched K5 from phase 31's,
+K5h from phase 43's one-process 300^3 solve on the row mesh),
 error,
 times, its bound at the timed shape (the larger of its unique field bytes
 over 3.35 TB/s and its operations over 67 TFLOP/s of f32, the H100 SXM's
 published peaks) and the time of one PyTorch call computing the same
 function where there is one (K1, K1p and K5: the cuSPARSE CSR matvec of
-the same matrix; the batched K1p and K5: cuSPARSE's SpMM of that CSR with
+the same matrix; K5h: of the same rows; the batched K1p and K5: cuSPARSE's SpMM of that CSR with
 the block; K10: ``torch.addmm`` of that CSR; K15/K16: the CSR matvec
 of the matrix their pass applies; null for the other fused modes), and as
 the last line
@@ -366,15 +393,30 @@ from tpusparse_torch import KSP, kernels
 from tpusparse_torch import ksp as ksp_module
 from tpusparse_torch.__main__ import main as cli_main
 from tpusparse_torch.amg.hierarchy import AMGParams, gamg_setup, threshold_schedule, vcycle
+from tpusparse_torch.amg.unstructured import gamg_setup_unstructured
 from tpusparse_torch.bench import bwprobe, deviceaggbench, headline, reorderbench, scaling, spmv
 from tpusparse_torch.bench.driver import solve_diffusion, solve_poisson
+from tpusparse_torch.dist import multihost
 from tpusparse_torch.dist.fused_sharded import FusedSharded
+from tpusparse_torch.dist.general import (
+    DistDIA,
+    DistHybridDIA,
+    dia_halo,
+    make_row_mesh,
+    shard_unstructured_hierarchy,
+)
 from tpusparse_torch.dist.halo import HaloStar, block_ghosts
 from tpusparse_torch.dist.mesh import make_mesh, make_z_mesh
 from tpusparse_torch.grid.grid3d import Grid3D
 from tpusparse_torch.grid.poisson import assemble_poisson, poisson_dia_device, poisson_stencil_device
 from tpusparse_torch.kernels import _build
-from tpusparse_torch.kernels.diaband import dia_mv, dia_mv_batched, dia_mv_torch
+from tpusparse_torch.kernels.diaband import (
+    dia_mv,
+    dia_mv_batched,
+    dia_mv_torch,
+    dia_mv_window,
+    dia_mv_window_torch,
+)
 from tpusparse_torch.kernels.fused7 import (
     fused7_ascent,
     fused7_ascent1,
@@ -547,8 +589,26 @@ RANK_PHASES = (
      1e-3),
 )
 RANK_TIMEOUT = 240
-# the environment variable that names the directory of phase 42's rank records
+# the environment variable that names the directory of the rank records of
+# phases 42 and 43
 RANK_RECORDS = "CHIP_SMOKE_RANK_RECORDS"
+# K5h, K5's window form: a rank's rows of the banded apply with the windows
+# it received (dist/general.py::DistDIA), what tpusparse/dist/general.py::
+# DistDIA._mv_shard applies per shard, K5's function (dia_mv_pallas) on the
+# rows
+KERNELS["dia_mv_window"] = (
+    "tpusparse_torch/csrc/diaband.cu", "tpusparse/kernels/diaband.py:248", dia_mv_window, dia_mv_window_torch,
+)
+# phase 43, the block-row executor: the structure-blind aij route's f32
+# hierarchy at 300^3 on a row mesh of 4 blocks, the greedy route's at 100^3
+# (its levels of 7002, 227 and 6 rows do not divide into 4 blocks: 2 blocks
+# shard three of them), the ranks of the one-process solve's rank run, the
+# (ranks, rank) of the timed K5h split, and the strong sweep over ranks
+GENERAL_N, GENERAL_BLOCKS, GENERAL_RTOL = 300, 4, 1e-6
+GREEDY_N, GREEDY_BLOCKS = 100, 2
+GENERAL_RANKS = 2
+GENERAL_SPLIT = (4, 1)
+GENERAL_SWEEP = ("strong", "--n", "100", "--devices", "2,4")
 # phase 28's (shape, columns) of the batched K1p; the last is timed
 BATCHED_CASES = (((40, 11, 13), 3), ((300, 300, 300), 4))
 # K5 over a stack of k columns (KSP.mat_solve's apply of a DIA operator,
@@ -822,6 +882,14 @@ def _star_csr(diag, cx, cy, cz, pinned) -> torch.Tensor:
     return _csr_of(bands, offsets)
 
 
+def _csr_rows(csr: torch.Tensor, r0: int, r1: int) -> torch.Tensor:
+    """Rows [r0, r1) of the CSR tensor ``csr``, their columns global."""
+    crow = csr.crow_indices()
+    a, b = crow[r0].item(), crow[r1].item()
+    return torch.sparse_csr_tensor(crow[r0:r1 + 1] - a, csr.col_indices()[a:b], csr.values()[a:b],
+                                   size=(r1 - r0, csr.shape[1]))
+
+
 def _smoothing_csr(csr: torch.Tensor, diag: torch.Tensor, g: float, restrict: bool) -> torch.Tensor:
     """The matrix a P smoothing pass applies, from the star's CSR ``csr``:
     I - g A D^-1 for ``restrict`` (K15), else I - g D^-1 A (K16)."""
@@ -1013,18 +1081,21 @@ def check_kernels(device, names=STENCIL_KERNELS, unpinned=False) -> dict:
     return rows
 
 
-def _csr_of(bands: torch.Tensor, offsets) -> torch.Tensor:
+def _csr_of(bands: torch.Tensor, offsets, r0: int = 0, n: int | None = None) -> torch.Tensor:
     """The nonzeros of the DIA matrix (``bands``, ``offsets``) as a CSR
     tensor: the same function for the library call cuSPARSE runs (columns
-    ascend in each row with the ascending offsets)."""
-    k, n = bands.shape
-    rows = torch.arange(n, device=bands.device)[:, None]
-    cols = rows + torch.tensor(offsets, device=bands.device)[None, :]
+    ascend in each row with the ascending offsets).  With ``r0`` and ``n``:
+    ``bands`` holds rows [r0, r0 + nl) of an n-column matrix, whose CSR
+    rows keep their global columns."""
+    k, nl = bands.shape
+    n = nl if n is None else n
+    rows = torch.arange(nl, device=bands.device)[:, None]
+    cols = r0 + rows + torch.tensor(offsets, device=bands.device)[None, :]
     keep = (cols >= 0) & (cols < n) & (bands.t() != 0)
-    crow = torch.zeros(n + 1, dtype=torch.int32, device=bands.device)
+    crow = torch.zeros(nl + 1, dtype=torch.int32, device=bands.device)
     crow[1:] = torch.cumsum(keep.sum(dim=1), 0)
     return torch.sparse_csr_tensor(
-        crow, cols[keep].to(torch.int32), bands.t()[keep], size=(n, n),
+        crow, cols[keep].to(torch.int32), bands.t()[keep], size=(nl, n),
     )
 
 
@@ -1794,8 +1865,9 @@ def check_file_mat_solve(device, mat: str, inner: int) -> int:
 WIDE_KS = (49, 65, 192)
 WIDE_TIMED = (65, 192)
 WIDE_N = 1_000_000
-# K5's row at 300^3 with K = 7 in PERF.md section 6 (PRs 12-14): 0.459-0.463 ms
-K7_ROW_MS = 0.463
+# K5's row at 300^3 with K = 7 in PERF.md section 6 since K5 runs K5h's body
+# (its whole-vector time in PR 20: 0.385-0.394 ms)
+K7_ROW_MS = 0.394
 
 
 def _within_f32_bound(name, out, bands, x, offsets) -> None:
@@ -2080,25 +2152,37 @@ def check_spmv(device, ceiling: float) -> None:
         torch.cuda.empty_cache()
 
 
-def _halo_ptxas() -> list[str]:
-    """nvcc -Xptxas -v's report of K1h's two forms (``csrc/stencil7.cu``
-    compiled with the library's flags into a temporary directory of the
+def _ptxas(source: str, kernel: str) -> list[str]:
+    """nvcc -Xptxas -v's report of the forms of ``kernel`` in ``csrc/<source>``
+    (compiled with the library's flags into a temporary directory of the
     checkout): the lines of each form's registers, stack and spills."""
-    src = _build.CSRC / "stencil7.cu"
+    src = _build.CSRC / source
     tmp = tempfile.mkdtemp(prefix="chip_smoke_ptxas_", dir=pathlib.Path(__file__).resolve().parent)
     try:
         proc = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-Xptxas", "-v", "-c", "-o",
-                               str(pathlib.Path(tmp) / "stencil7.o"), str(src)], capture_output=True, text=True)
+                               str(pathlib.Path(tmp) / "kernel.o"), str(src)], capture_output=True, text=True)
     finally:
         shutil.rmtree(tmp)
-    _require(proc.returncode == 0, f"nvcc -Xptxas -v stencil7.cu: {proc.stderr[-2000:]}")
+    _require(proc.returncode == 0, f"nvcc -Xptxas -v {source}: {proc.stderr[-2000:]}")
     lines, keep = [], 0
     for line in proc.stderr.splitlines():
         if "Compiling entry function" in line:
-            keep = "star7_mv_halo_kernel" in line
+            keep = kernel in line
         if keep and ("Function properties" not in line):
             lines.append(line.strip())
     return lines
+
+
+def _spills(report: list[str]) -> list[tuple[str, str]]:
+    """The (spill stores, spill loads) bytes of each form in a ``_ptxas``
+    report."""
+    return [m.groups() for m in map(re.compile(r"(\d+) bytes spill stores, (\d+) bytes spill loads").search, report)
+            if m]
+
+
+def _halo_ptxas() -> list[str]:
+    """``_ptxas`` of K1h's two forms (``csrc/stencil7.cu``)."""
+    return _ptxas("stencil7.cu", "star7_mv_halo_kernel")
 
 
 def _halo_bound(x, ghosts) -> tuple[float, str]:
@@ -2137,8 +2221,7 @@ def check_halo(device) -> dict:
               f" {attrs['spilled_bytes']} spilled bytes, {attrs['static_smem_bytes']} + {HALO_SMEM_BYTES} shared"
               f" bytes a block, {attrs['blocks_per_sm']} blocks an SM")
         _require(attrs["spilled_bytes"] == 0, f"K1h spills {attrs['spilled_bytes']} bytes a thread")
-    spills = [m.groups() for m in map(re.compile(r"(\d+) bytes spill stores, (\d+) bytes spill loads").search, report)
-              if m]
+    spills = _spills(report)
     _require(len(spills) == 2 and all(sp == ("0", "0") for sp in spills), f"nvcc -Xptxas -v: K1h spills {spills}")
     row = {"max_abs_err": 0.0}
     for shape, mesh_shape, pinned in HALO_CASES:
@@ -2217,22 +2300,34 @@ def check_halo(device) -> dict:
     bound = _halo_bound(args[4], args[5:9])[0]
     print(_halo_line(f"time star7_mv_halo on rank {r}'s slab of {ranks} with its two received planes (bit-equal to"
                      " K1p's rows), after an L2 flush", _time_cold_ms(star7_mv_halo, args), bound, args[4].shape))
-    del star, x, want, args, got
+    # the slab's twin and the cuSPARSE CSR matvec of the slab's rows of the
+    # star (its ghost columns included) against the whole x, each after the
+    # same flush
+    q = ny * nx
+    csr = _csr_rows(_star_csr(star.diag, star.cx, star.cy, star.cz, star.pinned), rows.start * q, rows.stop * q)
+    flat = x.reshape(-1).contiguous()
+    _compare("one PyTorch call, a rank's slab", (csr @ flat).reshape(got.shape), want[rows])
+    print(f"time rank {r}'s slab after an L2 flush: plain {_time_cold_ms(star7_mv_halo_torch, args):.4f} ms, one"
+          f" PyTorch call (cuSPARSE CSR matvec of the slab's rows) {_time_cold_ms(lambda m, v: m @ v, (csr, flat)):.4f}"
+          " ms")
+    del star, x, want, args, got, csr, flat
     torch.cuda.empty_cache()
     return row
 
 
-def _rank_run(world: int, argv: list[str], scratch: str | None = None) -> tuple[dict, list, float]:
-    """The CLI on ``world`` torchrun ranks sharing cuda:0 (gloo): rank 0's
-    JSON sidecar, each rank's launches and strokes, and the wall seconds of
-    the whole run.  A rank that fails or outlives ``RANK_TIMEOUT`` fails
-    the phase; the run's processes are killed on the way out.  The ranks
-    share one stdout pipe, where a write of one rank can land inside
-    another's line, so each rank's record comes back in a file of its own
-    (``RANK_RECORDS``, a directory made in ``scratch``, by default the
-    checkout) and stdout holds rank 0's report alone."""
+def _torchrun(world: int, args: list[str], scratch: str | None = None) -> tuple[str, list, float]:
+    """``chip_smoke.py <args>`` on ``world`` torchrun ranks sharing cuda:0
+    (gloo): rank 0's stdout, each rank's record and the wall seconds of the
+    whole run.  A rank that fails or outlives ``RANK_TIMEOUT`` fails the
+    phase; the run's processes are killed on the way out.  The ranks share
+    one stdout pipe, where a write of one rank can land inside another's
+    line, so each rank's record comes back in a file of its own,
+    ``rank<r>.json`` (with its array ``rank<r>.npy``, if it wrote one, as
+    its "x"), in the directory that ``RANK_RECORDS`` names, made in
+    ``scratch`` (by default the checkout), and stdout holds rank 0's report
+    alone."""
     cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone", f"--nproc-per-node={world}",
-           str(pathlib.Path(__file__).resolve()), "--rank-cli", *argv]
+           str(pathlib.Path(__file__).resolve()), *args]
     root = str(pathlib.Path(__file__).resolve().parent)
     records = tempfile.mkdtemp(prefix="chip_smoke_ranks_", dir=scratch or root)
     env = {**os.environ, "PYTHONPATH": os.pathsep.join([root, os.environ.get("PYTHONPATH", "")]),
@@ -2246,21 +2341,46 @@ def _rank_run(world: int, argv: list[str], scratch: str | None = None) -> tuple[
         except subprocess.TimeoutExpired:
             os.killpg(proc.pid, signal.SIGKILL)
             proc.communicate()
-            raise AssertionError(f"{world} ranks {argv}: not done within {RANK_TIMEOUT} s") from None
+            raise AssertionError(f"{world} ranks {args}: not done within {RANK_TIMEOUT} s") from None
         finally:
             if proc.poll() is None:
                 os.killpg(proc.pid, signal.SIGKILL)
         wall = time.perf_counter() - t0
         _require(proc.returncode == 0,
-                 f"{world} ranks {argv}: exit code {proc.returncode}\n{out[-3000:]}\n{err[-3000:]}")
-        side = [line for line in out.splitlines() if line.startswith("JSON: ")]
-        _require(len(side) == 1, f"{world} ranks {argv}: {len(side)} JSON sidecars (rank 0 alone prints one)")
+                 f"{world} ranks {args}: exit code {proc.returncode}\n{out[-3000:]}\n{err[-3000:]}")
         files = sorted(pathlib.Path(records).glob("rank*.json"))
-        _require(len(files) == world, f"{world} ranks {argv}: {len(files)} rank records")
+        _require(len(files) == world, f"{world} ranks {args}: {len(files)} rank records")
         ranks = sorted((json.loads(f.read_text()) for f in files), key=lambda r: r["rank"])
-        _require([r["rank"] for r in ranks] == list(range(world)), f"{world} ranks {argv}: rank records {ranks}")
+        _require([r["rank"] for r in ranks] == list(range(world)), f"{world} ranks {args}: rank records {ranks}")
+        for r in ranks:
+            arr = pathlib.Path(records) / f"rank{r['rank']}.npy"
+            if arr.exists():
+                r["x"] = np.load(arr)
     finally:
         shutil.rmtree(records)
+    return out, ranks, wall
+
+
+def _rank_record(record: dict, x: np.ndarray | None = None) -> None:
+    """This torchrun rank's record (and array) into the directory that
+    ``RANK_RECORDS`` names, renamed into place once whole."""
+    rank = int(os.environ["RANK"])
+    root = pathlib.Path(os.environ[RANK_RECORDS])
+    if x is not None:
+        np.save(root / f"rank{rank}.part.npy", x)
+        (root / f"rank{rank}.part.npy").rename(root / f"rank{rank}.npy")
+    part = root / f"rank{rank}.part"
+    part.write_text(json.dumps({"rank": rank, **record}))
+    part.rename(root / f"rank{rank}.json")
+
+
+def _rank_run(world: int, argv: list[str], scratch: str | None = None) -> tuple[dict, list, float]:
+    """The CLI on ``world`` torchrun ranks sharing cuda:0 (``_torchrun``):
+    rank 0's JSON sidecar, each rank's launches and strokes, and the wall
+    seconds of the whole run."""
+    out, ranks, wall = _torchrun(world, ["--rank-cli", *argv], scratch)
+    side = [line for line in out.splitlines() if line.startswith("JSON: ")]
+    _require(len(side) == 1, f"{world} ranks {argv}: {len(side)} JSON sidecars (rank 0 alone prints one)")
     return json.loads(side[0][len("JSON: "):]), ranks, wall
 
 
@@ -2272,12 +2392,7 @@ def rank_cli(argv: list[str]) -> int:
     kernels.reset_launches()
     with _counting_strokes() as strokes:
         rc = cli_main(argv)
-    rank = int(os.environ["RANK"])
-    path = pathlib.Path(os.environ[RANK_RECORDS]) / f"rank{rank}.json"
-    part = path.with_suffix(".part")
-    part.write_text(json.dumps({"rank": rank, "launches": {
-        k: v for k, v in kernels.LAUNCHES.items() if v}, "strokes": strokes}))
-    part.rename(path)
+    _rank_record({"launches": {k: v for k, v in kernels.LAUNCHES.items() if v}, "strokes": strokes})
     return rc
 
 
@@ -2331,6 +2446,243 @@ def check_ranks(device, strong: dict) -> dict:
                  f"{label}: Linf {side['linf_error']} >= {linf}")
     return main_path
 
+
+
+@contextlib.contextmanager
+def _counting_dist_applies():
+    """Count the f32 ``DistDIA`` applies (one K5h launch each) and the
+    ``DistHybridDIA`` applies while the block runs."""
+    applies = {"dist": 0, "hybrid": 0}
+    saved = (DistDIA.mv, DistHybridDIA.mv)
+
+    def dist_mv(self, x):
+        if self.dtype == torch.float32:
+            applies["dist"] += 1
+        return saved[0](self, x)
+
+    def hybrid_mv(self, x):
+        applies["hybrid"] += 1
+        return saved[1](self, x)
+
+    try:
+        DistDIA.mv, DistHybridDIA.mv = dist_mv, hybrid_mv
+        yield applies
+    finally:
+        DistDIA.mv, DistHybridDIA.mv = saved
+
+
+def _general_hierarchy(n: int, device):
+    """The f32 hierarchy that the structure-blind aij route builds at n^3
+    (``bench/driver.py``: ``gamg_setup_unstructured(None, params,
+    dtype=float32, fine_op=op_lo)`` on the device-assembled bands, the
+    geometric route), the f32 right-hand side and the exact solution."""
+    _, op_lo, b, exact = poisson_dia_device(Grid3D(n, n, n), device=device)
+    hier = gamg_setup_unstructured(None, AMGParams(), dtype=np.float32, fine_op=op_lo, device=device)
+    return hier, b.to(torch.float32), exact
+
+
+def _general_cg(hier, b, mesh=None, min_shard_rows: int = 4096):
+    """f32 CG with the V-cycle as PC at ``GENERAL_RTOL`` on ``hier``, or on
+    its block-row sharded form over ``mesh`` (inside the mesh's
+    reductions): (result, the hierarchy it ran, f32 DistDIA / DistHybridDIA
+    applies, seconds)."""
+    if mesh is not None:
+        hier = shard_unstructured_hierarchy(hier, mesh, min_shard_rows=min_shard_rows)
+        b = mesh.local(b)
+    ctx = mesh.reductions(hier.levels[0].op.shape[0]) if mesh is not None else contextlib.nullcontext()
+    with _counting_dist_applies() as applies, ctx:
+        res, secs = _timed(b.device, cg, hier.levels[0].op.mv, b, rtol=GENERAL_RTOL, maxiter=500,
+                           m_mv=lambda r: vcycle(hier, r))
+    return res, hier, applies, secs
+
+
+def _general_pair(label: str, hier, b, exact, device, blocks: int, min_shard_rows: int = 4096) -> dict:
+    """Phase 43 (i) and (ii): the same f32 CG on ``hier`` and on its sharded
+    form over a one-process row mesh of ``blocks`` blocks, the launch
+    counters reset just before each: reason converged, the same inner
+    count, x bit for bit, and one K5h launch an f32 DistDIA apply (none in
+    the unsharded solve).  Returns the sharded run's numbers."""
+    kernels.reset_launches()
+    one, _, _, t_one = _general_cg(hier, b)
+    one_used = dict(kernels.LAUNCHES)
+    kernels.reset_launches()
+    got, hs, applies, t_got = _general_cg(hier, b, make_row_mesh(blocks, device=device), min_shard_rows)
+    used = dict(kernels.LAUNCHES)
+    kinds = [f"{type(lev.op).__name__} {lev.op.shape[0]}" for lev in hs.levels]
+    sharded = sum(isinstance(lev.op, (DistDIA, DistHybridDIA)) for lev in hs.levels)
+    linf = (got.x.double() - exact).abs().max().item()
+    print(f"{label}: unsharded {one.iters} inner, reason {one.reason}, {t_one:.4f} s (K5 {one_used['dia_mv']});"
+          f" on the row mesh of {blocks} blocks in one process {got.iters} inner, reason {got.reason}, {t_got:.4f} s,"
+          f" Linf {linf:.6e}; levels {kinds} ({sharded} sharded); K5h {used['dia_mv_window']} launches in"
+          f" {applies['dist']} f32 DistDIA applies ({applies['hybrid']} DistHybridDIA), K5 {used['dia_mv']}")
+    _require(one.reason > 0 and got.reason == one.reason, f"{label}: reasons {one.reason} / {got.reason}")
+    _require(got.iters == one.iters, f"{label}: {got.iters} inner sharded, {one.iters} unsharded")
+    _require(torch.equal(got.x, one.x), f"{label}: the sharded x is not the unsharded x bit for bit (max diff"
+             f" {(got.x - one.x).abs().max().item():.3e})")
+    _require(0 < used["dia_mv_window"] == applies["dist"],
+             f"{label}: K5h launched {used['dia_mv_window']} times in {applies['dist']} f32 DistDIA applies")
+    _require(one_used["dia_mv_window"] == 0, f"{label}: the unsharded solve launched K5h")
+    _require(np.isfinite(linf) and linf < 1e-2, f"{label}: Linf {linf}")
+    return dict(used=used, applies=applies, sharded=sharded, iters=got.iters, x=got.x, t_solve=t_got)
+
+
+def rank_general(argv: list[str]) -> int:
+    """Phase 43 (iii)'s worker, one a torchrun rank: join the process group,
+    build the n^3 hierarchy, shard it over a row mesh of ``blocks`` blocks
+    over the ranks, run the f32 CG there, and write this rank's counts,
+    launches and rows of x (``_rank_record``)."""
+    n, blocks = int(argv[0]), int(argv[1])
+    multihost.initialize(device="cuda")
+    try:
+        device = multihost.rank_device("cuda")
+        torch.cuda.set_device(device)
+        hier, b, _ = _general_hierarchy(n, device)
+        mesh = make_row_mesh(blocks, device=device)
+        kernels.reset_launches()
+        res, hs, applies, secs = _general_cg(hier, b, mesh)
+        rows = mesh.rows(b.numel())
+        _rank_record({"iters": res.iters, "reason": res.reason, "t_solve": secs, "rows": [rows.start, rows.stop],
+                      "applies": applies, "launches": {k: v for k, v in kernels.LAUNCHES.items() if v},
+                      "levels": [type(lev.op).__name__ for lev in hs.levels]}, res.x.cpu().numpy())
+    finally:
+        multihost.finalize()
+    return 0
+
+
+def rank_scaling(argv: list[str]) -> int:
+    """Phase 43 (v)'s worker, one a torchrun rank: ``bench.scaling``'s CLI
+    (which joins the process group) with its record written into the
+    directory that ``RANK_RECORDS`` names, then this rank's reason of each
+    point."""
+    reasons = []
+    out = pathlib.Path(os.environ[RANK_RECORDS]) / "torch_scaling_{mode}.json"
+    rc = scaling.main([*argv, "--out", str(out)], on_point=lambda p, rep: reasons.append([p.n_devices, rep.reason]))
+    rec = None
+    if int(os.environ["RANK"]) == 0:
+        rec = json.loads(pathlib.Path(str(out).format(mode=argv[0])).read_text())
+        rec = {k: rec[k] for k in ("ranks", "cards", "emulated", "backend")}
+    _rank_record({"reasons": reasons, "record": rec})
+    return rc
+
+
+def _k5h_row(device) -> dict:
+    """Phase 43 (iv): K5h on rank r's rows of a ``GENERAL_SPLIT`` split of the
+    300^3 fine operator (the f32 bands of the aij route, two windows of
+    ``dia_halo`` entries) bit for bit one K5 launch's rows, against its twin
+    and cuSPARSE's CSR matvec of the same rows (global columns); each
+    timed after a 1 GiB read flush, beside its bound.  Then K5h over the
+    whole vector (one process: empty windows) bit for bit K5, which is the
+    same kernel on all n rows (phase 6 times it).  K5h's registers and
+    spills first (a spill fails the phase).  The row of the rank's rows is
+    returned."""
+    report = _ptxas("diaband.cu", "dia_mv_window_kernel")
+    print("K5h, nvcc -Xptxas -v:\n  " + "\n  ".join(report))
+    spills = _spills(report)
+    _require(len(spills) == 1 and spills[0] == ("0", "0"), f"nvcc -Xptxas -v: K5h spills {spills}")
+    n = GENERAL_N ** 3
+    _, op_lo, _, _ = poisson_dia_device(Grid3D(GENERAL_N, GENERAL_N, GENERAL_N), device=device)
+    bands, offsets = op_lo.bands, op_lo.offsets
+    x = torch.from_numpy(np.random.default_rng(SEED).standard_normal(n, dtype=np.float32)).to(device)
+    want = dia_mv(bands, x, offsets)
+    ranks, r = GENERAL_SPLIT
+    nl, h = n // ranks, dia_halo(offsets)
+    r0, r1 = r * nl, (r + 1) * nl
+    args = (bands[:, r0:r1].contiguous(), x[r0:r1].contiguous(), offsets, x[r0 - h:r0].contiguous(),
+            x[r1:r1 + h].contiguous(), r0, n)
+    got = dia_mv_window(*args)
+    torch.cuda.synchronize()
+    _require(torch.equal(got, want[r0:r1]), "K5h on a rank's rows is not bit-equal to one K5 launch's rows")
+    row = {"max_abs_err": (got - want[r0:r1]).abs().max().item()}
+    err = _compare("dia_mv_window, a rank's rows", got, dia_mv_window_torch(*args))
+    csr = _csr_of(args[0], offsets, r0, n)
+    _compare("one PyTorch call dia_mv_window", csr @ x, want[r0:r1])
+    row.update(_bound(args[:2] + args[3:5], got, 2 * len(offsets) * nl))
+    row.pop("passes")
+    row["ms"] = _time_cold_ms(dia_mv_window, args)
+    row["plain_ms"] = _time_cold_ms(dia_mv_window_torch, args)
+    row["library_ms"] = _time_cold_ms(lambda a, v: a @ v, (csr, x))
+    del csr
+    print(f"time dia_mv_window on rank {r}'s rows of {ranks} ({len(offsets)}, {nl}) with two {h}-entry windows"
+          f" (bit-equal to K5's rows; twin err {err:.3e}), after an L2 flush: kernel {row['ms']:.4f} ms, bound"
+          f" {row['bound_ms']:.4f} ms ({row['bound_by']}; {100 * row['bound_ms'] / row['ms']:.0f}% of it), plain"
+          f" {row['plain_ms']:.4f} ms, one PyTorch call (cuSPARSE CSR matvec of the rows) {row['library_ms']:.4f} ms")
+    empty = x[:0]
+    whole = (bands, x, offsets, empty, empty, 0, n)
+    _require(torch.equal(dia_mv_window(*whole), want), "K5h over the whole vector is not bit-equal to K5")
+    print(f"dia_mv_window over the whole {GENERAL_N}^3 vector (one process, empty windows): bit-equal to K5")
+    del op_lo, bands, x, want, args, got, whole
+    torch.cuda.empty_cache()
+    return row
+
+
+def check_general(device) -> tuple[dict, int]:
+    """Phase 43, the block-row executor (``dist/general.py``): (i) the
+    structure-blind aij route's f32 hierarchy at 300^3 sharded over a row
+    mesh of 4 blocks in this process, beside the unsharded solve; (ii) the
+    greedy route's at 100^3 over 2 blocks with every divisible level
+    sharded (``min_shard_rows=1``); (iii) (i) on ``GENERAL_RANKS`` torchrun
+    ranks that share cuda:0 over gloo; (iv) K5h's row (``_k5h_row``); (v)
+    the strong sweep of ``bench.scaling`` over ``GENERAL_RANKS`` ranks.
+    Returns K5h's row and its launches in (i), the main path's count."""
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    hier, b, exact = _general_hierarchy(GENERAL_N, device)
+    print(f"the structure-blind aij route's f32 hierarchy at {GENERAL_N}^3 built in {time.perf_counter() - t0:.2f} s:"
+          f" {[(type(lev.op).__name__, lev.op.shape[0], type(lev.transfer).__name__) for lev in hier.levels]}")
+    main = _general_pair(f"{GENERAL_N}^3 aij hierarchy, f32 CG rtol {GENERAL_RTOL}", hier, b, exact, device,
+                         GENERAL_BLOCKS)
+    x_one = main.pop("x").double()
+    del hier, b
+    torch.cuda.empty_cache()
+
+    a, b_np, exact_np = assemble_poisson(Grid3D(GREEDY_N, GREEDY_N, GREEDY_N))
+    t0 = time.perf_counter()
+    greedy = gamg_setup_unstructured(a, AMGParams(), dtype=np.float32, aggregation="greedy", device=device)
+    print(f"the greedy route's f32 hierarchy at {GREEDY_N}^3 built in {time.perf_counter() - t0:.2f} s")
+    g = _general_pair(f"{GREEDY_N}^3 greedy hierarchy, min_shard_rows=1", greedy,
+                      torch.from_numpy(b_np).to(device, torch.float32), torch.from_numpy(exact_np).to(device),
+                      device, GREEDY_BLOCKS, min_shard_rows=1)
+    _require(g["sharded"] >= 2, f"the greedy hierarchy: {g['sharded']} levels sharded, not at least 2")
+    _require(g["applies"]["hybrid"] > 0, "the greedy hierarchy applied no DistHybridDIA")
+    del greedy, a, g
+    torch.cuda.empty_cache()
+
+    out, ranks, wall = _torchrun(GENERAL_RANKS, ["--rank-general", str(GENERAL_N), str(GENERAL_BLOCKS)])
+    x_ranks = torch.from_numpy(np.concatenate([r.pop("x") for r in ranks])).to(device).double()
+    dev = (x_ranks - x_one).abs().max().item() / x_one.abs().max().item()
+    print(f"{GENERAL_N}^3 aij hierarchy on {GENERAL_RANKS} ranks sharing cuda:0 (gloo; NOT a scaling result: the"
+          f" ranks share one card): {wall:.1f} s in all, max|x_ranks - x_one| / max|x_one| {dev:.3e}")
+    for r in ranks:
+        used, applies = r["launches"], r["applies"]
+        print(f"  rank {r['rank']}: rows {r['rows']}, {r['iters']} inner, reason {r['reason']}, t_solve"
+              f" {r['t_solve']:.4f} s, levels {r['levels']}, K5h {used.get('dia_mv_window', 0)} in {applies['dist']}"
+              f" f32 DistDIA applies")
+        _require(0 < used.get("dia_mv_window", 0) == applies["dist"],
+                 f"rank {r['rank']}: K5h launched {used.get('dia_mv_window', 0)} times in {applies['dist']} applies")
+        _require(r["reason"] > 0, f"rank {r['rank']}: reason {r['reason']}")
+        _require(abs(r["iters"] - main["iters"]) <= 2,
+                 f"rank {r['rank']}: {r['iters']} inner, not within 2 of the one-process {main['iters']}")
+    _require(dev <= 1e-4, f"x on {GENERAL_RANKS} ranks differs from one process's by {dev:.3e} of max|x|")
+    del x_ranks, x_one
+    torch.cuda.empty_cache()
+
+    row = _k5h_row(device)
+
+    # the sweep's arguments travel as one JSON word: torchrun's own parser
+    # would take a "--n" after the script for an abbreviation of its options
+    out, ranks, wall = _torchrun(GENERAL_RANKS, ["--rank-scaling", json.dumps(GENERAL_SWEEP)])
+    print(f"bench.scaling {' '.join(GENERAL_SWEEP)} on {GENERAL_RANKS} ranks sharing cuda:0 (NOT a scaling result:"
+          f" the ranks share one card), {wall:.1f} s in all:\n  " + "\n  ".join(out.strip().splitlines()))
+    for r in ranks:
+        _require([p for p, _ in r["reasons"]] == [2, 4] and all(q == 2 for _, q in r["reasons"]),
+                 f"the sweep on rank {r['rank']}: reasons {r['reasons']}")
+    rec = ranks[0]["record"]
+    print(f"  the record (rank 0): {json.dumps(rec)}")
+    wrote = [line for line in out.splitlines() if line.startswith("wrote ")]
+    _require(len(wrote) == 1, f"the sweep over ranks wrote {len(wrote)} records, not rank 0's alone")
+    _require(rec["ranks"] == GENERAL_RANKS and rec["emulated"] is True and rec["backend"] == "cuda",
+             f"the sweep's record: {rec}")
+    return row, main["used"]["dia_mv_window"]
 
 
 def main() -> None:
@@ -2655,6 +3007,10 @@ def main() -> None:
     launches["star7_mv_halo"] = check_ranks(device, strong)["star7_mv_halo"]
     print(f"phases 41-42: {time.perf_counter() - t0:.1f} s")
 
+    t0 = time.perf_counter()
+    rows["dia_mv_window"], launches["dia_mv_window"] = check_general(device)
+    print(f"phase 43: {time.perf_counter() - t0:.1f} s")
+
     print(json.dumps({"kernels": [
         {
             "name": name, "route": "cuda", "source": src, "replaces": replaces,
@@ -2674,4 +3030,8 @@ def main() -> None:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--rank-cli"]:
         sys.exit(rank_cli(sys.argv[2:]))
+    if sys.argv[1:2] == ["--rank-general"]:
+        sys.exit(rank_general(sys.argv[2:]))
+    if sys.argv[1:2] == ["--rank-scaling"]:
+        sys.exit(rank_scaling(json.loads(sys.argv[2])))
     main()

@@ -1164,3 +1164,56 @@ def test_star7_mv_halo_refuses_mixed_devices_and_bad_ghosts(cuda):
         with pytest.raises(RuntimeError, match="tps_star7_mv_halo"):
             _build.launch("tps_star7_mv_halo", _STAR7_HALO_ARGS, cuda, x.data_ptr(), x.data_ptr(), y.data_ptr(),
                           4, 3, 5, 15, 5, 15, 5, 0, 0, 0, 0, 1.0, 1.0, 1.0, -1, *bad, plan.smem_bytes)
+
+
+@pytest.mark.parametrize("k", [1, 7, 65, 192])
+@pytest.mark.parametrize("windows", ["short", "halo", "wide"])
+def test_k5h_is_k5_bit_for_bit(cuda, k, windows):
+    """K5h on the rows of uneven splits of an odd n (r0 at both domain ends,
+    a one-row block, blocks narrower than the bands' reach), with windows
+    just the bands' reach ("short"), rounded up to 8 ("halo", DistDIA's)
+    or reaching several blocks away ("wide"): each block's rows bit for bit
+    one K5 launch on the whole vector, and within the twin's rounding."""
+    from tpusparse_torch.kernels.diaband import dia_mv_window, dia_mv_window_torch, window_reach
+
+    n = 40 * 11 * 13 + 7
+    rng = np.random.default_rng(k + 100)
+    offsets = (0,) if k == 1 else tuple(sorted(rng.choice(np.arange(-900, 901), k, replace=False).tolist()))
+    bands = torch.tensor(rng.standard_normal((k, n), dtype=np.float32), device=cuda)
+    x = torch.tensor(rng.standard_normal(n, dtype=np.float32), device=cuda)
+    want = dia_mv(bands, x, offsets)
+    below, above = window_reach(offsets)
+    extra = {"short": 0, "halo": 7, "wide": 2000}[windows]
+    cuts = [0, 1, 2, 333, 1500, 1501, 4000, n - 1, n]
+    kernels.reset_launches()
+    for r0, r1 in zip(cuts[:-1], cuts[1:]):
+        hl, hh = min(r0, below + extra), min(n - r1, above + extra)
+        args = (bands[:, r0:r1].contiguous(), x[r0:r1].contiguous(), offsets, x[r0 - hl:r0].contiguous(),
+                x[r1:r1 + hh].contiguous(), r0, n)
+        got = dia_mv_window(*args)
+        assert torch.equal(got, want[r0:r1]), (r0, r1)
+        _close(got, dia_mv_window_torch(*args), cuda)
+    assert kernels.LAUNCHES["dia_mv_window"] == len(cuts) - 1
+
+
+def test_dist_dia_on_card_launches_k5h_once_an_apply(cuda):
+    """DistDIA on the card in one process (every block here, empty
+    windows): one K5h launch an apply, bit for bit K5; a short window and
+    a window on another device are refused."""
+    from tpusparse_torch.dist.general import DistDIA, make_row_mesh
+    from tpusparse_torch.kernels.diaband import dia_mv_window
+    from tpusparse_torch.sparse.dia import DIA
+
+    op_lo = poisson_dia_device(Grid3D(12, 10, 8), device=cuda)[1]
+    dd = DistDIA.shard(op_lo, make_row_mesh(4, device=cuda))
+    x = torch.tensor(np.random.default_rng(1).standard_normal(960, dtype=np.float32), device=cuda)
+    kernels.reset_launches()
+    y = dd.mv(x)
+    assert kernels.LAUNCHES["dia_mv_window"] == 1 and kernels.LAUNCHES["dia_mv"] == 0
+    assert torch.equal(y, DIA.mv(op_lo, x))
+    with pytest.raises(ValueError, match="reach"):
+        dia_mv_window(op_lo.bands[:, 480:].contiguous(), x[480:].contiguous(), op_lo.offsets,
+                      x[479:480].contiguous(), x[:0], 480, 960)
+    with pytest.raises(ValueError, match="contiguous float32 vector"):
+        dia_mv_window(op_lo.bands[:, 480:].contiguous(), x[480:].contiguous(), op_lo.offsets,
+                      x[360:480].cpu(), x[:0], 480, 960)

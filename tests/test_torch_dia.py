@@ -128,10 +128,18 @@ def test_dfdia_mv_matches_jax(with_lo):
 
 
 def test_dfdia_refuses_the_grid_view():
+    """The grid view (``sparse/griddia.py``), once refused, is ported: on
+    bands that are not zero at their wrap positions it applies 3-D shift
+    semantics, bit for bit the JAX package's ``DFDIA(grid=...)``."""
+    from tpusparse.sparse.griddia import _decompose as j_decompose
+
     bands64 = _bands(STAR, seed=6, dtype=np.float64)
     op = DFDIA.from_host_bands(bands64, STAR, (N, N), device="cpu")
-    with pytest.raises(NotImplementedError, match="griddia"):
-        DFDIA(hi=op.hi, lo=op.lo, offsets=STAR, shape=(N, N), grid=((40, 11, 13), ()))
+    grid = ((40, 11, 13), tuple(j_decompose(o, (40, 11, 13)) for o in STAR))
+    got = DFDIA(hi=op.hi, lo=op.lo, offsets=STAR, shape=(N, N), grid=grid)
+    jop = JDFDIA.from_host_bands(bands64, STAR, (N, N), grid=grid)
+    x = np.random.default_rng(7).standard_normal(N)
+    np.testing.assert_array_equal(got.mv(torch.tensor(x)).numpy(), np.asarray(jop.mv(jnp.asarray(x))))
 
 
 @pytest.mark.parametrize("shape", SHAPES)

@@ -126,15 +126,18 @@ def test_sweep_point_matches_jax(sweeps, mode, i):
 @pytest.mark.parametrize("mode", ["strong", "weak"])
 def test_record_keys_match_jax(sweeps, mode, tmp_path):
     """``save_json``: the keys of the JAX package's record
-    (``runs/scaling_{mode}.json``) less ``hlo_validation``, ``emulated``
-    true, the backend the device's type; the weak projection names its
-    constants' sources."""
+    (``runs/scaling_{mode}.json``) less ``hlo_validation``, with the ranks
+    and their cards added after ``emulated`` (true: one process), the
+    backend the device's type; the weak projection names its constants'
+    sources."""
     path = tmp_path / f"torch_scaling_{mode}.json"
     scaling.save_json(sweeps[mode][0], mode, path, backend="cpu")
     rec = json.loads(path.read_text())
     jax_rec = json.loads((ROOT / "runs" / f"scaling_{mode}.json").read_text())
-    assert list(rec) == [k for k in jax_rec if k != "hlo_validation"]
-    assert rec["emulated"] is True and rec["backend"] == "cpu"
+    want = [k for k in jax_rec if k != "hlo_validation"]
+    at = want.index("emulated") + 1
+    assert list(rec) == want[:at] + ["ranks", "cards"] + want[at:]
+    assert rec["emulated"] is True and rec["backend"] == "cpu" and rec["ranks"] == 1
     assert [set(p) for p in rec["points"]] == [set(jax_rec["points"][0])] * len(SHARDS)
     assert list(rec["efficiency"]) == [str(d) for d in SHARDS]
     if mode == "weak":

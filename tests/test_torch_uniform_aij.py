@@ -2,8 +2,8 @@
 block Jacobi from the host CSR, the assembly rules and ``KSP`` on host
 matrices, against the JAX package on the CPU: JAX's outer count and
 reason, inner within 1 (f32 summation order), Linf within 1e-6 (uniform
-f32: 2e-5, tests/test_torch_plain.py's rule); the refusals that remain
-name ROADMAP queue 12 and item 10."""
+f32: 2e-5, tests/test_torch_plain.py's rule); what items 9.2 and 10
+and queue 12 refused before they were ported runs."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -192,13 +192,15 @@ def test_ksp_mat_solve_on_a_dia_operator_matches_jax(precision):
 
 def test_remaining_refusals_name_items_9_2_and_10():
     """What item 9.2 brought now runs as in JAX: GAMG's block-Jacobi level
-    smoother on aij and a non-grid pattern (the greedy route).  Still
-    refused: the 3-D DFDIA view (queue 12, with the sharded executor that
-    builds it).  A host matrix past 192 diagonals and mat_reorder="rcm",
-    refused as item 10 before it was ported, solve as in JAX."""
+    smoother on aij and a non-grid pattern (the greedy route).  The 3-D
+    DFDIA view, refused as queue 12 until ``sparse/griddia.py`` was ported,
+    applies as the flat form.  A host matrix past 192 diagonals and
+    mat_reorder="rcm", refused as item 10 before it was ported, solve as in
+    JAX."""
     import scipy.sparse as sp
 
     from tpusparse_torch.sparse.dia import DFDIA
+    from tpusparse_torch.sparse.griddia import host_grid_view
 
     kw = dict(rtol=1e-8, **{**BLIND, "warmup": False}, assembly="host")
     got = solve_poisson(8, device="cpu", amg_params=AMGParams(bjacobi_bs=4), **kw)
@@ -211,8 +213,10 @@ def test_remaining_refusals_name_items_9_2_and_10():
     want = JKSP(rtol=1e-8).set_operators(tri).solve(jnp.asarray(b))
     assert (got.iters, got.outer_iters, got.reason) == (int(want.iters), int(want.outer_iters), int(want.reason))
     op_hi = poisson_dia_device(Grid3D(4, 4, 4), device="cpu")[0]
-    with pytest.raises(NotImplementedError, match="queue 12"):
-        DFDIA(op_hi.hi, op_hi.lo, op_hi.offsets, op_hi.shape, grid=((4, 4, 4), ()))
+    d3s = host_grid_view(op_hi.hi.numpy(), op_hi.offsets, (4, 4, 4))
+    grid = DFDIA(op_hi.hi, op_hi.lo, op_hi.offsets, op_hi.shape, grid=((4, 4, 4), d3s))
+    x = torch.from_numpy(np.random.default_rng(3).standard_normal(64))
+    np.testing.assert_allclose(grid.mv(x).numpy(), op_hi.mv(x).numpy(), rtol=1e-14, atol=1e-12)
     rng = np.random.default_rng(3)
     m = sp.random(300, 300, density=0.05, random_state=rng, format="csr")
     wide = (m + m.T + 30.0 * sp.eye(300)).tocsr()

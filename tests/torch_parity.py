@@ -30,7 +30,9 @@ def _star(op, crop):
 
 
 def _general_op(op):
-    """A JAX DIA, ELL or HybridDIA as interop's dict."""
+    """A JAX DIA, GridDIA, ELL or HybridDIA as interop's dict."""
+    if hasattr(op, "d3s"):
+        return {"bands": np.asarray(op.bands), "offsets": op.offsets, "d3s": op.d3s, "grid_shape": op.grid_shape}
     if hasattr(op, "rem"):
         return {"dia": _general_op(op.dia), "rem": None if op.rem is None else _general_op(op.rem)}
     if hasattr(op, "cols"):

@@ -158,3 +158,89 @@ def solve_each(cases) -> list:
     """``solve`` for each of ``cases`` (a list of option dicts) on this
     rank, in one process."""
     return [solve(**kw) for kw in cases]
+
+
+def _band_matrix(n=512, reach=150, seed=5):
+    """The multi-hop matrix of the JAX package's
+    ``test_dist_dia_bands_span_multiple_shards``: bands at 0, +-1 and +-150."""
+    import numpy as np
+    import scipy.sparse as sp
+
+    rng = np.random.default_rng(seed)
+    return sp.diags(
+        [rng.standard_normal(n - reach), rng.standard_normal(n), rng.standard_normal(n - reach),
+         rng.standard_normal(n - 1), rng.standard_normal(n - 1)],
+        [-reach, 0, reach, 1, -1],
+    ).tocsr()
+
+
+# (grid, AMGParams fields) of ``general``'s solves: all levels sharded; a
+# rank's rows cutting a plane (4.5 planes a rank on 2 ranks); a level kept
+# whole between two sharded ones; block-Jacobi levels and the dense coarse
+# inverse on sharded levels (blocks of 12 across the ranks' rows)
+GENERAL_CASES = (
+    ((16, 16, 16), dict(coarse_eq_limit=64)),
+    ((9, 8, 8), dict(coarse_eq_limit=64)),
+    ((14, 14, 14), dict(coarse_eq_limit=8)),
+    ((12, 12, 12), dict(coarse_eq_limit=64, bjacobi_bs=12, coarse_solve="lu")),
+)
+
+
+def general(cases=GENERAL_CASES, p=4, transfer_format="auto", min_shard_rows=1, dtype="float64",
+            rtol=1e-8) -> dict:
+    """On this rank: the block-row sharded CG + GAMG on the Poisson matrix
+    of each (grid, AMGParams fields) of ``cases``
+    (``shard_unstructured_hierarchy`` over ``make_row_mesh(p)``), the
+    multi-hop ``DistDIA`` apply of ``_band_matrix`` and the
+    ``DistHybridDIA`` apply of ``_hybrid_matrix``: the rank's rows of each
+    x and y, the counts, and what each level became."""
+    import numpy as np
+    import torch
+
+    from tpusparse_torch.amg.hierarchy import AMGParams, vcycle
+    from tpusparse_torch.amg.unstructured import gamg_setup_unstructured
+    from tpusparse_torch.dist.general import (
+        DistDIA,
+        DistHybridDIA,
+        _shard_ell_rows,
+        make_row_mesh,
+        shard_unstructured_hierarchy,
+        shard_vector,
+    )
+    from tpusparse_torch.grid.grid3d import Grid3D
+    from tpusparse_torch.grid.poisson import assemble_poisson
+    from tpusparse_torch.solve.cg import cg
+    from tpusparse_torch.sparse.dia import DIA, HybridDIA
+
+    mesh = make_row_mesh(p, device="cpu")
+    solves = []
+    for (nz, ny, nx), params in cases:
+        a, b, _ = assemble_poisson(Grid3D(nx, ny, nz))
+        hier = gamg_setup_unstructured(a, AMGParams(**params), dtype=getattr(np, dtype),
+                                       transfer_format=transfer_format, device="cpu")
+        hs = shard_unstructured_hierarchy(hier, mesh, min_shard_rows=min_shard_rows)
+        bb = torch.as_tensor(b).to(hier.levels[0].dinv.dtype)
+        with mesh.reductions(bb.numel()):
+            res = cg(hs.levels[0].op.mv, shard_vector(bb, mesh), rtol=rtol, maxiter=300,
+                     m_mv=lambda r: vcycle(hs, r))
+        rows = mesh.rows(bb.numel())
+        solves.append(dict(rows=[rows.start, rows.stop], x=res.x.tolist(), iters=res.iters, reason=res.reason,
+                           levels=[f"{type(lev.op).__name__}/{type(lev.transfer).__name__}"
+                                   f"{'/bjac' if lev.bjac is not None else ''}"
+                                   f"{'/lu' if lev.coarse_inv is not None else ''}" for lev in hs.levels]))
+    band = _band_matrix()
+    dd = DistDIA.shard(DIA.from_csr(band, device="cpu"), mesh)
+    x = torch.from_numpy(np.random.default_rng(5).standard_normal(band.shape[0]))
+    hyb = HybridDIA.from_csr(_hybrid_matrix(), max_bands=8, device="cpu")
+    dh = DistHybridDIA(dia=DistDIA.shard(hyb.dia, mesh), rem=_shard_ell_rows(hyb.rem, mesh))
+    xh = torch.from_numpy(np.random.default_rng(6).standard_normal(hyb.shape[0]))
+    return dict(solves=solves, halo=dd.halo, y=dd.mv(shard_vector(x, mesh)).tolist(),
+                yh=dh.mv(shard_vector(xh, mesh)).tolist())
+
+
+def _hybrid_matrix(n=8 * 48):
+    """The matrix of the JAX package's ``test_dist_hybrid_dia_matches_host``."""
+    import scipy.sparse as sp
+
+    s = sp.random(n, n, density=0.02, random_state=7, format="csr")
+    return (s + s.T + 10 * sp.identity(n)).tocsr()

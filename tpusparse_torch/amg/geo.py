@@ -168,6 +168,17 @@ def _up(sz, sy, sx, e_c: torch.Tensor) -> torch.Tensor:
     return t.reshape(*lead, -1)
 
 
+def _down(sz, sy, sx, v3: torch.Tensor) -> torch.Tensor:
+    """T0^T v as three axis contractions with the membership matrices, of a
+    field (nz, ny, nx) or of each field of a stack (k, nz, ny, nx), to flat
+    coarse vectors (``_up``'s transpose)."""
+    lead = tuple(v3.shape[:-3])
+    t = torch.einsum("Zc,...Zyx->...cyx", sz, v3)
+    t = torch.einsum("Yc,...zYx->...zcx", sy, t)
+    t = torch.einsum("Xc,...zyX->...zyc", sx, t)
+    return t.reshape(*lead, -1)
+
+
 @dataclasses.dataclass
 class GeoTransfer:
     """Smoothed-aggregation transfer over geometric index blocks.
@@ -213,13 +224,8 @@ class GeoTransfer:
         return _up(self.sz, self.sy, self.sx, e_c)
 
     def _down(self, v: torch.Tensor) -> torch.Tensor:
-        """T0^T v as three axis contractions, flat -> flat, as ``_up``."""
-        lead = tuple(v.shape[:-1])
-        v3 = v.reshape(*lead, *self.fine_shape)
-        t = torch.einsum("Zc,...Zyx->...cyx", self.sz, v3)
-        t = torch.einsum("Yc,...zYx->...zcx", self.sy, t)
-        t = torch.einsum("Xc,...zyX->...zyc", self.sx, t)
-        return t.reshape(*lead, -1)
+        """T0^T v, flat -> flat."""
+        return _down(self.sz, self.sy, self.sx, v.reshape(*v.shape[:-1], *self.fine_shape))
 
     def prolong(self, fine_op, dinv: torch.Tensor, e_c: torch.Tensor) -> torch.Tensor:
         """x_f = P e_c = (I - omega D^-1 A) T e_c."""

@@ -174,8 +174,12 @@ def dense_coarse_inverse(op) -> torch.Tensor:
 
 def _coarse_direct(lev: Level, b: torch.Tensor) -> torch.Tensor:
     """Apply the dense coarse inverse to a field or flat vector, or to a
-    stack of k of them as one product inv @ B.T."""
+    stack of k of them as one product inv @ B.T.  A sharded coarsest
+    level's inverse (``dist/general.py::RowCoarseInverse``) applies
+    itself."""
     inv = lev.coarse_inv
+    if not isinstance(inv, torch.Tensor):
+        return inv.apply(b)
     n = inv.shape[0]
     if b.numel() == n:
         x = inv @ b.reshape(-1).to(inv.dtype)

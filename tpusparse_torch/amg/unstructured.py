@@ -338,7 +338,8 @@ def gamg_setup_unstructured(
     if a is not None and not isinstance(a, HostCSR):
         a = HostCSR.from_scipy(a)
     n = a.n_rows if a is not None else fine_op.shape[0]
-    dev = fine_op.bands.device if isinstance(fine_op, DIA) else (
+    # a DIA or GridDIA holds bands, a two-float DFDIA hi and lo
+    dev = fine_op.bands.device if hasattr(fine_op, "bands") else (
         fine_op.hi.device if fine_op is not None else torch.device(device)
     )
 

@@ -4,19 +4,24 @@ reference's PBS benchmark jobs.
 The reference's protocol (``runs/single-node-scaling.pbs:56-67``,
 ``runs/multiple-node-scaling.pbs:57-68``): run the same problem at a sweep
 of rank counts, log each run's block, plot KSPSolve time against ranks.
-Here the sweep is over the blocks of the fine level in ONE process:
-``solve_poisson(..., n_devices=d)`` is the split solve (``dist/``): the
-fused z route where the options take it (kernels K3z/K4z, one launch a
-stroke over every shard, and K1h for CG's A p), the (z, y) plain route
-otherwise.  Each point prints the reference's log line and the sweep
-writes a JSON record in the JAX package's format, so ``bench/plots.py``
-reads either package's records.
+Here each point is ``solve_poisson(..., n_devices=d)``, the split solve
+(``dist/``) of d blocks of the fine level over the W ranks of the process
+group: the fused z route where the options take it (kernels K3z/K4z, one
+launch a stroke over a rank's shards, and K1h for CG's A p), the (z, y)
+plain route otherwise.  Under torchrun the sweep joins the group
+(``dist/multihost.py::initialize``) and runs over its ranks, W dividing
+each point's mesh z-rows:
 
-Every point's blocks share one device, so every record says
-``"emulated": true``: its times validate code paths, not hardware scaling.
-A sweep over ranks (one card a rank) is ROADMAP queue 12; a point whose
-options the JAX driver refuses with ``n_devices > 1`` raises
-``NotImplementedError`` in its words, from ``solve_poisson``.
+    python -m torch.distributed.run --standalone --nproc-per-node W \
+        -m tpusparse_torch.bench.scaling strong --n 100 --devices 2,4
+
+Rank 0 prints each point's reference log line and writes the JSON record,
+in the JAX package's format (so ``bench/plots.py`` reads either package's
+records) with ``"ranks"`` (W) and ``"cards"`` (the distinct devices of the
+ranks) added.  ``"emulated"`` is true where ranks share a card or W = 1
+(every block on one device): its times validate code paths, not hardware
+scaling.  A point whose options the JAX driver refuses with ``n_devices >
+1`` raises ``NotImplementedError`` in its words, from ``solve_poisson``.
 
 Strong scaling: fixed global problem, more shards.  Weak scaling: fixed
 per-shard box on the JAX package's constant-h protocol.  The record has the
@@ -38,10 +43,14 @@ import dataclasses
 import json
 import math
 import pathlib
+import socket
 
 import torch
+import torch.distributed as dist
 
 from tpusparse_torch.bench.driver import solve_poisson
+from tpusparse_torch.dist import multihost
+from tpusparse_torch.dist.mesh import process_group
 
 
 @dataclasses.dataclass
@@ -83,7 +92,8 @@ def _point(d: int, nx: int, ny: int, nz: int, rtol: float, on_point, **kw) -> Sc
         t_solve=rep.t_solve, iters=rep.iters,
         linf_error=rep.linf_error, nnz=_poisson_nnz(nx, ny, nz),
     )
-    print(_reference_line(p))
+    if process_group()[2] == 0:
+        print(_reference_line(p))
     if on_point is not None:
         on_point(p, rep)
     return p
@@ -244,18 +254,37 @@ def tts_efficiency(pts: list[ScalingPoint]) -> dict[int, float]:
     return {p.n_devices: base.t_solve / p.t_solve for p in pts}
 
 
+def cards(device) -> int:
+    """The distinct CUDA devices the ranks of the process group run on (0
+    for CPU ranks)."""
+    device = torch.device(device)
+    mine = None
+    if device.type == "cuda":
+        mine = (socket.gethostname(), str(torch.cuda.get_device_properties(device).uuid))
+    group, world, _ = process_group()
+    every = [mine]
+    if group is not None:
+        every = [None] * world
+        dist.all_gather_object(every, mine, group=group)
+    return len({c for c in every if c is not None})
+
+
 def save_json(
     pts: list[ScalingPoint], mode: str, path: pathlib.Path,
-    t_iter_1dev: float | None = None, *, backend: str,
+    t_iter_1dev: float | None = None, *, backend: str, ranks: int = 1, n_cards: int = 1,
 ) -> None:
-    """The sweep's record at ``path``; ``backend`` is "cuda" or "cpu"."""
+    """The sweep's record at ``path``; ``backend`` is "cuda" or "cpu",
+    ``ranks`` the W ranks it ran over, ``n_cards`` their distinct
+    devices."""
     rec = {
         "mode": mode,
         "backend": backend,
-        # every shard of every point shares one device (a sweep over ranks is
-        # ROADMAP queue 12): wall times validate code paths, not hardware
-        # scaling, and the plots watermark the record
-        "emulated": True,
+        # ranks that share a card (or one process holding every block): wall
+        # times validate code paths, not hardware scaling, and the plots
+        # watermark the record
+        "emulated": ranks == 1 or n_cards < ranks,
+        "ranks": ranks,
+        "cards": n_cards,
         "points": [dataclasses.asdict(p) for p in pts],
         "efficiency": efficiency(pts, weak=(mode == "weak")),
     }
@@ -271,7 +300,10 @@ def save_json(
     print(f"wrote {path}")
 
 
-def main(argv=None) -> int:
+def main(argv=None, on_point=None) -> int:
+    """The sweep the arguments ask for, over the ranks of the process group
+    (torchrun's, joined here); ``on_point(point, report)``, if given, is
+    called on each rank after each point's solve."""
     ap = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
     ap.add_argument("mode", choices=["strong", "weak"])
     ap.add_argument("--n", type=int, default=128, help="grid edge (strong)")
@@ -293,18 +325,37 @@ def main(argv=None) -> int:
         raise RuntimeError("the scaling sweep on cuda needs a CUDA device (--device cpu runs it on the host)")
 
     counts = [int(c) for c in args.devices.split(",")]
-    kw = dict(rtol=args.rtol, precision=args.precision, device=args.device)
-    if args.mode == "strong":
-        pts = run_strong(args.n, counts, **kw)
-    else:
-        pts = run_weak(args.per_device, counts, **kw)
-    eff = efficiency(pts, weak=(args.mode == "weak"))
-    for d, e in eff.items():
-        print(f"  {d} devices: efficiency {e*100:.1f}%")
-    save_json(
-        pts, args.mode, pathlib.Path(args.out.format(mode=args.mode)),
-        t_iter_1dev=args.t_iter, backend=torch.device(args.device).type,
-    )
+    # the process group: torchrun's (joined here, left at the end), or one
+    # the caller made
+    joined = not dist.is_initialized()
+    multihost.initialize(device=args.device)
+    try:
+        _, world, rank = process_group()
+        for d in counts:
+            pz = _factor2(d)[0]
+            if pz % world:
+                raise ValueError(
+                    f"{world} ranks do not divide the mesh's {pz} z-rows at {d} devices: each rank holds whole"
+                    f" z-rows of blocks (mesh {_factor2(d)})"
+                )
+        device = multihost.rank_device(args.device)
+        kw = dict(rtol=args.rtol, precision=args.precision, device=device)
+        if args.mode == "strong":
+            pts = run_strong(args.n, counts, on_point=on_point, **kw)
+        else:
+            pts = run_weak(args.per_device, counts, on_point=on_point, **kw)
+        n_cards = cards(device)
+        if rank == 0:
+            eff = efficiency(pts, weak=(args.mode == "weak"))
+            for d, e in eff.items():
+                print(f"  {d} devices: efficiency {e*100:.1f}%")
+            save_json(
+                pts, args.mode, pathlib.Path(args.out.format(mode=args.mode)),
+                t_iter_1dev=args.t_iter, backend=device.type, ranks=world, n_cards=n_cards,
+            )
+    finally:
+        if joined:
+            multihost.finalize()
     return 0
 
 

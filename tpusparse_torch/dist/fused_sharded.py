@@ -161,19 +161,17 @@ def sharded_route_refusal(*, mat_type: str, pc: str, structure_detect: bool = Tr
     its words, or None: a standalone SOR or block-Jacobi PC
     (``tpusparse/bench/driver.py:404-408``), and an aij matrix that does
     not reach the star lift (``:971-978``, ``:1146-1151``): the sharded
-    general executor (``dist/general.py``) has no driver route there
-    either."""
+    general executor (``dist/general.py``) is a library API with no driver
+    route, in the port as in the JAX package."""
     if mat_type == "stencil" and pc in ("sor", "bjacobi"):
         return (
             f"pc_type={pc!r} is single-device (its state is not wired"
             " through the sharding layer); use gamg/jacobi multi-device"
         )
     if mat_type == "aij" and not structure_detect:
-        # the sharded general executor is ROADMAP queue 12 in the port
         return (
             "mat_type=aij multi-device driver requires structure_detect"
             " (general path: use dist.general.DistDIA)"
-            " (ROADMAP queue 12: dist/general.py is not ported to tpusparse_torch yet)"
         )
     if mat_type == "aij" and (pc != "gamg" or aggregation == "greedy"):
         return AIJ_UNLIFTED

@@ -25,7 +25,8 @@ level-0 fields become the rank's slabs (the operators ``HaloStar``s,
 ``dist/halo.py``; the transfer a ``ShardedTransfer``, ``dist/seam.py``),
 the coarse levels stay whole on every rank, as built.
 
-Transport: the backend is the process group's (``dist/multihost.py`` picks
+Transport (``Transport``, which the block-row mesh of ``dist/general.py``
+shares): the backend is the process group's (``dist/multihost.py`` picks
 it from where the ranks sit).  Under gloo, planes and partials of CUDA
 tensors travel through host copies made here: that is gloo's transport for
 them, chosen from the backend, not a fallback.
@@ -66,8 +67,72 @@ class Block:
     ny: int
 
 
+class Transport:
+    """The communication of a mesh over the ``world`` ranks of ``group``
+    (None: one rank, this process), for a mesh dataclass with the fields
+    ``group``, ``world`` and ``rank``: point-to-point pieces, all-reduce,
+    all-gather and barrier.  Under gloo a CUDA tensor is staged through a
+    host copy (``_staged``)."""
+
+    @property
+    def backend(self) -> str | None:
+        return None if self.group is None else dist.get_backend(self.group)
+
+    def _staged(self, t: torch.Tensor) -> bool:
+        return t.device.type == "cuda" and self.backend == "gloo"
+
+    def sendrecv(self, sends, recvs, like: torch.Tensor) -> list:
+        """Ship each ``(peer, tensor)`` of ``sends`` and receive each
+        ``(peer, numel)`` of ``recvs`` (vectors of ``like``'s dtype), all
+        posted together: the received vectors on ``like``'s device, in
+        ``recvs``' order.  A pair of ranks exchanges at most one message
+        each way in a call."""
+        staged = self._staged(like)
+        ops, out = [], []
+        for peer, t in sends:
+            t = (t.cpu() if staged else t).contiguous()
+            ops.append(dist.P2POp(dist.isend, t, peer, self.group))
+        for peer, numel in recvs:
+            buf = torch.empty(numel, dtype=like.dtype, device="cpu" if staged else like.device)
+            ops.append(dist.P2POp(dist.irecv, buf, peer, self.group))
+            out.append(buf)
+        if ops:
+            for req in dist.batch_isend_irecv(ops):
+                req.wait()
+        return [t.to(like.device) for t in out] if staged else out
+
+    def allreduce(self, t: torch.Tensor, op: str = "sum") -> torch.Tensor:
+        """``t`` summed (or maxed) over the ranks: reduced in place and
+        returned, or ``t`` itself on one rank."""
+        if self.group is None:
+            return t
+        rop = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}[op]
+        if self._staged(t):
+            host = t.cpu()
+            dist.all_reduce(host, rop, group=self.group)
+            return t.copy_(host)
+        dist.all_reduce(t, rop, group=self.group)
+        return t
+
+    def allgather(self, t: torch.Tensor) -> torch.Tensor:
+        """The ranks' ``t`` (one length on every rank) concatenated in rank
+        order along the first axis, or ``t`` itself on one rank."""
+        if self.group is None:
+            return t
+        staged = self._staged(t)
+        src = (t.cpu() if staged else t).contiguous()
+        parts = [torch.empty_like(src) for _ in range(self.world)]
+        dist.all_gather(parts, src, group=self.group)
+        out = torch.cat(parts)
+        return out.to(t.device) if staged else out
+
+    def barrier(self) -> None:
+        if self.group is not None:
+            dist.barrier(group=self.group)
+
+
 @dataclasses.dataclass(frozen=True, eq=False)
-class Mesh:
+class Mesh(Transport):
     """``pz x py`` blocks over the ``world`` ranks of ``group`` (None: one
     rank, this process), each rank's fields on ``device``.  ``halo``: the
     least planes a block holds in z (FACE on the fused z route, whose
@@ -84,10 +149,6 @@ class Mesh:
     @property
     def p(self) -> int:
         return self.pz * self.py
-
-    @property
-    def backend(self) -> str | None:
-        return None if self.group is None else dist.get_backend(self.group)
 
     # --- placement ------------------------------------------------------------
     def rows(self, nz: int) -> slice:
@@ -119,50 +180,18 @@ class Mesh:
         ]
 
     # --- communication --------------------------------------------------------
-    def _staged(self, t: torch.Tensor) -> bool:
-        return t.device.type == "cuda" and self.backend == "gloo"
-
     def exchange(self, lo_send: torch.Tensor, hi_send: torch.Tensor):
         """``(lo, hi)``: the planes of ranks r - 1 and r + 1 that face this
         rank, for ``lo_send`` and ``hi_send`` shipped to them (None at the
-        domain boundary, and on one rank).  Both sends are contiguous."""
+        domain boundary, and on one rank)."""
         if self.group is None:
             return None, None
-        staged = self._staged(lo_send)
-        lo = hi = None
-        ops = []
-        for peer, send, is_lo in ((self.rank - 1, lo_send, True), (self.rank + 1, hi_send, False)):
-            if not 0 <= peer < self.world:
-                continue
-            send = send.cpu() if staged else send.contiguous()
-            recv = torch.empty_like(send)
-            ops += [dist.P2POp(dist.isend, send, peer, self.group), dist.P2POp(dist.irecv, recv, peer, self.group)]
-            if is_lo:
-                lo = recv
-            else:
-                hi = recv
-        for req in dist.batch_isend_irecv(ops):
-            req.wait()
-        if staged:
-            lo, hi = (None if t is None else t.to(lo_send.device) for t in (lo, hi))
+        peers = [(peer, send) for peer, send in ((self.rank - 1, lo_send), (self.rank + 1, hi_send))
+                 if 0 <= peer < self.world]
+        got = iter(self.sendrecv(peers, [(peer, send.numel()) for peer, send in peers], lo_send))
+        lo = next(got).view(lo_send.shape) if self.rank > 0 else None
+        hi = next(got).view(hi_send.shape) if self.rank + 1 < self.world else None
         return lo, hi
-
-    def allreduce(self, t: torch.Tensor, op: str = "sum") -> torch.Tensor:
-        """``t`` summed (or maxed) over the ranks: reduced in place and
-        returned, or ``t`` itself on one rank."""
-        if self.group is None:
-            return t
-        rop = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}[op]
-        if self._staged(t):
-            host = t.cpu()
-            dist.all_reduce(host, rop, group=self.group)
-            return t.copy_(host)
-        dist.all_reduce(t, rop, group=self.group)
-        return t
-
-    def barrier(self) -> None:
-        if self.group is not None:
-            dist.barrier(group=self.group)
 
     def reductions(self, shape):
         """The context of a solve on this rank's slabs of a ``shape`` field:

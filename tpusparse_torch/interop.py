@@ -23,6 +23,7 @@ from tpusparse_torch.solve.bjacobi import BlockJacobi, PCRLineJacobi
 from tpusparse_torch.sparse.csr import HostCSR
 from tpusparse_torch.sparse.dia import DFDIA, DIA, HybridDIA
 from tpusparse_torch.sparse.ell import ELL
+from tpusparse_torch.sparse.griddia import GridDIA
 from tpusparse_torch.sparse.padded import PaddedStar, PaddedTransfer, pad_field
 from tpusparse_torch.sparse.stencil import StarStencil3D
 from tpusparse_torch.sparse.varstencil import VarStencil27
@@ -52,11 +53,22 @@ def dia_from_numpy(bands, offsets, shape, *, device) -> DIA:
     )
 
 
-def dfdia_from_numpy(hi, lo, offsets, shape, *, device) -> DFDIA:
-    """``lo`` None where the JAX container holds none (A exactly f32)."""
+def dfdia_from_numpy(hi, lo, offsets, shape, *, device, grid=None) -> DFDIA:
+    """``lo`` None where the JAX container holds none (A exactly f32);
+    ``grid`` its 3-D view ``(grid_shape, d3s)`` or None."""
+    if grid is not None:
+        grid = (tuple(int(s) for s in grid[0]), tuple(tuple(int(d) for d in d3) for d3 in grid[1]))
     return DFDIA(
         hi=_put(hi, device), lo=None if lo is None else _put(lo, device),
-        offsets=tuple(int(o) for o in offsets), shape=tuple(int(s) for s in shape),
+        offsets=tuple(int(o) for o in offsets), shape=tuple(int(s) for s in shape), grid=grid,
+    )
+
+
+def griddia_from_numpy(bands, offsets, d3s, grid_shape, *, device) -> GridDIA:
+    """A ``GridDIA`` from the JAX container's bands and its 3-D view."""
+    return GridDIA(
+        bands=_put(bands, device), offsets=tuple(int(o) for o in offsets),
+        d3s=tuple(tuple(int(d) for d in d3) for d3 in d3s), grid_shape=tuple(int(s) for s in grid_shape),
     )
 
 
@@ -70,8 +82,11 @@ def ell_from_numpy(cols, vals, shape, *, device) -> ELL:
 
 def _general_op(d, device):
     """A flat level operator: ``{"bands", "offsets", "shape"}`` (DIA),
-    ``{"cols", "vals", "shape"}`` (ELL) or ``{"dia", "rem"}`` (HybridDIA,
-    ``rem`` an ELL dict or None)."""
+    ``{"bands", "offsets", "d3s", "grid_shape"}`` (GridDIA), ``{"cols",
+    "vals", "shape"}`` (ELL) or ``{"dia", "rem"}`` (HybridDIA, ``rem`` an
+    ELL dict or None)."""
+    if "d3s" in d:
+        return griddia_from_numpy(d["bands"], d["offsets"], d["d3s"], d["grid_shape"], device=device)
     if "dia" in d:
         return HybridDIA(
             dia=_general_op(d["dia"], device),

@@ -33,6 +33,7 @@ LAUNCHES = {
     "fused7_prolong": 0,
     "dia_mv": 0,
     "dia_mv_batched": 0,
+    "dia_mv_window": 0,
 }
 
 

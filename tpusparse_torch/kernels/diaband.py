@@ -17,10 +17,19 @@ One launch reads each band value once for every 4 columns, and each column
 is bit for bit a ``dia_mv`` launch on it: both kernels spell out every
 rounding.
 
-``dia_mv`` and ``dia_mv_batched`` dispatch by tensor device only: a CPU
-tensor runs the plain twin ``dia_mv_torch`` (one function for both: it
-shifts along the last axis), a CUDA tensor launches ``csrc/diaband.cu``
-(or raises).  Both take float32 only, as the Pallas K5 does
+``dia_mv_window`` is K5h, K5 on one rank's contiguous rows [r0, r0 + nl)
+of an n-row matrix with the two windows of x it received from the ranks
+that hold them (``dist/general.py::DistDIA``; the JAX package's
+``DistDIA._mv_shard`` applies the same function per shard): the rows of
+every rank's launch, put together, are bit for bit one K5 launch on the
+whole vector, for any split.  K5 and K5h are one CUDA kernel: a
+``dia_mv`` launch is K5h on all n rows with no windows.
+
+``dia_mv``, ``dia_mv_batched`` and ``dia_mv_window`` dispatch by tensor
+device only: a CPU tensor runs the plain twin (``dia_mv_torch``, one
+function for the first two: it shifts along the last axis;
+``dia_mv_window_torch``), a CUDA tensor launches ``csrc/diaband.cu`` (or
+raises).  Both take float32 only, as the Pallas K5 does
 (``tpusparse/kernels/diaband.py:101-105``); ``DIA.mv`` applies a band
 stack of any other dtype in plain torch.
 """
@@ -133,4 +142,77 @@ def dia_mv_batched(bands: torch.Tensor, x: torch.Tensor, offsets) -> torch.Tenso
         bands.data_ptr(), x.data_ptr(), y.data_ptr(), n, k, offs, x.shape[0],
     )
     LAUNCHES["dia_mv_batched"] += 1
+    return y
+
+
+def window_reach(offsets) -> tuple[int, int]:
+    """(below, above): how far the bands reach below and above a row."""
+    return max(0, -min(offsets)), max(0, max(offsets))
+
+
+def dia_mv_window_torch(bands: torch.Tensor, x: torch.Tensor, offsets, xlo: torch.Tensor, xhi: torch.Tensor,
+                        r0: int, n: int) -> torch.Tensor:
+    """Plain twin of K5h: ``dia_mv_torch``'s terms on the rows [r0, r0 +
+    nl), in its order, against the rank's columns [r0 - hl, r0 + nl + hh)
+    (its windows and its own x) with zeros past them, which is where the
+    columns outside [0, n) fall: bit for bit ``dia_mv_torch`` of the whole
+    vector on those rows."""
+    nl = bands.shape[1]
+    below, above = window_reach(offsets)
+    hl, hh = xlo.shape[0], xhi.shape[0]
+    ext = x.new_zeros(below + nl + above)
+    ext[below - min(hl, below):below] = xlo[hl - min(hl, below):]
+    ext[below:below + nl] = x
+    ext[below + nl:below + nl + min(hh, above)] = xhi[:min(hh, above)]
+    y = bands[0] * ext[below + offsets[0]:below + offsets[0] + nl]
+    for k, o in enumerate(offsets[1:], start=1):
+        y = y + bands[k] * ext[below + o:below + o + nl]
+    return y
+
+
+def check_window_operands(bands, x, offsets, xlo, xhi, r0: int, n: int) -> None:
+    """``check_operands`` of the rank's bands (K, nl) and x (nl,), and of
+    its windows: contiguous f32 vectors on x's device, inside [0, n)
+    (``hl <= r0``, ``r0 + nl + hh <= n``), each no shorter than the reach
+    of the bands that read it (``hl >= min(r0, below)``, ``hh >= min(n -
+    r0 - nl, above)``)."""
+    check_operands(bands, x, offsets)
+    for name, t in (("xlo", xlo), ("xhi", xhi)):
+        if t.dim() != 1 or t.dtype != torch.float32 or not t.is_contiguous() or t.device != x.device:
+            raise ValueError(f"{name} {tuple(t.shape)} {t.dtype} on {t.device}: want a contiguous float32 vector"
+                             f" on {x.device}")
+    nl, hl, hh = bands.shape[1], xlo.shape[0], xhi.shape[0]
+    if n >= 2**31:
+        raise ValueError(f"n = {n} rows: the kernel takes n < 2^31")
+    if r0 < 0 or hl > r0 or r0 + nl + hh > n:
+        raise ValueError(f"rows [{r0}, {r0 + nl}) with windows of {hl} and {hh}: not inside the {n} rows")
+    below, above = window_reach(offsets)
+    if hl < min(r0, below) or hh < min(n - r0 - nl, above):
+        raise ValueError(f"windows of {hl} and {hh} entries: the bands reach {below} below and {above} above"
+                         f" rows [{r0}, {r0 + nl}) of {n}")
+
+
+_DIA_WINDOW_ARGS = [_build.P] * 5 + [_build.L] * 5 + [_build.I, ctypes.POINTER(ctypes.c_longlong), _build.P]
+
+
+def dia_mv_window(bands: torch.Tensor, x: torch.Tensor, offsets, xlo: torch.Tensor, xhi: torch.Tensor,
+                  r0: int, n: int) -> torch.Tensor:
+    """y[i] = sum_k bands[k, i] * x(r0 + i + offsets[k]) on the rank's rows
+    [r0, r0 + nl) of the n-row matrix: ``x`` the rank's own entries, ``xlo``
+    the hl entries below r0 and ``xhi`` the hh entries above r0 + nl.
+
+    CUDA tensors run ``csrc/diaband.cu`` (K5h); CPU tensors the plain twin.
+    """
+    check_window_operands(bands, x, offsets, xlo, xhi, r0, n)
+    if x.device.type == "cpu":
+        return dia_mv_window_torch(bands, x, offsets, xlo, xhi, r0, n)
+    k, nl = bands.shape
+    y = torch.empty_like(x)
+    offs = (ctypes.c_longlong * k)(*(int(o) for o in offsets))
+    _build.launch(
+        "tps_dia_mv_window", _DIA_WINDOW_ARGS, x.device,
+        bands.data_ptr(), x.data_ptr(), xlo.data_ptr(), xhi.data_ptr(), y.data_ptr(),
+        nl, r0, n, xlo.shape[0], xhi.shape[0], k, offs,
+    )
+    LAUNCHES["dia_mv_window"] += 1
     return y

@@ -250,11 +250,10 @@ class DFDIA:
     dtype, so hi + lo carries ~48 mantissa bits at 4 B per entry.  ``hi``
     may alias the f32 hierarchy's fine-level bands.
 
-    ``grid`` (the JAX package's 3-D view, ``sparse/griddia.py``) is not
-    ported: only the JAX package's sharded general executor
-    (``dist/general.py``) builds it, so it belongs with the multi-device
-    work (ROADMAP queue 12).  No single-device entry point builds it, and
-    the JAX driver keeps the flat form, measured faster there.
+    ``grid``: an optional 3-D view ``(grid_shape, d3s)``, the bands applied
+    as field shifts (``sparse/griddia.py``; the wrap-zeros must be
+    validated, ``host_grid_view``).  No driver route builds it, as in the
+    JAX package, whose driver keeps the flat form.
     """
 
     hi: torch.Tensor                 # (K, n) f32
@@ -263,15 +262,9 @@ class DFDIA:
     shape: tuple[int, int]
     grid: tuple | None = None
 
-    def __post_init__(self):
-        if self.grid is not None:
-            raise NotImplementedError(
-                "the 3-D grid view of DFDIA (sparse/griddia.py) is not ported to tpusparse_torch yet"
-                " (ROADMAP queue 12: only the sharded general executor builds it)"
-            )
-
     @classmethod
-    def from_host_bands(cls, bands64: np.ndarray, offsets, shape, *, device, hi_dev=None) -> "DFDIA":
+    def from_host_bands(cls, bands64: np.ndarray, offsets, shape, *, device, hi_dev=None,
+                        grid: tuple | None = None) -> "DFDIA":
         """Split host f64 bands into tensors on ``device``; upload lo only
         when nonzero.  ``hi_dev``: an f32 band tensor already uploaded to
         alias as ``hi``; it must equal ``float32(bands64)``, which is
@@ -293,6 +286,7 @@ class DFDIA:
             lo=torch.as_tensor(lo_np, device=device) if np.any(lo_np) else None,
             offsets=tuple(int(o) for o in offsets),
             shape=tuple(shape),
+            grid=grid,
         )
 
     @property
@@ -306,8 +300,21 @@ class DFDIA:
     def mv(self, x: torch.Tensor) -> torch.Tensor:
         """y = A x in x's dtype (each band promoted on the fly), hi terms in
         ascending band order, then lo terms; for a vector (n,) or for each
-        column of a stack (k, n)."""
+        column of a stack (k, n), or through the 3-D view of ``grid`` for a
+        vector."""
         dt, n = x.dtype, self.n_rows
+        if self.grid is not None:
+            from tpusparse_torch.sparse.griddia import shift3
+
+            gshape, d3s = self.grid
+            x3 = x.reshape(gshape)
+            y3 = self.hi[0].to(dt).reshape(gshape) * shift3(x3, d3s[0])
+            for k in range(1, len(d3s)):
+                y3 = y3 + self.hi[k].to(dt).reshape(gshape) * shift3(x3, d3s[k])
+            if self.lo is not None:
+                for k in range(len(d3s)):
+                    y3 = y3 + self.lo[k].to(dt).reshape(gshape) * shift3(x3, d3s[k])
+            return y3.reshape(-1)
         y = self.hi[0].to(dt) * _shift(x, self.offsets[0], n)
         for k, o in enumerate(self.offsets[1:], start=1):
             y = y + self.hi[k].to(dt) * _shift(x, o, n)
