@@ -348,6 +348,22 @@ script exits non-zero without the final line:
    every point reason 2 on each rank, rank 0's record with ``"ranks": 2``
    and ``"emulated": true``.  Phase 41 also times rank 1's slab's twin
    and the cuSPARSE CSR matvec of the slab's rows after the same flush.
+44. The names the port took last, the launch counters reset before each
+   part: (a) one padded GAMG hierarchy at 64^3, built on the card and
+   copied to the CPU, ``fmg`` (n_v=1) and ``wcycle`` on each: the card
+   within 1e-4 of max|x| of the CPU's twins; (b) ``fmg`` on the headline's
+   300^3 system and hierarchy (``build_system``, ``gamg_setup``,
+   ``cast_coarse_coefs``): ||b - A x|| / ||b|| after one pass finite and
+   < 1, K1 and K10, K12-K16 launched; ``wcycle`` bit-equal to
+   ``vcycle(gamma=2)``; (c) ``refined_solve(..., check_every=2)`` on the
+   same system and hierarchy: reason 2, Linf < 1e-4, no more sweeps than
+   ``check_every=1``, every inner count even, the inner total at most
+   ``check_every=1``'s + 1 a sweep, K2-K4 launched; both runs' ``t_solve``
+   printed, timed in turns (1, 2, 2, 1); (d) ``A @ x`` on
+   ``StarStencil3D`` (3-D and flat), ``PaddedStar``, ``DIA``,
+   ``HybridDIA``, ``ELL`` and ``DFDIA``: bit-equal to ``A.mv(x)``, one
+   launch of K1p, K1, K5 or K5 (the bands of ``HybridDIA``) a product,
+   none for ``ELL`` and ``DFDIA`` (plain torch, as their ``mv``).
 
 Then one JSON line with each kernel's route, source, launches (K1-K4 from
 phase 5, K5 from phase 8, K6/K7 from phase 10, K3'/K4' from phase 11,
@@ -372,6 +388,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import functools
 import io
 import json
 import math
@@ -392,10 +409,19 @@ import torch
 from tpusparse_torch import KSP, kernels
 from tpusparse_torch import ksp as ksp_module
 from tpusparse_torch.__main__ import main as cli_main
-from tpusparse_torch.amg.hierarchy import AMGParams, gamg_setup, threshold_schedule, vcycle
+from tpusparse_torch.amg.hierarchy import (
+    AMGParams,
+    cast_coarse_coefs,
+    fmg,
+    gamg_setup,
+    hierarchy_to,
+    threshold_schedule,
+    vcycle,
+    wcycle,
+)
 from tpusparse_torch.amg.unstructured import gamg_setup_unstructured
 from tpusparse_torch.bench import bwprobe, deviceaggbench, headline, reorderbench, scaling, spmv
-from tpusparse_torch.bench.driver import solve_diffusion, solve_poisson
+from tpusparse_torch.bench.driver import build_system, refined_solve, solve_diffusion, solve_poisson
 from tpusparse_torch.dist import multihost
 from tpusparse_torch.dist.fused_sharded import FusedSharded
 from tpusparse_torch.dist.general import (
@@ -484,6 +510,8 @@ from tpusparse_torch.kernels.stencil7 import (
 from tpusparse_torch.solve.cg import cg
 from tpusparse_torch.solve.checkpoint import CheckpointConfig, cg_checkpointed
 from tpusparse_torch.sparse.io import load_petsc_vec, read_petsc_objects
+from tpusparse_torch.sparse.dia import DFDIA, DIA, HybridDIA
+from tpusparse_torch.sparse.ell import ELL
 from tpusparse_torch.sparse.padded import PaddedStar, crop_field, pad_field
 from tpusparse_torch.sparse.starlift import star_lift
 
@@ -2685,6 +2713,152 @@ def check_general(device) -> tuple[dict, int]:
     return row, main["used"]["dia_mv_window"]
 
 
+# phase 44: the kernels each ``A @ x`` must launch once (None: plain torch)
+MATMUL_KERNELS = {
+    "StarStencil3D 3-D": "star7_mv", "StarStencil3D flat": "star7_mv", "PaddedStar": "star7_mv_padded",
+    "DIA": "dia_mv", "HybridDIA": "dia_mv", "ELL": None, "DFDIA": None,
+}
+# the unfused padded cycle's kernels that fmg's V-cycles launch at 300^3
+FMG_KERNELS = ("star7_mv_padded", "fused7_residual", "fused7_pre2", "fused7_cheb0", "fused7_cheb",
+               "fused7_restrict", "fused7_prolong")
+# fmg's relative residual after one pass on the 300^3 headline system, as
+# four H100 runs gave it (0.28967908, equal to 7 digits in all four), and
+# the gate's width: 3e-6 is 60 times the printing's half-unit and under a
+# five-hundredth of what a pass that skips its coarse solve, one level's
+# prolongation or one level's V-cycle moves it by on the H100 (1.4e-3 and
+# more)
+FMG_REL_300 = 0.2896791
+FMG_REL_ATOL = 3e-6
+
+
+class _InnerCounts:
+    """``cg`` that records each inner solve's count.  ``func`` is ``cg``:
+    ``refined_solve`` hands the fused forms to a solver whose ``func`` is
+    ``cg``, as it does to ``functools.partial(cg, ...)``."""
+
+    func = staticmethod(cg)
+
+    def __init__(self):
+        self.iters: list[int] = []
+
+    def __call__(self, *args, **kw):
+        res = cg(*args, **kw)
+        self.iters.append(res.iters)
+        return res
+
+
+def check_names(device, n: int = 300, small: int = 64) -> dict:
+    """Phase 44: fmg, wcycle, check_every and ``@`` on the card.  Returns
+    the launches of the phase's kernels by part."""
+    counts = {}
+    # (a) one hierarchy on both devices at small^3
+    op = PaddedStar.from_star(poisson_stencil_device(Grid3D(small, small, small), dtype=torch.float32,
+                                                     device=device)[0])
+    hier = gamg_setup(op, AMGParams())
+    hier_cpu = hierarchy_to(hier, "cpu")
+    b = pad_field(torch.tensor(np.random.default_rng(SEED).standard_normal((small,) * 3, dtype=np.float32)))
+    for name, fn in (("fmg", functools.partial(fmg, n_v=1)), ("wcycle", wcycle)):
+        want = fn(hier_cpu, b)
+        got = fn(hier, b.to(device)).cpu()
+        err = (got - want).abs().max().item()
+        scale = want.abs().max().item()
+        print(f"{name} at {small}^3, card against the CPU twins on one hierarchy: max abs err {err:.3e}"
+              f" (max|x| {scale:.3e}, gate 1e-4 of it)")
+        _require(err <= 1e-4 * scale, f"{name} at {small}^3: card differs from the CPU by {err} > 1e-4 max|x|")
+    del hier, hier_cpu, op
+
+    # (b) fmg on the headline's system and hierarchy (solve_poisson's
+    # padded route: build_system, gamg_setup, bf16 coarse coefficients)
+    t0 = time.perf_counter()
+    op_hi, b_hi, exact, op_lo = build_system(Grid3D(n, n, n), device)
+    hier = cast_coarse_coefs(gamg_setup(op_lo, AMGParams()))
+    torch.cuda.synchronize(device)
+    print(f"{n}^3 system and hierarchy ({hier.n_levels} levels): {time.perf_counter() - t0:.2f} s")
+    b_p = pad_field(b_hi.to(torch.float32))
+    kernels.reset_launches()
+    x, secs = _timed(device, fmg, hier, b_p)
+    counts["fmg"] = {k: v for k, v in kernels.LAUNCHES.items() if v}
+    rel = (torch.linalg.vector_norm(b_p - op_lo.mv(x)) / torch.linalg.vector_norm(b_p)).item()
+    print(f"fmg (n_v=1) at {n}^3: ||b - A x|| / ||b|| = {rel:.9e} after one pass, {secs * 1e3:.2f} ms;"
+          f" launches {json.dumps(counts['fmg'])}")
+    _require(math.isfinite(rel) and rel < 1.0, f"fmg at {n}^3: relative residual {rel} is not finite and < 1")
+    if n == 300:
+        _require(abs(rel - FMG_REL_300) <= FMG_REL_ATOL,
+                 f"fmg at {n}^3: relative residual {rel} is not the recorded {FMG_REL_300} +- {FMG_REL_ATOL}")
+    for name in FMG_KERNELS:
+        _require(counts["fmg"].get(name, 0) > 0, f"fmg at {n}^3 did not launch {name}")
+    kernels.reset_launches()
+    w = wcycle(hier, b_p)
+    counts["wcycle"] = {k: v for k, v in kernels.LAUNCHES.items() if v}
+    _require(torch.equal(w, vcycle(hier, b_p, gamma=2)), f"wcycle at {n}^3 is not vcycle(gamma=2) bit for bit")
+    print(f"wcycle at {n}^3: bit-equal to vcycle(gamma=2); launches {json.dumps(counts['wcycle'])}")
+
+    # (c) cg_refined's check_every on the same system and hierarchy,
+    # timed in turns (1, 2, 2, 1)
+    kw = dict(rtol=1e-8, atol=1e-12)
+    runs = {1: [], 2: []}
+    for every in (1, 2, 2, 1):
+        inner = _InnerCounts()
+        kernels.reset_launches()
+        res, secs = _timed(device, refined_solve, op_hi, op_lo, hier, b_hi, ksp_solve=inner, check_every=every, **kw)
+        launched = {k: v for k, v in kernels.LAUNCHES.items() if v}
+        linf = (res.x - exact).abs().max().item()
+        runs[every].append((res, inner.iters, secs, linf, launched))
+        print(f"check_every={every} at {n}^3: {res.iters} inner ({inner.iters}) + {res.outer_iters} outer, reason"
+              f" {res.reason}, Linf {linf:.6e}, t_solve {secs:.4f} s")
+    (one, one_inner, _, _, _), (two, two_inner, _, two_linf, two_launched) = runs[1][0], runs[2][0]
+    counts["check_every"] = two_launched
+    print(f"t_solve at {n}^3, one process: check_every=1 {runs[1][0][2]:.4f} / {runs[1][1][2]:.4f} s,"
+          f" check_every=2 {runs[2][0][2]:.4f} / {runs[2][1][2]:.4f} s (records, not gates);"
+          f" check_every=2 launches {json.dumps(two_launched)}")
+    _require(two.reason == 2, f"check_every=2: reason {two.reason} != 2")
+    _require(math.isfinite(two_linf) and two_linf < 1e-4, f"check_every=2: Linf {two_linf} >= 1e-4")
+    _require(two.outer_iters <= one.outer_iters,
+             f"check_every=2: {two.outer_iters} sweeps, more than check_every=1's {one.outer_iters}")
+    _require(all(i % 2 == 0 for i in two_inner), f"check_every=2: an odd inner count in {two_inner}")
+    _require(two.iters <= one.iters + two.outer_iters,
+             f"check_every=2: {two.iters} inner, more than check_every=1's {one.iters} + 1 a sweep")
+    for name in ("fused7_mvdot", "fused7_descent_rr", "fused7_ascent_rz"):
+        _require(two_launched.get(name, 0) > 0, f"check_every=2 did not launch {name}")
+    del runs, res, hier
+
+    # (d) A @ x is A.mv(x), bit for bit, launching what mv launches
+    star32 = poisson_stencil_device(Grid3D(n, n, n), dtype=torch.float32, device=device)[0]
+    x3 = torch.tensor(np.random.default_rng(SEED + 1).standard_normal((n, n, n), dtype=np.float32), device=device)
+    _, dia, _, _ = poisson_dia_device(Grid3D(n, n, n), device=device)
+    host = assemble_poisson(Grid3D(small, small, small))[0]
+    hyb = HybridDIA.from_csr(host, max_bands=5, dtype=np.float32, device=device)
+    _require(hyb.rem is not None, "the HybridDIA has no ELL remainder")
+    ell = ELL.from_csr(host, dtype=np.float32, device=device)
+    dfdia = DFDIA.from_host_bands(*DIA.host_bands(host), device=device)
+    xs = torch.tensor(np.random.default_rng(SEED + 2).standard_normal(small ** 3), device=device)
+    cases = {
+        "StarStencil3D 3-D": (star32, x3, star32.mv),
+        "StarStencil3D flat": (star32, x3.reshape(-1), star32.mv_flat),
+        "PaddedStar": (op_lo, pad_field(x3), op_lo.mv),
+        "DIA": (dia, x3.reshape(-1), dia.mv),
+        "HybridDIA": (hyb, xs.float(), hyb.mv),
+        "ELL": (ell, xs.float(), ell.mv),
+        "DFDIA": (dfdia, xs, dfdia.mv),
+    }
+    counts["matmul"] = {}
+    for label, (a, xv, mv) in cases.items():
+        kernel = MATMUL_KERNELS[label]
+        kernels.reset_launches()
+        got = a @ xv
+        launched = dict(kernels.LAUNCHES)
+        want = mv(xv)
+        _require(torch.equal(got, want), f"{label}: A @ x differs from A.mv(x)")
+        if kernel is None:
+            _require(not any(launched.values()), f"{label}: A @ x launched {launched}")
+        else:
+            _require(launched[kernel] == 1 and sum(launched.values()) == 1,
+                     f"{label}: A @ x launched {({k: v for k, v in launched.items() if v})}, not {kernel} once")
+            counts["matmul"][kernel] = counts["matmul"].get(kernel, 0) + 1
+        print(f"{label} @ x: bit-equal to mv, launched {kernel or 'no kernel (plain torch, as mv)'}")
+    return counts
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: no CUDA device")
@@ -3010,6 +3184,12 @@ def main() -> None:
     t0 = time.perf_counter()
     rows["dia_mv_window"], launches["dia_mv_window"] = check_general(device)
     print(f"phase 43: {time.perf_counter() - t0:.1f} s")
+
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    names = check_names(device)
+    print(f"phase 44 launches: {json.dumps(names)}")
+    print(f"phase 44: {time.perf_counter() - t0:.1f} s")
 
     print(json.dumps({"kernels": [
         {

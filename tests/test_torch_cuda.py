@@ -1217,3 +1217,69 @@ def test_dist_dia_on_card_launches_k5h_once_an_apply(cuda):
     with pytest.raises(ValueError, match="contiguous float32 vector"):
         dia_mv_window(op_lo.bands[:, 480:].contiguous(), x[480:].contiguous(), op_lo.offsets,
                       x[360:480].cpu(), x[:0], 480, 960)
+
+
+def test_fmg_and_wcycle_on_card_match_cpu(cuda):
+    """fmg (n_v 1 and 2) and wcycle on one padded hierarchy at 18^3, built
+    on the card and copied to the CPU: the card (K1, K10, K12-K16) within
+    1e-4 of max|x| of the twins."""
+    from tpusparse_torch.amg.hierarchy import fmg, gamg_setup, hierarchy_to, wcycle
+
+    op = PaddedStar.from_star(poisson_stencil_device(Grid3D(18, 18, 18), dtype=torch.float32, device=cuda)[0])
+    hier = gamg_setup(op, AMGParams())
+    hier_cpu = hierarchy_to(hier, "cpu")
+    b = pad_field(torch.tensor(np.random.default_rng(2).standard_normal((18, 18, 18), dtype=np.float32)))
+    for fn in (lambda h, v: fmg(h, v, n_v=1), lambda h, v: fmg(h, v, n_v=2), wcycle):
+        kernels.reset_launches()
+        got = fn(hier, b.to(cuda)).cpu()
+        assert kernels.LAUNCHES["fused7_pre2"] > 0 and kernels.LAUNCHES["fused7_prolong"] > 0
+        want = fn(hier_cpu, b)
+        torch.testing.assert_close(got, want, rtol=0, atol=1e-4 * want.abs().max().item())
+
+
+@pytest.mark.parametrize("check_every", [1, 2])
+def test_cg_check_every_on_card_matches_cpu(cuda, check_every):
+    """solve_poisson's padded route with CG testing every check_every
+    iterations (refined_solve's limits) at 18^3: the card's counts within
+    check_every of the CPU's, every inner count a multiple of it."""
+    from tpusparse_torch.amg.hierarchy import cast_coarse_coefs, gamg_setup
+    from tpusparse_torch.bench.driver import build_system, refined_solve
+
+    out = {}
+    for dev in (cuda, torch.device("cpu")):
+        op, b, exact, op_lo = build_system(Grid3D(18, 18, 18), dev)
+        hier = cast_coarse_coefs(gamg_setup(op_lo, AMGParams()))
+        res = refined_solve(op, op_lo, hier, b, rtol=1e-8, atol=1e-12, check_every=check_every)
+        out[dev.type] = (res, (res.x - exact).abs().max().item())
+    (got, linf), (want, linf_cpu) = out["cuda"], out["cpu"]
+    assert got.reason == want.reason == 2 and got.outer_iters == want.outer_iters
+    assert abs(got.iters - want.iters) <= check_every
+    assert linf == pytest.approx(linf_cpu, abs=1e-6)
+
+
+def test_matmul_launches_what_mv_launches(cuda):
+    """A @ x is A.mv(x) bit for bit on the card: K1p (3-D and flat), K1, K5
+    (DIA, HybridDIA's bands), and no kernel for ELL and DFDIA."""
+    from tpusparse_torch.sparse.dia import DFDIA, HybridDIA
+    from tpusparse_torch.sparse.ell import ELL
+
+    star = poisson_stencil_device(Grid3D(13, 11, 9), dtype=torch.float32, device=cuda)[0]
+    x3 = torch.tensor(np.random.default_rng(3).standard_normal((9, 11, 13), dtype=np.float32), device=cuda)
+    host = assemble_poisson(Grid3D(13, 11, 9))[0]
+    xs = torch.tensor(np.random.default_rng(4).standard_normal(host.shape[0]), device=cuda)
+    cases = [
+        (star, x3, star.mv, "star7_mv"),
+        (star, x3.reshape(-1), star.mv_flat, "star7_mv"),
+        (PaddedStar.from_star(star), pad_field(x3), PaddedStar.from_star(star).mv, "star7_mv_padded"),
+        (DIA.from_csr(host, dtype=np.float32, device=cuda), xs.float(), None, "dia_mv"),
+        (HybridDIA.from_csr(host, max_bands=5, dtype=np.float32, device=cuda), xs.float(), None, "dia_mv"),
+        (ELL.from_csr(host, dtype=np.float32, device=cuda), xs.float(), None, None),
+        (DFDIA.from_host_bands(*DIA.host_bands(host), device=cuda), xs, None, None),
+    ]
+    for a, x, mv, kernel in cases:
+        mv = mv or a.mv
+        kernels.reset_launches()
+        got = a @ x
+        launched = {k: v for k, v in kernels.LAUNCHES.items() if v}
+        assert launched == ({kernel: 1} if kernel else {}), (type(a).__name__, launched)
+        assert torch.equal(got, mv(x))

@@ -114,14 +114,12 @@ def test_malformed_values_raise_in_both(argv, err):
         # and banded, -pc_bjacobi_bs with GAMG on aij) are ported, and so
         # are -problem diffusion and -profile (items 11 and 13): ACCEPTED
         # -devices p beside aij, the reference config, -profile and the
-        # plain layout are ported too (queue 12): test_devices_values_are_accepted
-        ["-problem", "diffusion", "-devices", "2"],
-        ["-problem", "diffusion", "-devices", "4", "-mat_type", "aij"],
+        # plain layout are ported too (queue 12): test_devices_values_are_accepted;
+        # -problem diffusion with -devices p: test_diffusion_devices_parse_as_jax
         ["-precision", "tf"],                    # not to port
         # the JAX driver refuses it too, in the words kept here: the sharded
         # general executor (dist/general.py) has no driver route
         ["-mat_type", "aij", "-mat_structure_detect", "0", "-devices", "2"],
-        ["-problem", "diffusion", "-pc_gamg_aggregation", "greedy", "-devices", "2"],
     ],
 )
 def test_unported_values_raise(argv):
@@ -132,6 +130,25 @@ def test_unported_values_raise(argv):
     with warnings.catch_warnings():
         warnings.simplefilter("ignore")
         assert j_load_options(["-config", REF, *argv])  # the JAX package takes them
+
+
+@pytest.mark.parametrize(
+    "argv",
+    [
+        ["-problem", "diffusion", "-devices", "2"],
+        ["-problem", "diffusion", "-devices", "4", "-mat_type", "aij"],
+        ["-problem", "diffusion", "-pc_gamg_aggregation", "greedy", "-devices", "2"],
+    ],
+)
+def test_diffusion_devices_parse_as_jax(argv):
+    """The JAX CLI runs its one-device diffusion driver whatever -devices
+    says; both databases take these argvs into the same fields (the port's
+    CLI warns that -devices is ignored: tests/test_torch_names.py)."""
+    want, got = _both(["-config", REF, *argv])
+    fields = _fields(got)
+    assert fields.pop("device") == "cuda"
+    assert fields == _fields(want)
+    assert (got.problem, got.devices) == ("diffusion", int(argv[argv.index("-devices") + 1]))
 
 
 @pytest.mark.parametrize(

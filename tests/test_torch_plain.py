@@ -189,8 +189,8 @@ def test_cli_routes_match_jax(argv):
         # -mat_structure_detect 0 -pc_bjacobi_bs 4 on aij stood here; item
         # 9.2 runs it (tests/test_torch_unstructured.py).  -problem
         # diffusion, refused as queue 11 before, runs on one device
-        # (tests/test_torch_diffusion.py); several are queue 12
-        (["-problem", "diffusion", "-devices", "2"], "queue 12"),
+        # (tests/test_torch_diffusion.py), with -devices p too, as in the
+        # JAX CLI: test_former_cli_refusals_run
     ],
 )
 def test_cli_refusals_name_their_roadmap_item(argv, match):
@@ -204,10 +204,12 @@ def test_cli_refusals_name_their_roadmap_item(argv, match):
         (["-pc_dtype", "bf16", "-layout", "plain"], "pc_dtype: bf16"),
         (["-pc_dtype", "bf16", "-precision", "f32"], "pc_dtype: bf16"),
         (["-ksp_compute_eigenvalues", "-precision", "f64"], "Iteratively computed eigenvalues"),
+        (["-problem", "diffusion", "-devices", "2"], "problem: diffusion"),
     ],
 )
 def test_former_cli_refusals_run(argv, expect):
     """The values these routes refused until cast_hierarchy and
-    solve/spectrum.py were ported run at 8^3 on the CPU."""
+    solve/spectrum.py were ported, and -problem diffusion with -devices p
+    (the one-device solve, as the JAX CLI runs it), run at 8^3 on the CPU."""
     text, got = _run(main, [*_grid(8), *argv, "-ksp_view", "-device", "cpu"])
     assert got["reason"] == 2 and expect in text

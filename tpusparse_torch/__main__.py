@@ -103,6 +103,9 @@ def _diffusion(opts, device):
         raise ValueError(f"-problem diffusion runs -pc_type gamg (got {opts.pc_type!r})")
     if opts.ksp_monitor or opts.ksp_compute_eigenvalues:
         warnings.warn("-ksp_monitor/-ksp_compute_eigenvalues are not wired to the diffusion driver; ignoring")
+    if opts.devices > 1:
+        # the JAX CLI runs its one-device diffusion driver and drops -devices
+        warnings.warn(f"-devices {opts.devices} is ignored for -problem diffusion: its driver runs on one device")
     return solve_diffusion(
         opts.da_grid_x, opts.da_grid_y, opts.da_grid_z,
         device=device,
@@ -141,9 +144,11 @@ def main(argv: list[str] | None = None) -> int:
     try:
         world, rank = torch.distributed.get_world_size(), torch.distributed.get_rank()
         if opts.f or opts.problem != "poisson" or opts.devices % world:
+            # the file route and the diffusion driver run on one device
             raise ValueError(
                 f"{world} ranks run the Poisson solve split over -devices p, with W | p (got -devices"
-                f" {opts.devices}{', -f' if opts.f else ''}, -problem {opts.problem})"
+                f" {opts.devices}{', -f' if opts.f else ''}, -problem {opts.problem}); -f and -problem"
+                " diffusion run on one device: start them without torchrun"
             )
         return _main(opts, multihost.rank_device(device), rank == 0)
     finally:

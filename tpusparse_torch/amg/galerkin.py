@@ -50,3 +50,16 @@ def galerkin_coarse(fine_op, dinv, transfer, dtype=None) -> VarStencil27:
         for o, off in enumerate(OFFSETS):
             coef[o] = torch.where(mask, shifted_view(yp, off, c_shape), coef[o])
     return VarStencil27(coef=coef)
+
+
+def ptap_scipy(a_csr, p_scipy):
+    """Host oracle: P^T A P by scipy's SpGEMM, as a ``HostCSR`` with sorted
+    columns and the exact zeros of cancellation pruned."""
+    from tpusparse_torch.sparse.csr import HostCSR
+
+    a = a_csr.to_scipy()
+    ac = (p_scipy.T @ (a @ p_scipy)).tocsr()
+    ac.sum_duplicates()
+    ac.sort_indices()
+    ac.eliminate_zeros()
+    return HostCSR.from_scipy(ac)

@@ -17,6 +17,7 @@ The reference's matrix is this class (``DMSetMatType(MATAIJ)`` over a DMDA
 from __future__ import annotations
 
 import dataclasses
+import time
 
 import numpy as np
 import torch
@@ -31,6 +32,7 @@ from tpusparse_torch.amg.hierarchy import (
 from tpusparse_torch.amg.transfer import _agg_matrix
 from tpusparse_torch.solve.cg import np_float
 from tpusparse_torch.sparse.dia import DIA
+from tpusparse_torch.utils.profiling import sync
 
 
 def infer_grid3d(
@@ -147,6 +149,14 @@ def _ax_sizes(s, b):
     return out
 
 
+def block_weight_field(shape, bs, dtype=np.float32) -> np.ndarray:
+    """Coarse-sized host array of 1/sqrt(|block|) (ragged edge blocks
+    included); ``block_weight_field_dev`` builds it on the device."""
+    sz, sy, sx = (_ax_sizes(s, b) for s, b in zip(shape, bs))
+    sizes = sz[:, None, None] * sy[None, :, None] * sx[None, None, :]
+    return (1.0 / np.sqrt(sizes)).astype(dtype)
+
+
 def block_weight_field_dev(shape, bs, dtype=torch.float32, *, device):
     """Coarse-sized field of 1/sqrt(|block|) (ragged edge blocks included):
     the outer product of three per-axis size vectors, in ``dtype``."""
@@ -219,6 +229,11 @@ class GeoTransfer:
     def coarse_shape(self):
         return coarse_dims(self.fine_shape, self.bs)
 
+    @property
+    def n_coarse(self) -> int:
+        c = self.coarse_shape
+        return c[0] * c[1] * c[2]
+
     def _up(self, e_c: torch.Tensor) -> torch.Tensor:
         """T0 e_c, flat -> flat."""
         return _up(self.sz, self.sy, self.sx, e_c)
@@ -236,6 +251,27 @@ class GeoTransfer:
         """r_c = P^T x = T^T (I - omega A D^-1) x   (A symmetric)."""
         s = x - self.omega * fine_op.mv(dinv * x)
         return self._down(self.w * s)
+
+
+def up3(e_c: torch.Tensor, fine_shape, bs) -> torch.Tensor:
+    """T0 e_c: nearest-neighbour upsample (repeat, then crop), flat to
+    flat.  The oracle form of ``GeoTransfer``'s contractions."""
+    nz, ny, nx = fine_shape
+    e3 = e_c.reshape(coarse_dims(fine_shape, bs))
+    for ax, b in enumerate(bs):
+        if b > 1:
+            e3 = torch.repeat_interleave(e3, b, dim=ax)
+    return e3[:nz, :ny, :nx].reshape(-1)
+
+
+def down3(v: torch.Tensor, fine_shape, bs) -> torch.Tensor:
+    """T0^T v: zero-pad to whole blocks, then sum each block, flat to flat.
+    The oracle form of ``GeoTransfer``'s contractions."""
+    nz, ny, nx = fine_shape
+    bz, by, bx = bs
+    czs, cys, cxs = coarse_dims(fine_shape, bs)
+    v3 = torch.nn.functional.pad(v.reshape(nz, ny, nx), (0, cxs * bx - nx, 0, cys * by - ny, 0, czs * bz - nz))
+    return v3.reshape(czs, bz, cys, by, cxs, bx).sum(dim=(1, 3, 5)).reshape(-1)
 
 
 def grid_reach(offsets, shape) -> tuple[int, int, int]:
@@ -322,7 +358,7 @@ def galerkin_probe_geo(fine_op, dinv: torch.Tensor, transfer: GeoTransfer, dtype
     )
 
 
-def gamg_setup_geo(fine_op: DIA, shape, params: AMGParams) -> Hierarchy:
+def gamg_setup_geo(fine_op: DIA, shape, params: AMGParams, timings: dict | None = None) -> Hierarchy:
     """Device-resident geometric GAMG setup from the fine DIA operator and
     its inferred grid shape: aggregation is index arithmetic, transfers are
     contractions, Galerkin products are on-device comb probes and rho is
@@ -331,16 +367,24 @@ def gamg_setup_geo(fine_op: DIA, shape, params: AMGParams) -> Hierarchy:
     Stops coarsening when the level has ``coarse_eq_limit`` rows or fewer,
     at ``max_levels``, or when every block edge is 1.  ``coarse_solve="lu"``
     inverts the coarsest DIA densely (``hierarchy.dense_coarse_inverse``).
+
+    ``timings``: a dict to which the seconds of the sub-phases are added,
+    ``{"aggregate", "galerkin", "rho", "device_put"}`` (the last stays 0:
+    the fine operator comes in on the device).  Only then does the setup
+    wait for the device after each Galerkin product.
     """
     if params.coarse_solve not in ("jacobi", "lu"):
         raise ValueError(f"unknown coarse_solve {params.coarse_solve!r} (jacobi | lu)")
     shape = tuple(shape)
+    tm = {"aggregate": 0.0, "galerkin": 0.0, "rho": 0.0, "device_put": 0.0}
     levels: list[Level] = []
     op = fine_op
     while True:
         n = int(np.prod(shape))
         dinv = 1.0 / op.diagonal()
+        t0 = time.perf_counter()
         rho = (estimate_rho_dinv_a(op, dinv, params.rho_iters) * params.rho_safety).item()
+        tm["rho"] += time.perf_counter() - t0
         bs = geo_block_sizes(shape, params.factor)
         last = (
             n <= params.coarse_eq_limit
@@ -355,10 +399,19 @@ def gamg_setup_geo(fine_op: DIA, shape, params: AMGParams) -> Hierarchy:
             break
         f = np_float(op.dtype)
         omega = float(params.omega_scale / f(rho)) if params.nsmooths == 1 else 0.0
+        t0 = time.perf_counter()
         transfer = GeoTransfer.build(omega, shape, bs, op.dtype, device=dinv.device)
+        tm["aggregate"] += time.perf_counter() - t0
         levels.append(Level(op=op, dinv=dinv, rho=rho, transfer=transfer))
+        t0 = time.perf_counter()
         op = galerkin_probe_geo(op, dinv, transfer)
+        if timings is not None:
+            sync(op.bands.device)
+        tm["galerkin"] += time.perf_counter() - t0
         shape = coarse_dims(shape, bs)
+    if timings is not None:
+        for k, v in tm.items():
+            timings[k] = timings.get(k, 0.0) + v
     return Hierarchy(
         levels=levels,
         damping=float(np_float(levels[0].dinv.dtype)(params.smooth_damping)),

@@ -24,6 +24,7 @@ them in numpy scalars of that dtype, the arithmetic JAX does on 0-d arrays.
 from __future__ import annotations
 
 import dataclasses
+import time
 
 import numpy as np
 import torch
@@ -34,6 +35,7 @@ from tpusparse_torch.solve.bjacobi import BlockJacobi
 from tpusparse_torch.solve.cg import _dot, np_float
 from tpusparse_torch.sparse.padded import PaddedStar, PaddedTransfer, crop_field, pad_field
 from tpusparse_torch.sparse.varstencil import OFFSETS, VarStencil27
+from tpusparse_torch.utils.profiling import sync
 
 
 @dataclasses.dataclass(frozen=True)
@@ -280,8 +282,13 @@ def _bjac(op, params: AMGParams, fine_nx: int):
     return BlockJacobi.from_bands(op.diagonal_field(), bands, bs)
 
 
-def gamg_setup(fine_op, params: AMGParams = AMGParams(), factors_schedule=None) -> Hierarchy:
+def gamg_setup(fine_op, params: AMGParams = AMGParams(), timings: dict | None = None,
+               factors_schedule=None) -> Hierarchy:
     """Build the AMG hierarchy from the fine operator (KSPSetUp parity).
+
+    ``timings``: a dict that receives the seconds of the setup's sub-phases,
+    ``{"rho": s, "galerkin": s}``, summed over the levels.  Only then does
+    the setup wait for the device after each Galerkin product.
 
     ``factors_schedule``: per-level per-axis coarsening factors from
     ``threshold_schedule`` (None: ``params.factor`` on every axis); each
@@ -325,6 +332,7 @@ def gamg_setup(fine_op, params: AMGParams = AMGParams(), factors_schedule=None) 
         )
 
     fine_nx = fine_op.grid_shape[2]
+    tm = {"rho": 0.0, "galerkin": 0.0}
     levels: list[Level] = []
     op = fine_op
     while True:
@@ -338,19 +346,23 @@ def gamg_setup(fine_op, params: AMGParams = AMGParams(), factors_schedule=None) 
         )
         true = getattr(op, "true_shape", None)
         padded = true is not None and tuple(true) != tuple(dinv.shape)
+        t0 = time.perf_counter()
         rho_t = estimate_rho_dinv_a(
             op, dinv, params.rho_iters, true_shape=true if padded else None,
         ) * params.rho_safety
-        rho = rho_t.item()
+        rho = rho_t.item()  # the host read waits for the device
+        tm["rho"] += time.perf_counter() - t0
         bjac = _bjac(op, params, fine_nx)
         rho_lev = rho
         if bjac is not None and not last:
             # the Chebyshev bounds need the spectrum the smoother sees,
             # rho(M_block^-1 A); omega stays D^-1-based (P is smoothed with
             # point Jacobi whatever the level smoother's sub-PC)
+            t0 = time.perf_counter()
             rho_lev = (estimate_rho_dinv_a(
                 op, dinv, params.rho_iters, true_shape=true if padded else None, m_pc=bjac,
             ) * params.rho_safety).item()
+            tm["rho"] += time.perf_counter() - t0
         if last:
             levels.append(Level(
                 op=op, dinv=dinv, rho=rho_lev, transfer=None, bjac=bjac,
@@ -369,7 +381,13 @@ def gamg_setup(fine_op, params: AMGParams = AMGParams(), factors_schedule=None) 
         if isinstance(op, PaddedStar):
             transfer = PaddedTransfer(transfer)
         levels.append(Level(op=op, dinv=dinv, rho=rho_lev, transfer=transfer, bjac=bjac))
+        t0 = time.perf_counter()
         op = galerkin_coarse(op, dinv, transfer)
+        if timings is not None:
+            sync(op.coef.device)
+        tm["galerkin"] += time.perf_counter() - t0
+    if timings is not None:
+        timings.update(tm)
     dt = levels[0].dinv.dtype
     return Hierarchy(
         levels=levels,
@@ -460,6 +478,26 @@ def cast_hierarchy(hier: Hierarchy, dtype: torch.dtype) -> Hierarchy:
         return v
 
     return cast(hier)
+
+
+def hierarchy_to(hier: Hierarchy, device) -> Hierarchy:
+    """A copy of the hierarchy with every tensor on ``device``: the same
+    numbers on another device without a second build (a padded level 0's
+    ``PaddedTransfer`` is rebuilt from its moved ``StructuredTransfer``)."""
+    def move(v):
+        if isinstance(v, torch.Tensor):
+            return v.to(device)
+        if isinstance(v, PaddedTransfer):
+            return PaddedTransfer(move(v.inner))
+        if dataclasses.is_dataclass(v) and not isinstance(v, type):
+            return dataclasses.replace(v, **{
+                f.name: move(getattr(v, f.name)) for f in dataclasses.fields(v) if f.init
+            })
+        if isinstance(v, (list, tuple)):
+            return type(v)(move(e) for e in v)
+        return v
+
+    return move(hier)
 
 
 def _scalar_type(dtype: torch.dtype):
@@ -610,3 +648,32 @@ def coarse_cycle(hier: Hierarchy, r_c: torch.Tensor, level: int, gamma: int = 1)
     for _ in range(gamma - 1):
         e = e + vcycle(hier, r_c - hier.levels[level].op.mv(e), level, gamma)
     return e
+
+
+def wcycle(hier: Hierarchy, b: torch.Tensor) -> torch.Tensor:
+    """W-cycle preconditioner application (``-pc_mg_cycle_type w``)."""
+    return vcycle(hier, b, gamma=2)
+
+
+def fmg(hier: Hierarchy, b: torch.Tensor, n_v: int = 1) -> torch.Tensor:
+    """Full-multigrid pass (FMG, nested iteration: PETSc ``-pc_mg_type
+    full``'s cycle shape): restrict the right-hand side through every level
+    with the transfers' ``restrict``, solve the coarsest problem as the
+    cycle does (dense LU, block Jacobi or point Jacobi), then at each finer
+    level prolong the coarse solution and apply ``n_v`` V-cycles to its
+    residual.  A padded level 0 applies its operator with K1 and cycles on
+    K10-K16.
+
+    With smoothed-aggregation transfers one pass lands near one V-cycle's
+    residual (the JAX package's measurement), so no driver calls it.
+    """
+    bs = [b]
+    for lev in hier.levels[:-1]:
+        bs.append(lev.transfer.restrict(lev.op, lev.dinv, bs[-1]))
+    x = vcycle(hier, bs[-1], level=len(hier.levels) - 1)  # the coarse solve
+    for level in range(len(hier.levels) - 2, -1, -1):
+        lev = hier.levels[level]
+        x = lev.transfer.prolong(lev.op, lev.dinv, x)
+        for _ in range(n_v):
+            x = x + vcycle(hier, bs[level] - lev.op.mv(x), level=level)
+    return x

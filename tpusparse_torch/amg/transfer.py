@@ -134,3 +134,20 @@ class StructuredTransfer:
             fine_op = self.fop
         s = r - self.omega * fine_op.mv(dinv * r)
         return self.tT_apply(s)
+
+    def explicit_p_scipy(self, fine_op_csr, dinv_flat: np.ndarray):
+        """Host oracle: P = (I - omega D^{-1} A) T as a scipy CSR matrix,
+        from the fine operator's ``HostCSR`` and its flat D^{-1}."""
+        import scipy.sparse as sp
+
+        nz, ny, nx = self.fine_shape
+        cz, cy, cx = self.c_shape
+        fz, fy, fx = self.factor
+        k, j, i = np.meshgrid(np.arange(nz), np.arange(ny), np.arange(nx), indexing="ij")
+        agg = (((k // fz) * cy + (j // fy)) * cx + (i // fx)).reshape(-1)
+        tnorm = self.tnorm.detach().cpu().numpy().reshape(-1)
+        n_f = nz * ny * nx
+        t = sp.csr_matrix((tnorm[agg], (np.arange(n_f), agg)), shape=(n_f, cz * cy * cx))
+        a = fine_op_csr.to_scipy()
+        d = sp.diags(np.asarray(dinv_flat))
+        return (t - self.omega * (d @ (a @ t))).tocsr()

@@ -44,6 +44,7 @@ from tpusparse_torch.amg.deviceagg import gamg_setup_banded_device
 from tpusparse_torch.amg.hierarchy import AMGParams, vcycle
 from tpusparse_torch.solve.refine import cg_refined
 from tpusparse_torch.sparse.dia import DIA
+from tpusparse_torch.utils.profiling import sync
 
 SEED = 0
 
@@ -64,16 +65,11 @@ def periodic_bands(n: int, dtype: torch.dtype, device) -> DIA:
     return DIA(bands=bands, offsets=offsets, shape=(n, n))
 
 
-def _sync(device: torch.device) -> None:
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
-
-
 def _setup(d: DIA, params: AMGParams, **kw):
     tm: dict = {}
     t0 = time.perf_counter()
     hier = gamg_setup_banded_device(d, params, timings=tm, **kw)
-    _sync(d.bands.device)
+    sync(d.bands.device)
     return hier, time.perf_counter() - t0, tm
 
 
@@ -84,11 +80,11 @@ def _solve(d64: DIA, hier, rtol: float, maxiter: int = 600) -> dict:
     x_true = torch.randn(d64.shape[0], generator=gen, dtype=torch.float64, device=device)
     b = d64.mv(x_true)
     op32 = hier.levels[0].op
-    _sync(device)
+    sync(device)
     t0 = time.perf_counter()
     res = cg_refined(d64.mv, op32.mv, b, rtol=rtol, atol=0.0, m_lo_mv=lambda r: vcycle(hier, r),
                      inner_maxiter=maxiter)
-    _sync(device)
+    sync(device)
     t_solve = time.perf_counter() - t0
     rel = (torch.linalg.vector_norm(b - d64.mv(res.x)) / torch.linalg.vector_norm(b)).item()
     return {
@@ -163,7 +159,7 @@ def run(n: int, *, device="cuda", rtol: float = 1e-8, penalty: bool = False, ora
         t0 = time.perf_counter()
         h_gre = gamg_setup_unstructured(HostCSR.from_scipy(a.tocsr()), params, dtype=np.float32,
                                         aggregation="greedy", device=device)
-        _sync(device)
+        sync(device)
         t_greedy = time.perf_counter() - t0
         rec["oracle"] = {
             "n": oracle,

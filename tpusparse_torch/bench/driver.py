@@ -146,7 +146,7 @@ from tpusparse_torch.sparse.dia import host_dia_operators
 from tpusparse_torch.sparse.io import load_matrix, read_petsc_objects, save_petsc_vec
 from tpusparse_torch.sparse.padded import PaddedStar, crop_field, pad_field
 from tpusparse_torch.sparse.starlift import star_lift
-from tpusparse_torch.utils.profiling import annotate
+from tpusparse_torch.utils.profiling import annotate, sync
 
 
 @dataclasses.dataclass
@@ -314,17 +314,11 @@ def _pick_ksp(
     return solvers[ksp]
 
 
-def _sync(device: torch.device) -> None:
-    """Wait for the device's queued work before a timer read."""
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
-
-
-def build_system(grid: Grid3D, device):
-    """The manufactured system on ``grid``: the f64 outer operator, ``b``,
-    the exact solution, and the padded f32 operator of the inner solves
-    (also the AMG's home dtype)."""
-    op, b, exact = poisson_stencil_device(grid, dtype=torch.float64, device=device)
+def build_system(grid: Grid3D, device, dtype: torch.dtype = torch.float64):
+    """The manufactured system on ``grid``: the outer operator, ``b`` and
+    the exact solution in ``dtype``, and the padded f32 operator of the
+    inner solves (also the AMG's home dtype)."""
+    op, b, exact = poisson_stencil_device(grid, dtype=dtype, device=device)
     op_lo = PaddedStar.from_star(
         poisson_stencil_device(grid, dtype=torch.float32, device=device)[0]
     )
@@ -497,6 +491,8 @@ def solve_poisson(
     layout: str = "auto",
     pc_dtype: str = "f32",
     mg_cycle: str = "v",
+    dtype: torch.dtype = torch.float64,
+    check_error: bool = True,
     extent: tuple[float, float, float] | None = None,
     structure_detect: bool = True,
     assembly: str = "auto",
@@ -562,7 +558,11 @@ def solve_poisson(
 
     ``precision``: "mixed" (f32 inner solves under f64 defect correction),
     "f64" or "f32" (uniform: one solve in that dtype, always on plain
-    fields).  "tf", the two-float outer, is not to port: it exists because
+    fields).  ``dtype`` is the stencil route's outer operator, ``b`` and
+    exact solution (the defect correction's dtype under "mixed", the
+    solve's otherwise); "f32" makes it float32, and the aij route keeps its
+    own, as in the JAX driver.  ``check_error=False`` skips the Linf
+    against the exact solution and reports NaN.  "tf", the two-float outer, is not to port: it exists because
     the TPU lacks f64.
 
     ``layout`` (stencil, mixed precision): "padded", the padded-resident
@@ -685,6 +685,8 @@ def solve_poisson(
             " without -ksp_monitor; skipping eigenvalue computation"
         )
         eigs = False
+    if precision == "f32":
+        dtype = torch.float32
     lx, ly, lz = extent or (1.0, 1.0, 1.0)
     grid = Grid3D(nx, ny or nx, nz or nx, lx=lx, ly=ly, lz=lz)
     ksp_solve = _pick_ksp(
@@ -695,8 +697,8 @@ def solve_poisson(
     # several ranks: every timer read follows a barrier as well
     barrier = sharded and process_group()[1] > 1
 
-    def sync():
-        _sync(device)
+    def wait():
+        sync(device)
         if barrier:
             torch.distributed.barrier()
 
@@ -704,15 +706,14 @@ def solve_poisson(
     # the transfer einsums are f32 products: keep them out of TF32
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.zeros((), dtype=torch.float32, device=device)  # bring-up, outside the phases
-    sync()
+    wait()
 
     t0 = time.perf_counter()
     with annotate("tpusparse:init"):
         if route == "padded":
-            op, b, exact, op_lo = build_system(grid, device)
+            op, b, exact, op_lo = build_system(grid, device, dtype)
             layout_text = "layout: padded-resident"
         elif route in ("plain", "sharded"):
-            dtype = torch.float32 if precision == "f32" else torch.float64
             op, b, exact = poisson_stencil_device(grid, dtype=dtype, device=device)
             op_lo = (
                 poisson_stencil_device(grid, dtype=torch.float32, device=device)[0]
@@ -725,7 +726,7 @@ def solve_poisson(
             )
             op, op_lo, b, exact, host_a = _assemble_aij(grid, device, precision, on_device)
             layout_text = "mat_type: aij (DIA/HybridDIA containers)"
-        sync()
+        wait()
     t_init = time.perf_counter() - t0
 
     breakdown = {}
@@ -733,7 +734,7 @@ def solve_poisson(
     if lift:
         if warmup:
             star_lift(op_lo, op, grid.shape)
-            sync()
+            wait()
         t0 = time.perf_counter()
         lifted = star_lift(op_lo, op, grid.shape)
         proved = lifted is not None
@@ -750,7 +751,7 @@ def solve_poisson(
                 "mat structure: constant-coefficient star DETECTED (exact proof)"
                 " -> structured executor"
             )
-        sync()
+        wait()
         t_lift = time.perf_counter() - t0
         breakdown["star_lift" if proved else "star_lift_refused"] = t_lift
         if sharded and not proved:
@@ -851,7 +852,7 @@ def solve_poisson(
     host_setup = route == "aij" and pc == "gamg" and not geo_route
     if warmup and not host_setup:
         setup()
-        sync()
+        wait()
     elif warmup and device.type == "cuda":
         # the host setup is not run twice (its cost is host work no cache
         # covers, as the JAX driver reasons); the kernels are built first
@@ -859,7 +860,7 @@ def solve_poisson(
     t0 = time.perf_counter()
     with annotate("tpusparse:setup"):
         pc_state = setup()
-    sync()
+    wait()
     t_pc = time.perf_counter() - t0
     if pc == "gamg":
         breakdown["hierarchy_build"] = t_pc
@@ -880,11 +881,11 @@ def solve_poisson(
     if warmup:
         with split():
             solve()
-        sync()
+        wait()
     t0 = time.perf_counter()
     with annotate("tpusparse:solve"), split():
         res = solve()
-    sync()
+    wait()
     t_solve = time.perf_counter() - t0
     res, recorded = res if (monitor or eigs) else (res, None)
 
@@ -908,8 +909,10 @@ def solve_poisson(
             hierarchy_summary(pc_state[0] if route == "sharded" else pc_state, gamma) if pc == "gamg"
             else f"PC Object: type {pc}",
         ])
-    linf = (res.x - exact).abs().max()
-    linf = (linf if mesh is None else mesh.allreduce(linf, "max")).item()
+    linf = float("nan")
+    if check_error:
+        linf = (res.x - exact).abs().max()
+        linf = (linf if mesh is None else mesh.allreduce(linf, "max")).item()
     return SolveReport(
         nx=grid.nx, ny=grid.ny, nz=grid.nz,
         iters=res.iters,
@@ -988,7 +991,7 @@ def solve_diffusion(
     device = torch.device(device)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.zeros((), dtype=torch.float32, device=device)  # bring-up, outside the phases
-    _sync(device)
+    sync(device)
 
     t0 = time.perf_counter()
     with annotate("tpusparse:init"):
@@ -1005,16 +1008,16 @@ def solve_diffusion(
         ).to(device)
         del kappa, zc, yc, xc
         b = op.mv(exact)
-        _sync(device)
+        sync(device)
     t_init = time.perf_counter() - t0
 
     if warmup:
         gamg_setup(op_lo, params)
-        _sync(device)
+        sync(device)
     t0 = time.perf_counter()
     with annotate("tpusparse:setup"):
         hier = gamg_setup(op_lo, params)
-    _sync(device)
+    sync(device)
     t_setup = time.perf_counter() - t0
 
     def m(r):
@@ -1029,11 +1032,11 @@ def solve_diffusion(
 
     if warmup:
         solve()
-        _sync(device)
+        sync(device)
     t0 = time.perf_counter()
     with annotate("tpusparse:solve"):
         res = solve()
-    _sync(device)
+    sync(device)
     t_solve = time.perf_counter() - t0
     if res.reason < 0:
         raise DivergedError(f"Diverged reason: {res.reason}")
@@ -1115,7 +1118,7 @@ def solve_from_file(
     device = torch.device(device)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.zeros((), dtype=torch.float32, device=device)  # bring-up, outside the phases
-    _sync(device)
+    sync(device)
 
     t0 = time.perf_counter()
     with annotate("tpusparse:init"):
@@ -1145,21 +1148,21 @@ def solve_from_file(
         )
         solver.set_operators(a, device=device, timings=init)
         b = torch.as_tensor(b_host, dtype=torch.float32 if precision == "f32" else torch.float64, device=device)
-        _sync(device)
+        sync(device)
     t_init = time.perf_counter() - t0
 
     t0 = time.perf_counter()
     with annotate("tpusparse:setup"):
         solver.setup()
-    _sync(device)
+    sync(device)
     t_setup = time.perf_counter() - t0
 
     solver.solve(b)  # first-call costs, outside the timed solve
-    _sync(device)
+    sync(device)
     t0 = time.perf_counter()
     with annotate("tpusparse:solve"):
         res = solver.solve(b)
-    _sync(device)
+    sync(device)
     t_solve = time.perf_counter() - t0
     if res.reason < 0:
         raise DivergedError(f"Diverged reason: {res.reason}")

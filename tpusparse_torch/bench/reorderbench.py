@@ -36,11 +36,7 @@ from tpusparse_torch.grid.grid3d import Grid3D
 from tpusparse_torch.grid.poisson import assemble_poisson
 from tpusparse_torch.ksp import KSP
 from tpusparse_torch.sparse.reorder import bandwidth, distinct_diagonals, permute_csr, rcm_permutation
-
-
-def _sync(device: torch.device) -> None:
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
+from tpusparse_torch.utils.profiling import sync
 
 
 def run(n: int = 100, *, pc: str = "gamg", rtol: float = 1e-8, maxiter: int = 20000, seed: int = 0,
@@ -71,22 +67,22 @@ def run(n: int = 100, *, pc: str = "gamg", rtol: float = 1e-8, maxiter: int = 20
     solver = KSP(rtol=rtol, atol=1e-12, maxiter=maxiter, pc_type=pc, precision="mixed")
     t0 = time.perf_counter()
     solver.set_operators(scrambled, device=device)  # runs RCM again: charged to t_init
-    _sync(device)
+    sync(device)
     t_init = time.perf_counter() - t0
     rec["reordered"] = solver._perm is not None
     rec["container"] = type(solver._op_lo).__name__
     t0 = time.perf_counter()
     solver.setup()
-    _sync(device)
+    sync(device)
     t_setup = time.perf_counter() - t0
     rec["container_level0"] = type(solver._op_lo).__name__
     b_dev = torch.as_tensor(bp, device=device)
     solver.solve(b_dev)  # first-call costs, outside the timed solve
-    _sync(device)
+    sync(device)
     before = dict(kernels.LAUNCHES)
     t0 = time.perf_counter()
     res = solver.solve(b_dev)
-    _sync(device)
+    sync(device)
     t_solve = time.perf_counter() - t0
     rec.update(
         iters=res.iters, outer_iters=res.outer_iters, reason=res.reason, resnorm=res.resnorm,
@@ -99,10 +95,10 @@ def run(n: int = 100, *, pc: str = "gamg", rtol: float = 1e-8, maxiter: int = 20
         natural.set_operators(a, device=device)
         b_nat = torch.as_tensor(b, device=device)
         natural.solve(b_nat)
-        _sync(device)
+        sync(device)
         t0 = time.perf_counter()
         r0 = natural.solve(b_nat)
-        _sync(device)
+        sync(device)
         rec["natural_t_solve"] = time.perf_counter() - t0
         rec["natural_iters"] = r0.iters
         rec["natural_outer_iters"] = r0.outer_iters

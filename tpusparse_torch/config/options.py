@@ -10,8 +10,9 @@ policy are the JAX package's, so both packages parse a file into the same
 fields.  Later occurrences win (CLI after file), PETSc's insert order.
 
 The port adds ``-device`` (``cuda`` by default; ``cpu`` runs the kernels'
-plain twins) and refuses, with ``NotImplementedError`` naming the ROADMAP
-item, every value whose route it has not ported yet (``unported``).
+plain twins) and refuses, with ``NotImplementedError``, ``-precision tf``
+(not to port) and what the JAX driver refuses with ``-devices p``
+(``unported``).
 """
 
 from __future__ import annotations
@@ -120,7 +121,7 @@ class Options:
         degrades to the nearest supported value with a warning where the
         substitution keeps the solve's meaning; values that would change
         what is solved (-ksp_type, -precision, -mat_type) raise.  Then
-        ``unported`` raises for the values the port has no route for.
+        ``unported`` raises for the values the port does not run.
         """
         def degrade(field: str, supported: tuple, to: str):
             val = getattr(self, field)
@@ -186,9 +187,10 @@ class Options:
         return self
 
     def unported(self) -> None:
-        """Raise ``NotImplementedError`` for the first value this port has
-        no route for, naming the ROADMAP item that brings it, and for
-        ``-precision tf``, which is not to port."""
+        """Raise ``NotImplementedError`` for ``-precision tf``, which is not
+        to port, and for what the JAX driver refuses with ``-devices p``, in
+        its words.  ``-problem diffusion`` runs on one device whatever
+        ``-devices`` says, as the JAX CLI runs it (the CLI warns)."""
         if self.precision == "tf":
             raise NotImplementedError(
                 "-precision tf (the two-float outer) is not to port: it exists"
@@ -196,22 +198,14 @@ class Options:
             )
         # -devices p runs every route the JAX driver runs with n_devices > 1
         # (dist/); it refuses what the JAX driver refuses, in its words
-        sharded = None if self.devices <= 1 else sharded_route_refusal(
+        if self.devices <= 1 or self.f or self.problem == "diffusion":
+            return
+        sharded = sharded_route_refusal(
             mat_type=self.mat_type, pc=self.pc_type, structure_detect=bool(self.mat_structure_detect),
             aggregation=self.pc_gamg_aggregation,
         )
-        if sharded is not None and not self.f:
+        if sharded is not None:
             raise NotImplementedError(sharded)
-        refused = (
-            # the diffusion driver is single-device (JAX's ignores -devices)
-            (self.problem == "diffusion" and self.devices > 1, f"-problem diffusion -devices {self.devices}",
-             "queue 12"),
-        )
-        for cond, what, item in refused:
-            if cond:
-                raise NotImplementedError(
-                    f"{what} is not ported to tpusparse_torch yet (ROADMAP {item})"
-                )
 
 
 KSP_TYPES = (

@@ -1,7 +1,9 @@
 // The host setup engine of the general-matrix GAMG route: Vanek greedy
 // aggregation, CSR SpGEMM and CSR transpose (the Galerkin product
 // A_c = P^T (A P), PETSc's MatPtAP), and the reverse Cuthill-McKee
-// ordering that bounds the bandwidth of a matrix of any pattern.  Setup work runs once per matrix, on
+// ordering that bounds the bandwidth of a matrix of any pattern; and,
+// beside it, the f64 CSR matvec and the 7-point Poisson assembly of the
+// JAX package's native library (tpusparse/native).  Setup work runs once per matrix, on
 // the host, as PETSc runs it inside KSPSetUp; the solve never calls it.
 //
 // The decisions are those of tpusparse/amg/unstructured.py's greedy
@@ -202,6 +204,52 @@ void tps_rcm_order(int64_t n, const int64_t* indptr, const int32_t* indices,
     order.insert(order.end(), queue.begin(), queue.end());
   }
   for (int64_t i = 0; i < n; ++i) perm[i] = order[n - 1 - i];
+}
+
+// y = A x in f64: each row's dot over its stored entries, in column order
+// (PETSc's MatMult_SeqAIJ).
+void tps_csr_spmv_f64(int64_t n_rows, const int64_t* indptr,
+                      const int32_t* indices, const double* data,
+                      const double* x, double* y) {
+  for (int64_t i = 0; i < n_rows; ++i) {
+    double sum = 0.0;
+    for (int64_t p = indptr[i]; p < indptr[i + 1]; ++p)
+      sum += data[p] * x[indices[p]];
+    y[i] = sum;
+  }
+}
+
+// The 7-point Laplacian on an nx x ny x nz grid with spacings dx, dy, dz,
+// all-Neumann by dropping the legs that leave the grid (their weight
+// leaves the diagonal too), natural (k, j, i) order, columns sorted.
+// indptr is int64[n + 1]; indices and data hold 7 n entries, of which
+// indptr[n] are written.
+void tps_assemble_poisson7(int64_t nx, int64_t ny, int64_t nz, double dx,
+                           double dy, double dz, int64_t* indptr,
+                           int32_t* indices, double* data) {
+  const double ax = 1.0 / (dx * dx), ay = 1.0 / (dy * dy),
+               az = 1.0 / (dz * dz);
+  int64_t p = 0;
+  indptr[0] = 0;
+  for (int64_t k = 0; k < nz; ++k) {
+    for (int64_t j = 0; j < ny; ++j) {
+      for (int64_t i = 0; i < nx; ++i) {
+        const int64_t row = (k * ny + j) * nx + i;
+        double diag = 0.0;
+        // the legs below the diagonal, the diagonal, the legs above it
+        if (k > 0) { indices[p] = static_cast<int32_t>(row - ny * nx); data[p++] = az; diag -= az; }
+        if (j > 0) { indices[p] = static_cast<int32_t>(row - nx); data[p++] = ay; diag -= ay; }
+        if (i > 0) { indices[p] = static_cast<int32_t>(row - 1); data[p++] = ax; diag -= ax; }
+        const int64_t dslot = p++;
+        indices[dslot] = static_cast<int32_t>(row);
+        if (i < nx - 1) { indices[p] = static_cast<int32_t>(row + 1); data[p++] = ax; diag -= ax; }
+        if (j < ny - 1) { indices[p] = static_cast<int32_t>(row + nx); data[p++] = ay; diag -= ay; }
+        if (k < nz - 1) { indices[p] = static_cast<int32_t>(row + ny * nx); data[p++] = az; diag -= az; }
+        data[dslot] = diag;
+        indptr[row + 1] = p;
+      }
+    }
+  }
 }
 
 }  // extern "C"

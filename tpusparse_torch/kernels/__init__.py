@@ -40,3 +40,10 @@ LAUNCHES = {
 def reset_launches() -> None:
     for name in LAUNCHES:
         LAUNCHES[name] = 0
+
+
+# the JAX package's exports of this package (after LAUNCHES, which the
+# kernel modules import from here)
+from tpusparse_torch.kernels.stencil7 import padded_shape, star7_mv_padded  # noqa: E402
+
+__all__ = ["LAUNCHES", "padded_shape", "reset_launches", "star7_mv_padded"]

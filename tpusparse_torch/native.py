@@ -1,11 +1,13 @@
 """ctypes bindings of the host setup engine, ``csrc/native.cpp`` — the port's
 own copy of the JAX package's native engine (greedy aggregation, CSR
 SpGEMM and transpose: the Galerkin product P^T A P of the greedy GAMG
-route; the reverse Cuthill-McKee order of ``sparse/reorder.py``).
+route; the reverse Cuthill-McKee order of ``sparse/reorder.py``; the f64
+CSR matvec and the 7-point Poisson assembly).
 
 The library is built with g++ at first use into ``csrc/build/``
 (``kernels/_build.py::build_native``).  There is no fallback: when it
-cannot be built, the setup raises, since the pure-Python twins
+cannot be built, every entry point but ``available`` raises (the JAX
+package falls back to numpy or returns None), since the pure-Python twins
 (``amg/unstructured.py::_greedy_aggregate_py``, a scipy product) take
 minutes at a million rows.  The twins stay for the tests.  RCM has no
 twin: scipy's ``reverse_cuthill_mckee`` gives another order, and the
@@ -47,8 +49,23 @@ def lib() -> ctypes.CDLL:
         lib_.tps_csr_transpose.restype = None
         lib_.tps_rcm_order.argtypes = [i64, _I64P, _I32P, _I64P]
         lib_.tps_rcm_order.restype = None
+        lib_.tps_csr_spmv_f64.argtypes = [i64, _I64P, _I32P, _F64P, _F64P, _F64P]
+        lib_.tps_csr_spmv_f64.restype = None
+        f64 = ctypes.c_double
+        lib_.tps_assemble_poisson7.argtypes = [i64, i64, i64, f64, f64, f64, _I64P, _I32P, _F64P]
+        lib_.tps_assemble_poisson7.restype = None
         _lib = lib_
     return _lib
+
+
+def available() -> bool:
+    """Whether the engine builds and loads here (it is built on this call
+    if it was not yet)."""
+    try:
+        lib()
+    except (RuntimeError, OSError):
+        return False
+    return True
 
 
 def _arrays(a: HostCSR):
@@ -57,6 +74,29 @@ def _arrays(a: HostCSR):
         np.ascontiguousarray(a.indices, np.int32),
         np.ascontiguousarray(a.data, np.float64),
     )
+
+
+def spmv(a: HostCSR, x: np.ndarray) -> np.ndarray:
+    """y = A @ x in f64."""
+    if x.shape != (a.shape[1],):
+        raise ValueError(f"x shape {x.shape} != ({a.shape[1]},)")
+    ip, ix, dt = _arrays(a)
+    y = np.empty(a.n_rows, np.float64)
+    lib().tps_csr_spmv_f64(a.n_rows, ip, ix, dt, np.ascontiguousarray(x, np.float64), y)
+    return y
+
+
+def assemble_poisson7(nx: int, ny: int, nz: int, dx: float, dy: float, dz: float) -> HostCSR:
+    """The 7-point all-Neumann Laplacian on an ``nx`` x ``ny`` x ``nz`` grid
+    with spacings ``dx``, ``dy``, ``dz`` (the reference's generateA,
+    ``src/helper.cpp:161-246``), natural order, columns sorted."""
+    n = nx * ny * nz
+    indptr = np.empty(n + 1, np.int64)
+    indices = np.empty(7 * n, np.int32)
+    data = np.empty(7 * n, np.float64)
+    lib().tps_assemble_poisson7(nx, ny, nz, dx, dy, dz, indptr, indices, data)
+    nnz = int(indptr[n])
+    return HostCSR(indptr=indptr, indices=indices[:nnz], data=data[:nnz], shape=(n, n))
 
 
 def spgemm(a: HostCSR, b: HostCSR) -> HostCSR:

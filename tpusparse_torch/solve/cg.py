@@ -7,7 +7,7 @@ iteration-limit, divergence-tolerance and NaN failure.
 
 The JAX package runs the loop as one ``lax.while_loop``; here it is a
 Python loop over device tensors that reads one scalar (the residual norm)
-to the host per iteration for the convergence test.  The scalar algebra of
+to the host per convergence test, once every ``check_every`` iterations.  The scalar algebra of
 the test is done in numpy scalars of ``b``'s dtype, as JAX does it on 0-d
 arrays.  The operator and preconditioner come in as callables, including
 the fused forms ``a_mv_dot`` (``PaddedStar.mv_dot``) and ``m_mv_dots``
@@ -111,7 +111,8 @@ def norm_h(v: torch.Tensor, f):
     return f(torch.sqrt(_dot(v, v)).item())
 
 
-def _check_args(*, fused, x0, state0, return_state, history, spectrum, a_mv_dot, m_mv_dots):
+def _check_args(*, fused, x0, state0, return_state, history, spectrum, a_mv_dot, m_mv_dots,
+                check_every=1):
     """JAX's incompatibility rules between ``cg``'s arguments
     (``tpusparse/solve/cg.py:172-205``)."""
     if history and state0 is not None:
@@ -126,6 +127,8 @@ def _check_args(*, fused, x0, state0, return_state, history, spectrum, a_mv_dot,
             "spectrum=True is incompatible with history/return_state/state0"
             " (each changes what the extra return slot carries)"
         )
+    if check_every < 1:
+        raise ValueError(f"check_every must be >= 1, got {check_every}")
     if fused and (
         x0 is not None or state0 is not None or return_state or history or spectrum
         or a_mv_dot is not None or m_mv_dots is not None
@@ -134,6 +137,12 @@ def _check_args(*, fused, x0, state0, return_state, history, spectrum, a_mv_dot,
             "the full-fusion CG body needs a zero initial guess and is"
             " incompatible with state0/return_state/history/spectrum/"
             "a_mv_dot/m_mv_dots"
+        )
+    if check_every > 1 and (history or spectrum):
+        raise ValueError(
+            "check_every > 1 is incompatible with history/spectrum (the"
+            " per-iteration trace arrays are sized by maxiter, which an"
+            " unchecked sub-iteration may overrun)"
         )
 
 
@@ -151,6 +160,7 @@ def cg(
     history: bool = False,
     a_mv_dot: Callable | None = None,
     m_mv_dots: Callable | None = None,
+    check_every: int = 1,
     spectrum: bool = False,
     ab_fused: Callable | None = None,
     m_fused: Callable | None = None,
@@ -160,7 +170,7 @@ def cg(
     """Solve A x = b with (preconditioned) CG.
 
     Convergence: ||r||_2 <= max(rtol*||b||_2, atol), checked every
-    iteration; ||r||_2 >= divtol*||b||_2 reports DIVERGED_DTOL (divtol <= 0
+    ``check_every`` iterations; ||r||_2 >= divtol*||b||_2 reports DIVERGED_DTOL (divtol <= 0
     disables it).  ``a_mv_dot(p) -> (A p, <p, A p>)`` replaces the apply and
     the alpha-denominator dot; ``m_mv_dots(r) -> (z, <r, z>, <r, r>)``
     replaces the preconditioner and both residual reductions (and overrides
@@ -181,6 +191,13 @@ def cg(
     residual test: run ``maxiter`` iterations and report CONVERGED_ITS, or
     DIVERGED_NANORINF on a non-finite norm; PETSc KSP_NORM_NONE).  As in the
     JAX package, the full-fusion body keeps ||r||_2 under "preconditioned".
+
+    ``check_every`` runs that many iterations between convergence tests,
+    in either body (PETSc tests every iteration, the default 1), so the
+    host reads the residual norm once a block.  The solve may then run up
+    to ``check_every - 1`` iterations past the tolerance (extra CG
+    iterations only lower the residual) and past ``maxiter`` by as many.
+    It takes neither ``history`` nor ``spectrum``.
 
     Extra results, as in the JAX package (one at a time):
 
@@ -205,7 +222,7 @@ def cg(
         raise ValueError(f"unknown norm_type {norm_type!r}")
     _check_args(
         fused=fused, x0=x0, state0=state0, return_state=return_state, history=history,
-        spectrum=spectrum, a_mv_dot=a_mv_dot, m_mv_dots=m_mv_dots,
+        spectrum=spectrum, a_mv_dot=a_mv_dot, m_mv_dots=m_mv_dots, check_every=check_every,
     )
     if m_mv is None:
         m_mv = lambda r: r  # noqa: E731
@@ -223,7 +240,7 @@ def cg(
         classify = convergence_test(f, bnorm, rtol, atol, divtol, maxiter)
     precond_norm = norm_type == "preconditioned"
     if fused:
-        return _cg_fused(ab_fused, m_fused, b, x0, f, bnorm, classify)
+        return _cg_fused(ab_fused, m_fused, b, x0, f, bnorm, classify, check_every)
 
     if state0 is None:
         x = x0
@@ -245,30 +262,31 @@ def cg(
     norms = new_history(maxiter, rnorm_h) if history else None
     scalars = [] if spectrum else None
     while reason == ConvergedReason.ITERATING:
-        if a_mv_dot is not None:
-            ap, pap = a_mv_dot(p)
-            alpha = rz / pap.to(rz.dtype)
-        else:
-            ap = a_mv(p)
-            alpha = rz / _dot(p, ap)
-        x = x + alpha * p
-        r = r - alpha * ap
-        if m_mv_dots is not None:
-            z, rz_new, rr = m_mv_dots(r)
-            rnorm = torch.sqrt(rr)
-        else:
-            z = m_mv(r)
-            rz_new = _dot(r, z)
-            rnorm = torch.sqrt(_dot(r, r))
-        if precond_norm:
-            rnorm = torch.sqrt(torch.abs(rz_new))
-        beta = rz_new / rz
-        p = z + beta * p
-        rz = rz_new
-        it += 1
-        if spectrum:
-            scalars.append(torch.stack([alpha, beta]).to(torch.float64))
-        rnorm_h = f(rnorm.item())  # the one host read per iteration
+        for _ in range(check_every):
+            if a_mv_dot is not None:
+                ap, pap = a_mv_dot(p)
+                alpha = rz / pap.to(rz.dtype)
+            else:
+                ap = a_mv(p)
+                alpha = rz / _dot(p, ap)
+            x = x + alpha * p
+            r = r - alpha * ap
+            if m_mv_dots is not None:
+                z, rz_new, rr = m_mv_dots(r)
+                rnorm = torch.sqrt(rr)
+            else:
+                z = m_mv(r)
+                rz_new = _dot(r, z)
+                rnorm = torch.sqrt(_dot(r, r))
+            if precond_norm:
+                rnorm = torch.sqrt(torch.abs(rz_new))
+            beta = rz_new / rz
+            p = z + beta * p
+            rz = rz_new
+            it += 1
+            if spectrum:
+                scalars.append(torch.stack([alpha, beta]).to(torch.float64))
+        rnorm_h = f(rnorm.item())  # the one host read per convergence test
         if history:
             norms[it] = rnorm_h
         reason = classify(rnorm_h, it)
@@ -288,10 +306,11 @@ def cg(
     return result
 
 
-def _cg_fused(ab_fused, m_fused, b, x, f, bnorm, classify) -> CGResult:
+def _cg_fused(ab_fused, m_fused, b, x, f, bnorm, classify, check_every) -> CGResult:
     """The full-fusion body of ``cg`` from the zero guess ``x``: the state
     carries (alpha_prev, beta), so the next trip's ``ab_fused`` retires the
-    deferred x update and forms p = z + beta p."""
+    deferred x update and forms p = z + beta p; ``check_every`` trips run
+    between convergence tests."""
     zero = torch.zeros((), dtype=b.dtype, device=b.device)
     z, r, rz, rr = m_fused(b, b, zero)  # r0 = b - 0 * b = b
     p, alpha_prev, beta = z, zero, zero
@@ -299,13 +318,14 @@ def _cg_fused(ab_fused, m_fused, b, x, f, bnorm, classify) -> CGResult:
     rnorm_h = f(torch.sqrt(rr).item())
     reason = classify(rnorm_h, it)
     while reason == ConvergedReason.ITERATING:
-        ap, p, x, pap = ab_fused(z, p, x, alpha_prev, beta)
-        alpha = rz / pap.to(rz.dtype)
-        z, r, rz_new, rr = m_fused(r, ap, alpha)
-        beta = rz_new / rz
-        rz, alpha_prev = rz_new, alpha
-        it += 1
-        rnorm_h = f(torch.sqrt(rr).item())  # the one host read per iteration
+        for _ in range(check_every):
+            ap, p, x, pap = ab_fused(z, p, x, alpha_prev, beta)
+            alpha = rz / pap.to(rz.dtype)
+            z, r, rz_new, rr = m_fused(r, ap, alpha)
+            beta = rz_new / rz
+            rz, alpha_prev = rz_new, alpha
+            it += 1
+        rnorm_h = f(torch.sqrt(rr).item())  # the one host read per convergence test
         reason = classify(rnorm_h, it)
     # retire the last deferred x update; a zero-trip exit adds 0 * z0
     x = x + alpha_prev * p

@@ -41,8 +41,13 @@ class RefinedResult:
     bnorm: float
 
     def converged(self) -> bool:
-        """True for any positive reason — INCLUDING ``CONVERGED_STALLED``."""
+        """True for any positive reason — INCLUDING ``CONVERGED_STALLED``
+        (the attainable residual floor was reached before rtol): callers
+        that need rtol or atol met also check ``stalled()``."""
         return self.reason > 0
+
+    def stalled(self) -> bool:
+        return self.reason == ConvergedReason.CONVERGED_STALLED
 
 
 def _norm(r: torch.Tensor) -> float:
@@ -68,6 +73,7 @@ def cg_refined(
     a_lo_mv_dot: Callable | None = None,
     ab_fused: Callable | None = None,
     m_fused: Callable | None = None,
+    check_every: int = 1,
     lo_dtype: torch.dtype = torch.float32,
     encode: Callable | None = None,
     decode: Callable | None = None,
@@ -82,7 +88,8 @@ def cg_refined(
     and the preconditioner in ``lo_dtype``.  The full-fusion pair
     ``ab_fused``/``m_fused`` (CG only, ``cg``'s arguments of those names)
     overrides ``m_lo_mv_dots`` and suppresses ``a_lo_mv_dot``, as in the
-    JAX package.  ``encode``/``decode`` translate
+    JAX package.  ``check_every`` goes to the inner solver when it is not 1
+    (``cg``'s).  ``encode``/``decode`` translate
     between the outer layout and the inner solver's (the padded-resident
     layout).  ``solver`` is the inner Krylov method (``cg``'s interface).
     An inner solve that stops at ``inner_maxiter`` is not an error: its
@@ -103,6 +110,8 @@ def cg_refined(
         fused["m_mv_dots"] = m_lo_mv_dots
     if a_lo_mv_dot is not None and ab_fused is None:
         fused["a_mv_dot"] = a_lo_mv_dot
+    if check_every != 1:
+        fused["check_every"] = check_every
 
     def inner(r_hi, rnorm):
         r_lo = (r_hi / rnorm).to(lo_dtype)

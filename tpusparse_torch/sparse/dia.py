@@ -125,6 +125,9 @@ class DIA:
         kernel = dia_mv if x.dim() == 1 else dia_mv_batched
         return kernel(self.bands, x.contiguous(), self.offsets)
 
+    def __matmul__(self, x: torch.Tensor) -> torch.Tensor:
+        return self.mv(x)
+
     def mm(self, x: torch.Tensor) -> torch.Tensor:
         """Y = A @ X for dense X of shape (n_cols, j), in plain torch."""
         n = self.n_rows
@@ -220,6 +223,9 @@ class HybridDIA:
         if self.rem is not None:
             y = y + self.rem.mv(x)
         return y
+
+    def __matmul__(self, x: torch.Tensor) -> torch.Tensor:
+        return self.mv(x)
 
     def diagonal(self) -> torch.Tensor:
         return self.dia.diagonal()  # the main diagonal is always a band
@@ -322,6 +328,9 @@ class DFDIA:
             for k, o in enumerate(self.offsets):
                 y = y + self.lo[k].to(dt) * _shift(x, o, n)
         return y
+
+    def __matmul__(self, x: torch.Tensor) -> torch.Tensor:
+        return self.mv(x)
 
     def diagonal(self) -> torch.Tensor:
         if 0 not in self.offsets:

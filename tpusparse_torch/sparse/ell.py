@@ -123,6 +123,9 @@ class ELL:
         (k, n_cols): ``width`` row gathers, a product, a sum over width."""
         return (self.vals * x[..., self.cols]).sum(dim=-2)
 
+    def __matmul__(self, x: torch.Tensor) -> torch.Tensor:
+        return self.mv(x)
+
     def mm(self, x: torch.Tensor) -> torch.Tensor:
         """Y = A @ X for a dense block X of shape (n_cols, k)."""
         return torch.einsum("wr,wrk->rk", self.vals, x[self.cols])

@@ -24,6 +24,7 @@ from __future__ import annotations
 
 import dataclasses
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -84,6 +85,11 @@ class PaddedStar:
         return self.true_shape
 
     @property
+    def shape(self) -> tuple[int, int]:
+        n = int(np.prod(self.true_shape))
+        return (n, n)
+
+    @property
     def dtype(self) -> torch.dtype:
         return self.diag.dtype
 
@@ -97,6 +103,9 @@ class PaddedStar:
             self.diag, self.cx, self.cy, self.cz, x_p, self.true_shape,
             self.pinned,
         )
+
+    def __matmul__(self, x_p: torch.Tensor) -> torch.Tensor:
+        return self.mv(x_p)
 
     def mv_dot(self, x_p: torch.Tensor):
         """(A @ x, <x, A x>) in one launch (K2): the CG alpha denominator."""
@@ -174,6 +183,10 @@ class PaddedTransfer:
     @property
     def omega(self) -> float:
         return self.inner.omega
+
+    @property
+    def tnorm(self) -> torch.Tensor:
+        return self.inner.tnorm
 
     @property
     def flegs(self):

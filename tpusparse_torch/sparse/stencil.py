@@ -27,6 +27,7 @@ from __future__ import annotations
 
 import dataclasses
 
+import numpy as np
 import torch
 
 from tpusparse_torch.kernels.stencil7 import star7_mv, star7_mv_batched, star7_mv_torch
@@ -48,6 +49,11 @@ class StarStencil3D:
     pinned: bool
 
     @property
+    def shape(self) -> tuple[int, int]:
+        n = int(np.prod(self.grid_shape))
+        return (n, n)
+
+    @property
     def grid_shape(self) -> tuple[int, int, int]:
         return tuple(self.diag.shape)
 
@@ -64,6 +70,16 @@ class StarStencil3D:
             mv = star7_mv if x.dim() == 3 else star7_mv_batched
             return mv(self.diag, self.cx, self.cy, self.cz, x.contiguous(), self.pinned)
         return star7_mv_torch(self.diag, self.cx, self.cy, self.cz, x, self.pinned)
+
+    def mv_flat(self, x: torch.Tensor) -> torch.Tensor:
+        """y = A @ x on the flat natural-ordering vector view."""
+        return self.mv(x.reshape(self.diag.shape)).reshape(-1)
+
+    def __matmul__(self, x: torch.Tensor) -> torch.Tensor:
+        return self.mv(x) if x.dim() == 3 else self.mv_flat(x)
+
+    def diagonal(self) -> torch.Tensor:
+        return self.diag.reshape(-1)
 
     def diagonal_field(self) -> torch.Tensor:
         return self.diag

@@ -130,6 +130,29 @@ class VarStencil27:
             out[o] = out[o] + f if o in out else f
         return out
 
+    @classmethod
+    def from_csr(cls, csr, grid_shape: tuple[int, int, int], *, device) -> "VarStencil27":
+        """Bin a host CSR matrix on ``grid_shape`` into the 27 offset planes,
+        on ``device``.  Raises if an entry lies outside the 27-point
+        neighbourhood."""
+        nz, ny, nx = grid_shape
+        n = nz * ny * nx
+        if tuple(csr.shape) != (n, n):
+            raise ValueError(f"csr shape {csr.shape} != grid {grid_shape}")
+        rows = np.repeat(np.arange(n, dtype=np.int64), csr.row_nnz())
+        cols = csr.indices.astype(np.int64)
+        d = np.stack([
+            cols // (ny * nx) - rows // (ny * nx),
+            (cols // nx) % ny - (rows // nx) % ny,
+            cols % nx - rows % nx,
+        ])
+        if np.any(np.abs(d) > 1):
+            raise ValueError(f"entries beyond 27-point neighborhood (max |off|={np.abs(d).max()})")
+        o = (d[0] + 1) * 9 + (d[1] + 1) * 3 + (d[2] + 1)
+        coef = np.zeros((27, n), dtype=csr.data.dtype)
+        coef[o, rows] = csr.data
+        return cls(coef=torch.as_tensor(coef.reshape(27, nz, ny, nx), device=device))
+
     def to_csr(self):
         """The matrix as a host ``HostCSR`` (zero coefficients and those
         whose target leaves the grid dropped; bf16 widened to f32), for

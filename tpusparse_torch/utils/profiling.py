@@ -39,6 +39,13 @@ def trace(logdir: str | pathlib.Path | None):
         yield logdir
 
 
+def sync(device: torch.device) -> None:
+    """Wait for the device's queued work before a timer read (a no-op on
+    the CPU)."""
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
 def annotate(name: str):
     """A named sub-region inside a trace (``record_function``), for
     phase-level attribution; cheap when no trace is recording."""
