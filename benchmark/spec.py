@@ -1,0 +1,81 @@
+"""Finding a cell's pieces by the names ``BENCHMARK.json`` gives them.
+
+Every lookup takes the checkout's root, so a test can point the harness
+at a copy that holds added files.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import importlib.util
+import json
+from pathlib import Path
+
+REPO = Path(__file__).resolve().parent.parent
+
+
+@dataclasses.dataclass
+class Cell:
+    """One entry of ``workloads`` with the files it names."""
+
+    name: str
+    chips: int
+    config: dict            # configs/<config>.json
+    traffic: dict           # traffic/<traffic>.json
+    end_to_end: list[dict]  # the metric entries this cell reports with --trace 0
+    per_layer: list[dict]   # ... and with --trace 1
+    root: Path
+
+
+def _reports(metric: dict, workload: str) -> bool:
+    return "workloads" not in metric or workload in metric["workloads"]
+
+
+def load_cell(workload: str, root: Path = REPO) -> Cell:
+    """The cell named ``workload`` in ``root``/BENCHMARK.json; raise
+    ``KeyError`` when it is not there and ``FileNotFoundError`` when a file
+    it names is missing."""
+    bench = json.loads((root / "BENCHMARK.json").read_text())
+    cells = {c["name"]: c for c in bench["workloads"]}
+    if workload not in cells:
+        raise KeyError(f"no workload {workload!r} in BENCHMARK.json (have {sorted(cells)})")
+    entry = cells[workload]
+    configs = {c["name"]: c for c in bench["configs"]}
+    config = json.loads((root / configs[entry["config"]]["file"]).read_text())
+    traffic = json.loads((root / "benchmark" / "traffic" / f"{entry['traffic']}.json").read_text())
+    return Cell(
+        name=workload,
+        chips=int(entry["chips"]),
+        config=config,
+        traffic=traffic,
+        end_to_end=[m for m in bench["end_to_end"] if _reports(m, workload)],
+        per_layer=[m for m in bench["per_layer"] if _reports(m, workload)],
+        root=root,
+    )
+
+
+def load_reader(metric: str, root: Path = REPO):
+    """The ``read(run)`` function of ``benchmark/metrics/<metric>.py``."""
+    path = root / "benchmark" / "metrics" / f"{metric}.py"
+    spec = importlib.util.spec_from_file_location(f"benchmark_metric_{metric.replace('.', '_')}", path)
+    if spec is None or not path.exists():
+        raise FileNotFoundError(f"no reader for metric {metric!r} at {path}")
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module.read
+
+
+def load_kernel_models(root: Path = REPO) -> list[dict]:
+    """Every ``benchmark/kernel_models/*.json``, each with its file's stem
+    as ``name``."""
+    models = []
+    for path in sorted((root / "benchmark" / "kernel_models").glob("*.json")):
+        model = json.loads(path.read_text())
+        model["name"] = path.stem
+        models.append(model)
+    return models
+
+
+def load_peaks(root: Path = REPO) -> dict:
+    """The table of published peaks, by the name the card reports."""
+    return json.loads((root / "benchmark" / "peaks.json").read_text())
