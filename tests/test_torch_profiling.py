@@ -1,6 +1,7 @@
 """``-profile`` on ``torch.profiler`` (``tpusparse_torch/utils/profiling.py``):
 a CPU solve through the CLI writes one Chrome trace into the directory,
-and the trace names the drivers' annotated phases; the context managers
+and the trace names the drivers' annotated phases and the solve path's
+level and read spans; the context managers
 are no-ops without a directory, and ``Stopwatch`` times laps as the JAX
 package's does."""
 
@@ -15,6 +16,7 @@ from tpusparse_torch.__main__ import main
 from tpusparse_torch.utils.profiling import Stopwatch, annotate, trace
 
 PHASES = ("tpusparse:init", "tpusparse:setup", "tpusparse:solve")
+SOLVE_SPANS = ("tpusparse:level0", "tpusparse:read")  # inside the solve: a cycle, a host read
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -44,6 +46,7 @@ def test_profile_writes_a_trace_naming_the_phases(tmp_path, capsys, argv):
     assert "Number of iterations" in capsys.readouterr().out
     names = _names(logdir)
     assert set(PHASES) <= names
+    assert set(SOLVE_SPANS) <= names
     assert "aten::mul" in names  # the operators inside the phases
 
 

@@ -23,8 +23,14 @@ orders its matrix (``KSP``).  ``-problem diffusion`` solves the
 variable-coefficient diffusion problem (``bench/driver.py::
 solve_diffusion``; CG + GAMG only, ``-diffusion_contrast``).
 ``-profile <dir>`` writes a ``torch.profiler`` trace of the solve into
-``<dir>`` (``utils/profiling.py``).  ``-device cuda`` (the default) needs
-a CUDA device; ``-device cpu`` runs every kernel's plain twin on the CPU.
+``<dir>`` (``utils/profiling.py``), with these spans on the host's
+timeline beside the kernels: ``tpusparse:init``, ``tpusparse:setup`` and
+``tpusparse:solve`` (the phases); ``tpusparse:ksp.solve`` (a ``KSP``
+solve); ``tpusparse:level<l>`` (one multigrid cycle on level l, level
+l + 1 nested inside it; level 0 is one preconditioner application); and
+``tpusparse:read`` (the host waiting on a residual norm).  ``-device
+cuda`` (the default) needs a CUDA device; ``-device cpu`` runs every
+kernel's plain twin on the CPU.
 
 ``-devices p`` splits the Poisson solve over p blocks (``dist/``).  Under
 torchrun, the reference's ``aprun -n W``,

@@ -45,6 +45,7 @@ from tpusparse_torch.kernels.fused7 import (
     fused7_descentu,
 )
 from tpusparse_torch.sparse.padded import PaddedStar, PaddedTransfer
+from tpusparse_torch.utils.profiling import annotate
 
 
 def fused_fine_supported(hier: Hierarchy) -> bool:
@@ -114,9 +115,10 @@ def _vcycle_fused(hier: Hierarchy, b_p: torch.Tensor, with_dots: bool, gamma: in
     # takes only g (and gw) in both strokes (fused_cycle.py:315-317)
     slots = (s0, ad, g, tr.omega) if hier.level_cfg(0)[1] == 2 else (g, tr.omega)
 
-    out = down(*legs, b_p, *slots, *pin, flegs=tr.flegs)          # (x1, s[, <b, b>])
-    e = coarse_cycle(hier, tr.tT_apply_padded(out[1]), 1, gamma)
-    z = up(*legs, tr.t_apply_padded(e), b_p, out[0], *slots, *pin, flegs=tr.flegs)
+    with annotate("tpusparse:level0"):
+        out = down(*legs, b_p, *slots, *pin, flegs=tr.flegs)          # (x1, s[, <b, b>])
+        e = coarse_cycle(hier, tr.tT_apply_padded(out[1]), 1, gamma)
+        z = up(*legs, tr.t_apply_padded(e), b_p, out[0], *slots, *pin, flegs=tr.flegs)
     if with_dots:
         z, rz = z
         return z, rz, out[2]
@@ -156,8 +158,9 @@ def vcycle_fused_rupdate(hier: Hierarchy, r_p: torch.Tensor, ap_p: torch.Tensor,
     s0, ad, g = _fine_scalars(hier, lev)
     legs = (op.diag, op.cx, op.cy, op.cz)
     pin = (op.true_shape, op.pinned)
-    x1, s, r_new, rr = fused7_descentu(*legs, r_p, ap_p, s0, ad, g, tr.omega, alpha, *pin, flegs=tr.flegs)
-    e = coarse_cycle(hier, tr.tT_apply_padded(s), 1, gamma)
-    z, rz = fused7_ascent_rz(*legs, tr.t_apply_padded(e), r_new, x1, s0, ad, g, tr.omega, *pin,
-                             flegs=tr.flegs)
+    with annotate("tpusparse:level0"):
+        x1, s, r_new, rr = fused7_descentu(*legs, r_p, ap_p, s0, ad, g, tr.omega, alpha, *pin, flegs=tr.flegs)
+        e = coarse_cycle(hier, tr.tT_apply_padded(s), 1, gamma)
+        z, rz = fused7_ascent_rz(*legs, tr.t_apply_padded(e), r_new, x1, s0, ad, g, tr.omega, *pin,
+                                 flegs=tr.flegs)
     return z, r_new, rz, rr

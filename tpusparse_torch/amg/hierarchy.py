@@ -35,7 +35,7 @@ from tpusparse_torch.solve.bjacobi import BlockJacobi
 from tpusparse_torch.solve.cg import _dot, np_float
 from tpusparse_torch.sparse.padded import PaddedStar, PaddedTransfer, crop_field, pad_field
 from tpusparse_torch.sparse.varstencil import OFFSETS, VarStencil27
-from tpusparse_torch.utils.profiling import sync
+from tpusparse_torch.utils.profiling import annotate, sync
 
 
 @dataclasses.dataclass(frozen=True)
@@ -618,27 +618,29 @@ def vcycle(hier: Hierarchy, b: torch.Tensor, level: int = 0, gamma: int = 1) -> 
     preconditioner.  Coarse solve: preonly +
     Jacobi, the block-Jacobi sub-PC, or the dense LU.  A padded level runs
     the unfused cycle on K10-K16 (``_smooth_padded``, ``PaddedStar.residual``,
-    ``PaddedTransfer.{restrict_steps, prolong_steps}``).
+    ``PaddedTransfer.{restrict_steps, prolong_steps}``).  Each level's
+    cycle is a ``tpusparse:level<l>`` span under a recording profiler.
     """
-    lev = hier.levels[level]
-    if lev.transfer is None:
-        if lev.coarse_inv is not None:
-            return _coarse_direct(lev, b)
-        if lev.bjac is not None:
-            return lev.bjac.apply(b)
-        return lev.dinv * b
-    padded = isinstance(lev.op, PaddedStar)
-    x = _smooth(hier, lev, b, None, level=level)
-    if padded:
-        e_c = lev.transfer.restrict_steps(lev.op, lev.op.residual(x, b))
-    else:
-        e_c = lev.transfer.restrict(lev.op, lev.dinv, b - lev.op.mv(x))
-    e = coarse_cycle(hier, e_c, level + 1, gamma)
-    if padded:
-        x = x + lev.transfer.prolong_steps(lev.op, e)
-    else:
-        x = x + lev.transfer.prolong(lev.op, lev.dinv, e)
-    return _smooth(hier, lev, b, x, reverse=True, level=level)
+    with annotate(f"tpusparse:level{level}"):
+        lev = hier.levels[level]
+        if lev.transfer is None:
+            if lev.coarse_inv is not None:
+                return _coarse_direct(lev, b)
+            if lev.bjac is not None:
+                return lev.bjac.apply(b)
+            return lev.dinv * b
+        padded = isinstance(lev.op, PaddedStar)
+        x = _smooth(hier, lev, b, None, level=level)
+        if padded:
+            e_c = lev.transfer.restrict_steps(lev.op, lev.op.residual(x, b))
+        else:
+            e_c = lev.transfer.restrict(lev.op, lev.dinv, b - lev.op.mv(x))
+        e = coarse_cycle(hier, e_c, level + 1, gamma)
+        if padded:
+            x = x + lev.transfer.prolong_steps(lev.op, e)
+        else:
+            x = x + lev.transfer.prolong(lev.op, lev.dinv, e)
+        return _smooth(hier, lev, b, x, reverse=True, level=level)
 
 
 def coarse_cycle(hier: Hierarchy, r_c: torch.Tensor, level: int, gamma: int = 1) -> torch.Tensor:

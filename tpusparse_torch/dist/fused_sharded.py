@@ -39,6 +39,7 @@ from tpusparse_torch.dist.seam import ShardedTransfer
 from tpusparse_torch.kernels.fused7 import fused7_ascent_slab, fused7_descent_slab
 from tpusparse_torch.kernels.stencil7 import FACE, padded_shape
 from tpusparse_torch.sparse.stencil import StarStencil3D
+from tpusparse_torch.utils.profiling import annotate
 
 
 @dataclasses.dataclass
@@ -240,11 +241,12 @@ def vcycle_fused_sharded(fs: FusedSharded, hier: Hierarchy, b: torch.Tensor, gam
     tr = lev.transfer if isinstance(lev.transfer, ShardedTransfer) else ShardedTransfer(lev.transfer, fs.mesh)
     s0, ad, g = _fine_scalars(hier, lev)
 
-    b_st = fs.to_stacked(b)
-    # downstroke: pre-smooth x2 + residual + P^T smoothing pass, fused
-    x1_st, s_st = fs.descent(b_st, s0, ad, g, tr.omega)
-    e = coarse_cycle(hier, tr.tT_apply(fs.from_stacked(s_st)), 1, gamma)
-    # upstroke: P smoothing + correction + post-smooth x2, fused (the g slot
-    # carries s0 and the g2 slot g, as in vcycle_fused)
-    t_st = fs.to_stacked(tr.t_apply(e))
-    return fs.from_stacked(fs.ascent(t_st, b_st, x1_st, s0, ad, g, tr.omega))
+    with annotate("tpusparse:level0"):
+        b_st = fs.to_stacked(b)
+        # downstroke: pre-smooth x2 + residual + P^T smoothing pass, fused
+        x1_st, s_st = fs.descent(b_st, s0, ad, g, tr.omega)
+        e = coarse_cycle(hier, tr.tT_apply(fs.from_stacked(s_st)), 1, gamma)
+        # upstroke: P smoothing + correction + post-smooth x2, fused (the g slot
+        # carries s0 and the g2 slot g, as in vcycle_fused)
+        t_st = fs.to_stacked(tr.t_apply(e))
+        return fs.from_stacked(fs.ascent(t_st, b_st, x1_st, s0, ad, g, tr.omega))

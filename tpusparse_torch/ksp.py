@@ -82,6 +82,7 @@ from tpusparse_torch.sparse.ell import ELL
 from tpusparse_torch.sparse.reorder import distinct_diagonals, inverse_permutation, permute_csr, rcm_permutation
 from tpusparse_torch.sparse.padded import PaddedStar, crop_field, pad_field
 from tpusparse_torch.sparse.stencil import StarStencil3D
+from tpusparse_torch.utils.profiling import annotate, read
 
 __all__ = ["KSP", "KSPResult"]
 
@@ -453,35 +454,36 @@ class KSP:
         permuted space: b and x0 are permuted in, x out.
         """
         self.setup()
-        if self._perm is not None:
-            b = b.reshape(-1)[self._perm]
-            if x0 is not None:
-                x0 = x0.reshape(-1)[self._perm]
-        gshape = getattr(self._op, "grid_shape", None)
-        flat_in = gshape is not None and b.dim() == 1
-        if flat_in:
-            b = b.reshape(gshape)
-            if x0 is not None:
-                x0 = x0.reshape(gshape)
-        if x0 is None:
-            res = self._run(b, self.rtol, self.atol)
-            x = res.x
-        else:
-            bnorm_ref = torch.linalg.vector_norm(b).item()  # the ORIGINAL rhs norm
-            res = self._run(b - self._op.mv(x0), 0.0, max(self.rtol * bnorm_ref, self.atol))
-            x = res.x + x0
-        if self._perm is not None:
-            x = x[self._iperm]
-        out = KSPResult(
-            x=x.reshape(-1) if flat_in else x,
-            iters=int(res.iters),
-            resnorm=float(res.resnorm),
-            reason=int(res.reason),
-            outer_iters=int(getattr(res, "outer_iters", 0)),
-        )
-        self._last = out
-        self._check([out.reason])
-        return out
+        with annotate("tpusparse:ksp.solve"):
+            if self._perm is not None:
+                b = b.reshape(-1)[self._perm]
+                if x0 is not None:
+                    x0 = x0.reshape(-1)[self._perm]
+            gshape = getattr(self._op, "grid_shape", None)
+            flat_in = gshape is not None and b.dim() == 1
+            if flat_in:
+                b = b.reshape(gshape)
+                if x0 is not None:
+                    x0 = x0.reshape(gshape)
+            if x0 is None:
+                res = self._run(b, self.rtol, self.atol)
+                x = res.x
+            else:
+                bnorm_ref = read(torch.linalg.vector_norm(b))  # the ORIGINAL rhs norm
+                res = self._run(b - self._op.mv(x0), 0.0, max(self.rtol * bnorm_ref, self.atol))
+                x = res.x + x0
+            if self._perm is not None:
+                x = x[self._iperm]
+            out = KSPResult(
+                x=x.reshape(-1) if flat_in else x,
+                iters=int(res.iters),
+                resnorm=float(res.resnorm),
+                reason=int(res.reason),
+                outer_iters=int(getattr(res, "outer_iters", 0)),
+            )
+            self._last = out
+            self._check([out.reason])
+            return out
 
     def mat_solve(self, b_block: torch.Tensor) -> MultiResult:
         """KSPMatSolve parity: solve A X = B for a block of right-hand sides,

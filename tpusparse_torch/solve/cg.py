@@ -30,6 +30,7 @@ import numpy as np
 import torch
 
 from tpusparse_torch.solve.reduce import allreduce
+from tpusparse_torch.utils.profiling import read
 
 
 class ConvergedReason(enum.IntEnum):
@@ -108,7 +109,7 @@ def new_history(maxiter: int, first):
 
 def norm_h(v: torch.Tensor, f):
     """||v||_2 read to the host as a numpy scalar of type ``f``."""
-    return f(torch.sqrt(_dot(v, v)).item())
+    return f(read(torch.sqrt(_dot(v, v))))
 
 
 def _check_args(*, fused, x0, state0, return_state, history, spectrum, a_mv_dot, m_mv_dots,
@@ -257,7 +258,7 @@ def cg(
         p, it = z, 0
     else:
         x, r, z, p, rz, rnorm, it = state0
-    rnorm_h = f(rnorm.item())
+    rnorm_h = f(read(rnorm))
     reason = classify(rnorm_h, it)
     norms = new_history(maxiter, rnorm_h) if history else None
     scalars = [] if spectrum else None
@@ -286,7 +287,7 @@ def cg(
             it += 1
             if spectrum:
                 scalars.append(torch.stack([alpha, beta]).to(torch.float64))
-        rnorm_h = f(rnorm.item())  # the one host read per convergence test
+        rnorm_h = f(read(rnorm))  # the one host read per convergence test
         if history:
             norms[it] = rnorm_h
         reason = classify(rnorm_h, it)
@@ -315,7 +316,7 @@ def _cg_fused(ab_fused, m_fused, b, x, f, bnorm, classify, check_every) -> CGRes
     z, r, rz, rr = m_fused(b, b, zero)  # r0 = b - 0 * b = b
     p, alpha_prev, beta = z, zero, zero
     it = 0
-    rnorm_h = f(torch.sqrt(rr).item())
+    rnorm_h = f(read(torch.sqrt(rr)))
     reason = classify(rnorm_h, it)
     while reason == ConvergedReason.ITERATING:
         for _ in range(check_every):
@@ -325,7 +326,7 @@ def _cg_fused(ab_fused, m_fused, b, x, f, bnorm, classify, check_every) -> CGRes
             beta = rz_new / rz
             rz, alpha_prev = rz_new, alpha
             it += 1
-        rnorm_h = f(torch.sqrt(rr).item())  # the one host read per convergence test
+        rnorm_h = f(read(torch.sqrt(rr)))  # the one host read per convergence test
         reason = classify(rnorm_h, it)
     # retire the last deferred x update; a zero-trip exit adds 0 * z0
     x = x + alpha_prev * p

@@ -29,6 +29,7 @@ import torch
 
 from tpusparse_torch.solve.cg import ConvergedReason, _dot, cg
 from tpusparse_torch.solve.reduce import distributed
+from tpusparse_torch.utils.profiling import read
 
 
 @dataclasses.dataclass
@@ -54,8 +55,8 @@ def _norm(r: torch.Tensor) -> float:
     """||r||_2: over the ranks of a split solve, the root of the summed
     squares (``solve/reduce.py``)."""
     if distributed():
-        return torch.sqrt(_dot(r, r)).item()
-    return torch.linalg.vector_norm(r).item()
+        return read(torch.sqrt(_dot(r, r)))
+    return read(torch.linalg.vector_norm(r))
 
 
 def cg_refined(

@@ -8,8 +8,24 @@ and copies (CUPTI) when a CUDA device is present, and writes one Chrome
 trace, ``<worker>.<time>.pt.trace.json``, into ``logdir`` (TensorBoard's
 PyTorch profiler plugin reads the directory; ``chrome://tracing`` or
 Perfetto open the file).  ``annotate(name)`` marks a named phase inside
-it, as the reference's PetscLogEvent brackets do; the drivers mark
-``tpusparse:init``, ``tpusparse:setup`` and ``tpusparse:solve``.
+it, as the reference's PetscLogEvent brackets do.  Spans are recorded
+exactly while a ``torch.profiler`` session records (``-profile``, or any
+caller's own ``torch.profiler.profile``); otherwise ``annotate`` costs
+one flag check.  The spans, by name:
+
+- ``tpusparse:init``, ``tpusparse:setup``, ``tpusparse:solve``: the
+  drivers' phases (``bench/driver.py``);
+- ``tpusparse:ksp.solve``: one ``KSP.solve`` after its set-up, the entry
+  layer;
+- ``tpusparse:level<l>`` (l = 0, 1, ...): one multigrid cycle on level l
+  (``amg/hierarchy.py::vcycle``; the fused fine levels of
+  ``amg/fused_cycle.py`` and ``dist/fused_sharded.py`` as level 0): its
+  smoothing, residual, restriction and prolongation, and level l + 1 as a
+  child span; the coarsest level's direct or Jacobi solve.  A level-0
+  span is one preconditioner application;
+- ``tpusparse:read``: the host blocked on a device scalar (``read``), the
+  Krylov layer's residual-norm reads (``solve/cg.py``,
+  ``solve/refine.py``, ``ksp.py``).
 """
 
 from __future__ import annotations
@@ -46,10 +62,24 @@ def sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
+_OFF = contextlib.nullcontext()
+
+
 def annotate(name: str):
     """A named sub-region inside a trace (``record_function``), for
-    phase-level attribution; cheap when no trace is recording."""
+    phase-level attribution; one shared no-op context when no profiler is
+    recording."""
+    if not torch.autograd._profiler_enabled():
+        return _OFF
     return torch.profiler.record_function(name)
+
+
+def read(t: torch.Tensor):
+    """``t.item()``, the host's read of a device scalar, inside a
+    ``tpusparse:read`` span: the host waits there for the device to drain
+    its queue."""
+    with annotate("tpusparse:read"):
+        return t.item()
 
 
 class Stopwatch:
