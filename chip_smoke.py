@@ -88,7 +88,8 @@ script exits non-zero without the final line:
    fused7 kernel.
 16. ``-precision f64`` (rtol 1e-8) and ``-precision f32`` (rtol 1e-6)
    through the CLI at 100^3: positive reason, Linf < 1e-3 (the
-   discretization error there is 6.57e-4); K1p launched by f32, not f64.
+   discretization error there is 6.57e-4); K1p launched by f32, not f64;
+   f64 launches no kernel but ``varstencil27_mv`` (its coarse levels).
 
 17. The single-step kernels of the unfused padded cycle (K10
    fused7_residual, K11 fused7_rich, K12 fused7_cheb0, K13 fused7_cheb,
@@ -364,6 +365,18 @@ script exits non-zero without the final line:
    ``HybridDIA``, ``ELL`` and ``DFDIA``: bit-equal to ``A.mv(x)``, one
    launch of K1p, K1, K5 or K5 (the bands of ``HybridDIA``) a product,
    none for ``ELL`` and ``DFDIA`` (plain torch, as their ``mv``).
+45. ``varstencil27_mv``, the coarse levels' 27-point apply
+   (``VarStencil27.mv``), against its plain twin bit for bit for each
+   (coefficient, field) dtype pair the port makes ((bf16, f32), (f32,
+   f32), (f64, f64), (bf16, bf16)) at ragged shapes of one 16 x 64 tile
+   and of several and at 27^3, 80^3 and 240^3, on one field, a stack of 3
+   and a non-contiguous field, one launch an apply; other pairs raise.
+   Its registers, spills and shared bytes (``nvcc -Xptxas -v`` and the
+   runtime's attributes; a spill fails the phase but in f64).  Timed at
+   240^3 and 80^3 for (bf16, f32) and (f32, f32), back to back and after
+   an L2 flush, beside its bound (the coefficients, x and y once: 62 / 116
+   B a cell over 3.35 TB/s) and its twin.  Phase 5 must launch it and
+   phase 8's structure-blind aij solve must not.
 
 Then one JSON line with each kernel's route, source, launches (K1-K4 from
 phase 5, K5 from phase 8, K6/K7 from phase 10, K3'/K4' from phase 11,
@@ -371,7 +384,9 @@ K6'/K7' from phase 12, K8/K9 from phase 14, K1p from phase 15, K10 and
 K12-K16 from phase 18, K11 from phase 19, K3z/K4z from phase 27, K1h from
 phase 42's one-process (z, y) run at 300^3, the
 batched K1p from phase 28's ``mat_solve``, the batched K5 from phase 31's,
-K5h from phase 43's one-process 300^3 solve on the row mesh),
+K5h from phase 43's one-process 300^3 solve on the row mesh,
+``varstencil27_mv`` from phase 5, timed in phase 45 at 240^3 with bf16
+coefficients),
 error,
 times, its bound at the timed shape (the larger of its unique field bytes
 over 3.35 TB/s and its operations over 67 TFLOP/s of f32, the H100 SXM's
@@ -507,6 +522,14 @@ from tpusparse_torch.kernels.stencil7 import (
     star7_mv_padded_torch,
     star7_mv_torch,
 )
+from tpusparse_torch.kernels.varstencil27 import (
+    PAIRS,
+    VS_TILE,
+    varstencil27_attributes,
+    varstencil27_mv,
+    varstencil27_mv_torch,
+    varstencil27_tiles,
+)
 from tpusparse_torch.solve.cg import cg
 from tpusparse_torch.solve.checkpoint import CheckpointConfig, cg_checkpointed
 from tpusparse_torch.sparse.io import load_petsc_vec, read_petsc_objects
@@ -600,6 +623,20 @@ KERNELS["star7_mv_batched"] = (
 KERNELS["star7_mv_halo"] = (
     "tpusparse_torch/csrc/stencil7.cu", "tpusparse/kernels/stencil7.py:330", star7_mv_halo, star7_mv_halo_torch,
 )
+# the coarse levels' 27-point apply (sparse/varstencil.py::VarStencil27.mv),
+# which replaces no Pallas kernel: the JAX package leaves it to one XLA
+# fusion (tpusparse/sparse/varstencil.py:76)
+KERNELS["varstencil27_mv"] = (
+    "tpusparse_torch/csrc/varstencil27.cu", "none (XLA fusion, tpusparse/sparse/varstencil.py:76)",
+    varstencil27_mv, varstencil27_mv_torch,
+)
+# phase 45's shapes: ragged ones of 1-10 cells a side, ragged ones of
+# several 16 x 64 tiles (x a multiple of 4 or not), then the levels of the
+# 720^3 stencil cell (80^3 and 240^3 timed); the (coefficient, field) pairs
+# timed
+VS_SHAPES = ((3, 3, 3), (5, 7, 9), (1, 4, 6), (9, 8, 10), (20, 33, 70), (12, 17, 132), (27, 27, 27), (80, 80, 80),
+             (240, 240, 240))
+VS_TIMED = ((torch.bfloat16, torch.float32), (torch.float32, torch.float32))
 # phase 41's (global shape, mesh, pinned): one-plane blocks in z and in y,
 # then 300^3 (the apply timed on both meshes, the (2, 2) mesh's beside the
 # per-block launches); and its rank slab: (global shape, ranks, rank)
@@ -2713,6 +2750,96 @@ def check_general(device) -> tuple[dict, int]:
     return row, main["used"]["dia_mv_window"]
 
 
+def _vs_inputs(shape, pair, device):
+    """Random coefficients (27, *shape) and a field of ``pair``'s dtypes,
+    drawn on the card from the phase's seed (240^3 holds 373M
+    coefficients); every coefficient set, those whose target leaves the
+    grid too."""
+    gen = torch.Generator(device).manual_seed(SEED)
+    cdt, xdt = pair
+    coef = torch.randn((27, *shape), generator=gen, device=device, dtype=torch.float32).to(cdt)
+    return coef, torch.randn(shape, generator=gen, device=device, dtype=torch.float32).to(xdt)
+
+
+def _vs_line(label, ms, coef, x, plain_ms=None) -> tuple[str, float]:
+    """A timing line of ``varstencil27_mv``: its bound (each coefficient and
+    x read once, y written once, over the HBM rate) and share, and its
+    plan; and the bound."""
+    cells = x.numel()
+    nbytes = coef.numel() * coef.element_size() + 2 * x.numel() * x.element_size()
+    bound = nbytes / HBM_BYTES_S * 1e3
+    tiles_x, tiles_y = varstencil27_tiles(tuple(x.shape[-3:]))
+    twin = "" if plain_ms is None else f"; plain twin {plain_ms:.4f} ms"
+    return (f"{label}: {ms:.4f} ms, bound {bound:.4f} ms ({nbytes / cells:.0f} B a cell; {100 * bound / ms:.0f}% of"
+            f" it){twin}; {tiles_y} x {tiles_x} tiles of {VS_TILE[0]} x {VS_TILE[1]} a plane,"
+            f" {tiles_x * tiles_y * cells // (x.shape[-1] * x.shape[-2])} blocks"), bound
+
+
+def check_varstencil27(device) -> dict:
+    """Phase 45: ``varstencil27_mv`` (one launch a ``VarStencil27`` apply)
+    against its plain twin, bit for bit, for each (coefficient, field)
+    dtype pair at ``VS_SHAPES``, on a non-contiguous field and a stack of
+    3 columns; one launch an apply; an unsupported pair raises.  Timed
+    beside its bound and its twin at 240^3 and 80^3 (back to back, and
+    after an L2 flush) for the pairs of ``VS_TIMED``.  Its registers,
+    spills and shared bytes (``nvcc -Xptxas -v`` and the runtime's
+    attributes), no spill allowed in the f32-arithmetic forms.  Returns
+    the row of the 240^3 (bf16, f32) launch."""
+    report = _ptxas("varstencil27.cu", "varstencil27_kernel")
+    print("varstencil27_mv, nvcc -Xptxas -v:\n  " + "\n  ".join(report))
+    for (cdt, xdt), pair in PAIRS.items():
+        for aligned in (True, False):
+            attrs = varstencil27_attributes(pair, aligned)
+            print(f"varstencil27_mv ({cdt}, {xdt}) {'16-byte' if aligned else 'one-cell'} form:"
+                  f" {attrs['registers']} registers, {attrs['spilled_bytes']} spilled bytes,"
+                  f" {attrs['static_smem_bytes']} shared bytes a block, {attrs['blocks_per_sm']} blocks an SM")
+            if cdt != torch.float64:
+                _require(attrs["spilled_bytes"] == 0, f"varstencil27_mv ({cdt}, {xdt}) spills")
+    row = {"max_abs_err": 0.0, "library_ms": None}
+    for pair in PAIRS:
+        for shape in VS_SHAPES:
+            coef, x = _vs_inputs(shape, pair, device)
+            stack = torch.stack([x, -2 * x, x.flip(-1)])
+            cases = {"": x, ", a stack of 3": stack}
+            if min(shape) > 1:
+                cases[", non-contiguous"] = x.transpose(0, 1).contiguous().transpose(0, 1)
+            for label, field in cases.items():
+                before = kernels.LAUNCHES["varstencil27_mv"]
+                got = varstencil27_mv(coef, field)
+                launched = kernels.LAUNCHES["varstencil27_mv"] - before
+                want = varstencil27_mv_torch(coef, field)
+                torch.cuda.synchronize()
+                _require(launched == 1, f"varstencil27_mv {pair} {shape}{label}: {launched} launches, not one")
+                _require(got.dtype == want.dtype and torch.equal(got, want),
+                         f"varstencil27_mv {pair} {shape}{label}: not bit-equal to its twin (max diff"
+                         f" {(got.double() - want.double()).abs().max().item():.3e})")
+            print(f"kernel varstencil27_mv {pair} {shape}: bit-equal to its twin (one field, a stack of 3"
+                  f"{', a non-contiguous field' if min(shape) > 1 else ''}), one launch an apply")
+            del coef, x, stack, cases, got, want
+    for bad in ((torch.float32, torch.float64), (torch.float64, torch.float32), (torch.float16, torch.float32)):
+        coef, x = _vs_inputs((3, 4, 5), bad, device)
+        try:
+            varstencil27_mv(coef, x)
+        except TypeError:
+            continue
+        raise AssertionError(f"varstencil27_mv took the pair {bad}")
+    print("varstencil27_mv: the unsupported pairs raise TypeError")
+    torch.cuda.empty_cache()
+    for shape in ((240, 240, 240), (80, 80, 80)):
+        for pair in VS_TIMED:
+            coef, x = _vs_inputs(shape, pair, device)
+            ms, plain_ms = _time_ms(varstencil27_mv, (coef, x)), _time_ms(varstencil27_mv_torch, (coef, x))
+            line, bound = _vs_line(f"time varstencil27_mv {pair} {shape}", ms, coef, x, plain_ms)
+            print(line)
+            print(_vs_line(f"time varstencil27_mv {pair} {shape}, after an L2 flush",
+                           _time_cold_ms(varstencil27_mv, (coef, x)), coef, x)[0])
+            if shape[0] == 240 and pair == VS_TIMED[0]:
+                row.update(ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by="bytes")
+            del coef, x
+            torch.cuda.empty_cache()
+    return row
+
+
 # phase 44: the kernels each ``A @ x`` must launch once (None: plain torch)
 MATMUL_KERNELS = {
     "StarStencil3D 3-D": "star7_mv", "StarStencil3D flat": "star7_mv", "PaddedStar": "star7_mv_padded",
@@ -2904,7 +3031,7 @@ def main() -> None:
     # the order the V-cycle kernels sum <b, b> and <b, z> in decides
     _require(rep.outer_iters in (2, 3), f"outer iterations {rep.outer_iters} not in 2-3")
     _require(abs(rep.iters - 34) <= 2, f"inner iterations {rep.iters} not within 34 +- 2")
-    for name in STENCIL_KERNELS:
+    for name in (*STENCIL_KERNELS, "varstencil27_mv"):
         _require(launches[name] > 0, f"kernel {name} was not launched by the stencil path")
     production = rep
     rows["dia_mv"] = check_dia(device)
@@ -2936,7 +3063,7 @@ def main() -> None:
     _require(rep.outer_iters in (2, 3), f"aij outer iterations {rep.outer_iters} not in 2-3")
     _require(abs(rep.iters - 35) <= 2, f"aij inner iterations {rep.iters} not within 35 +- 2")
     _require(aij_launches["dia_mv"] > 0, "dia_mv was not launched by the aij path")
-    for name in STENCIL_KERNELS:
+    for name in (*STENCIL_KERNELS, "varstencil27_mv"):
         _require(aij_launches[name] == 0, f"the aij path launched the stencil kernel {name}")
     launches["dia_mv"] = aij_launches["dia_mv"]
     blind = rep
@@ -3027,7 +3154,9 @@ def main() -> None:
         _require(np.isfinite(side["linf_error"]) and side["linf_error"] < 1e-3,
                  f"-precision {precision}: Linf {side['linf_error']} >= 1e-3")
     _require(uniform["f32"]["star7_mv"] > 0, "-precision f32 did not launch star7_mv")
-    _require(not any(uniform["f64"].values()), "-precision f64 launched a kernel")
+    f64_used = {name: n for name, n in uniform["f64"].items() if n}
+    _require(set(f64_used) == {"varstencil27_mv"},
+             f"-precision f64 launched {f64_used}, not varstencil27_mv (its coarse levels) alone")
     launches.update(fused7_cgmv=fu_launches["fused7_cgmv"], fused7_descentu=fu_launches["fused7_descentu"],
                     star7_mv=pl_launches["star7_mv"])
 
@@ -3190,6 +3319,11 @@ def main() -> None:
     names = check_names(device)
     print(f"phase 44 launches: {json.dumps(names)}")
     print(f"phase 44: {time.perf_counter() - t0:.1f} s")
+
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    rows["varstencil27_mv"] = check_varstencil27(device)
+    print(f"phase 45: {time.perf_counter() - t0:.1f} s")
 
     print(json.dumps({"kernels": [
         {

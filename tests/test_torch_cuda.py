@@ -453,8 +453,8 @@ def test_slab_entry_points_refuse_a_dot_or_a_slab_outside_the_grid(cuda):
 
 def test_sharded_solve_on_card_matches_cpu(cuda, monkeypatch):
     """``n_devices=4`` at 16^3 (nz_l = 4): K3z/K4z alike, one launch a
-    stroke (``FusedSharded.descent`` / ``ascent``), K1p and K1h; no K2-K4
-    or K3'/K4'; the CPU's outcome."""
+    stroke (``FusedSharded.descent`` / ``ascent``), K1p, K1h and the coarse
+    levels' ``varstencil27_mv``; no K2-K4 or K3'/K4'; the CPU's outcome."""
     kw = dict(rtol=1e-8, atol=1e-12, pc="gamg", warmup=False, n_devices=4)
     strokes = {"descent": 0, "ascent": 0}
 
@@ -473,10 +473,11 @@ def test_sharded_solve_on_card_matches_cpu(cuda, monkeypatch):
     used = dict(kernels.LAUNCHES)
     assert used["fused7_descent_slab"] == strokes["descent"] == strokes["ascent"] == used["fused7_ascent_slab"] > 0
     # K1p in the setup (rho, Galerkin probing), K1h for CG's Ap (one launch
-    # an apply, dist/halo.py)
-    assert used["star7_mv"] > 0 and used["star7_mv_halo"] > 0
+    # an apply, dist/halo.py), the coarse levels' 27-point apply
+    assert used["star7_mv"] > 0 and used["star7_mv_halo"] > 0 and used["varstencil27_mv"] > 0
     assert all(n == 0 for name, n in used.items()
-               if name not in ("fused7_descent_slab", "fused7_ascent_slab", "star7_mv", "star7_mv_halo"))
+               if name not in ("fused7_descent_slab", "fused7_ascent_slab", "star7_mv", "star7_mv_halo",
+                               "varstencil27_mv"))
     cpu = solve_poisson(16, device="cpu", **kw)
     assert (gpu.reason, gpu.outer_iters) == (cpu.reason, cpu.outer_iters) == (2, 2)
     assert abs(gpu.iters - cpu.iters) <= 1
@@ -520,7 +521,7 @@ def test_small_solve_on_card_matches_cpu(cuda):
     kw = dict(rtol=1e-8, atol=1e-12, pc="gamg", warmup=False)
     kernels.reset_launches()
     gpu = solve_poisson(16, device=cuda, **kw)
-    stencil = ("star7_mv_padded", "fused7_mvdot", "fused7_descent_rr", "fused7_ascent_rz")
+    stencil = ("star7_mv_padded", "fused7_mvdot", "fused7_descent_rr", "fused7_ascent_rz", "varstencil27_mv")
     assert all(kernels.LAUNCHES[name] > 0 for name in stencil)
     assert all(n == 0 for name, n in kernels.LAUNCHES.items() if name not in stencil)
     cpu = solve_poisson(16, device="cpu", **kw)

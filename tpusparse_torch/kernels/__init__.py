@@ -34,6 +34,7 @@ LAUNCHES = {
     "dia_mv": 0,
     "dia_mv_batched": 0,
     "dia_mv_window": 0,
+    "varstencil27_mv": 0,
 }
 
 

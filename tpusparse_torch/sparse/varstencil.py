@@ -5,37 +5,27 @@ the structured AMG.
 With geometric 3x3x3 aggregation and a once-smoothed prolongator every
 coarse operator couples only the 27 immediate neighbours, so its action is
 ``sum_o coef[o] * x_shifted_by_o`` — shifted multiply-adds, no column
-indices.  The apply stays plain torch: the coarse levels hold 1/27 of the
-fine level's cells and less.  Fields may carry leading axes (a stack of
-k right-hand sides, ``KSP.mat_solve``): the shifts act on the last three.
+indices.  The apply is ``kernels/varstencil27.py``: one launch on the
+card, its plain twin on the CPU.  Fields may carry leading axes (a stack
+of k right-hand sides, ``KSP.mat_solve``): the shifts act on the last
+three.
 """
 
 from __future__ import annotations
 
 import dataclasses
-import itertools
 
 import numpy as np
 import torch
-import torch.nn.functional as F
 
-# the 27 offsets in a fixed lexicographic order (dk, dj, di), each in {-1,0,1}
-OFFSETS: tuple[tuple[int, int, int], ...] = tuple(
-    itertools.product((-1, 0, 1), repeat=3)
+# the offsets and the shifts live beside the kernel's twin, which sums them
+from tpusparse_torch.kernels.varstencil27 import (  # noqa: F401
+    CENTER,
+    OFFSETS,
+    pad1,
+    shifted_view,
+    varstencil27_mv,
 )
-CENTER = OFFSETS.index((0, 0, 0))  # = 13
-
-
-def pad1(x: torch.Tensor) -> torch.Tensor:
-    """One zero cell around every face of the last three axes: the source
-    of all 27 shifts."""
-    return F.pad(x, (1, 1, 1, 1, 1, 1))
-
-
-def shifted_view(xp: torch.Tensor, off, shape) -> torch.Tensor:
-    """x[..., p + off] with zero fill, as a view of ``xp = pad1(x)``."""
-    (dk, dj, di), (nz, ny, nx) = off, shape
-    return xp[..., 1 + dk:1 + dk + nz, 1 + dj:1 + dj + ny, 1 + di:1 + di + nx]
 
 
 def shift3(x: torch.Tensor, off: tuple[int, int, int]) -> torch.Tensor:
@@ -72,14 +62,9 @@ class VarStencil27:
 
     def mv(self, x: torch.Tensor) -> torch.Tensor:
         """y = A @ x on the 3D field view, or on each field of a stack with
-        leading axes (same accumulation order as JAX)."""
-        y = self.coef[CENTER] * x
-        xp = pad1(x)
-        for o, off in enumerate(OFFSETS):
-            if o == CENTER:
-                continue
-            y = y + self.coef[o] * shifted_view(xp, off, self.grid_shape)
-        return y
+        leading axes (same accumulation order as JAX), in one launch on the
+        card: ``varstencil27_mv``."""
+        return varstencil27_mv(self.coef, x)
 
     def mv_flat(self, x: torch.Tensor) -> torch.Tensor:
         return self.mv(x.reshape(self.grid_shape)).reshape(-1)
