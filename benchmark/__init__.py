@@ -5,8 +5,9 @@
 runs one cell of ``BENCHMARK.json`` once and prints one JSON line last.
 Everything that belongs to one configuration, traffic mix, metric or
 kernel sits in a file of its own that the harness finds by name:
-``configs/<config>.json``, ``traffic/<mix>.json``, ``metrics/<metric>.py``
-and ``kernel_models/<kernel>.json``.  ``reference/`` is the plain
-reference that decides ``correct``.  Nothing here imports JAX or the JAX
-package ``tpusparse``.
+``configs/<config>.json``, ``traffic/<mix>.json``, ``metrics/<metric>.py``,
+``kernel_models/<kernel>.json`` and ``problems/<family>.py``, a
+configuration's ``build`` and plain reference (``problems/__init__.py``).
+``reference/`` holds the plain references that decide ``correct``.
+Nothing here imports JAX or the JAX package ``tpusparse``.
 """

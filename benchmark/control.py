@@ -3,10 +3,10 @@
     python3 -m benchmark.control --workload <cell> --seeds 1,2,3 --steps 2 --precision mixed,f32
 
 For each precision in turn, builds the cell's system once at the cell's
-size (``system.build``, the configuration's precision overridden), solves
-``--steps`` right-hand sides for each seed, and judges each solution by
-the plain reference as ``run.py`` does, printing one line a solve and
-the largest ||b - A x|| / ||b|| a precision.  The j-th seed solves steps
+size (the problem's ``build``, the configuration's precision overridden),
+solves ``--steps`` right-hand sides for each seed, and judges each
+solution by the problem's plain reference as ``run.py`` does, printing
+one line a solve and the largest ||b - A x|| / ||b|| a precision.  The j-th seed solves steps
 j * steps ... (j + 1) * steps - 1 of its stream, so that the seeds
 together cover that many distinct fields (every seed's stream holds the
 same fields, each under its own sign and scale).  "mixed" is the
@@ -25,18 +25,17 @@ import time
 
 import torch
 
-from benchmark import rhs, spec, system
-from benchmark.reference.poisson7 import Poisson7
+from benchmark import rhs, spec
 
 
 def readings(cell, precision: str, seeds: list[int], steps: int, device) -> list[float]:
     """||b - A x|| / ||b|| of each (seed, step) solve at ``precision``."""
     config, mix = cell.config, cell.traffic
     t0 = time.perf_counter()
-    sys_ = system.build(config, device, precision=precision)
+    problem = spec.load_problem(cell.family, cell.root)
+    sys_ = problem.build(config, device, precision=precision)
     print(f"{precision}: built in {time.perf_counter() - t0:.2f} s; {sys_.describe()}", flush=True)
-    nx, ny, nz = config["grid"]
-    ref = Poisson7((nz, ny, nx), config.get("extent", (1.0, 1.0, 1.0)), pin=bool(config["pin"]))
+    ref = problem.reference(config)
     out = []
     for j, seed in enumerate(seeds):
         for step in range(j * steps, (j + 1) * steps):

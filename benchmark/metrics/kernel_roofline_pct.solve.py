@@ -1,8 +1,9 @@
-"""kernel_roofline_pct.solve: over the traced steps' launches of every
-device kernel that has a model in ``kernel_models/``, the least time their
-work needs on this card (the larger of the model's bytes over the
-published bandwidth and its flops over the float32 peak, ``peaks.json``)
-as a share of the time the trace gives them."""
+"""kernel_roofline_pct.solve: over the traced solves' launches of every
+device kernel that has a model in ``kernel_models/`` (every launch of the
+capture, ``roofline.kernel_shares``), the least time their work needs on
+this card (the larger of the model's bytes over the published bandwidth
+and its flops over the float32 peak, ``peaks.json``) as a share of the
+time the trace gives them."""
 
 from benchmark.roofline import kernel_shares
 

@@ -87,9 +87,15 @@ def kernel_shares(models: list[dict], launches: list, trace: Trace, peak: dict) 
     """For each device kernel that a model covers and that ran: (least
     seconds, traced seconds) summed over its launches.  A kernel whose
     recorded launches do not match the trace's count one for one is left
-    out, with a line saying so on the log."""
+    out, with a line saying so on the log.
+
+    The recorder and the profiler cover the same stretch of the run, so the
+    launches are matched to every event of the capture, not only to those
+    inside the steps: the profiler puts device events on the host's clock
+    only to within about half a millisecond, and a kernel at a step's edge
+    can fall outside its span."""
     by_entry = {m["entry"]: m for m in models}
-    mask = trace.kernel_mask()
+    mask = trace.kernel_mask(whole=True)
     names = [trace.gpu_name[i] for i in range(len(trace.gpu_name)) if mask[i]]
     seconds = (trace.gpu_end - trace.gpu_start)[mask] / 1e9
     out = {}

@@ -7,7 +7,8 @@ From the root of a checkout, on a machine with the cell's GPUs:
 1. brings up the card and loads the port's kernel library (built into
    ``tpusparse_torch/csrc/build/`` at a checkout's first run);
 2. builds the configuration's operator on the device and ``KSP`` with its
-   preconditioner (``KSPSetOperators`` + ``KSPSetUp``), once;
+   preconditioner (``KSPSetOperators`` + ``KSPSetUp``), once, by the
+   configuration's problem (``problems/<family>.py``);
 3. warms up with untimed steps of the same shapes;
 4. runs the closed loop for ``--seconds``: each step makes the mix's next
    right-hand side from the seed, waits for the device, then solves it,
@@ -16,7 +17,7 @@ From the root of a checkout, on a machine with the cell's GPUs:
    run under the profiler, each marked by a span of its own;
 5. reads the peak device memory, frees the program's state and checks a
    sample of the window's solutions, drawn from the seed, against the
-   plain reference (``reference/``);
+   problem's plain reference (``reference/``);
 6. prints the solves on earlier lines, each number compared beside its
    limit as the last lines of standard error, and one JSON line last on
    standard output: the end-to-end metrics with ``--trace 0``, the
@@ -44,6 +45,7 @@ import sys  # noqa: E402
 
 FORBIDDEN = ("jax", "jaxlib", "flax", "tpusparse")  # top-level module names, compared whole
 SMI_FIELDS = "name,power.limit,clocks.sm,clocks.max.sm,clocks.mem,power.draw,temperature.gpu"
+NOTES = ("name", "source", "problem", "guarantees", "assumed", "reduced")  # a configuration's prose, not logged
 
 
 def forbidden_modules() -> list[str]:
@@ -96,13 +98,13 @@ def main(argv=None, *, device=None, root=None, config_overrides=None) -> int:
     from benchmark import spec
 
     cell = spec.load_cell(args.workload, root or spec.REPO)
+    problem = spec.load_problem(cell.family, cell.root)
     config = {**cell.config, **(config_overrides or {})}
     mix = cell.traffic
 
     import torch
 
-    from benchmark import rhs, roofline, system, trace
-    from benchmark.reference.poisson7 import Poisson7
+    from benchmark import rhs, roofline, trace
 
     if device is None:
         if not torch.cuda.is_available() or torch.cuda.device_count() < cell.chips:
@@ -124,11 +126,10 @@ def main(argv=None, *, device=None, root=None, config_overrides=None) -> int:
         torch.zeros((), device=device)  # the context
         log(smi_line())
         log(f"kernel library: {_build.build()}")
-    nx, ny, nz = config["grid"]
-    log(f"cell {cell.name}: config {json.dumps({k: config[k] for k in ('grid', 'route', 'precision')})},"
-        f" {nx * ny * nz} unknowns; mix {json.dumps(mix)}")
-    sys_ = system.build(config, device)
-    log(sys_.describe())
+    settings = {k: v for k, v in config.items() if k not in NOTES}
+    log(f"cell {cell.name}: problem {cell.family}, config {json.dumps(settings)}; mix {json.dumps(mix)}")
+    sys_ = problem.build(config, device)
+    log(f"{math.prod(sys_.shape)} unknowns; {sys_.describe()}")
 
     def sync():
         if cuda:
@@ -213,7 +214,7 @@ def main(argv=None, *, device=None, root=None, config_overrides=None) -> int:
     del sys_
     if cuda:
         torch.cuda.empty_cache()
-    ref = Poisson7((nz, ny, nx), config.get("extent", (1.0, 1.0, 1.0)), pin=bool(config["pin"]))
+    ref = problem.reference(config)
     rtol, atol = config["ksp"]["rtol"], config["ksp"]["atol"]
     worst, limit, wrong = 0.0, math.inf, 0
     for slot, step in sorted(kept.items(), key=lambda kv: kv[1]):

@@ -12,6 +12,7 @@ import json
 from pathlib import Path
 
 REPO = Path(__file__).resolve().parent.parent
+DEFAULT_FAMILY = "poisson7"  # a configuration without ``family``
 
 
 @dataclasses.dataclass
@@ -21,6 +22,7 @@ class Cell:
     name: str
     chips: int
     config: dict            # configs/<config>.json
+    family: str             # the configuration's problem: problems/<family>.py
     traffic: dict           # traffic/<traffic>.json
     end_to_end: list[dict]  # the metric entries this cell reports with --trace 0
     per_layer: list[dict]   # ... and with --trace 1
@@ -47,6 +49,7 @@ def load_cell(workload: str, root: Path = REPO) -> Cell:
         name=workload,
         chips=int(entry["chips"]),
         config=config,
+        family=config.get("family", DEFAULT_FAMILY),
         traffic=traffic,
         end_to_end=[m for m in bench["end_to_end"] if _reports(m, workload)],
         per_layer=[m for m in bench["per_layer"] if _reports(m, workload)],
@@ -54,15 +57,26 @@ def load_cell(workload: str, root: Path = REPO) -> Cell:
     )
 
 
+def _load_module(path: Path, name: str, what: str):
+    spec = importlib.util.spec_from_file_location(name, path)
+    if spec is None or not path.exists():
+        raise FileNotFoundError(f"no {what} at {path}")
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
 def load_reader(metric: str, root: Path = REPO):
     """The ``read(run)`` function of ``benchmark/metrics/<metric>.py``."""
     path = root / "benchmark" / "metrics" / f"{metric}.py"
-    spec = importlib.util.spec_from_file_location(f"benchmark_metric_{metric.replace('.', '_')}", path)
-    if spec is None or not path.exists():
-        raise FileNotFoundError(f"no reader for metric {metric!r} at {path}")
-    module = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(module)
-    return module.read
+    return _load_module(path, f"benchmark_metric_{metric.replace('.', '_')}", f"reader for metric {metric!r}").read
+
+
+def load_problem(family: str, root: Path = REPO):
+    """The module ``benchmark/problems/<family>.py``: its ``build`` and
+    ``reference`` (``benchmark/problems/__init__.py`` has the contract)."""
+    path = root / "benchmark" / "problems" / f"{family}.py"
+    return _load_module(path, f"benchmark_problem_{family.replace('.', '_')}", f"problem {family!r}")
 
 
 def load_kernel_models(root: Path = REPO) -> list[dict]:

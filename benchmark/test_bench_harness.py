@@ -208,18 +208,17 @@ def card():
 @pytest.mark.requires_cuda
 @pytest.mark.parametrize("workload", CELLS)
 def test_cell_on_the_card_reads_every_metric(capsys, tmp_path, card, workload):
-    """On the card at 64^3: correct, and every per-layer metric read from
-    the trace, each roofline share at most 100%.  The profile is cut to the
-    first step: seconds of 64^3 solves are more events than the profiler
-    keeps."""
+    """On the card at 64^3: correct, and every per-layer metric that
+    BENCHMARK.json lists for the cell read from the trace, each roofline
+    share at most 100%.  The profile is cut to the first steps: seconds of
+    64^3 solves are more events than the profiler keeps."""
     root = _copy(tmp_path)
     path = root / "benchmark/traffic/rhs_stream.json"
-    path.write_text(json.dumps({**json.loads(path.read_text()), "trace_seconds": 0.01}))
+    path.write_text(json.dumps({**json.loads(path.read_text()), "trace_seconds": 0.05}))
     rc = run.main(["--workload", workload, "--seed", "3000000031", "--seconds", "2", "--trace", "1"],
                   root=root, config_overrides={"grid": [64, 64, 64]})
     result = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
     assert rc == 0 and result["correct"] is True and result["device"]["platform"] == "gpu"
-    assert set(result["metrics"]) == {"inner_iters.solve", "launches_per_iter.solve", "kernel_roofline_pct.solve",
-                                      "device_idle_pct.solve"}
+    assert set(result["metrics"]) == {m["name"] for m in spec.load_cell(workload, root).per_layer}
     assert 0 < result["metrics"]["kernel_roofline_pct.solve"]["value"] <= 100
     assert 0 < result["device"]["busy_s"] <= result["device"]["window_s"]

@@ -8,7 +8,7 @@ import pytest
 import scipy.sparse as sp
 import torch
 
-from benchmark import rhs, system
+from benchmark import rhs, spec
 from benchmark.reference.poisson7 import Poisson7
 from tpusparse_torch import Grid3D
 from tpusparse_torch.grid.poisson import assemble_poisson, poisson_stencil_device
@@ -46,7 +46,7 @@ def test_reference_judges_the_ports_solves(route):
                       "layout": "padded" if route == "stencil" else "auto"},
               "gamg": {"nsmooths": 1, "threshold": 0.0, "smoother": "chebyshev", "degree": 2}}
     mix = {"field_seed": 5, "modes": 8, "wavenumber_max": 8, "scale_exponent": 8, "noise_share": 0.01}
-    sys_ = system.build(config, "cpu")
+    sys_ = spec.load_problem("poisson7").build(config, "cpu")
     ref = Poisson7(sys_.shape)
     for step in range(3):
         b = rhs.make_rhs(mix, sys_.shape, 11, step, device="cpu")

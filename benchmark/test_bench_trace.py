@@ -55,6 +55,20 @@ def test_kernel_shares_match_launches_to_the_trace():
     assert kernel_shares(models, launches * 2, t, PEAK) == {}
 
 
+def test_kernel_shares_keep_a_kernel_at_a_steps_edge():
+    # the profiler puts device events on the host's clock only to within
+    # about half a millisecond: the first launch of the second step reads
+    # as starting before its span, the last as ending after it
+    models = [{"name": "K5", "entry": "tps_dia_mv", "kernel": "dia_mv_window_kernel", "args": {"n": 3, "k": 4},
+               "check": "n > 0", "bytes": "(k + 2) * n * 4", "flops": "2 * k * n"}]
+    launches = [("tps_dia_mv", (1, 2, 3, 100, 7, None))] * 3
+    t = _trace([("dia_mv_window_kernel", 100, 7300), ("dia_mv_window_kernel", 19_950, 27_150),
+                ("dia_mv_window_kernel", 32_850, 40_050)], spans=[(0, 10_000), (20_000, 40_000)])
+    assert int(t.kernel_mask().sum()) == 1 and int(t.kernel_mask(whole=True).sum()) == 3
+    least, sec = kernel_shares(models, launches, t, PEAK)["dia_mv_window_kernel"]
+    assert least == pytest.approx(3 * 3600 / 1e9) and sec == pytest.approx(3 * 7.2e-6)
+
+
 def test_every_model_file_is_well_formed():
     for m in spec.load_kernel_models():
         assert {"entry", "kernel", "args", "check", "bytes", "flops", "source"} <= set(m)

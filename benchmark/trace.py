@@ -49,10 +49,11 @@ class Trace:
         ok[ok] = self.gpu_end[ok] <= self.spans[i[ok], 1]
         return ok
 
-    def kernel_mask(self) -> np.ndarray:
-        """Device events inside the steps that are kernels."""
+    def kernel_mask(self, whole: bool = False) -> np.ndarray:
+        """Device events inside the steps that are kernels; with ``whole``,
+        every kernel of the capture."""
         is_kernel = np.array([not n.startswith(COPY_PREFIXES) for n in self.gpu_name], dtype=bool)
-        return self._inside() & is_kernel
+        return is_kernel if whole else self._inside() & is_kernel
 
     def busy_intervals(self) -> np.ndarray:
         """The union of the device intervals inside the steps, as (m, 2)."""
