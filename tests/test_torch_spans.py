@@ -3,8 +3,9 @@ and no ``record_function`` built, without a recording profiler; under
 one, on every route that runs on the CPU, one ``tpusparse:ksp.solve`` a
 solve holding its reads and level-0 cycles, each ``tpusparse:level<l+1>``
 inside a ``tpusparse:level<l>`` down to the coarsest level, and as many
-spans as the code makes reads and preconditioner applications; a traced
-solve bit-equal to an untraced one."""
+spans as the code makes reads and preconditioner applications; one
+``tpusparse:defect`` a defect-correction sweep, holding its residual's
+read; a traced solve bit-equal to an untraced one."""
 
 import numpy as np
 import pytest
@@ -12,6 +13,7 @@ import torch
 
 from tpusparse_torch import KSP, Grid3D
 from tpusparse_torch.bench.driver import solve_poisson
+from tpusparse_torch.grid.hpcg import hpcg_stencil
 from tpusparse_torch.grid.poisson import poisson_dia_device, poisson_stencil_device
 from tpusparse_torch.utils.profiling import annotate, read
 
@@ -138,3 +140,29 @@ def test_spans_follow_the_profiler():
     with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]):
         assert isinstance(annotate("x"), torch.profiler.record_function)
     assert annotate("x") is annotate("y")
+
+
+@pytest.mark.parametrize("route", ["padded", "plain", "aij", "f64", "varstencil27"])
+def test_cg_refined_opens_one_defect_span_a_sweep(route, monkeypatch):
+    """Under a recording profiler, one ``tpusparse:defect`` inside the solve
+    for each sweep of defect correction (none under uniform precision),
+    each holding one read, its residual's norm; without one, no span is
+    built."""
+    if route == "varstencil27":  # HPCG's operator, the 27-point fine level
+        grid = Grid3D(N, N, N)
+        ksp = KSP(**TOL).set_operators(hpcg_stencil(grid, torch.float64, "cpu"),
+                                       hpcg_stencil(grid, torch.float32, "cpu"), device="cpu").setup()
+        b = torch.cos(torch.arange(grid.n, dtype=torch.float64)).reshape(grid.shape)
+    else:
+        ksp, b, _ = _system(route)
+    res, spans = _profiled(lambda: ksp.solve(b))
+    mixed = route != "f64"
+    defects = spans.get("tpusparse:defect", np.zeros((0, 2), dtype=np.int64))
+    assert len(defects) == (res.outer_iters if mixed else 0) and (res.outer_iters >= 2) is mixed
+    assert _inside(defects, spans["tpusparse:ksp.solve"])
+    reads = spans["tpusparse:read"]
+    for s, e in defects:
+        assert int(np.sum((s <= reads[:, 0]) & (reads[:, 1] <= e))) == 1
+    built = []
+    monkeypatch.setattr(torch.profiler, "record_function", lambda name: built.append(name))
+    assert ksp.solve(b).outer_iters == res.outer_iters and built == []

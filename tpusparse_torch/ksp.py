@@ -82,6 +82,7 @@ from tpusparse_torch.sparse.ell import ELL
 from tpusparse_torch.sparse.reorder import distinct_diagonals, inverse_permutation, permute_csr, rcm_permutation
 from tpusparse_torch.sparse.padded import PaddedStar, crop_field, pad_field
 from tpusparse_torch.sparse.stencil import StarStencil3D
+from tpusparse_torch.sparse.varstencil import VarStencil27
 from tpusparse_torch.utils.profiling import annotate, read
 
 __all__ = ["KSP", "KSPResult"]
@@ -105,10 +106,13 @@ class KSPResult:
 
 
 def _op_kind(op) -> str:
-    """'structured' (the star stencil), 'general' (the DIA family) or
-    'opaque' (anything with an ``mv``)."""
+    """'structured' (the star stencil), 'varstencil' (the 27-point
+    ``VarStencil27``), 'general' (the DIA family) or 'opaque' (anything
+    else with an ``mv``)."""
     if isinstance(op, StarStencil3D):
         return "structured"
+    if isinstance(op, VarStencil27):
+        return "varstencil"
     if isinstance(op, (DIA, DFDIA, HybridDIA, ELL)):
         return "general"
     return "opaque"
@@ -245,6 +249,8 @@ class KSP:
         """KSPSetOperators(ksp, A, A): attach the operator.
 
         ``a`` may be a ``StarStencil3D`` (the structured route), a
+        ``VarStencil27`` (the 27-point route: GAMG's plain cycle; under
+        mixed precision with its f32 twin as ``a_lo``), a
         ``DFDIA`` or ``DIA`` (the general route: under mixed precision a
         ``DFDIA`` with its f32 ``DIA`` as ``a_lo`` or, by default, a ``DIA``
         of its hi bands; under uniform precision a ``DIA`` in the solve's
@@ -331,7 +337,14 @@ class KSP:
 
     def setup(self) -> "KSP":
         """KSPSetUp: build the preconditioner (idempotent; with
-        ``reuse_preconditioner`` an existing one is kept)."""
+        ``reuse_preconditioner`` an existing one is kept).
+
+        GAMG by the inner operator's kind (``_op_kind``): a star takes the
+        padded fused route or the plain cycle (``layout``); a
+        ``VarStencil27`` the plain cycle over ``gamg_setup``'s probed
+        hierarchy, as ``solve_diffusion`` builds it (``layout="padded"``
+        raises: the fused kernels are the star's); the DIA family and
+        host matrices ``gamg_setup_unstructured``."""
         if self._op is None:
             raise RuntimeError("call set_operators before setup/solve")
         if self._pc_state is not None and self.reuse_preconditioner:
@@ -355,10 +368,18 @@ class KSP:
                 # the hierarchy's fine level is the inner operator
                 self._op_lo = self._pc_state.levels[0].op
                 self._m = functools.partial(self._cycle, self._pc_state)
+            elif kind == "varstencil":
+                if self.layout == "padded":
+                    raise ValueError(
+                        "layout='padded' runs the star's fused kernels; a VarStencil27 takes"
+                        " layout='plain' or 'auto'"
+                    )
+                self._pc_state = gamg_setup(self._op_lo, self.amg_params)
+                self._m = functools.partial(self._cycle, self._pc_state)
             else:
                 raise ValueError(
-                    "pc_type='gamg' needs a StarStencil3D, DIA-family or HostCSR/scipy operator — got"
-                    f" {type(self._op).__name__}"
+                    "pc_type='gamg' needs a StarStencil3D, VarStencil27, DIA-family or HostCSR/scipy operator"
+                    f" — got {type(self._op).__name__}"
                 )
         elif self.pc_type == "jacobi":
             op = self._op_lo

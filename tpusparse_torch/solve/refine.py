@@ -29,7 +29,7 @@ import torch
 
 from tpusparse_torch.solve.cg import ConvergedReason, _dot, cg
 from tpusparse_torch.solve.reduce import distributed
-from tpusparse_torch.utils.profiling import read
+from tpusparse_torch.utils.profiling import annotate, read
 
 
 @dataclasses.dataclass
@@ -153,8 +153,9 @@ def cg_refined(
     while reason == ConvergedReason.ITERATING:
         e, its = inner(r, rnorm)
         x = x + e
-        r = b - a_hi_mv(x)  # the one high-precision apply per outer sweep
-        prev, rnorm = rnorm, _norm(r)
+        with annotate("tpusparse:defect"):
+            r = b - a_hi_mv(x)  # the one high-precision apply per outer sweep
+            prev, rnorm = rnorm, _norm(r)
         norms.append(float(np.float32(rnorm)))
         outer += 1
         total += its

@@ -25,7 +25,10 @@ one flag check.  The spans, by name:
   span is one preconditioner application;
 - ``tpusparse:read``: the host blocked on a device scalar (``read``), the
   Krylov layer's residual-norm reads (``solve/cg.py``,
-  ``solve/refine.py``, ``ksp.py``).
+  ``solve/refine.py``, ``ksp.py``);
+- ``tpusparse:defect``: one defect-correction sweep's high-precision
+  residual b - A x and the read of its norm (``solve/refine.py::
+  cg_refined``), a ``tpusparse:read`` inside it.
 """
 
 from __future__ import annotations
