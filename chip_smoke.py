@@ -89,7 +89,8 @@ script exits non-zero without the final line:
 16. ``-precision f64`` (rtol 1e-8) and ``-precision f32`` (rtol 1e-6)
    through the CLI at 100^3: positive reason, Linf < 1e-3 (the
    discretization error there is 6.57e-4); K1p launched by f32, not f64;
-   f64 launches no kernel but ``varstencil27_mv`` (its coarse levels).
+   f64 launches no kernel but ``varstencil27_mv`` (its coarse levels) and
+   the grid transfers' ``agg_restrict`` and ``agg_prolong``.
 
 17. The single-step kernels of the unfused padded cycle (K10
    fused7_residual, K11 fused7_rich, K12 fused7_cheb0, K13 fused7_cheb,
@@ -377,6 +378,24 @@ script exits non-zero without the final line:
    an L2 flush, beside its bound (the coefficients, x and y once: 62 / 116
    B a cell over 3.35 TB/s) and its twin.  Phase 5 must launch it and
    phase 8's structure-blind aij solve must not.
+46. The grid transfers' kernels (``kernels/transfer.py``: T^T
+   ``agg_restrict``, T ``agg_prolong``; ``StructuredTransfer`` and
+   ``PaddedTransfer``): T bit-equal to its einsum twin and T^T to the twin
+   in the kernel's order (``agg_restrict_ordered``) and within the rounding
+   bound of the einsums, in f32, f64 and bf16, plain and padded, under
+   factors 3, (3, 1, 3), (1, 3, 3) and (2, 4, 5), at ragged shapes, on a
+   stack of 2, one launch a call; a fill of the same layout timed beside
+   (writes alone); their registers and spills (``nvcc -Xptxas -v``; a
+   spill fails the phase but in the general-factor forms, which only an
+   ``AMGParams.factor`` above 3 builds).  At the main path's shapes in
+   f32 (726 x 720 x 720 padded <-> 240^3, 240^3 <-> 80^3, 432^3 <-> 144^3)
+   the same checks,
+   and each direction timed back to back and after an L2 flush beside its
+   bound (the fine field once, the coarse field and tnorm once, over 3.35
+   TB/s), the plain twin (T^T in the kernel's order; T's twin is the
+   einsums) and the three einsums the parent ran ("one call").  Phase 5
+   must launch both.  ``python3 chip_smoke.py --transfers`` runs phases 1,
+   2 and 46 alone.
 
 Then one JSON line with each kernel's route, source, launches (K1-K4 from
 phase 5, K5 from phase 8, K6/K7 from phase 10, K3'/K4' from phase 11,
@@ -386,7 +405,8 @@ phase 42's one-process (z, y) run at 300^3, the
 batched K1p from phase 28's ``mat_solve``, the batched K5 from phase 31's,
 K5h from phase 43's one-process 300^3 solve on the row mesh,
 ``varstencil27_mv`` from phase 5, timed in phase 45 at 240^3 with bf16
-coefficients),
+coefficients, ``agg_restrict`` / ``agg_prolong`` from phase 5, timed in
+phase 46 at 726 x 720 x 720 padded <-> 240^3),
 error,
 times, its bound at the timed shape (the larger of its unique field bytes
 over 3.35 TB/s and its operations over 67 TFLOP/s of f32, the H100 SXM's
@@ -434,6 +454,7 @@ from tpusparse_torch.amg.hierarchy import (
     vcycle,
     wcycle,
 )
+from tpusparse_torch.amg.transfer import StructuredTransfer
 from tpusparse_torch.amg.unstructured import gamg_setup_unstructured
 from tpusparse_torch.bench import bwprobe, deviceaggbench, headline, reorderbench, scaling, spmv
 from tpusparse_torch.bench.driver import build_system, refined_solve, solve_diffusion, solve_poisson
@@ -530,12 +551,19 @@ from tpusparse_torch.kernels.varstencil27 import (
     varstencil27_mv_torch,
     varstencil27_tiles,
 )
+from tpusparse_torch.kernels.transfer import (
+    agg_prolong,
+    agg_prolong_torch,
+    agg_restrict,
+    agg_restrict_ordered,
+    agg_restrict_torch,
+)
 from tpusparse_torch.solve.cg import cg
 from tpusparse_torch.solve.checkpoint import CheckpointConfig, cg_checkpointed
 from tpusparse_torch.sparse.io import load_petsc_vec, read_petsc_objects
 from tpusparse_torch.sparse.dia import DFDIA, DIA, HybridDIA
 from tpusparse_torch.sparse.ell import ELL
-from tpusparse_torch.sparse.padded import PaddedStar, crop_field, pad_field
+from tpusparse_torch.sparse.padded import PaddedStar, PaddedTransfer, crop_field, pad_field
 from tpusparse_torch.sparse.starlift import star_lift
 
 SEED = 7
@@ -630,6 +658,24 @@ KERNELS["varstencil27_mv"] = (
     "tpusparse_torch/csrc/varstencil27.cu", "none (XLA fusion, tpusparse/sparse/varstencil.py:76)",
     varstencil27_mv, varstencil27_mv_torch,
 )
+# the grid transfers' T^T and T (amg/transfer.py, sparse/padded.py), which
+# replace no Pallas kernel: the JAX package leaves the three contractions
+# of each to XLA (tpusparse/amg/transfer.py:161-174)
+KERNELS["agg_restrict"] = (
+    "tpusparse_torch/csrc/transfer.cu", "none (three einsums, tpusparse/amg/transfer.py:169-174)",
+    agg_restrict, agg_restrict_torch,
+)
+KERNELS["agg_prolong"] = (
+    "tpusparse_torch/csrc/transfer.cu", "none (three einsums, tpusparse/amg/transfer.py:161-167)",
+    agg_prolong, agg_prolong_torch,
+)
+# phase 46's ragged shapes (a plane wider than a restrict round: 1100
+# cells in x) and factors, and the main path's level pairs, timed in f32:
+# (label, fine grid, padded)
+AGG_SHAPES = ((7, 8, 10), (5, 9, 4), (80, 80, 80), (4, 5, 1100))
+AGG_FACTORS = (3, (3, 1, 3), (1, 3, 3), (2, 4, 5))   # the last: agg_restrict's general-factor form
+AGG_TIMED = (("726 x 720 x 720 padded <-> 240^3", (720, 720, 720), True),
+             ("240^3 <-> 80^3", (240, 240, 240), False), ("432^3 <-> 144^3", (432, 432, 432), False))
 # phase 45's shapes: ragged ones of 1-10 cells a side, ragged ones of
 # several 16 x 64 tiles (x a multiple of 4 or not), then the levels of the
 # 720^3 stencil cell (80^3 and 240^3 timed); the (coefficient, field) pairs
@@ -2840,6 +2886,128 @@ def check_varstencil27(device) -> dict:
     return row
 
 
+def _agg_forms(shape, factor, dtype, padded, device):
+    """(T, T^T, fine layout, z0, the StructuredTransfer, its membership
+    matrices) of a transfer built on ``device``."""
+    inner = StructuredTransfer.build(shape, 0.5, dtype, factor, device=device)
+    if padded:
+        tr = PaddedTransfer(inner)
+        return tr.t_apply_padded, tr.tT_apply_padded, padded_shape(shape), 3, inner, tr.mats
+    return inner.t_apply, inner.tT_apply, tuple(shape), 0, inner, (inner.sz, inner.sy, inner.sx)
+
+
+def _agg_check(label, shape, factor, dtype, padded, device, k) -> float:
+    """One transfer's T and T^T on the card against their twins there (a
+    stack of ``k``, or one field): T bit-equal to the einsums, T^T to the
+    kernel's order and within (m + 4) eps T^T|r| of the einsums (two
+    orders of an m-term sum, bf16's three axis roundings and the scale);
+    one launch a call.  Returns T^T's largest distance from the einsums
+    over the bound."""
+    t, tt, layout, z0, inner, mats = _agg_forms(shape, factor, dtype, padded, device)
+    gen = torch.Generator(device).manual_seed(SEED)
+    lead = () if k is None else (k,)
+    e_c = torch.randn((*lead, *inner.c_shape), generator=gen, device=device).to(dtype)
+    r = torch.randn((*lead, *layout), generator=gen, device=device).to(dtype)
+    before = dict(kernels.LAUNCHES)
+    fine, coarse = t(e_c), tt(r)
+    launched = {n: kernels.LAUNCHES[n] - before[n] for n in ("agg_prolong", "agg_restrict")}
+    _require(launched == {"agg_prolong": 1, "agg_restrict": 1}, f"{label}: launches {launched}, not one each")
+    _require(torch.equal(fine, agg_prolong_torch(e_c, inner.tnorm, *mats)),
+             f"{label}: T is not bit-equal to its einsum twin")
+    _require(torch.equal(coarse, agg_restrict_ordered(r, inner.tnorm, inner.factor, shape, z0)),
+             f"{label}: T^T is not bit-equal to its twin in the kernel's order")
+    m = math.prod(inner.factor)
+    bound = (m + 4) * torch.finfo(dtype).eps * agg_restrict_ordered(
+        r.double().abs(), inner.tnorm.double(), inner.factor, shape, z0)
+    gap = (coarse.double() - agg_restrict_torch(r, inner.tnorm, *mats).double()).abs()
+    ratio = (gap / bound.clamp_min(1e-300)).max().item()
+    _require(ratio <= 1.0, f"{label}: T^T lies {ratio:.3f} of the rounding bound from the einsums")
+    return ratio
+
+
+def check_transfers(device) -> dict:
+    """Phase 46: ``agg_restrict`` (T^T) and ``agg_prolong`` (T) against
+    their twins at ``AGG_SHAPES`` x ``AGG_FACTORS`` x layout x dtype and at
+    ``AGG_TIMED`` in f32, and timed there.  Returns the rows of the 726 x
+    720 x 720 padded <-> 240^3 launches."""
+    report = _ptxas("transfer.cu", "agg_")
+    print("agg_restrict / agg_prolong, nvcc -Xptxas -v:\n  " + "\n  ".join(report))
+    # the forms the port's hierarchies run (factors <= 3: agg_restrict's
+    # SMALL forms, its third template argument, and every agg_prolong)
+    # must not spill; a spill of a general-factor form is printed
+    spills, form = [], ""
+    for line in report:
+        if "Compiling entry function" in line:
+            form = line
+        for st, ld in _spills([line]):
+            if st != "0" or ld != "0":
+                main = "agg_prolong" in form or re.search(r"agg_restrict_kernel.*Lb[01]ELb1E", form)
+                print(f"{'spill' if main else 'spill (general factors, allowed)'}: {st} / {ld} bytes in {form}")
+                spills += [(st, ld)] if main else []
+    worst = 0.0
+    for shape in AGG_SHAPES:
+        for factor in AGG_FACTORS:
+            for padded in (False, True):
+                for dtype in (torch.float32, torch.float64, torch.bfloat16):
+                    for k in (None, 2):
+                        label = f"transfer {shape} {factor} {'padded' if padded else 'plain'} {dtype} k={k}"
+                        worst = max(worst, _agg_check(label, shape, factor, dtype, padded, device, k))
+    print(f"agg_restrict / agg_prolong at {len(AGG_SHAPES)} ragged shapes x {len(AGG_FACTORS)} factors x"
+          f" plain/padded x f32/f64/bf16 x one field/a stack of 2: T bit-equal to its twin, T^T to the kernel's"
+          f" order and within {worst:.3f} of the rounding bound from the einsums, one launch a call")
+    rows = {}
+    for label, shape, padded in AGG_TIMED:
+        torch.cuda.empty_cache()
+        ratio = _agg_check(label, shape, 3, torch.float32, padded, device, None)
+        t, tt, layout, z0, inner, mats = _agg_forms(shape, 3, torch.float32, padded, device)
+        gen = torch.Generator(device).manual_seed(SEED + 1)
+        e_c = torch.randn(inner.c_shape, generator=gen, device=device)
+        r = torch.randn(layout, generator=gen, device=device)
+        fine_b, coarse_b = math.prod(shape) * 4, math.prod(inner.c_shape) * 4
+        cases = {
+            "agg_restrict": (tt, (r,), fine_b + 2 * coarse_b,
+                             (agg_restrict_ordered, (r, inner.tnorm, inner.factor, shape, z0)),
+                             (agg_restrict_torch, (r, inner.tnorm, *mats))),
+            "agg_prolong": (t, (e_c,), math.prod(layout) * 4 + 2 * coarse_b,
+                            (agg_prolong_torch, (e_c, inner.tnorm, *mats)),
+                            (agg_prolong_torch, (e_c, inner.tnorm, *mats))),
+        }
+        fill_ms = _time_ms(torch.Tensor.fill_, (torch.empty(layout, device=device), 0.0))
+        print(f"time a fill of the fine layout {layout} f32 (writes alone): {fill_ms:.4f} ms"
+              f" ({100 * math.prod(layout) * 4 / HBM_BYTES_S * 1e3 / fill_ms:.1f}% of 3.35 TB/s)")
+        for name, (fn, args, nbytes, (twin, twin_args), (ein, ein_args)) in cases.items():
+            ms, cold = _time_ms(fn, args), _time_cold_ms(fn, args)
+            plain_ms = _time_ms(twin, twin_args, reps=5, per=2)
+            ein_ms = plain_ms if ein is twin else _time_ms(ein, ein_args, reps=5, per=2)
+            bound = nbytes / HBM_BYTES_S * 1e3
+            print(f"time {name} {label} f32: {ms:.4f} ms back to back ({100 * bound / ms:.1f}% of its bound"
+                  f" {bound:.4f} ms, {nbytes / 1e9:.3f} GB), {cold:.4f} ms after an L2 flush"
+                  f" ({100 * bound / cold:.1f}%); plain twin {plain_ms:.4f} ms, the three einsums {ein_ms:.4f} ms")
+            if padded:
+                rows[name] = {"max_abs_err": ratio, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
+                              "bound_by": "bytes", "library_ms": ein_ms}
+        del t, tt, inner, mats, e_c, r, cases
+    _require(not spills, f"a transfer kernel spills: {spills} bytes stored / loaded")
+    return rows
+
+
+def transfers_only() -> None:
+    """``--transfers``: phases 1, 2 and 46 alone."""
+    _require(torch.cuda.is_available(), "no CUDA device")
+    smi = subprocess.run(["nvidia-smi", "-i", "0", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True)
+    print(smi.stdout.strip())
+    device = torch.device("cuda", 0)
+    torch.cuda.set_device(device)
+    t0 = time.perf_counter()
+    lib = _build.build()
+    print(f"build: {time.perf_counter() - t0:.2f} s ({lib.name})")
+    t0 = time.perf_counter()
+    rows = check_transfers(device)
+    print(f"phase 46: {time.perf_counter() - t0:.1f} s")
+    print(json.dumps({"transfers": rows}))
+
+
 # phase 44: the kernels each ``A @ x`` must launch once (None: plain torch)
 MATMUL_KERNELS = {
     "StarStencil3D 3-D": "star7_mv", "StarStencil3D flat": "star7_mv", "PaddedStar": "star7_mv_padded",
@@ -3031,7 +3199,7 @@ def main() -> None:
     # the order the V-cycle kernels sum <b, b> and <b, z> in decides
     _require(rep.outer_iters in (2, 3), f"outer iterations {rep.outer_iters} not in 2-3")
     _require(abs(rep.iters - 34) <= 2, f"inner iterations {rep.iters} not within 34 +- 2")
-    for name in (*STENCIL_KERNELS, "varstencil27_mv"):
+    for name in (*STENCIL_KERNELS, "varstencil27_mv", "agg_restrict", "agg_prolong"):
         _require(launches[name] > 0, f"kernel {name} was not launched by the stencil path")
     production = rep
     rows["dia_mv"] = check_dia(device)
@@ -3155,8 +3323,9 @@ def main() -> None:
                  f"-precision {precision}: Linf {side['linf_error']} >= 1e-3")
     _require(uniform["f32"]["star7_mv"] > 0, "-precision f32 did not launch star7_mv")
     f64_used = {name: n for name, n in uniform["f64"].items() if n}
-    _require(set(f64_used) == {"varstencil27_mv"},
-             f"-precision f64 launched {f64_used}, not varstencil27_mv (its coarse levels) alone")
+    _require(set(f64_used) == {"varstencil27_mv", "agg_restrict", "agg_prolong"},
+             f"-precision f64 launched {f64_used}, not varstencil27_mv (its coarse levels) and the grid"
+             " transfers alone")
     launches.update(fused7_cgmv=fu_launches["fused7_cgmv"], fused7_descentu=fu_launches["fused7_descentu"],
                     star7_mv=pl_launches["star7_mv"])
 
@@ -3325,6 +3494,11 @@ def main() -> None:
     rows["varstencil27_mv"] = check_varstencil27(device)
     print(f"phase 45: {time.perf_counter() - t0:.1f} s")
 
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    rows.update(check_transfers(device))
+    print(f"phase 46: {time.perf_counter() - t0:.1f} s")
+
     print(json.dumps({"kernels": [
         {
             "name": name, "route": "cuda", "source": src, "replaces": replaces,
@@ -3346,6 +3520,8 @@ if __name__ == "__main__":
         sys.exit(rank_cli(sys.argv[2:]))
     if sys.argv[1:2] == ["--rank-general"]:
         sys.exit(rank_general(sys.argv[2:]))
+    if sys.argv[1:2] == ["--transfers"]:
+        sys.exit(transfers_only())
     if sys.argv[1:2] == ["--rank-scaling"]:
         sys.exit(rank_scaling(json.loads(sys.argv[2])))
     main()

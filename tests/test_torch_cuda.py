@@ -521,7 +521,8 @@ def test_small_solve_on_card_matches_cpu(cuda):
     kw = dict(rtol=1e-8, atol=1e-12, pc="gamg", warmup=False)
     kernels.reset_launches()
     gpu = solve_poisson(16, device=cuda, **kw)
-    stencil = ("star7_mv_padded", "fused7_mvdot", "fused7_descent_rr", "fused7_ascent_rz", "varstencil27_mv")
+    stencil = ("star7_mv_padded", "fused7_mvdot", "fused7_descent_rr", "fused7_ascent_rz", "varstencil27_mv",
+               "agg_restrict", "agg_prolong")
     assert all(kernels.LAUNCHES[name] > 0 for name in stencil)
     assert all(n == 0 for name, n in kernels.LAUNCHES.items() if name not in stencil)
     cpu = solve_poisson(16, device="cpu", **kw)

@@ -7,10 +7,11 @@ threshold 0.0): the prolongator is the once-smoothed tentative operator
     P = (I - omega * D^{-1} A) T,     omega = 4 / (3 * rho(D^{-1} A)),
 
 with geometric 3x3x3 aggregates (ragged at the high boundary).  T is the
-piecewise-constant injection with l2-normalized columns, applied as three
-contractions with 0/1 per-axis membership matrices.  Those are plain
-products (XLA computes them in the JAX package), so they stay
-``torch.einsum`` here; ``bench/driver.py`` keeps TF32 off so they run in full f32.
+piecewise-constant injection with l2-normalized columns.  The JAX package
+applies it as three contractions with 0/1 per-axis membership matrices
+(XLA computes them); here a CUDA field takes one launch of
+``kernels/transfer.py``'s ``agg_prolong`` / ``agg_restrict`` each way, and
+a CPU field those three einsums, their plain twin.
 
 Under ``-pc_gamg_threshold`` (``hierarchy.threshold_schedule``) an axis may
 stay uncoarsened (factor 1), and P is smoothed with ``fop``, the level
@@ -24,6 +25,8 @@ import dataclasses
 
 import numpy as np
 import torch
+
+from tpusparse_torch.kernels.transfer import agg_prolong, agg_restrict
 
 
 def cdiv(a: int, b: int) -> int:
@@ -109,17 +112,11 @@ class StructuredTransfer:
     def t_apply(self, e_c: torch.Tensor) -> torch.Tensor:
         """T e_c: normalized piecewise-constant interpolation (coarse ->
         fine), of a field or of each field of a stack with leading axes."""
-        x = e_c * self.tnorm
-        x = torch.einsum("zc,...cde->...zde", self.sz, x)
-        x = torch.einsum("yd,...zde->...zye", self.sy, x)
-        return torch.einsum("xe,...zye->...zyx", self.sx, x)
+        return agg_prolong(e_c, self.tnorm, (self.sz, self.sy, self.sx), self.factor, self.fine_shape)
 
     def tT_apply(self, r: torch.Tensor) -> torch.Tensor:
         """T^T r: block sums (fine -> coarse), as ``t_apply`` on stacks."""
-        x = torch.einsum("...zyx,zc->...cyx", r, self.sz)
-        x = torch.einsum("...cyx,yd->...cdx", x, self.sy)
-        x = torch.einsum("...cdx,xe->...cde", x, self.sx)
-        return x * self.tnorm
+        return agg_restrict(r, self.tnorm, (self.sz, self.sy, self.sx), self.factor, self.fine_shape)
 
     def prolong(self, fine_op, dinv: torch.Tensor, e_c: torch.Tensor) -> torch.Tensor:
         """x_f = P e_c = (I - omega D^{-1} A) T e_c."""

@@ -35,6 +35,8 @@ LAUNCHES = {
     "dia_mv_batched": 0,
     "dia_mv_window": 0,
     "varstencil27_mv": 0,
+    "agg_restrict": 0,
+    "agg_prolong": 0,
 }
 
 

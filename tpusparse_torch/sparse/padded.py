@@ -9,9 +9,9 @@ elementwise solver algebra preserves them, dots are unchanged by the zero
 pads, and each stencil apply is one kernel launch over the resident fields.
 
 The AMG transfers cross between the padded fine level and the true-shape
-coarse levels: ``PaddedTransfer`` contracts with aggregation matrices whose
-pad rows are zero, so prolongation writes and restriction reads the padded
-layout directly.
+coarse levels: ``PaddedTransfer``'s T and T^T write and read the padded
+layout directly, one ``kernels/transfer.py`` launch each on the card (on
+the CPU, contractions with aggregation matrices whose pad rows are zero).
 
 The unfused padded V-cycle (``amg/hierarchy.py::vcycle`` on a padded level)
 runs on the single-step kernels K10-K16: ``PaddedStar.{residual, rich,
@@ -40,6 +40,7 @@ from tpusparse_torch.kernels.fused7 import (
     fused7_rich,
 )
 from tpusparse_torch.kernels.stencil7 import FACE, padded_shape, star7_mv_padded
+from tpusparse_torch.kernels.transfer import agg_prolong, agg_restrict
 from tpusparse_torch.sparse.stencil import StarStencil3D
 
 
@@ -167,14 +168,17 @@ class PaddedTransfer:
 
     def __init__(self, inner):
         self.inner = inner  # StructuredTransfer
-        # zero-padded per-axis aggregation matrices: the T-action einsums
-        # then produce/consume the padded layout directly (the zero rows
-        # realize the pads)
+        # zero-padded per-axis aggregation matrices (sz, sy, sx): the
+        # T-action einsums (the CPU twins) then produce/consume the padded
+        # layout directly (the zero rows realize the pads); on the card they
+        # give the kernels the layout
         nz, ny, nx = inner.fine_shape
         nzp, nyp, nxp = padded_shape(inner.fine_shape)
-        self.szp = F.pad(inner.sz, (0, 0, FACE, nzp - nz - FACE))
-        self.syp = F.pad(inner.sy, (0, 0, 0, nyp - ny))
-        self.sxp = F.pad(inner.sx, (0, 0, 0, nxp - nx))
+        self.mats = (
+            F.pad(inner.sz, (0, 0, FACE, nzp - nz - FACE)),
+            F.pad(inner.sy, (0, 0, 0, nyp - ny)),
+            F.pad(inner.sx, (0, 0, 0, nxp - nx)),
+        )
 
     @property
     def c_shape(self):
@@ -196,17 +200,14 @@ class PaddedTransfer:
 
     def t_apply_padded(self, e_c: torch.Tensor) -> torch.Tensor:
         """T e_c straight into the padded layout (zero faces/pads)."""
-        x = e_c * self.inner.tnorm
-        x = torch.einsum("zc,cde->zde", self.szp, x)
-        x = torch.einsum("yd,zde->zye", self.syp, x)
-        return torch.einsum("xe,zye->zyx", self.sxp, x)
+        inner = self.inner
+        return agg_prolong(e_c, inner.tnorm, self.mats, inner.factor, inner.fine_shape, FACE)
 
     def tT_apply_padded(self, s_p: torch.Tensor) -> torch.Tensor:
-        """T^T s from a padded field (pads contract against zero rows)."""
-        x = torch.einsum("zyx,zc->cyx", s_p, self.szp)
-        x = torch.einsum("cyx,yd->cdx", x, self.syp)
-        x = torch.einsum("cdx,xe->cde", x, self.sxp)
-        return x * self.inner.tnorm
+        """T^T s from a padded field (the card's kernel skips the pads; the
+        CPU's einsums contract them against zero rows)."""
+        inner = self.inner
+        return agg_restrict(s_p, inner.tnorm, self.mats, inner.factor, inner.fine_shape, FACE)
 
     def prolong(self, fine_op, dinv, e_c):
         if self.inner.fop is not None:
