@@ -457,7 +457,7 @@ from tpusparse_torch.amg.hierarchy import (
 from tpusparse_torch.amg.transfer import StructuredTransfer
 from tpusparse_torch.amg.unstructured import gamg_setup_unstructured
 from tpusparse_torch.bench import bwprobe, deviceaggbench, headline, reorderbench, scaling, spmv
-from tpusparse_torch.bench.driver import build_system, refined_solve, solve_diffusion, solve_poisson
+from tpusparse_torch.bench.driver import build_system, solve_diffusion, solve_poisson
 from tpusparse_torch.dist import multihost
 from tpusparse_torch.dist.fused_sharded import FusedSharded
 from tpusparse_torch.dist.general import (
@@ -558,6 +558,7 @@ from tpusparse_torch.kernels.transfer import (
     agg_restrict_ordered,
     agg_restrict_torch,
 )
+from tpusparse_torch.ksp import refined_solve
 from tpusparse_torch.solve.cg import cg
 from tpusparse_torch.solve.checkpoint import CheckpointConfig, cg_checkpointed
 from tpusparse_torch.sparse.io import load_petsc_vec, read_petsc_objects

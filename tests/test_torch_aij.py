@@ -3,6 +3,7 @@ structure-blind solve (``mat_type="aij", structure_detect=False``) against
 the port's on the CPU, the options the port refuses there, and uniform
 precision through the star lift."""
 
+import functools
 import json
 
 import numpy as np
@@ -11,11 +12,12 @@ import torch
 
 from tpusparse.bench.driver import solve_poisson as j_solve_poisson
 from tpusparse_torch.amg.geo import GeoTransfer
-from tpusparse_torch.amg.hierarchy import AMGParams
+from tpusparse_torch.amg.hierarchy import AMGParams, vcycle
 from tpusparse_torch.amg.unstructured import gamg_setup_unstructured
-from tpusparse_torch.bench.driver import build_system_aij, refined_solve_plain, solve_poisson
+from tpusparse_torch.bench.driver import solve_poisson
 from tpusparse_torch.grid.grid3d import Grid3D
-from tpusparse_torch.grid.poisson import assemble_poisson
+from tpusparse_torch.grid.poisson import assemble_poisson, poisson_dia_device
+from tpusparse_torch.ksp import refined_solve_plain
 from tpusparse_torch.sparse.dia import DFDIA, DIA
 
 # the structure-blind route (K5): the default proves the matrix a star
@@ -93,8 +95,9 @@ def test_host_assembly_gives_the_device_outcome():
     device-assembled one does: the two assemblies give the same bands."""
     dev = solve_poisson(12, device="cpu", warmup=False, **KW)
     op_hi, op_lo, b, exact = _host_system(12)
+    hier = gamg_setup_unstructured(None, AMGParams(), fine_op=op_lo)
     res = refined_solve_plain(
-        op_hi, gamg_setup_unstructured(None, AMGParams(), fine_op=op_lo), b, rtol=KW["rtol"], atol=KW["atol"],
+        op_hi, hier.levels[0].op, functools.partial(vcycle, hier), b, rtol=KW["rtol"], atol=KW["atol"],
     )
     assert (res.iters, res.outer_iters, res.reason) == (dev.iters, dev.outer_iters, dev.reason)
     assert (res.x - exact).abs().max().item() == pytest.approx(dev.linf_error, rel=1e-9)
@@ -103,7 +106,7 @@ def test_host_assembly_gives_the_device_outcome():
 def test_aij_route_is_structure_blind():
     """The aij route never sees a stencil: a DIA system, a DIA hierarchy
     with geometric transfers, nothing padded."""
-    op_hi, op_lo, b, exact = build_system_aij(Grid3D(8, 8, 8), "cpu")
+    op_hi, op_lo, b, exact = poisson_dia_device(Grid3D(8, 8, 8), device="cpu")
     assert isinstance(op_hi, DFDIA) and isinstance(op_lo, DIA)
     assert op_lo.offsets == (-64, -8, -1, 0, 1, 8, 64)
     assert b.shape == exact.shape == (8**3,) and b.dtype == torch.float64

@@ -1245,7 +1245,8 @@ def test_cg_check_every_on_card_matches_cpu(cuda, check_every):
     iterations (refined_solve's limits) at 18^3: the card's counts within
     check_every of the CPU's, every inner count a multiple of it."""
     from tpusparse_torch.amg.hierarchy import cast_coarse_coefs, gamg_setup
-    from tpusparse_torch.bench.driver import build_system, refined_solve
+    from tpusparse_torch.bench.driver import build_system
+    from tpusparse_torch.ksp import refined_solve
 
     out = {}
     for dev in (cuda, torch.device("cpu")):

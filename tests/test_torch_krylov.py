@@ -175,7 +175,8 @@ def test_solve_poisson_ksp_norm_type_matches_jax(norm_type, kw):
     JAX's driver:317/:369): uniform f64 and the padded mixed route, where
     CG keeps the fused <p, Ap> and the dot-fused cycle."""
     from tpusparse.bench.driver import solve_poisson as j_solve_poisson
-    from tpusparse_torch.bench.driver import _pick_ksp, solve_poisson
+    from tpusparse_torch.bench.driver import solve_poisson
+    from tpusparse_torch.ksp import _pick_ksp
 
     common = dict(rtol=1e-8, atol=1e-12, warmup=False, ksp_norm_type=norm_type, **kw)
     want = j_solve_poisson(16, **common)

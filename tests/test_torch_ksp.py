@@ -33,9 +33,9 @@ from tpusparse.sparse.padded import pad_field as j_pad_field
 from tpusparse_torch import kernels
 from tpusparse_torch.amg.fused_cycle import vcycle_fused, vcycle_fused_dots
 from tpusparse_torch.amg.hierarchy import cast_coarse_coefs
-from tpusparse_torch.bench.driver import _pick_ksp
 from tpusparse_torch.grid.grid3d import Grid3D
 from tpusparse_torch.grid.poisson import poisson_stencil_device
+from tpusparse_torch.ksp import _pick_ksp
 from tpusparse_torch.solve.bcgs import bicgstab
 from tpusparse_torch.solve.cg import ConvergedReason, cg
 from tpusparse_torch.solve.chebyshev import chebyshev

@@ -5,7 +5,11 @@ to JAX's ``KSP()`` (the plain layout on the CPU), its padded route to
 JAX's ``KSP(layout="padded")``; mixed-precision solves to the same outer
 count and reason, inner within 1 (f32 summation order), x to 1e-6."""
 
+import ast
 import dataclasses
+import pathlib
+import subprocess
+import sys
 
 import jax
 import jax.numpy as jnp
@@ -26,9 +30,9 @@ from tpusparse.grid.poisson import poisson_dia_device as j_poisson_dia_device
 from tpusparse.grid.poisson import poisson_stencil_device as j_poisson_stencil_device
 from tpusparse_torch import KSP, Grid3D, KSPResult, StarStencil3D
 from tpusparse_torch.amg.hierarchy import AMGParams
-from tpusparse_torch.bench.driver import DivergedError
 from tpusparse_torch.config.options import load_options
 from tpusparse_torch.grid.poisson import assemble_poisson, poisson_dia_device, poisson_stencil_device
+from tpusparse_torch.ksp import DivergedError
 from tpusparse_torch.sparse.csr import HostCSR
 from tpusparse_torch.sparse.dia import DIA
 
@@ -392,3 +396,18 @@ def test_exports_match_the_jax_package():
     assert all(hasattr(t_solve, name) for name in t_solve.__all__)
     from tpusparse_torch.kernels import _build
     assert _build._lib is None
+
+
+def test_ksp_imports_nothing_from_the_cli_driver():
+    """Imports point one way: ``bench/`` builds on ``ksp.py``, never the
+    reverse.  A fresh interpreter that imports ``tpusparse_torch.ksp``
+    holds no ``tpusparse_torch.bench`` module, and no import in ``ksp.py``,
+    at module level or inside a function, names one."""
+    root = pathlib.Path(__file__).resolve().parents[1]
+    code = "import sys, tpusparse_torch.ksp; print([m for m in sys.modules if m.startswith('tpusparse_torch.bench')])"
+    out = subprocess.run([sys.executable, "-c", code], cwd=root, capture_output=True, text=True, check=True)
+    assert out.stdout.strip() == "[]"
+    tree = ast.parse((root / "tpusparse_torch/ksp.py").read_text())
+    named = [a.name for n in ast.walk(tree) if isinstance(n, ast.Import) for a in n.names]
+    named += [n.module or "" for n in ast.walk(tree) if isinstance(n, ast.ImportFrom)]
+    assert named and not [m for m in named if "bench" in m.split(".")]

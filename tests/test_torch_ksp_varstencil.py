@@ -2,9 +2,10 @@
 operator (``grid/hpcg.py``) and a diffusion operator (``grid/diffusion.py``)
 through ``set_operators`` and ``setup``, on the CPU.
 
-The route is the plain cycle over ``gamg_setup``'s probed hierarchy, as
-``solve_diffusion`` runs it, so a ``KSP`` solve equals ``gamg_setup`` with
-``cg_refined`` (mixed precision) or ``cg`` (uniform) run by hand.  The
+The route is the plain cycle over ``gamg_setup``'s probed hierarchy
+(``solve_diffusion`` runs through it), so a ``KSP`` solve equals
+``gamg_setup`` with ``cg_refined`` (mixed precision) or ``cg`` (uniform)
+run by hand.  The
 residuals are read by the benchmark's plain float64 reference of HPCG's
 operator (``benchmark/reference/hpcg27.py``).  At 48^3 the default 25
 power steps underestimate rho(D^-1 A) and the solve stalls; the
@@ -93,10 +94,11 @@ def test_hpcg_solves_through_ksp_as_by_hand(n, precision):
 
 
 def test_a_diffusion_operator_solves_through_ksp_as_solve_diffusion():
-    """The route belongs to the operator class: the diffusion family's
-    VarStencil27 (contrast 100, 18^3, negative definite) through ``KSP``
-    takes the iterations, sweeps, reason and residual of
-    ``bench/driver.py::solve_diffusion``, which builds this route by hand."""
+    """The route belongs to the operator class: ``bench/driver.py::
+    solve_diffusion``, which runs the diffusion family's VarStencil27
+    (contrast 100, 18^3, negative definite) through ``KSP``, takes the
+    iterations, sweeps, reason, residual and error of ``gamg_setup`` and
+    ``cg_refined`` composed by hand."""
     grid = Grid3D(18, 18, 18)
     kappa = default_kappa(grid, contrast=100.0)
     op = diffusion_stencil(grid, kappa, dtype=np.float64, device="cpu")
@@ -104,11 +106,13 @@ def test_a_diffusion_operator_solves_through_ksp_as_solve_diffusion():
     zc, yc, xc = np.meshgrid(grid.cell_centers("z"), grid.cell_centers("y"), grid.cell_centers("x"), indexing="ij")
     exact = torch.from_numpy(np.cos(2 * np.pi * xc) * np.cos(2 * np.pi * yc) * np.cos(2 * np.pi * zc) - 1.0)
     b = op.mv(exact)
-    res = KSP(**TOL).set_operators(op, op_lo, device="cpu").solve(b)
+    hier = gamg_setup(op_lo, AMGParams())
+    want = cg_refined(op.mv, op_lo.mv, b, m_lo_mv=functools.partial(vcycle, hier), **TOL)
     rep = solve_diffusion(18, device="cpu", contrast=100.0, warmup=False, **TOL)
-    assert res.reason > 0 and res.resnorm <= TOL["rtol"] * float(torch.linalg.vector_norm(b))
-    assert (res.iters, res.outer_iters, res.reason, res.resnorm) == (rep.iters, rep.outer_iters, rep.reason,
-                                                                     rep.resnorm)
+    assert want.reason > 0 and float(want.resnorm) <= TOL["rtol"] * float(torch.linalg.vector_norm(b))
+    assert (rep.iters, rep.outer_iters, rep.reason, rep.resnorm) == (want.iters, want.outer_iters, want.reason,
+                                                                     float(want.resnorm))
+    assert rep.linf_error == (want.x - exact).abs().max().item()
 
 
 @pytest.mark.parametrize("reuse", [True, False])

@@ -251,7 +251,7 @@ def test_ssor_apply_matches_jax(monkeypatch):
     import tpusparse.solve.refine as j_refine
 
     from tpusparse.bench.driver import solve_poisson as j_solve_poisson
-    from tpusparse_torch.bench.driver import _ssor
+    from tpusparse_torch.ksp import _ssor
 
     taken = {}
 

@@ -11,7 +11,11 @@ Every solve is a Krylov method (``-ksp_type``, ``_pick_ksp``)
 preconditioned by a GAMG V- or W-cycle (``mg_cycle``), point Jacobi, SSOR
 or nothing (``pc``), on one device, with a convergence check every
 iteration.  Under mixed precision (the default) the Krylov method runs in
-f32 under f64 defect correction.  The routes:
+f32 under f64 defect correction.  The pieces a solve is composed of (the
+method table, the padded-or-plain rule ``star_route``, the standalone
+preconditioners and the refined solves) live in ``ksp.py``, which the
+``KSP`` object runs too; this module adds the report, the phases and the
+sharded routes.  The routes:
 
 - ``mat_type="stencil"``, ``layout="padded"``: the 7-point stencil operator
   on the padded-resident layout.  With GAMG and a fine smoother the fused
@@ -70,8 +74,8 @@ f32 under f64 defect correction.  The routes:
   padded ELL, past 192 diagonals) and, with GAMG, the router's "auto"
   rule above.
 - ``solve_diffusion``: the variable-coefficient diffusion problem (the
-  JAX driver's ``:1341-1477``) over a ``VarStencil27`` fine level and the
-  plain cycle, CG + GAMG only.
+  JAX driver's ``:1341-1477``) through ``KSP`` on a ``VarStencil27`` fine
+  level and the plain cycle, CG + GAMG only.
 
 Each driver marks its phases for ``-profile`` traces
 (``utils/profiling.py::annotate``): ``tpusparse:init``,
@@ -90,20 +94,13 @@ import warnings
 import numpy as np
 import torch
 
-from tpusparse_torch.amg.fused_cycle import (
-    cg_fusion_supported,
-    fused_fine_supported,
-    vcycle_fused,
-    vcycle_fused_dots,
-    vcycle_fused_rupdate,
-)
+from tpusparse_torch.amg.fused_cycle import fused_fine_supported
 from tpusparse_torch.amg.hierarchy import (
     AMGParams,
     cast_coarse_coefs,
     cast_hierarchy,
     gamg_setup,
     hierarchy_summary,
-    plain_cycle_only,
     threshold_schedule,
     vcycle,
 )
@@ -130,21 +127,22 @@ from tpusparse_torch.grid.poisson import (
     poisson_stencil_device,
 )
 from tpusparse_torch.kernels._build import library as kernel_library
-from tpusparse_torch.solve.bcgs import bicgstab
-from tpusparse_torch.solve.bjacobi import BlockJacobi
-from tpusparse_torch.solve.cg import ConvergedReason, cg
-from tpusparse_torch.solve.chebyshev import chebyshev
-from tpusparse_torch.solve.fgmres import fgmres
-from tpusparse_torch.solve.gmres import gmres
-from tpusparse_torch.solve.minres import minres
-from tpusparse_torch.solve.pipelined import cg_pipelined
-from tpusparse_torch.solve.refine import cg_refined
-from tpusparse_torch.solve.simple import preonly, richardson
+from tpusparse_torch.ksp import (
+    KSP,
+    DivergedError,
+    _pick_ksp,
+    _refined_padded,
+    _standalone_pc,
+    refined_solve,
+    refined_solve_plain,
+    star_route,
+)
+from tpusparse_torch.solve.cg import ConvergedReason
 from tpusparse_torch.solve.spectrum import eigenvalue_block, ritz_values
 from tpusparse_torch.sparse.csr import HostCSR
 from tpusparse_torch.sparse.dia import host_dia_operators
 from tpusparse_torch.sparse.io import load_matrix, read_petsc_objects, save_petsc_vec
-from tpusparse_torch.sparse.padded import PaddedStar, crop_field, pad_field
+from tpusparse_torch.sparse.padded import PaddedStar
 from tpusparse_torch.sparse.starlift import star_lift
 from tpusparse_torch.utils.profiling import annotate, sync
 
@@ -277,43 +275,6 @@ class SolveReport:
         return json.dumps(dataclasses.asdict(self))
 
 
-class DivergedError(RuntimeError):
-    """SETERRQ1-on-negative-reason parity (src/main_ksp.cpp:109-111)."""
-
-
-def _pick_ksp(
-    ksp: str, ksp_gmres_restart: int = 30, ksp_richardson_scale: float = 1.0,
-    precision: str = "mixed", ksp_norm_type: str = "default",
-):
-    """The solver a ``-ksp_type`` name selects: the inner solver under mixed
-    precision, the whole solve under uniform precision.  ``ksp_norm_type``
-    ("default", "unpreconditioned", "preconditioned" or "none") reaches CG
-    only, as in the JAX driver (``tpusparse/bench/driver.py:179-187``)."""
-    solvers = {
-        "cg": (
-            functools.partial(cg, norm_type=ksp_norm_type)
-            if ksp_norm_type not in ("default", "unpreconditioned") else cg
-        ),
-        # under mixed precision, f64 recurrence scalars and residual
-        # replacement every 5: the f32 recurrences NaN'd at >= 144^3 on the
-        # TPU (the JAX driver's :189-217); vectors and dots stay f32
-        "pipecg": (
-            functools.partial(cg_pipelined, scalar_dtype=torch.float64, replace_every=5)
-            if precision == "mixed" else cg_pipelined
-        ),
-        "gmres": functools.partial(gmres, restart=ksp_gmres_restart),
-        "fgmres": functools.partial(fgmres, restart=ksp_gmres_restart),
-        "bcgs": bicgstab,
-        "minres": minres,
-        "chebyshev": chebyshev,
-        "richardson": functools.partial(richardson, scale=ksp_richardson_scale),
-        "preonly": preonly,
-    }
-    if ksp not in solvers:
-        raise ValueError(f"unknown ksp {ksp!r} ({' | '.join(solvers)})")
-    return solvers[ksp]
-
-
 def build_system(grid: Grid3D, device, dtype: torch.dtype = torch.float64):
     """The manufactured system on ``grid``: the outer operator, ``b`` and
     the exact solution in ``dtype``, and the padded f32 operator of the
@@ -325,147 +286,23 @@ def build_system(grid: Grid3D, device, dtype: torch.dtype = torch.float64):
     return op, b, exact, op_lo
 
 
-def _refined_padded(op, op_lo, b, m_lo_mv, *, rtol, atol, divtol=1e5, ksp_solve=cg,
-                    history=False, m_lo_mv_dots=None, **fused):
-    """f64 defect correction around the f32 ``ksp_solve`` on padded fields,
-    preconditioned by ``m_lo_mv`` (None: none).  CG also takes the fused
-    ``<p, Ap>`` (K2) and, where given, the dot-fused preconditioner."""
-    if getattr(ksp_solve, "func", ksp_solve) is cg:  # CG under any norm_type
-        fused.setdefault("a_lo_mv_dot", op_lo.mv_dot)
-        if m_lo_mv_dots is not None:
-            fused["m_lo_mv_dots"] = m_lo_mv_dots
-    return cg_refined(
-        op.mv, op_lo.mv, b, rtol=rtol, atol=atol, divtol=divtol, m_lo_mv=m_lo_mv,
-        solver=ksp_solve, history=history, encode=pad_field,
-        decode=functools.partial(crop_field, shape=tuple(b.shape)), **fused,
-    )
-
-
-def refined_solve(
-    op, op_lo, pc_state, b, *, rtol: float, atol: float, divtol: float = 1e5,
-    ksp_solve=cg, history: bool = False, cg_fusion: bool = False, gamma: int = 1,
-    **limits,
-):
-    """f64 defect correction around the f32 ``ksp_solve`` preconditioned by
-    the padded cycle (a W-cycle for ``gamma`` 2).  Where the fine level
-    takes the fused kernels, CG takes the dot-fused cycle and the fused
-    ``<p, Ap>``, every other method the dot-free cycle; elsewhere every
-    method takes the unfused padded cycle (K10-K16).  ``cg_fusion`` adds
-    the full-fusion pair, which ``cg_refined`` puts before both (CG only;
-    a degree-2 fine smoother, ``cg_fusion_supported``).  ``limits``:
-    ``cg_refined``'s ``max_outer`` and ``inner_maxiter``."""
-    fused = dict(limits)
-    if cg_fusion:
-        if not cg_fusion_supported(pc_state):
-            raise ValueError(
-                f"cg_fusion=True needs a degree-2 level-0 smoother on the fused"
-                f" fine level, not {pc_state.level_cfg(0)}: descentu has no"
-                f" degree-1 form"
-            )
-        fused.update(
-            ab_fused=op_lo.cgmv,
-            m_fused=lambda r, ap, alpha: vcycle_fused_rupdate(pc_state, r, ap, alpha, gamma),
-        )
-    if fused_fine_supported(pc_state):
-        m, dots = (lambda r: vcycle_fused(pc_state, r, gamma)), (lambda r: vcycle_fused_dots(pc_state, r, gamma))
-    else:
-        m, dots = (lambda r: vcycle(pc_state, r, gamma=gamma)), None
-    return _refined_padded(
-        op, op_lo, b, m, rtol=rtol, atol=atol, divtol=divtol, ksp_solve=ksp_solve,
-        history=history, m_lo_mv_dots=dots, **fused,
-    )
-
-
-def build_system_aij(grid: Grid3D, device):
-    """The manufactured system on ``grid`` as a general matrix, assembled
-    on ``device`` (``poisson_dia_device``): ``(op_hi, op_lo, b, exact)``,
-    flat.  ``op_lo`` is the f32 ``DIA`` of the inner solves and the
-    hierarchy's fine level; ``op_hi`` the two-float ``DFDIA`` outer operator
-    aliasing its bands; ``b``/``exact`` f64."""
-    return poisson_dia_device(grid, device=device)
-
-
-def refined_solve_plain(
-    op_hi, pc_state, b, *, rtol: float, atol: float, divtol: float = 1e5,
-    ksp_solve=cg, history: bool = False, gamma: int = 1,
-):
-    """f64 defect correction around the f32 ``ksp_solve`` preconditioned
-    by the plain cycle, on unpadded fields: the aij route's flat DIA
-    levels and the plain layout's f32 ``StarStencil3D`` fine level.  The
-    inner operator is the hierarchy's fine level, as in the JAX driver;
-    neither has a ``mv_dot``, so no method takes a fused form."""
-    return cg_refined(
-        op_hi.mv, pc_state.levels[0].op.mv, b, rtol=rtol, atol=atol, divtol=divtol,
-        m_lo_mv=lambda r: vcycle(pc_state, r, gamma=gamma), solver=ksp_solve, history=history,
-    )
-
-
-def refined_solve_sharded(op_hi, op_lo, pc_state, b, *, rtol: float, atol: float, divtol: float = 1e5,
-                          ksp_solve=cg, history: bool = False, gamma: int = 1):
-    """f64 defect correction around the f32 ``ksp_solve`` on plain fields,
-    preconditioned by the z-sharded fused cycle: ``pc_state`` is the plain
-    hierarchy and its ``FusedSharded``.  As in the JAX driver, CG takes no
-    fused ``<p, Ap>`` here: ``op_lo.mv`` is K1p."""
+def refined_solve_sharded(op_hi, op_lo, pc_state, b, *, gamma: int = 1, **kw):
+    """``refined_solve_plain`` preconditioned by the z-sharded fused cycle:
+    ``pc_state`` is the plain hierarchy and its ``FusedSharded``.  As in the
+    JAX driver, CG takes no fused ``<p, Ap>`` here: ``op_lo.mv`` is K1p."""
     hier, fs = pc_state
-    return cg_refined(
-        op_hi.mv, op_lo.mv, b, rtol=rtol, atol=atol, divtol=divtol,
-        m_lo_mv=lambda r: vcycle_fused_sharded(fs, hier, r, gamma), solver=ksp_solve, history=history,
-    )
-
-
-def _ssor(op):
-    """The standalone ``-pc_type sor`` in CG's symmetric form (PETSc's
-    ``-pc_sor_symmetric``): one forward and one reversed multicolor
-    Gauss-Seidel sweep from zero (the JAX driver's ``:646-677``)."""
-    dinv = 1.0 / op.diagonal_field()
-    masks = op.gs_color_masks()
-
-    def apply(r):
-        x = None
-        for m in masks + masks[::-1]:
-            if x is None:
-                x = torch.where(m, dinv * r, torch.zeros_like(r))
-            else:
-                x = torch.where(m, x + dinv * (r - op.mv(x)), x)
-        return x
-
-    return apply
-
-
-def _standalone_pc(pc: str, op_lo, host_a=None, bjacobi_bs: int = 0):
-    """The preconditioner of a standalone ``pc``, built once at setup:
-    point Jacobi, SSOR, block Jacobi from the host matrix ``host_a``
-    (``bjacobi_bs`` > 1 the inverted diagonal blocks, else point Jacobi
-    from its diagonal; the JAX driver's ``:1216-1237``), or None for
-    none.  Its dtype and device are the inner operator ``op_lo``'s."""
-    if pc == "jacobi":
-        dinv = 1.0 / (op_lo.diagonal_field() if hasattr(op_lo, "diagonal_field") else op_lo.diagonal())
-        return lambda r: dinv * r
-    if pc == "sor":
-        return _ssor(op_lo)
-    if pc == "bjacobi":
-        if host_a is None:
-            raise ValueError(
-                "pc='bjacobi' needs the host CSR: a HostCSR/scipy operator on the KSP object, or"
-                " assembly='host' in solve_poisson"
-            )
-        dtype = np.float32 if op_lo.dtype == torch.float32 else np.float64
-        dev = op_lo.bands.device
-        if bjacobi_bs > 1:
-            return BlockJacobi.build(host_a, bjacobi_bs, dtype=dtype, device=dev).apply
-        dinv = 1.0 / torch.as_tensor(host_a.diagonal().astype(dtype), device=dev)
-        return lambda r: dinv * r
-    return None
+    return refined_solve_plain(op_hi, op_lo, lambda r: vcycle_fused_sharded(fs, hier, r, gamma), b, **kw)
 
 
 def _assemble_aij(grid: Grid3D, device, precision: str, on_device: bool):
     """The aij system, flat: ``(op_hi, op_lo, b, exact, host_a)``.  On the
-    device (``build_system_aij``, mixed precision only; ``host_a`` None),
-    or on the host (``assemble_poisson`` in the solve's dtype, f64 under
-    mixed precision) and uploaded as ``host_dia_operators`` does, keeping
-    the HostCSR ``host_a``."""
+    device (``poisson_dia_device``, mixed precision only; ``host_a`` None:
+    ``op_lo`` the f32 ``DIA``, ``op_hi`` the two-float ``DFDIA`` aliasing
+    its bands), or on the host (``assemble_poisson`` in the solve's dtype,
+    f64 under mixed precision) and uploaded as ``host_dia_operators`` does,
+    keeping the HostCSR ``host_a``."""
     if on_device:
-        return (*build_system_aij(grid, device), None)
+        return (*poisson_dia_device(grid, device=device), None)
     a, b, exact = assemble_poisson(grid, dtype=np.float32 if precision == "f32" else np.float64)
     op_hi, op_lo = host_dia_operators(a, precision, device=device)
     return op_hi, op_lo, torch.as_tensor(b, device=device), torch.as_tensor(exact, device=device), a
@@ -641,13 +478,6 @@ def solve_poisson(
     if pc_dtype not in ("f32", "bf16"):
         raise ValueError(f"unknown pc_dtype {pc_dtype!r} (f32 | bf16)")
     params = amg_params or AMGParams()
-    plain_only = pc == "sor" or (pc == "gamg" and plain_cycle_only(params))
-    if mat_type == "stencil" and layout == "padded" and plain_only:
-        raise ValueError(
-            "layout='padded' is point-Jacobi + jacobi-coarse only; drop"
-            " -pc_bjacobi_bs / -mg_levels_pc_type sor / -mg_coarse_pc_type lu"
-            " / -pc_type sor or use layout='plain'/'auto'"
-        )
     if aggregation not in ("auto", "geometric", "greedy", "banded"):
         raise ValueError(f"unknown aggregation {aggregation!r}")
     mixed = precision == "mixed"
@@ -665,10 +495,9 @@ def solve_poisson(
         # the setups that need no host matrix (the JAX driver's geo_route):
         # geometric and banded, and every standalone PC but bjacobi
         geo_route = pc != "gamg" or (aggregation != "greedy" and params.bjacobi_bs == 0)
-    elif sharded:
-        route = "sharded"
     else:
-        route = "padded" if mixed and layout != "plain" and not plain_only else "plain"
+        route = star_route(layout, precision, pc, params)  # raises for a layout it cannot honour
+        route = "sharded" if sharded else route
     if cg_fusion and (route != "padded" or ksp != "cg" or pc != "gamg"):
         raise ValueError(
             "cg_fusion=True is the full-fusion CG body of the padded"
@@ -743,7 +572,7 @@ def solve_poisson(
             op, op_lo = lifted
             del lifted
             b, exact = b.reshape(grid.shape), exact.reshape(grid.shape)
-            route = "sharded" if sharded else "padded" if mixed and not plain_only else "plain"
+            route = "sharded" if sharded else star_route("auto", precision, pc, params)
             if route == "padded":
                 op_lo = PaddedStar.from_star(op_lo)
             layout_text = "layout: padded-resident" if route == "padded" else "layout: plain"
@@ -834,12 +663,10 @@ def solve_poisson(
             return refined_solve_sharded(op, op_lo, pc_state, b, gamma=gamma, **kw)
     elif mixed:
         def solve():
-            if pc == "gamg" and not bf16:
-                return refined_solve_plain(op, pc_state, b, gamma=gamma, **kw)
-            return cg_refined(
-                op.mv, op_lo.mv, b, rtol=rtol, atol=atol, divtol=divtol,
-                m_lo_mv=m if pc == "gamg" else pc_state, solver=ksp_solve, history=monitor,
-            )
+            # with GAMG (not bf16) the inner operator is the hierarchy's fine
+            # level, as in the JAX driver
+            inner = pc_state.levels[0].op if pc == "gamg" and not bf16 else op_lo
+            return refined_solve_plain(op, inner, m if pc == "gamg" else pc_state, b, **kw)
     else:
         extra = {"spectrum": True} if eigs else {"history": True} if monitor else {}
 
@@ -966,10 +793,12 @@ def solve_diffusion(
     the JAX driver's ``solve_diffusion``.
 
     The fine level is a ``VarStencil27`` (the star proof fails by
-    construction), preconditioned by the plain GAMG cycle of the probed
-    Galerkin hierarchy built eagerly on the f32 operator; CG runs in f32
-    under f64 defect correction (``cg_refined``) under mixed precision, in
-    the solve's dtype otherwise.  The gate is algebraic: exact = the
+    construction), solved through ``KSP``'s 27-point route: the plain GAMG
+    cycle of the probed Galerkin hierarchy built eagerly on the f32
+    operator; CG runs in f32 under f64 defect correction (``cg_refined``)
+    under mixed precision, in the solve's dtype otherwise.  Under mixed
+    precision ``maxiter`` only enters the ``view`` text, as in the JAX
+    driver: the sweeps stay at 12 and the inner solves at 200.  The gate is algebraic: exact = the
     smooth field cos cos cos - 1 (zero at the pinned cell), b = A exact in
     the hi dtype, Linf against exact: the solver's accuracy, not a
     discretization error.  Phases as ``solve_poisson``'s: the setup and
@@ -980,14 +809,15 @@ def solve_diffusion(
 
     ny = ny or nx
     nz = nz or nx
-    if precision not in ("mixed", "f64", "f32"):
-        raise ValueError(f"problem=diffusion supports precision mixed|f64|f32, got {precision!r}")
-    if mg_cycle not in ("v", "w"):
-        raise ValueError(f"unknown mg_cycle {mg_cycle!r}")
     mixed = precision == "mixed"
+    # KSP caps a mixed solve at min(12, maxiter) sweeps of min(200, maxiter)
+    # inner iterations: max(maxiter, 200) keeps 12 and 200 for every maxiter
+    new_ksp = functools.partial(
+        KSP, rtol=rtol, atol=atol, divtol=divtol, maxiter=max(maxiter, 200) if mixed else maxiter,
+        precision=precision, amg_params=amg_params, mg_cycle=mg_cycle, error_if_not_converged=True,
+    )
+    ksp = new_ksp()  # checks precision and mg_cycle before any work
     hi_dtype = np.float32 if precision == "f32" else np.float64
-    params = amg_params or AMGParams()
-    gamma = 1 if mg_cycle == "v" else 2
     device = torch.device(device)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.zeros((), dtype=torch.float32, device=device)  # bring-up, outside the phases
@@ -1012,41 +842,30 @@ def solve_diffusion(
     t_init = time.perf_counter() - t0
 
     if warmup:
-        gamg_setup(op_lo, params)
+        new_ksp().set_operators(op, op_lo).setup()
         sync(device)
+    ksp.set_operators(op, op_lo)
     t0 = time.perf_counter()
     with annotate("tpusparse:setup"):
-        hier = gamg_setup(op_lo, params)
+        ksp.setup()
     sync(device)
     t_setup = time.perf_counter() - t0
 
-    def m(r):
-        return vcycle(hier, r, gamma=gamma)
-
-    if mixed:
-        def solve():
-            return cg_refined(op.mv, op_lo.mv, b, rtol=rtol, atol=atol, divtol=divtol, m_lo_mv=m)
-    else:
-        def solve():
-            return cg(op.mv, b, rtol=rtol, atol=atol, divtol=divtol, maxiter=maxiter, m_mv=m)
-
     if warmup:
-        solve()
+        ksp.solve(b)
         sync(device)
     t0 = time.perf_counter()
     with annotate("tpusparse:solve"):
-        res = solve()
+        res = ksp.solve(b)  # raises DivergedError on a negative reason
     sync(device)
     t_solve = time.perf_counter() - t0
-    if res.reason < 0:
-        raise DivergedError(f"Diverged reason: {res.reason}")
 
     view_text = None
     if view:
         view_text = "\n".join([
             f"KSP Object: type cg, rtol {rtol:g}, atol {atol:g}, maxit {maxiter}",
             f"  precision: {precision}, problem: diffusion (contrast {contrast:g}, VarStencil27 fine level)",
-            hierarchy_summary(hier, gamma),
+            hierarchy_summary(ksp._pc_state, ksp._gamma),
         ])
     return SolveReport(
         nx=nx, ny=ny, nz=nz,
@@ -1062,7 +881,7 @@ def solve_diffusion(
         pc="gamg",
         device=torch.cuda.get_device_name(device) if device.type == "cuda" else device.type,
         precision=precision,
-        outer_iters=getattr(res, "outer_iters", 0),
+        outer_iters=res.outer_iters,
         mat_type="varstencil",
         solver_view=view_text,
         source=f"diffusion(contrast={contrast:g})",
@@ -1112,9 +931,6 @@ def solve_from_file(
     ``t_setup`` ``KSP.setup``, ``t_solve`` a warm second solve.  Every
     timer read follows a device synchronize.
     """
-    # the KSP object runs on this module's solve functions: imported here
-    from tpusparse_torch.ksp import KSP
-
     device = torch.device(device)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.zeros((), dtype=torch.float32, device=device)  # bring-up, outside the phases

@@ -11,12 +11,16 @@ call ``solve(b)`` as often as needed.  The preconditioner built by
 ``reuse_preconditioner=True`` (the reference's own setting,
 ``main_ksp.cpp:95``), across operator swaps.
 
-The work runs in the modules the driver uses (``amg/hierarchy.py``,
-``amg/unstructured.py``, ``solve/refine.py``, ``bench/driver.py::
-refined_solve`` on the padded layout), so the object and the CLI solve
-alike.  The solve runs on the device of the operator's tensors: the
-operators of ``grid/poisson.py`` are built on the ``device`` they are
-given, and every kernel wrapper dispatches by tensor device.
+This module is where a solve is composed: the Krylov method table
+(``_pick_ksp``), the padded-or-plain rule for a star (``star_route``),
+the padded cycles (``padded_cycles``), the standalone preconditioners
+(``_standalone_pc``) and the refined solves on padded and plain fields
+(``refined_solve``, ``refined_solve_plain``).  The CLI driver
+(``bench/driver.py``) builds its routes from them, so the object and the
+CLI solve alike; this module imports nothing from ``bench/``.  The solve
+runs on the device of the operator's tensors: the operators of
+``grid/poisson.py`` are built on the ``device`` they are given, and every
+kernel wrapper dispatches by tensor device.
 
 Example::
 
@@ -61,7 +65,13 @@ from typing import Any
 import numpy as np
 import torch
 
-from tpusparse_torch.amg.fused_cycle import fused_fine_supported, vcycle_fused
+from tpusparse_torch.amg.fused_cycle import (
+    cg_fusion_supported,
+    fused_fine_supported,
+    vcycle_fused,
+    vcycle_fused_dots,
+    vcycle_fused_rupdate,
+)
 from tpusparse_torch.amg.hierarchy import (
     AMGParams,
     cast_coarse_coefs,
@@ -71,10 +81,17 @@ from tpusparse_torch.amg.hierarchy import (
     vcycle,
 )
 from tpusparse_torch.amg.unstructured import gamg_setup_unstructured
-from tpusparse_torch.bench.driver import DivergedError, _pick_ksp, _ssor, _standalone_pc, refined_solve
+from tpusparse_torch.solve.bcgs import bicgstab
+from tpusparse_torch.solve.bjacobi import BlockJacobi
 from tpusparse_torch.solve.cg import cg
+from tpusparse_torch.solve.chebyshev import chebyshev
+from tpusparse_torch.solve.fgmres import fgmres
+from tpusparse_torch.solve.gmres import gmres
+from tpusparse_torch.solve.minres import minres
 from tpusparse_torch.solve.multi import MultiResult, cg_multi, refined_multi
+from tpusparse_torch.solve.pipelined import cg_pipelined
 from tpusparse_torch.solve.refine import cg_refined
+from tpusparse_torch.solve.simple import preonly, richardson
 from tpusparse_torch.solve.spectrum import ritz_values
 from tpusparse_torch.sparse.csr import HostCSR
 from tpusparse_torch.sparse.dia import DFDIA, DIA, HybridDIA, host_dia_operators
@@ -126,6 +143,182 @@ def _cast_floating(op, dtype: torch.dtype):
     if dataclasses.is_dataclass(op) and not isinstance(op, type):
         return cast_hierarchy(op, dtype)
     return op
+
+
+class DivergedError(RuntimeError):
+    """SETERRQ1-on-negative-reason parity (src/main_ksp.cpp:109-111)."""
+
+
+def _pick_ksp(
+    ksp: str, ksp_gmres_restart: int = 30, ksp_richardson_scale: float = 1.0,
+    precision: str = "mixed", ksp_norm_type: str = "default",
+):
+    """The solver a ``-ksp_type`` name selects: the inner solver under mixed
+    precision, the whole solve under uniform precision.  ``ksp_norm_type``
+    ("default", "unpreconditioned", "preconditioned" or "none") reaches CG
+    only, as in the JAX driver (``tpusparse/bench/driver.py:179-187``)."""
+    solvers = {
+        "cg": (
+            functools.partial(cg, norm_type=ksp_norm_type)
+            if ksp_norm_type not in ("default", "unpreconditioned") else cg
+        ),
+        # under mixed precision, f64 recurrence scalars and residual
+        # replacement every 5: the f32 recurrences NaN'd at >= 144^3 on the
+        # TPU (the JAX driver's :189-217); vectors and dots stay f32
+        "pipecg": (
+            functools.partial(cg_pipelined, scalar_dtype=torch.float64, replace_every=5)
+            if precision == "mixed" else cg_pipelined
+        ),
+        "gmres": functools.partial(gmres, restart=ksp_gmres_restart),
+        "fgmres": functools.partial(fgmres, restart=ksp_gmres_restart),
+        "bcgs": bicgstab,
+        "minres": minres,
+        "chebyshev": chebyshev,
+        "richardson": functools.partial(richardson, scale=ksp_richardson_scale),
+        "preonly": preonly,
+    }
+    if ksp not in solvers:
+        raise ValueError(f"unknown ksp {ksp!r} ({' | '.join(solvers)})")
+    return solvers[ksp]
+
+
+def star_route(layout: str, precision: str, pc: str, params: AMGParams) -> str:
+    """'padded' or 'plain': the layout a star's solve takes.  The padded
+    (fused) route is mixed precision only and cannot honour the options
+    ``plain_cycle_only`` names or a standalone SOR; "auto" then takes the
+    plain cycle, and an explicit ``layout="padded"`` is an error, never a
+    substitution (the JAX driver's and KSP's contract)."""
+    plain_only = pc == "sor" or (pc == "gamg" and plain_cycle_only(params))
+    if layout == "padded" and plain_only:
+        raise ValueError(
+            "layout='padded' is point-Jacobi + jacobi-coarse only; drop bjacobi_bs (-pc_bjacobi_bs) /"
+            " smoother='sor' (-mg_levels_pc_type sor) / coarse_solve='lu' (-mg_coarse_pc_type lu) /"
+            " pc_type='sor' or use layout='plain'/'auto'"
+        )
+    return "padded" if precision == "mixed" and layout != "plain" and not plain_only else "plain"
+
+
+def padded_cycles(hier, gamma: int):
+    """(dot-free cycle, dot-fused cycle or None) of a padded hierarchy (a
+    W-cycle for ``gamma`` 2): ``vcycle_fused`` and ``vcycle_fused_dots``
+    where the fine level takes the fused kernels, else the unfused padded
+    ``vcycle`` (K10-K16) and no dot-fused form."""
+    if fused_fine_supported(hier):
+        return (lambda r: vcycle_fused(hier, r, gamma)), (lambda r: vcycle_fused_dots(hier, r, gamma))
+    return (lambda r: vcycle(hier, r, gamma=gamma)), None
+
+
+def _refined_padded(op, op_lo, b, m_lo_mv, *, rtol, atol, divtol=1e5, ksp_solve=cg,
+                    history=False, m_lo_mv_dots=None, **fused):
+    """f64 defect correction around the f32 ``ksp_solve`` on padded fields,
+    preconditioned by ``m_lo_mv`` (None: none).  CG also takes the fused
+    ``<p, Ap>`` (K2) and, where given, the dot-fused preconditioner."""
+    if getattr(ksp_solve, "func", ksp_solve) is cg:  # CG under any norm_type
+        fused.setdefault("a_lo_mv_dot", op_lo.mv_dot)
+        if m_lo_mv_dots is not None:
+            fused["m_lo_mv_dots"] = m_lo_mv_dots
+    return cg_refined(
+        op.mv, op_lo.mv, b, rtol=rtol, atol=atol, divtol=divtol, m_lo_mv=m_lo_mv,
+        solver=ksp_solve, history=history, encode=pad_field,
+        decode=functools.partial(crop_field, shape=tuple(b.shape)), **fused,
+    )
+
+
+def refined_solve(
+    op, op_lo, pc_state, b, *, rtol: float, atol: float, divtol: float = 1e5,
+    ksp_solve=cg, history: bool = False, cg_fusion: bool = False, gamma: int = 1,
+    **limits,
+):
+    """f64 defect correction around the f32 ``ksp_solve`` preconditioned by
+    the padded cycle (``padded_cycles``): where the fine level takes the
+    fused kernels, CG takes the dot-fused cycle and the fused ``<p, Ap>``,
+    every other method the dot-free cycle.  ``cg_fusion`` adds the
+    full-fusion pair, which ``cg_refined`` puts before both (CG only; a
+    degree-2 fine smoother, ``cg_fusion_supported``).  ``limits``:
+    ``cg_refined``'s ``max_outer``, ``inner_maxiter`` and ``check_every``."""
+    fused = dict(limits)
+    if cg_fusion:
+        if not cg_fusion_supported(pc_state):
+            raise ValueError(
+                f"cg_fusion=True needs a degree-2 level-0 smoother on the fused"
+                f" fine level, not {pc_state.level_cfg(0)}: descentu has no"
+                f" degree-1 form"
+            )
+        fused.update(
+            ab_fused=op_lo.cgmv,
+            m_fused=lambda r, ap, alpha: vcycle_fused_rupdate(pc_state, r, ap, alpha, gamma),
+        )
+    m, dots = padded_cycles(pc_state, gamma)
+    return _refined_padded(
+        op, op_lo, b, m, rtol=rtol, atol=atol, divtol=divtol, ksp_solve=ksp_solve,
+        history=history, m_lo_mv_dots=dots, **fused,
+    )
+
+
+def refined_solve_plain(
+    op_hi, op_lo, m_lo_mv, b, *, rtol: float, atol: float, divtol: float = 1e5,
+    ksp_solve=cg, history: bool = False, **limits,
+):
+    """f64 defect correction around the f32 ``ksp_solve`` on unpadded
+    fields, preconditioned by ``m_lo_mv`` (None: none): the plain cycle of a
+    star, a ``VarStencil27`` or the DIA family, or a standalone PC.  No
+    method takes a fused form (no ``mv_dot``).  ``limits``: ``cg_refined``'s
+    ``max_outer`` and ``inner_maxiter``."""
+    return cg_refined(
+        op_hi.mv, op_lo.mv, b, rtol=rtol, atol=atol, divtol=divtol, m_lo_mv=m_lo_mv,
+        solver=ksp_solve, history=history, **limits,
+    )
+
+
+def _ssor(op):
+    """The standalone ``-pc_type sor`` in CG's symmetric form (PETSc's
+    ``-pc_sor_symmetric``): one forward and one reversed multicolor
+    Gauss-Seidel sweep from zero (the JAX driver's ``:646-677``)."""
+    dinv = 1.0 / op.diagonal_field()
+    masks = op.gs_color_masks()
+
+    def apply(r):
+        x = None
+        for m in masks + masks[::-1]:
+            if x is None:
+                x = torch.where(m, dinv * r, torch.zeros_like(r))
+            else:
+                x = torch.where(m, x + dinv * (r - op.mv(x)), x)
+        return x
+
+    return apply
+
+
+def _standalone_pc(pc: str, op_lo, host_a=None, bjacobi_bs: int = 0):
+    """The preconditioner of a standalone ``pc``, built once at setup:
+    point Jacobi, SSOR (a colorable grid operator), block Jacobi from the
+    host matrix ``host_a`` (``bjacobi_bs`` > 1 the inverted diagonal
+    blocks, else point Jacobi from its diagonal; the JAX driver's
+    ``:1216-1237``), or None for none.  Its dtype and device are the inner
+    operator ``op_lo``'s."""
+    if pc == "jacobi":
+        dinv = 1.0 / (op_lo.diagonal_field() if hasattr(op_lo, "diagonal_field") else op_lo.diagonal())
+        return lambda r: dinv * r
+    if pc == "sor":
+        if not hasattr(op_lo, "gs_color_masks"):
+            raise ValueError(
+                "pc_type='sor' needs a colorable grid operator (gs_color_masks);"
+                f" {type(op_lo).__name__} has none"
+            )
+        return _ssor(op_lo)
+    if pc == "bjacobi":
+        if host_a is None:
+            raise ValueError(
+                "pc='bjacobi' needs the host CSR: a HostCSR/scipy operator on the KSP object, or"
+                " assembly='host' in solve_poisson"
+            )
+        dtype = np.float32 if op_lo.dtype == torch.float32 else np.float64
+        dev = op_lo.bands.device
+        if bjacobi_bs > 1:
+            return BlockJacobi.build(host_a, bjacobi_bs, dtype=dtype, device=dev).apply
+        dinv = 1.0 / torch.as_tensor(host_a.diagonal().astype(dtype), device=dev)
+        return lambda r: dinv * r
+    return None
 
 
 class KSP:
@@ -381,26 +574,14 @@ class KSP:
                     "pc_type='gamg' needs a StarStencil3D, VarStencil27, DIA-family or HostCSR/scipy operator"
                     f" — got {type(self._op).__name__}"
                 )
-        elif self.pc_type == "jacobi":
-            op = self._op_lo
-            self._pc_state = 1.0 / (op.diagonal_field() if hasattr(op, "diagonal_field") else op.diagonal())
-            self._m = functools.partial(torch.mul, self._pc_state)
-        elif self.pc_type == "sor":
-            # standalone PCSOR in the CG-compatible SSOR form, the driver's
-            if not hasattr(self._op_lo, "gs_color_masks"):
-                raise ValueError(
-                    "pc_type='sor' needs a colorable grid operator (gs_color_masks);"
-                    f" {type(self._op_lo).__name__} has none"
-                )
-            self._pc_state = self._m = _ssor(self._op_lo)
-        elif self.pc_type == "bjacobi":
-            # from the host matrix set_operators kept: bs = bjacobi_bs, or
-            # point Jacobi for bs 0 or 1, in the inner operator's dtype
-            self._pc_state = self._m = _standalone_pc(
-                "bjacobi", self._op_lo, self._host_a, self.amg_params.bjacobi_bs,
-            )
-        else:  # none
+        elif self.pc_type == "none":
             self._pc_state = ()
+        else:
+            # jacobi, SSOR, or block Jacobi from the host matrix set_operators
+            # kept, in the inner operator's dtype
+            self._pc_state = self._m = _standalone_pc(
+                self.pc_type, self._op_lo, self._host_a, self.amg_params.bjacobi_bs,
+            )
         return self
 
     def _cycle(self, hier, r: torch.Tensor) -> torch.Tensor:
@@ -410,16 +591,7 @@ class KSP:
         """GAMG on a star: the padded fused route or the plain cycle."""
         op_lo = self._op_lo
         self._op_lo_plain = op_lo  # the pre-padding twin (mat_solve)
-        plain_only = plain_cycle_only(self.amg_params)
-        if self.layout == "padded" and plain_only:
-            # the CLI driver's contract: an explicit layout the fused
-            # kernels cannot honour is an error, never a substitution
-            raise ValueError(
-                "layout='padded' is point-Jacobi + jacobi-coarse only; drop bjacobi_bs /"
-                " smoother='sor' / coarse_solve='lu' or use layout='plain'/'auto'"
-            )
-        padded = self.precision == "mixed" and not plain_only and self.layout != "plain"
-        if not padded:
+        if star_route(self.layout, self.precision, "gamg", self.amg_params) == "plain":
             self._pc_state = gamg_setup(op_lo, self.amg_params)
             self._m = functools.partial(self._cycle, self._pc_state)
             return
@@ -428,13 +600,8 @@ class KSP:
         self._decode = functools.partial(crop_field, shape=op_lo.grid_shape)
         # bf16 coarse coefficient stacks, vectors in f32 (the driver's)
         self._pc_state = cast_coarse_coefs(gamg_setup(self._op_lo, self.amg_params))
-        self._m = functools.partial(self._padded_cycle, self._pc_state)
-
-    def _padded_cycle(self, hier, r: torch.Tensor) -> torch.Tensor:
-        """The dot-free padded cycle (``compute_eigenvalues``' PC)."""
-        if fused_fine_supported(hier):
-            return vcycle_fused(hier, r, self._gamma)
-        return vcycle(hier, r, gamma=self._gamma)
+        # the dot-free cycle (compute_eigenvalues' PC)
+        self._m = padded_cycles(self._pc_state, gamma)[0]
 
     # -- KSPSolve ----------------------------------------------------------
 
@@ -453,9 +620,9 @@ class KSP:
                 self._op, self._op_lo, self._pc_state, b, rtol=rtol, atol=atol,
                 divtol=self.divtol, ksp_solve=self._ksp_solve, gamma=self._gamma, **limits,
             )
-        return cg_refined(
-            self._op.mv, self._op_lo.mv, b, rtol=rtol, atol=atol, divtol=self.divtol,
-            m_lo_mv=self._m, solver=self._ksp_solve, **limits,
+        return refined_solve_plain(
+            self._op, self._op_lo, self._m, b, rtol=rtol, atol=atol, divtol=self.divtol,
+            ksp_solve=self._ksp_solve, **limits,
         )
 
     def _check(self, reasons) -> None:
@@ -540,10 +707,8 @@ class KSP:
             op_lo, pc_state = self._op_lo_plain, self._pc_state_plain
         if self.pc_type == "gamg":
             m = functools.partial(self._cycle, pc_state)
-        elif self.pc_type == "jacobi":
-            m = functools.partial(torch.mul, pc_state)
-        else:
-            m = None
+        else:  # Jacobi's apply, dinv * r, broadcasts over the block
+            m = pc_state if self.pc_type == "jacobi" else None
         limits = dict(rtol=self.rtol, atol=self.atol, divtol=self.divtol, batched_ops=True)
         if self.precision == "mixed":
             res = refined_multi(

@@ -8,7 +8,7 @@ extra recurrences drift; periodic residual replacement every
 ``replace_every`` iterations re-anchors them, and ``scalar_dtype`` lets an
 f32 solve carry its recurrence scalars in f64 (the ``delta -
 beta*gamma/alpha`` denominator cancels in f32) — the mixed-precision
-configuration the driver picks (``bench/driver.py::_pick_ksp``).
+configuration the driver picks (``ksp.py::_pick_ksp``).
 
 Scalars stay 0-d device tensors; the one host read per iteration is the
 residual norm of the convergence test.
