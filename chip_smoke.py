@@ -396,6 +396,17 @@ script exits non-zero without the final line:
    einsums) and the three einsums the parent ran ("one call").  Phase 5
    must launch both.  ``python3 chip_smoke.py --transfers`` runs phases 1,
    2 and 46 alone.
+47. CG's vector updates (``kernels/cgupdate.py``: ``cg_update_r``, r - alpha
+   ap; ``cg_update_xp``, x + alpha p and z + beta p): bit-equal to their
+   twins (the torch expressions the loop ran) in f32 and f64, with f32 and
+   f64 scalars, at 1, 3, 4097 and 1001 cells and a padded 3-D shape, and on
+   views at a 1-cell offset (the one-cell form); one launch a call; their
+   registers and spills (a spill fails the phase).  At 726 x 720 x 720
+   (the 720^3 padded fine field) and 432^3 in f32 the same check, then each
+   timed back to back and after an L2 flush beside its bound (3 / 5 field
+   passes over 3.35 TB/s) and the torch ops it replaces (two / four
+   launches).  Phase 5 must launch both.  ``python3 chip_smoke.py
+   --cgupdate`` runs phases 1, 2 and 47 alone.
 
 Then one JSON line with each kernel's route, source, launches (K1-K4 from
 phase 5, K5 from phase 8, K6/K7 from phase 10, K3'/K4' from phase 11,
@@ -406,7 +417,8 @@ batched K1p from phase 28's ``mat_solve``, the batched K5 from phase 31's,
 K5h from phase 43's one-process 300^3 solve on the row mesh,
 ``varstencil27_mv`` from phase 5, timed in phase 45 at 240^3 with bf16
 coefficients, ``agg_restrict`` / ``agg_prolong`` from phase 5, timed in
-phase 46 at 726 x 720 x 720 padded <-> 240^3),
+phase 46 at 726 x 720 x 720 padded <-> 240^3, ``cg_update_r`` /
+``cg_update_xp`` from phase 5, timed in phase 47 at 726 x 720 x 720),
 error,
 times, its bound at the timed shape (the larger of its unique field bytes
 over 3.35 TB/s and its operations over 67 TFLOP/s of f32, the H100 SXM's
@@ -558,6 +570,7 @@ from tpusparse_torch.kernels.transfer import (
     agg_restrict_ordered,
     agg_restrict_torch,
 )
+from tpusparse_torch.kernels.cgupdate import cg_update_r, cg_update_r_torch, cg_update_xp, cg_update_xp_torch
 from tpusparse_torch.ksp import refined_solve
 from tpusparse_torch.solve.cg import cg
 from tpusparse_torch.solve.checkpoint import CheckpointConfig, cg_checkpointed
@@ -670,6 +683,20 @@ KERNELS["agg_prolong"] = (
     "tpusparse_torch/csrc/transfer.cu", "none (three einsums, tpusparse/amg/transfer.py:161-167)",
     agg_prolong, agg_prolong_torch,
 )
+# CG's vector updates (solve/cg.py), which replace no Pallas kernel: the
+# JAX package leaves them to one XLA fusion (tpusparse/solve/cg.py:435-440)
+KERNELS["cg_update_r"] = (
+    "tpusparse_torch/csrc/cgupdate.cu", "none (XLA fusion, tpusparse/solve/cg.py:436)",
+    cg_update_r, cg_update_r_torch,
+)
+KERNELS["cg_update_xp"] = (
+    "tpusparse_torch/csrc/cgupdate.cu", "none (XLA fusion, tpusparse/solve/cg.py:435, 440)",
+    cg_update_xp, cg_update_xp_torch,
+)
+# phase 47's shapes (1, 3, 4k + 1 cells, n % 4 = 1, a padded 3-D field) and
+# its timed ones: the 720^3 cell's padded fine field and the HPCG cell's
+CG_SHAPES = ((1,), (3,), (4097,), (1001,), (10, 7, 12))
+CG_TIMED = (("726 x 720 x 720", (726, 720, 720)), ("432^3", (432, 432, 432)))
 # phase 46's ragged shapes (a plane wider than a restrict round: 1100
 # cells in x) and factors, and the main path's level pairs, timed in f32:
 # (label, fine grid, padded)
@@ -3009,6 +3036,85 @@ def transfers_only() -> None:
     print(json.dumps({"transfers": rows}))
 
 
+def _cg_check(label, shape, dtype, sdtype, device, offset=0) -> None:
+    """Both CG updates on fields of ``shape`` (at ``offset`` cells into their
+    storage) against their twins, bit for bit, one launch each."""
+    gen = torch.Generator(device).manual_seed(SEED)
+    n = math.prod(shape)
+    x, p, z, r, ap = (torch.randn(n + offset, generator=gen, device=device, dtype=dtype)[offset:].view(shape)
+                      for _ in range(5))
+    alpha, beta = (torch.rand((), generator=gen, device=device, dtype=torch.float64).to(sdtype) for _ in range(2))
+    before = dict(kernels.LAUNCHES)
+    got_r, (got_x, got_p) = cg_update_r(r, ap, alpha), cg_update_xp(x, p, z, alpha, beta)
+    torch.cuda.synchronize()
+    launched = {k: kernels.LAUNCHES[k] - before[k] for k in ("cg_update_r", "cg_update_xp")}
+    _require(launched == {"cg_update_r": 1, "cg_update_xp": 1}, f"{label}: launches {launched}, not one each")
+    want_x, want_p = cg_update_xp_torch(x, p, z, alpha, beta)
+    _require(torch.equal(got_r, cg_update_r_torch(r, ap, alpha)), f"{label}: cg_update_r is not bit-equal")
+    _require(torch.equal(got_x, want_x) and torch.equal(got_p, want_p), f"{label}: cg_update_xp is not bit-equal")
+
+
+def check_cgupdate(device) -> dict:
+    """Phase 47: ``cg_update_r`` / ``cg_update_xp`` against their twins at
+    ``CG_SHAPES`` x dtypes x scalar dtypes x aligned / offset, and at
+    ``CG_TIMED`` in f32, timed there.  Returns the rows of the 726 x 720 x
+    720 launches."""
+    report = _ptxas("cgupdate.cu", "cg_update_")
+    print("cg_update_r / cg_update_xp, nvcc -Xptxas -v:\n  " + "\n  ".join(report))
+    spills = [(st, ld) for st, ld in _spills(report) if st != "0" or ld != "0"]
+    for shape in CG_SHAPES:
+        for dtype in (torch.float32, torch.float64):
+            for sdtype in (torch.float32, torch.float64):
+                for offset in (0, 1):
+                    _cg_check(f"cg updates {shape} {dtype} fields, {sdtype} scalars, offset {offset}",
+                              shape, dtype, sdtype, device, offset)
+    print(f"cg_update_r / cg_update_xp at {len(CG_SHAPES)} shapes x f32/f64 fields x f32/f64 scalars x aligned /"
+          f" 1-cell offset: bit-equal to their twins, one launch a call")
+    rows = {}
+    for label, shape in CG_TIMED:
+        torch.cuda.empty_cache()
+        _cg_check(f"cg updates {label} f32", shape, torch.float32, torch.float32, device)
+        gen = torch.Generator(device).manual_seed(SEED + 1)
+        x, p, z, r, ap = (torch.randn(shape, generator=gen, device=device) for _ in range(5))
+        alpha, beta = (torch.rand((), generator=gen, device=device) for _ in range(2))
+        field = x.numel() * 4
+        cases = {
+            "cg_update_r": (cg_update_r, (r, ap, alpha), cg_update_r_torch, 3, 2),
+            "cg_update_xp": (cg_update_xp, (x, p, z, alpha, beta), cg_update_xp_torch, 5, 4),
+        }
+        for name, (fn, args, twin, passes, ops) in cases.items():
+            ms, cold = _time_ms(fn, args), _time_cold_ms(fn, args)
+            plain_ms, plain_cold = _time_ms(twin, args, reps=5, per=2), _time_cold_ms(twin, args, reps=5)
+            bound = passes * field / HBM_BYTES_S * 1e3
+            print(f"time {name} {label} f32: {ms:.4f} ms back to back ({100 * bound / ms:.1f}% of its bound"
+                  f" {bound:.4f} ms, {passes} passes of {field / 1e9:.3f} GB), {cold:.4f} ms after an L2 flush"
+                  f" ({100 * bound / cold:.1f}%); the {ops} torch ops it replaces {plain_ms:.4f} ms back to back,"
+                  f" {plain_cold:.4f} ms after a flush ({100 * bound / plain_cold:.1f}%)")
+            if shape == CG_TIMED[0][1]:
+                rows[name] = {"max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
+                              "bound_by": "bytes", "library_ms": None}
+        del x, p, z, r, ap, cases
+    _require(not spills, f"a CG update kernel spills: {spills} bytes stored / loaded")
+    return rows
+
+
+def cgupdate_only() -> None:
+    """``--cgupdate``: phases 1, 2 and 47 alone."""
+    _require(torch.cuda.is_available(), "no CUDA device")
+    smi = subprocess.run(["nvidia-smi", "-i", "0", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True)
+    print(smi.stdout.strip())
+    device = torch.device("cuda", 0)
+    torch.cuda.set_device(device)
+    t0 = time.perf_counter()
+    lib = _build.build()
+    print(f"build: {time.perf_counter() - t0:.2f} s ({lib.name})")
+    t0 = time.perf_counter()
+    rows = check_cgupdate(device)
+    print(f"phase 47: {time.perf_counter() - t0:.1f} s")
+    print(json.dumps({"cgupdate": rows}))
+
+
 # phase 44: the kernels each ``A @ x`` must launch once (None: plain torch)
 MATMUL_KERNELS = {
     "StarStencil3D 3-D": "star7_mv", "StarStencil3D flat": "star7_mv", "PaddedStar": "star7_mv_padded",
@@ -3200,7 +3306,8 @@ def main() -> None:
     # the order the V-cycle kernels sum <b, b> and <b, z> in decides
     _require(rep.outer_iters in (2, 3), f"outer iterations {rep.outer_iters} not in 2-3")
     _require(abs(rep.iters - 34) <= 2, f"inner iterations {rep.iters} not within 34 +- 2")
-    for name in (*STENCIL_KERNELS, "varstencil27_mv", "agg_restrict", "agg_prolong"):
+    for name in (*STENCIL_KERNELS, "varstencil27_mv", "agg_restrict", "agg_prolong", "cg_update_r",
+                 "cg_update_xp"):
         _require(launches[name] > 0, f"kernel {name} was not launched by the stencil path")
     production = rep
     rows["dia_mv"] = check_dia(device)
@@ -3500,6 +3607,11 @@ def main() -> None:
     rows.update(check_transfers(device))
     print(f"phase 46: {time.perf_counter() - t0:.1f} s")
 
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    rows.update(check_cgupdate(device))
+    print(f"phase 47: {time.perf_counter() - t0:.1f} s")
+
     print(json.dumps({"kernels": [
         {
             "name": name, "route": "cuda", "source": src, "replaces": replaces,
@@ -3523,6 +3635,8 @@ if __name__ == "__main__":
         sys.exit(rank_general(sys.argv[2:]))
     if sys.argv[1:2] == ["--transfers"]:
         sys.exit(transfers_only())
+    if sys.argv[1:2] == ["--cgupdate"]:
+        sys.exit(cgupdate_only())
     if sys.argv[1:2] == ["--rank-scaling"]:
         sys.exit(rank_scaling(json.loads(sys.argv[2])))
     main()

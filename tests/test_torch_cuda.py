@@ -18,7 +18,10 @@ the CPU, and the diffusion solve at 16^3 and the RCM-reordered route (the
 ELL pair, K5 on its HybridDIA level 0) against the CPU and the natural
 order, and K1h (``star7_mv_halo``) over a one-process mesh's slab and on
 each of its blocks, and on strided views with ghost planes, against its
-twin and bit-equal to one K1p launch.
+twin and bit-equal to one K1p launch, and CG's two vector-update kernels
+(``cg_update_r``, ``cg_update_xp``) bit-equal to the torch ops they
+replace, alone and in a ``KSP`` solve on the padded, ``VarStencil27`` and
+DIA routes.
 
 These tests need a CUDA device and skip without one.  The file imports no
 JAX, so it also runs where JAX is not installed:
@@ -26,6 +29,7 @@ JAX, so it also runs where JAX is not installed:
     python -m pytest tests/test_torch_cuda.py -m requires_cuda --noconftest -q
 """
 
+import importlib
 import math
 
 import numpy as np
@@ -39,7 +43,9 @@ from tpusparse_torch.bench import itprof
 from tpusparse_torch.bench.driver import solve_poisson
 from tpusparse_torch.grid.grid3d import Grid3D
 from tpusparse_torch.bench.driver import solve_from_file
+from tpusparse_torch.grid.hpcg import hpcg_stencil
 from tpusparse_torch.grid.poisson import assemble_poisson, poisson_dia_device, poisson_stencil_device
+from tpusparse_torch.kernels.cgupdate import cg_update_r, cg_update_r_torch, cg_update_xp, cg_update_xp_torch
 from tpusparse_torch.kernels.diaband import dia_mv, dia_mv_batched, dia_mv_torch
 from tpusparse_torch.sparse.dia import DIA
 from tpusparse_torch.sparse.io import save_petsc_mat, save_petsc_vec
@@ -142,6 +148,10 @@ FLEGS = (
     "fused7_descent1_rr", "fused7_ascent1_rz", "fused7_descent1", "fused7_ascent1",
     "fused7_descentu", "fused7_restrict", "fused7_prolong",
 )
+
+
+# CG's vector updates, launched by every CG solve on the card
+CG_UPDATES = ("cg_update_r", "cg_update_xp")
 
 
 @pytest.fixture
@@ -522,7 +532,7 @@ def test_small_solve_on_card_matches_cpu(cuda):
     kernels.reset_launches()
     gpu = solve_poisson(16, device=cuda, **kw)
     stencil = ("star7_mv_padded", "fused7_mvdot", "fused7_descent_rr", "fused7_ascent_rz", "varstencil27_mv",
-               "agg_restrict", "agg_prolong")
+               "agg_restrict", "agg_prolong", "cg_update_r", "cg_update_xp")
     assert all(kernels.LAUNCHES[name] > 0 for name in stencil)
     assert all(n == 0 for name, n in kernels.LAUNCHES.items() if name not in stencil)
     cpu = solve_poisson(16, device="cpu", **kw)
@@ -536,8 +546,9 @@ def test_small_aij_solve_on_card_matches_cpu(cuda):
     kw = dict(rtol=1e-8, atol=1e-12, pc="gamg", warmup=False, mat_type="aij", structure_detect=False)
     kernels.reset_launches()
     gpu = solve_poisson(16, device=cuda, **kw)
-    assert kernels.LAUNCHES["dia_mv"] > 0
-    assert all(n == 0 for name, n in kernels.LAUNCHES.items() if name != "dia_mv")
+    used = ("dia_mv", *CG_UPDATES)
+    assert all(kernels.LAUNCHES[name] > 0 for name in used)
+    assert all(n == 0 for name, n in kernels.LAUNCHES.items() if name not in used)
     cpu = solve_poisson(16, device="cpu", **kw)
     assert (gpu.reason, gpu.outer_iters) == (cpu.reason, cpu.outer_iters)
     assert gpu.reason == 2
@@ -818,7 +829,8 @@ def test_uniform_aij_on_card_matches_cpu(cuda, precision, rtol, k5):
     kernels.reset_launches()
     gpu = solve_poisson(16, device=cuda, **kw)
     assert (kernels.LAUNCHES["dia_mv"] > 0) == k5
-    assert all(n == 0 for name, n in kernels.LAUNCHES.items() if name != "dia_mv")
+    assert all(kernels.LAUNCHES[name] > 0 for name in CG_UPDATES)   # f32 and f64 fields alike
+    assert all(n == 0 for name, n in kernels.LAUNCHES.items() if name not in ("dia_mv", *CG_UPDATES))
     cpu = solve_poisson(16, device="cpu", **kw)
     assert gpu.reason == cpu.reason == 2
     assert abs(gpu.iters - cpu.iters) <= 1
@@ -1286,3 +1298,69 @@ def test_matmul_launches_what_mv_launches(cuda):
         launched = {k: v for k, v in kernels.LAUNCHES.items() if v}
         assert launched == ({kernel: 1} if kernel else {}), (type(a).__name__, launched)
         assert torch.equal(got, mv(x))
+
+
+@pytest.mark.parametrize("offset", [0, 1])
+@pytest.mark.parametrize("shape", [(1,), (3,), (4097,), (1001,), (11, 7, 12), padded_shape((5, 6, 7))])
+@pytest.mark.parametrize("dtype, sdtype", [(torch.float32, torch.float32), (torch.float32, torch.float64),
+                                           (torch.float64, torch.float64), (torch.float64, torch.float32)])
+def test_cg_updates_match_torch_ops(cuda, dtype, sdtype, shape, offset):
+    """Both kernels bit-equal to the torch statements they replace, one
+    launch a call; ``offset`` 1 puts every field a cell past its storage's
+    16-byte aligned start (the one-cell form)."""
+    gen = torch.Generator(cuda).manual_seed(13)
+    n = math.prod(shape)
+    x, p, z, r, ap = (torch.randn(n + offset, generator=gen, device=cuda, dtype=dtype)[offset:].view(shape)
+                      for _ in range(5))
+    alpha, beta = (torch.randn((), generator=gen, device=cuda, dtype=torch.float64).to(sdtype) for _ in range(2))
+    x_copy, p_copy = x.clone(), p.clone()
+    before = dict(kernels.LAUNCHES)
+    got_r = cg_update_r(r, ap, alpha)
+    got_x, got_p = cg_update_xp(x, p, z, alpha, beta)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["cg_update_r"] == before["cg_update_r"] + 1
+    assert kernels.LAUNCHES["cg_update_xp"] == before["cg_update_xp"] + 1
+    assert torch.equal(got_r, r - alpha * ap)
+    assert torch.equal(got_x, x + alpha * p) and torch.equal(got_p, z + beta * p)
+    assert torch.equal(x, x_copy) and torch.equal(p, p_copy)   # the inputs are not written
+    assert got_r.dtype == got_x.dtype == got_p.dtype == dtype
+    twin_x, twin_p = cg_update_xp_torch(x, p, z, alpha, beta)
+    assert torch.equal(cg_update_r_torch(r, ap, alpha), got_r) and torch.equal(twin_x, got_x)
+
+
+def _ksp_route(route, device):
+    """A 24^3 ``KSP`` and its right-hand side on ``route``."""
+    grid = Grid3D(24, 24, 24)
+    ksp = KSP(rtol=1e-8, atol=1e-12)
+    if route == "padded":
+        op, b, _ = poisson_stencil_device(grid, device=device)
+        ksp.set_operators(op, device=device)
+    elif route == "dia":
+        op_hi, op_lo, b, _ = poisson_dia_device(grid, device=device)
+        ksp.set_operators(op_hi, op_lo, device=device)
+    else:
+        ksp.set_operators(hpcg_stencil(grid, torch.float64, device), hpcg_stencil(grid, torch.float32, device),
+                          device=device)
+        b = torch.linspace(-1.0, 1.0, grid.n, dtype=torch.float64, device=device).reshape(24, 24, 24)
+    return ksp.setup(), b
+
+
+@pytest.mark.parametrize("route", ["padded", "varstencil", "dia"])
+def test_ksp_cg_updates_match_torch_ops(cuda, route, monkeypatch):
+    """A 24^3 ``KSP`` solve with the kernels gives the x and counts of the
+    same solve with CG's updates as torch ops on the card, and each kernel
+    launches once a CG iteration."""
+    ksp, b = _ksp_route(route, cuda)
+    kernels.reset_launches()
+    got = ksp.solve(b)
+    launched = {name: kernels.LAUNCHES[name] for name in CG_UPDATES}
+    assert launched == {name: got.iters for name in CG_UPDATES}
+    cg_module = importlib.import_module("tpusparse_torch.solve.cg")   # the package exports the function
+    monkeypatch.setattr(cg_module, "cg_update_r", cg_update_r_torch)
+    monkeypatch.setattr(cg_module, "cg_update_xp", cg_update_xp_torch)
+    kernels.reset_launches()
+    want = ksp.solve(b)
+    assert all(kernels.LAUNCHES[name] == 0 for name in CG_UPDATES)
+    assert (got.iters, got.outer_iters, got.reason) == (want.iters, want.outer_iters, want.reason)
+    assert got.reason > 0
+    assert torch.equal(got.x, want.x)

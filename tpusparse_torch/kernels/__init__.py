@@ -37,6 +37,8 @@ LAUNCHES = {
     "varstencil27_mv": 0,
     "agg_restrict": 0,
     "agg_prolong": 0,
+    "cg_update_r": 0,
+    "cg_update_xp": 0,
 }
 
 

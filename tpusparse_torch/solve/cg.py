@@ -29,6 +29,7 @@ from typing import Callable
 import numpy as np
 import torch
 
+from tpusparse_torch.kernels.cgupdate import cg_update_r, cg_update_xp
 from tpusparse_torch.solve.reduce import allreduce
 from tpusparse_torch.utils.profiling import read
 
@@ -186,6 +187,12 @@ def cg(
     which changes no residual the convergence test sees.  It needs a zero
     initial guess and takes neither ``a_mv_dot`` nor ``m_mv_dots``.
 
+    The vector updates are two launches an iteration on the card
+    (``kernels/cgupdate.py``): r' = r - alpha A p before the
+    preconditioner, which reads it, and x' = x + alpha p with p' = z + beta
+    p after it.  x is updated later within the iteration than the textbook
+    order, which changes no value: nothing reads x between the two points.
+
     ``norm_type`` (-ksp_norm_type): "unpreconditioned" (||r||_2, the
     default), "preconditioned" (||r||_M = sqrt(|<r, z>|), PETSc CG's own
     default, still gated against ``rtol * ||b||_2``), or "none" (no
@@ -270,8 +277,7 @@ def cg(
             else:
                 ap = a_mv(p)
                 alpha = rz / _dot(p, ap)
-            x = x + alpha * p
-            r = r - alpha * ap
+            r = cg_update_r(r, ap, alpha)
             if m_mv_dots is not None:
                 z, rz_new, rr = m_mv_dots(r)
                 rnorm = torch.sqrt(rr)
@@ -282,7 +288,7 @@ def cg(
             if precond_norm:
                 rnorm = torch.sqrt(torch.abs(rz_new))
             beta = rz_new / rz
-            p = z + beta * p
+            x, p = cg_update_xp(x, p, z, alpha, beta)
             rz = rz_new
             it += 1
             if spectrum:
